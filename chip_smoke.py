@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (each raises on a mismatch, so any failure exits non-zero):
+  1. card name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build the CUDA kernels from fsr_tpu_torch/csrc (timed);
+  3. K4 edge_pad bit-equal to edge_pad_reference on the card;
+  4. K1 upscale_fused against upscale_fused_reference on the card (f32
+     within 6e-5; bf16 by median/p99 and max <= 2**-8), including the
+     hazard cases (isolated bright pixel, DRS offset, all-black frame);
+  5. fsr_tpu_torch.upscale(preset="performance") against the port's numpy
+     oracle at 540p -> 1080p f32 (max-abs <= 2e-5);
+  6. the main path: upscale(x, preset="performance") on a (4, 3, 1080,
+     1920) CUDA tensor in f32 and bf16, held against upscale_fused_reference
+     (the phase-4 limits), with launch counts and CUDA-event times of each
+     kernel beside its plain version;
+  7. with --trace only: a torch.profiler trace of the main path (device
+     time per kernel, busy time and idle share of the window).
+The last two lines are a JSON object describing the kernels and the JSON
+result line.  Exits non-zero with no result when CUDA is unavailable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+F32_TOL = 6e-5
+BF16_MAX = 2.0 ** -8
+BF16_MEDIAN = 1.0 / 1250.0
+BF16_P99 = 1.25 / 255.0
+ORACLE_TOL = 2e-5
+MAIN_SHAPE = (4, 3, 1080, 1920)
+
+
+def _card() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def _compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    d = (got.float() - want.float()).abs()
+    mx = d.max().item()
+    if got.dtype == torch.float32:
+        ok = mx <= F32_TOL
+        print(f"  {what}: max-abs {mx:.3e} (limit {F32_TOL:g})")
+    else:
+        flat = d.flatten()
+        if flat.numel() > 1 << 24:
+            flat = flat[:: flat.numel() // (1 << 24) + 1]
+        med = flat.median().item()
+        p99 = torch.quantile(flat, 0.99).item()
+        ok = mx <= BF16_MAX and med <= BF16_MEDIAN and p99 <= BF16_P99
+        print(f"  {what}: max-abs {mx:.3e} median {med:.3e} p99 {p99:.3e} "
+              f"(limits {BF16_MAX:g}, {BF16_MEDIAN:g}, {BF16_P99:g})")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version")
+    return mx
+
+
+def _back_to_back_ms(fn, n: int = 10) -> float:
+    """Device time per call of n calls queued back to back (host launch
+    overhead hidden behind the queue), from one CUDA-event pair."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--trace", action="store_true",
+                        help="add phase 7: a torch.profiler trace of the main path")
+    trace = parser.parse_args().trace
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
+        return 2
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import _build, fused, pad
+    from fsr_tpu_torch.reference import scalar as ref
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+
+    dev = torch.device("cuda:0")
+
+    # --- 1. the card -------------------------------------------------------
+    card = _card()
+    print(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+
+    # --- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"phase 2: built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s")
+    for line in (_build.build_dir() / "build.log").read_text().splitlines():
+        if "Used" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+    rng = np.random.default_rng(0)
+
+    def rand(shape):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+
+    # --- 3. K4 -------------------------------------------------------------
+    print("phase 3: K4 edge_pad vs edge_pad_reference (bit-equal)")
+    k4_err = 0.0
+    main_plan = fused.plan(MAIN_SHAPE[-2:], (2160, 3840),
+                           EasuConstants.create((1920, 1080), None, (3840, 2160)))
+    for shape, pads in ((MAIN_SHAPE, main_plan.pads), ((2, 3, 67, 131), (3, 5, 2, 7))):
+        x32 = rand(shape)
+        for src, dt in ((x32, torch.float32), (x32, torch.bfloat16),
+                        (x32.to(torch.bfloat16), torch.bfloat16)):
+            got = pad.edge_pad(src, pads, dt)
+            want = pad.edge_pad_reference(src, pads, dt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K4 {shape} {src.dtype}->{dt} pads {pads}: not bit-equal")
+            k4_err = max(k4_err, (got.float() - want.float()).abs().max().item())
+            print(f"  {tuple(shape)} {src.dtype}->{dt} pads {pads}: bit-equal")
+
+    # --- 4. K1 -------------------------------------------------------------
+    print("phase 4: K1 upscale_fused vs upscale_fused_reference")
+
+    def con_for(in_hw, out_hw):
+        return EasuConstants.create((in_hw[1], in_hw[0]), None, (out_hw[1], out_hw[0]))
+
+    k1_err = 0.0
+    cases = [
+        ("2x ragged", (1, 3, 67, 131), (134, 262), torch.float32, True, False, 0.25),
+        ("2x 540p", (1, 3, 540, 960), (1080, 1920), torch.float32, True, False, 0.25),
+        ("2x 540p bf16", (1, 3, 540, 960), (1080, 1920), torch.bfloat16, True, False, 0.25),
+        ("2x 540p easu-only", (1, 3, 540, 960), (1080, 1920), torch.float32, False, False, 0.25),
+        ("2x 540p denoise", (1, 3, 540, 960), (1080, 1920), torch.float32, True, True, 0.5),
+        ("2x 540p bf16 denoise", (1, 3, 540, 960), (1080, 1920), torch.bfloat16, True, True, 0.5),
+        ("2x batch 2", (2, 3, 270, 480), (540, 960), torch.float32, True, False, 0.25),
+        ("4x", (1, 3, 135, 240), (540, 960), torch.float32, True, False, 0.25),
+        ("2x rows 1x cols", (1, 3, 64, 128), (128, 128), torch.float32, True, False, 0.25),
+    ]
+    for what, shape, out_hw, dt, rcas, denoise, stops in cases:
+        x = rand(shape)
+        con, rcon = con_for(shape[-2:], out_hw), RcasConstants(stops)
+        got = fused.upscale_fused(x, out_hw, con, rcon, rcas, denoise, dt)
+        want = fused.upscale_fused_reference(x, out_hw, con, rcon, rcas, denoise, dt)
+        torch.cuda.synchronize()
+        err = _compare(got, want, what)
+        if dt == torch.float32:
+            k1_err = max(k1_err, err)
+
+    # Hazard cases: isolated bright pixel (RCAS NaN-drop branch), DRS offset
+    # constant, all-black frame (direction zero-protect).
+    bright = torch.zeros((3, 32, 130), device=dev)
+    bright[:, 16, 60] = 0.5
+    black = torch.zeros((3, 64, 128), device=dev)
+    drs = rand((3, 67, 131))
+    hazards = [
+        ("isolated bright pixel", bright, (64, 260), con_for((32, 130), (64, 260)), 0.0),
+        ("all-black frame", black, (128, 256), con_for((64, 128), (128, 256)), 0.25),
+        ("DRS input_offset", drs, (120, 256),
+         EasuConstants.create((128, 60), (131, 67), (256, 120), (2, 3)), 0.25),
+    ]
+    for what, x, out_hw, con, stops in hazards:
+        rcon = RcasConstants(stops)
+        got = fused.upscale_fused(x, out_hw, con, rcon, True, False, torch.float32)
+        want = fused.upscale_fused_reference(x, out_hw, con, rcon, True, False, torch.float32)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, _compare(got, want, what))
+
+    # --- 5. oracle ---------------------------------------------------------
+    img = rng.uniform(0, 1, (3, 540, 960)).astype(np.float32)
+    con = con_for((540, 960), (1080, 1920))
+    oracle = ref.rcas_ref(ref.easu_ref(img, (1080, 1920), con), RcasConstants(0.25))
+    x = torch.from_numpy(img).to(dev)
+    out = ft.upscale(x, preset="performance")
+    dev_oracle = np.abs(out.cpu().numpy() - oracle).max()
+    print(f"phase 5: upscale(preset='performance') vs numpy oracle, 540p->1080p f32: "
+          f"max-abs {dev_oracle:.3e} (limit {ORACLE_TOL:g})")
+    if not dev_oracle <= ORACLE_TOL:
+        raise AssertionError("port disagrees with the oracle")
+    outb = ft.upscale(x.to(torch.bfloat16), preset="performance", compute_dtype=torch.bfloat16)
+    db = np.abs(outb.float().cpu().numpy() - oracle)
+    print(f"  bf16 storage vs oracle: median {np.median(db):.3e} p99 {np.percentile(db, 99):.3e} "
+          f"max {db.max():.3e}")
+
+    # --- 6. main path --------------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
+    nframes = MAIN_SHAPE[0]
+    out_shape = MAIN_SHAPE[:-2] + (2160, 3840)
+    launches = {"K4": 0, "K1": 0}
+    con = EasuConstants.create((1920, 1080), None, (3840, 2160))
+    rcon = RcasConstants(0.25)
+    sharp = float(rcon.sharpness)
+    print(f"phase 6: main path upscale(x, preset='performance') on {MAIN_SHAPE}")
+    for dt in (torch.float32, torch.bfloat16):
+        x = frames.to(dt)
+        pad.edge_pad.launches = 0
+        fused.upscale_padded.launches = 0
+        out = ft.upscale(x, preset="performance", compute_dtype=dt)
+        torch.cuda.synchronize()
+        n4, n1 = pad.edge_pad.launches, fused.upscale_padded.launches
+        if tuple(out.shape) != out_shape or out.dtype != dt or out.device != x.device:
+            raise AssertionError(f"main path {dt}: got {tuple(out.shape)} {out.dtype} {out.device}")
+        if n4 < 1 or n1 < 1:
+            raise AssertionError(f"main path {dt} did not launch both kernels: K4 {n4}, K1 {n1}")
+        launches["K4"] += n4
+        launches["K1"] += n1
+        print(f"  {dt}: out {tuple(out.shape)}; launches K4 {n4}, K1 {n1}")
+        # The batch and the 4K tile grid held against the plain version.
+        want = fused.upscale_fused_reference(x, (2160, 3840), con, rcon, True, False, dt)
+        err = _compare(out, want, f"main path {dt} vs upscale_fused_reference")
+        if dt == torch.float32:
+            k1_err = max(k1_err, err)
+        del want
+
+    timings = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = frames.to(dt)
+        padded = pad.edge_pad(x, main_plan.pads, dt)
+        t = {
+            "call": cuda_time_ms(lambda: ft.upscale(x, preset="performance", compute_dtype=dt)),
+            "call_b2b": _back_to_back_ms(lambda: ft.upscale(x, preset="performance", compute_dtype=dt)),
+            "call_plain": cuda_time_ms(
+                lambda: fused.upscale_fused_reference(x, (2160, 3840), con, rcon, True, False, dt),
+                warmup=1, iters=5),
+            "K4": cuda_time_ms(lambda: pad.edge_pad(x, main_plan.pads, dt)),
+            "K4_plain": cuda_time_ms(lambda: pad.edge_pad_reference(x, main_plan.pads, dt)),
+            "K1": cuda_time_ms(lambda: fused.upscale_padded(padded, main_plan, (2160, 3840), sharp)),
+            "K1_plain": cuda_time_ms(
+                lambda: fused.upscale_padded_reference(padded, main_plan, (2160, 3840), sharp),
+                warmup=1, iters=5),
+        }
+        timings[dt] = t
+        print(f"  times {dt}, median CUDA-event ms per 4K frame (batch {nframes}) on {card}:")
+        for k, v in t.items():
+            print(f"    {k:>10}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+    t32 = timings[torch.float32]
+    print("  call: median latency of one call (host work included); call_b2b: per call with "
+          "10 calls queued back to back; K4, K1: the kernels alone; *_plain: their plain "
+          "torch versions on the card")
+    print(f"  f32 output rate: {nframes * 2160 * 3840 / (t32['call'] * 1e-3) / 1e6:.1f} Mpix/s; "
+          f"bf16: {nframes * 2160 * 3840 / (timings[torch.bfloat16]['call'] * 1e-3) / 1e6:.1f} Mpix/s")
+
+    # --- 7. trace (--trace only) ---------------------------------------------
+    if trace:
+        print(f"phase 7: torch.profiler trace of the main path on {card}")
+        for dt in (torch.float32, torch.bfloat16):
+            x = frames.to(dt)
+            for calls in (1, 5):
+                tr = device_trace(lambda: ft.upscale(x, preset="performance", compute_dtype=dt), calls)
+                print(f"  {dt}, {calls} call(s) back to back: device busy {tr['busy_ms']:.4f} ms "
+                      f"of a {tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
+                for name, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
+                    print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {name}")
+
+    kernels = [
+        {"name": "edge_pad (K4)", "route": "cuda", "source": "fsr_tpu_torch/csrc/edge_pad.cu",
+         "replaces": "fsr_tpu/kernels/pad.py:50", "launches": launches["K4"],
+         "max_abs_err": k4_err, "ms": t32["K4"], "plain_ms": t32["K4_plain"]},
+        {"name": "upscale_fused (K1)", "route": "cuda", "source": "fsr_tpu_torch/csrc/fused.cu",
+         "replaces": "fsr_tpu/kernels/fused.py:403", "launches": launches["K1"],
+         "max_abs_err": k1_err, "ms": t32["K1"], "plain_ms": t32["K1_plain"]},
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""Plain-torch EASU (any device, any scale factor).
+
+Counterpart of ``fsr_tpu/ops/easu.py``: tap planes are materialised with
+index-tensor gathers from separable per-axis index vectors (pp.x depends
+only on the output column, pp.y only on the output row), then the shared
+filter math (``fsr_tpu_torch.core.easu_math``) runs on them.  This is the
+portable path; the hand-written kernels are the performance path.
+
+Reference: FsrEasuF (ffx_fsr1.h:315-437).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from fsr_tpu_torch.core import easu_math
+from fsr_tpu_torch.core.constants import EasuConstants
+
+__all__ = ["easu", "easu_coords", "bilinear"]
+
+
+def easu_coords(con: EasuConstants, out_size: Tuple[int, int]):
+    """Per-axis coordinate vectors: ('f' texel index, subpixel frac).
+
+    Numpy float32 on the host — identical arithmetic to the oracle
+    (scalar.py:_easu_coords), so tap indices can never disagree, and no
+    device recomputes ``x*sx+ox`` (an FMA contraction there flips floor()
+    at integer positions).
+    """
+    hout, wout = out_size
+    sx, sy = con.scale
+    ox, oy = con.offset
+    ppx = np.arange(wout, dtype=np.float32) * sx + ox
+    ppy = np.arange(hout, dtype=np.float32) * sy + oy
+    fx = np.floor(ppx)
+    fy = np.floor(ppy)
+    px = (ppx - fx).astype(np.float32)
+    py = (ppy - fy).astype(np.float32)
+    return fx.astype(np.int32), fy.astype(np.int32), px, py
+
+
+def _index(v: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(v.astype(np.int64), device=device)
+
+
+def easu(
+    src: torch.Tensor,
+    out_size: Tuple[int, int],
+    con: EasuConstants,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """EASU upscale.
+
+    src: (..., 3, Hin, Win) planar image, values in [0, 1].
+    out_size: (Hout, Wout).
+    compute_dtype: float32 (FsrEasuF parity) or bfloat16 (colour
+      accumulation in bf16; the direction/length estimation stays float32).
+
+    Returns (..., 3, Hout, Wout) in compute_dtype.
+    """
+    hin, win = src.shape[-2:]
+    col, row, px, py = easu_coords(con, out_size)
+    dev = src.device
+    src = src.to(compute_dtype)
+    taps = {}
+    for name, (dx, dy) in easu_math.TAP_OFFSETS.items():
+        r = _index(np.clip(row + dy, 0, hin - 1), dev)
+        c = _index(np.clip(col + dx, 0, win - 1), dev)
+        taps[name] = src[..., r[:, None], c[None, :]]
+    ppx = torch.as_tensor(px, device=dev)[None, :]
+    ppy = torch.as_tensor(py, device=dev)[:, None]
+    return easu_math.easu_resolve(taps, ppx, ppy, dtype=compute_dtype, dir_dtype=torch.float32)
+
+
+def bilinear(src: torch.Tensor, out_size: Tuple[int, int], con: EasuConstants) -> torch.Tensor:
+    """Bilinear fallback using the same coordinate mapping (the sample's
+    SAMPLE_BILINEAR mode, FSR_Pass.hlsl:70-73)."""
+    hin, win = src.shape[-2:]
+    col, row, px, py = easu_coords(con, out_size)
+    dev = src.device
+    c0 = _index(np.clip(col, 0, win - 1), dev)
+    c1 = _index(np.clip(col + 1, 0, win - 1), dev)
+    r0 = _index(np.clip(row, 0, hin - 1), dev)
+    r1 = _index(np.clip(row + 1, 0, hin - 1), dev)
+    pxb = torch.as_tensor(px, device=dev)[None, :]
+    pyb = torch.as_tensor(py, device=dev)[:, None]
+    tl = src[..., r0[:, None], c0[None, :]]
+    tr = src[..., r0[:, None], c1[None, :]]
+    bl = src[..., r1[:, None], c0[None, :]]
+    br = src[..., r1[:, None], c1[None, :]]
+    top = tl + (tr - tl) * pxb
+    bot = bl + (br - bl) * pxb
+    return top + (bot - top) * pyb

@@ -1,0 +1,314 @@
+"""Pure-NumPy scalar-semantics oracle, float32 part.
+
+Copy of the float32 half of ``fsr_tpu/reference/scalar.py`` (the frozen
+ground truth of the JAX package), so that the port can be held against the
+oracle where JAX is not installed.  It imports this package's constants.
+The fp16, SRTM, LFGA and TEPD oracles come with their slices.
+
+- EASU fp32 (``FsrEasuF``, ffx_fsr1.h:315-437), with the bit-trick
+  reciprocal / rsqrt approximations (``APrx*``, ffx_a.h:1786-1860).
+- RCAS fp32 (``FsrRcasF``, ffx_fsr1.h:684-769), incl. denoise and alpha
+  passthrough.
+- The bilinear fallback (FSR_Pass.hlsl:70-73).
+
+Tap layout ((dx, dy) offsets from texel 'f'):
+
+        b c
+      e f g h
+      i j k l
+        n o
+
+All tap reads clamp to the image border (the sample binds a CLAMP sampler).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants, FSR_RCAS_LIMIT
+
+__all__ = [
+    "TAPS",
+    "prx_lo_rcp_f32",
+    "prx_med_rcp_f32",
+    "prx_lo_rsq_f32",
+    "prx_lo_sqrt_f32",
+    "easu_ref",
+    "rcas_ref",
+    "bilinear_ref",
+]
+
+F32 = np.float32
+
+# (name, dx, dy) relative to 'f'; order matches the FsrEasuF tap accumulation.
+TAPS = (
+    ("b", 0, -1),
+    ("c", 1, -1),
+    ("i", -1, 1),
+    ("j", 0, 1),
+    ("f", 0, 0),
+    ("e", -1, 0),
+    ("k", 1, 1),
+    ("l", 2, 1),
+    ("h", 2, 0),
+    ("g", 1, 0),
+    ("o", 1, 2),
+    ("n", 0, 2),
+)
+
+
+def _u32(x: np.ndarray) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32).view(np.uint32)
+
+
+def _f32v(u: np.ndarray) -> np.ndarray:
+    return np.asarray(u, dtype=np.uint32).view(np.float32)
+
+
+def prx_lo_rcp_f32(a):
+    return _f32v(np.uint32(0x7EF07EBB) - _u32(a))
+
+
+def prx_med_rcp_f32(a):
+    a = np.asarray(a, dtype=F32)
+    b = _f32v(np.uint32(0x7EF19FFF) - _u32(a))
+    return b * (-b * a + F32(2.0))
+
+
+def prx_lo_rsq_f32(a):
+    return _f32v(np.uint32(0x5F347D74) - (_u32(a) >> np.uint32(1)))
+
+
+def prx_lo_sqrt_f32(a):
+    return _f32v((_u32(a) >> np.uint32(1)) + np.uint32(0x1FBC4639))
+
+
+def _gather_taps(src: np.ndarray, row: np.ndarray, col: np.ndarray) -> Dict[str, np.ndarray]:
+    """src: (3, Hin, Win); row/col: int arrays (Hout,), (Wout,) of 'f' texel."""
+    hin, win = src.shape[-2:]
+    taps = {}
+    for name, dx, dy in TAPS:
+        r = np.clip(row + dy, 0, hin - 1)
+        c = np.clip(col + dx, 0, win - 1)
+        taps[name] = src[:, r[:, None], c[None, :]].astype(F32)
+    return taps
+
+
+def _sat(x):
+    """HLSL saturate semantics: clamp to [0,1] with NaN -> 0."""
+    return np.where(x > F32(0.0), np.minimum(x, F32(1.0)), F32(0.0)).astype(F32)
+
+
+def _easu_set_f(dirx, diry, length, w, l_a, l_b, l_c, l_d, l_e):
+    """FsrEasuSetF (ffx_fsr1.h:275-313): one quadrant's dir/len contribution.
+
+    l_a..l_e are the '+' pattern lumas:   a
+                                        b c d
+                                          e
+    """
+    rcp = prx_lo_rcp_f32  # the F path uses APrxLoRcpF1 (ffx_fsr1.h:298)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        dc = l_d - l_c
+        cb = l_c - l_b
+        len_x = np.maximum(np.abs(dc), np.abs(cb)).astype(F32)
+        len_x = rcp(len_x)
+        dir_x = (l_d - l_b).astype(F32)
+        dirx = dirx + dir_x * w
+        len_x = _sat(np.abs(dir_x) * len_x)
+        len_x = len_x * len_x
+        length = length + len_x * w
+
+        ec = l_e - l_c
+        ca = l_c - l_a
+        len_y = np.maximum(np.abs(ec), np.abs(ca)).astype(F32)
+        len_y = rcp(len_y)
+        dir_y = (l_e - l_a).astype(F32)
+        diry = diry + dir_y * w
+        len_y = _sat(np.abs(dir_y) * len_y)
+        len_y = len_y * len_y
+        length = length + len_y * w
+    return dirx, diry, length
+
+
+def _easu_tap_f(ac, aw, off_x, off_y, dir_x, dir_y, len2_x, len2_y, lob, clp, color):
+    """FsrEasuTapF (ffx_fsr1.h:239-272): one tap's weighted contribution."""
+    vx = (off_x * dir_x + off_y * dir_y).astype(F32)
+    vy = (off_x * (-dir_y) + off_y * dir_x).astype(F32)
+    vx = vx * len2_x
+    vy = vy * len2_y
+    d2 = vx * vx + vy * vy
+    d2 = np.minimum(d2, clp)
+    w_b = F32(2.0 / 5.0) * d2 + F32(-1.0)
+    w_a = lob * d2 + F32(-1.0)
+    w_b = w_b * w_b
+    w_a = w_a * w_a
+    w_b = F32(25.0 / 16.0) * w_b + F32(-(25.0 / 16.0 - 1.0))
+    w = (w_b * w_a).astype(F32)
+    return ac + color * w, aw + w
+
+
+def _easu_coords(con: EasuConstants, out_size: Tuple[int, int]):
+    hout, wout = out_size
+    sx, sy = con.scale
+    ox, oy = con.offset
+    ppx = np.arange(wout, dtype=F32) * sx + ox
+    ppy = np.arange(hout, dtype=F32) * sy + oy
+    fx = np.floor(ppx)
+    fy = np.floor(ppy)
+    px = (ppx - fx).astype(F32)
+    py = (ppy - fy).astype(F32)
+    return fx.astype(np.int64), fy.astype(np.int64), px, py
+
+
+def easu_ref(src: np.ndarray, out_size: Tuple[int, int], con: EasuConstants) -> np.ndarray:
+    """EASU upscale, fp32 scalar semantics (FsrEasuF, ffx_fsr1.h:315-437).
+
+    src: float32 (3, Hin, Win) in [0, 1].  Returns float32 (3, Hout, Wout).
+    """
+    src = np.asarray(src, dtype=F32)
+    hout, wout = out_size
+    col, row, px, py = _easu_coords(con, out_size)
+    ppx = px[None, :]  # (1, Wout)
+    ppy = py[:, None]  # (Hout, 1)
+    t = _gather_taps(src, row, col)
+    lum = {k: (v[2] * F32(0.5) + (v[0] * F32(0.5) + v[1])).astype(F32) for k, v in t.items()}
+
+    one = F32(1.0)
+    w_s = ((one - ppx) * (one - ppy)).astype(F32)
+    w_t = (ppx * (one - ppy)).astype(F32)
+    w_u = ((one - ppx) * ppy).astype(F32)
+    w_v = (ppx * ppy).astype(F32)
+
+    shape = np.broadcast_shapes(w_s.shape, (hout, wout))
+    dirx = np.zeros(shape, F32)
+    diry = np.zeros(shape, F32)
+    length = np.zeros(shape, F32)
+    # Quadrant '+' patterns (ffx_fsr1.h:383-386).
+    dirx, diry, length = _easu_set_f(dirx, diry, length, w_s, lum["b"], lum["e"], lum["f"], lum["g"], lum["j"])
+    dirx, diry, length = _easu_set_f(dirx, diry, length, w_t, lum["c"], lum["f"], lum["g"], lum["h"], lum["k"])
+    dirx, diry, length = _easu_set_f(dirx, diry, length, w_u, lum["f"], lum["i"], lum["j"], lum["k"], lum["n"])
+    dirx, diry, length = _easu_set_f(dirx, diry, length, w_v, lum["g"], lum["j"], lum["k"], lum["l"], lum["o"])
+
+    # Normalize direction; zero-protect (ffx_fsr1.h:388-395).
+    dir_r = dirx * dirx + diry * diry
+    zro = dir_r < F32(1.0 / 32768.0)
+    dir_r = prx_lo_rsq_f32(dir_r)
+    dir_r = np.where(zro, F32(1.0), dir_r)
+    dirx = np.where(zro, F32(1.0), dirx)
+    dirx = dirx * dir_r
+    diry = diry * dir_r
+    length = (length * F32(0.5)).astype(F32)
+    length = length * length
+    stretch = ((dirx * dirx + diry * diry) * prx_lo_rcp_f32(np.maximum(np.abs(dirx), np.abs(diry)))).astype(F32)
+    len2_x = (F32(1.0) + (stretch - F32(1.0)) * length).astype(F32)
+    len2_y = (F32(1.0) + F32(-0.5) * length).astype(F32)
+    lob = (F32(0.5) + F32((1.0 / 4.0 - 0.04) - 0.5) * length).astype(F32)
+    clp = prx_lo_rcp_f32(lob)
+
+    # Dering bounds from nearest 2x2 {f,g,j,k} (ffx_fsr1.h:416-419).
+    min4 = np.minimum(np.minimum(np.minimum(t["f"], t["g"]), t["j"]), t["k"])
+    max4 = np.maximum(np.maximum(np.maximum(t["f"], t["g"]), t["j"]), t["k"])
+
+    ac = np.zeros_like(t["f"])
+    aw = np.zeros(shape, F32)
+    for name, dx, dy in TAPS:
+        off_x = (F32(dx) - ppx).astype(F32)
+        off_y = (F32(dy) - ppy).astype(F32)
+        ac, aw = _easu_tap_f(ac, aw, off_x, off_y, dirx, diry, len2_x, len2_y, lob, clp, t[name])
+    pix = ac * (F32(1.0) / aw)
+    return np.minimum(max4, np.maximum(min4, pix)).astype(F32)
+
+
+def _shift_edge(img: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    """img (..., H, W) shifted so result[y,x] = img[clamp(y+dy), clamp(x+dx)]."""
+    h, w = img.shape[-2:]
+    r = np.clip(np.arange(h) + dy, 0, h - 1)
+    c = np.clip(np.arange(w) + dx, 0, w - 1)
+    return img[..., r[:, None], c[None, :]]
+
+
+def rcas_ref(img: np.ndarray, con: RcasConstants, denoise: bool = False) -> np.ndarray:
+    """RCAS sharpening, fp32 scalar semantics (FsrRcasF).
+
+    img: (3, H, W) or (4, H, W) (alpha passed through,
+    FSR_RCAS_PASSTHROUGH_ALPHA).
+    """
+    dt = F32
+    img = np.asarray(img)
+    has_alpha = img.shape[0] == 4
+    rgb = img[:3].astype(dt)
+    sharp = dt(con.sharpness)
+    med_rcp = prx_med_rcp_f32
+
+    def rcp(x):
+        return (dt(1.0) / x).astype(dt)
+
+    b = _shift_edge(rgb, -1, 0)
+    d = _shift_edge(rgb, 0, -1)
+    e = rgb
+    f = _shift_edge(rgb, 0, 1)
+    h = _shift_edge(rgb, 1, 0)
+
+    def luma(c):
+        return (c[2] * dt(0.5) + (c[0] * dt(0.5) + c[1])).astype(dt)
+
+    b_l, d_l, e_l, f_l, h_l = luma(b), luma(d), luma(e), luma(f), luma(h)
+    # Noise detection (ffx_fsr1.h:736-739).
+    nz = (dt(0.25) * b_l + dt(0.25) * d_l + dt(0.25) * f_l + dt(0.25) * h_l - e_l).astype(dt)
+    rng = (
+        np.maximum(np.maximum(np.maximum(b_l, d_l), np.maximum(e_l, f_l)), h_l)
+        - np.minimum(np.minimum(np.minimum(b_l, d_l), np.minimum(e_l, f_l)), h_l)
+    ).astype(dt)
+    nz = _sat(np.abs(nz) * med_rcp(rng))
+    nz = (dt(-0.5) * nz + dt(1.0)).astype(dt)
+
+    mn4 = np.minimum(np.minimum(b, d), np.minimum(f, h))
+    mx4 = np.maximum(np.maximum(b, d), np.maximum(f, h))
+    # Limiters need high-precision rcp (ffx_fsr1.h:749).  The divisions can
+    # hit 0*INF = NaN (mx4 == 0 under a bright centre pixel); GPU max()
+    # drops the NaN operand, emulated explicitly — this is what lets RCAS
+    # spike isolated bright pixels to the clipping point.
+    with np.errstate(divide="ignore", invalid="ignore"):
+        hit_min = np.minimum(mn4, e) * rcp(dt(4.0) * mx4)
+        hit_max = (dt(1.0) - np.maximum(mx4, e)) * rcp(dt(4.0) * mn4 + dt(-4.0))
+    neg_hit_min = -hit_min
+    lobe_rgb = np.maximum(
+        np.where(np.isnan(neg_hit_min), hit_max, neg_hit_min),
+        np.where(np.isnan(hit_max), neg_hit_min, hit_max),
+    )
+    lobe = (
+        np.maximum(
+            dt(-FSR_RCAS_LIMIT),
+            np.minimum(np.maximum(np.maximum(lobe_rgb[0], lobe_rgb[1]), lobe_rgb[2]), dt(0.0)),
+        )
+        * sharp
+    ).astype(dt)
+    if denoise:
+        lobe = (lobe * nz).astype(dt)
+    rcp_l = med_rcp(dt(4.0) * lobe + dt(1.0))
+    out = ((lobe * b + lobe * d + lobe * h + lobe * f + e) * rcp_l).astype(dt)
+    if has_alpha:
+        out = np.concatenate([out, img[3:4].astype(dt)], axis=0)
+    return out
+
+
+def bilinear_ref(src: np.ndarray, out_size: Tuple[int, int], con: EasuConstants) -> np.ndarray:
+    """Bilinear fallback using the same con0 mapping (FSR_Pass.hlsl:70-73)."""
+    src = np.asarray(src, dtype=F32)
+    hin, win = src.shape[-2:]
+    col, row, px, py = _easu_coords(con, out_size)
+    c0 = np.clip(col, 0, win - 1)
+    c1 = np.clip(col + 1, 0, win - 1)
+    r0 = np.clip(row, 0, hin - 1)
+    r1 = np.clip(row + 1, 0, hin - 1)
+    px = px[None, None, :]
+    py = py[None, :, None]
+    tl = src[:, r0[:, None], c0[None, :]]
+    tr = src[:, r0[:, None], c1[None, :]]
+    bl = src[:, r1[:, None], c0[None, :]]
+    br = src[:, r1[:, None], c1[None, :]]
+    top = tl + (tr - tl) * px
+    bot = bl + (br - bl) * px
+    return (top + (bot - top) * py).astype(F32)

@@ -1,0 +1,95 @@
+"""Device timing (counterpart of ``fsr_tpu/utils/profiling.py``).
+
+The JAX package parses TPU profiler traces; on a CUDA device the timer is a
+pair of CUDA events around each call, and ``device_trace`` reads kernel
+times and the device's idle share from a ``torch.profiler`` trace.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable
+
+import torch
+
+__all__ = ["cuda_time_ms", "device_trace"]
+
+
+def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20) -> float:
+    """Median device time of ``fn()`` in milliseconds, from CUDA events on
+    the current stream.  Raises when no CUDA device is available: a timing
+    never falls back to the host."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
+    """Trace ``calls`` back-to-back calls of ``fn()`` with ``torch.profiler``
+    and read the device's share of the window.
+
+    Returns ``{"kernels": {name: ms per call}, "busy_ms", "window_ms",
+    "idle_share"}``.  The same calls run once first as the profiler's
+    warm-up step, so its buffer set-up falls outside the recorded step.
+    The window runs from the host entering the first call to the end of the
+    last device operation; busy is the union of the device operations'
+    intervals.  Raises when the trace holds no device operation."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_trace needs a CUDA device")
+    traced = []
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+        on_trace_ready=lambda p: traced.append(p.events()),
+    ) as prof:
+        for _ in range(2):
+            with record_function("device_trace_window"):
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = traced[0]
+    cuda = torch.autograd.DeviceType.CUDA
+    # Device operations only: the annotation also shows as a device-side span.
+    dev = sorted(
+        (e for e in events if e.device_type == cuda and e.name != "device_trace_window"
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda e: e.time_range.start,
+    )
+    if not dev:
+        raise RuntimeError("the profiler recorded no device operation")
+    start = min(e.time_range.start for e in events
+                if e.name == "device_trace_window" and e.device_type != cuda)
+    end = max(e.time_range.end for e in dev)
+    kernels: dict = {}
+    busy, cur_s, cur_e = 0.0, None, None
+    for e in dev:
+        kernels[e.name] = kernels.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+        if cur_e is None or e.time_range.start > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = e.time_range.start, e.time_range.end
+        else:
+            cur_e = max(cur_e, e.time_range.end)
+    busy += cur_e - cur_s
+    window = end - start
+    return {
+        "kernels": kernels,
+        "busy_ms": busy / 1e3,
+        "window_ms": window / 1e3,
+        "idle_share": 1.0 - busy / window,
+    }
