@@ -12,12 +12,24 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      hazard cases (isolated bright pixel, DRS offset, all-black frame);
   5. fsr_tpu_torch.upscale(preset="performance") against the port's numpy
      oracle at 540p -> 1080p f32 (max-abs <= 2e-5);
-  6. the main path: upscale(x, preset="performance") on a (4, 3, 1080,
-     1920) CUDA tensor in f32 and bf16, held against upscale_fused_reference
-     (the phase-4 limits), with launch counts and CUDA-event times of each
-     kernel beside its plain version;
-  7. with --trace only: a torch.profiler trace of the main path (device
-     time per kernel, busy time and idle share of the window).
+  6. the Performance path: upscale(x, preset="performance") on a (4, 3,
+     1080, 1920) CUDA tensor in f32 and bf16, held against
+     upscale_fused_reference (the phase-4 limits), with launch counts and
+     CUDA-event times of each kernel beside its plain version;
+  7. K2 easu_gather against easu_gather_reference (the phase-4 limits) at
+     every preset ratio, native 1x, a ragged ratio, 2x with an odd width, a
+     DRS offset, bf16, EASU-only, denoise, batch 2 and the hazard cases;
+  8. K3 rcas_fused against rcas_fused_reference (the same limits): clamp
+     and zero borders, denoise, bf16, an isolated pixel, a ragged image;
+  9. upscale(preset="quality") at 720p -> 1080p and sharpen at 1080p, f32,
+     against the numpy oracle (max-abs <= 2e-5);
+ 10. the Quality path: upscale(x, preset="quality") on a (4, 3, 1440, 2560)
+     CUDA tensor (-> 4K) and sharpen(y) on a (4, 3, 2160, 3840) one, in f32
+     and bf16, held against their plain versions, with launch counts (K2 on
+     the Quality path and K1, K4 not; K3 on sharpen) and CUDA-event times;
+ 11. with --trace only: a torch.profiler trace of the Performance path, the
+     Quality path and sharpen (device time per kernel, busy time and idle
+     share of the window).
 The last two lines are a JSON object describing the kernels and the JSON
 result line.  Exits non-zero with no result when CUDA is unavailable.
 """
@@ -39,6 +51,8 @@ BF16_MEDIAN = 1.0 / 1250.0
 BF16_P99 = 1.25 / 255.0
 ORACLE_TOL = 2e-5
 MAIN_SHAPE = (4, 3, 1080, 1920)
+QUALITY_SHAPE = (4, 3, 1440, 2560)
+SHARPEN_SHAPE = (4, 3, 2160, 3840)
 
 
 def _card() -> str:
@@ -91,14 +105,15 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="add phase 7: a torch.profiler trace of the main path")
+                        help="add phase 11: a torch.profiler trace of the main paths")
     trace = parser.parse_args().trace
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
         return 2
     import fsr_tpu_torch as ft
     from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-    from fsr_tpu_torch.kernels import _build, fused, pad
+    from fsr_tpu_torch.kernels import _build, easu_gather, fused, pad
+    from fsr_tpu_torch.kernels import rcas as rcas_k
     from fsr_tpu_torch.reference import scalar as ref
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
 
@@ -203,29 +218,38 @@ def main() -> int:
           f"max {db.max():.3e}")
 
     # --- 6. main path --------------------------------------------------------
+    wrappers = {"K4": pad.edge_pad, "K1": fused.upscale_padded,
+                "K2": easu_gather.easu_gather, "K3": rcas_k.rcas_fused}
+
+    def drive(fn, need):
+        """Run fn with every count at 0; fail unless exactly the kernels in
+        `need` launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items()}
+        if any((n >= 1) != (k in need) for k, n in got.items()):
+            raise AssertionError(f"launch counts {got}: the path must launch exactly {need}")
+        return out, got
+
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
     nframes = MAIN_SHAPE[0]
     out_shape = MAIN_SHAPE[:-2] + (2160, 3840)
-    launches = {"K4": 0, "K1": 0}
+    launches = {"K4": 0, "K1": 0, "K2": 0, "K3": 0}
     con = EasuConstants.create((1920, 1080), None, (3840, 2160))
     rcon = RcasConstants(0.25)
     sharp = float(rcon.sharpness)
     print(f"phase 6: main path upscale(x, preset='performance') on {MAIN_SHAPE}")
     for dt in (torch.float32, torch.bfloat16):
         x = frames.to(dt)
-        pad.edge_pad.launches = 0
-        fused.upscale_padded.launches = 0
-        out = ft.upscale(x, preset="performance", compute_dtype=dt)
-        torch.cuda.synchronize()
-        n4, n1 = pad.edge_pad.launches, fused.upscale_padded.launches
+        out, n = drive(lambda: ft.upscale(x, preset="performance", compute_dtype=dt), ("K4", "K1"))
         if tuple(out.shape) != out_shape or out.dtype != dt or out.device != x.device:
             raise AssertionError(f"main path {dt}: got {tuple(out.shape)} {out.dtype} {out.device}")
-        if n4 < 1 or n1 < 1:
-            raise AssertionError(f"main path {dt} did not launch both kernels: K4 {n4}, K1 {n1}")
-        launches["K4"] += n4
-        launches["K1"] += n1
-        print(f"  {dt}: out {tuple(out.shape)}; launches K4 {n4}, K1 {n1}")
+        launches["K4"] += n["K4"]
+        launches["K1"] += n["K1"]
+        print(f"  {dt}: out {tuple(out.shape)}; launches {n}")
         # The batch and the 4K tile grid held against the plain version.
         want = fused.upscale_fused_reference(x, (2160, 3840), con, rcon, True, False, dt)
         err = _compare(out, want, f"main path {dt} vs upscale_fused_reference")
@@ -261,18 +285,168 @@ def main() -> int:
     print(f"  f32 output rate: {nframes * 2160 * 3840 / (t32['call'] * 1e-3) / 1e6:.1f} Mpix/s; "
           f"bf16: {nframes * 2160 * 3840 / (timings[torch.bfloat16]['call'] * 1e-3) / 1e6:.1f} Mpix/s")
 
-    # --- 7. trace (--trace only) ---------------------------------------------
-    if trace:
-        print(f"phase 7: torch.profiler trace of the main path on {card}")
-        for dt in (torch.float32, torch.bfloat16):
-            x = frames.to(dt)
-            for calls in (1, 5):
-                tr = device_trace(lambda: ft.upscale(x, preset="performance", compute_dtype=dt), calls)
-                print(f"  {dt}, {calls} call(s) back to back: device busy {tr['busy_ms']:.4f} ms "
-                      f"of a {tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
-                for name, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
-                    print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {name}")
+    # --- 7. K2 ------------------------------------------------------------
+    print("phase 7: K2 easu_gather vs easu_gather_reference")
+    k2_err = 0.0
+    f32, bf16 = torch.float32, torch.bfloat16
+    gather_cases = [
+        # what, input shape, out_hw, storage, rcas, denoise, stops, (viewport, offset)
+        ("ultra_quality 1.3x", (1, 3, 831, 1477), (1080, 1920), f32, True, False, 0.25, None),
+        ("quality 1.5x", (1, 3, 720, 1280), (1080, 1920), f32, True, False, 0.25, None),
+        ("balanced 1.7x", (1, 3, 635, 1129), (1080, 1920), f32, True, False, 0.25, None),
+        ("native 1x", (1, 3, 540, 960), (540, 960), f32, True, False, 0.25, None),
+        ("ragged ~1.7x", (1, 3, 64, 114), (108, 192), f32, True, False, 0.25, None),
+        ("2x odd width", (1, 3, 270, 480), (540, 961), f32, True, False, 0.25, None),
+        ("DRS 1.5x offset", (1, 3, 400, 700), (540, 960), f32, True, False, 0.25, ((360, 640), (8, 16))),
+        ("quality bf16", (1, 3, 720, 1280), (1080, 1920), bf16, True, False, 0.25, None),
+        ("quality easu-only", (1, 3, 720, 1280), (1080, 1920), f32, False, False, 0.25, None),
+        ("quality denoise", (1, 3, 720, 1280), (1080, 1920), f32, True, True, 0.5, None),
+        ("quality bf16 denoise", (1, 3, 720, 1280), (1080, 1920), bf16, True, True, 0.5, None),
+        ("batch 2", (2, 3, 360, 640), (540, 960), f32, True, False, 0.25, None),
+    ]
+    for what, shape, out_hw, dt, rcas_on, denoise, stops, drs in gather_cases:
+        x = rand(shape)
+        if drs is None:
+            con = con_for(shape[-2:], out_hw)
+        else:
+            (vh, vw), (oy, ox) = drs
+            con = EasuConstants.create((vw, vh), (shape[-1], shape[-2]), (out_hw[1], out_hw[0]), (ox, oy))
+        rcon = RcasConstants(stops)
+        got = easu_gather.easu_gather(x, out_hw, con, rcon, rcas_on, denoise, dt)
+        want = easu_gather.easu_gather_reference(x, out_hw, con, rcon, rcas_on, denoise, dt)
+        torch.cuda.synchronize()
+        err = _compare(got, want, what)
+        if dt == torch.float32:
+            k2_err = max(k2_err, err)
+    gbright = torch.zeros((3, 32, 130), device=dev)
+    gbright[:, 16, 60] = 0.5
+    for what, x, out_hw, stops in (
+        ("isolated bright pixel", gbright, (48, 195), 0.0),
+        ("all-black frame", torch.zeros((3, 64, 128), device=dev), (96, 192), 0.25),
+    ):
+        con, rcon = con_for(x.shape[-2:], out_hw), RcasConstants(stops)
+        got = easu_gather.easu_gather(x, out_hw, con, rcon, True)
+        want = easu_gather.easu_gather_reference(x, out_hw, con, rcon, True)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, _compare(got, want, what))
 
+    # --- 8. K3 ------------------------------------------------------------
+    print("phase 8: K3 rcas_fused vs rcas_fused_reference")
+    k3_err = 0.0
+    rbright = torch.zeros((3, 40, 130), device=dev)
+    rbright[:, 20, 60] = 0.5
+    rcas_cases = [
+        # what, image, storage, border, denoise, stops
+        ("clamp 1080p", rand((1, 3, 1080, 1920)), f32, "clamp", False, 0.25),
+        ("zero 1080p", rand((1, 3, 1080, 1920)), f32, "zero", False, 0.25),
+        ("denoise 1080p", rand((1, 3, 1080, 1920)), f32, "clamp", True, 0.5),
+        ("zero denoise ragged", rand((2, 3, 67, 131)), f32, "zero", True, 0.5),
+        ("bf16 1080p", rand((1, 3, 1080, 1920)), bf16, "clamp", False, 0.25),
+        ("bf16 zero denoise", rand((1, 3, 1080, 1920)).to(bf16), bf16, "zero", True, 0.5),
+        ("isolated pixel", rbright, f32, "clamp", False, 0.0),
+        ("ragged 67x131", rand((3, 67, 131)), f32, "clamp", False, 0.25),
+    ]
+    for what, x, dt, border, denoise, stops in rcas_cases:
+        rcon = RcasConstants(stops)
+        got = rcas_k.rcas_fused(x, rcon, denoise, dt, border)
+        want = rcas_k.rcas_fused_reference(x, rcon, denoise, dt, border)
+        torch.cuda.synchronize()
+        err = _compare(got, want, what)
+        if dt == torch.float32:
+            k3_err = max(k3_err, err)
+
+    # --- 9. oracle: Quality and sharpen ---------------------------------------
+    img = rng.uniform(0, 1, (3, 720, 1280)).astype(np.float32)
+    oracle = ref.rcas_ref(ref.easu_ref(img, (1080, 1920), con_for((720, 1280), (1080, 1920))),
+                          RcasConstants(0.25))
+    out = ft.upscale(torch.from_numpy(img).to(dev), preset="quality")
+    dq = np.abs(out.cpu().numpy() - oracle).max()
+    print(f"phase 9: upscale(preset='quality') vs numpy oracle, 720p->1080p f32: "
+          f"max-abs {dq:.3e} (limit {ORACLE_TOL:g})")
+    img = rng.uniform(0, 1, (3, 1080, 1920)).astype(np.float32)
+    oracle = ref.rcas_ref(img, RcasConstants(0.25))
+    out = ft.sharpen(torch.from_numpy(img).to(dev))
+    ds = np.abs(out.cpu().numpy() - oracle).max()
+    print(f"  sharpen vs numpy oracle, 1080p f32: max-abs {ds:.3e} (limit {ORACLE_TOL:g})")
+    if not (dq <= ORACLE_TOL and ds <= ORACLE_TOL):
+        raise AssertionError("port disagrees with the oracle")
+    del oracle, img
+
+    # --- 10. the Quality path and sharpen -------------------------------------
+    qframes = torch.rand(QUALITY_SHAPE, generator=gen, device=dev)
+    sframes = torch.rand(SHARPEN_SHAPE, generator=gen, device=dev)
+    qcon = EasuConstants.create((2560, 1440), None, (3840, 2160))
+    rcon = RcasConstants(0.25)  # upscale's and sharpen's default sharpness
+    print(f"phase 10: Quality path upscale(x, preset='quality') on {QUALITY_SHAPE}, "
+          f"sharpen(y) on {SHARPEN_SHAPE}")
+    for dt in (torch.float32, torch.bfloat16):
+        x = qframes.to(dt)
+        out, n = drive(lambda: ft.upscale(x, preset="quality", compute_dtype=dt), ("K2",))
+        if tuple(out.shape) != QUALITY_SHAPE[:-2] + (2160, 3840) or out.dtype != dt:
+            raise AssertionError(f"quality path {dt}: got {tuple(out.shape)} {out.dtype}")
+        launches["K2"] += n["K2"]
+        print(f"  quality {dt}: out {tuple(out.shape)}; launches {n}")
+        want = easu_gather.easu_gather_reference(x, (2160, 3840), qcon, rcon, True, False, dt)
+        err = _compare(out, want, f"quality path {dt} vs easu_gather_reference")
+        if dt == torch.float32:
+            k2_err = max(k2_err, err)
+        del want
+        y = sframes.to(dt)
+        out, n = drive(lambda: ft.sharpen(y), ("K3",))
+        if tuple(out.shape) != SHARPEN_SHAPE or out.dtype != dt:
+            raise AssertionError(f"sharpen {dt}: got {tuple(out.shape)} {out.dtype}")
+        launches["K3"] += n["K3"]
+        print(f"  sharpen {dt}: out {tuple(out.shape)}; launches {n}")
+        want = rcas_k.rcas_fused_reference(y, rcon)
+        err = _compare(out, want, f"sharpen {dt} vs rcas_fused_reference")
+        if dt == torch.float32:
+            k3_err = max(k3_err, err)
+        del want
+
+    qtimings = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = qframes.to(dt)
+        y = sframes.to(dt)
+        t = {
+            "call": cuda_time_ms(lambda: ft.upscale(x, preset="quality", compute_dtype=dt)),
+            "call_b2b": _back_to_back_ms(lambda: ft.upscale(x, preset="quality", compute_dtype=dt)),
+            "K2": cuda_time_ms(lambda: easu_gather.easu_gather(x, (2160, 3840), qcon, rcon, True, False, dt)),
+            "K2_plain": cuda_time_ms(
+                lambda: easu_gather.easu_gather_reference(x, (2160, 3840), qcon, rcon, True, False, dt),
+                warmup=1, iters=5),
+            "sharpen_call": cuda_time_ms(lambda: ft.sharpen(y)),
+            "sharpen_b2b": _back_to_back_ms(lambda: ft.sharpen(y)),
+            "K3": cuda_time_ms(lambda: rcas_k.rcas_fused(y, rcon)),
+            "K3_plain": cuda_time_ms(lambda: rcas_k.rcas_fused_reference(y, rcon), warmup=1, iters=5),
+        }
+        qtimings[dt] = t
+        print(f"  times {dt}, median CUDA-event ms per 4K frame (batch {nframes}) on {card}:")
+        for k, v in t.items():
+            print(f"    {k:>12}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+    print("  call: one upscale(preset='quality') call (host work included); call_b2b: per call "
+          "with 10 calls queued back to back; sharpen_*: the same for sharpen; K2, K3: the "
+          "kernels alone; *_plain: their plain torch versions on the card")
+
+    # --- 11. trace (--trace only) ---------------------------------------------
+    if trace:
+        print(f"phase 11: torch.profiler traces on {card}")
+        paths = (
+            ("performance", frames, lambda x, dt: ft.upscale(x, preset="performance", compute_dtype=dt)),
+            ("quality", qframes, lambda x, dt: ft.upscale(x, preset="quality", compute_dtype=dt)),
+            ("sharpen", sframes, lambda x, dt: ft.sharpen(x)),
+        )
+        for name, src, fn in paths:
+            for dt in (torch.float32, torch.bfloat16):
+                x = src.to(dt)
+                for calls in (1, 5):
+                    tr = device_trace(lambda: fn(x, dt), calls)
+                    print(f"  {name} {dt}, {calls} call(s) back to back: device busy "
+                          f"{tr['busy_ms']:.4f} ms of a {tr['window_ms']:.4f} ms window, "
+                          f"idle share {tr['idle_share']:.4f}")
+                    for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
+                        print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname}")
+
+    t32, q32 = timings[torch.float32], qtimings[torch.float32]
     kernels = [
         {"name": "edge_pad (K4)", "route": "cuda", "source": "fsr_tpu_torch/csrc/edge_pad.cu",
          "replaces": "fsr_tpu/kernels/pad.py:50", "launches": launches["K4"],
@@ -280,6 +454,12 @@ def main() -> int:
         {"name": "upscale_fused (K1)", "route": "cuda", "source": "fsr_tpu_torch/csrc/fused.cu",
          "replaces": "fsr_tpu/kernels/fused.py:403", "launches": launches["K1"],
          "max_abs_err": k1_err, "ms": t32["K1"], "plain_ms": t32["K1_plain"]},
+        {"name": "easu_gather (K2)", "route": "cuda", "source": "fsr_tpu_torch/csrc/easu_gather.cu",
+         "replaces": "fsr_tpu/kernels/easu_gather.py:350", "launches": launches["K2"],
+         "max_abs_err": k2_err, "ms": q32["K2"], "plain_ms": q32["K2_plain"]},
+        {"name": "rcas_fused (K3)", "route": "cuda", "source": "fsr_tpu_torch/csrc/rcas.cu",
+         "replaces": "fsr_tpu/kernels/rcas_pallas.py:42", "launches": launches["K3"],
+         "max_abs_err": k3_err, "ms": q32["K3"], "plain_ms": q32["K3_plain"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

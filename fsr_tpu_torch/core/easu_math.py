@@ -58,7 +58,7 @@ EASU_QUADS = (
 def _check_dtype(dt):
     if dt not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"{dt} math is not ported yet (ROADMAP.md queue item 7: fp16); "
+            f"{dt} math is not ported yet (ROADMAP.md queue item 5: fp16); "
             "use float32 or bfloat16"
         )
 

@@ -1,0 +1,158 @@
+// K2: EASU (+ fused RCAS) at any upscale ratio from 1x to 4x area, with
+// Dynamic Resolution Scaling offsets.
+//
+// Replaces the TPU kernel fsr_tpu/kernels/easu_gather.py:easu_gather
+// (pallas_call at easu_gather.py:1451).  It computes what that kernel
+// computes for RGB float32/bfloat16 storage: EASU in float32 with per-texel
+// quad responses, RCAS on the unrounded EASU values with the border clamped
+// in output coordinates, and one rounding to the storage type at the store.
+// The TPU's hybrid X-phase, one-hot MXU row selectors, dynamic-roll column
+// gathers and one-tile software pipeline existed because a TPU has no
+// vector gather; a Hopper thread simply loads its taps.
+//
+// Coordinates: the host builds per-axis tables from the float32 coordinate
+// mapping (kernels/easu_gather.py:plan) -- for each output column X the four
+// source columns clip(fx + dx, 0, win - 1), dx = -1..2, and the subpixel
+// fraction px; the same for rows.  The clip is the CLAMP sampler of the
+// reference (FSR_Filter.cpp:49-50), so the kernel reads the unpadded source
+// and no pad pass runs in front of it.  The device never computes x*sx+ox or
+// floor(): nvcc contracts the former into an FMA, which flips floor() at
+// integer positions (every third column of the 1.5x Quality preset).
+//
+// Design, as K1 (fused.cu): one block per TILE_H x TILE_W output tile.
+//   Phase 1: EASU in f32 for the tile and a one-pixel ring into shared
+//     memory.  Ring rows and columns are clamped to the image in output
+//     coordinates before the table lookup, so a ring slot outside the image
+//     holds exactly the edge pixel's value: RCAS then sees e in place of the
+//     missing neighbour with no per-pixel border tests.
+//   Barrier.
+//   Phase 2: RCAS (limiter, optional denoise) and one store.
+// With apply_rcas off the kernel stores EASU directly.
+//
+// Storage: the source is float32 or bfloat16, the output float32 or
+// bfloat16.  A float32 source under bfloat16 storage is rounded (RNE) at
+// each load before widening, which is what converting the source first
+// would give.
+//
+// Bound: f32 arithmetic, as K1 (the same ~660 flops per output pixel); the
+// table loads (10 per pixel, L1-resident) replace K1's phase arithmetic.
+// Device-memory traffic is one read of the source and one write of the
+// output.  Sharing tap loads and texel responses between neighbouring
+// pixels is later work.
+//
+// Plain C interface for ctypes; returns cudaGetLastError() after the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fsr_pixel.cuh"
+
+namespace {
+
+using namespace fsr;
+
+struct GatherParams {
+  const int* rows;   // [4][hout]: clip(fy + dy, 0, hin - 1) for dy = -1..2
+  const int* cols;   // [4][wout]: clip(fx + dx, 0, win - 1) for dx = -1..2
+  const float* py;   // [hout] subpixel row fraction
+  const float* px;   // [wout] subpixel column fraction
+  int hin, win;
+  int hout, wout;
+  float sharp;  // linear RCAS sharpness
+};
+
+// EASU for output pixel (Y, X) of one frame: the tables give the 4x4 tap
+// window's rows and columns in the unpadded source, then the shared resolve
+// runs.  T is the storage type, S the source's.
+template <typename T, typename S>
+__device__ __forceinline__ void easu_at(const S* __restrict__ src, const GatherParams& p, int Y,
+                                        int X, float out[3]) {
+  int64_t row[4];
+  int col[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    row[k] = (int64_t)__ldg(p.rows + k * p.hout + Y) * p.win;
+    col[k] = __ldg(p.cols + k * p.wout + X);
+  }
+  const int64_t plane = (int64_t)p.hin * p.win;
+
+  // The corners of the 4x4 window are unused.
+  float t[3][4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if ((r == 0 || r == 3) && (q == 0 || q == 3)) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) t[c][r][q] = ld_as<T>(src + c * plane + row[r] + col[q]);
+    }
+  }
+  easu_resolve(t, __ldg(p.px + X), __ldg(p.py + Y), out);
+}
+
+template <typename T, typename S, bool RCAS, bool DENOISE>
+__global__ void __launch_bounds__(NTHREADS)
+    gather_kernel(const S* __restrict__ src, T* __restrict__ dst, GatherParams p) {
+  const int64_t n = blockIdx.z;
+  const S* s = src + n * 3 * (int64_t)p.hin * p.win;
+  T* o = dst + n * 3 * (int64_t)p.hout * p.wout;
+  if constexpr (RCAS) {
+    // Ring positions clamp to the image in output coordinates, before the
+    // table lookup.
+    auto ring = [=](int Y, int X, float v[3]) {
+      easu_at<T>(s, p, min(max(Y, 0), p.hout - 1), min(max(X, 0), p.wout - 1), v);
+    };
+    rcas_tile<DENOISE>(ring, o, p.hout, p.wout, p.sharp);
+  } else {
+    store_tile([=](int Y, int X, float v[3]) { easu_at<T>(s, p, Y, X, v); }, o, p.hout, p.wout);
+  }
+}
+
+template <typename T, typename S>
+int launch(const void* src, void* dst, int nb, const GatherParams& p, bool rcas, bool denoise,
+           cudaStream_t stream) {
+  const int64_t in_frame = 3 * (int64_t)p.hin * p.win;
+  const int64_t out_frame = 3 * (int64_t)p.hout * p.wout;
+  return launch_frames(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
+    const S* s = static_cast<const S*>(src) + n0 * in_frame;
+    T* d = static_cast<T*>(dst) + n0 * out_frame;
+    if (!rcas)
+      gather_kernel<T, S, false, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    else if (denoise)
+      gather_kernel<T, S, true, true><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    else
+      gather_kernel<T, S, true, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+  });
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16; src_dtype is the source's, dtype
+// the storage type of the output.  rows/cols (int32 [4][hout], [4][wout])
+// and py/px (float32 [hout], [wout]) are device pointers.
+extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dtype, int nb,
+                               int hin, int win, int hout, int wout, const void* rows,
+                               const void* cols, const void* py, const void* px, float sharp,
+                               int apply_rcas, int denoise, void* stream) {
+  GatherParams p;
+  p.rows = static_cast<const int*>(rows);
+  p.cols = static_cast<const int*>(cols);
+  p.py = static_cast<const float*>(py);
+  p.px = static_cast<const float*>(px);
+  p.hin = hin;
+  p.win = win;
+  p.hout = hout;
+  p.wout = wout;
+  p.sharp = sharp;
+  if (nb == 0 || hout == 0 || wout == 0) return 0;
+  const bool r = apply_rcas != 0;
+  const bool dn = denoise != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (src_dtype == 0 && dtype == 0) return launch<float, float>(src, dst, nb, p, r, dn, s);
+  if (src_dtype == 0 && dtype == 1) return launch<__nv_bfloat16, float>(src, dst, nb, p, r, dn, s);
+  if (src_dtype == 1 && dtype == 0) return launch<float, __nv_bfloat16>(src, dst, nb, p, r, dn, s);
+  if (src_dtype == 1 && dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(src, dst, nb, p, r, dn, s);
+  return (int)cudaErrorInvalidValue;
+}

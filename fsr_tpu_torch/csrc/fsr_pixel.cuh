@@ -1,0 +1,337 @@
+// Device math shared by K1 (fused.cu), K2 (easu_gather.cu) and K3 (rcas.cu).
+//
+// Per-pixel EASU and RCAS in float32, as the kernels' plain versions compute
+// them (easu_math.easu_resolve / rcas_resolve with fast=True): the APrx bit
+// tricks, the per-texel quad responses with a pre-summed length, the
+// quadratic-form tap distance, and the division-light RCAS limiter written
+// with selects.  These functions take values: where a pixel's tap window
+// lies, and the frame's border rule, are each kernel's own business.
+//
+// Also the tile loop all three kernels share: one block of NTHREADS per
+// TILE_H x TILE_W output tile, with a one-pixel ring (RING_H x RING_W) of
+// float32 planes in shared memory for RCAS, and the host-side launch loop
+// over frames.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fsr {
+
+constexpr int TILE_W = 32;
+constexpr int TILE_H = 16;
+constexpr int RING_W = TILE_W + 2;
+constexpr int RING_H = TILE_H + 2;
+constexpr int NTHREADS = 256;
+constexpr float RCAS_LIMIT4 = 4.0f * (0.25f - 1.0f / 16.0f);
+
+// Storage helpers: the math is float32, bfloat16 is storage only.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// A value as storage type T holds it: bfloat16 rounds to nearest even, as a
+// dtype convert of the source would.
+template <typename T>
+__device__ __forceinline__ float as_storage(float v) { return v; }
+template <>
+__device__ __forceinline__ float as_storage<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Load a source element of type S, rounded to storage type T, widened.
+template <typename T, typename S>
+__device__ __forceinline__ float ld_as(const S* p) { return as_storage<T>(ld(p)); }
+
+// APrx* bit tricks (ffx_a.h:1786-1860), float32.
+__device__ __forceinline__ float prx_lo_rcp(float a) {
+  return __uint_as_float(0x7EF07EBBu - __float_as_uint(a));
+}
+__device__ __forceinline__ float prx_med_rcp(float a) {
+  const float b = __uint_as_float(0x7EF19FFFu - __float_as_uint(a));
+  return b * (-b * a + 2.0f);
+}
+__device__ __forceinline__ float prx_lo_rsq(float a) {
+  return __uint_as_float(0x5F347D74u - (__float_as_uint(a) >> 1));
+}
+
+// Plain clamp: the texel response's input cannot be NaN (the bit-trick
+// reciprocal is finite at 0).
+__device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+// HLSL saturate: NaN -> 0.
+__device__ __forceinline__ float sat_nan0(float x) { return x > 0.0f ? fminf(x, 1.0f) : 0.0f; }
+
+__device__ __forceinline__ float luma2(float r, float g, float b) {
+  return b * 0.5f + (r * 0.5f + g);
+}
+
+// easu_texel_response(fast=True): '+'-pattern response around texel c.
+__device__ __forceinline__ void texel_response(float la, float lb, float lc, float ld_,
+                                               float le, float& gx, float& gy, float& gl) {
+  const float dc = ld_ - lc;
+  const float cb = lc - lb;
+  float len_x = prx_lo_rcp(fmaxf(fabsf(dc), fabsf(cb)));
+  gx = ld_ - lb;
+  len_x = clamp01(fabsf(gx) * len_x);
+  len_x = len_x * len_x;
+  const float ec = le - lc;
+  const float ca = lc - la;
+  float len_y = prx_lo_rcp(fmaxf(fabsf(ec), fabsf(ca)));
+  gy = le - la;
+  len_y = clamp01(fabsf(gy) * len_y);
+  len_y = len_y * len_y;
+  gl = len_x + len_y;
+}
+
+// EASU resolve (easu_resolve(fast=True) with per-texel quad responses) from
+// the tap window t[c][r][q]: rows fy-1..fy+2 and columns fx-1..fx+2 around
+// 'f' = t[c][1][1] (the four corners are not read), at subpixel position
+// (ppx, ppy) inside the f..k quad.
+__device__ __forceinline__ void easu_resolve(const float (&t)[3][4][4], float ppx, float ppy,
+                                             float out[3]) {
+  float L[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if ((r == 0 || r == 3) && (q == 0 || q == 3)) continue;
+      L[r][q] = luma2(t[0][r][q], t[1][r][q], t[2][r][q]);
+    }
+  }
+
+  // Quadrant responses at the quad's texels f (1,1), g (1,2), j (2,1), k (2,2).
+  float gxs, gys, gls, gxt, gyt, glt, gxu, gyu, glu, gxv, gyv, glv;
+  texel_response(L[0][1], L[1][0], L[1][1], L[1][2], L[2][1], gxs, gys, gls);
+  texel_response(L[0][2], L[1][1], L[1][2], L[1][3], L[2][2], gxt, gyt, glt);
+  texel_response(L[1][1], L[2][0], L[2][1], L[2][2], L[3][1], gxu, gyu, glu);
+  texel_response(L[1][2], L[2][1], L[2][2], L[2][3], L[3][2], gxv, gyv, glv);
+
+  const float ws = (1.0f - ppx) * (1.0f - ppy);
+  const float wt = ppx * (1.0f - ppy);
+  const float wu = (1.0f - ppx) * ppy;
+  const float wv = ppx * ppy;
+  float dirx = gxs * ws;
+  float diry = gys * ws;
+  float len = gls * ws;
+  dirx = dirx + gxt * wt;
+  diry = diry + gyt * wt;
+  len = len + glt * wt;
+  dirx = dirx + gxu * wu;
+  diry = diry + gyu * wu;
+  len = len + glu * wu;
+  dirx = dirx + gxv * wv;
+  diry = diry + gyv * wv;
+  len = len + glv * wv;
+
+  // Direction normalisation with zero-protect (ffx_fsr1.h:388-395).
+  float dir_r = dirx * dirx + diry * diry;
+  const bool zro = dir_r < (1.0f / 32768.0f);
+  dir_r = prx_lo_rsq(dir_r);
+  if (zro) {
+    dir_r = 1.0f;
+    dirx = 1.0f;
+  }
+  dirx = dirx * dir_r;
+  diry = diry * dir_r;
+  len = len * 0.5f;
+  len = len * len;
+  const float stretch = (dirx * dirx + diry * diry) * prx_lo_rcp(fmaxf(fabsf(dirx), fabsf(diry)));
+  const float len2_x = 1.0f + (stretch - 1.0f) * len;
+  const float len2_y = 1.0f + (-0.5f) * len;
+  const float lob = 0.5f + (float)((1.0 / 4.0 - 0.04) - 0.5) * len;
+  const float clp = prx_lo_rcp(lob);
+
+  // Tap distance as a quadratic form, factored per tap row/column.
+  const float lx2 = len2_x * len2_x;
+  const float ly2 = len2_y * len2_y;
+  const float xx = dirx * dirx;
+  const float yy = diry * diry;
+  const float xy = dirx * diry;
+  const float qa = xx * lx2 + yy * ly2;
+  const float qb = (xy + xy) * (lx2 - ly2);
+  const float qc = yy * lx2 + xx * ly2;
+  float off_x[4], c_dx[4], a_dy[4], b_dy[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    off_x[k] = (float)(k - 1) - ppx;
+    const float oy = (float)(k - 1) - ppy;
+    a_dy[k] = oy * qb;
+    b_dy[k] = (oy * oy) * qc;
+    c_dx[k] = (off_x[k] * off_x[k]) * qa;
+  }
+
+  // Tap (dx, dy) offsets from 'f' in FsrEasuF accumulation order
+  // (b c i j f e k l h g o n; ffx_fsr1.h:423-434).  The loop unrolls, so
+  // every index below is a compile-time constant and t stays in registers.
+  constexpr int kTapDx[12] = {0, 1, -1, 0, 0, -1, 1, 2, 2, 1, 1, 0};
+  constexpr int kTapDy[12] = {-1, -1, 1, 1, 0, 0, 1, 1, 0, 0, 2, 2};
+  float ac0 = 0.0f, ac1 = 0.0f, ac2 = 0.0f, aw = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 12; ++n) {
+    const int dx = kTapDx[n] + 1;
+    const int dy = kTapDy[n] + 1;
+    float d2 = c_dx[dx] + (off_x[dx] * a_dy[dy] + b_dy[dy]);
+    d2 = fminf(d2, clp);
+    float w_a = lob * d2 - 1.0f;
+    w_a = w_a * w_a;
+    // Horner form of 25/16*(2/5*d2-1)^2 - 9/16; the product with w_a stays
+    // factored (a single quartic loses fidelity near the clip point).
+    const float w_b = (0.25f * d2 - 1.25f) * d2 + 1.0f;
+    const float w = w_b * w_a;
+    ac0 = ac0 + t[0][dy][dx] * w;
+    ac1 = ac1 + t[1][dy][dx] * w;
+    ac2 = ac2 + t[2][dy][dx] * w;
+    aw = aw + w;
+  }
+  const float inv_w = __frcp_rn(aw);
+  const float acc[3] = {ac0, ac1, ac2};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    // Dering clamp to the nearest 2x2 {f, g, j, k}; selects keep a NaN as
+    // jnp.minimum/maximum would.
+    const float mn = fminf(fminf(t[c][1][1], t[c][1][2]), fminf(t[c][2][1], t[c][2][2]));
+    const float mx = fmaxf(fmaxf(t[c][1][1], t[c][1][2]), fmaxf(t[c][2][1], t[c][2][2]));
+    float v = acc[c] * inv_w;
+    v = (v < mn) ? mn : v;
+    v = (v > mx) ? mx : v;
+    out[c] = v;
+  }
+}
+
+// rcas_resolve(fast=True) on the cross b (above), d (left), e (centre),
+// f (right), h (below), three channels each.
+template <bool DENOISE>
+__device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], const float e[3],
+                                           const float f[3], const float h[3], float sharp,
+                                           float out[3]) {
+  // Division-light limiter: the reference's lobe is
+  // -(1/4) min_ch min(u/mx4, v/q) with u = min(mn4, e), v = 1 - max(mx4, e),
+  // q = 1 - mn4; ratios compare cross-multiplied, then one reciprocal.  The
+  // selects reproduce the reference's NaN-drop branch (mx4 == 0 under an
+  // isolated bright pixel) without forming a NaN; no fmaxf NaN-dropping is
+  // relied on.
+  float num = 0.0f, den = 1.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float mn4 = fminf(fminf(b[c], d[c]), fminf(f[c], h[c]));
+    const float mx4 = fmaxf(fmaxf(b[c], d[c]), fmaxf(f[c], h[c]));
+    const float u = fminf(mn4, e[c]);
+    const float v = 1.0f - fmaxf(mx4, e[c]);
+    const float q = 1.0f - mn4;
+    const float v_s = (q == 0.0f) ? 1.0f : v;
+    const bool pick1 = u * q < v_s * mx4;
+    const float n_c = pick1 ? u : v;
+    const float d_c = pick1 ? mx4 : q;
+    if (c == 0) {
+      num = n_c;
+      den = d_c;
+    } else if (n_c * den < num * d_c) {
+      num = n_c;
+      den = d_c;
+    }
+  }
+  float r = num * __frcp_rn(den);
+  r = (r < 0.0f) ? 0.0f : r;
+  r = (r > RCAS_LIMIT4) ? RCAS_LIMIT4 : r;
+  float lobe = r * (sharp * -0.25f);
+  if (DENOISE) {
+    const float bl = luma2(b[0], b[1], b[2]);
+    const float dl = luma2(d[0], d[1], d[2]);
+    const float el = luma2(e[0], e[1], e[2]);
+    const float fl = luma2(f[0], f[1], f[2]);
+    const float hl = luma2(h[0], h[1], h[2]);
+    float nz = 0.25f * bl + 0.25f * dl + 0.25f * fl + 0.25f * hl - el;
+    const float rng = fmaxf(fmaxf(fmaxf(bl, dl), fmaxf(el, fl)), hl) -
+                      fminf(fminf(fminf(bl, dl), fminf(el, fl)), hl);
+    nz = sat_nan0(fabsf(nz) * prx_med_rcp(rng));
+    nz = -0.5f * nz + 1.0f;
+    lobe = lobe * nz;
+  }
+  const float rcp_l = prx_med_rcp(4.0f * lobe + 1.0f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c] = (lobe * ((b[c] + d[c]) + (h[c] + f[c])) + e[c]) * rcp_l;
+}
+
+// Store one pixel's three channels at plane offset `at`.
+template <typename T>
+__device__ __forceinline__ void st3(T* o, int64_t oplane, int64_t at, const float v[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) st(o + c * oplane + at, v[c]);
+}
+
+// One block's TILE_H x TILE_W tile of an h x w output frame `o`, RCAS off:
+// pixel(Y, X, v) gives each pixel's three channels, stored as they come.
+template <typename T, typename Pixel>
+__device__ __forceinline__ void store_tile(Pixel pixel, T* o, int h, int w) {
+  const int64_t oplane = (int64_t)h * w;
+  const int x0 = blockIdx.x * TILE_W;
+  const int y0 = blockIdx.y * TILE_H;
+  for (int k = threadIdx.x; k < TILE_W * TILE_H; k += NTHREADS) {
+    const int Y = y0 + k / TILE_W;
+    const int X = x0 + k % TILE_W;
+    if (Y >= h || X >= w) continue;
+    float v[3];
+    pixel(Y, X, v);
+    st3(o, oplane, (int64_t)Y * w + X, v);
+  }
+}
+
+// One block's tile with RCAS: ring(Y, X, v) fills the float32 planes of the
+// tile and its one-pixel ring in shared memory, for (Y, X) from one before
+// the tile to one past it (possibly outside the frame: the caller applies
+// its border rule); after a barrier each pixel of the tile runs the RCAS
+// cross on them and stores once.
+template <bool DENOISE, typename T, typename Ring>
+__device__ __forceinline__ void rcas_tile(Ring ring, T* o, int h, int w, float sharp) {
+  const int64_t oplane = (int64_t)h * w;
+  const int x0 = blockIdx.x * TILE_W;
+  const int y0 = blockIdx.y * TILE_H;
+  __shared__ float sm[3][RING_H][RING_W];
+  for (int k = threadIdx.x; k < RING_H * RING_W; k += NTHREADS) {
+    const int ly = k / RING_W;
+    const int lx = k % RING_W;
+    float v[3];
+    ring(y0 + ly - 1, x0 + lx - 1, v);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sm[c][ly][lx] = v[c];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < TILE_W * TILE_H; k += NTHREADS) {
+    const int ly = k / TILE_W;
+    const int lx = k % TILE_W;
+    const int Y = y0 + ly;
+    const int X = x0 + lx;
+    if (Y >= h || X >= w) continue;
+    float b[3], d[3], e[3], f[3], hh[3], v[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      b[c] = sm[c][ly][lx + 1];
+      d[c] = sm[c][ly + 1][lx];
+      e[c] = sm[c][ly + 1][lx + 1];
+      f[c] = sm[c][ly + 1][lx + 2];
+      hh[c] = sm[c][ly + 2][lx + 1];
+    }
+    rcas_pixel<DENOISE>(b, d, e, f, hh, sharp, v);
+    st3(o, oplane, (int64_t)Y * w + X, v);
+  }
+}
+
+// Host side: launch(grid, n0) once per chunk of at most 65535 frames (the
+// grid's z limit) starting at frame n0, one block per tile of an h x w
+// output; returns the first launch error.
+template <typename Launch>
+int launch_frames(int nb, int h, int w, Launch launch) {
+  const int max_z = 65535;
+  for (int n0 = 0; n0 < nb; n0 += max_z) {
+    const int nz = nb - n0 < max_z ? nb - n0 : max_z;
+    launch(dim3((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H, nz), n0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+}  // namespace fsr

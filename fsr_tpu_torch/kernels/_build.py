@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels (``fsr_tpu_torch/csrc/*.cu``).
 
-The sources have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ``ctypes``.  The build happens at first use, into
+The sources have a plain C interface.  ``nvcc`` compiles each ``.cu`` file
+to an object, all of them at once in parallel processes, then links them
+into one shared library, loaded with ``ctypes``.  The ``.cuh`` headers are
+hashed with the sources.  The build happens at first use, into
 ``fsr_tpu_torch/_build/<hash of the sources and flags>/``, so a fresh
 checkout builds everything the first time a kernel launches and reuses the
 library afterwards.  A failed build raises with the compiler's output.
@@ -29,7 +31,7 @@ _BUILD_ROOT = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -67,6 +69,45 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, i, i, i, i, i, i, i, i, ip, ip, fp, fp, f, i, i, vp,
     ]
     lib.fsr_upscale_fused.restype = i
+    lib.fsr_easu_gather.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, vp]
+    lib.fsr_easu_gather.restype = i
+    lib.fsr_rcas.argtypes = [vp, vp, i, i, i, i, i, f, i, i, vp]
+    lib.fsr_rcas.restype = i
+
+
+def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
+    """One nvcc per .cu source, all started together, then one link.  Objects
+    go to a private scratch directory, so concurrent builders never share a
+    file; the library appears at ``so`` atomically."""
+    nvcc = _nvcc()
+    work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out}")
+        if not failed:
+            lib = work / "lib.so"
+            cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(lib), *(str(o) for _, o, _ in jobs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"link (exit {res.returncode}):\n{res.stdout}{res.stderr}")
+            else:
+                os.replace(lib, so)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,17 +117,7 @@ def library() -> ctypes.CDLL:
     so = out_dir / "libfsr_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(p) for p in _sources() if p.suffix == ".cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}):\n{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+        _compile(out_dir, so)
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     return lib

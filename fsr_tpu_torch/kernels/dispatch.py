@@ -1,10 +1,13 @@
-"""Kernel dispatch: decide when the fused kernel path applies.
+"""Kernel dispatch: pick the kernel that takes a configuration.
 
-Counterpart of ``fsr_tpu/kernels/dispatch.py``.  K1 specialises on the
-phase structure of the coordinate mapping (see ``kernels/fused.py``); this
-module owns the eligibility check and the call, so ``api.upscale`` stays
-device-agnostic.  A configuration K1 does not take raises: the kernel path
-never falls back to plain torch on its own.
+Counterpart of ``fsr_tpu/kernels/dispatch.py``.  K1 (K4 then the fused
+kernel, ``kernels/fused.py``) takes the integer phase structures of the
+coordinate mapping (the 2x Performance preset); K2 (``kernels/easu_gather.py``)
+takes every other upscale (the other presets, native 1x, DRS ratios).  This
+module owns the choice and the call, so ``api.upscale`` stays
+device-agnostic.  A configuration neither kernel takes (a downscale, RGBA,
+another dtype) raises: the kernel path never falls back to plain torch on
+its own.
 """
 
 from __future__ import annotations
@@ -14,14 +17,17 @@ from typing import Tuple
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-from fsr_tpu_torch.kernels import fused
+from fsr_tpu_torch.kernels import easu_gather, fused
 
 __all__ = ["supported", "upscale_fused"]
 
 
 def supported(image: torch.Tensor, out_size, con: EasuConstants, compute_dtype) -> bool:
-    """True when the kernel path (K4 then K1) takes this configuration."""
-    return fused.supported(tuple(image.shape), out_size, con, compute_dtype)
+    """True when the kernel path (K1 or K2) takes this configuration."""
+    shape = tuple(image.shape)
+    return fused.supported(shape, out_size, con, compute_dtype) or easu_gather.supported(
+        shape, out_size, con, compute_dtype
+    )
 
 
 def upscale_fused(
@@ -33,17 +39,16 @@ def upscale_fused(
     denoise: bool,
     compute_dtype,
 ) -> torch.Tensor:
-    """Run the kernel path: K4 then K1 on a CUDA tensor, their plain
-    versions on a CPU tensor."""
-    if not supported(image, out_size, con, compute_dtype):
-        raise NotImplementedError(
-            "the kernel path takes RGB float32/bfloat16 images at integer "
-            "per-axis ratios (1, 2 or 4) only; other ratios need kernel K2 "
-            "(ROADMAP.md queue item 4: K2 for presets and DRS). "
-            f"Got in={tuple(image.shape)} out={tuple(out_size)} dtype={compute_dtype}; "
-            "pass impl='torch' for the plain-torch path."
-        )
-    return fused.upscale_fused(
-        image, out_size, con, rcon,
-        apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype,
+    """Run the kernel path: K4 then K1 at an integer phase structure, else
+    K2; on a CPU tensor their plain versions."""
+    shape = tuple(image.shape)
+    kw = dict(apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype)
+    if fused.supported(shape, out_size, con, compute_dtype):
+        return fused.upscale_fused(image, out_size, con, rcon, **kw)
+    if easu_gather.supported(shape, out_size, con, compute_dtype):
+        return easu_gather.easu_gather(image, out_size, con, rcon, **kw)
+    raise NotImplementedError(
+        "the kernel path takes RGB float32/bfloat16 upscales (1x to 4x area); "
+        f"got in={shape} out={tuple(out_size)} dtype={compute_dtype}. "
+        "Pass impl='torch' for the plain-torch path."
     )

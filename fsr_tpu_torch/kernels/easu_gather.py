@@ -1,0 +1,163 @@
+"""K2: EASU (+ fused RCAS) at any upscale ratio (CUDA kernel).
+
+Counterpart of ``fsr_tpu/kernels/easu_gather.py:easu_gather``.  It takes
+every configuration K1 does not: the 1.3x/1.5x/1.7x presets, native 1x,
+non-integer Dynamic Resolution Scaling ratios and odd output extents.
+
+The host builds per-axis tables from the float32 coordinate mapping
+(``ops.easu.easu_coords``): for each output column the four source columns
+``clip(fx + dx, 0, win - 1)`` (dx = -1..2) and the subpixel fraction, and the
+same for rows.  The clip is the CLAMP sampler that ``ops.easu`` applies, so
+the kernel reads the unpadded source (no K4 pass in front of it), and the
+device never recomputes a coordinate.  ``easu_gather`` launches
+``csrc/easu_gather.cu`` for a CUDA tensor and counts the launch in
+``easu_gather.launches``; for a CPU tensor it runs ``easu_gather_reference``.
+
+The TPU kernel's hybrid X-phase, one-hot row selectors, dynamic-roll column
+gathers, tile sweeps and one-tile software pipeline are TPU layout machinery
+with no counterpart here.  RGBA, byte I/O, the epilogue and sharded row
+plans wait (ROADMAP.md queue items 2, 3 and 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+from fsr_tpu_torch.kernels import fused, pad
+from fsr_tpu_torch.ops.easu import easu_coords
+
+__all__ = ["supported", "GatherPlan", "plan", "easu_gather", "easu_gather_reference"]
+
+
+def supported(in_shape, out_size, con: EasuConstants, compute_dtype) -> bool:
+    """True when K2 takes this configuration: RGB, float32/bfloat16 storage,
+    and an upscale on both axes (the EASU 1x-4x contract).  The JAX kernel's
+    minimum output of 16 x 128 is a TPU tiling limit and does not apply."""
+    if len(in_shape) < 3 or in_shape[-3] != 3:
+        return False
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        return False
+    hout, wout = out_size
+    hin, win = in_shape[-2:]
+    return min(hin, win) >= 1 and hout >= hin and wout >= win
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GatherPlan:
+    """Host tables for one K2 configuration.
+
+    rows (4, Hout) / cols (4, Wout) int32: the source row/column of the taps
+    at offsets -1..2 around each output pixel's 'f' texel, clipped to the
+    image; py (Hout,) / px (Wout,) float32: the subpixel fractions.  Plans
+    are cached and compared by identity.
+    """
+
+    rows: np.ndarray
+    cols: np.ndarray
+    py: np.ndarray
+    px: np.ndarray
+
+
+@functools.lru_cache(maxsize=64)
+def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) -> GatherPlan:
+    """The tables for an (Hin, Win) -> out_size upscale under ``con``; cached
+    per configuration, so both size arguments must be int tuples."""
+    hin, win = in_hw
+    fx, fy, px, py = easu_coords(con, out_size)
+    d = np.arange(-1, 3, dtype=np.int64)[:, None]
+    rows = np.clip(fy.astype(np.int64)[None, :] + d, 0, hin - 1).astype(np.int32)
+    cols = np.clip(fx.astype(np.int64)[None, :] + d, 0, win - 1).astype(np.int32)
+    return GatherPlan(rows=rows, cols=cols, py=py, px=px)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(gplan: GatherPlan, device: torch.device):
+    """The plan's tables on ``device`` (copied once per plan and device)."""
+    return tuple(torch.as_tensor(a, device=device) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
+
+
+def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype):
+    if apply_rcas and rcon is None:
+        raise ValueError("apply_rcas=True requires rcon")
+    if image.dim() < 3 or image.shape[-3] != 3:
+        raise ValueError(f"image must be (..., 3, H, W), got {tuple(image.shape)}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    out_hw = (int(out_size[0]), int(out_size[1]))
+    in_hw = (int(image.shape[-2]), int(image.shape[-1]))
+    if not supported(tuple(image.shape), out_hw, con, compute_dtype):
+        raise ValueError(f"K2 takes upscales only (1x-4x area), got {in_hw} -> {out_hw}")
+    sharp = float(rcon.sharpness) if rcon is not None else 1.0
+    return plan(in_hw, out_hw, con), out_hw, sharp
+
+
+def easu_gather_reference(
+    image: torch.Tensor,
+    out_size: Tuple[int, int],
+    con: EasuConstants,
+    rcon: Optional[RcasConstants] = None,
+    apply_rcas: bool = False,
+    denoise: bool = False,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain version of K2, on any device: the source rounded to the storage
+    dtype, then ``fused.easu_rcas_reference`` on the plan's clipped tap
+    indices (one rounding at the end)."""
+    gplan, _, sharp = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype)
+    dev = image.device
+    rows, cols, py, px = (torch.as_tensor(a, device=dev) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
+    return fused.easu_rcas_reference(
+        image.to(compute_dtype), rows.long(), cols.long(), py, px, sharp, apply_rcas, denoise
+    )
+
+
+def easu_gather(
+    image: torch.Tensor,
+    out_size: Tuple[int, int],
+    con: EasuConstants,
+    rcon: Optional[RcasConstants] = None,
+    apply_rcas: bool = False,
+    denoise: bool = False,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """EASU (+ RCAS when ``apply_rcas``) of a (..., 3, Hin, Win) float32 or
+    bfloat16 image to (..., 3, Hout, Wout) in ``compute_dtype`` (storage;
+    the math is float32).  CUDA tensors launch ``csrc/easu_gather.cu``; CPU
+    tensors run ``easu_gather_reference``."""
+    if image.device.type == "cpu":
+        return easu_gather_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype)
+    if image.device.type != "cuda":
+        raise ValueError(f"easu_gather takes a CPU or CUDA tensor, got {image.device}")
+    if image.dtype not in pad.DTYPE_CODES:
+        raise TypeError(f"gather kernel takes float32/bfloat16 images, got {image.dtype}")
+    gplan, (hout, wout), sharp = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype)
+    image = image.contiguous()
+    *lead, _, hin, win = image.shape
+    out = torch.empty((*lead, 3, hout, wout), dtype=compute_dtype, device=image.device)
+    if out.numel() == 0:
+        return out
+    rows, cols, py, px = _device_tables(gplan, image.device)
+    from fsr_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = lib.fsr_easu_gather(
+            image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype],
+            pad.DTYPE_CODES[compute_dtype], image.numel() // (3 * hin * win), hin, win,
+            hout, wout, rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
+            sharp, int(apply_rcas), int(denoise), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gather kernel launch failed: cudaError {err}")
+    easu_gather.launches += 1
+    return out
+
+
+easu_gather.launches = 0

@@ -41,6 +41,7 @@ __all__ = [
     "plan",
     "upscale_padded",
     "upscale_padded_reference",
+    "easu_rcas_reference",
     "upscale_fused",
     "upscale_fused_reference",
 ]
@@ -154,32 +155,37 @@ def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) 
 
 
 def _axis_tables(q, r, frac, n, device):
-    """Per output row/column: padded-frame 'f' index and subpixel fraction."""
+    """Per output row/column: the padded-frame indices of the four taps
+    around 'f' (offsets -1..2, shape (4, n)) and the subpixel fraction."""
     idx = np.arange(n)
     f = idx // q + np.asarray(r, np.int64)[idx % q]
     p = np.asarray(frac, np.float32)[idx % q]
-    return torch.as_tensor(f, device=device), torch.as_tensor(p, device=device)
+    taps = f[None, :] + np.arange(-1, 3)[:, None]
+    return torch.as_tensor(taps, device=device), torch.as_tensor(p, device=device)
 
 
-def upscale_padded_reference(
-    padded: torch.Tensor,
-    fplan: FusedPlan,
-    out_size: Tuple[int, int],
+def easu_rcas_reference(
+    src: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    ppy: torch.Tensor,
+    ppx: torch.Tensor,
     sharpness: float,
     apply_rcas: bool = True,
     denoise: bool = False,
 ) -> torch.Tensor:
-    """Plain version of K1: the same float32 math (the kernels' ``fast``
-    forms, per-texel quad responses, RCAS on the unrounded EASU values with
-    the border clamped in output coordinates), one rounding at the end to
-    ``padded.dtype``."""
-    hout, wout = out_size
-    dev = padded.device
-    fy, ppy = _axis_tables(fplan.qy, fplan.ry, fplan.py, hout, dev)
-    fx, ppx = _axis_tables(fplan.qx, fplan.rx, fplan.px, wout, dev)
-    src = padded.to(torch.float32)
+    """The float32 math of K1 and K2 on a (..., 3, H, W) source in its
+    storage dtype: the kernels' ``fast`` forms, per-texel quad responses,
+    RCAS on the unrounded EASU values with the border clamped in output
+    coordinates, one rounding at the end to ``src.dtype``.
+
+    rows (4, Hout) / cols (4, Wout): the source row/column of the taps at
+    offsets -1..2 around each output pixel's 'f' texel; ppy (Hout,) / ppx
+    (Wout,): the float32 subpixel fractions.
+    """
+    srcf = src.to(torch.float32)
     taps = {
-        name: src[..., (fy + dy)[:, None], (fx + dx)[None, :]]
+        name: srcf[..., rows[dy + 1][:, None], cols[dx + 1][None, :]]
         for name, (dx, dy) in easu_math.TAP_OFFSETS.items()
     }
     lum = {k: v[..., 2, :, :] * 0.5 + (v[..., 0, :, :] * 0.5 + v[..., 1, :, :]) for k, v in taps.items()}
@@ -201,7 +207,24 @@ def upscale_padded_reference(
             denoise=denoise,
             fast=True,
         )
-    return out.to(padded.dtype)
+    return out.to(src.dtype)
+
+
+def upscale_padded_reference(
+    padded: torch.Tensor,
+    fplan: FusedPlan,
+    out_size: Tuple[int, int],
+    sharpness: float,
+    apply_rcas: bool = True,
+    denoise: bool = False,
+) -> torch.Tensor:
+    """Plain version of K1 (``easu_rcas_reference`` with the phase plan's
+    padded-frame tap indices); the result is in ``padded.dtype``."""
+    hout, wout = out_size
+    dev = padded.device
+    rows, ppy = _axis_tables(fplan.qy, fplan.ry, fplan.py, hout, dev)
+    cols, ppx = _axis_tables(fplan.qx, fplan.rx, fplan.px, wout, dev)
+    return easu_rcas_reference(padded, rows, cols, ppy, ppx, sharpness, apply_rcas, denoise)
 
 
 def upscale_padded(

@@ -6,8 +6,8 @@ ops), which run the same f32 ops in the same order: within 2e-6 (XLA may
 fuse and reassociate).  bf16 accumulates in bf16 on both sides; jitted XLA
 keeps excess precision in fusions, so bf16 is held to the f32 oracle by
 median and p99 against the JAX numbers.  ``impl="kernel"`` on the CPU runs
-the plain versions of K4 and K1: within 6e-5 of the XLA path (the JAX
-package's fused-vs-XLA bound).
+the plain versions of K4 and K1, or of K2: within 6e-5 of the XLA path (the
+JAX package's fused-vs-XLA bound).
 """
 
 import os
@@ -99,7 +99,6 @@ UNSUPPORTED = [
     ("dither_page", lambda x: dict(dither_page=torch.zeros(128, 128))),
     ("grad on the kernel path", lambda x: dict(image=x.clone().requires_grad_(), impl="kernel")),
     ("grad on the torch path", lambda x: dict(image=x.clone().requires_grad_(), impl="torch")),
-    ("1.5x on the kernel path", lambda x: dict(preset=None, scale=1.5, impl="kernel")),
 ]
 
 
@@ -111,6 +110,42 @@ def test_unsupported_options_raise(case):
     kw.update(make(x))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fsr_tpu_torch.upscale(**kw)
+
+
+KERNEL_PATH_CASES = [
+    # id, input shape, upscale kwargs: every preset and a DRS ratio
+    ("ultra_quality", (3, 30, 44), dict(preset="ultra_quality")),
+    ("quality", (3, 36, 64), dict(preset="quality")),
+    ("balanced", (3, 30, 44), dict(preset="balanced")),
+    ("native", (3, 30, 44), dict(preset="native")),
+    ("2x odd width", (3, 27, 48), dict(out_size=(54, 97))),
+    ("DRS 1.5x", (2, 3, 40, 72), dict(scale=1.5, input_viewport=(36, 64), input_offset=(2, 4))),
+    ("bf16 storage", (3, 36, 64), dict(preset="quality", compute_dtype=torch.bfloat16)),
+]
+
+
+@pytest.mark.parametrize("case", KERNEL_PATH_CASES, ids=lambda c: c[0])
+def test_kernel_path_takes_every_preset(case):
+    """impl="kernel" reaches K2 (on the CPU its plain version) wherever K1
+    does not apply; held to the JAX XLA path like the Performance case."""
+    _, shape, kw = case
+    img = _img(5, shape)
+    jkw = {k: v for k, v in kw.items() if k != "compute_dtype"}
+    want = np.asarray(fsr_tpu.upscale(jnp.asarray(img), impl="xla", **jkw))
+    got = fsr_tpu_torch.upscale(torch.from_numpy(img), impl="kernel", **kw)
+    assert got.shape == want.shape
+    d = np.abs(got.float().numpy() - want)
+    if got.dtype == torch.float32:
+        assert d.max() <= KERNEL_TOL
+    else:
+        assert np.median(d) <= 1.0 / 510.0 and np.percentile(d, 99) <= 5.0 / 255.0
+
+
+def test_kernel_path_raises_on_downscale():
+    x = torch.from_numpy(_img(6, (3, 27, 48)))
+    with pytest.raises(NotImplementedError, match="impl='torch'"):
+        fsr_tpu_torch.upscale(x, out_size=(20, 40), impl="kernel")
+    assert fsr_tpu_torch.upscale(x, out_size=(20, 40), impl="torch").shape == (3, 20, 40)
 
 
 def test_bad_arguments_raise_value_error():

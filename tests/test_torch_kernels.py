@@ -173,12 +173,17 @@ def test_cpu_calls_count_no_launches_and_build_nothing():
 
 
 def test_dispatch_raises_on_unsupported_ratio():
+    # 1.5x has no integer phase structure: K1 refuses it and K2 takes it.
     x = torch.from_numpy(_img(10, (3, 72, 128)))
-    jc, tc = _cons((72, 128), (108, 192))  # 1.5x: no integer phase structure
-    assert not tdispatch.supported(x, (108, 192), tc, torch.float32)
+    jc, tc = _cons((72, 128), (108, 192))
+    assert not tfused.supported(x.shape, (108, 192), tc, torch.float32)
     assert not jfused.supported((3, 72, 128), (108, 192), jc, jnp.float32)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tdispatch.upscale_fused(x, (108, 192), tc, RcasConstants(0.25), True, False, torch.float32)
+    assert tdispatch.supported(x, (108, 192), tc, torch.float32)
+    # A downscale is outside both kernels (the EASU 1x-4x contract).
+    _, tc_dn = _cons((72, 128), (54, 96))
+    assert not tdispatch.supported(x, (54, 96), tc_dn, torch.float32)
+    with pytest.raises(NotImplementedError, match="impl='torch'"):
+        tdispatch.upscale_fused(x, (54, 96), tc_dn, RcasConstants(0.25), True, False, torch.float32)
 
 
 def test_supported_gating_matches_jax():
