@@ -29,7 +29,25 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      the Quality path and K1, K4 not; K3 on sharpen) and CUDA-event times;
  11. with --trace only: a torch.profiler trace of the Performance path, the
      Quality path and sharpen (device time per kernel, busy time and idle
-     share of the window).
+     share of the window);
+ 12. K1 and K2 with each Epilogue variant (kernels/epilogue.py) and the SRTM
+     prologue, float32 and bfloat16 storage, uint8 in and uint8/uint16 out,
+     against their plain versions: float outputs by the phase-4 limits
+     (SRTM^-1 outputs after the forward tonemap), codes and dithered outputs
+     identical or at most 1e-4 of the values off by one code or dither
+     step; K3 and K4 on uint8 bit-equal;
+ 13. the README's pipeline paths on batches of 4 (launch counts exactly one
+     per kernel, held against the kernels' plain versions by the phase-12
+     limits and against the plain-torch pipeline, CUDA-event times beside
+     the same upscale without the epilogue and the plain versions): (a) the
+     HDR frame tail UpscalePipeline((2160, 3840), hdr_srtm=True,
+     grain_amount=0.3, dither_bits=10) on float32 1080p frames (K4 + K1),
+     (b) the display path (grain, 8-bit dither, uint8 out, bf16 storage) on
+     uint8 1440p frames (K2), (c) the byte video path upscale(frame_u8,
+     scale=2.0, out_dtype=uint8) (K4 + K1 on bytes), and sharpen on uint8 4K
+     frames (K3);
+ 14. with --trace only: traces of (a) and (b), which must show only their
+     kernels.
 The last two lines are a JSON object describing the kernels and the JSON
 result line.  Exits non-zero with no result when CUDA is unavailable.
 """
@@ -50,6 +68,8 @@ BF16_MAX = 2.0 ** -8
 BF16_MEDIAN = 1.0 / 1250.0
 BF16_P99 = 1.25 / 255.0
 ORACLE_TOL = 2e-5
+CODE_SHARE = 1e-4
+TORCH_SHARE = 1e-3
 MAIN_SHAPE = (4, 3, 1080, 1920)
 QUALITY_SHAPE = (4, 3, 1440, 2560)
 SHARPEN_SHAPE = (4, 3, 2160, 3840)
@@ -63,14 +83,18 @@ def _card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+def _compare(got: torch.Tensor, want: torch.Tensor, what: str, bf16_max=None) -> float:
+    """Phase 4's limits: float32 by max-abs; bfloat16 (or float32 values
+    held to bf16 limits with a max of `bf16_max`) by median, p99 and max."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite output")
     d = (got.float() - want.float()).abs()
     mx = d.max().item()
-    if got.dtype == torch.float32:
+    f32_limits = got.dtype == torch.float32 and bf16_max is None
+    bf16_max = BF16_MAX if bf16_max is None else bf16_max
+    if f32_limits:
         ok = mx <= F32_TOL
         print(f"  {what}: max-abs {mx:.3e} (limit {F32_TOL:g})")
     else:
@@ -79,12 +103,82 @@ def _compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
             flat = flat[:: flat.numel() // (1 << 24) + 1]
         med = flat.median().item()
         p99 = torch.quantile(flat, 0.99).item()
-        ok = mx <= BF16_MAX and med <= BF16_MEDIAN and p99 <= BF16_P99
+        ok = mx <= bf16_max and med <= BF16_MEDIAN and p99 <= BF16_P99
         print(f"  {what}: max-abs {mx:.3e} median {med:.3e} p99 {p99:.3e} "
-              f"(limits {BF16_MAX:g}, {BF16_MEDIAN:g}, {BF16_P99:g})")
+              f"(limits {bf16_max:g}, {BF16_MEDIAN:g}, {BF16_P99:g})")
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
     return mx
+
+
+def _compare_steps(got: torch.Tensor, want: torch.Tensor, bits, what: str) -> float:
+    """Codes and dithered outputs: identical, or at most CODE_SHARE of the
+    values off, each by one code (one dither step: a whole 8-bit step in
+    10-bit codes).  Returns the largest difference in output units."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    if got.dtype in (torch.uint8, torch.uint16):
+        max_code = 255 if got.dtype == torch.uint8 else 1023
+        limit = 1.0 if bits is None else float(-(-max_code // (2 ** bits - 1)))
+        d = (got.to(torch.int32) - want.to(torch.int32)).abs().double()
+        scale = 1.0 / max_code
+    else:
+        # one step; in bf16 storage plus the bf16 step of the rounded code
+        limit = 1.01 / (2 ** bits - 1) + (BF16_MAX if got.dtype == torch.bfloat16 else 0.0)
+        g, w = got.double(), want.double()
+        d = torch.where(torch.isnan(g) & torch.isnan(w), 0.0, (g - w).abs()).nan_to_num(nan=float("inf"))
+        scale = 1.0
+    off = int((d > 0).sum())
+    mx = d.max().item()
+    share = off / d.numel()
+    print(f"  {what}: {off} of {d.numel()} values off (share {share:.2e}, limit {CODE_SHARE:g}), "
+          f"max {mx:g} (limit {limit:g})")
+    if share > CODE_SHARE or mx > limit:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version")
+    return mx * scale
+
+
+def _compare_epilogue(got: torch.Tensor, want: torch.Tensor, epi, what: str) -> float:
+    """Phase 12's limits.  Float outputs as phase 4; an SRTM^-1 output after
+    the forward tonemap (the inverse multiplies a difference by (1 + y)^2 at
+    output y; the tonemap maps both back to the domain the kernel computed
+    in; in bf16 storage a value and its max3 each round before the tonemap,
+    so the max limit is two bf16 steps); codes and dithered outputs by
+    ``_compare_steps``."""
+    from fsr_tpu_torch.ops.extras import srtm
+
+    bits = epi.dither_bits if epi is not None else None
+    if got.dtype in (torch.uint8, torch.uint16) or bits is not None:
+        return _compare_steps(got, want, bits, what)
+    if epi is not None and epi.transform == "srtm_inv":
+        bf16_out = got.dtype == torch.bfloat16
+        got, want = (srtm(t.float()) for t in (got, want))
+        return _compare(got, want, what + " (after the forward tonemap)",
+                        2 * BF16_MAX + F32_TOL if bf16_out else None)
+    return _compare(got, want, what)
+
+
+def _compare_torch_path(got: torch.Tensor, want: torch.Tensor, what: str, step=None) -> None:
+    """A fused path against the plain-torch pipeline, whose forms are not the
+    kernels' fast ones: at most TORCH_SHARE of the values at another code or
+    dither step, each by at most `step`.  step=None: bf16 arithmetic on the
+    torch side, so its codes are held by the bf16 contract of
+    docs/FIDELITY.md (median 1/510, p99 5/255) plus one dither step: median
+    <= 1 code and p99 <= 6 codes."""
+    d = (got.double() - want.double()).abs()
+    if step is None:
+        flat = d.flatten()[:: d.numel() // (1 << 24) + 1]
+        med, p99 = flat.median().item(), torch.quantile(flat, 0.99).item()
+        print(f"  {what} vs the plain-torch pipeline: code differences median {med:g} p99 {p99:g} "
+              f"max {d.max().item():g} (limits 1, 6)")
+        if med > 1 or p99 > 6:
+            raise AssertionError(f"{what}: disagrees with the plain-torch pipeline")
+        return
+    share = (d > 1e-6).double().mean().item()
+    print(f"  {what} vs the plain-torch pipeline: share {share:.2e} at another code or step "
+          f"(limit {TORCH_SHARE:g}), max {d.max().item():g} (limit {step:g})")
+    if share > TORCH_SHARE or d.max().item() > step:
+        raise AssertionError(f"{what}: disagrees with the plain-torch pipeline")
 
 
 def _back_to_back_ms(fn, n: int = 10) -> float:
@@ -105,7 +199,7 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="add phase 11: a torch.profiler trace of the main paths")
+                        help="add phases 11 and 14: torch.profiler traces of the main paths")
     trace = parser.parse_args().trace
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -222,15 +316,15 @@ def main() -> int:
                 "K2": easu_gather.easu_gather, "K3": rcas_k.rcas_fused}
 
     def drive(fn, need):
-        """Run fn with every count at 0; fail unless exactly the kernels in
-        `need` launched."""
+        """Run fn with every count at 0; fail unless each kernel in `need`
+        launched exactly once and no other kernel launched."""
         for w in wrappers.values():
             w.launches = 0
         out = fn()
         torch.cuda.synchronize()
         got = {k: w.launches for k, w in wrappers.items()}
-        if any((n >= 1) != (k in need) for k, n in got.items()):
-            raise AssertionError(f"launch counts {got}: the path must launch exactly {need}")
+        if any(n != (k in need) for k, n in got.items()):
+            raise AssertionError(f"launch counts {got}: the path must launch exactly one of each of {need}")
         return out, got
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -446,7 +540,167 @@ def main() -> int:
                     for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
                         print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname}")
 
+    # --- 12. the prologue, the epilogue and byte I/O ---------------------------
+    from fsr_tpu_torch.kernels import epilogue as epilogue_mod
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+
+    u8, u16 = torch.uint8, torch.uint16
+    rcon = RcasConstants(0.25)
+    print("phase 12: K1 and K2 with the SRTM prologue, the K5 epilogue and byte I/O vs their plain versions")
+    epilogues = [
+        ("no epilogue", None),
+        ("gamma2", Epilogue(transform="gamma2")),
+        ("srtm_inv", Epilogue(transform="srtm_inv")),
+        ("grain", Epilogue(grain_amount=0.3)),
+        ("dither10", Epilogue(dither_bits=10)),
+        ("gamma2+grain+dither8", Epilogue(transform="gamma2", grain_amount=0.25, dither_bits=8)),
+        ("page dither8", Epilogue(dither_bits=8, dither_texture=True)),
+    ]
+    io_cases = [
+        # what, source, storage, out dtype, prologue
+        ("f32", "float", f32, None, "none"),
+        ("HDR srtm f32", "hdr", f32, None, "srtm"),
+        ("bf16", "float", bf16, None, "none"),
+        ("u8 bf16 ->u8", "u8", bf16, u8, "none"),
+        ("u8 f32 ->u16", "u8", f32, u16, "none"),
+        ("HDR srtm bf16 ->u16", "hdr", bf16, u16, "srtm"),
+    ]
+    page = torch.rand((96, 160), generator=gen, device=dev)  # any page shape tiles the output
+    epi_err = {"K1": 0.0, "K2": 0.0}
+    for kname, fn, ref_fn, in_hw in (("K1", fused.upscale_fused, fused.upscale_fused_reference, (540, 960)),
+                                     ("K2", easu_gather.easu_gather, easu_gather.easu_gather_reference,
+                                      (720, 1280))):
+        out_hw = (1080, 1920)
+        con = con_for(in_hw, out_hw)
+        x = rand((1, 3, *in_hw))
+        srcs = {"float": x, "hdr": x * 16, "u8": (x * 255).to(u8)}
+        grain = rand((3, *out_hw)) - 0.5
+        for ename, epi in epilogues:
+            for iname, src, dt, od, pro in io_cases:
+                if epi is not None and epi.dither_bits == 10 and od == u8:
+                    continue  # uint8 cannot hold 10-bit codes
+                kw = dict(epilogue=epi, frame=7, grain=grain, dither_page=page, prologue=pro, out_dtype=od)
+                got = fn(srcs[src], out_hw, con, rcon, True, False, dt, **kw)
+                want = ref_fn(srcs[src], out_hw, con, rcon, True, False, dt, **kw)
+                torch.cuda.synchronize()
+                err = _compare_epilogue(got, want, epi, f"{kname} {ename}, {iname}")
+                if got.dtype == f32 and (epi is None or epi.dither_bits is None):
+                    epi_err[kname] = max(epi_err[kname], err)
+    y8 = (rand((2, 3, 1080, 1920)) * 255).to(u8)
+    for border in ("clamp", "zero"):
+        for denoise in (False, True):
+            got = rcas_k.rcas_fused(y8, rcon, denoise, None, border)
+            want = rcas_k.rcas_fused_reference(y8, rcon, denoise, None, border)
+            torch.cuda.synchronize()
+            if got.dtype != u8 or not torch.equal(got, want):
+                raise AssertionError(f"K3 uint8 {border} denoise={denoise}: not bit-equal")
+            print(f"  K3 uint8 {border} denoise={denoise}: bit-equal")
+    for pads in (main_plan.pads, (3, 5, 2, 7)):
+        got, want = pad.edge_pad(y8, pads, u8), pad.edge_pad_reference(y8, pads, u8)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 uint8 pads {pads}: not bit-equal")
+        print(f"  K4 uint8 pads {pads}: bit-equal")
+
+    # --- 13. the README's pipeline paths -------------------------------------
+    out4k = (2160, 3840)
+    pcon = EasuConstants.create((1920, 1080), None, (3840, 2160))
+    hdr = torch.rand(MAIN_SHAPE, generator=gen, device=dev) * 16
+    grain4k = torch.rand((3, *out4k), generator=gen, device=dev) - 0.5
+    q8 = (qframes * 255).to(u8)
+    m8 = (frames * 255).to(u8)
+    s8 = (sframes * 255).to(u8)
+    epi_a = Epilogue(grain_amount=0.3, dither_bits=10)
+    epi_b = Epilogue(grain_amount=0.25, dither_bits=8)
+    pipe_a = ft.UpscalePipeline(out4k, hdr_srtm=True, grain_amount=0.3, dither_bits=10)
+    pipe_b = ft.UpscalePipeline(out4k, grain_amount=0.25, dither_bits=8, out_dtype=u8, compute_dtype=bf16)
+    torch_a = ft.UpscalePipeline(out4k, hdr_srtm=True, grain_amount=0.3, dither_bits=10, impl="torch")
+    torch_b = ft.UpscalePipeline(out4k, grain_amount=0.25, dither_bits=8, out_dtype=u8,
+                                 compute_dtype=bf16, impl="torch")
+    sharp = float(rcon.sharpness)
+    args_a = epilogue_mod.bind(epi_a, out4k, 7, grain4k, None, dev)
+    args_b = epilogue_mod.bind(epi_b, out4k, 7, grain4k, None, dev)
+    hdr_padded = pad.edge_pad(hdr, main_plan.pads, f32)
+    m8_padded = pad.edge_pad(m8, main_plan.pads, u8)
+    paths = [
+        # name, call, kernels it launches, plain version, plain-torch pipeline, torch-path step,
+        # epilogue, {timed kernel and its plain version}, {the same upscale without the epilogue}
+        ("(a) HDR frame tail, f32 1080p -> 4K", lambda: pipe_a(hdr, grain=grain4k, frame=7), ("K4", "K1"),
+         lambda: fused.upscale_fused_reference(hdr, out4k, pcon, rcon, epilogue=epi_a, frame=7, grain=grain4k,
+                                               prologue="srtm"),
+         lambda: torch_a(hdr, grain=grain4k, frame=7), 1.01 / 1023.0, epi_a,
+         {"K1": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp, prologue="srtm", epi=args_a),
+          "K1_plain": lambda: fused.upscale_padded_reference(hdr_padded, main_plan, out4k, sharp,
+                                                             prologue="srtm", epi=args_a),
+          "K1 SRTM prologue only": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp,
+                                                                prologue="srtm"),
+          "K1 grain + TEPD epilogue only": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp,
+                                                                        epi=args_a),
+          "K1 neither": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp),
+          "K4": lambda: pad.edge_pad(hdr, main_plan.pads, f32)},
+         {"upscale, no prologue or epilogue": lambda: ft.upscale(hdr, out_size=out4k)}),
+        ("(b) display, u8 1440p -> 4K u8, bf16", lambda: pipe_b(q8, grain=grain4k, frame=7), ("K2",),
+         lambda: easu_gather.easu_gather_reference(q8, out4k, qcon, rcon, True, False, bf16, epilogue=epi_b,
+                                                   frame=7, grain=grain4k, out_dtype=u8),
+         lambda: torch_b(q8, grain=grain4k, frame=7), None, epi_b,
+         {"K2": lambda: easu_gather.easu_gather(q8, out4k, qcon, rcon, True, False, bf16, epilogue=epi_b,
+                                                frame=7, grain=grain4k, out_dtype=u8)},
+         {"upscale u8 -> bf16, no epilogue": lambda: ft.upscale(q8, out_size=out4k, compute_dtype=bf16),
+          "upscale bf16 -> bf16 (phase 10's path)": lambda: ft.upscale(qframes.to(bf16), out_size=out4k,
+                                                                         compute_dtype=bf16)}),
+        ("(c) byte video, u8 1080p -> 4K u8", lambda: ft.upscale(m8, scale=2.0, out_dtype=u8), ("K4", "K1"),
+         lambda: fused.upscale_fused_reference(m8, out4k, pcon, rcon, out_dtype=u8),
+         lambda: ft.upscale(m8, scale=2.0, out_dtype=u8, impl="torch"), 1.0, None,
+         {"K1": lambda: fused.upscale_padded(m8_padded, main_plan, out4k, sharp, out_dtype=u8),
+          "K1_plain": lambda: fused.upscale_padded_reference(m8_padded, main_plan, out4k, sharp, out_dtype=u8),
+          "K4": lambda: pad.edge_pad(m8, main_plan.pads, u8),
+          "K4_plain": lambda: pad.edge_pad_reference(m8, main_plan.pads, u8)},
+         {"upscale f32 -> f32 (phase 6's path)": lambda: ft.upscale(frames, out_size=out4k)}),
+        ("sharpen u8 4K", lambda: ft.sharpen(s8), ("K3",), lambda: rcas_k.rcas_fused_reference(s8, rcon),
+         lambda: ft.sharpen(s8, impl="torch"), 1.0, None,
+         {"K3": lambda: rcas_k.rcas_fused(s8, rcon),
+          "K3_plain": lambda: rcas_k.rcas_fused_reference(s8, rcon)},
+         {"sharpen f32 (phase 10's path)": lambda: ft.sharpen(sframes)}),
+    ]
+    print(f"phase 13: the README pipeline paths on batches of {nframes}, on {card}")
+    path_runs = {}
+    for name, call, need, plain, plain_torch, step, epi, kernel_fns, bare_fns in paths:
+        out, n = drive(call, need)
+        print(f"  {name}: out {tuple(out.shape)} {out.dtype}; launches {n}")
+        err = _compare_epilogue(out, plain(), epi, f"{name} vs the kernels' plain versions")
+        _compare_torch_path(out, plain_torch(), name, step)
+        t = {"call": cuda_time_ms(call), "call_b2b": _back_to_back_ms(call)}
+        for k, f_ in kernel_fns.items():
+            t[k] = cuda_time_ms(f_, warmup=1, iters=5) if k.endswith("_plain") else cuda_time_ms(f_)
+        t["plain"] = cuda_time_ms(plain, warmup=1, iters=3)
+        t["plain-torch pipeline"] = cuda_time_ms(plain_torch, warmup=1, iters=3)
+        for k, f_ in bare_fns.items():
+            t[k] = cuda_time_ms(f_)
+        path_runs[name] = dict(launches=n, err=err, t=t)
+        for k, v in t.items():
+            print(f"    {k:>40}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+        del out
+    print("  call: median latency of one call (host work included); call_b2b: per call with 10 calls "
+          "queued back to back; K*: the kernel alone; plain: the kernels' plain versions; the rest: "
+          "the same upscale without the prologue and epilogue, for the epilogue's cost")
+
+    # --- 14. trace of the pipeline paths (--trace only) -------------------------
+    if trace:
+        print(f"phase 14: torch.profiler traces of the pipeline paths on {card}")
+        for name, call, kinds in ((paths[0][0], paths[0][1], ("edge_pad_kernel", "fused_kernel")),
+                                  (paths[1][0], paths[1][1], ("gather_kernel",))):
+            for calls in (1, 5):
+                tr = device_trace(call, calls)
+                print(f"  {name}, {calls} call(s) back to back: device busy {tr['busy_ms']:.4f} ms of a "
+                      f"{tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
+                for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
+                    print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname}")
+                extra = [k for k in tr["kernels"] if not any(kind in k for kind in kinds)]
+                if extra:
+                    raise AssertionError(f"{name}: the trace shows more than {kinds}: {extra}")
+
     t32, q32 = timings[torch.float32], qtimings[torch.float32]
+    ta, tb, tc, ts = (path_runs[p[0]] for p in paths)
     kernels = [
         {"name": "edge_pad (K4)", "route": "cuda", "source": "fsr_tpu_torch/csrc/edge_pad.cu",
          "replaces": "fsr_tpu/kernels/pad.py:50", "launches": launches["K4"],
@@ -460,6 +714,26 @@ def main() -> int:
         {"name": "rcas_fused (K3)", "route": "cuda", "source": "fsr_tpu_torch/csrc/rcas.cu",
          "replaces": "fsr_tpu/kernels/rcas_pallas.py:42", "launches": launches["K3"],
          "max_abs_err": k3_err, "ms": q32["K3"], "plain_ms": q32["K3_plain"]},
+        {"name": "upscale_fused (K1) + SRTM prologue + K5 epilogue: HDR frame tail (a)", "route": "cuda",
+         "source": "fsr_tpu_torch/csrc/fused.cu", "replaces": "fsr_tpu/kernels/fused.py:403",
+         "launches": ta["launches"]["K1"], "max_abs_err": max(epi_err["K1"], ta["err"]),
+         "ms": ta["t"]["K1"], "plain_ms": ta["t"]["K1_plain"]},
+        {"name": "easu_gather (K2) + K5 epilogue, uint8 in and out: display path (b)", "route": "cuda",
+         "source": "fsr_tpu_torch/csrc/easu_gather.cu", "replaces": "fsr_tpu/kernels/easu_gather.py:350",
+         "launches": tb["launches"]["K2"], "max_abs_err": max(epi_err["K2"], tb["err"]),
+         "ms": tb["t"]["K2"], "plain_ms": tb["t"]["plain"]},
+        {"name": "upscale_fused (K1), uint8 in and out: byte video path (c)", "route": "cuda",
+         "source": "fsr_tpu_torch/csrc/fused.cu", "replaces": "fsr_tpu/kernels/fused.py:403",
+         "launches": tc["launches"]["K1"], "max_abs_err": tc["err"],
+         "ms": tc["t"]["K1"], "plain_ms": tc["t"]["K1_plain"]},
+        {"name": "edge_pad (K4), uint8: byte video path (c)", "route": "cuda",
+         "source": "fsr_tpu_torch/csrc/edge_pad.cu", "replaces": "fsr_tpu/kernels/pad.py:50",
+         "launches": tc["launches"]["K4"], "max_abs_err": 0.0,
+         "ms": tc["t"]["K4"], "plain_ms": tc["t"]["K4_plain"]},
+        {"name": "rcas_fused (K3), uint8: sharpen on bytes", "route": "cuda",
+         "source": "fsr_tpu_torch/csrc/rcas.cu", "replaces": "fsr_tpu/kernels/rcas_pallas.py:42",
+         "launches": ts["launches"]["K3"], "max_abs_err": ts["err"],
+         "ms": ts["t"]["K3"], "plain_ms": ts["t"]["K3_plain"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,13 @@
-"""Top-level user API: ``upscale()`` and ``sharpen()``.
+"""Top-level user API: ``upscale()``, ``sharpen()`` and ``UpscalePipeline``.
 
 Counterpart of ``fsr_tpu/api.py``.  ``upscale``: constant setup on the host,
 then EASU and RCAS either fused in the hand-written CUDA kernels (K4 pad and
 K1 at integer ratios, K2 at any other upscale; no intermediate image in
-device memory) or as two plain-torch ops.  ``sharpen``: RCAS alone, in the
-CUDA kernel K3 or as the plain-torch op.
+device memory) or as two plain-torch ops.  The SRTM prologue, the K5
+epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither) and byte I/O run inside
+those kernels, or as ``ops.extras`` passes on the torch path.  ``sharpen``:
+RCAS alone, in the CUDA kernel K3 or as the plain-torch op.
+``UpscalePipeline``: the sample's frame tail in one kernel call.
 
 Layouts: planar channels-first (..., C, H, W) as in ``fsr_tpu``; (..., H,
 W, C) inputs are accepted with ``layout="HWC"``.
@@ -19,11 +22,16 @@ import torch
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.core.presets import PRESETS
 from fsr_tpu_torch.kernels import dispatch
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import rcas as rcas_kernel
+from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.ops import easu as easu_ops
+from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops import rcas as rcas_ops
 
-__all__ = ["upscale", "sharpen"]
+__all__ = ["upscale", "sharpen", "UpscalePipeline"]
+
+_IMPLS = ("auto", "torch", "kernel")
 
 
 def _resolve_out_size(
@@ -47,6 +55,19 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue item {item})")
 
 
+def _check_impl(impl):
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be 'auto', 'torch' or 'kernel', got {impl!r}")
+
+
+def _apply_epilogue(out, epi, frame, grain, dither_page=None):
+    """Torch-path twin of the kernels' fused epilogue (``fsr_tpu/api.py``
+    ``_apply_epilogue_xla``): the ``ops.extras`` chain in float32 on the
+    operands the kernels take, the result back in ``out``'s dtype."""
+    args = epilogue_mod.bind(epi, tuple(out.shape[-2:]), frame, grain, dither_page, out.device)
+    return epilogue_mod.apply(out.to(torch.float32), args).to(out.dtype)
+
+
 def upscale(
     image: torch.Tensor,
     out_size: Optional[Tuple[int, int]] = None,
@@ -60,7 +81,7 @@ def upscale(
     layout: str = "CHW",
     input_viewport: Optional[Tuple[int, int]] = None,
     input_offset: Tuple[int, int] = (0, 0),
-    epilogue=None,
+    epilogue: Optional[Epilogue] = None,
     frame=None,
     grain=None,
     grain_planar=None,
@@ -71,7 +92,9 @@ def upscale(
     """FSR 1.0 upscale: EASU + optional RCAS.
 
     image: (..., 3, H, W) planar (layout="CHW", default) or (..., H, W, 3)
-      (layout="HWC"), float32 or bfloat16, values in [0, 1].
+      (layout="HWC"), float32 or bfloat16 with values in [0, 1], or uint8
+      (decoded v/255; on the kernel path inside the kernel, so the source
+      stays bytes).
     out_size / scale / preset: target size (one of the three).  Presets:
       ultra_quality 1.3x, quality 1.5x, balanced 1.7x, performance 2.0x.
     sharpness: RCAS sharpness in stops (0 = maximum; sample default 0.25).
@@ -88,32 +111,36 @@ def upscale(
     input_viewport / input_offset: Dynamic Resolution Scaling — the viewport
       (h, w) actually rendered inside the container image, and its offset
       (FsrEasuConOffset, ffx_fsr1.h:205-225).
+    epilogue: optional ``Epilogue`` of output post-ops (SRTM^-1 / gamma2
+      transform, LFGA grain, TEPD dithered quantize), fused into the
+      kernels' store on the kernel path and run as ``ops.extras`` passes on
+      the torch path.  ``frame`` is the TEPD hash's frame index; ``grain``
+      is (3, Hout, Wout) in {-0.5..0.5}; ``dither_page`` is a (th, tw) page
+      of dither positions tiled over the output when
+      ``epilogue.dither_texture``.  ``grain_planar`` (the TPU kernel's
+      phase-planar grain layout) has no counterpart: pass ``grain``.
+    prologue: "none" | "srtm" — the SRTM reversible tonemap on the input
+      before EASU, fused into the kernels' tap loads on the kernel path.
+    out_dtype: uint8 encodes floor(sat(v)*255 + 0.5) (the D3D UNORM rule;
+      with dither_bits=8 the byte is the display code), uint16 the 10-bit
+      codes floor(sat(v)*1023 + 0.5); otherwise it must match compute_dtype.
 
-    epilogue/frame/grain/grain_planar/dither_page, prologue, out_dtype,
-    RGBA and byte inputs, float16, and inputs that require grad raise
-    NotImplementedError naming their ROADMAP queue item.
+    RGBA, float16 and inputs that require grad raise NotImplementedError
+    naming their ROADMAP queue item.
 
-    Returns the upscaled image in compute_dtype, in the input's layout.
+    Returns the upscaled image in out_dtype (default compute_dtype), in the
+    input's layout.
     """
-    if impl not in ("auto", "torch", "kernel"):
-        raise ValueError(f"impl must be 'auto', 'torch' or 'kernel', got {impl!r}")
+    _check_impl(impl)
     if layout == "HWC":
         image = image.movedim(-1, -3)
     elif layout != "CHW":
         raise ValueError(f"unknown layout {layout!r}")
 
-    if any(v is not None for v in (epilogue, frame, grain, grain_planar, dither_page)):
-        raise _not_ported("the output epilogue (K5: SRTM^-1/gamma2, LFGA grain, TEPD dither)", "3")
-    if prologue != "none":
-        raise _not_ported(f"prologue={prologue!r}", "3")
-    if out_dtype is not None:
-        raise _not_ported("out_dtype (uint8/uint16 output)", "2")
-    if image.dtype in (torch.uint8, torch.uint16):
-        raise _not_ported(f"{image.dtype} input", "2")
     if image.dtype == torch.float16 or compute_dtype == torch.float16:
         raise _not_ported("float16", "5")
-    if image.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"image must be float32 or bfloat16, got {image.dtype}")
+    if image.dtype not in (torch.float32, torch.bfloat16, torch.uint8):
+        raise ValueError(f"image must be float32, bfloat16 or uint8, got {image.dtype}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if image.dim() < 3:
@@ -122,6 +149,19 @@ def upscale(
         raise _not_ported("RGBA input", "2")
     if image.shape[-3] != 3:
         raise ValueError(f"image must have 3 channels, got {image.shape[-3]}")
+    if out_dtype is not None and out_dtype not in (torch.uint8, torch.uint16, compute_dtype):
+        raise ValueError(
+            f"out_dtype must be uint8/uint16 or match compute_dtype (got {out_dtype} vs {compute_dtype})"
+        )
+    if epilogue is not None and not isinstance(epilogue, Epilogue):
+        raise TypeError(f"epilogue must be an Epilogue, got {type(epilogue).__name__}")
+    if epilogue is not None and epilogue.dither_bits == 10 and out_dtype == torch.uint8:
+        # 10-bit TEPD codes k/1023 are not representable as x255 UNORM bytes.
+        raise ValueError("uint8 output cannot hold 10-bit codes")
+    if grain_planar is not None:
+        raise ValueError("grain_planar is the TPU kernel's grain layout; pass grain=(3, Hout, Wout)")
+    if prologue not in ("none", "srtm"):
+        raise ValueError(f"unknown prologue {prologue!r}")
 
     hin, win = image.shape[-2:]
     vp = input_viewport if input_viewport is not None else (hin, win)
@@ -144,11 +184,22 @@ def upscale(
         out = dispatch.upscale_fused(
             image, out_hw, con, rcon,
             apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype,
+            epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
+            out_dtype=out_dtype, dither_page=dither_page,
         )
     else:
-        out = easu_ops.easu(image, out_hw, con, compute_dtype=compute_dtype)
+        rgb = image
+        if rgb.dtype == torch.uint8:
+            rgb = epilogue_mod.decode(rgb)
+        if prologue == "srtm":
+            rgb = extras.srtm(rgb)
+        out = easu_ops.easu(rgb, out_hw, con, compute_dtype=compute_dtype)
         if apply_rcas:
             out = rcas_ops.rcas(out, rcon, denoise=denoise, compute_dtype=compute_dtype)
+        if epilogue is not None:
+            out = _apply_epilogue(out, epilogue, frame, grain, dither_page=dither_page)
+        if out_dtype is not None:
+            out = epilogue_mod.store(out, out_dtype)
 
     if layout == "HWC":
         out = out.movedim(-3, -1)
@@ -168,31 +219,31 @@ def sharpen(
     as an independent pass (ffx_fsr1.h:602-608).
 
     image: (..., 3, H, W) or (..., 4, H, W) with alpha (layout="CHW"), or
-      channels last (layout="HWC"); float32 or bfloat16, values in [0, 1].
+      channels last (layout="HWC"); float32 or bfloat16 with values in
+      [0, 1], or uint8.
     compute_dtype: float32 | bfloat16 | None (the image's dtype).  On the
       kernel path it is the storage type and the math runs in float32; on
-      the torch path the arithmetic runs in it.
+      the torch path the arithmetic runs in it.  A uint8 image sharpens in
+      float32 and returns uint8 (UNORM8 codes) whatever it says, on both
+      paths, so byte outputs agree across impl.
     impl: "auto" | "torch" | "kernel".  "auto" runs K3 for a CUDA tensor and
       the plain-torch op for a CPU tensor; "torch" the plain-torch op on any
       device; "kernel" K3 (on a CPU tensor its plain version).
     border: "clamp" (edge replication) or "zero" (the sample's out-of-bounds
       imageLoad, which darkens the 1-pixel border; kept for A/B parity).
 
-    Alpha is passed through verbatim.  Byte images, float16 and inputs that
-    require grad raise NotImplementedError naming their ROADMAP queue item.
+    Alpha is passed through verbatim.  float16 and inputs that require grad
+    raise NotImplementedError naming their ROADMAP queue item.
     """
-    if impl not in ("auto", "torch", "kernel"):
-        raise ValueError(f"impl must be 'auto', 'torch' or 'kernel', got {impl!r}")
+    _check_impl(impl)
     if layout == "HWC":
         image = image.movedim(-1, -3)
     elif layout != "CHW":
         raise ValueError(f"unknown layout {layout!r}")
-    if image.dtype in (torch.uint8, torch.uint16):
-        raise _not_ported(f"{image.dtype} input", "2")
     if image.dtype == torch.float16 or compute_dtype == torch.float16:
         raise _not_ported("float16", "5")
-    if image.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"image must be float32 or bfloat16, got {image.dtype}")
+    if image.dtype not in (torch.float32, torch.bfloat16, torch.uint8):
+        raise ValueError(f"image must be float32, bfloat16 or uint8, got {image.dtype}")
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if image.dim() < 3 or image.shape[-3] not in (3, 4):
@@ -207,9 +258,149 @@ def sharpen(
         )
         if image.shape[-3] == 4:
             out = torch.cat([out, image[..., 3:4, :, :].to(out.dtype)], dim=-3)
+    elif image.dtype == torch.uint8:
+        # The kernel sharpens bytes in float32 before the UNORM encode; the
+        # torch path does the same, so byte outputs agree across impl.
+        out = rcas_ops.rcas(epilogue_mod.decode(image), rcon, denoise=denoise,
+                            compute_dtype=torch.float32, border=border)
+        out = epilogue_mod.encode_unorm8(out)
     else:
         out = rcas_ops.rcas(image, rcon, denoise=denoise, compute_dtype=compute_dtype, border=border)
 
     if layout == "HWC":
         out = out.movedim(-3, -1)
     return out
+
+
+class UpscalePipeline:
+    """Full post-process chain, mirroring the sample's frame tail:
+
+    (optional SRTM for HDR) -> EASU -> RCAS -> (optional SRTM^-1 back to
+    HDR, or gamma2 -> linear output squaring) -> (optional LFGA grain)
+    -> (optional TEPD dither to 8/10-bit gamma-2.0).
+
+    Construct once with static configuration; each call is one ``upscale``
+    (on a CUDA tensor: K4 + K1 or K2, with the whole chain inside).
+
+    hdr_srtm / hdr_out: the reference pairs the reversible tonemap with its
+    inverse around the filter chain for HDR inputs (ffx_fsr1.h:1039-1041);
+    hdr_out=True applies SRTM^-1 after sharpening so the pipeline returns
+    HDR values (requires hdr_srtm).
+    gamma2_out: square the output (gamma-2.0 -> linear), the sample's HDR
+    swapchain mode (Sample.x == 1, FSR_Pass.hlsl:78-79).
+    dither_texture: optional (pages, th, tw) or (th, tw) dither texture,
+    page-indexed by frame (the sample's temporal blue noise,
+    FSR_Tonemapping.hlsl:86-88; see fsr_tpu_torch.utils.noise); any page
+    shape tiles the output.  Default: the TEPD golden-ratio ordered dither.
+    The dither fuses into the kernel whenever the output dtype can hold the
+    codes (float32 storage, uint8 for 8-bit, uint16 for either); otherwise
+    (bfloat16 storage without an integer output) it runs as an
+    ``ops.extras`` after-pass on the output's device, as the JAX package
+    runs its XLA after-pass.
+    impl: "auto" | "torch" | "kernel", as ``upscale``.
+    mesh / spatial_axis / batch_axis: multi-GPU execution is not ported
+    (a mesh raises NotImplementedError naming ROADMAP queue item 6; the
+    axis names are taken for the JAX constructor's signature).
+    """
+
+    def __init__(
+        self,
+        out_size: Tuple[int, int],
+        sharpness: float = 0.25,
+        apply_rcas: bool = True,
+        denoise: bool = False,
+        hdr_srtm: bool = False,
+        hdr_out: bool = False,
+        gamma2_out: bool = False,
+        grain_amount: float = 0.0,
+        dither_bits: Optional[int] = None,
+        dither_texture=None,
+        compute_dtype=torch.float32,
+        impl: str = "auto",
+        out_dtype=None,
+        mesh=None,
+        spatial_axis: str = "sp",
+        batch_axis: Optional[str] = None,
+    ):
+        if out_dtype in (torch.uint8, torch.uint16):
+            if hdr_out:
+                raise ValueError("integer output cannot hold HDR values")
+            if dither_bits == 10 and out_dtype == torch.uint8:
+                raise ValueError("uint8 output cannot hold 10-bit codes")
+        if hdr_out and not hdr_srtm:
+            raise ValueError("hdr_out=True requires hdr_srtm=True")
+        if hdr_out and gamma2_out:
+            raise ValueError("hdr_out and gamma2_out are exclusive output modes")
+        if hdr_out and dither_bits is not None:
+            raise ValueError("TEPD dithering expects {0..1} input, not HDR out")
+        _check_impl(impl)
+        if mesh is not None:
+            raise _not_ported("mesh= (multi-GPU execution)", "6")
+        self.out_size = tuple(out_size)
+        self.sharpness = sharpness
+        self.apply_rcas = apply_rcas
+        self.denoise = denoise
+        self.hdr_srtm = hdr_srtm
+        self.hdr_out = hdr_out
+        self.gamma2_out = gamma2_out
+        self.grain_amount = grain_amount
+        self.dither_bits = dither_bits
+        self.dither_texture = (
+            torch.as_tensor(dither_texture, dtype=torch.float32) if dither_texture is not None else None
+        )
+        self.compute_dtype = compute_dtype
+        self.impl = impl
+        self.out_dtype = out_dtype
+
+    def _texture(self, device) -> Optional[torch.Tensor]:
+        """The dither texture as (pages, th, tw) on ``device`` (moved once)."""
+        tex = self.dither_texture
+        if tex is None:
+            return None
+        if tex.device != device:
+            tex = self.dither_texture = tex.to(device)
+        return tex if tex.dim() == 3 else tex[None]
+
+    def __call__(self, image: torch.Tensor, grain=None, frame=0) -> torch.Tensor:
+        use_grain = bool(self.grain_amount) and grain is not None
+        u8_out = self.out_dtype == torch.uint8
+        u16_out = self.out_dtype == torch.uint16
+        # TEPD codes are k/255 or k/1023 levels: bfloat16 storage cannot hold
+        # them, so the dither fuses into the kernel only when the output
+        # dtype can (float32, uint8 for 8-bit, uint16 for either).
+        fuse = self.dither_bits is not None and (
+            self.compute_dtype == torch.float32 or (u8_out and self.dither_bits == 8) or u16_out
+        )
+        tex = self._texture(image.device)
+        epi = Epilogue(
+            transform="srtm_inv" if self.hdr_out else "gamma2" if self.gamma2_out else "none",
+            grain_amount=self.grain_amount if use_grain else 0.0,
+            dither_bits=self.dither_bits if fuse else None,
+            dither_texture=fuse and tex is not None,
+        )
+        # The frame's page is a view, chosen on the host.
+        page = tex[int(frame) % tex.shape[0]] if fuse and tex is not None else None
+        x = upscale(
+            image,
+            out_size=self.out_size,
+            sharpness=self.sharpness,
+            apply_rcas=self.apply_rcas,
+            denoise=self.denoise,
+            compute_dtype=self.compute_dtype,
+            impl=self.impl,
+            epilogue=None if epi.is_noop else epi,
+            frame=frame,
+            grain=grain if use_grain else None,
+            prologue="srtm" if self.hdr_srtm else "none",
+            out_dtype=self.out_dtype if (fuse or self.dither_bits is None) else None,
+            dither_page=page,
+        )
+        if self.dither_bits is not None and not fuse:
+            if tex is not None:
+                dit = extras.texture_dither(self.out_size, frame, tex)
+            else:
+                dit = extras.tepd_dither(self.out_size, frame, device=x.device)
+            x = extras.tepd_quantize(x.to(torch.float32), dit, bits=self.dither_bits)
+            if self.out_dtype is not None:
+                x = epilogue_mod.store(x, self.out_dtype)
+        return x

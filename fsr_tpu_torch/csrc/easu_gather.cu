@@ -29,16 +29,25 @@
 //   Phase 2: RCAS (limiter, optional denoise) and one store.
 // With apply_rcas off the kernel stores EASU directly.
 //
-// Storage: the source is float32 or bfloat16, the output float32 or
-// bfloat16.  A float32 source under bfloat16 storage is rounded (RNE) at
-// each load before widening, which is what converting the source first
-// would give.
+// Storage: the source is float32, bfloat16 or uint8; the output float32,
+// bfloat16, or uint8/uint16 UNORM codes.  A float32 source under bfloat16
+// storage is rounded (RNE) at each load before widening, which is what
+// converting the source first would give; a byte decodes v * float32(1/255)
+// at each load and is never rounded to the storage type.
+//
+// Options, as easu_gather.py:919-930 and :748-784 run them: the SRTM
+// prologue on each loaded texel (srtm_window), and the K5 epilogue on the
+// float32 RCAS result at the pixel's output coordinates before the one
+// store (fsr_pixel.cuh:epilogue); the grain is plain output-space (3, Hout,
+// Wout).  Source, load-rounding and output types are template parameters;
+// the prologue and epilogue flags are uniform runtime branches.
 //
 // Bound: f32 arithmetic, as K1 (the same ~660 flops per output pixel); the
 // table loads (10 per pixel, L1-resident) replace K1's phase arithmetic.
 // Device-memory traffic is one read of the source and one write of the
-// output.  Sharing tap loads and texel responses between neighbouring
-// pixels is later work.
+// output (plus the grain's 12 bytes per pixel with LFGA; the epilogue and
+// prologue cost as in K1).  Sharing tap loads and texel responses between
+// neighbouring pixels is later work.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -48,9 +57,9 @@
 
 #include "fsr_pixel.cuh"
 
-namespace {
-
 using namespace fsr;
+
+namespace {
 
 struct GatherParams {
   const int* rows;   // [4][hout]: clip(fy + dy, 0, hin - 1) for dy = -1..2
@@ -60,11 +69,13 @@ struct GatherParams {
   int hin, win;
   int hout, wout;
   float sharp;  // linear RCAS sharpness
+  int srtm;     // SRTM prologue on each loaded texel
+  EpilogueParams epi;
 };
 
 // EASU for output pixel (Y, X) of one frame: the tables give the 4x4 tap
 // window's rows and columns in the unpadded source, then the shared resolve
-// runs.  T is the storage type, S the source's.
+// runs.  T is the storage type a float source rounds to, S the source's.
 template <typename T, typename S>
 __device__ __forceinline__ void easu_at(const S* __restrict__ src, const GatherParams& p, int Y,
                                         int X, float out[3]) {
@@ -88,53 +99,65 @@ __device__ __forceinline__ void easu_at(const S* __restrict__ src, const GatherP
       for (int c = 0; c < 3; ++c) t[c][r][q] = ld_as<T>(src + c * plane + row[r] + col[q]);
     }
   }
+  if (p.srtm) srtm_window(t);
   easu_resolve(t, __ldg(p.px + X), __ldg(p.py + Y), out);
 }
 
-template <typename T, typename S, bool RCAS, bool DENOISE>
+template <typename S, typename T, typename O, bool RCAS, bool DENOISE>
 __global__ void __launch_bounds__(NTHREADS)
-    gather_kernel(const S* __restrict__ src, T* __restrict__ dst, GatherParams p) {
+    gather_kernel(const S* __restrict__ src, O* __restrict__ dst, GatherParams p) {
   const int64_t n = blockIdx.z;
   const S* s = src + n * 3 * (int64_t)p.hin * p.win;
-  T* o = dst + n * 3 * (int64_t)p.hout * p.wout;
+  O* o = dst + n * 3 * (int64_t)p.hout * p.wout;
+  const int64_t oplane = (int64_t)p.hout * p.wout;
+  const EpilogueParams e = p.epi;
+  const int wout = p.wout;
+  auto finish = [=](int Y, int X, float v[3]) {
+    epilogue(e, oplane, (int64_t)Y * wout + X, Y, X, v);
+  };
   if constexpr (RCAS) {
     // Ring positions clamp to the image in output coordinates, before the
     // table lookup.
     auto ring = [=](int Y, int X, float v[3]) {
       easu_at<T>(s, p, min(max(Y, 0), p.hout - 1), min(max(X, 0), p.wout - 1), v);
     };
-    rcas_tile<DENOISE>(ring, o, p.hout, p.wout, p.sharp);
+    rcas_tile<DENOISE>(ring, finish, o, p.hout, p.wout, p.sharp);
   } else {
-    store_tile([=](int Y, int X, float v[3]) { easu_at<T>(s, p, Y, X, v); }, o, p.hout, p.wout);
+    store_tile([=](int Y, int X, float v[3]) { easu_at<T>(s, p, Y, X, v); }, finish, o, p.hout,
+               p.wout);
   }
 }
 
-template <typename T, typename S>
+template <typename S, typename T, typename O>
 int launch(const void* src, void* dst, int nb, const GatherParams& p, bool rcas, bool denoise,
            cudaStream_t stream) {
   const int64_t in_frame = 3 * (int64_t)p.hin * p.win;
   const int64_t out_frame = 3 * (int64_t)p.hout * p.wout;
   return launch_frames(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
     const S* s = static_cast<const S*>(src) + n0 * in_frame;
-    T* d = static_cast<T*>(dst) + n0 * out_frame;
+    O* d = static_cast<O*>(dst) + n0 * out_frame;
     if (!rcas)
-      gather_kernel<T, S, false, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      gather_kernel<S, T, O, false, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else if (denoise)
-      gather_kernel<T, S, true, true><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      gather_kernel<S, T, O, true, true><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else
-      gather_kernel<T, S, true, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      gather_kernel<S, T, O, true, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
   });
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; src_dtype is the source's, dtype
-// the storage type of the output.  rows/cols (int32 [4][hout], [4][wout])
-// and py/px (float32 [hout], [wout]) are device pointers.
-extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dtype, int nb,
-                               int hin, int win, int hout, int wout, const void* rows,
-                               const void* cols, const void* py, const void* px, float sharp,
-                               int apply_rcas, int denoise, void* stream) {
+// dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
+// bfloat16 or uint8), dtype the storage type (float32 or bfloat16),
+// out_dtype the output's: the storage type, or uint8/uint16 codes.
+// rows/cols (int32 [4][hout], [4][wout]) and py/px (float32 [hout],
+// [wout]) are device pointers.  srtm: 1 runs the SRTM prologue; epi: the K5
+// epilogue (host struct, device pointers inside).
+extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dtype,
+                               int out_dtype, int nb, int hin, int win, int hout, int wout,
+                               const void* rows, const void* cols, const void* py,
+                               const void* px, float sharp, int apply_rcas, int denoise,
+                               int srtm, const EpilogueParams* epi, void* stream) {
   GatherParams p;
   p.rows = static_cast<const int*>(rows);
   p.cols = static_cast<const int*>(cols);
@@ -145,14 +168,38 @@ extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dt
   p.hout = hout;
   p.wout = wout;
   p.sharp = sharp;
+  p.srtm = srtm;
+  p.epi = epi != nullptr ? *epi : EpilogueParams{};
   if (nb == 0 || hout == 0 || wout == 0) return 0;
+  if ((dtype != F32 && dtype != BF16) || (out_dtype != dtype && out_dtype != U8 && out_dtype != U16))
+    return (int)cudaErrorInvalidValue;
   const bool r = apply_rcas != 0;
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (src_dtype == 0 && dtype == 0) return launch<float, float>(src, dst, nb, p, r, dn, s);
-  if (src_dtype == 0 && dtype == 1) return launch<__nv_bfloat16, float>(src, dst, nb, p, r, dn, s);
-  if (src_dtype == 1 && dtype == 0) return launch<float, __nv_bfloat16>(src, dst, nb, p, r, dn, s);
-  if (src_dtype == 1 && dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(src, dst, nb, p, r, dn, s);
+  using bf16 = __nv_bfloat16;
+  // Only a float32 source rounds to a bfloat16 storage type at load; a
+  // bfloat16 source widens exactly and a byte decodes, whatever the storage.
+  if (src_dtype == F32 && dtype == BF16) {
+    if (out_dtype == BF16) return launch<float, bf16, bf16>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == U8) return launch<float, bf16, uint8_t>(src, dst, nb, p, r, dn, s);
+    return launch<float, bf16, uint16_t>(src, dst, nb, p, r, dn, s);
+  }
+  if (src_dtype == F32) {
+    if (out_dtype == F32) return launch<float, float, float>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == U8) return launch<float, float, uint8_t>(src, dst, nb, p, r, dn, s);
+    return launch<float, float, uint16_t>(src, dst, nb, p, r, dn, s);
+  }
+  if (src_dtype == BF16) {
+    if (out_dtype == F32) return launch<bf16, float, float>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == BF16) return launch<bf16, float, bf16>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == U8) return launch<bf16, float, uint8_t>(src, dst, nb, p, r, dn, s);
+    return launch<bf16, float, uint16_t>(src, dst, nb, p, r, dn, s);
+  }
+  if (src_dtype == U8) {
+    if (out_dtype == F32) return launch<uint8_t, float, float>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == BF16) return launch<uint8_t, float, bf16>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == U8) return launch<uint8_t, float, uint8_t>(src, dst, nb, p, r, dn, s);
+    return launch<uint8_t, float, uint16_t>(src, dst, nb, p, r, dn, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,8 @@
 //
 // Bit-equal to the plain version (a clamped-index gather followed by a
 // round-to-nearest-even convert): f32->bf16 uses __float2bfloat16_rn,
-// bf16->f32 is exact, and a same-type pad copies bits.
+// bf16->f32 is exact, and a same-type pad copies bits.  A uint8 source pads
+// as bytes (fused.py:583-592): K1 decodes them at its loads.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -77,7 +78,7 @@ int launch(const void* src, void* dst, int64_t planes, int h, int w, int pt, int
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16 (either way), 2 = uint8 (to uint8).
 extern "C" int fsr_edge_pad(const void* src, void* dst, int in_dtype, int out_dtype,
                             long long planes, int h, int w, int pt, int pb, int pl, int pr,
                             void* stream) {
@@ -90,5 +91,7 @@ extern "C" int fsr_edge_pad(const void* src, void* dst, int in_dtype, int out_dt
     return launch<__nv_bfloat16, float>(src, dst, planes, h, w, pt, pb, pl, pr, s);
   if (in_dtype == 1 && out_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(src, dst, planes, h, w, pt, pb, pl, pr, s);
+  if (in_dtype == 2 && out_dtype == 2)
+    return launch<uint8_t, uint8_t>(src, dst, planes, h, w, pt, pb, pl, pr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,12 +11,21 @@
 // TILE_H x TILE_W output tile, with a one-pixel ring (RING_H x RING_W) of
 // float32 planes in shared memory for RCAS, and the host-side launch loop
 // over frames.
+//
+// And the storage rules with byte I/O, the SRTM prologue at load and the
+// K5 epilogue before the store (kernels/epilogue.py), written with
+// __fmul_rn/__fadd_rn wherever nvcc would otherwise contract a product and
+// a sum into an FMA: these must round each operation as the kernels' plain
+// torch versions do, because the TEPD dither and the UNORM encode have
+// knife edges (a one-ulp difference flips a code).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fsr {
 
@@ -27,11 +36,32 @@ constexpr int RING_H = TILE_H + 2;
 constexpr int NTHREADS = 256;
 constexpr float RCAS_LIMIT4 = 4.0f * (0.25f - 1.0f / 16.0f);
 
-// Storage helpers: the math is float32, bfloat16 is storage only.
+// Float32 constants, bit-exact to the plain versions' (ops/extras.py).
+constexpr float INV255 = 0x1.010102p-8f;    // float32(1/255)
+constexpr float INV1023 = 0x1.00401p-10f;   // float32(1/1023)
+constexpr float DIT_A = 0x1.9e377ap+0f;     // float32((1 + sqrt(5)) / 2)
+constexpr float DIT_B = 0x1.1581bcp-2f;     // float32(1 / 3.69)
+
+// dtype codes of the C interfaces: the source's and the output's.
+enum DType { F32 = 0, BF16 = 1, U8 = 2, U16 = 3 };
+
+// D3D UNORM code floor(sat(v) * max_code + 0.5); NaN encodes as 0, as
+// utils.image.to_uint8 (its nan_to_num) does.
+__device__ __forceinline__ float unorm(float v, float max_code) {
+  const float s = v > 0.0f ? fminf(v, 1.0f) : 0.0f;
+  return floorf(__fadd_rn(__fmul_rn(s, max_code), 0.5f));
+}
+
+// Storage helpers: the math is float32, bfloat16 is storage only; a byte
+// decodes as v * float32(1/255) and the integer outputs store UNORM codes
+// of the float32 value (8-bit in uint8, 10-bit in uint16).
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ld(const uint8_t* p) { return __fmul_rn((float)*p, INV255); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st(uint8_t* p, float v) { *p = (uint8_t)unorm(v, 255.0f); }
+__device__ __forceinline__ void st(uint16_t* p, float v) { *p = (uint16_t)unorm(v, 1023.0f); }
 
 // A value as storage type T holds it: bfloat16 rounds to nearest even, as a
 // dtype convert of the source would.
@@ -42,17 +72,26 @@ __device__ __forceinline__ float as_storage<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Load a source element of type S, rounded to storage type T, widened.
+// Load a source element of type S, rounded to storage type T, widened.  A
+// decoded byte is never rounded to the storage type.
 template <typename T, typename S>
-__device__ __forceinline__ float ld_as(const S* p) { return as_storage<T>(ld(p)); }
+__device__ __forceinline__ float ld_as(const S* p) {
+  if constexpr (std::is_same<S, uint8_t>::value) {
+    return ld(p);
+  } else {
+    return as_storage<T>(ld(p));
+  }
+}
 
 // APrx* bit tricks (ffx_a.h:1786-1860), float32.
 __device__ __forceinline__ float prx_lo_rcp(float a) {
   return __uint_as_float(0x7EF07EBBu - __float_as_uint(a));
 }
+// APrxMedRcp with every operation rounded, as the plain version's separate
+// torch ops round them (RCAS's resolve and TEPD's threshold).
 __device__ __forceinline__ float prx_med_rcp(float a) {
   const float b = __uint_as_float(0x7EF19FFFu - __float_as_uint(a));
-  return b * (-b * a + 2.0f);
+  return __fmul_rn(b, __fadd_rn(__fmul_rn(-b, a), 2.0f));
 }
 __device__ __forceinline__ float prx_lo_rsq(float a) {
   return __uint_as_float(0x5F347D74u - (__float_as_uint(a) >> 1));
@@ -63,6 +102,9 @@ __device__ __forceinline__ float prx_lo_rsq(float a) {
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 // HLSL saturate: NaN -> 0.
 __device__ __forceinline__ float sat_nan0(float x) { return x > 0.0f ? fminf(x, 1.0f) : 0.0f; }
+
+// torch.clamp(x, 0, 1): NaN stays NaN.
+__device__ __forceinline__ float clip01(float x) { return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x); }
 
 __device__ __forceinline__ float luma2(float r, float g, float b) {
   return b * 0.5f + (r * 0.5f + g);
@@ -84,6 +126,23 @@ __device__ __forceinline__ void texel_response(float la, float lb, float lc, flo
   len_y = clamp01(fabsf(gy) * len_y);
   len_y = len_y * len_y;
   gl = len_x + len_y;
+}
+
+// The SRTM prologue (FsrSrtmF, ffx_fsr1.h:1043) on each texel of a loaded
+// tap window, in float32 on the source as stored: c *= 1 / (max3(c) + 1)
+// with the correctly rounded reciprocal (ops.extras.srtm).
+__device__ __forceinline__ void srtm_window(float (&t)[3][4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if ((r == 0 || r == 3) && (q == 0 || q == 3)) continue;
+      const float m = fmaxf(fmaxf(t[0][r][q], t[1][r][q]), t[2][r][q]);
+      const float rc = __frcp_rn(__fadd_rn(m, 1.0f));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) t[c][r][q] = __fmul_rn(t[c][r][q], rc);
+    }
+  }
 }
 
 // EASU resolve (easu_resolve(fast=True) with per-texel quad responses) from
@@ -202,7 +261,10 @@ __device__ __forceinline__ void easu_resolve(const float (&t)[3][4][4], float pp
 }
 
 // rcas_resolve(fast=True) on the cross b (above), d (left), e (centre),
-// f (right), h (below), three channels each.
+// f (right), h (below), three channels each.  Every product that meets a
+// sum or a comparison is rounded on its own, as in the plain version (the
+// multiplications by 0.5 and 0.25 are exact, so those may contract): RCAS
+// here is bit-equal to its plain version, and so are K3's byte codes.
 template <bool DENOISE>
 __device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], const float e[3],
                                            const float f[3], const float h[3], float sharp,
@@ -222,13 +284,13 @@ __device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], c
     const float v = 1.0f - fmaxf(mx4, e[c]);
     const float q = 1.0f - mn4;
     const float v_s = (q == 0.0f) ? 1.0f : v;
-    const bool pick1 = u * q < v_s * mx4;
+    const bool pick1 = __fmul_rn(u, q) < __fmul_rn(v_s, mx4);
     const float n_c = pick1 ? u : v;
     const float d_c = pick1 ? mx4 : q;
     if (c == 0) {
       num = n_c;
       den = d_c;
-    } else if (n_c * den < num * d_c) {
+    } else if (__fmul_rn(n_c, den) < __fmul_rn(num, d_c)) {
       num = n_c;
       den = d_c;
     }
@@ -252,7 +314,70 @@ __device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], c
   }
   const float rcp_l = prx_med_rcp(4.0f * lobe + 1.0f);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) out[c] = (lobe * ((b[c] + d[c]) + (h[c] + f[c])) + e[c]) * rcp_l;
+  for (int c = 0; c < 3; ++c)
+    out[c] = __fmul_rn(__fadd_rn(__fmul_rn(lobe, (b[c] + d[c]) + (h[c] + f[c])), e[c]), rcp_l);
+}
+
+// K5's parameters (kernels/epilogue.py:EpilogueArgs.struct), the same for
+// every thread: the branches on them are uniform.
+struct EpilogueParams {
+  const float* grain;  // [3][h][w] float32 LFGA grain, or null (no grain)
+  const float* page;   // [page_h][page_w] float32 dither positions, or null (hash)
+  float grain_amount;
+  int transform;    // 0 none, 1 srtm_inv, 2 gamma2
+  int dither_bits;  // 0 (no TEPD), 8 or 10
+  unsigned frame;   // the TEPD hash's frame index
+  int page_h, page_w;
+};
+
+// The K5 epilogue on output pixel (Y, X)'s float32 channels v, before the
+// store (epilogue.apply: the ops.extras chain): SRTM^-1 or gamma2, LFGA
+// grain, TEPD dithered quantize.  The grain shares the output frame's
+// layout (plane stride oplane, offset at).  For finite values every
+// operation rounds as the plain version's does.
+__device__ __forceinline__ void epilogue(const EpilogueParams& e, int64_t oplane, int64_t at,
+                                         int Y, int X, float v[3]) {
+  if (e.transform == 1) {
+    const float m = fmaxf(fmaxf(v[0], v[1]), v[2]);
+    const float rc = __frcp_rn(fmaxf(__fsub_rn(1.0f, m), 1.0f / 32768.0f));
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[c] = __fmul_rn(v[c], rc);
+  } else if (e.transform == 2) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[c] = __fmul_rn(v[c], v[c]);
+  }
+  if (e.grain != nullptr) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float g = __fmul_rn(__ldg(e.grain + c * oplane + at), e.grain_amount);
+      const float u = __fsub_rn(1.0f, v[c]);
+      v[c] = __fadd_rn(v[c], __fmul_rn(g, u < v[c] ? u : v[c]));
+    }
+  }
+  if (e.dither_bits != 0) {
+    float dit;
+    if (e.page != nullptr) {
+      dit = __ldg(e.page + (Y % e.page_h) * e.page_w + (X % e.page_w));
+    } else {
+      // FsrTepdDitF: fract(phi * (x + frame) + y / 3.69), coordinates as uint32.
+      const float x = __uint2float_rn((unsigned)X + e.frame);
+      const float hv = __fadd_rn(__fmul_rn(x, DIT_A), __fmul_rn(__int2float_rn(Y), DIT_B));
+      dit = __fsub_rn(hv, floorf(hv));
+    }
+    const float steps = e.dither_bits == 8 ? 255.0f : 1023.0f;
+    const float inv = e.dither_bits == 8 ? INV255 : INV1023;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // FsrTepdC8F/C10F: the linear-nearest of the two gamma-2.0 steps.
+      float n = __fsqrt_rn(v[c]);
+      n = __fmul_rn(floorf(__fmul_rn(n, steps)), inv);
+      const float a = __fmul_rn(n, n);
+      float b = __fadd_rn(n, inv);
+      b = __fmul_rn(b, b);
+      const float r = __fmul_rn(__fsub_rn(v[c], b), prx_med_rcp(__fsub_rn(a, b)));
+      v[c] = clip01(__fadd_rn(n, __fsub_rn(dit, r) > 0.0f ? inv : 0.0f));
+    }
+  }
 }
 
 // Store one pixel's three channels at plane offset `at`.
@@ -262,10 +387,16 @@ __device__ __forceinline__ void st3(T* o, int64_t oplane, int64_t at, const floa
   for (int c = 0; c < 3; ++c) st(o + c * oplane + at, v[c]);
 }
 
+// A tile's last step before the store: finish(Y, X, v) may rewrite the
+// pixel's channels (K1 and K2 run the epilogue there, K3 nothing).
+struct NoFinish {
+  __device__ void operator()(int, int, float*) const {}
+};
+
 // One block's TILE_H x TILE_W tile of an h x w output frame `o`, RCAS off:
-// pixel(Y, X, v) gives each pixel's three channels, stored as they come.
-template <typename T, typename Pixel>
-__device__ __forceinline__ void store_tile(Pixel pixel, T* o, int h, int w) {
+// pixel(Y, X, v) gives each pixel's three channels, then finish, one store.
+template <typename T, typename Pixel, typename Finish>
+__device__ __forceinline__ void store_tile(Pixel pixel, Finish finish, T* o, int h, int w) {
   const int64_t oplane = (int64_t)h * w;
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y * TILE_H;
@@ -275,6 +406,7 @@ __device__ __forceinline__ void store_tile(Pixel pixel, T* o, int h, int w) {
     if (Y >= h || X >= w) continue;
     float v[3];
     pixel(Y, X, v);
+    finish(Y, X, v);
     st3(o, oplane, (int64_t)Y * w + X, v);
   }
 }
@@ -283,9 +415,10 @@ __device__ __forceinline__ void store_tile(Pixel pixel, T* o, int h, int w) {
 // tile and its one-pixel ring in shared memory, for (Y, X) from one before
 // the tile to one past it (possibly outside the frame: the caller applies
 // its border rule); after a barrier each pixel of the tile runs the RCAS
-// cross on them and stores once.
-template <bool DENOISE, typename T, typename Ring>
-__device__ __forceinline__ void rcas_tile(Ring ring, T* o, int h, int w, float sharp) {
+// cross on them, then finish, and stores once.
+template <bool DENOISE, typename T, typename Ring, typename Finish>
+__device__ __forceinline__ void rcas_tile(Ring ring, Finish finish, T* o, int h, int w,
+                                          float sharp) {
   const int64_t oplane = (int64_t)h * w;
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y * TILE_H;
@@ -315,6 +448,7 @@ __device__ __forceinline__ void rcas_tile(Ring ring, T* o, int h, int w, float s
       hh[c] = sm[c][ly + 2][lx + 1];
     }
     rcas_pixel<DENOISE>(b, d, e, f, hh, sharp, v);
+    finish(Y, X, v);
     st3(o, oplane, (int64_t)Y * w + X, v);
   }
 }

@@ -13,7 +13,10 @@
 //
 // Storage: the source is float32 or bfloat16, the output float32 or
 // bfloat16; a float32 source under bfloat16 storage is rounded (RNE) at each
-// load, as converting the source first would.  The math is float32.
+// load, as converting the source first would.  A uint8 image sharpens byte
+// in, byte out (rcas_pallas.py:64-73, :111, :133-134): decoded
+// v * float32(1/255) at load, UNORM8 codes of the float32 result at the
+// store.  The math is float32.
 //
 // Bound: device-memory bytes (one read and one write of the image, about
 // 85 flops per pixel).  The halo re-reads (1.2x of a 32x16 tile) are served
@@ -27,9 +30,9 @@
 
 #include "fsr_pixel.cuh"
 
-namespace {
-
 using namespace fsr;
+
+namespace {
 
 template <typename T, typename S, bool ZERO, bool DENOISE>
 __global__ void __launch_bounds__(NTHREADS)
@@ -47,7 +50,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = outside ? 0.0f : ld_as<T>(s + c * plane + at);
   };
-  rcas_tile<DENOISE>(ring, o, h, w, sharp);
+  rcas_tile<DENOISE>(ring, NoFinish{}, o, h, w, sharp);
 }
 
 template <typename T, typename S>
@@ -70,8 +73,9 @@ int launch(const void* src, void* dst, int nb, int h, int w, float sharp, bool z
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; src_dtype is the source's, dtype
-// the storage type of the output.  border_zero: 0 = clamp, 1 = zero.
+// dtype codes (fsr_pixel.cuh DType): src_dtype is the source's, dtype the
+// output's: float32/bfloat16 from either float type, or uint8 from uint8.
+// border_zero: 0 = clamp, 1 = zero.
 extern "C" int fsr_rcas(const void* src, void* dst, int src_dtype, int dtype, int nb, int h,
                         int w, float sharp, int border_zero, int denoise, void* stream) {
   if (nb == 0 || h == 0 || w == 0) return 0;
@@ -85,5 +89,7 @@ extern "C" int fsr_rcas(const void* src, void* dst, int src_dtype, int dtype, in
     return launch<float, __nv_bfloat16>(src, dst, nb, h, w, sharp, z, dn, s);
   if (src_dtype == 1 && dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(src, dst, nb, h, w, sharp, z, dn, s);
+  if (src_dtype == U8 && dtype == U8)
+    return launch<uint8_t, uint8_t>(src, dst, nb, h, w, sharp, z, dn, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,11 +3,12 @@
 Counterpart of ``fsr_tpu/kernels/dispatch.py``.  K1 (K4 then the fused
 kernel, ``kernels/fused.py``) takes the integer phase structures of the
 coordinate mapping (the 2x Performance preset); K2 (``kernels/easu_gather.py``)
-takes every other upscale (the other presets, native 1x, DRS ratios).  This
-module owns the choice and the call, so ``api.upscale`` stays
-device-agnostic.  A configuration neither kernel takes (a downscale, RGBA,
-another dtype) raises: the kernel path never falls back to plain torch on
-its own.
+takes every other upscale (the other presets, native 1x, DRS ratios).  Both
+take the byte source, the SRTM prologue, the K5 epilogue and the integer
+outputs.  This module owns the choice and the call, so ``api.upscale``
+stays device-agnostic.  A configuration neither kernel takes (a downscale,
+RGBA, another dtype) raises: the kernel path never falls back to plain
+torch on its own.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ from fsr_tpu_torch.kernels import easu_gather, fused
 __all__ = ["supported", "upscale_fused"]
 
 
-def supported(image: torch.Tensor, out_size, con: EasuConstants, compute_dtype) -> bool:
+def supported(image: torch.Tensor, out_size, con: EasuConstants, compute_dtype,
+              out_dtype=None) -> bool:
     """True when the kernel path (K1 or K2) takes this configuration."""
     shape = tuple(image.shape)
-    return fused.supported(shape, out_size, con, compute_dtype) or easu_gather.supported(
-        shape, out_size, con, compute_dtype
+    return fused.supported(shape, out_size, con, compute_dtype, out_dtype) or easu_gather.supported(
+        shape, out_size, con, compute_dtype, out_dtype
     )
 
 
@@ -38,17 +40,26 @@ def upscale_fused(
     apply_rcas: bool,
     denoise: bool,
     compute_dtype,
+    epilogue=None,
+    frame=None,
+    grain=None,
+    prologue: str = "none",
+    out_dtype=None,
+    dither_page=None,
 ) -> torch.Tensor:
     """Run the kernel path: K4 then K1 at an integer phase structure, else
-    K2; on a CPU tensor their plain versions."""
+    K2; on a CPU tensor their plain versions.  ``grain`` is plain
+    output-space (3, Hout, Wout) for both kernels."""
     shape = tuple(image.shape)
-    kw = dict(apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype)
-    if fused.supported(shape, out_size, con, compute_dtype):
-        return fused.upscale_fused(image, out_size, con, rcon, **kw)
-    if easu_gather.supported(shape, out_size, con, compute_dtype):
-        return easu_gather.easu_gather(image, out_size, con, rcon, **kw)
+    kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
+              out_dtype=out_dtype, dither_page=dither_page)
+    if fused.supported(shape, out_size, con, compute_dtype, out_dtype):
+        return fused.upscale_fused(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
+    if easu_gather.supported(shape, out_size, con, compute_dtype, out_dtype):
+        return easu_gather.easu_gather(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
     raise NotImplementedError(
-        "the kernel path takes RGB float32/bfloat16 upscales (1x to 4x area); "
-        f"got in={shape} out={tuple(out_size)} dtype={compute_dtype}. "
+        "the kernel path takes RGB upscales (1x to 4x area) in float32/bfloat16 storage "
+        "with float32/bfloat16/uint8 sources and uint8/uint16 or storage-type outputs; "
+        f"got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
         "Pass impl='torch' for the plain-torch path."
     )

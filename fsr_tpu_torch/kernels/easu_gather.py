@@ -13,14 +13,20 @@ device never recomputes a coordinate.  ``easu_gather`` launches
 ``csrc/easu_gather.cu`` for a CUDA tensor and counts the launch in
 ``easu_gather.launches``; for a CPU tensor it runs ``easu_gather_reference``.
 
+Options, as K1 takes them (``kernels/fused.py``): a uint8 image (decoded
+at each load, never rounded to the storage type), the SRTM prologue, the
+K5 epilogue with plain output-space grain (``kernels/epilogue.py``) and
+uint8/uint16 ``out_dtype``.
+
 The TPU kernel's hybrid X-phase, one-hot row selectors, dynamic-roll column
 gathers, tile sweeps and one-tile software pipeline are TPU layout machinery
-with no counterpart here.  RGBA, byte I/O, the epilogue and sharded row
-plans wait (ROADMAP.md queue items 2, 3 and 6).
+with no counterpart here.  RGBA and sharded row plans wait (ROADMAP.md
+queue items 2 and 6).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -29,19 +35,21 @@ import numpy as np
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import fused, pad
 from fsr_tpu_torch.ops.easu import easu_coords
 
 __all__ = ["supported", "GatherPlan", "plan", "easu_gather", "easu_gather_reference"]
 
 
-def supported(in_shape, out_size, con: EasuConstants, compute_dtype) -> bool:
+def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
     """True when K2 takes this configuration: RGB, float32/bfloat16 storage,
-    and an upscale on both axes (the EASU 1x-4x contract).  The JAX kernel's
-    minimum output of 16 x 128 is a TPU tiling limit and does not apply."""
+    an output of the storage type or uint8/uint16 codes, and an upscale on
+    both axes (the EASU 1x-4x contract).  The JAX kernel's minimum output of
+    16 x 128 is a TPU tiling limit and does not apply."""
     if len(in_shape) < 3 or in_shape[-3] != 3:
         return False
-    if compute_dtype not in (torch.float32, torch.bfloat16):
+    if compute_dtype not in pad.FLOAT_DTYPES or not fused.out_dtype_ok(out_dtype, compute_dtype):
         return False
     hout, wout = out_size
     hin, win = in_shape[-2:]
@@ -82,19 +90,23 @@ def _device_tables(gplan: GatherPlan, device: torch.device):
     return tuple(torch.as_tensor(a, device=device) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
 
 
-def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype):
+def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype, prologue, out_dtype):
     if apply_rcas and rcon is None:
         raise ValueError("apply_rcas=True requires rcon")
     if image.dim() < 3 or image.shape[-3] != 3:
         raise ValueError(f"image must be (..., 3, H, W), got {tuple(image.shape)}")
-    if compute_dtype not in (torch.float32, torch.bfloat16):
+    if compute_dtype not in pad.FLOAT_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    if not fused.out_dtype_ok(out_dtype, compute_dtype):
+        raise ValueError(f"out_dtype must be uint8/uint16 or match compute_dtype, got {out_dtype}")
+    if prologue not in ("none", "srtm"):
+        raise ValueError(f"unknown prologue {prologue!r}")
     out_hw = (int(out_size[0]), int(out_size[1]))
     in_hw = (int(image.shape[-2]), int(image.shape[-1]))
     if not supported(tuple(image.shape), out_hw, con, compute_dtype):
         raise ValueError(f"K2 takes upscales only (1x-4x area), got {in_hw} -> {out_hw}")
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return plan(in_hw, out_hw, con), out_hw, sharp
+    return plan(in_hw, out_hw, con), out_hw, sharp, out_dtype or compute_dtype
 
 
 def easu_gather_reference(
@@ -105,16 +117,28 @@ def easu_gather_reference(
     apply_rcas: bool = False,
     denoise: bool = False,
     compute_dtype=torch.float32,
+    *,
+    epilogue=None,
+    frame=None,
+    grain=None,
+    prologue: str = "none",
+    out_dtype=None,
+    dither_page=None,
 ) -> torch.Tensor:
-    """Plain version of K2, on any device: the source rounded to the storage
-    dtype, then ``fused.easu_rcas_reference`` on the plan's clipped tap
-    indices (one rounding at the end)."""
-    gplan, _, sharp = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype)
+    """Plain version of K2, on any device: the source as the kernel loads
+    it (rounded to the storage dtype, or a decoded byte), then
+    ``fused.easu_rcas_reference`` on the plan's clipped tap indices, the
+    epilogue and one store."""
+    gplan, out_hw, sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype,
+                                            prologue, out_dtype)
+    epi = epilogue_mod.bind(epilogue, out_hw, frame, grain, dither_page, image.device)
     dev = image.device
     rows, cols, py, px = (torch.as_tensor(a, device=dev) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
-    return fused.easu_rcas_reference(
-        image.to(compute_dtype), rows.long(), cols.long(), py, px, sharp, apply_rcas, denoise
+    res = fused.easu_rcas_reference(
+        epilogue_mod.decode(image, compute_dtype), rows.long(), cols.long(), py, px, sharp,
+        apply_rcas, denoise, prologue == "srtm",
     )
+    return epilogue_mod.store(epilogue_mod.apply(res, epi), out_dt)
 
 
 def easu_gather(
@@ -125,34 +149,49 @@ def easu_gather(
     apply_rcas: bool = False,
     denoise: bool = False,
     compute_dtype=torch.float32,
+    *,
+    epilogue=None,
+    frame=None,
+    grain=None,
+    prologue: str = "none",
+    out_dtype=None,
+    dither_page=None,
 ) -> torch.Tensor:
-    """EASU (+ RCAS when ``apply_rcas``) of a (..., 3, Hin, Win) float32 or
-    bfloat16 image to (..., 3, Hout, Wout) in ``compute_dtype`` (storage;
-    the math is float32).  CUDA tensors launch ``csrc/easu_gather.cu``; CPU
-    tensors run ``easu_gather_reference``."""
+    """EASU (+ RCAS when ``apply_rcas``) of a (..., 3, Hin, Win) float32,
+    bfloat16 or uint8 image to (..., 3, Hout, Wout) in ``out_dtype``
+    (default compute_dtype, the storage; the math is float32), with the
+    prologue and epilogue inside.  CUDA tensors launch
+    ``csrc/easu_gather.cu``; CPU tensors run ``easu_gather_reference``."""
+    kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
+              out_dtype=out_dtype, dither_page=dither_page)
     if image.device.type == "cpu":
-        return easu_gather_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype)
+        return easu_gather_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
     if image.device.type != "cuda":
         raise ValueError(f"easu_gather takes a CPU or CUDA tensor, got {image.device}")
-    if image.dtype not in pad.DTYPE_CODES:
-        raise TypeError(f"gather kernel takes float32/bfloat16 images, got {image.dtype}")
-    gplan, (hout, wout), sharp = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype)
+    if image.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
+        raise TypeError(f"gather kernel takes float32/bfloat16/uint8 images, got {image.dtype}")
+    gplan, (hout, wout), sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas,
+                                                  compute_dtype, prologue, out_dtype)
+    epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device)
     image = image.contiguous()
     *lead, _, hin, win = image.shape
-    out = torch.empty((*lead, 3, hout, wout), dtype=compute_dtype, device=image.device)
+    out = torch.empty((*lead, 3, hout, wout), dtype=out_dt, device=image.device)
     if out.numel() == 0:
         return out
     rows, cols, py, px = _device_tables(gplan, image.device)
     from fsr_tpu_torch.kernels import _build
 
     lib = _build.library()
+    cepi = epilogue_mod.c_params(epi)
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = lib.fsr_easu_gather(
             image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype],
-            pad.DTYPE_CODES[compute_dtype], image.numel() // (3 * hin * win), hin, win,
-            hout, wout, rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
-            sharp, int(apply_rcas), int(denoise), stream,
+            pad.DTYPE_CODES[compute_dtype], pad.DTYPE_CODES[out_dt],
+            image.numel() // (3 * hin * win), hin, win, hout, wout,
+            rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
+            sharp, int(apply_rcas), int(denoise), int(prologue == "srtm"),
+            ctypes.addressof(cepi), stream,
         )
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: cudaError {err}")

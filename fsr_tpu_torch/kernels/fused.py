@@ -9,11 +9,18 @@ subpixel fractions.  The kernel takes those per-phase source offsets and
 fractions from the host and never recomputes coordinates on the device.
 
 Data flow: ``upscale_fused`` plans the phases and the pad, runs K4
-(``pad.edge_pad``) to make the padded storage-dtype source, then K1
-(``upscale_padded``), whose launches are counted in
+(``pad.edge_pad``) to make the padded storage-dtype source (bytes stay
+bytes), then K1 (``upscale_padded``), whose launches are counted in
 ``upscale_padded.launches``.  The math is float32 throughout; bfloat16 is
 storage only.  For CPU tensors both steps run their plain versions
 (``edge_pad_reference``, ``upscale_padded_reference``).
+
+Options, as the JAX kernel takes them: a uint8 image (decoded at each tap
+load), the SRTM prologue (``prologue="srtm"``, at each tap load), the K5
+epilogue (``kernels/epilogue.py``: ``epilogue``, ``frame``, ``grain`` in
+plain output space, ``dither_page``) on the float32 result, and
+``out_dtype`` uint8/uint16 (UNORM codes of the float32 value).  RGBA and
+``row_offset`` wait (ROADMAP.md queue items 2 and 6).
 
 The TPU kernel's tile plans, riffles, row packing, in-kernel pad and
 software pipeline are TPU layout machinery with no counterpart here.
@@ -31,7 +38,9 @@ import torch
 
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import pad
+from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops.easu import easu_coords
 from fsr_tpu_torch.ops.rcas import shift_clamped
 
@@ -93,12 +102,18 @@ def _phase_structure(con: EasuConstants, out_size: Tuple[int, int]):
     return qy, qx, ry, rx, py_phase, px_phase
 
 
-def supported(in_shape, out_size, con: EasuConstants, compute_dtype) -> bool:
-    """True when K1 takes this configuration: RGB, float32/bfloat16, and an
-    integer phase structure (qy, qx in {1, 2, 4}, not both 1)."""
+def out_dtype_ok(out_dtype, compute_dtype) -> bool:
+    """The stores K1 and K2 make: the storage type, or uint8/uint16 codes."""
+    return out_dtype in (None, torch.uint8, torch.uint16, compute_dtype)
+
+
+def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
+    """True when K1 takes this configuration: RGB, float32/bfloat16 storage,
+    an output of the storage type or uint8/uint16 codes, and an integer
+    phase structure (qy, qx in {1, 2, 4}, not both 1)."""
     if len(in_shape) < 3 or in_shape[-3] != 3:
         return False
-    if compute_dtype not in (torch.float32, torch.bfloat16):
+    if compute_dtype not in pad.FLOAT_DTYPES or not out_dtype_ok(out_dtype, compute_dtype):
         return False
     if min(out_size) < 1:
         return False
@@ -165,7 +180,7 @@ def _axis_tables(q, r, frac, n, device):
 
 
 def easu_rcas_reference(
-    src: torch.Tensor,
+    srcf: torch.Tensor,
     rows: torch.Tensor,
     cols: torch.Tensor,
     ppy: torch.Tensor,
@@ -173,17 +188,21 @@ def easu_rcas_reference(
     sharpness: float,
     apply_rcas: bool = True,
     denoise: bool = False,
+    srtm: bool = False,
 ) -> torch.Tensor:
-    """The float32 math of K1 and K2 on a (..., 3, H, W) source in its
-    storage dtype: the kernels' ``fast`` forms, per-texel quad responses,
-    RCAS on the unrounded EASU values with the border clamped in output
-    coordinates, one rounding at the end to ``src.dtype``.
+    """The float32 math of K1 and K2 on a (..., 3, H, W) source as the
+    kernels load it (``epilogue.decode``): the SRTM prologue when ``srtm``,
+    the kernels' ``fast`` forms, per-texel quad responses, RCAS on the
+    unrounded EASU values with the border clamped in output coordinates.
+    Returns the unrounded float32 result (the epilogue and the one store
+    follow).
 
     rows (4, Hout) / cols (4, Wout): the source row/column of the taps at
     offsets -1..2 around each output pixel's 'f' texel; ppy (Hout,) / ppx
     (Wout,): the float32 subpixel fractions.
     """
-    srcf = src.to(torch.float32)
+    if srtm:
+        srcf = extras.srtm(srcf)
     taps = {
         name: srcf[..., rows[dy + 1][:, None], cols[dx + 1][None, :]]
         for name, (dx, dy) in easu_math.TAP_OFFSETS.items()
@@ -207,7 +226,25 @@ def easu_rcas_reference(
             denoise=denoise,
             fast=True,
         )
-    return out.to(src.dtype)
+    return out
+
+
+def _check_prologue(prologue):
+    if prologue not in ("none", "srtm"):
+        raise ValueError(f"unknown prologue {prologue!r}")
+
+
+def _out_dtype(padded_dtype, out_dtype):
+    """K1's output type for a padded source: the source's float type by
+    default; a byte source stores float32, bfloat16 or codes."""
+    if out_dtype is None:
+        if padded_dtype == torch.uint8:
+            raise ValueError("a uint8 source needs an explicit out_dtype")
+        return padded_dtype
+    ok = (torch.float32, torch.bfloat16) if padded_dtype == torch.uint8 else (padded_dtype,)
+    if out_dtype not in ok + (torch.uint8, torch.uint16):
+        raise ValueError(f"K1 stores {padded_dtype} as {ok} or uint8/uint16 codes, not {out_dtype}")
+    return out_dtype
 
 
 def upscale_padded_reference(
@@ -217,14 +254,24 @@ def upscale_padded_reference(
     sharpness: float,
     apply_rcas: bool = True,
     denoise: bool = False,
+    *,
+    prologue: str = "none",
+    epi=None,
+    out_dtype=None,
 ) -> torch.Tensor:
-    """Plain version of K1 (``easu_rcas_reference`` with the phase plan's
-    padded-frame tap indices); the result is in ``padded.dtype``."""
+    """Plain version of K1: ``easu_rcas_reference`` with the phase plan's
+    padded-frame tap indices, then ``epilogue.apply`` (``epi``: bound
+    ``EpilogueArgs``) and one store in ``out_dtype`` (default: the padded
+    source's float type)."""
+    _check_prologue(prologue)
+    out_dtype = _out_dtype(padded.dtype, out_dtype)
     hout, wout = out_size
     dev = padded.device
     rows, ppy = _axis_tables(fplan.qy, fplan.ry, fplan.py, hout, dev)
     cols, ppx = _axis_tables(fplan.qx, fplan.rx, fplan.px, wout, dev)
-    return easu_rcas_reference(padded, rows, cols, ppy, ppx, sharpness, apply_rcas, denoise)
+    res = easu_rcas_reference(epilogue_mod.decode(padded), rows, cols, ppy, ppx, sharpness,
+                              apply_rcas, denoise, prologue == "srtm")
+    return epilogue_mod.store(epilogue_mod.apply(res, epi), out_dtype)
 
 
 def upscale_padded(
@@ -234,25 +281,32 @@ def upscale_padded(
     sharpness: float,
     apply_rcas: bool = True,
     denoise: bool = False,
+    *,
+    prologue: str = "none",
+    epi=None,
+    out_dtype=None,
 ) -> torch.Tensor:
-    """K1 on the K4-padded source (..., 3, Hp, Wp) -> (..., 3, Hout, Wout)
-    in the source's dtype (float32 or bfloat16).  CUDA tensors launch
+    """K1 on the K4-padded source (..., 3, Hp, Wp) of float32, bfloat16 or
+    uint8 -> (..., 3, Hout, Wout) in ``out_dtype``.  CUDA tensors launch
     ``csrc/fused.cu``; CPU tensors run ``upscale_padded_reference``."""
     if padded.device.type == "cpu":
-        return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise)
+        return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise,
+                                        prologue=prologue, epi=epi, out_dtype=out_dtype)
     if padded.device.type != "cuda":
         raise ValueError(f"upscale_padded takes a CPU or CUDA tensor, got {padded.device}")
-    if padded.dtype not in pad.DTYPE_CODES:
-        raise TypeError(f"fused kernel takes float32/bfloat16 storage, got {padded.dtype}")
+    if padded.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
+        raise TypeError(f"fused kernel takes float32/bfloat16/uint8 sources, got {padded.dtype}")
     if padded.dim() < 3 or padded.shape[-3] != 3 or not padded.is_contiguous():
         raise ValueError(f"fused kernel needs a contiguous (..., 3, H, W) tensor, got {tuple(padded.shape)}")
+    _check_prologue(prologue)
+    out_dtype = _out_dtype(padded.dtype, out_dtype)
     hout, wout = (int(v) for v in out_size)
     *lead, _, hp, wp = padded.shape
     # The plan's reach must fit the padded extent: no bounds logic on the loads.
     if (max(fplan.ry) + (hout - 1) // fplan.qy + 2 >= hp or min(fplan.ry) < 1
             or max(fplan.rx) + (wout - 1) // fplan.qx + 2 >= wp or min(fplan.rx) < 1):
         raise ValueError("padded source does not cover the plan's tap reach")
-    out = torch.empty((*lead, 3, hout, wout), dtype=padded.dtype, device=padded.device)
+    out = torch.empty((*lead, 3, hout, wout), dtype=out_dtype, device=padded.device)
     nb = padded.numel() // (3 * hp * wp)
     if out.numel() == 0:
         return out
@@ -263,12 +317,14 @@ def upscale_padded(
     rx = (ctypes.c_int * 4)(*fplan.rx)
     py = (ctypes.c_float * 4)(*fplan.py)
     px = (ctypes.c_float * 4)(*fplan.px)
+    cepi = epilogue_mod.c_params(epi)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
         err = lib.fsr_upscale_fused(
-            padded.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[padded.dtype], nb, hp, wp,
-            hout, wout, fplan.qy, fplan.qx, ry, rx, py, px, float(sharpness),
-            int(apply_rcas), int(denoise), stream,
+            padded.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[padded.dtype],
+            pad.DTYPE_CODES[out_dtype], nb, hp, wp, hout, wout, fplan.qy, fplan.qx, ry, rx, py, px,
+            float(sharpness), int(apply_rcas), int(denoise), int(prologue == "srtm"),
+            ctypes.addressof(cepi), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed: cudaError {err}")
@@ -279,12 +335,15 @@ def upscale_padded(
 upscale_padded.launches = 0
 
 
-def _prepare(image, out_size, con, compute_dtype):
+def _prepare(image, out_size, con, compute_dtype, out_dtype):
     if image.dim() < 3 or image.shape[-3] != 3:
         raise ValueError(f"image must be (..., 3, H, W), got {tuple(image.shape)}")
-    if compute_dtype not in (torch.float32, torch.bfloat16):
+    if compute_dtype not in pad.FLOAT_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
-    return plan(tuple(image.shape[-2:]), out_size, con)
+    if not out_dtype_ok(out_dtype, compute_dtype):
+        raise ValueError(f"out_dtype must be uint8/uint16 or match compute_dtype, got {out_dtype}")
+    storage = torch.uint8 if image.dtype == torch.uint8 else compute_dtype
+    return plan(tuple(image.shape[-2:]), out_size, con), storage, out_dtype or compute_dtype
 
 
 def upscale_fused(
@@ -295,14 +354,24 @@ def upscale_fused(
     apply_rcas: bool = True,
     denoise: bool = False,
     compute_dtype=torch.float32,
+    *,
+    epilogue=None,
+    frame=None,
+    grain=None,
+    prologue: str = "none",
+    out_dtype=None,
+    dither_page=None,
 ) -> torch.Tensor:
     """Fused EASU(+RCAS): K4 pads the (..., 3, Hin, Win) image into the
-    storage dtype, K1 upscales it.  Returns (..., 3, Hout, Wout) in
-    compute_dtype (storage; the math is float32)."""
-    fplan = _prepare(image, out_size, con, compute_dtype)
-    padded = pad.edge_pad(image.contiguous(), fplan.pads, compute_dtype)
+    storage dtype (a uint8 image stays bytes), K1 upscales it, with the
+    prologue and epilogue inside.  Returns (..., 3, Hout, Wout) in
+    ``out_dtype`` (default compute_dtype, the storage; the math is float32)."""
+    fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
+    epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device)
+    padded = pad.edge_pad(image.contiguous(), fplan.pads, storage)
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return upscale_padded(padded, fplan, out_size, sharp, apply_rcas, denoise)
+    return upscale_padded(padded, fplan, out_size, sharp, apply_rcas, denoise,
+                          prologue=prologue, epi=epi, out_dtype=out_dt)
 
 
 def upscale_fused_reference(
@@ -313,10 +382,19 @@ def upscale_fused_reference(
     apply_rcas: bool = True,
     denoise: bool = False,
     compute_dtype=torch.float32,
+    *,
+    epilogue=None,
+    frame=None,
+    grain=None,
+    prologue: str = "none",
+    out_dtype=None,
+    dither_page=None,
 ) -> torch.Tensor:
     """Plain version of ``upscale_fused`` (K4 and K1 plain versions), on
     any device."""
-    fplan = _prepare(image, out_size, con, compute_dtype)
-    padded = pad.edge_pad_reference(image, fplan.pads, compute_dtype)
+    fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
+    epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device)
+    padded = pad.edge_pad_reference(image, fplan.pads, storage)
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return upscale_padded_reference(padded, fplan, out_size, sharp, apply_rcas, denoise)
+    return upscale_padded_reference(padded, fplan, out_size, sharp, apply_rcas, denoise,
+                                    prologue=prologue, epi=epi, out_dtype=out_dt)

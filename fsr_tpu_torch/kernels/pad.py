@@ -6,7 +6,9 @@ CLAMP sampler of the reference, FSR_Filter.cpp:49-50).
 
 ``edge_pad`` launches ``csrc/edge_pad.cu`` for a CUDA tensor and counts the
 launch in ``edge_pad.launches``; for a CPU tensor it runs the plain version
-``edge_pad_reference``.  The kernel's source note says what bounds it.
+``edge_pad_reference``.  The kernel's source note says what bounds it.  A
+uint8 image pads as bytes (uint8 to uint8), as the JAX package pads a byte
+source for its fused kernel (fused.py:583-592); K1 decodes at its loads.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import torch
 
 __all__ = ["edge_pad", "edge_pad_reference"]
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the kernels' C interfaces (csrc/fsr_pixel.cuh DType).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.uint16: 3}
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def edge_pad_reference(image: torch.Tensor, pads: Tuple[int, int, int, int], out_dtype) -> torch.Tensor:
@@ -34,14 +38,16 @@ def edge_pad_reference(image: torch.Tensor, pads: Tuple[int, int, int, int], out
 
 def edge_pad(image: torch.Tensor, pads: Tuple[int, int, int, int], out_dtype) -> torch.Tensor:
     """Edge-pad the last two axes of (..., H, W) and convert to out_dtype
-    (float32 or bfloat16).  pads: (top, bottom, left, right), all >= 0."""
+    (float32 or bfloat16 from either; uint8 from uint8).  pads: (top,
+    bottom, left, right), all >= 0."""
     if image.device.type == "cpu":
         return edge_pad_reference(image, pads, out_dtype)
     if image.device.type != "cuda":
         raise ValueError(f"edge_pad takes a CPU or CUDA tensor, got {image.device}")
-    if image.dtype not in DTYPE_CODES or out_dtype not in DTYPE_CODES:
+    floats = image.dtype in FLOAT_DTYPES and out_dtype in FLOAT_DTYPES
+    if not (floats or image.dtype == out_dtype == torch.uint8):
         raise TypeError(
-            f"edge_pad kernel takes float32/bfloat16, got {image.dtype} -> {out_dtype}"
+            f"edge_pad kernel takes float32/bfloat16 or uint8 -> uint8, got {image.dtype} -> {out_dtype}"
         )
     if image.dim() < 2 or not image.is_contiguous():
         raise ValueError("edge_pad kernel needs a contiguous (..., H, W) tensor")

@@ -7,9 +7,13 @@ dtype); the math is float32 (``rcas_resolve(fast=True)``) with one rounding
 at the store.  ``border="clamp"`` replicates the edge; ``border="zero"``
 reads zeros outside the image, as the sample's imageLoad does.
 
+A uint8 image sharpens byte in, byte out, whatever ``compute_dtype`` says
+(``fsr_tpu/kernels/rcas_pallas.py:64-73``): decoded v * float32(1/255) at
+load, float32 math, UNORM8 codes at the store.
+
 ``rcas_fused`` launches ``csrc/rcas.cu`` for a CUDA tensor and counts the
 launch in ``rcas_fused.launches``; for a CPU tensor it runs
-``rcas_fused_reference``.  Byte I/O waits (ROADMAP.md queue item 2).
+``rcas_fused_reference``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import RcasConstants
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import pad
 from fsr_tpu_torch.ops.rcas import shift_clamped
 
@@ -29,8 +34,10 @@ def _prepare(image, compute_dtype, border):
         raise ValueError(f"border must be 'clamp' or 'zero', got {border!r}")
     if image.dim() < 3 or image.shape[-3] != 3:
         raise ValueError(f"image must be (..., 3, H, W), got {tuple(image.shape)}")
+    if image.dtype == torch.uint8:
+        return torch.uint8
     dt = compute_dtype if compute_dtype is not None else image.dtype
-    if dt not in pad.DTYPE_CODES:
+    if dt not in pad.FLOAT_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {dt}")
     return dt
 
@@ -43,10 +50,10 @@ def rcas_fused_reference(
     border: str = "clamp",
 ) -> torch.Tensor:
     """Plain version of K3, on any device: the image rounded to the storage
-    dtype, the float32 cross with the border rule, ``rcas_resolve(fast=True)``,
-    one rounding at the end."""
+    dtype (or a decoded byte), the float32 cross with the border rule,
+    ``rcas_resolve(fast=True)``, one rounding (or UNORM8 encode) at the end."""
     dt = _prepare(image, compute_dtype, border)
-    src = image.to(dt).to(torch.float32)
+    src = epilogue_mod.decode(image, dt)
     out = easu_math.rcas_resolve(
         shift_clamped(src, -1, 0, border),
         shift_clamped(src, 0, -1, border),
@@ -57,7 +64,7 @@ def rcas_fused_reference(
         denoise=denoise,
         fast=True,
     )
-    return out.to(dt)
+    return epilogue_mod.store(out, dt)
 
 
 def rcas_fused(
@@ -68,14 +75,15 @@ def rcas_fused(
     border: str = "clamp",
 ) -> torch.Tensor:
     """RCAS of a (..., 3, H, W) float32 or bfloat16 image, returned in
-    ``compute_dtype`` (default: the image's dtype).  CUDA tensors launch
-    ``csrc/rcas.cu``; CPU tensors run ``rcas_fused_reference``."""
+    ``compute_dtype`` (default: the image's dtype), or of a uint8 image,
+    returned in uint8.  CUDA tensors launch ``csrc/rcas.cu``; CPU tensors
+    run ``rcas_fused_reference``."""
     if image.device.type == "cpu":
         return rcas_fused_reference(image, rcon, denoise, compute_dtype, border)
     if image.device.type != "cuda":
         raise ValueError(f"rcas_fused takes a CPU or CUDA tensor, got {image.device}")
-    if image.dtype not in pad.DTYPE_CODES:
-        raise TypeError(f"RCAS kernel takes float32/bfloat16 images, got {image.dtype}")
+    if image.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
+        raise TypeError(f"RCAS kernel takes float32/bfloat16/uint8 images, got {image.dtype}")
     dt = _prepare(image, compute_dtype, border)
     image = image.contiguous()
     *lead, _, h, w = image.shape

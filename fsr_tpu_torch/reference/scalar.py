@@ -3,12 +3,13 @@
 Copy of the float32 half of ``fsr_tpu/reference/scalar.py`` (the frozen
 ground truth of the JAX package), so that the port can be held against the
 oracle where JAX is not installed.  It imports this package's constants.
-The fp16, SRTM, LFGA and TEPD oracles come with their slices.
+The fp16 oracles come with their slice.
 
 - EASU fp32 (``FsrEasuF``, ffx_fsr1.h:315-437), with the bit-trick
   reciprocal / rsqrt approximations (``APrx*``, ffx_a.h:1786-1860).
 - RCAS fp32 (``FsrRcasF``, ffx_fsr1.h:684-769), incl. denoise and alpha
   passthrough.
+- SRTM, SRTM^-1, LFGA and TEPD (ffx_fsr1.h:990-1121).
 - The bilinear fallback (FSR_Pass.hlsl:70-73).
 
 Tap layout ((dx, dy) offsets from texel 'f'):
@@ -37,6 +38,11 @@ __all__ = [
     "prx_lo_sqrt_f32",
     "easu_ref",
     "rcas_ref",
+    "srtm_ref",
+    "srtm_inv_ref",
+    "lfga_ref",
+    "tepd_dither_ref",
+    "tepd_quantize_ref",
     "bilinear_ref",
 ]
 
@@ -292,6 +298,61 @@ def rcas_ref(img: np.ndarray, con: RcasConstants, denoise: bool = False) -> np.n
     if has_alpha:
         out = np.concatenate([out, img[3:4].astype(dt)], axis=0)
     return out
+
+
+# ----------------------------------------------------------------------------
+# SRTM / LFGA / TEPD (ffx_fsr1.h:990-1121)
+# ----------------------------------------------------------------------------
+
+
+def srtm_ref(c: np.ndarray, dtype=F32) -> np.ndarray:
+    """FsrSrtmF: c *= rcp(max3(c) + 1). c: (3, H, W) HDR {0..fp16max}."""
+    dt = dtype
+    c = np.asarray(c).astype(dt)
+    m = np.maximum(np.maximum(c[0], c[1]), c[2])
+    return (c * (dt(1.0) / (m + dt(1.0)))).astype(dt)
+
+
+def srtm_inv_ref(c: np.ndarray, dtype=F32) -> np.ndarray:
+    """FsrSrtmInvF: c *= rcp(max(1/32768, 1 - max3(c)))."""
+    dt = dtype
+    c = np.asarray(c).astype(dt)
+    m = np.maximum(np.maximum(c[0], c[1]), c[2])
+    return (c * (dt(1.0) / np.maximum(dt(1.0 / 32768.0), dt(1.0) - m))).astype(dt)
+
+
+def lfga_ref(c: np.ndarray, grain: np.ndarray, amount: float, dtype=F32) -> np.ndarray:
+    """FsrLfgaF: c += (t*a) * min(1-c, c); grain in {-0.5..0.5}, 3-channel."""
+    dt = dtype
+    c = np.asarray(c).astype(dt)
+    t = np.asarray(grain).astype(dt)
+    return (c + (t * dt(amount)) * np.minimum(dt(1.0) - c, c)).astype(dt)
+
+
+def tepd_dither_ref(h: int, w: int, frame: int) -> np.ndarray:
+    """FsrTepdDitF (ffx_fsr1.h:1086-1094): golden-ratio ordered dither, {0..<1}."""
+    x = (np.arange(w, dtype=np.uint32) + np.uint32(frame)).astype(F32)[None, :]
+    y = np.arange(h, dtype=F32)[:, None]
+    a = F32((1.0 + np.sqrt(np.float64(5.0))) / 2.0)
+    b = F32(1.0 / 3.69)
+    v = (x * a + (y * b)).astype(F32)
+    return (v - np.floor(v)).astype(F32)
+
+
+def tepd_quantize_ref(c: np.ndarray, dit: np.ndarray, bits: int = 10) -> np.ndarray:
+    """FsrTepdC8F / C10F: energy-preserving dithered linear -> gamma-2.0 quantize."""
+    steps = F32(255.0) if bits == 8 else F32(1023.0)
+    inv = F32(1.0) / steps
+    c = np.asarray(c, dtype=F32)
+    n = np.sqrt(c).astype(F32)
+    n = (np.floor(n * steps) * inv).astype(F32)
+    a = n * n
+    b = (n + inv).astype(F32)
+    b = b * b
+    r = ((c - b) * prx_med_rcp_f32(a - b)).astype(F32)
+    # AGtZeroF3(x) = sat(x * +INF): 1 where x > 0, else 0.
+    gt = (dit[None] - r > F32(0.0)).astype(F32)
+    return np.clip(n + gt * inv, F32(0.0), F32(1.0)).astype(F32)
 
 
 def bilinear_ref(src: np.ndarray, out_size: Tuple[int, int], con: EasuConstants) -> np.ndarray:

@@ -8,11 +8,15 @@ times and the device's idle share from a ``torch.profiler`` trace.
 from __future__ import annotations
 
 import statistics
-from typing import Callable
+from typing import Callable, Iterable, Tuple
 
 import torch
 
-__all__ = ["cuda_time_ms", "device_trace"]
+__all__ = ["cuda_time_ms", "device_trace", "busy_time"]
+
+# A torch.profiler cycle can come back with no device activity (seen once on
+# an H100 in a trace that succeeds on a second take): device_trace retakes it.
+TRACE_ATTEMPTS = 3
 
 
 def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20) -> float:
@@ -36,6 +40,26 @@ def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20) -> 
     return statistics.median(times)
 
 
+def busy_time(intervals: Iterable[Tuple[float, float]], start: float, end: float) -> float:
+    """Length of the union of the (start, end) intervals, each clipped to
+    the window [start, end] first: a device operation that began before the
+    window counts only from its start, so busy time never exceeds the
+    window and the idle share never reads negative."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(s, start), min(e, end)) for s, e in intervals):
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
 def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     """Trace ``calls`` back-to-back calls of ``fn()`` with ``torch.profiler``
     and read the device's share of the window.
@@ -45,47 +69,42 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     warm-up step, so its buffer set-up falls outside the recorded step.
     The window runs from the host entering the first call to the end of the
     last device operation; busy is the union of the device operations'
-    intervals.  Raises when the trace holds no device operation."""
+    intervals clipped to the window (``busy_time``).  A profiling cycle in
+    which CUPTI delivered no device activity is taken again, at most
+    ``TRACE_ATTEMPTS`` times in all; then it raises."""
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     if not torch.cuda.is_available():
         raise RuntimeError("device_trace needs a CUDA device")
-    traced = []
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-        schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-        on_trace_ready=lambda p: traced.append(p.events()),
-    ) as prof:
-        for _ in range(2):
-            with record_function("device_trace_window"):
-                for _ in range(calls):
-                    fn()
-            torch.cuda.synchronize()
-            prof.step()
-    events = traced[0]
     cuda = torch.autograd.DeviceType.CUDA
-    # Device operations only: the annotation also shows as a device-side span.
-    dev = sorted(
-        (e for e in events if e.device_type == cuda and e.name != "device_trace_window"
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda e: e.time_range.start,
-    )
-    if not dev:
-        raise RuntimeError("the profiler recorded no device operation")
+    for _ in range(TRACE_ATTEMPTS):
+        traced = []
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: traced.append(p.events()),
+        ) as prof:
+            for _ in range(2):
+                with record_function("device_trace_window"):
+                    for _ in range(calls):
+                        fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = traced[0]
+        # Device operations only: the annotation also shows as a device-side span.
+        dev = [e for e in events if e.device_type == cuda and e.name != "device_trace_window"
+               and not getattr(e, "is_user_annotation", False)]
+        if dev:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no device operation in {TRACE_ATTEMPTS} attempts")
     start = min(e.time_range.start for e in events
                 if e.name == "device_trace_window" and e.device_type != cuda)
     end = max(e.time_range.end for e in dev)
     kernels: dict = {}
-    busy, cur_s, cur_e = 0.0, None, None
     for e in dev:
         kernels[e.name] = kernels.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
-        if cur_e is None or e.time_range.start > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = e.time_range.start, e.time_range.end
-        else:
-            cur_e = max(cur_e, e.time_range.end)
-    busy += cur_e - cur_s
+    busy = busy_time(((e.time_range.start, e.time_range.end) for e in dev), start, end)
     window = end - start
     return {
         "kernels": kernels,

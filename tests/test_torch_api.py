@@ -88,15 +88,8 @@ def test_upscale_kernel_impl_on_cpu_matches_xla(dt):
 
 UNSUPPORTED = [
     ("RGBA", lambda x: dict(image=torch.cat([x, x[:1]], dim=0))),
-    ("uint8 input", lambda x: dict(image=(x * 255).to(torch.uint8))),
-    ("uint8 output", lambda x: dict(out_dtype=torch.uint8)),
     ("float16 compute", lambda x: dict(compute_dtype=torch.float16)),
     ("float16 input", lambda x: dict(image=x.half())),
-    ("prologue", lambda x: dict(prologue="srtm")),
-    ("epilogue", lambda x: dict(epilogue=object())),
-    ("frame", lambda x: dict(frame=3)),
-    ("grain", lambda x: dict(grain=torch.zeros(3, 54, 96))),
-    ("dither_page", lambda x: dict(dither_page=torch.zeros(128, 128))),
     ("grad on the kernel path", lambda x: dict(image=x.clone().requires_grad_(), impl="kernel")),
     ("grad on the torch path", lambda x: dict(image=x.clone().requires_grad_(), impl="torch")),
 ]
@@ -110,6 +103,36 @@ def test_unsupported_options_raise(case):
     kw.update(make(x))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fsr_tpu_torch.upscale(**kw)
+
+
+PORTED_OPTIONS = [
+    # id, upscale kwargs beside the image: the options that raised until
+    # byte I/O, the prologue and the epilogue were ported
+    ("uint8 input", lambda x: dict(image=(x * 255).to(torch.uint8))),
+    ("uint8 output", lambda x: dict(out_dtype=torch.uint8)),
+    ("prologue", lambda x: dict(prologue="srtm")),
+    ("epilogue", lambda x: dict(epilogue=fsr_tpu_torch.Epilogue(transform="gamma2"))),
+    ("frame", lambda x: dict(epilogue=fsr_tpu_torch.Epilogue(dither_bits=10), frame=3)),
+    ("grain", lambda x: dict(epilogue=fsr_tpu_torch.Epilogue(grain_amount=0.3), grain=torch.zeros(3, 54, 96))),
+    ("dither_page", lambda x: dict(epilogue=fsr_tpu_torch.Epilogue(dither_bits=8, dither_texture=True),
+                                   dither_page=torch.zeros(128, 128))),
+]
+
+
+@pytest.mark.parametrize("case", PORTED_OPTIONS, ids=lambda c: c[0])
+def test_ported_options_agree_across_impl(case):
+    """Each option runs on the kernel path (its plain versions here) and the
+    torch path and agrees with the JAX XLA path (tests/test_torch_epilogue.py
+    and test_torch_uint8.py hold them closely)."""
+    _, make = case
+    x = torch.from_numpy(_img(3, (3, 27, 48)))
+    kw = dict(image=x, preset="performance")
+    kw.update(make(x))
+    outs = [fsr_tpu_torch.upscale(**kw, impl=impl) for impl in ("kernel", "torch")]
+    assert outs[0].shape == outs[1].shape == (3, 54, 96) and outs[0].dtype == outs[1].dtype
+    d = (outs[0].double() - outs[1].double()).abs()
+    step = 1.0 if outs[0].dtype == torch.uint8 else 1.0 / 255.0  # at most a code or a dither step
+    assert (d > 1e-4).float().mean() <= 1e-3 and d.max() <= step
 
 
 KERNEL_PATH_CASES = [

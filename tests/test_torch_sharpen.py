@@ -168,7 +168,6 @@ def test_sharpen_bf16_compute_dtype(impl):
 
 
 UNSUPPORTED = [
-    ("uint8", lambda x: dict(image=(x * 255).to(torch.uint8)), "item 2"),
     ("float16 input", lambda x: dict(image=x.half()), "item 5"),
     ("float16 compute", lambda x: dict(compute_dtype=torch.float16), "item 5"),
     ("grad", lambda x: dict(image=x.clone().requires_grad_()), "item 4"),
