@@ -47,9 +47,29 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      scale=2.0, out_dtype=uint8) (K4 + K1 on bytes), and sharpen on uint8 4K
      frames (K3);
  14. with --trace only: traces of (a) and (b), which must show only their
-     kernels.
-The last two lines are a JSON object describing the kernels and the JSON
-result line.  Exits non-zero with no result when CUDA is unavailable.
+     kernels;
+ 15. K1 and K2 on RGBA (f32 and bf16 storage, uint8 in with uint8/uint16
+     out, RCAS off/on/denoise, the SRTM prologue, the HDR-tail and display
+     epilogues; K2 also at a DRS offset and a ragged ratio) against their
+     plain versions: alpha bit-equal, RGB bit-equal to the 3-channel call of
+     the same kernel and within the phase-12 limits of the plain version;
+ 16. the RGBA paths on batches of 4: (d) upscale(rgba, preset="performance")
+     on (4, 4, 1080, 1920) float32 and uint8 (-> uint8), exactly one K4 and
+     one K1 each, (e) upscale(rgba, preset="quality") on (4, 4, 1440, 2560)
+     bfloat16, exactly one K2; the same checks, and CUDA-event times of each
+     kernel and the same call on the RGB slice, taken in turn (with --trace,
+     traces of both, which must show only those kernels);
+ 17. float16: upscale(x.half(), preset="performance", compute_dtype=float16)
+     at 540p -> 1080p on the torch path (no kernel launch), "mixed" against
+     the float32 oracle and ops.easu "strict" against the float16 oracle by
+     the docs/FIDELITY.md f16 rows; sharpen on (4, 3, 2160, 3840) float16
+     through K3 (one launch), within one half step of its plain version;
+     times of both, the float16 upscale at batch 4 beside K1.
+The card's name and power limit, a JSON object describing the kernels
+(times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
+the float32 operations the function needs, estimated, over 67 TFLOP/s) and the JSON result line
+are the last three lines.  Exits non-zero with no result when CUDA is
+unavailable.
 """
 
 from __future__ import annotations
@@ -73,6 +93,32 @@ TORCH_SHARE = 1e-3
 MAIN_SHAPE = (4, 3, 1080, 1920)
 QUALITY_SHAPE = (4, 3, 1440, 2560)
 SHARPEN_SHAPE = (4, 3, 2160, 3840)
+# docs/FIDELITY.md f16 rows: mixed against the float32 oracle, strict
+# against the float16 oracle.
+F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
+F16_STRICT = dict(median=1e-3, p999=5e-3, share=0.002)
+F16_ULP = 2.0 ** -11  # one float16 step in [0.5, 1)
+
+# The least time the card could take (the kernels line's bound_ms): the
+# larger of the bytes a kernel must move over the HBM3 rate and its
+# float32 operations over the float32 rate outside the tensor cores (H100
+# SXM data sheet, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations the function needs (FMA = 2), estimated from the
+# sources (PERF.md section 3), per output pixel: EASU, RCAS, the TEPD
+# dither, LFGA grain, RGBA's bilinear alpha; per source texel: the SRTM
+# prologue.  The kernels do more than this (K1 and K2 recompute EASU on a
+# one-pixel ring around each 32x16 tile, 1.195x, and the prologue at each
+# of a pixel's 12 tap loads): that recompute is the kernels' cost, not the
+# function's, so the bound leaves it out.
+EASU_OPS = 480
+RCAS_OPS = 85
+EASU_RCAS_OPS = EASU_OPS + RCAS_OPS
+SRTM_OPS_PER_TEXEL = 10
+TEPD_OPS = 60
+LFGA_OPS = 12
+ALPHA_OPS = 8
 
 
 def _card() -> str:
@@ -181,6 +227,39 @@ def _compare_torch_path(got: torch.Tensor, want: torch.Tensor, what: str, step=N
         raise AssertionError(f"{what}: disagrees with the plain-torch pipeline")
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the byte floor or the operation floor,
+    whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms=None):
+    """One entry of the kernels line; the bound from this run's shapes."""
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _f16_stats(got: torch.Tensor, want: np.ndarray, what: str, row: dict) -> None:
+    """A float16 output held by a docs/FIDELITY.md f16 row."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    d = np.abs(got.float().cpu().numpy() - want.astype(np.float32))
+    stats = {"median": float(np.median(d)), "p99": float(np.percentile(d, 99)),
+             "p999": float(np.percentile(d, 99.9)), "share": float((d > 1.0 / 255.0).mean())}
+    print(f"  {what}: median {stats['median']:.3e} p99 {stats['p99']:.3e} p99.9 {stats['p999']:.3e} "
+          f"share over 1/255 {stats['share']:.4f} max {d.max():.3e} (limits {row})")
+    if any(stats[k] > v for k, v in row.items()):
+        raise AssertionError(f"{what}: outside the docs/FIDELITY.md f16 row")
+
+
 def _back_to_back_ms(fn, n: int = 10) -> float:
     """Device time per call of n calls queued back to back (host launch
     overhead hidden behind the queue), from one CUDA-event pair."""
@@ -196,10 +275,23 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
+def _interleaved_ms(fns: dict, rounds: int = 3) -> dict:
+    """``cuda_time_ms`` of each function, the functions taken in turn
+    ``rounds`` times; the median per function."""
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms
+
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(cuda_time_ms(fn))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="add phases 11 and 14: torch.profiler traces of the main paths")
+                        help="add phases 11 and 14 and phase 16's traces: torch.profiler traces "
+                             "of the main paths")
     trace = parser.parse_args().trace
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -212,13 +304,19 @@ def main() -> int:
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
 
     dev = torch.device("cuda:0")
+    laps = []  # (phase, start time): the seconds each phase takes
+
+    def lap(phase):
+        laps.append((phase, time.perf_counter()))
 
     # --- 1. the card -------------------------------------------------------
+    lap("1")
     card = _card()
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
     # --- 2. build ------------------------------------------------------------
+    lap("2")
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2: built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s")
@@ -232,6 +330,7 @@ def main() -> int:
         return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
 
     # --- 3. K4 -------------------------------------------------------------
+    lap("3")
     print("phase 3: K4 edge_pad vs edge_pad_reference (bit-equal)")
     k4_err = 0.0
     main_plan = fused.plan(MAIN_SHAPE[-2:], (2160, 3840),
@@ -249,6 +348,7 @@ def main() -> int:
             print(f"  {tuple(shape)} {src.dtype}->{dt} pads {pads}: bit-equal")
 
     # --- 4. K1 -------------------------------------------------------------
+    lap("4")
     print("phase 4: K1 upscale_fused vs upscale_fused_reference")
 
     def con_for(in_hw, out_hw):
@@ -296,6 +396,7 @@ def main() -> int:
         k1_err = max(k1_err, _compare(got, want, what))
 
     # --- 5. oracle ---------------------------------------------------------
+    lap("5")
     img = rng.uniform(0, 1, (3, 540, 960)).astype(np.float32)
     con = con_for((540, 960), (1080, 1920))
     oracle = ref.rcas_ref(ref.easu_ref(img, (1080, 1920), con), RcasConstants(0.25))
@@ -312,6 +413,7 @@ def main() -> int:
           f"max {db.max():.3e}")
 
     # --- 6. main path --------------------------------------------------------
+    lap("6")
     wrappers = {"K4": pad.edge_pad, "K1": fused.upscale_padded,
                 "K2": easu_gather.easu_gather, "K3": rcas_k.rcas_fused}
 
@@ -368,6 +470,15 @@ def main() -> int:
                 lambda: fused.upscale_padded_reference(padded, main_plan, (2160, 3840), sharp),
                 warmup=1, iters=5),
         }
+        if dt == torch.float32:
+            # The one PyTorch call that computes K4's function (timed, never
+            # called by the port): F.pad takes (left, right, top, bottom).
+            pt, pb, pl, pr = main_plan.pads
+            t["K4_library"] = cuda_time_ms(
+                lambda: torch.nn.functional.pad(x, (pl, pr, pt, pb), mode="replicate"))
+            if not torch.equal(torch.nn.functional.pad(x, (pl, pr, pt, pb), mode="replicate"), padded):
+                raise AssertionError("F.pad(mode='replicate') does not compute K4's function")
+            main_bytes = {"K4": _nbytes(x, padded), "K1": _nbytes(padded) + _nbytes(x) * 4}
         timings[dt] = t
         print(f"  times {dt}, median CUDA-event ms per 4K frame (batch {nframes}) on {card}:")
         for k, v in t.items():
@@ -380,6 +491,7 @@ def main() -> int:
           f"bf16: {nframes * 2160 * 3840 / (timings[torch.bfloat16]['call'] * 1e-3) / 1e6:.1f} Mpix/s")
 
     # --- 7. K2 ------------------------------------------------------------
+    lap("7")
     print("phase 7: K2 easu_gather vs easu_gather_reference")
     k2_err = 0.0
     f32, bf16 = torch.float32, torch.bfloat16
@@ -425,6 +537,7 @@ def main() -> int:
         k2_err = max(k2_err, _compare(got, want, what))
 
     # --- 8. K3 ------------------------------------------------------------
+    lap("8")
     print("phase 8: K3 rcas_fused vs rcas_fused_reference")
     k3_err = 0.0
     rbright = torch.zeros((3, 40, 130), device=dev)
@@ -450,6 +563,7 @@ def main() -> int:
             k3_err = max(k3_err, err)
 
     # --- 9. oracle: Quality and sharpen ---------------------------------------
+    lap("9")
     img = rng.uniform(0, 1, (3, 720, 1280)).astype(np.float32)
     oracle = ref.rcas_ref(ref.easu_ref(img, (1080, 1920), con_for((720, 1280), (1080, 1920))),
                           RcasConstants(0.25))
@@ -467,6 +581,7 @@ def main() -> int:
     del oracle, img
 
     # --- 10. the Quality path and sharpen -------------------------------------
+    lap("10")
     qframes = torch.rand(QUALITY_SHAPE, generator=gen, device=dev)
     sframes = torch.rand(SHARPEN_SHAPE, generator=gen, device=dev)
     qcon = EasuConstants.create((2560, 1440), None, (3840, 2160))
@@ -522,6 +637,7 @@ def main() -> int:
           "kernels alone; *_plain: their plain torch versions on the card")
 
     # --- 11. trace (--trace only) ---------------------------------------------
+    lap("11")
     if trace:
         print(f"phase 11: torch.profiler traces on {card}")
         paths = (
@@ -541,6 +657,7 @@ def main() -> int:
                         print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname}")
 
     # --- 12. the prologue, the epilogue and byte I/O ---------------------------
+    lap("12")
     from fsr_tpu_torch.kernels import epilogue as epilogue_mod
     from fsr_tpu_torch.kernels.epilogue import Epilogue
 
@@ -603,6 +720,7 @@ def main() -> int:
         print(f"  K4 uint8 pads {pads}: bit-equal")
 
     # --- 13. the README's pipeline paths -------------------------------------
+    lap("13")
     out4k = (2160, 3840)
     pcon = EasuConstants.create((1920, 1080), None, (3840, 2160))
     hdr = torch.rand(MAIN_SHAPE, generator=gen, device=dev) * 16
@@ -685,6 +803,7 @@ def main() -> int:
           "the same upscale without the prologue and epilogue, for the epilogue's cost")
 
     # --- 14. trace of the pipeline paths (--trace only) -------------------------
+    lap("14")
     if trace:
         print(f"phase 14: torch.profiler traces of the pipeline paths on {card}")
         for name, call, kinds in ((paths[0][0], paths[0][1], ("edge_pad_kernel", "fused_kernel")),
@@ -699,42 +818,255 @@ def main() -> int:
                 if extra:
                     raise AssertionError(f"{name}: the trace shows more than {kinds}: {extra}")
 
+    # --- 15. RGBA on K1 and K2 -----------------------------------------------
+    lap("15")
+    print("phase 15: K1 and K2 on RGBA vs their plain versions and the 3-channel call of the same kernel")
+    epi_tail = Epilogue(grain_amount=0.3, dither_bits=10)
+    epi_disp = Epilogue(grain_amount=0.25, dither_bits=8)
+    rgba_cases = [
+        # what, source kind, storage, out dtype, rcas, denoise, prologue, epilogue
+        ("f32", "float", f32, None, True, False, "none", None),
+        ("f32 EASU only", "float", f32, None, False, False, "none", None),
+        ("f32 denoise", "float", f32, None, True, True, "none", None),
+        ("bf16", "float", bf16, None, True, False, "none", None),
+        ("u8 ->u8", "u8", f32, u8, True, False, "none", None),
+        ("u8 ->u16", "u8", f32, u16, True, False, "none", None),
+        ("HDR srtm f32", "hdr", f32, None, True, False, "srtm", None),
+        ("HDR tail: srtm, grain, dither10", "hdr", f32, None, True, False, "srtm", epi_tail),
+        ("display: u8, grain, dither8, bf16 ->u8", "u8", bf16, u8, True, False, "none", epi_disp),
+    ]
+    k1_fns = (fused.upscale_fused, fused.upscale_fused_reference)
+    k2_fns = (easu_gather.easu_gather, easu_gather.easu_gather_reference)
+    rgba_geoms = [
+        # kernel, (wrapper, plain version), input (h, w), output (h, w), constants, cases
+        ("K1", k1_fns, (270, 480), (540, 960), con_for((270, 480), (540, 960)), rgba_cases),
+        ("K2", k2_fns, (360, 640), (540, 960), con_for((360, 640), (540, 960)), rgba_cases),
+        ("K2 DRS offset", k2_fns, (400, 700), (540, 960),
+         EasuConstants.create((640, 360), (700, 400), (960, 540), (16, 8)), rgba_cases[:1]),
+        ("K2 ragged ~1.7x", k2_fns, (64, 114), (108, 192), con_for((64, 114), (108, 192)), rgba_cases[:1]),
+    ]
+    rgba_err = {"K1": 0.0, "K2": 0.0}
+    for kname, (fn, ref_fn), in_hw, out_hw, con, cases in rgba_geoms:
+        x = rand((1, 3, *in_hw))
+        a = rand((1, 1, *in_hw))
+        srcs = {"float": torch.cat([x, a], 1), "hdr": torch.cat([x * 16, a], 1),
+                "u8": (torch.cat([x, a], 1) * 255).to(u8)}
+        grain = rand((3, *out_hw)) - 0.5
+        for what, src, dt, od, rcas_on, denoise, pro, epi in cases:
+            x4 = srcs[src]
+            kw = dict(epilogue=epi, frame=7, grain=grain, prologue=pro, out_dtype=od)
+            got = fn(x4, out_hw, con, rcon, rcas_on, denoise, dt, **kw)
+            got3 = fn(x4[:, :3].contiguous(), out_hw, con, rcon, rcas_on, denoise, dt, **kw)
+            want = ref_fn(x4, out_hw, con, rcon, rcas_on, denoise, dt, **kw)
+            torch.cuda.synchronize()
+            label = f"{kname} RGBA {what}"
+            if got.shape != want.shape or got.shape[1] != 4:
+                raise AssertionError(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+            if not torch.equal(got[:, :3], got3):
+                raise AssertionError(f"{label}: RGB differs from the 3-channel call")
+            if not torch.equal(got[:, 3], want[:, 3]):
+                raise AssertionError(f"{label}: alpha not bit-equal to the plain version")
+            err = _compare_epilogue(got[:, :3], want[:, :3], epi, f"{label}, RGB")
+            print(f"  {label}: RGB bit-equal to the 3-channel call, alpha bit-equal to the plain version")
+            if got.dtype == f32 and epi is None:
+                rgba_err[kname[:2]] = max(rgba_err[kname[:2]], err)
+
+    # --- 16. the RGBA paths at full width -------------------------------------
+    lap("16")
+    rgba_frames = torch.cat([frames, torch.rand(MAIN_SHAPE[:1] + (1,) + MAIN_SHAPE[2:], generator=gen,
+                                                device=dev)], 1)
+    rgba_q = torch.cat([qframes, torch.rand(QUALITY_SHAPE[:1] + (1,) + QUALITY_SHAPE[2:], generator=gen,
+                                            device=dev)], 1).to(bf16)
+    rgba8 = (rgba_frames * 255).to(u8)
+    print(f"phase 16: the RGBA paths on batches of {nframes}, on {card}")
+    rgba_paths = [
+        # name, image, upscale kwargs, kernels, plain version, constants
+        ("(d) performance f32", rgba_frames, dict(preset="performance"), ("K4", "K1"),
+         lambda x: fused.upscale_fused_reference(x, out4k, pcon, rcon)),
+        ("(d) performance u8 ->u8", rgba8, dict(preset="performance", out_dtype=u8), ("K4", "K1"),
+         lambda x: fused.upscale_fused_reference(x, out4k, pcon, rcon, out_dtype=u8)),
+        ("(e) quality bf16", rgba_q, dict(preset="quality", compute_dtype=bf16), ("K2",),
+         lambda x: easu_gather.easu_gather_reference(x, out4k, qcon, rcon, True, False, bf16)),
+    ]
+    rgba_runs = {}
+    for name, x4, kw, need, plain in rgba_paths:
+        out, n = drive(lambda: ft.upscale(x4, **kw), need)
+        if tuple(out.shape) != (nframes, 4) + out4k or out.dtype != kw.get("out_dtype", x4.dtype):
+            raise AssertionError(f"{name}: got {tuple(out.shape)} {out.dtype}")
+        print(f"  {name}: out {tuple(out.shape)} {out.dtype}; launches {n}")
+        out_bytes = _nbytes(out)
+        want = plain(x4)
+        if not torch.equal(out[:, 3], want[:, 3]):
+            raise AssertionError(f"{name}: alpha not bit-equal to the plain version")
+        if out.dtype == u8:
+            err = _compare_steps(out[:, :3], want[:, :3], None, f"{name} vs the plain version, RGB")
+        else:
+            err = _compare(out[:, :3], want[:, :3], f"{name} vs the plain version, RGB")
+        del want
+        x3 = x4[:, :3].contiguous()
+        if not torch.equal(out[:, :3], ft.upscale(x3, **kw)):
+            raise AssertionError(f"{name}: RGB differs from the same call on the RGB slice")
+        print(f"  {name}: alpha bit-equal to the plain version, RGB bit-equal to the call on the RGB slice")
+        del out
+        # Each RGBA time is taken in turn with its RGB-slice twin, so that
+        # alpha's cost is read under the same clocks and card state.
+        t = _interleaved_ms({"call": lambda: ft.upscale(x4, **kw),
+                             "call on the RGB slice": lambda: ft.upscale(x3, **kw)})
+        od = kw.get("out_dtype")
+        if "K1" in need:
+            st = x4.dtype
+            p4, p3 = pad.edge_pad(x4, main_plan.pads, st), pad.edge_pad(x3, main_plan.pads, st)
+            t.update(_interleaved_ms({
+                "K4": lambda: pad.edge_pad(x4, main_plan.pads, st),
+                "K4 RGB": lambda: pad.edge_pad(x3, main_plan.pads, st),
+                "K1": lambda: fused.upscale_padded(p4, main_plan, out4k, sharp, out_dtype=od),
+                "K1 RGB": lambda: fused.upscale_padded(p3, main_plan, out4k, sharp, out_dtype=od)}))
+            t["K1_plain"] = cuda_time_ms(
+                lambda: fused.upscale_padded_reference(p4, main_plan, out4k, sharp, out_dtype=od),
+                warmup=1, iters=3)
+            nbytes = _nbytes(p4) + out_bytes
+            del p4, p3
+        else:
+            q16 = qframes.to(bf16)  # phase 10's frames, beside the RGB slice of the RGBA frames
+            t.update(_interleaved_ms({
+                "K2": lambda: easu_gather.easu_gather(x4, out4k, qcon, rcon, True, False, bf16),
+                "K2 RGB": lambda: easu_gather.easu_gather(x3, out4k, qcon, rcon, True, False, bf16),
+                "K2 phase 10": lambda: easu_gather.easu_gather(q16, out4k, qcon, rcon, True, False, bf16)}))
+            del q16
+            t["K2_plain"] = cuda_time_ms(lambda: plain(x4), warmup=1, iters=3)
+            nbytes = _nbytes(x4) + out_bytes
+        rgba_runs[name] = dict(launches=n, err=err, t=t, nbytes=nbytes)
+        for k, v in t.items():
+            print(f"    {k:>22}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+        print("    alpha's cost: " + ", ".join(
+            f"{k} {t[k] / t[k + ' RGB'] - 1:+.1%}" for k in ("K4", "K1", "K2") if k in t))
+    print("  call: median latency of one upscale call; K*: the kernel alone on the RGBA frames; "
+          "* RGB: the same on the RGB slice, for alpha's cost (the two taken in turn, 3 rounds, "
+          "median); K*_plain: the plain version")
+    if trace:
+        kinds_of = {"K4": "edge_pad_kernel", "K1": "fused_kernel", "K2": "gather_kernel"}
+        for name, x4, kw, need, _ in rgba_paths:
+            kinds = tuple(kinds_of[k] for k in need)
+            for what, x in (("RGBA", x4), ("the RGB slice", x4[:, :3].contiguous())):
+                tr = device_trace(lambda: ft.upscale(x, **kw), 5)
+                print(f"  trace {name} on {what}, 5 calls back to back: device busy {tr['busy_ms']:.4f} ms "
+                      f"of a {tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
+                for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
+                    print(f"    {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname}")
+                extra = [k for k in tr["kernels"] if not any(kind in k for kind in kinds)]
+                if extra:
+                    raise AssertionError(f"{name}: the trace shows more than {kinds}: {extra}")
+
+    # --- 17. float16 ------------------------------------------------------------
+    lap("17")
+    from fsr_tpu_torch.ops import easu as easu_ops
+    from fsr_tpu_torch.ops import rcas as rcas_ops
+
+    f16 = torch.float16
+    print("phase 17: float16 (the torch path for upscale, K3 for sharpen)")
+    img = rng.uniform(0, 1, (3, 540, 960)).astype(np.float32)
+    con = con_for((540, 960), (1080, 1920))
+    x16 = torch.from_numpy(img).to(dev).half()
+    oracle32 = ref.easu_ref(img, (1080, 1920), con)
+    out, _ = drive(lambda: ft.upscale(x16, preset="performance", compute_dtype=f16, apply_rcas=False), ())
+    if out.dtype != f16 or tuple(out.shape) != (3, 1080, 1920):
+        raise AssertionError(f"float16 upscale: got {tuple(out.shape)} {out.dtype}")
+    _f16_stats(out, oracle32, "upscale f16 mixed EASU 540p->1080p vs the f32 oracle", F16_MIXED)
+    out, _ = drive(lambda: ft.upscale(x16, preset="performance", compute_dtype=f16), ())
+    full32 = ref.rcas_ref(oracle32, RcasConstants(0.25))
+    _f16_stats(out, full32, "upscale f16 mixed EASU+RCAS vs the f32 oracle",
+               {k: v for k, v in F16_MIXED.items() if k != "median"})
+    e16 = easu_ops.easu(x16, (1080, 1920), con, compute_dtype=f16, precision="strict")
+    strict = rcas_ops.rcas(e16, RcasConstants(0.25))
+    oracle16 = ref.easu_ref_f16(img, (1080, 1920), con)
+    _f16_stats(e16, oracle16, "ops.easu f16 strict 540p->1080p vs the f16 oracle", F16_STRICT)
+    _f16_stats(strict, ref.rcas_ref(oracle16, RcasConstants(0.25), dtype=np.float16),
+               "ops.easu strict + ops.rcas f16 vs the f16 oracle", F16_STRICT)
+    del oracle32, full32, oracle16, e16, strict, img
+
+    y16 = sframes.half()
+    out, n = drive(lambda: ft.sharpen(y16), ("K3",))
+    if out.dtype != f16 or tuple(out.shape) != SHARPEN_SHAPE:
+        raise AssertionError(f"sharpen f16: got {tuple(out.shape)} {out.dtype}")
+    want = rcas_k.rcas_fused_reference(y16, rcon)
+    d = (out.float() - want.float()).abs()
+    k3_f16 = dict(launches=n["K3"], err=d.max().item(), off=int((d > 0).sum()))
+    print(f"  sharpen f16 4K: launches {n}; vs rcas_fused_reference max-abs {k3_f16['err']:.3e} "
+          f"(limit one half step, {F16_ULP:g}), {k3_f16['off']} of {d.numel()} values differ")
+    if not torch.isfinite(out).all() or k3_f16["err"] > F16_ULP:
+        raise AssertionError("sharpen f16: K3 disagrees with its plain version")
+    del out, want, d
+    y_bf16 = sframes.to(bf16)
+    k3_f16["t"] = {
+        "sharpen_call": cuda_time_ms(lambda: ft.sharpen(y16)),
+        "K3": cuda_time_ms(lambda: rcas_k.rcas_fused(y16, rcon)),
+        "K3 bf16": cuda_time_ms(lambda: rcas_k.rcas_fused(y_bf16, rcon)),
+        "K3_plain": cuda_time_ms(lambda: rcas_k.rcas_fused_reference(y16, rcon), warmup=1, iters=5),
+    }
+    # The float16 upscale runs the torch path: its cost beside K1's.
+    f16_frames = frames.half()
+    k3_f16["t"]["upscale f16 (torch path)"] = cuda_time_ms(
+        lambda: ft.upscale(f16_frames, preset="performance", compute_dtype=f16), warmup=1, iters=3)
+    del f16_frames
+    padded = pad.edge_pad(frames, main_plan.pads, f32)
+    k3_f16["t"]["K1 f32 (phase 6's kernel)"] = cuda_time_ms(
+        lambda: fused.upscale_padded(padded, main_plan, out4k, sharp))
+    del padded
+    print(f"  times on {card}, batch {nframes}:")
+    for k, v in k3_f16["t"].items():
+        print(f"    {k:>26}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+
     t32, q32 = timings[torch.float32], qtimings[torch.float32]
     ta, tb, tc, ts = (path_runs[p[0]] for p in paths)
+    td, td8, te = (rgba_runs[p[0]] for p in rgba_paths)
+    npix = nframes * out4k[0] * out4k[1]
+    out4k_f32 = npix * 3 * 4
+    src = {"K4": "fsr_tpu_torch/csrc/edge_pad.cu", "K1": "fsr_tpu_torch/csrc/fused.cu",
+           "K2": "fsr_tpu_torch/csrc/easu_gather.cu", "K3": "fsr_tpu_torch/csrc/rcas.cu"}
+    rep = {"K4": "fsr_tpu/kernels/pad.py:50", "K1": "fsr_tpu/kernels/fused.py:403",
+           "K2": "fsr_tpu/kernels/easu_gather.py:350", "K3": "fsr_tpu/kernels/rcas_pallas.py:42"}
     kernels = [
-        {"name": "edge_pad (K4)", "route": "cuda", "source": "fsr_tpu_torch/csrc/edge_pad.cu",
-         "replaces": "fsr_tpu/kernels/pad.py:50", "launches": launches["K4"],
-         "max_abs_err": k4_err, "ms": t32["K4"], "plain_ms": t32["K4_plain"]},
-        {"name": "upscale_fused (K1)", "route": "cuda", "source": "fsr_tpu_torch/csrc/fused.cu",
-         "replaces": "fsr_tpu/kernels/fused.py:403", "launches": launches["K1"],
-         "max_abs_err": k1_err, "ms": t32["K1"], "plain_ms": t32["K1_plain"]},
-        {"name": "easu_gather (K2)", "route": "cuda", "source": "fsr_tpu_torch/csrc/easu_gather.cu",
-         "replaces": "fsr_tpu/kernels/easu_gather.py:350", "launches": launches["K2"],
-         "max_abs_err": k2_err, "ms": q32["K2"], "plain_ms": q32["K2_plain"]},
-        {"name": "rcas_fused (K3)", "route": "cuda", "source": "fsr_tpu_torch/csrc/rcas.cu",
-         "replaces": "fsr_tpu/kernels/rcas_pallas.py:42", "launches": launches["K3"],
-         "max_abs_err": k3_err, "ms": q32["K3"], "plain_ms": q32["K3_plain"]},
-        {"name": "upscale_fused (K1) + SRTM prologue + K5 epilogue: HDR frame tail (a)", "route": "cuda",
-         "source": "fsr_tpu_torch/csrc/fused.cu", "replaces": "fsr_tpu/kernels/fused.py:403",
-         "launches": ta["launches"]["K1"], "max_abs_err": max(epi_err["K1"], ta["err"]),
-         "ms": ta["t"]["K1"], "plain_ms": ta["t"]["K1_plain"]},
-        {"name": "easu_gather (K2) + K5 epilogue, uint8 in and out: display path (b)", "route": "cuda",
-         "source": "fsr_tpu_torch/csrc/easu_gather.cu", "replaces": "fsr_tpu/kernels/easu_gather.py:350",
-         "launches": tb["launches"]["K2"], "max_abs_err": max(epi_err["K2"], tb["err"]),
-         "ms": tb["t"]["K2"], "plain_ms": tb["t"]["plain"]},
-        {"name": "upscale_fused (K1), uint8 in and out: byte video path (c)", "route": "cuda",
-         "source": "fsr_tpu_torch/csrc/fused.cu", "replaces": "fsr_tpu/kernels/fused.py:403",
-         "launches": tc["launches"]["K1"], "max_abs_err": tc["err"],
-         "ms": tc["t"]["K1"], "plain_ms": tc["t"]["K1_plain"]},
-        {"name": "edge_pad (K4), uint8: byte video path (c)", "route": "cuda",
-         "source": "fsr_tpu_torch/csrc/edge_pad.cu", "replaces": "fsr_tpu/kernels/pad.py:50",
-         "launches": tc["launches"]["K4"], "max_abs_err": 0.0,
-         "ms": tc["t"]["K4"], "plain_ms": tc["t"]["K4_plain"]},
-        {"name": "rcas_fused (K3), uint8: sharpen on bytes", "route": "cuda",
-         "source": "fsr_tpu_torch/csrc/rcas.cu", "replaces": "fsr_tpu/kernels/rcas_pallas.py:42",
-         "launches": ts["launches"]["K3"], "max_abs_err": ts["err"],
-         "ms": ts["t"]["K3"], "plain_ms": ts["t"]["K3_plain"]},
+        _kernel_entry("edge_pad (K4)", src["K4"], rep["K4"], launches["K4"], k4_err, t32["K4"],
+                      t32["K4_plain"], main_bytes["K4"], 0, t32["K4_library"]),
+        _kernel_entry("upscale_fused (K1)", src["K1"], rep["K1"], launches["K1"], k1_err, t32["K1"],
+                      t32["K1_plain"], main_bytes["K1"], EASU_RCAS_OPS * npix),
+        _kernel_entry("easu_gather (K2)", src["K2"], rep["K2"], launches["K2"], k2_err, q32["K2"],
+                      q32["K2_plain"], _nbytes(qframes) + out4k_f32, EASU_RCAS_OPS * npix),
+        _kernel_entry("rcas_fused (K3)", src["K3"], rep["K3"], launches["K3"], k3_err, q32["K3"],
+                      q32["K3_plain"], 2 * _nbytes(sframes), RCAS_OPS * npix),
+        _kernel_entry("upscale_fused (K1) + SRTM prologue + K5 epilogue: HDR frame tail (a)", src["K1"],
+                      rep["K1"], ta["launches"]["K1"], max(epi_err["K1"], ta["err"]), ta["t"]["K1"],
+                      ta["t"]["K1_plain"], _nbytes(hdr_padded, grain4k) + out4k_f32,
+                      (EASU_RCAS_OPS + LFGA_OPS + TEPD_OPS) * npix + SRTM_OPS_PER_TEXEL * hdr.numel() // 3),
+        _kernel_entry("easu_gather (K2) + K5 epilogue, uint8 in and out: display path (b)", src["K2"],
+                      rep["K2"], tb["launches"]["K2"], max(epi_err["K2"], tb["err"]), tb["t"]["K2"],
+                      tb["t"]["plain"], _nbytes(q8, grain4k) + npix * 3,
+                      (EASU_RCAS_OPS + LFGA_OPS + TEPD_OPS) * npix),
+        _kernel_entry("upscale_fused (K1), uint8 in and out: byte video path (c)", src["K1"], rep["K1"],
+                      tc["launches"]["K1"], tc["err"], tc["t"]["K1"], tc["t"]["K1_plain"],
+                      _nbytes(m8_padded) + npix * 3, EASU_RCAS_OPS * npix),
+        _kernel_entry("edge_pad (K4), uint8: byte video path (c)", src["K4"], rep["K4"],
+                      tc["launches"]["K4"], 0.0, tc["t"]["K4"], tc["t"]["K4_plain"],
+                      _nbytes(m8, m8_padded), 0),
+        _kernel_entry("rcas_fused (K3), uint8: sharpen on bytes", src["K3"], rep["K3"],
+                      ts["launches"]["K3"], ts["err"], ts["t"]["K3"], ts["t"]["K3_plain"],
+                      2 * _nbytes(s8), RCAS_OPS * npix),
+        _kernel_entry("upscale_fused (K1), RGBA: performance path (d)", src["K1"], rep["K1"],
+                      td["launches"]["K1"], max(rgba_err["K1"], td["err"]), td["t"]["K1"], td["t"]["K1_plain"],
+                      td["nbytes"], (EASU_RCAS_OPS + ALPHA_OPS) * npix),
+        _kernel_entry("upscale_fused (K1), RGBA, uint8 in and out: performance path (d)", src["K1"], rep["K1"],
+                      td8["launches"]["K1"], td8["err"], td8["t"]["K1"], td8["t"]["K1_plain"], td8["nbytes"],
+                      (EASU_RCAS_OPS + ALPHA_OPS) * npix),
+        _kernel_entry("easu_gather (K2), RGBA, bf16: quality path (e)", src["K2"], rep["K2"],
+                      te["launches"]["K2"], max(rgba_err["K2"], te["err"]), te["t"]["K2"], te["t"]["K2_plain"],
+                      te["nbytes"], (EASU_RCAS_OPS + ALPHA_OPS) * npix),
+        _kernel_entry("rcas_fused (K3), float16: sharpen on halves", src["K3"], rep["K3"], k3_f16["launches"],
+                      k3_f16["err"], k3_f16["t"]["K3"], k3_f16["t"]["K3_plain"], 2 * _nbytes(y16),
+                      RCAS_OPS * npix),
     ]
+    lap("end")
+    print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
+          + f"; {laps[-1][1] - laps[0][1]:.1f} in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,11 @@ Counterpart of ``fsr_tpu/api.py``.  ``upscale``: constant setup on the host,
 then EASU and RCAS either fused in the hand-written CUDA kernels (K4 pad and
 K1 at integer ratios, K2 at any other upscale; no intermediate image in
 device memory) or as two plain-torch ops.  The SRTM prologue, the K5
-epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither) and byte I/O run inside
-those kernels, or as ``ops.extras`` passes on the torch path.  ``sharpen``:
-RCAS alone, in the CUDA kernel K3 or as the plain-torch op.
+epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither), byte I/O and RGBA's
+bilinear alpha run inside those kernels, or as ``ops.extras`` passes and a
+bilinear pass on the torch path.  float16 runs the torch path, as it runs
+the XLA path in the JAX package.  ``sharpen``: RCAS alone, in the CUDA
+kernel K3 (float16 too) or as the plain-torch op.
 ``UpscalePipeline``: the sample's frame tail in one kernel call.
 
 Layouts: planar channels-first (..., C, H, W) as in ``fsr_tpu``; (..., H,
@@ -32,6 +34,7 @@ from fsr_tpu_torch.ops import rcas as rcas_ops
 __all__ = ["upscale", "sharpen", "UpscalePipeline"]
 
 _IMPLS = ("auto", "torch", "kernel")
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _resolve_out_size(
@@ -92,22 +95,30 @@ def upscale(
     """FSR 1.0 upscale: EASU + optional RCAS.
 
     image: (..., 3, H, W) planar (layout="CHW", default) or (..., H, W, 3)
-      (layout="HWC"), float32 or bfloat16 with values in [0, 1], or uint8
-      (decoded v/255; on the kernel path inside the kernel, so the source
-      stays bytes).
+      (layout="HWC"), float32, bfloat16 or float16 with values in [0, 1],
+      or uint8 (decoded v/255; on the kernel path inside the kernel, so the
+      source stays bytes).  A fourth channel is alpha: bilinear with the
+      same coordinate mapping, never sharpened (the RCAS passthrough rule,
+      ffx_fsr1.h:688-705), never touched by the prologue or the epilogue,
+      and stored by the colour's rule; on the kernel path it is resolved
+      inside the same launch.
     out_size / scale / preset: target size (one of the three).  Presets:
       ultra_quality 1.3x, quality 1.5x, balanced 1.7x, performance 2.0x.
     sharpness: RCAS sharpness in stops (0 = maximum; sample default 0.25).
-    compute_dtype: float32 | bfloat16.  On the kernel path bfloat16 is the
-      storage type and the math runs in float32; on the torch path colour
-      accumulation runs in bfloat16.
+    compute_dtype: float32 | bfloat16 | float16.  On the kernel path
+      bfloat16 is the storage type and the math runs in float32; on the
+      torch path colour accumulation runs in bfloat16.  float16 (as
+      compute_dtype or as the image's dtype) runs the torch path on the
+      tensor's device, colour accumulation in float16 and the direction
+      estimation in float32 (``ops.easu`` "mixed"), then FsrRcasH.
     impl: "auto" | "torch" | "kernel".  "auto" takes the kernel path for a
       CUDA tensor and the plain-torch path for a CPU tensor; "torch" is the
       plain-torch path on any device; "kernel" forces the kernel path (on
       CPU tensors the kernels' plain versions).  The kernel path runs K4
       then K1 at integer per-axis ratios (1, 2 or 4: the Performance
       preset) and K2 at every other upscale (the other presets, native 1x,
-      DRS ratios, odd extents); a downscale raises NotImplementedError.
+      DRS ratios, odd extents); a downscale raises (pass impl="torch"),
+      and float16 raises ValueError (the kernels store float32/bfloat16).
     input_viewport / input_offset: Dynamic Resolution Scaling — the viewport
       (h, w) actually rendered inside the container image, and its offset
       (FsrEasuConOffset, ffx_fsr1.h:205-225).
@@ -125,8 +136,8 @@ def upscale(
       with dither_bits=8 the byte is the display code), uint16 the 10-bit
       codes floor(sat(v)*1023 + 0.5); otherwise it must match compute_dtype.
 
-    RGBA, float16 and inputs that require grad raise NotImplementedError
-    naming their ROADMAP queue item.
+    Inputs that require grad raise NotImplementedError naming their ROADMAP
+    queue item.
 
     Returns the upscaled image in out_dtype (default compute_dtype), in the
     input's layout.
@@ -137,18 +148,12 @@ def upscale(
     elif layout != "CHW":
         raise ValueError(f"unknown layout {layout!r}")
 
-    if image.dtype == torch.float16 or compute_dtype == torch.float16:
-        raise _not_ported("float16", "5")
-    if image.dtype not in (torch.float32, torch.bfloat16, torch.uint8):
-        raise ValueError(f"image must be float32, bfloat16 or uint8, got {image.dtype}")
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
-    if image.dim() < 3:
-        raise ValueError(f"image must be (..., C, H, W), got {tuple(image.shape)}")
-    if image.shape[-3] == 4:
-        raise _not_ported("RGBA input", "2")
-    if image.shape[-3] != 3:
-        raise ValueError(f"image must have 3 channels, got {image.shape[-3]}")
+    if image.dtype not in _FLOATS + (torch.uint8,):
+        raise ValueError(f"image must be float32, bfloat16, float16 or uint8, got {image.dtype}")
+    if compute_dtype not in _FLOATS:
+        raise ValueError(f"compute_dtype must be float32, bfloat16 or float16, got {compute_dtype}")
+    if image.dim() < 3 or image.shape[-3] not in (3, 4):
+        raise ValueError(f"image must be (..., 3 or 4, H, W), got {tuple(image.shape)}")
     if out_dtype is not None and out_dtype not in (torch.uint8, torch.uint16, compute_dtype):
         raise ValueError(
             f"out_dtype must be uint8/uint16 or match compute_dtype (got {out_dtype} vs {compute_dtype})"
@@ -179,7 +184,13 @@ def upscale(
         # ideal-derivative backward passes come with autodiff.
         raise _not_ported("autodiff", "4")
 
-    use_kernel = impl == "kernel" or (impl == "auto" and image.device.type == "cuda")
+    # float16 takes the torch path, chosen from the dtype before any launch,
+    # as the JAX package sends it to its XLA path (its kernels refuse it).
+    f16 = torch.float16 in (image.dtype, compute_dtype)
+    if f16 and impl == "kernel":
+        raise ValueError("float16 runs the torch path, as the JAX package runs it on XLA: the kernels "
+                         "store float32/bfloat16; use impl='auto' or 'torch'")
+    use_kernel = not f16 and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda"))
     if use_kernel:
         out = dispatch.upscale_fused(
             image, out_hw, con, rcon,
@@ -188,7 +199,14 @@ def upscale(
             out_dtype=out_dtype, dither_page=dither_page,
         )
     else:
-        rgb = image
+        # As fsr_tpu/api.py:196-215, :302-309: alpha is a bilinear pass of
+        # its own (a byte decoded first), encoded like the colour, concatenated.
+        rgb, alpha = image, None
+        if image.shape[-3] == 4:
+            rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
+            if a_src.dtype == torch.uint8:
+                a_src = epilogue_mod.decode(a_src)
+            alpha = easu_ops.bilinear(a_src, out_hw, con)
         if rgb.dtype == torch.uint8:
             rgb = epilogue_mod.decode(rgb)
         if prologue == "srtm":
@@ -200,6 +218,8 @@ def upscale(
             out = _apply_epilogue(out, epilogue, frame, grain, dither_page=dither_page)
         if out_dtype is not None:
             out = epilogue_mod.store(out, out_dtype)
+        if alpha is not None:
+            out = torch.cat([out, epilogue_mod.store(alpha, out.dtype)], dim=-3)
 
     if layout == "HWC":
         out = out.movedim(-3, -1)
@@ -219,33 +239,33 @@ def sharpen(
     as an independent pass (ffx_fsr1.h:602-608).
 
     image: (..., 3, H, W) or (..., 4, H, W) with alpha (layout="CHW"), or
-      channels last (layout="HWC"); float32 or bfloat16 with values in
-      [0, 1], or uint8.
-    compute_dtype: float32 | bfloat16 | None (the image's dtype).  On the
-      kernel path it is the storage type and the math runs in float32; on
-      the torch path the arithmetic runs in it.  A uint8 image sharpens in
-      float32 and returns uint8 (UNORM8 codes) whatever it says, on both
-      paths, so byte outputs agree across impl.
+      channels last (layout="HWC"); float32, bfloat16 or float16 with
+      values in [0, 1], or uint8.
+    compute_dtype: float32 | bfloat16 | float16 | None (the image's dtype).
+      On the kernel path it is the storage type and the math runs in
+      float32 (float16 too, as the JAX kernel runs it; the result stays
+      float16); on the torch path the arithmetic runs in it (float16:
+      FsrRcasH).  A uint8 image sharpens in float32 and returns uint8
+      (UNORM8 codes) whatever it says, on both paths, so byte outputs agree
+      across impl.
     impl: "auto" | "torch" | "kernel".  "auto" runs K3 for a CUDA tensor and
       the plain-torch op for a CPU tensor; "torch" the plain-torch op on any
       device; "kernel" K3 (on a CPU tensor its plain version).
     border: "clamp" (edge replication) or "zero" (the sample's out-of-bounds
       imageLoad, which darkens the 1-pixel border; kept for A/B parity).
 
-    Alpha is passed through verbatim.  float16 and inputs that require grad
-    raise NotImplementedError naming their ROADMAP queue item.
+    Alpha is passed through verbatim.  Inputs that require grad raise
+    NotImplementedError naming their ROADMAP queue item.
     """
     _check_impl(impl)
     if layout == "HWC":
         image = image.movedim(-1, -3)
     elif layout != "CHW":
         raise ValueError(f"unknown layout {layout!r}")
-    if image.dtype == torch.float16 or compute_dtype == torch.float16:
-        raise _not_ported("float16", "5")
-    if image.dtype not in (torch.float32, torch.bfloat16, torch.uint8):
-        raise ValueError(f"image must be float32, bfloat16 or uint8, got {image.dtype}")
-    if compute_dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    if image.dtype not in _FLOATS + (torch.uint8,):
+        raise ValueError(f"image must be float32, bfloat16, float16 or uint8, got {image.dtype}")
+    if compute_dtype not in (None,) + _FLOATS:
+        raise ValueError(f"compute_dtype must be float32, bfloat16 or float16, got {compute_dtype}")
     if image.dim() < 3 or image.shape[-3] not in (3, 4):
         raise ValueError(f"image must be (..., 3 or 4, H, W), got {tuple(image.shape)}")
     if image.requires_grad:

@@ -6,8 +6,11 @@ Counterpart of ``fsr_tpu/core/easu_math.py``: the caller materialises the
 filter math elementwise on them.  Planes are stacked with the channel axis
 at -3: ``(..., C, H, W)``.
 
-Dtype policy (float16 waits for the fp16 slice):
+Dtype policy:
 - float32: the reference's bit-trick approximations (exact parity path).
+- float16: FsrEasuH/FsrRcasH semantics (the float16 bit tricks, the exact
+  reciprocal in the set stage, ffx_fsr1.h:489) and, when both the colour
+  and the direction dtypes are float16, FsrEasuH's accumulation order.
 - bfloat16: no reference analog; native rsqrt and exact reciprocals.
 """
 
@@ -55,12 +58,14 @@ EASU_QUADS = (
 )
 
 
+_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+# The dtypes with reference bit tricks (ffx_a.h's float and half forms).
+_PRX = (torch.float32, torch.float16)
+
+
 def _check_dtype(dt):
-    if dt not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"{dt} math is not ported yet (ROADMAP.md queue item 5: fp16); "
-            "use float32 or bfloat16"
-        )
+    if dt not in _DTYPES:
+        raise TypeError(f"EASU/RCAS math runs in float32, float16 or bfloat16, got {dt}")
 
 
 def _consts(dt, device):
@@ -89,13 +94,13 @@ def _set_rcp(x, dt, hi_rcp):
 
 
 def _lo_rsq(x, dt):
-    if dt == torch.float32:
+    if dt in _PRX:
         return approx.prx_lo_rsq(x)
     return torch.rsqrt(x)
 
 
 def _lo_rcp(x, dt, hi_rcp):
-    if dt == torch.float32:
+    if dt in _PRX:
         return approx.prx_lo_rcp(x)
     return hi_rcp(x)
 
@@ -185,40 +190,54 @@ def easu_resolve(
         "v": ppx_d * ppy_d,
     }
 
+    # FsrEasuH's packed accumulation order when everything is float16:
+    # quadrants S,U into one partial and T,V into another, then their sum
+    # (ffx_fsr1.h:555-558); taps in two lanes likewise (ffx_fsr1.h:583-590).
+    # Otherwise FsrEasuF's single chains.
+    h_order = ddt == torch.float16 and dt == torch.float16
     shape_hw = (lum["f"] if lum is not None else quad_g["s"][0]).shape
-    dirx = torch.zeros(shape_hw, dtype=ddt, device=first.device)
-    diry = torch.zeros_like(dirx)
-    length = torch.zeros_like(dirx)
-    for wkey, (a, b_, cc, d, e) in EASU_QUADS:
-        w = wq[wkey]
-        if quad_g is not None:
-            if len(quad_g[wkey]) == 3:  # fast: pre-summed length response
-                gx, gy, gl = quad_g[wkey]
-                dirx = dirx + gx * w
-                diry = diry + gy * w
-                length = length + gl * w
-            else:
-                gx, gy, glx, gly = quad_g[wkey]
-                dirx = dirx + gx * w
-                length = length + glx * w
-                diry = diry + gy * w
-                length = length + gly * w
-            continue
-        l_a, l_b, l_c, l_d, l_e = lum[a], lum[b_], lum[cc], lum[d], lum[e]
-        dc = l_d - l_c
-        cb = l_c - l_b
-        len_x = _set_rcp(torch.maximum(dc.abs(), cb.abs()), ddt, hi_rcp)
-        dir_x = l_d - l_b
-        dirx = dirx + dir_x * w
-        len_x = _sat(dir_x.abs() * len_x)
-        length = length + len_x * len_x * w
-        ec = l_e - l_c
-        ca = l_c - l_a
-        len_y = _set_rcp(torch.maximum(ec.abs(), ca.abs()), ddt, hi_rcp)
-        dir_y = l_e - l_a
-        diry = diry + dir_y * w
-        len_y = _sat(dir_y.abs() * len_y)
-        length = length + len_y * len_y * w
+    quads = dict(EASU_QUADS)
+
+    def accumulate_quads(keys):
+        dirx = torch.zeros(shape_hw, dtype=ddt, device=first.device)
+        diry = torch.zeros_like(dirx)
+        length = torch.zeros_like(dirx)
+        for wkey in keys:
+            w = wq[wkey]
+            if quad_g is not None:
+                if len(quad_g[wkey]) == 3:  # fast: pre-summed length response
+                    gx, gy, gl = quad_g[wkey]
+                    dirx = dirx + gx * w
+                    diry = diry + gy * w
+                    length = length + gl * w
+                else:
+                    gx, gy, glx, gly = quad_g[wkey]
+                    dirx = dirx + gx * w
+                    length = length + glx * w
+                    diry = diry + gy * w
+                    length = length + gly * w
+                continue
+            l_a, l_b, l_c, l_d, l_e = (lum[n] for n in quads[wkey])
+            dc = l_d - l_c
+            cb = l_c - l_b
+            len_x = _set_rcp(torch.maximum(dc.abs(), cb.abs()), ddt, hi_rcp)
+            dir_x = l_d - l_b
+            dirx = dirx + dir_x * w
+            len_x = _sat(dir_x.abs() * len_x)
+            length = length + len_x * len_x * w
+            ec = l_e - l_c
+            ca = l_c - l_a
+            len_y = _set_rcp(torch.maximum(ec.abs(), ca.abs()), ddt, hi_rcp)
+            dir_y = l_e - l_a
+            diry = diry + dir_y * w
+            len_y = _sat(dir_y.abs() * len_y)
+            length = length + len_y * len_y * w
+        return dirx, diry, length
+
+    parts = [accumulate_quads(g) for g in ((("s", "u"), ("t", "v")) if h_order else ("stuv",))]
+    dirx, diry, length = parts[0]
+    for part in parts[1:]:
+        dirx, diry, length = dirx + part[0], diry + part[1], length + part[2]
 
     # Direction normalisation with zero-protect (ffx_fsr1.h:388-395).
     dir_r = dirx * dirx + diry * diry
@@ -266,32 +285,41 @@ def easu_resolve(
         b_dy = {dy: (oy * oy) * qc for dy, oy in off_ys.items()}
         c_dx = {dx: (ox * ox) * qa for dx, ox in off_xs.items()}
 
-    ac = torch.zeros_like(first, dtype=dt)
-    aw = torch.zeros_like(dirx)
-    for name, (dx, dy) in TAP_OFFSETS.items():
-        off_x = c(float(dx)) - ppx
-        off_y = c(float(dy)) - ppy
-        if fast:
-            d2 = c_dx[dx] + (off_x * a_dy[dy] + b_dy[dy])
-        else:
-            vx = (off_x * dirx + off_y * diry) * len2_x
-            vy = (off_x * (-diry) + off_y * dirx) * len2_y
-            d2 = vx * vx + vy * vy
-        d2 = torch.minimum(d2, clp)
-        w_a = lob * d2 + c(-1.0)
-        w_a = w_a * w_a
-        if fast:
-            # Horner form of 25/16*(2/5*d2-1)^2 - 9/16 (one op fewer).  The
-            # product w_b * w_a stays factored: a single Horner quartic was
-            # measured to cost fidelity against the oracle.
-            w_b = (c(0.25) * d2 + c(-1.25)) * d2 + c(1.0)
-        else:
-            w_b = c(2.0 / 5.0) * d2 + c(-1.0)
-            w_b = w_b * w_b
-            w_b = c(25.0 / 16.0) * w_b + c(-(25.0 / 16.0 - 1.0))
-        w = w_b * w_a
-        ac = ac + taps[name].to(dt) * w.unsqueeze(-3)
-        aw = aw + w
+    def accumulate_taps(names):
+        ac = torch.zeros_like(first, dtype=dt)
+        aw = torch.zeros_like(dirx)
+        for name in names:
+            dx, dy = TAP_OFFSETS[name]
+            off_x = c(float(dx)) - ppx
+            off_y = c(float(dy)) - ppy
+            if fast:
+                d2 = c_dx[dx] + (off_x * a_dy[dy] + b_dy[dy])
+            else:
+                vx = (off_x * dirx + off_y * diry) * len2_x
+                vy = (off_x * (-diry) + off_y * dirx) * len2_y
+                d2 = vx * vx + vy * vy
+            d2 = torch.minimum(d2, clp)
+            w_a = lob * d2 + c(-1.0)
+            w_a = w_a * w_a
+            if fast:
+                # Horner form of 25/16*(2/5*d2-1)^2 - 9/16 (one op fewer).  The
+                # product w_b * w_a stays factored: a single Horner quartic was
+                # measured to cost fidelity against the oracle.
+                w_b = (c(0.25) * d2 + c(-1.25)) * d2 + c(1.0)
+            else:
+                w_b = c(2.0 / 5.0) * d2 + c(-1.0)
+                w_b = w_b * w_b
+                w_b = c(25.0 / 16.0) * w_b + c(-(25.0 / 16.0 - 1.0))
+            w = w_b * w_a
+            ac = ac + taps[name].to(dt) * w.unsqueeze(-3)
+            aw = aw + w
+        return ac, aw
+
+    lanes = (("b", "i", "f", "k", "h", "o"), ("c", "j", "e", "l", "g", "n")) if h_order else (tuple(TAP_OFFSETS),)
+    ac, aw = accumulate_taps(lanes[0])
+    for names in lanes[1:]:
+        ac2, aw2 = accumulate_taps(names)
+        ac, aw = ac + ac2, aw + aw2
 
     inv_w = hi_rcp(aw)
     return torch.minimum(max4, torch.maximum(min4, ac * inv_w.unsqueeze(-3)))
@@ -310,7 +338,8 @@ def rcas_resolve(
     """Run the RCAS 5-tap cross on pre-gathered (..., 3, H, W) planes
     (FsrRcasF semantics): b above, d left, e centre, f right, h below.
 
-    sharpness: linear sharpness (exp2(-stops), RcasConstants.sharpness).
+    sharpness: linear sharpness (exp2(-stops), RcasConstants.sharpness; its
+      ``sharpness_f16`` for FsrRcasH).
     fast: the kernels' division-light limiter (one reciprocal, selects)
       and the factored cross sum.
     """
@@ -319,7 +348,7 @@ def rcas_resolve(
     hi_rcp = approx.rcp_fast if fast else approx.rcp
     c = _consts(dt, taps_e.device)
     sharp = c(float(sharpness))
-    med_rcp = approx.prx_med_rcp if dt == torch.float32 else hi_rcp
+    med_rcp = approx.prx_med_rcp if dt in _PRX else hi_rcp
 
     def ch(t, i):
         return t[..., i, :, :]

@@ -42,7 +42,17 @@
 // Wout).  Source, load-rounding and output types are template parameters;
 // the prologue and epilogue flags are uniform runtime branches.
 //
-// Bound: f32 arithmetic, as K1 (the same ~660 flops per output pixel); the
+// RGBA (easu_gather.py:400-403, :757-761, :1372-1375): alpha in plane 3 of
+// the source and the output.  The store pass resolves it bilinearly from the
+// plan's rows[1..2], cols[1..2] (the clipped 'f' and next texels, the CLAMP
+// of ops.easu.bilinear) at (px, py), loaded as the colour is (rounded to the
+// storage type, or a decoded byte), never tonemapped nor touched by the
+// epilogue, and stores it by the colour's rule; RGB is as for three
+// channels, and alpha never enters the RCAS ring.  The channel count is a
+// template parameter (RGBA), so the RGB kernels carry no alpha code.
+//
+// Bound: f32 arithmetic, as K1 (the function needs ~565 flops per output
+// pixel; with the ring recompute the kernel runs ~660); the
 // table loads (10 per pixel, L1-resident) replace K1's phase arithmetic.
 // Device-memory traffic is one read of the source and one write of the
 // output (plus the grain's 12 bytes per pixel with LFGA; the epilogue and
@@ -103,17 +113,37 @@ __device__ __forceinline__ void easu_at(const S* __restrict__ src, const GatherP
   easu_resolve(t, __ldg(p.px + X), __ldg(p.py + Y), out);
 }
 
-template <typename S, typename T, typename O, bool RCAS, bool DENOISE>
+// Bilinear alpha for output pixel (Y, X) of one frame, from the tables' 'f'
+// and next rows and columns of the alpha plane.
+template <typename T, typename S>
+__device__ __forceinline__ float alpha_at(const S* __restrict__ src, const GatherParams& p, int Y,
+                                          int X) {
+  const S* a = src + 3 * (int64_t)p.hin * p.win;
+  const int64_t r0 = (int64_t)__ldg(p.rows + p.hout + Y) * p.win;
+  const int64_t r1 = (int64_t)__ldg(p.rows + 2 * p.hout + Y) * p.win;
+  const int c0 = __ldg(p.cols + p.wout + X);
+  const int c1 = __ldg(p.cols + 2 * p.wout + X);
+  return bilinear_alpha(ld_as<T>(a + r0 + c0), ld_as<T>(a + r0 + c1), ld_as<T>(a + r1 + c0),
+                        ld_as<T>(a + r1 + c1), __ldg(p.px + X), __ldg(p.py + Y));
+}
+
+template <typename S, typename T, typename O, bool RCAS, bool DENOISE, bool RGBA>
 __global__ void __launch_bounds__(NTHREADS)
     gather_kernel(const S* __restrict__ src, O* __restrict__ dst, GatherParams p) {
+  constexpr int C = RGBA ? 4 : 3;
   const int64_t n = blockIdx.z;
-  const S* s = src + n * 3 * (int64_t)p.hin * p.win;
-  O* o = dst + n * 3 * (int64_t)p.hout * p.wout;
+  const S* s = src + n * C * (int64_t)p.hin * p.win;
+  O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const EpilogueParams e = p.epi;
   const int wout = p.wout;
-  auto finish = [=](int Y, int X, float v[3]) {
-    epilogue(e, oplane, (int64_t)Y * wout + X, Y, X, v);
+  auto store = [=](int Y, int X, float v[3]) {
+    const int64_t at = (int64_t)Y * wout + X;
+    epilogue(e, oplane, at, Y, X, v);
+    if constexpr (RGBA)
+      st4(o, oplane, at, v, alpha_at<T>(s, p, Y, X));
+    else
+      st3(o, oplane, at, v);
   };
   if constexpr (RCAS) {
     // Ring positions clamp to the image in output coordinates, before the
@@ -121,28 +151,37 @@ __global__ void __launch_bounds__(NTHREADS)
     auto ring = [=](int Y, int X, float v[3]) {
       easu_at<T>(s, p, min(max(Y, 0), p.hout - 1), min(max(X, 0), p.wout - 1), v);
     };
-    rcas_tile<DENOISE>(ring, finish, o, p.hout, p.wout, p.sharp);
+    rcas_tile<DENOISE>(ring, store, p.hout, p.wout, p.sharp);
   } else {
-    store_tile([=](int Y, int X, float v[3]) { easu_at<T>(s, p, Y, X, v); }, finish, o, p.hout,
+    store_tile([=](int Y, int X, float v[3]) { easu_at<T>(s, p, Y, X, v); }, store, p.hout,
                p.wout);
   }
 }
 
-template <typename S, typename T, typename O>
-int launch(const void* src, void* dst, int nb, const GatherParams& p, bool rcas, bool denoise,
-           cudaStream_t stream) {
-  const int64_t in_frame = 3 * (int64_t)p.hin * p.win;
-  const int64_t out_frame = 3 * (int64_t)p.hout * p.wout;
+template <typename S, typename T, typename O, bool RGBA>
+int launch_planes(const void* src, void* dst, int nb, const GatherParams& p, bool rcas,
+                  bool denoise, cudaStream_t stream) {
+  constexpr int C = RGBA ? 4 : 3;
+  const int64_t in_frame = C * (int64_t)p.hin * p.win;
+  const int64_t out_frame = C * (int64_t)p.hout * p.wout;
   return launch_frames(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
     const S* s = static_cast<const S*>(src) + n0 * in_frame;
     O* d = static_cast<O*>(dst) + n0 * out_frame;
     if (!rcas)
-      gather_kernel<S, T, O, false, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      gather_kernel<S, T, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else if (denoise)
-      gather_kernel<S, T, O, true, true><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      gather_kernel<S, T, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else
-      gather_kernel<S, T, O, true, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      gather_kernel<S, T, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
   });
+}
+
+// The channel count is a template parameter, as in K1 (fused.cu).
+template <typename S, typename T, typename O>
+int launch(const void* src, void* dst, int nb, int channels, const GatherParams& p, bool rcas,
+           bool denoise, cudaStream_t stream) {
+  return channels == 4 ? launch_planes<S, T, O, true>(src, dst, nb, p, rcas, denoise, stream)
+                       : launch_planes<S, T, O, false>(src, dst, nb, p, rcas, denoise, stream);
 }
 
 }  // namespace
@@ -150,12 +189,13 @@ int launch(const void* src, void* dst, int nb, const GatherParams& p, bool rcas,
 // dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
 // bfloat16 or uint8), dtype the storage type (float32 or bfloat16),
 // out_dtype the output's: the storage type, or uint8/uint16 codes.
+// channels: 3, or 4 with alpha in plane 3 of the source and the output.
 // rows/cols (int32 [4][hout], [4][wout]) and py/px (float32 [hout],
 // [wout]) are device pointers.  srtm: 1 runs the SRTM prologue; epi: the K5
 // epilogue (host struct, device pointers inside).
 extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dtype,
-                               int out_dtype, int nb, int hin, int win, int hout, int wout,
-                               const void* rows, const void* cols, const void* py,
+                               int out_dtype, int nb, int channels, int hin, int win, int hout,
+                               int wout, const void* rows, const void* cols, const void* py,
                                const void* px, float sharp, int apply_rcas, int denoise,
                                int srtm, const EpilogueParams* epi, void* stream) {
   GatherParams p;
@@ -173,6 +213,7 @@ extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dt
   if (nb == 0 || hout == 0 || wout == 0) return 0;
   if ((dtype != F32 && dtype != BF16) || (out_dtype != dtype && out_dtype != U8 && out_dtype != U16))
     return (int)cudaErrorInvalidValue;
+  if (channels != 3 && channels != 4) return (int)cudaErrorInvalidValue;
   const bool r = apply_rcas != 0;
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -180,26 +221,27 @@ extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dt
   // Only a float32 source rounds to a bfloat16 storage type at load; a
   // bfloat16 source widens exactly and a byte decodes, whatever the storage.
   if (src_dtype == F32 && dtype == BF16) {
-    if (out_dtype == BF16) return launch<float, bf16, bf16>(src, dst, nb, p, r, dn, s);
-    if (out_dtype == U8) return launch<float, bf16, uint8_t>(src, dst, nb, p, r, dn, s);
-    return launch<float, bf16, uint16_t>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == BF16) return launch<float, bf16, bf16>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<float, bf16, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    return launch<float, bf16, uint16_t>(src, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == F32) {
-    if (out_dtype == F32) return launch<float, float, float>(src, dst, nb, p, r, dn, s);
-    if (out_dtype == U8) return launch<float, float, uint8_t>(src, dst, nb, p, r, dn, s);
-    return launch<float, float, uint16_t>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == F32) return launch<float, float, float>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<float, float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    return launch<float, float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == BF16) {
-    if (out_dtype == F32) return launch<bf16, float, float>(src, dst, nb, p, r, dn, s);
-    if (out_dtype == BF16) return launch<bf16, float, bf16>(src, dst, nb, p, r, dn, s);
-    if (out_dtype == U8) return launch<bf16, float, uint8_t>(src, dst, nb, p, r, dn, s);
-    return launch<bf16, float, uint16_t>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == F32) return launch<bf16, float, float>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == BF16) return launch<bf16, float, bf16>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<bf16, float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    return launch<bf16, float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == U8) {
-    if (out_dtype == F32) return launch<uint8_t, float, float>(src, dst, nb, p, r, dn, s);
-    if (out_dtype == BF16) return launch<uint8_t, float, bf16>(src, dst, nb, p, r, dn, s);
-    if (out_dtype == U8) return launch<uint8_t, float, uint8_t>(src, dst, nb, p, r, dn, s);
-    return launch<uint8_t, float, uint16_t>(src, dst, nb, p, r, dn, s);
+    if (out_dtype == F32) return launch<uint8_t, float, float>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == BF16) return launch<uint8_t, float, bf16>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8)
+      return launch<uint8_t, float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    return launch<uint8_t, float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
   }
   return (int)cudaErrorInvalidValue;
 }

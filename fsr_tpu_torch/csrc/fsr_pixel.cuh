@@ -10,7 +10,8 @@
 // Also the tile loop all three kernels share: one block of NTHREADS per
 // TILE_H x TILE_W output tile, with a one-pixel ring (RING_H x RING_W) of
 // float32 planes in shared memory for RCAS, and the host-side launch loop
-// over frames.
+// over frames.  RGBA's alpha never enters the ring: K1 and K2 resolve it
+// bilinearly at the store (bilinear_alpha), as RCAS passes alpha through.
 //
 // And the storage rules with byte I/O, the SRTM prologue at load and the
 // K5 epilogue before the store (kernels/epilogue.py), written with
@@ -22,6 +23,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,7 +45,7 @@ constexpr float DIT_A = 0x1.9e377ap+0f;     // float32((1 + sqrt(5)) / 2)
 constexpr float DIT_B = 0x1.1581bcp-2f;     // float32(1 / 3.69)
 
 // dtype codes of the C interfaces: the source's and the output's.
-enum DType { F32 = 0, BF16 = 1, U8 = 2, U16 = 3 };
+enum DType { F32 = 0, BF16 = 1, U8 = 2, U16 = 3, F16 = 4 };
 
 // D3D UNORM code floor(sat(v) * max_code + 0.5); NaN encodes as 0, as
 // utils.image.to_uint8 (its nan_to_num) does.
@@ -52,24 +54,31 @@ __device__ __forceinline__ float unorm(float v, float max_code) {
   return floorf(__fadd_rn(__fmul_rn(s, max_code), 0.5f));
 }
 
-// Storage helpers: the math is float32, bfloat16 is storage only; a byte
+// Storage helpers: the math is float32, bfloat16 and float16 are storage
+// only (a load widens exactly, a store rounds once to nearest even); a byte
 // decodes as v * float32(1/255) and the integer outputs store UNORM codes
 // of the float32 value (8-bit in uint8, 10-bit in uint16).
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ld(const __half* p) { return __half2float(*p); }
 __device__ __forceinline__ float ld(const uint8_t* p) { return __fmul_rn((float)*p, INV255); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st(__half* p, float v) { *p = __float2half_rn(v); }
 __device__ __forceinline__ void st(uint8_t* p, float v) { *p = (uint8_t)unorm(v, 255.0f); }
 __device__ __forceinline__ void st(uint16_t* p, float v) { *p = (uint16_t)unorm(v, 1023.0f); }
 
-// A value as storage type T holds it: bfloat16 rounds to nearest even, as a
-// dtype convert of the source would.
+// A value as storage type T holds it: bfloat16 and float16 round to nearest
+// even, as a dtype convert of the source would.
 template <typename T>
 __device__ __forceinline__ float as_storage(float v) { return v; }
 template <>
 __device__ __forceinline__ float as_storage<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <>
+__device__ __forceinline__ float as_storage<__half>(float v) {
+  return __half2float(__float2half_rn(v));
 }
 
 // Load a source element of type S, rounded to storage type T, widened.  A
@@ -105,6 +114,17 @@ __device__ __forceinline__ float sat_nan0(float x) { return x > 0.0f ? fminf(x, 
 
 // torch.clamp(x, 0, 1): NaN stays NaN.
 __device__ __forceinline__ float clip01(float x) { return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x); }
+
+// Bilinear alpha (ops.easu.bilinear, fsr_tpu/ops/easu.py:134-136) from the
+// texels at 'f', right of it, below it and below right, at subpixel position
+// (px, py): each operation rounded on its own (nvcc would contract each lerp
+// into an FMA), so the float32 alpha is bit-equal to the plain version's.
+__device__ __forceinline__ float bilinear_alpha(float tl, float tr, float bl, float br, float px,
+                                                float py) {
+  const float top = __fadd_rn(tl, __fmul_rn(__fsub_rn(tr, tl), px));
+  const float bot = __fadd_rn(bl, __fmul_rn(__fsub_rn(br, bl), px));
+  return __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), py));
+}
 
 __device__ __forceinline__ float luma2(float r, float g, float b) {
   return b * 0.5f + (r * 0.5f + g);
@@ -387,17 +407,20 @@ __device__ __forceinline__ void st3(T* o, int64_t oplane, int64_t at, const floa
   for (int c = 0; c < 3; ++c) st(o + c * oplane + at, v[c]);
 }
 
-// A tile's last step before the store: finish(Y, X, v) may rewrite the
-// pixel's channels (K1 and K2 run the epilogue there, K3 nothing).
-struct NoFinish {
-  __device__ void operator()(int, int, float*) const {}
-};
+// An RGBA pixel's store: the three channels after the epilogue, and alpha
+// (plane 3) by the same storage rule (bfloat16/float16 rounding, UNORM8,
+// UNORM10); the epilogue never touches alpha.
+template <typename T>
+__device__ __forceinline__ void st4(T* o, int64_t oplane, int64_t at, const float v[3], float a) {
+  st3(o, oplane, at, v);
+  st(o + 3 * oplane + at, a);
+}
 
-// One block's TILE_H x TILE_W tile of an h x w output frame `o`, RCAS off:
-// pixel(Y, X, v) gives each pixel's three channels, then finish, one store.
-template <typename T, typename Pixel, typename Finish>
-__device__ __forceinline__ void store_tile(Pixel pixel, Finish finish, T* o, int h, int w) {
-  const int64_t oplane = (int64_t)h * w;
+// One block's TILE_H x TILE_W tile of an h x w output frame, RCAS off:
+// pixel(Y, X, v) gives each pixel's three channels, store(Y, X, v) finishes
+// and stores them (K1 and K2 run the epilogue and resolve alpha there).
+template <typename Pixel, typename Store>
+__device__ __forceinline__ void store_tile(Pixel pixel, Store store, int h, int w) {
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y * TILE_H;
   for (int k = threadIdx.x; k < TILE_W * TILE_H; k += NTHREADS) {
@@ -406,8 +429,7 @@ __device__ __forceinline__ void store_tile(Pixel pixel, Finish finish, T* o, int
     if (Y >= h || X >= w) continue;
     float v[3];
     pixel(Y, X, v);
-    finish(Y, X, v);
-    st3(o, oplane, (int64_t)Y * w + X, v);
+    store(Y, X, v);
   }
 }
 
@@ -415,11 +437,9 @@ __device__ __forceinline__ void store_tile(Pixel pixel, Finish finish, T* o, int
 // tile and its one-pixel ring in shared memory, for (Y, X) from one before
 // the tile to one past it (possibly outside the frame: the caller applies
 // its border rule); after a barrier each pixel of the tile runs the RCAS
-// cross on them, then finish, and stores once.
-template <bool DENOISE, typename T, typename Ring, typename Finish>
-__device__ __forceinline__ void rcas_tile(Ring ring, Finish finish, T* o, int h, int w,
-                                          float sharp) {
-  const int64_t oplane = (int64_t)h * w;
+// cross on them, then store(Y, X, v), once.
+template <bool DENOISE, typename Ring, typename Store>
+__device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, float sharp) {
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y * TILE_H;
   __shared__ float sm[3][RING_H][RING_W];
@@ -448,8 +468,7 @@ __device__ __forceinline__ void rcas_tile(Ring ring, Finish finish, T* o, int h,
       hh[c] = sm[c][ly + 2][lx + 1];
     }
     rcas_pixel<DENOISE>(b, d, e, f, hh, sharp, v);
-    finish(Y, X, v);
-    st3(o, oplane, (int64_t)Y * w + X, v);
+    store(Y, X, v);
   }
 }
 

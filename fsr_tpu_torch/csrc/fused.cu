@@ -27,6 +27,16 @@
 // are template parameters; the prologue and epilogue flags are uniform
 // runtime branches.
 //
+// RGBA (fused.py:929-943, :1052-1056, :1120-1122): a fourth plane rides in
+// the padded source and the output.  RGB is computed as for three
+// channels.  Alpha never enters the RCAS ring (RCAS passes it through): the
+// store pass resolves it per output pixel, bilinearly from four loads at
+// the phase's 'f' texel and its right, lower and lower-right neighbours
+// (the K4 edge pad is the CLAMP of ops.easu.bilinear), decoded as the
+// colour is, never tonemapped by the prologue nor touched by the epilogue,
+// and stores it by the colour's rule.  The channel count is a template
+// parameter (RGBA), so the RGB kernels carry no alpha code.
+//
 // Each output pixel (Y, X) lies in phase (a, b) = (Y % qy, X % qx) with
 // 'f' texel (Y / qy + ry[a], X / qx + rx[b]) in the padded source and
 // constant subpixel fractions (py[a], px[b]).  The host derives all four
@@ -38,7 +48,9 @@
 // Bound: f32 arithmetic.  Per output pixel it reads 12 taps x 3 channels
 // (mostly from L1/L2: a 2x2 quad of outputs shares its taps) and runs a
 // few hundred flops; device-memory traffic is one read of the source and
-// one write of the output, plus 12 bytes of grain per pixel when LFGA is on.
+// one write of the output, plus 12 bytes of grain per pixel when LFGA is on;
+// RGBA adds its alpha plane to both, four loads (from L1) and 8 flops per
+// output pixel.
 // The epilogue adds about 60 flops per pixel (TEPD), the SRTM prologue
 // about 10 per tap load.  This first version recomputes the per-texel
 // direction response and the ring (about 1.2x the tile's EASU work) instead
@@ -98,60 +110,128 @@ __device__ __forceinline__ void easu_pixel(const S* __restrict__ src, const Para
   easu_resolve(t, p.px[b], p.py[a], out);
 }
 
-template <typename S, typename O, bool RCAS, bool DENOISE>
+// Bilinear alpha for output pixel (Y, X) of one frame: the texels from the
+// phase's 'f' to its lower-right neighbour in the padded alpha plane.
+template <typename S>
+__device__ __forceinline__ float alpha_pixel(const S* __restrict__ src, const Params& p, int Y,
+                                             int X) {
+  const int a = Y % p.qy;
+  const int b = X % p.qx;
+  const int64_t plane = (int64_t)p.hp * p.wp;
+  const S* q = src + 3 * plane + (int64_t)(Y / p.qy + p.ry[a]) * p.wp + (X / p.qx + p.rx[b]);
+  return bilinear_alpha(ld(q), ld(q + 1), ld(q + p.wp), ld(q + p.wp + 1), p.px[b], p.py[a]);
+}
+
+// RGBA's view of one frame: the source and a per-thread copy of the
+// parameters, which both passes index per pixel (the phase tables).  One
+// copy, on the stack, shared by the EASU pass and the store pass's alpha: a
+// copy captured by each pass doubled the stack to 368 bytes and K1's time
+// with it on the H100, and reading the tables from the parameter bank with
+// per-thread indices serialises a warp (PERF.md).
+template <typename S>
+struct Frame {
+  const S* s;
+  Params p;
+  __device__ __forceinline__ void easu(int Y, int X, float v[3]) const {
+    easu_pixel(s, p, Y, X, v);
+  }
+  __device__ __forceinline__ float alpha(int Y, int X) const { return alpha_pixel(s, p, Y, X); }
+};
+
+template <typename S, typename O, bool RCAS, bool DENOISE, bool RGBA>
 __global__ void __launch_bounds__(NTHREADS)
     fused_kernel(const S* __restrict__ src, O* __restrict__ dst, Params p) {
+  constexpr int C = RGBA ? 4 : 3;
   const int64_t n = blockIdx.z;
-  const S* s = src + n * 3 * (int64_t)p.hp * p.wp;
-  O* o = dst + n * 3 * (int64_t)p.hout * p.wout;
+  const S* s = src + n * C * (int64_t)p.hp * p.wp;
+  O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const EpilogueParams e = p.epi;
   const int wout = p.wout;
-  auto finish = [=](int Y, int X, float v[3]) {
-    epilogue(e, oplane, (int64_t)Y * wout + X, Y, X, v);
-  };
-  if constexpr (RCAS) {
-    // Ring positions outside the image clamp to the edge pixel.
-    auto ring = [=](int Y, int X, float v[3]) {
-      easu_pixel(s, p, min(max(Y, 0), p.hout - 1), min(max(X, 0), p.wout - 1), v);
+  if constexpr (RGBA) {
+    const Frame<S> f{s, p};
+    auto store = [&f, o, oplane, e, wout](int Y, int X, float v[3]) {
+      const int64_t at = (int64_t)Y * wout + X;
+      epilogue(e, oplane, at, Y, X, v);
+      st4(o, oplane, at, v, f.alpha(Y, X));
     };
-    rcas_tile<DENOISE>(ring, finish, o, p.hout, p.wout, p.sharp);
+    if constexpr (RCAS) {
+      // Ring positions outside the image clamp to the edge pixel.
+      const int hout = p.hout;
+      auto ring = [&f, hout, wout](int Y, int X, float v[3]) {
+        f.easu(min(max(Y, 0), hout - 1), min(max(X, 0), wout - 1), v);
+      };
+      rcas_tile<DENOISE>(ring, store, p.hout, p.wout, p.sharp);
+    } else {
+      store_tile([&f](int Y, int X, float v[3]) { f.easu(Y, X, v); }, store, p.hout, p.wout);
+    }
   } else {
-    store_tile([=](int Y, int X, float v[3]) { easu_pixel(s, p, Y, X, v); }, finish, o, p.hout,
-               p.wout);
+    // RGB keeps its own form: each pass captures what it uses.  Sharing the
+    // Frame here cost the RGB kernels 7 registers and up to 13% of their time
+    // on the prologue path (PERF.md).
+    auto store = [=](int Y, int X, float v[3]) {
+      const int64_t at = (int64_t)Y * wout + X;
+      epilogue(e, oplane, at, Y, X, v);
+      st3(o, oplane, at, v);
+    };
+    if constexpr (RCAS) {
+      // Ring positions outside the image clamp to the edge pixel.
+      auto ring = [=](int Y, int X, float v[3]) {
+        easu_pixel(s, p, min(max(Y, 0), p.hout - 1), min(max(X, 0), p.wout - 1), v);
+      };
+      rcas_tile<DENOISE>(ring, store, p.hout, p.wout, p.sharp);
+    } else {
+      store_tile([=](int Y, int X, float v[3]) { easu_pixel(s, p, Y, X, v); }, store, p.hout,
+                 p.wout);
+    }
   }
 }
 
-template <typename S, typename O>
-int launch(const void* src, void* dst, int nb, const Params& p, bool rcas, bool denoise,
-           cudaStream_t stream) {
-  const int64_t in_frame = 3 * (int64_t)p.hp * p.wp;
-  const int64_t out_frame = 3 * (int64_t)p.hout * p.wout;
+template <typename S, typename O, bool RGBA>
+int launch_planes(const void* src, void* dst, int nb, const Params& p, bool rcas, bool denoise,
+                  cudaStream_t stream) {
+  constexpr int C = RGBA ? 4 : 3;
+  const int64_t in_frame = C * (int64_t)p.hp * p.wp;
+  const int64_t out_frame = C * (int64_t)p.hout * p.wout;
   return launch_frames(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
     const S* s = static_cast<const S*>(src) + n0 * in_frame;
     O* d = static_cast<O*>(dst) + n0 * out_frame;
     if (!rcas)
-      fused_kernel<S, O, false, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      fused_kernel<S, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else if (denoise)
-      fused_kernel<S, O, true, true><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      fused_kernel<S, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else
-      fused_kernel<S, O, true, false><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      fused_kernel<S, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
   });
 }
+
+// The channel count is a template parameter, so the RGB kernels carry no
+// alpha code.
+template <typename S, typename O>
+int launch(const void* src, void* dst, int nb, int channels, const Params& p, bool rcas,
+           bool denoise, cudaStream_t stream) {
+  return channels == 4 ? launch_planes<S, O, true>(src, dst, nb, p, rcas, denoise, stream)
+                       : launch_planes<S, O, false>(src, dst, nb, p, rcas, denoise, stream);
+}
+
+// One case label per (source, output) dtype pair; every DType code is < 8.
+constexpr int pair(int src_dtype, int out_dtype) { return src_dtype * 8 + out_dtype; }
 
 }  // namespace
 
 // dtype codes (fsr_pixel.cuh DType): src_dtype is the padded source's
 // storage (float32, bfloat16 or uint8), out_dtype the output's: the
 // source's float type, or uint8/uint16 codes; a uint8 source may also store
-// float32 or bfloat16.  srtm: 1 runs the SRTM prologue; epi: the K5
+// float32 or bfloat16.  channels: 3, or 4 with alpha in plane 3 of the
+// source and the output.  srtm: 1 runs the SRTM prologue; epi: the K5
 // epilogue (host struct, device pointers inside).
 extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int out_dtype, int nb,
-                                 int hp, int wp, int hout, int wout, int qy, int qx,
+                                 int channels, int hp, int wp, int hout, int wout, int qy, int qx,
                                  const int* ry, const int* rx, const float* py, const float* px,
                                  float sharp, int apply_rcas, int denoise, int srtm,
                                  const EpilogueParams* epi, void* stream) {
   if (qy < 1 || qy > 4 || qx < 1 || qx > 4) return (int)cudaErrorInvalidValue;
+  if (channels != 3 && channels != 4) return (int)cudaErrorInvalidValue;
   Params p;
   p.qy = qy;
   p.qx = qx;
@@ -173,17 +253,17 @@ extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int 
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  switch (src_dtype * 4 + out_dtype) {
-    case F32 * 4 + F32: return launch<float, float>(src, dst, nb, p, r, dn, s);
-    case F32 * 4 + U8: return launch<float, uint8_t>(src, dst, nb, p, r, dn, s);
-    case F32 * 4 + U16: return launch<float, uint16_t>(src, dst, nb, p, r, dn, s);
-    case BF16 * 4 + BF16: return launch<bf16, bf16>(src, dst, nb, p, r, dn, s);
-    case BF16 * 4 + U8: return launch<bf16, uint8_t>(src, dst, nb, p, r, dn, s);
-    case BF16 * 4 + U16: return launch<bf16, uint16_t>(src, dst, nb, p, r, dn, s);
-    case U8 * 4 + F32: return launch<uint8_t, float>(src, dst, nb, p, r, dn, s);
-    case U8 * 4 + BF16: return launch<uint8_t, bf16>(src, dst, nb, p, r, dn, s);
-    case U8 * 4 + U8: return launch<uint8_t, uint8_t>(src, dst, nb, p, r, dn, s);
-    case U8 * 4 + U16: return launch<uint8_t, uint16_t>(src, dst, nb, p, r, dn, s);
+  switch (pair(src_dtype, out_dtype)) {
+    case pair(F32, F32): return launch<float, float>(src, dst, nb, channels, p, r, dn, s);
+    case pair(F32, U8): return launch<float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    case pair(F32, U16): return launch<float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
+    case pair(BF16, BF16): return launch<bf16, bf16>(src, dst, nb, channels, p, r, dn, s);
+    case pair(BF16, U8): return launch<bf16, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    case pair(BF16, U16): return launch<bf16, uint16_t>(src, dst, nb, channels, p, r, dn, s);
+    case pair(U8, F32): return launch<uint8_t, float>(src, dst, nb, channels, p, r, dn, s);
+    case pair(U8, BF16): return launch<uint8_t, bf16>(src, dst, nb, channels, p, r, dn, s);
+    case pair(U8, U8): return launch<uint8_t, uint8_t>(src, dst, nb, channels, p, r, dn, s);
+    case pair(U8, U16): return launch<uint8_t, uint16_t>(src, dst, nb, channels, p, r, dn, s);
   }
   return (int)cudaErrorInvalidValue;
 }

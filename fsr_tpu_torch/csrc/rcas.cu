@@ -11,12 +11,14 @@
 // (fsr_pixel.cuh: rcas_resolve(fast=True)) and stores once, rounded to the
 // storage type.
 //
-// Storage: the source is float32 or bfloat16, the output float32 or
-// bfloat16; a float32 source under bfloat16 storage is rounded (RNE) at each
-// load, as converting the source first would.  A uint8 image sharpens byte
-// in, byte out (rcas_pallas.py:64-73, :111, :133-134): decoded
-// v * float32(1/255) at load, UNORM8 codes of the float32 result at the
-// store.  The math is float32.
+// Storage: the source is float32, bfloat16 or float16, the output any of
+// the three; a source wider than the storage type is rounded (RNE) at each
+// load, as converting the source first would.  float16 is storage only, as
+// the TPU kernel has it (rcas_pallas.py:66-67: f32 math on the widened
+// half); the output stays float16 (that kernel returns float32).  A uint8
+// image sharpens byte in, byte out (rcas_pallas.py:64-73, :111, :133-134):
+// decoded v * float32(1/255) at load, UNORM8 codes of the float32 result at
+// the store.  The math is float32.
 //
 // Bound: device-memory bytes (one read and one write of the image, about
 // 85 flops per pixel).  The halo re-reads (1.2x of a 32x16 tile) are served
@@ -25,6 +27,7 @@
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,7 +53,8 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = outside ? 0.0f : ld_as<T>(s + c * plane + at);
   };
-  rcas_tile<DENOISE>(ring, NoFinish{}, o, h, w, sharp);
+  auto store = [=](int Y, int X, float v[3]) { st3(o, plane, (int64_t)Y * w + X, v); };
+  rcas_tile<DENOISE>(ring, store, h, w, sharp);
 }
 
 template <typename T, typename S>
@@ -71,10 +75,22 @@ int launch(const void* src, void* dst, int nb, int h, int w, float sharp, bool z
   });
 }
 
+// Storage type T from a float source of any of the three float types.
+template <typename T>
+int launch_from(const void* src, void* dst, int src_dtype, int nb, int h, int w, float sharp,
+                bool zero, bool denoise, cudaStream_t stream) {
+  switch (src_dtype) {
+    case F32: return launch<T, float>(src, dst, nb, h, w, sharp, zero, denoise, stream);
+    case BF16: return launch<T, __nv_bfloat16>(src, dst, nb, h, w, sharp, zero, denoise, stream);
+    case F16: return launch<T, __half>(src, dst, nb, h, w, sharp, zero, denoise, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype codes (fsr_pixel.cuh DType): src_dtype is the source's, dtype the
-// output's: float32/bfloat16 from either float type, or uint8 from uint8.
+// output's: float32/bfloat16/float16 from any of them, or uint8 from uint8.
 // border_zero: 0 = clamp, 1 = zero.
 extern "C" int fsr_rcas(const void* src, void* dst, int src_dtype, int dtype, int nb, int h,
                         int w, float sharp, int border_zero, int denoise, void* stream) {
@@ -82,14 +98,12 @@ extern "C" int fsr_rcas(const void* src, void* dst, int src_dtype, int dtype, in
   const bool z = border_zero != 0;
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (src_dtype == 0 && dtype == 0) return launch<float, float>(src, dst, nb, h, w, sharp, z, dn, s);
-  if (src_dtype == 0 && dtype == 1)
-    return launch<__nv_bfloat16, float>(src, dst, nb, h, w, sharp, z, dn, s);
-  if (src_dtype == 1 && dtype == 0)
-    return launch<float, __nv_bfloat16>(src, dst, nb, h, w, sharp, z, dn, s);
-  if (src_dtype == 1 && dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(src, dst, nb, h, w, sharp, z, dn, s);
-  if (src_dtype == U8 && dtype == U8)
-    return launch<uint8_t, uint8_t>(src, dst, nb, h, w, sharp, z, dn, s);
+  switch (dtype) {
+    case F32: return launch_from<float>(src, dst, src_dtype, nb, h, w, sharp, z, dn, s);
+    case BF16: return launch_from<__nv_bfloat16>(src, dst, src_dtype, nb, h, w, sharp, z, dn, s);
+    case F16: return launch_from<__half>(src, dst, src_dtype, nb, h, w, sharp, z, dn, s);
+    case U8:
+      if (src_dtype == U8) return launch<uint8_t, uint8_t>(src, dst, nb, h, w, sharp, z, dn, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

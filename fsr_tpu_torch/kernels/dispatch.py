@@ -5,10 +5,11 @@ kernel, ``kernels/fused.py``) takes the integer phase structures of the
 coordinate mapping (the 2x Performance preset); K2 (``kernels/easu_gather.py``)
 takes every other upscale (the other presets, native 1x, DRS ratios).  Both
 take the byte source, the SRTM prologue, the K5 epilogue and the integer
-outputs.  This module owns the choice and the call, so ``api.upscale``
-stays device-agnostic.  A configuration neither kernel takes (a downscale,
-RGBA, another dtype) raises: the kernel path never falls back to plain
-torch on its own.
+outputs, and RGB or RGBA in one launch (plus K4 in front of K1).  This
+module owns the choice and the call, so ``api.upscale`` stays
+device-agnostic.  A configuration neither kernel takes (a downscale,
+float16 or another dtype) raises: the kernel path never falls back to
+plain torch on its own.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def upscale_fused(
     if easu_gather.supported(shape, out_size, con, compute_dtype, out_dtype):
         return easu_gather.easu_gather(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
     raise NotImplementedError(
-        "the kernel path takes RGB upscales (1x to 4x area) in float32/bfloat16 storage "
+        "the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
         "with float32/bfloat16/uint8 sources and uint8/uint16 or storage-type outputs; "
         f"got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
         "Pass impl='torch' for the plain-torch path."

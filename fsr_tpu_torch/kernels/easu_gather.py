@@ -15,13 +15,16 @@ device never recomputes a coordinate.  ``easu_gather`` launches
 
 Options, as K1 takes them (``kernels/fused.py``): a uint8 image (decoded
 at each load, never rounded to the storage type), the SRTM prologue, the
-K5 epilogue with plain output-space grain (``kernels/epilogue.py``) and
-uint8/uint16 ``out_dtype``.
+K5 epilogue with plain output-space grain (``kernels/epilogue.py``),
+uint8/uint16 ``out_dtype``, and RGBA in one launch: alpha bilinear from the
+plan's rows[1..2] and cols[1..2] at (px, py), as ``ops.easu.bilinear``
+computes it (the JAX ``api`` splits alpha off for its gather kernel,
+``fsr_tpu/kernels/dispatch.py:31-35``; the f32 results agree).
 
 The TPU kernel's hybrid X-phase, one-hot row selectors, dynamic-roll column
 gathers, tile sweeps and one-tile software pipeline are TPU layout machinery
-with no counterpart here.  RGBA and sharded row plans wait (ROADMAP.md
-queue items 2 and 6).
+with no counterpart here.  Sharded row plans wait (ROADMAP.md queue item
+6).
 """
 
 from __future__ import annotations
@@ -43,11 +46,11 @@ __all__ = ["supported", "GatherPlan", "plan", "easu_gather", "easu_gather_refere
 
 
 def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
-    """True when K2 takes this configuration: RGB, float32/bfloat16 storage,
-    an output of the storage type or uint8/uint16 codes, and an upscale on
-    both axes (the EASU 1x-4x contract).  The JAX kernel's minimum output of
-    16 x 128 is a TPU tiling limit and does not apply."""
-    if len(in_shape) < 3 or in_shape[-3] != 3:
+    """True when K2 takes this configuration: RGB or RGBA, float32/bfloat16
+    storage, an output of the storage type or uint8/uint16 codes, and an
+    upscale on both axes (the EASU 1x-4x contract).  The JAX kernel's
+    minimum output of 16 x 128 is a TPU tiling limit and does not apply."""
+    if len(in_shape) < 3 or in_shape[-3] not in (3, 4):
         return False
     if compute_dtype not in pad.FLOAT_DTYPES or not fused.out_dtype_ok(out_dtype, compute_dtype):
         return False
@@ -93,8 +96,8 @@ def _device_tables(gplan: GatherPlan, device: torch.device):
 def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype, prologue, out_dtype):
     if apply_rcas and rcon is None:
         raise ValueError("apply_rcas=True requires rcon")
-    if image.dim() < 3 or image.shape[-3] != 3:
-        raise ValueError(f"image must be (..., 3, H, W), got {tuple(image.shape)}")
+    if image.dim() < 3 or image.shape[-3] not in (3, 4):
+        raise ValueError(f"image must be (..., 3 or 4, H, W), got {tuple(image.shape)}")
     if compute_dtype not in pad.FLOAT_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if not fused.out_dtype_ok(out_dtype, compute_dtype):
@@ -157,10 +160,10 @@ def easu_gather(
     out_dtype=None,
     dither_page=None,
 ) -> torch.Tensor:
-    """EASU (+ RCAS when ``apply_rcas``) of a (..., 3, Hin, Win) float32,
-    bfloat16 or uint8 image to (..., 3, Hout, Wout) in ``out_dtype``
-    (default compute_dtype, the storage; the math is float32), with the
-    prologue and epilogue inside.  CUDA tensors launch
+    """EASU (+ RCAS when ``apply_rcas``) of a (..., C, Hin, Win) float32,
+    bfloat16 or uint8 image, C = 3 or 4, to (..., C, Hout, Wout) in
+    ``out_dtype`` (default compute_dtype, the storage; the math is float32),
+    with the prologue, the epilogue and RGBA's bilinear alpha inside.  CUDA tensors launch
     ``csrc/easu_gather.cu``; CPU tensors run ``easu_gather_reference``."""
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
               out_dtype=out_dtype, dither_page=dither_page)
@@ -174,8 +177,8 @@ def easu_gather(
                                                   compute_dtype, prologue, out_dtype)
     epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device)
     image = image.contiguous()
-    *lead, _, hin, win = image.shape
-    out = torch.empty((*lead, 3, hout, wout), dtype=out_dt, device=image.device)
+    *lead, nc, hin, win = image.shape
+    out = torch.empty((*lead, nc, hout, wout), dtype=out_dt, device=image.device)
     if out.numel() == 0:
         return out
     rows, cols, py, px = _device_tables(gplan, image.device)
@@ -188,7 +191,7 @@ def easu_gather(
         err = lib.fsr_easu_gather(
             image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype],
             pad.DTYPE_CODES[compute_dtype], pad.DTYPE_CODES[out_dt],
-            image.numel() // (3 * hin * win), hin, win, hout, wout,
+            image.numel() // (nc * hin * win), nc, hin, win, hout, wout,
             rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
             sharp, int(apply_rcas), int(denoise), int(prologue == "srtm"),
             ctypes.addressof(cepi), stream,

@@ -175,9 +175,13 @@ def bind(epi: Optional[Epilogue], out_hw, frame=None, grain=None, dither_page=No
 def apply(res: torch.Tensor, args: Optional[EpilogueArgs]) -> torch.Tensor:
     """The epilogue on a float32 (..., 3, Hout, Wout) result, as the kernels
     run it per pixel: the transform, LFGA grain, then the TEPD quantize
-    with hash or page dither positions at the pixel's output coordinates."""
+    with hash or page dither positions at the pixel's output coordinates.
+    On (..., 4, Hout, Wout) the ops run on RGB and alpha rides through
+    (fsr_tpu/kernels/fused.py:1052-1056, easu_gather.py:757-761)."""
     if args is None:
         return res
+    if res.shape[-3] == 4:
+        return torch.cat([apply(res[..., :3, :, :], args), res[..., 3:, :, :]], dim=-3)
     epi = args.epi
     x = res
     if epi.transform == "srtm_inv":
@@ -227,7 +231,8 @@ def decode(src: torch.Tensor, storage_dtype=None) -> torch.Tensor:
 
 def store(res: torch.Tensor, out_dtype) -> torch.Tensor:
     """A float32 result as the kernels store it: UNORM codes for uint8 and
-    uint16, else one rounding to the float storage type."""
+    uint16, else one rounding to the float storage type; alpha, where there
+    is one, by the same rule."""
     if out_dtype == torch.uint8:
         return encode_unorm8(res)
     if out_dtype == torch.uint16:

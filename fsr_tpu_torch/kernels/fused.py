@@ -19,8 +19,12 @@ Options, as the JAX kernel takes them: a uint8 image (decoded at each tap
 load), the SRTM prologue (``prologue="srtm"``, at each tap load), the K5
 epilogue (``kernels/epilogue.py``: ``epilogue``, ``frame``, ``grain`` in
 plain output space, ``dither_page``) on the float32 result, and
-``out_dtype`` uint8/uint16 (UNORM codes of the float32 value).  RGBA and
-``row_offset`` wait (ROADMAP.md queue items 2 and 6).
+``out_dtype`` uint8/uint16 (UNORM codes of the float32 value).  An RGBA
+image (..., 4, H, W) goes through the same launches: alpha is resolved
+bilinearly in the kernel's store pass from the padded source, never
+sharpened, tonemapped or touched by the epilogue, and stored by the
+colour's rule (``easu_rcas_reference`` is its plain version).
+``row_offset`` waits (ROADMAP.md queue item 6).
 
 The TPU kernel's tile plans, riffles, row packing, in-kernel pad and
 software pipeline are TPU layout machinery with no counterpart here.
@@ -108,10 +112,10 @@ def out_dtype_ok(out_dtype, compute_dtype) -> bool:
 
 
 def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
-    """True when K1 takes this configuration: RGB, float32/bfloat16 storage,
-    an output of the storage type or uint8/uint16 codes, and an integer
-    phase structure (qy, qx in {1, 2, 4}, not both 1)."""
-    if len(in_shape) < 3 or in_shape[-3] != 3:
+    """True when K1 takes this configuration: RGB or RGBA, float32/bfloat16
+    storage, an output of the storage type or uint8/uint16 codes, and an
+    integer phase structure (qy, qx in {1, 2, 4}, not both 1)."""
+    if len(in_shape) < 3 or in_shape[-3] not in (3, 4):
         return False
     if compute_dtype not in pad.FLOAT_DTYPES or not out_dtype_ok(out_dtype, compute_dtype):
         return False
@@ -190,17 +194,28 @@ def easu_rcas_reference(
     denoise: bool = False,
     srtm: bool = False,
 ) -> torch.Tensor:
-    """The float32 math of K1 and K2 on a (..., 3, H, W) source as the
+    """The float32 math of K1 and K2 on a (..., 3 or 4, H, W) source as the
     kernels load it (``epilogue.decode``): the SRTM prologue when ``srtm``,
     the kernels' ``fast`` forms, per-texel quad responses, RCAS on the
     unrounded EASU values with the border clamped in output coordinates.
     Returns the unrounded float32 result (the epilogue and the one store
-    follow).
+    follow).  Alpha (channel 3) is the bilinear of ``ops.easu.bilinear``
+    from the taps at offsets 0 and 1 of the same tables, in its op order;
+    it is never tonemapped nor sharpened.
 
     rows (4, Hout) / cols (4, Wout): the source row/column of the taps at
     offsets -1..2 around each output pixel's 'f' texel; ppy (Hout,) / ppx
     (Wout,): the float32 subpixel fractions.
     """
+    alpha = None
+    if srcf.shape[-3] == 4:
+        a = srcf[..., 3, :, :]
+        r0, r1, c0, c1 = rows[1][:, None], rows[2][:, None], cols[1][None, :], cols[2][None, :]
+        tl, tr, bl, br = a[..., r0, c0], a[..., r0, c1], a[..., r1, c0], a[..., r1, c1]
+        top = tl + (tr - tl) * ppx[None, :]
+        bot = bl + (br - bl) * ppx[None, :]
+        alpha = (top + (bot - top) * ppy[:, None])[..., None, :, :]
+        srcf = srcf[..., :3, :, :]
     if srtm:
         srcf = extras.srtm(srcf)
     taps = {
@@ -226,7 +241,7 @@ def easu_rcas_reference(
             denoise=denoise,
             fast=True,
         )
-    return out
+    return out if alpha is None else torch.cat([out, alpha], dim=-3)
 
 
 def _check_prologue(prologue):
@@ -286,9 +301,10 @@ def upscale_padded(
     epi=None,
     out_dtype=None,
 ) -> torch.Tensor:
-    """K1 on the K4-padded source (..., 3, Hp, Wp) of float32, bfloat16 or
-    uint8 -> (..., 3, Hout, Wout) in ``out_dtype``.  CUDA tensors launch
-    ``csrc/fused.cu``; CPU tensors run ``upscale_padded_reference``."""
+    """K1 on the K4-padded source (..., C, Hp, Wp), C = 3 or 4, of float32,
+    bfloat16 or uint8 -> (..., C, Hout, Wout) in ``out_dtype``.  CUDA
+    tensors launch ``csrc/fused.cu``; CPU tensors run
+    ``upscale_padded_reference``."""
     if padded.device.type == "cpu":
         return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise,
                                         prologue=prologue, epi=epi, out_dtype=out_dtype)
@@ -296,18 +312,18 @@ def upscale_padded(
         raise ValueError(f"upscale_padded takes a CPU or CUDA tensor, got {padded.device}")
     if padded.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
         raise TypeError(f"fused kernel takes float32/bfloat16/uint8 sources, got {padded.dtype}")
-    if padded.dim() < 3 or padded.shape[-3] != 3 or not padded.is_contiguous():
-        raise ValueError(f"fused kernel needs a contiguous (..., 3, H, W) tensor, got {tuple(padded.shape)}")
+    if padded.dim() < 3 or padded.shape[-3] not in (3, 4) or not padded.is_contiguous():
+        raise ValueError(f"fused kernel needs a contiguous (..., 3 or 4, H, W) tensor, got {tuple(padded.shape)}")
     _check_prologue(prologue)
     out_dtype = _out_dtype(padded.dtype, out_dtype)
     hout, wout = (int(v) for v in out_size)
-    *lead, _, hp, wp = padded.shape
+    *lead, nc, hp, wp = padded.shape
     # The plan's reach must fit the padded extent: no bounds logic on the loads.
     if (max(fplan.ry) + (hout - 1) // fplan.qy + 2 >= hp or min(fplan.ry) < 1
             or max(fplan.rx) + (wout - 1) // fplan.qx + 2 >= wp or min(fplan.rx) < 1):
         raise ValueError("padded source does not cover the plan's tap reach")
-    out = torch.empty((*lead, 3, hout, wout), dtype=out_dtype, device=padded.device)
-    nb = padded.numel() // (3 * hp * wp)
+    out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=padded.device)
+    nb = padded.numel() // (nc * hp * wp)
     if out.numel() == 0:
         return out
     from fsr_tpu_torch.kernels import _build
@@ -322,7 +338,7 @@ def upscale_padded(
         stream = torch.cuda.current_stream(padded.device).cuda_stream
         err = lib.fsr_upscale_fused(
             padded.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[padded.dtype],
-            pad.DTYPE_CODES[out_dtype], nb, hp, wp, hout, wout, fplan.qy, fplan.qx, ry, rx, py, px,
+            pad.DTYPE_CODES[out_dtype], nb, nc, hp, wp, hout, wout, fplan.qy, fplan.qx, ry, rx, py, px,
             float(sharpness), int(apply_rcas), int(denoise), int(prologue == "srtm"),
             ctypes.addressof(cepi), stream,
         )
@@ -336,8 +352,8 @@ upscale_padded.launches = 0
 
 
 def _prepare(image, out_size, con, compute_dtype, out_dtype):
-    if image.dim() < 3 or image.shape[-3] != 3:
-        raise ValueError(f"image must be (..., 3, H, W), got {tuple(image.shape)}")
+    if image.dim() < 3 or image.shape[-3] not in (3, 4):
+        raise ValueError(f"image must be (..., 3 or 4, H, W), got {tuple(image.shape)}")
     if compute_dtype not in pad.FLOAT_DTYPES:
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if not out_dtype_ok(out_dtype, compute_dtype):
@@ -362,10 +378,11 @@ def upscale_fused(
     out_dtype=None,
     dither_page=None,
 ) -> torch.Tensor:
-    """Fused EASU(+RCAS): K4 pads the (..., 3, Hin, Win) image into the
-    storage dtype (a uint8 image stays bytes), K1 upscales it, with the
-    prologue and epilogue inside.  Returns (..., 3, Hout, Wout) in
-    ``out_dtype`` (default compute_dtype, the storage; the math is float32)."""
+    """Fused EASU(+RCAS): K4 pads the (..., C, Hin, Win) image, C = 3 or 4,
+    into the storage dtype (a uint8 image stays bytes), K1 upscales it, with
+    the prologue, the epilogue and RGBA's alpha inside.  Returns (..., C,
+    Hout, Wout) in ``out_dtype`` (default compute_dtype, the storage; the
+    math is float32)."""
     fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
     epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device)
     padded = pad.edge_pad(image.contiguous(), fplan.pads, storage)

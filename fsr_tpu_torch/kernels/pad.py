@@ -9,6 +9,8 @@ launch in ``edge_pad.launches``; for a CPU tensor it runs the plain version
 ``edge_pad_reference``.  The kernel's source note says what bounds it.  A
 uint8 image pads as bytes (uint8 to uint8), as the JAX package pads a byte
 source for its fused kernel (fused.py:583-592); K1 decodes at its loads.
+Any number of planes pads in one launch: an RGBA image's alpha with its
+colour.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 __all__ = ["edge_pad", "edge_pad_reference"]
 
 # dtype codes of the kernels' C interfaces (csrc/fsr_pixel.cuh DType).
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.uint16: 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.uint16: 3, torch.float16: 4}
+# The float storage types of K1, K2 and K4 (float16 runs the torch path, as
+# it runs the XLA path in the JAX package; K3 also stores float16).
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 

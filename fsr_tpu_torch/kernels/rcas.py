@@ -3,8 +3,12 @@
 Counterpart of ``fsr_tpu/kernels/rcas_pallas.py:rcas_fused``: RCAS as an
 independent pass at the image's own size (ffx_fsr1.h:602-608), which
 ``api.sharpen`` runs.  Storage is ``compute_dtype`` (default: the image's
-dtype); the math is float32 (``rcas_resolve(fast=True)``) with one rounding
-at the store.  ``border="clamp"`` replicates the edge; ``border="zero"``
+dtype): float32, bfloat16 or float16; the math is float32
+(``rcas_resolve(fast=True)``, the float32 sharpness) with one rounding at
+the store.  float16 is the TPU kernel's rule (``rcas_pallas.py:66-67``:
+f32 math on the widened half), but the result stays float16 on every
+device, as every other path returns the input's dtype (the TPU kernel
+returns float32 there).  ``border="clamp"`` replicates the edge; ``border="zero"``
 reads zeros outside the image, as the sample's imageLoad does.
 
 A uint8 image sharpens byte in, byte out, whatever ``compute_dtype`` says
@@ -28,6 +32,9 @@ from fsr_tpu_torch.ops.rcas import shift_clamped
 
 __all__ = ["rcas_fused", "rcas_fused_reference"]
 
+# K3's float storage types.
+FLOAT_DTYPES = pad.FLOAT_DTYPES + (torch.float16,)
+
 
 def _prepare(image, compute_dtype, border):
     if border not in ("clamp", "zero"):
@@ -37,8 +44,8 @@ def _prepare(image, compute_dtype, border):
     if image.dtype == torch.uint8:
         return torch.uint8
     dt = compute_dtype if compute_dtype is not None else image.dtype
-    if dt not in pad.FLOAT_DTYPES:
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {dt}")
+    if dt not in FLOAT_DTYPES:
+        raise ValueError(f"compute_dtype must be float32, bfloat16 or float16, got {dt}")
     return dt
 
 
@@ -74,16 +81,16 @@ def rcas_fused(
     compute_dtype=None,
     border: str = "clamp",
 ) -> torch.Tensor:
-    """RCAS of a (..., 3, H, W) float32 or bfloat16 image, returned in
-    ``compute_dtype`` (default: the image's dtype), or of a uint8 image,
+    """RCAS of a (..., 3, H, W) float32, bfloat16 or float16 image, returned
+    in ``compute_dtype`` (default: the image's dtype), or of a uint8 image,
     returned in uint8.  CUDA tensors launch ``csrc/rcas.cu``; CPU tensors
     run ``rcas_fused_reference``."""
     if image.device.type == "cpu":
         return rcas_fused_reference(image, rcon, denoise, compute_dtype, border)
     if image.device.type != "cuda":
         raise ValueError(f"rcas_fused takes a CPU or CUDA tensor, got {image.device}")
-    if image.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
-        raise TypeError(f"RCAS kernel takes float32/bfloat16/uint8 images, got {image.dtype}")
+    if image.dtype not in FLOAT_DTYPES + (torch.uint8,):
+        raise TypeError(f"RCAS kernel takes float32/bfloat16/float16/uint8 images, got {image.dtype}")
     dt = _prepare(image, compute_dtype, border)
     image = image.contiguous()
     *lead, _, h, w = image.shape

@@ -51,16 +51,23 @@ def easu(
     out_size: Tuple[int, int],
     con: EasuConstants,
     compute_dtype=torch.float32,
+    precision: str = "mixed",
 ) -> torch.Tensor:
     """EASU upscale.
 
     src: (..., 3, Hin, Win) planar image, values in [0, 1].
     out_size: (Hout, Wout).
-    compute_dtype: float32 (FsrEasuF parity) or bfloat16 (colour
-      accumulation in bf16; the direction/length estimation stays float32).
+    compute_dtype: float32 (FsrEasuF parity), float16 or bfloat16 (colour
+      accumulation in that dtype).
+    precision: "mixed" (default) keeps the direction/length estimation in
+      float32 under a 16-bit compute_dtype; "strict" runs everything in
+      compute_dtype, which with float16 is FsrEasuH (ffx_fsr1.h:505-593).
 
     Returns (..., 3, Hout, Wout) in compute_dtype.
     """
+    if precision not in ("mixed", "strict"):
+        raise ValueError(f"precision must be 'mixed' or 'strict', got {precision!r}")
+    dir_dtype = compute_dtype if precision == "strict" else torch.float32
     hin, win = src.shape[-2:]
     col, row, px, py = easu_coords(con, out_size)
     dev = src.device
@@ -72,7 +79,7 @@ def easu(
         taps[name] = src[..., r[:, None], c[None, :]]
     ppx = torch.as_tensor(px, device=dev)[None, :]
     ppy = torch.as_tensor(py, device=dev)[:, None]
-    return easu_math.easu_resolve(taps, ppx, ppy, dtype=compute_dtype, dir_dtype=torch.float32)
+    return easu_math.easu_resolve(taps, ppx, ppy, dtype=compute_dtype, dir_dtype=dir_dtype)
 
 
 def bilinear(src: torch.Tensor, out_size: Tuple[int, int], con: EasuConstants) -> torch.Tensor:

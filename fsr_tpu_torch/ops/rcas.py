@@ -49,6 +49,8 @@ def rcas(
 
     img: (..., C, H, W) with C=3, or C=4 for alpha passthrough
     (FSR_RCAS_PASSTHROUGH_ALPHA, ffx_fsr1.h:688-705).
+    compute_dtype: the arithmetic's dtype (default: the image's); float16
+    is FsrRcasH, with the sharpness read as a half (ffx_fsr1.h:857).
     """
     dt = compute_dtype if compute_dtype is not None else img.dtype
     rgb = img[..., :3, :, :].to(dt)
@@ -56,7 +58,8 @@ def rcas(
     d = shift_clamped(rgb, 0, -1, border)
     f = shift_clamped(rgb, 0, 1, border)
     h = shift_clamped(rgb, 1, 0, border)
-    out = easu_math.rcas_resolve(b, d, rgb, f, h, float(con.sharpness), denoise=denoise)
+    sharp = con.sharpness_f16 if dt == torch.float16 else con.sharpness
+    out = easu_math.rcas_resolve(b, d, rgb, f, h, float(sharp), denoise=denoise)
     if img.shape[-3] == 4:
         out = torch.cat([out, img[..., 3:4, :, :].to(dt)], dim=-3)
     return out

@@ -87,9 +87,6 @@ def test_upscale_kernel_impl_on_cpu_matches_xla(dt):
 
 
 UNSUPPORTED = [
-    ("RGBA", lambda x: dict(image=torch.cat([x, x[:1]], dim=0))),
-    ("float16 compute", lambda x: dict(compute_dtype=torch.float16)),
-    ("float16 input", lambda x: dict(image=x.half())),
     ("grad on the kernel path", lambda x: dict(image=x.clone().requires_grad_(), impl="kernel")),
     ("grad on the torch path", lambda x: dict(image=x.clone().requires_grad_(), impl="torch")),
 ]
@@ -107,7 +104,10 @@ def test_unsupported_options_raise(case):
 
 PORTED_OPTIONS = [
     # id, upscale kwargs beside the image: the options that raised until
-    # byte I/O, the prologue and the epilogue were ported
+    # byte I/O, the prologue, the epilogue, RGBA and float16 were ported
+    ("RGBA", lambda x: dict(image=torch.cat([x, x[:1]], dim=0))),
+    ("float16 compute", lambda x: dict(compute_dtype=torch.float16)),
+    ("float16 input", lambda x: dict(image=x.half())),
     ("uint8 input", lambda x: dict(image=(x * 255).to(torch.uint8))),
     ("uint8 output", lambda x: dict(out_dtype=torch.uint8)),
     ("prologue", lambda x: dict(prologue="srtm")),
@@ -122,14 +122,21 @@ PORTED_OPTIONS = [
 @pytest.mark.parametrize("case", PORTED_OPTIONS, ids=lambda c: c[0])
 def test_ported_options_agree_across_impl(case):
     """Each option runs on the kernel path (its plain versions here) and the
-    torch path and agrees with the JAX XLA path (tests/test_torch_epilogue.py
-    and test_torch_uint8.py hold them closely)."""
+    torch path and agrees with the JAX XLA path (tests/test_torch_epilogue.py,
+    test_torch_uint8.py, test_torch_rgba.py and test_torch_fp16.py hold them
+    closely).  float16 runs the torch path under impl="auto", as the JAX
+    package runs it on XLA, and refuses impl="kernel"."""
     _, make = case
     x = torch.from_numpy(_img(3, (3, 27, 48)))
     kw = dict(image=x, preset="performance")
     kw.update(make(x))
-    outs = [fsr_tpu_torch.upscale(**kw, impl=impl) for impl in ("kernel", "torch")]
-    assert outs[0].shape == outs[1].shape == (3, 54, 96) and outs[0].dtype == outs[1].dtype
+    f16 = torch.float16 in (kw["image"].dtype, kw.get("compute_dtype"))
+    if f16:
+        with pytest.raises(ValueError, match="torch path"):
+            fsr_tpu_torch.upscale(**kw, impl="kernel")
+    outs = [fsr_tpu_torch.upscale(**kw, impl=impl) for impl in ("auto" if f16 else "kernel", "torch")]
+    nc = kw["image"].shape[-3]
+    assert outs[0].shape == outs[1].shape == (nc, 54, 96) and outs[0].dtype == outs[1].dtype
     d = (outs[0].double() - outs[1].double()).abs()
     step = 1.0 if outs[0].dtype == torch.uint8 else 1.0 / 255.0  # at most a code or a dither step
     assert (d > 1e-4).float().mean() <= 1e-3 and d.max() <= step

@@ -288,7 +288,9 @@ def test_supported_agrees_with_jax_gate(in_hw, out_hw):
         assert tgather.supported((3, *in_hw), out_hw, tc, tdt) == jgather.supported(
             (3, *in_hw), out_hw, jc, jdt)
     assert not tgather.supported((3, *in_hw), out_hw, tc, torch.float16)
-    assert not tgather.supported((4, *in_hw), out_hw, tc, torch.float32)  # RGBA waits
+    # RGBA takes the same gate (alpha is resolved in the same launch).
+    assert tgather.supported((4, *in_hw), out_hw, tc, torch.float32) == jgather.supported(
+        (4, *in_hw), out_hw, jc, jnp.float32)
 
 
 def test_supported_drops_the_tpu_minimum_output():

@@ -193,4 +193,6 @@ def test_supported_gating_matches_jax():
             assert tfused.supported((3, *in_hw), out_hw, tc, tdt) == jfused.supported(
                 (3, *in_hw), out_hw, jc, jdt)
         assert not tfused.supported((3, *in_hw), out_hw, tc, torch.float16)
-        assert not tfused.supported((4, *in_hw), out_hw, tc, torch.float32)  # RGBA waits
+        # RGBA takes the same gate (alpha is resolved in the same launch).
+        assert tfused.supported((4, *in_hw), out_hw, tc, torch.float32) == jfused.supported(
+            (4, *in_hw), out_hw, jc, jnp.float32)

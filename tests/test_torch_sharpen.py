@@ -167,9 +167,36 @@ def test_sharpen_bf16_compute_dtype(impl):
         assert d_src.max() <= 2.0 ** -9 + ORACLE_TOL
 
 
+FLOAT16 = [
+    # id, sharpen kwargs beside the image: the float16 options that raised
+    # until float16 was ported
+    ("float16 input", lambda x: dict(image=x.half())),
+    ("float16 compute", lambda x: dict(compute_dtype=torch.float16)),
+]
+
+
+@pytest.mark.parametrize("case", FLOAT16, ids=lambda c: c[0])
+def test_sharpen_float16_runs(case):
+    """float16 sharpens on both paths and stays float16: the torch path is
+    FsrRcasH (held to the float16 oracle by tests/test_ops_vs_oracle.py's
+    2e-3), K3 (its plain version here) f32 math on the widened half, one
+    rounding (within one float16 step of the f32 oracle on the half input)."""
+    _, make = case
+    x = torch.from_numpy(_img(12, (3, 20, 30)))
+    kw = dict(image=x)
+    kw.update(make(x))
+    src = x.half().float().numpy()
+    for impl in ("torch", "kernel"):
+        got = fsr_tpu_torch.sharpen(**kw, impl=impl)
+        assert got.dtype == torch.float16 and got.shape == x.shape
+        if impl == "torch":
+            want, tol = jref.rcas_ref(src, JRcas(0.25), dtype=np.float16).astype(np.float32), 2e-3
+        else:
+            want, tol = jref.rcas_ref(src, JRcas(0.25)), 2.0 ** -11 + ORACLE_TOL
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
+
+
 UNSUPPORTED = [
-    ("float16 input", lambda x: dict(image=x.half()), "item 5"),
-    ("float16 compute", lambda x: dict(compute_dtype=torch.float16), "item 5"),
     ("grad", lambda x: dict(image=x.clone().requires_grad_()), "item 4"),
 ]
 

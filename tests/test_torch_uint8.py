@@ -1,5 +1,5 @@
 """Byte I/O on the port's kernels and API, on the CPU (tests/test_uint8.py's
-cases, but RGBA, which waits for ROADMAP.md queue item 2).
+cases; its RGBA case is in test_torch_rgba.py).
 
 Contract: a uint8 input decodes v * float32(1/255) (from_uint8); a uint8
 output encodes floor(sat(v)*255 + 0.5) and a uint16 output the 10-bit codes
