@@ -64,7 +64,22 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      the float32 oracle and ops.easu "strict" against the float16 oracle by
      the docs/FIDELITY.md f16 rows; sharpen on (4, 3, 2160, 3840) float16
      through K3 (one launch), within one half step of its plain version;
-     times of both, the float16 upscale at batch 4 beside K1.
+     times of both, the float16 upscale at batch 4 beside K1;
+ 18. row-sharded execution (fsr_tpu_torch.parallel) on meshes of the card
+     repeated: at small sizes K4 + K1 with row_offset/global_rows (2x, 4x,
+     2x rows by 1x columns; 2, 4 and 8 strips) and K2 with per-strip row
+     plans (1.5x, 1.3x, ~1.7x, a DRS offset; 2, 3 and 4 strips), and each
+     storage type, code, epilogue and RGBA option on 4 strips, each
+     bit-equal to the unsharded kernel output and within phase 12's limits
+     of the same sharded call on the plain versions; at full width, batch 4,
+     (i) Performance f32 and (ii) Quality bf16 on 4 strips, (iii) the HDR
+     tail (a) and (iv) the display path (b) with a dither page through
+     UpscalePipeline(mesh=), (v) Performance f32 on dp=2 x sp=2, each with
+     exactly 4 launches of each of its kernels and bit-equal to the
+     unsharded call; CUDA-event times of each beside its unsharded twin and
+     of the strips' kernels beside the unsharded kernel, taken in turn; with
+     several cards, (i) and (ii) across them too, with each card's busy time
+     from a trace; with --trace, a trace of each full-width run.
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
 the float32 operations the function needs, estimated, over 67 TFLOP/s) and the JSON result line
@@ -75,6 +90,7 @@ unavailable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -287,12 +303,289 @@ def _interleaved_ms(fns: dict, rounds: int = 3) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def _wrappers() -> dict:
+    """The kernel wrappers, each with its launch count."""
+    from fsr_tpu_torch.kernels import easu_gather, fused, pad
+    from fsr_tpu_torch.kernels import rcas as rcas_k
+
+    return {"K4": pad.edge_pad, "K1": fused.upscale_padded, "K2": easu_gather.easu_gather,
+            "K3": rcas_k.rcas_fused}
+
+
+def _drive(fn, need):
+    """Run fn with every count at 0; fail unless each kernel in `need`
+    launched exactly once (a dict: exactly need[k] times) and no other
+    kernel launched.  Returns fn's result and the counts."""
+    wrappers = _wrappers()
+    want = need if isinstance(need, dict) else {k: 1 for k in need}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: w.launches for k, w in wrappers.items()}
+    if got != {k: want.get(k, 0) for k in wrappers}:
+        raise AssertionError(f"launch counts {got}: the path must launch exactly {want}")
+    return out, got
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """K4, K1 and K2's plain versions in place of their wrappers, so that a
+    path runs on the card with the same inputs and no kernel."""
+    from fsr_tpu_torch.kernels import easu_gather, fused, pad
+
+    saved = pad.edge_pad, fused.upscale_padded, easu_gather.easu_gather
+    pad.edge_pad = pad.edge_pad_reference
+    fused.upscale_padded = fused.upscale_padded_reference
+    easu_gather.easu_gather = easu_gather.easu_gather_reference
+    try:
+        yield
+    finally:
+        pad.edge_pad, fused.upscale_padded, easu_gather.easu_gather = saved
+
+
+def _check_sharded(got, want, plain, epi, what) -> float:
+    """A sharded output: bit-equal to the unsharded kernel output `want`,
+    and within phase 12's limits of the plain versions' `plain` (RGBA's
+    alpha bit-equal)."""
+    if got.shape != want.shape or got.dtype != want.dtype or got.device != want.device:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} {got.device} vs "
+                             f"{tuple(want.shape)} {want.dtype} {want.device}")
+    if not torch.equal(got, want):
+        off = int((got != want).sum())
+        raise AssertionError(f"{what}: {off} values differ from the unsharded kernel output")
+    if got.shape[-3] == 4:
+        if not torch.equal(got[..., 3, :, :], plain[..., 3, :, :]):
+            raise AssertionError(f"{what}: alpha not bit-equal to the plain version")
+        got, plain = got[..., :3, :, :], plain[..., :3, :, :]
+    return _compare_epilogue(got, plain, epi, what + " vs the plain versions")
+
+
+def _row_sharded(dev, card: str, gen, trace: bool) -> list:
+    """Phase 18: row-sharded (and dp x sp) execution through
+    ``fsr_tpu_torch.parallel`` on meshes of the card repeated, and across
+    cards where there are several; with ``trace``, a profiler trace of each
+    full-width run.  Returns its entries of the kernels line."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import easu_gather, fused, pad
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+    from fsr_tpu_torch.parallel import sharding, spatial
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+
+    f32, bf16, u8, u16 = torch.float32, torch.bfloat16, torch.uint8, torch.uint16
+    cards = torch.cuda.device_count()
+    print(f"phase 18: row-sharded execution (fsr_tpu_torch.parallel) on meshes of {dev} repeated; "
+          + (f"across {cards} cards too" if cards > 1 else "one card: no run across cards"))
+
+    def mesh(n, names=("sp",), shape=None):
+        return sharding.make_mesh(n, names, shape, devices=[dev] * n)
+
+    def src(kind, in_hw):
+        x = torch.rand((2, 4 if kind.startswith("rgba") else 3, *in_hw), generator=gen, device=dev)
+        return {"hdr": lambda: x * 16, "u8": lambda: (x * 255).to(u8),
+                "rgba u8": lambda: (x * 255).to(u8)}.get(kind, lambda: x)()
+
+    # Small sizes: every seam phase (2x, 4x, 1x columns; 1.3x/1.5x/1.7x
+    # and a DRS offset on K2), the storage types, codes, the epilogue and
+    # RGBA, each held bit-equal to the unsharded kernel output and within
+    # phase 12's limits of the same sharded path on the plain versions.
+    drs = dict(input_viewport=(92, 138), input_offset=(2, 3))
+    options = [
+        ("bf16", "float", dict(compute_dtype=bf16)),
+        ("u8 ->u8", "u8", dict(out_dtype=u8)),
+        ("f32 ->u16", "float", dict(out_dtype=u16)),
+        ("RGBA", "rgba", {}),
+        ("RGBA u8 ->u8", "rgba u8", dict(out_dtype=u8)),
+        ("SRTM + srtm_inv", "hdr", dict(prologue="srtm", epilogue=Epilogue(transform="srtm_inv"))),
+        ("gamma2 + grain + hash dither10", "float",
+         dict(epilogue=Epilogue(transform="gamma2", grain_amount=0.3, dither_bits=10), frame=5)),
+        ("grain + page dither8, u8 ->u8, bf16", "u8",
+         dict(epilogue=Epilogue(grain_amount=0.25, dither_bits=8, dither_texture=True), out_dtype=u8,
+              compute_dtype=bf16)),
+        ("denoise", "float", dict(denoise=True, sharpness=0.5)),
+        ("EASU only", "float", dict(apply_rcas=False)),
+    ]
+    k1_2x, k1_4x, k2_15 = ((96, 160), (192, 320)), ((48, 80), (192, 320)), ((144, 240), (216, 360))
+    small = ([("K1 2x", *k1_2x, n, "float", {}) for n in (2, 4, 8)]
+             + [("K1 4x", *k1_4x, n, "float", {}) for n in (2, 4, 8)]
+             + [("K1 2x rows, 1x columns", (64, 128), (128, 128), 4, "float", {})]
+             + [(f"K1 2x {name}", *k1_2x, 4, kind, kw) for name, kind, kw in options]
+             + [("K2 1.5x", *k2_15, n, "float", {}) for n in (2, 3, 4)]
+             + [("K2 1.3x", (120, 130), (156, 169), n, "float", {}) for n in (2, 3, 4)]
+             + [("K2 ~1.7x", (84, 130), (144, 221), n, "float", {}) for n in (2, 3, 4)]
+             + [("K2 DRS offset", (96, 144), (132, 192), n, "float", drs) for n in (2, 3, 4)]
+             + [(f"K2 1.5x {name}", *k2_15, 4, kind, kw) for name, kind, kw in options])
+    small_err = {"K1": 0.0, "K2": 0.0}
+    for what, in_hw, out_hw, n, kind, kw in small:
+        x = src(kind, in_hw)
+        kw = dict(kw, grain=torch.rand((3, *out_hw), generator=gen, device=dev) - 0.5,
+                  dither_page=torch.rand((24, 40), generator=gen, device=dev))
+        kname = what[:2]
+        need = {"K4": n, "K1": n} if kname == "K1" else {"K2": n}
+        got, _ = _drive(lambda: spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw), need)
+        want = ft.upscale(x, out_size=out_hw, impl="kernel", **kw)
+        with _plain_kernels():
+            plain = spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw)
+        torch.cuda.synchronize()
+        label = f"{what}, sp={n}"
+        err = _check_sharded(got, want, plain, kw.get("epilogue"), label)
+        print(f"  {label}: launches {need}, bit-equal to the unsharded kernel output")
+        if got.dtype == f32 and kw.get("epilogue") is None:
+            small_err[kname] = max(small_err[kname], err)
+
+    # Full width, batch 4, at the slice's sizes: 1080p (Performance 2x)
+    # and 1440p (Quality 1.5x) to 4K.
+    out4k = (2 * MAIN_SHAPE[2], 2 * MAIN_SHAPE[3])
+    nframes = MAIN_SHAPE[0]
+    frames = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
+    qframes = torch.rand(QUALITY_SHAPE, generator=gen, device=dev).to(bf16)
+    hdr = frames * 16
+    q8 = (qframes.float() * 255).to(u8)
+    grain4k = torch.rand((3, *out4k), generator=gen, device=dev) - 0.5
+    tex = torch.rand((2, 64, 64), generator=gen, device=dev)
+    tail = dict(hdr_srtm=True, grain_amount=0.3, dither_bits=10, impl="kernel")
+    disp = dict(grain_amount=0.25, dither_bits=8, out_dtype=u8, compute_dtype=bf16, dither_texture=tex,
+                impl="kernel")
+    pipe_a, pipe_b = ft.UpscalePipeline(out4k, **tail), ft.UpscalePipeline(out4k, **disp)
+    pipes_a = ft.UpscalePipeline(out4k, mesh=mesh(4), **tail)
+    pipes_b = ft.UpscalePipeline(out4k, mesh=mesh(4), **disp)
+    dpsp = mesh(4, ("dp", "sp"), (2, 2))
+    runs = [
+        # name, sharded call, unsharded call, launches, sharded call on a mesh (None: no run across cards)
+        ("(i) performance f32, sp=4", lambda: spatial.upscale_spatial_sharded(frames, out4k, mesh(4)),
+         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K4": 4, "K1": 4},
+         lambda m: spatial.upscale_spatial_sharded(frames, out4k, m)),
+        ("(ii) quality bf16, sp=4",
+         lambda: spatial.upscale_spatial_sharded(qframes, out4k, mesh(4), compute_dtype=bf16),
+         lambda: ft.upscale(qframes, preset="quality", compute_dtype=bf16, impl="kernel"), {"K2": 4},
+         lambda m: spatial.upscale_spatial_sharded(qframes, out4k, m, compute_dtype=bf16)),
+        ("(iii) HDR tail (a), sp=4", lambda: pipes_a(hdr, grain=grain4k, frame=7),
+         lambda: pipe_a(hdr, grain=grain4k, frame=7), {"K4": 4, "K1": 4}, None),
+        ("(iv) display (b) with a dither page, u8 ->u8, sp=4", lambda: pipes_b(q8, grain=grain4k, frame=7),
+         lambda: pipe_b(q8, grain=grain4k, frame=7), {"K2": 4}, None),
+        ("(v) performance f32, dp=2 x sp=2",
+         lambda: spatial.upscale_spatial_sharded(frames, out4k, dpsp, axis="sp", batch_axis="dp"),
+         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K4": 4, "K1": 4}, None),
+    ]
+    full = {}
+    print(f"  full width, batch {nframes}, on {card}; mesh [{dev}] * 4:")
+    for name, call, unsharded, need, _ in runs:
+        out, got_n = _drive(call, need)
+        want = unsharded()
+        torch.cuda.synchronize()
+        if out.shape != want.shape or out.dtype != want.dtype or out.device != want.device:
+            raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs {tuple(want.shape)} {want.dtype}")
+        off = int((out != want).sum())
+        if off:
+            raise AssertionError(f"{name}: {off} values differ from the unsharded call")
+        print(f"  {name}: out {tuple(out.shape)} {out.dtype}; launches {got_n}; bit-equal to the unsharded "
+              f"call (0 of {out.numel()} values off)")
+        full[name] = dict(launches=got_n, nbytes=_nbytes(out))
+        del out, want
+    # (i) and (ii) held against the same sharded call on the plain versions.
+    for (name, call, *_), key in zip(runs[:2], ("K1", "K2")):
+        out = call()
+        with _plain_kernels():
+            plain = call()
+        torch.cuda.synchronize()
+        err = _compare(out, plain, f"{name} vs the plain versions")
+        if out.dtype == f32:
+            small_err[key] = max(small_err[key], err)
+        del out, plain
+
+    # Times per 4K frame: each sharded call in turn with its unsharded twin.
+    for name, call, unsharded, _, _ in runs:
+        t = _interleaved_ms({"sharded": call, "unsharded": unsharded})
+        full[name]["t"] = t
+        print(f"    {name}: sharded {t['sharded'] / nframes:.4f} ms/frame, unsharded "
+              f"{t['unsharded'] / nframes:.4f} ms/frame ({t['sharded'] / t['unsharded'] - 1:+.1%})")
+        if trace:
+            tr = device_trace(call, 5)
+            print(f"      traced, 5 sharded calls back to back: device busy {tr['busy_ms']:.4f} ms of a "
+                  f"{tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
+            for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
+                print(f"      {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname[:100]}")
+
+    # The strips' kernels alone, in turn with the unsharded kernel.
+    sharp = float(RcasConstants(0.25).sharpness)
+    (ph, pw), (qh, qw) = MAIN_SHAPE[2:], QUALITY_SHAPE[2:]
+    pcon = EasuConstants.create((pw, ph), None, out4k[::-1])
+    qcon = EasuConstants.create((qw, qh), None, out4k[::-1])
+    rcon = RcasConstants(0.25)
+    n, hl = 4, out4k[0] // 4
+    strips = spatial._exchange_halo([frames[..., k * ph // n:(k + 1) * ph // n, :] for k in range(n)], spatial._HALO)
+    lplan = fused.plan((ph // n + 2 * spatial._HALO, pw), (hl, out4k[1]),
+                       spatial._local_constants(pcon, spatial._HALO))
+    pstrips = [pad.edge_pad(s, lplan.pads, f32) for s in strips]
+    fplan = fused.plan((ph, pw), out4k, pcon)
+    padded = pad.edge_pad(frames, fplan.pads, f32)
+    qstrips = spatial._exchange_halo([qframes[..., k * qh // n:(k + 1) * qh // n, :] for k in range(n)],
+                                     spatial._GHALO)
+    gplans = [easu_gather.shard_plan((qh, qw), out4k, qcon, n, k, spatial._GHALO) for k in range(n)]
+
+    def k1_strips(fn=fused.upscale_padded):
+        return [fn(p, lplan, (hl, out4k[1]), sharp, row_offset=k * hl, global_rows=out4k[0])
+                for k, p in enumerate(pstrips)]
+
+    def k2_strips(fn=easu_gather.easu_gather):
+        return [fn(s, (hl, out4k[1]), qcon, rcon, True, False, bf16, row_plan=gplans[k], row_offset=k * hl)
+                for k, s in enumerate(qstrips)]
+
+    tk = _interleaved_ms({
+        "K1 x4 strips": k1_strips, "K1 unsharded": lambda: fused.upscale_padded(padded, fplan, out4k, sharp),
+        "K2 x4 strips": k2_strips,
+        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16)})
+    tk["K1 x4 strips, plain"] = cuda_time_ms(lambda: k1_strips(fused.upscale_padded_reference), warmup=1, iters=3)
+    tk["K2 x4 strips, plain"] = cuda_time_ms(lambda: k2_strips(easu_gather.easu_gather_reference),
+                                             warmup=1, iters=3)
+    for k, v in tk.items():
+        print(f"    {k:>20}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+    print("  sharded: one call on the mesh (strip copies, n launches of each kernel, the output gather); "
+          "K* x4 strips: the strips' kernels alone, in turn with the unsharded kernel (3 rounds, median)")
+    if cards > 1:
+        nc = 4 if cards >= 4 else 2
+        real = sharding.make_mesh(nc, ("sp",))
+        print(f"  across {nc} cards ({', '.join(str(d) for d in real.devices.flat)}):")
+        for name, _, unsharded, need, on in runs:
+            if on is None:
+                continue
+            want_n = {k: nc for k in need}
+            out, got_n = _drive(lambda: on(real), want_n)
+            if not torch.equal(out, unsharded()):
+                raise AssertionError(f"{name} across {nc} cards: differs from the unsharded call")
+            t = _interleaved_ms({"across cards": lambda: on(real), "one card, sp=4": lambda: on(mesh(4)),
+                                 "unsharded": unsharded})
+            tr = device_trace(lambda: on(real), 5)
+            print(f"    {name.replace('sp=4', f'sp={nc}')}: launches {got_n}, bit-equal to the unsharded call; "
+                  + ", ".join(f"{k} {v / nframes:.4f} ms/frame" for k, v in t.items())
+                  + f"; traced over 5 calls: busy {tr['busy_ms']:.4f} of {tr['window_ms']:.4f} ms, "
+                  "per card " + ", ".join(f"{i}: {ms:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
+            for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1])[:8]:
+                print(f"      {ms:.4f} ms/call, all cards: {kname[:100]}")
+            del out
+
+    npix = nframes * out4k[0] * out4k[1]
+    k1_full, k2_full = full[runs[0][0]], full[runs[1][0]]
+    return [
+        _kernel_entry("upscale_fused (K1), row-sharded: performance f32, sp=4", "fsr_tpu_torch/csrc/fused.cu",
+                      "fsr_tpu/kernels/fused.py:403", k1_full["launches"]["K1"], small_err["K1"],
+                      tk["K1 x4 strips"], tk["K1 x4 strips, plain"], _nbytes(*pstrips) + k1_full["nbytes"],
+                      EASU_RCAS_OPS * npix),
+        _kernel_entry("easu_gather (K2), row-sharded: quality bf16, sp=4", "fsr_tpu_torch/csrc/easu_gather.cu",
+                      "fsr_tpu/kernels/easu_gather.py:350", k2_full["launches"]["K2"], small_err["K2"],
+                      tk["K2 x4 strips"], tk["K2 x4 strips, plain"], _nbytes(*qstrips) + k2_full["nbytes"],
+                      EASU_RCAS_OPS * npix),
+    ]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="add phases 11 and 14 and phase 16's traces: torch.profiler traces "
-                             "of the main paths")
-    trace = parser.parse_args().trace
+                        help="add phases 11 and 14 and phase 16's and 18's traces: torch.profiler "
+                             "traces of the main paths")
+    args = parser.parse_args()
+    trace = args.trace
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
         return 2
@@ -414,21 +707,7 @@ def main() -> int:
 
     # --- 6. main path --------------------------------------------------------
     lap("6")
-    wrappers = {"K4": pad.edge_pad, "K1": fused.upscale_padded,
-                "K2": easu_gather.easu_gather, "K3": rcas_k.rcas_fused}
-
-    def drive(fn, need):
-        """Run fn with every count at 0; fail unless each kernel in `need`
-        launched exactly once and no other kernel launched."""
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {k: w.launches for k, w in wrappers.items()}
-        if any(n != (k in need) for k, n in got.items()):
-            raise AssertionError(f"launch counts {got}: the path must launch exactly one of each of {need}")
-        return out, got
-
+    drive = _drive
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
     nframes = MAIN_SHAPE[0]
@@ -1064,7 +1343,11 @@ def main() -> int:
                       k3_f16["err"], k3_f16["t"]["K3"], k3_f16["t"]["K3_plain"], 2 * _nbytes(y16),
                       RCAS_OPS * npix),
     ]
-    lap("end")
+
+    # --- 18. row-sharded and batch-sharded execution ---------------------------
+    lap("18")
+    kernels += _row_sharded(dev, card, gen, trace)
+    laps.append(("end", time.perf_counter()))
     print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
           + f"; {laps[-1][1] - laps[0][1]:.1f} in all")
     print(card)

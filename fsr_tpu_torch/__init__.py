@@ -6,8 +6,10 @@ with EASU+RCAS fused in CUDA kernels for every preset and DRS ratio (K1 at
 integer ratios, K2 at any other upscale), the SRTM prologue, the output
 epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither) and byte I/O inside them
 (``UpscalePipeline``, the sample's frame tail), RCAS alone in a CUDA kernel
-(K3, ``sharpen``), and a plain-torch path on any device.  The kernels build
-from ``fsr_tpu_torch/csrc`` with nvcc at first use.
+(K3, ``sharpen``), mesh-sharded batch and row (spatial) execution across
+devices (``fsr_tpu_torch.parallel``, ``UpscalePipeline(mesh=)``), and a
+plain-torch path on any device.  The kernels build from
+``fsr_tpu_torch/csrc`` with nvcc at first use.
 """
 
 from fsr_tpu_torch.api import UpscalePipeline, sharpen, upscale

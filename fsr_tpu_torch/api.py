@@ -21,9 +21,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.core.presets import PRESETS
-from fsr_tpu_torch.kernels import dispatch
+from fsr_tpu_torch.kernels import dispatch, easu_gather, fused
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import rcas as rcas_kernel
 from fsr_tpu_torch.kernels.epilogue import Epilogue
@@ -63,11 +64,18 @@ def _check_impl(impl):
         raise ValueError(f"impl must be 'auto', 'torch' or 'kernel', got {impl!r}")
 
 
-def _apply_epilogue(out, epi, frame, grain, dither_page=None):
+def _apply_epilogue(out, epi, frame, grain, dither_page=None, origin=(0, 0)):
     """Torch-path twin of the kernels' fused epilogue (``fsr_tpu/api.py``
     ``_apply_epilogue_xla``): the ``ops.extras`` chain in float32 on the
-    operands the kernels take, the result back in ``out``'s dtype."""
-    args = epilogue_mod.bind(epi, tuple(out.shape[-2:]), frame, grain, dither_page, out.device)
+    operands the kernels take, the result back in ``out``'s dtype.
+
+    origin: (row0, col0), the global coordinate of out[..., 0, 0]; a row
+    strip of a row-sharded frame passes its first row, so its dither
+    positions are the whole frame's (strips split rows only: col0 is 0)."""
+    row0, col0 = (int(v) for v in origin)
+    if col0:
+        raise ValueError(f"the epilogue takes a row origin only (row strips), got col0={col0}")
+    args = epilogue_mod.bind(epi, tuple(out.shape[-2:]), frame, grain, dither_page, out.device, row0)
     return epilogue_mod.apply(out.to(torch.float32), args).to(out.dtype)
 
 
@@ -142,12 +150,35 @@ def upscale(
     Returns the upscaled image in out_dtype (default compute_dtype), in the
     input's layout.
     """
-    _check_impl(impl)
     if layout == "HWC":
         image = image.movedim(-1, -3)
     elif layout != "CHW":
         raise ValueError(f"unknown layout {layout!r}")
+    _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl)
+    if grain_planar is not None:
+        raise ValueError("grain_planar is the TPU kernel's grain layout; pass grain=(3, Hout, Wout)")
 
+    hin, win = image.shape[-2:]
+    vp = input_viewport if input_viewport is not None else (hin, win)
+    out_hw = _resolve_out_size(vp, out_size, scale, preset)
+    con = EasuConstants.create(
+        input_viewport_in_pixels=(vp[1], vp[0]),
+        input_size_in_pixels=(win, hin),
+        output_size_in_pixels=(out_hw[1], out_hw[0]),
+        input_offset_in_pixels=(input_offset[1], input_offset[0]),
+    )
+    out = _upscale(image, out_hw, con, RcasConstants(sharpness_stops=float(sharpness)), apply_rcas=apply_rcas,
+                   denoise=denoise, compute_dtype=compute_dtype, impl=impl, epilogue=epilogue, frame=frame,
+                   grain=grain, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
+    if layout == "HWC":
+        out = out.movedim(-3, -1)
+    return out
+
+
+def _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl):
+    """``upscale``'s checks of its image and options (also those of each
+    row-sharded call, ``parallel.spatial``), before any launch."""
+    _check_impl(impl)
     if image.dtype not in _FLOATS + (torch.uint8,):
         raise ValueError(f"image must be float32, bfloat16, float16 or uint8, got {image.dtype}")
     if compute_dtype not in _FLOATS:
@@ -163,67 +194,87 @@ def upscale(
     if epilogue is not None and epilogue.dither_bits == 10 and out_dtype == torch.uint8:
         # 10-bit TEPD codes k/1023 are not representable as x255 UNORM bytes.
         raise ValueError("uint8 output cannot hold 10-bit codes")
-    if grain_planar is not None:
-        raise ValueError("grain_planar is the TPU kernel's grain layout; pass grain=(3, Hout, Wout)")
     if prologue not in ("none", "srtm"):
         raise ValueError(f"unknown prologue {prologue!r}")
-
-    hin, win = image.shape[-2:]
-    vp = input_viewport if input_viewport is not None else (hin, win)
-    out_hw = _resolve_out_size(vp, out_size, scale, preset)
-    con = EasuConstants.create(
-        input_viewport_in_pixels=(vp[1], vp[0]),
-        input_size_in_pixels=(win, hin),
-        output_size_in_pixels=(out_hw[1], out_hw[0]),
-        input_offset_in_pixels=(input_offset[1], input_offset[0]),
-    )
-    rcon = RcasConstants(sharpness_stops=float(sharpness))
-
     if image.requires_grad:
         # The bit tricks have no derivative through their integer views; the
         # ideal-derivative backward passes come with autodiff.
         raise _not_ported("autodiff", "4")
-
     # float16 takes the torch path, chosen from the dtype before any launch,
     # as the JAX package sends it to its XLA path (its kernels refuse it).
-    f16 = torch.float16 in (image.dtype, compute_dtype)
-    if f16 and impl == "kernel":
+    if torch.float16 in (image.dtype, compute_dtype) and impl == "kernel":
         raise ValueError("float16 runs the torch path, as the JAX package runs it on XLA: the kernels "
                          "store float32/bfloat16; use impl='auto' or 'torch'")
-    use_kernel = not f16 and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda"))
-    if use_kernel:
-        out = dispatch.upscale_fused(
-            image, out_hw, con, rcon,
-            apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype,
-            epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
-            out_dtype=out_dtype, dither_page=dither_page,
-        )
-    else:
-        # As fsr_tpu/api.py:196-215, :302-309: alpha is a bilinear pass of
-        # its own (a byte decoded first), encoded like the colour, concatenated.
-        rgb, alpha = image, None
-        if image.shape[-3] == 4:
-            rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
-            if a_src.dtype == torch.uint8:
-                a_src = epilogue_mod.decode(a_src)
-            alpha = easu_ops.bilinear(a_src, out_hw, con)
-        if rgb.dtype == torch.uint8:
-            rgb = epilogue_mod.decode(rgb)
-        if prologue == "srtm":
-            rgb = extras.srtm(rgb)
+
+
+def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, impl, epilogue, frame, grain,
+             prologue, out_dtype, dither_page, strip=None):
+    """``upscale`` after its checks (``_check_args``), on a planar image:
+    the kernel path or the torch path, picked from ``impl``, the dtypes and
+    the image's device.
+
+    strip: a ``parallel.spatial.Strip`` when the image is one halo'd row
+    strip of a row-sharded frame and ``out_hw`` its (hl, Wout) output rows:
+    K4 + K1 on its shard-local constants with ``row_offset``/``global_rows``
+    at an exact-phase ratio, else K2 on its row tables from the global
+    mapping; the torch path runs EASU over the same tables for its rows -1
+    .. hl, then RCAS on its own rows.  ``grain`` is then the strip's rows,
+    and the epilogue dithers at global rows."""
+    kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue, out_dtype=out_dtype,
+              dither_page=dither_page)
+    f16 = torch.float16 in (image.dtype, compute_dtype)
+    if not f16 and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda")):
+        args = (rcon, apply_rcas, denoise, compute_dtype)
+        if strip is None:
+            return dispatch.upscale_fused(image, out_hw, con, *args, **kw)
+        if strip.local_con is not None:
+            return fused.upscale_fused(image, out_hw, strip.local_con, *args, row_offset=strip.row0,
+                                       global_rows=strip.global_rows, **kw)
+        return easu_gather.easu_gather(image, out_hw, con, *args, row_plan=strip.rows, row_offset=strip.row0,
+                                       **kw)
+
+    # As fsr_tpu/api.py:196-215, :302-309: alpha is a bilinear pass of its
+    # own (a byte decoded first), encoded like the colour, concatenated.
+    # A strip's row plan: the 'f' row and fraction of its output rows -1 .. hl.
+    rows = None if strip is None else (strip.rows.rows[1], strip.rows.py)
+    rgb, alpha = image, None
+    if image.shape[-3] == 4:
+        rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
+        if a_src.dtype == torch.uint8:
+            a_src = epilogue_mod.decode(a_src)
+        alpha = easu_ops.bilinear(a_src, out_hw, con,
+                                  rows=None if rows is None else (rows[0][1:-1], rows[1][1:-1]))
+    if rgb.dtype == torch.uint8:
+        rgb = epilogue_mod.decode(rgb)
+    if prologue == "srtm":
+        rgb = extras.srtm(rgb)
+    if strip is None:
         out = easu_ops.easu(rgb, out_hw, con, compute_dtype=compute_dtype)
         if apply_rcas:
             out = rcas_ops.rcas(out, rcon, denoise=denoise, compute_dtype=compute_dtype)
-        if epilogue is not None:
-            out = _apply_epilogue(out, epilogue, frame, grain, dither_page=dither_page)
-        if out_dtype is not None:
-            out = epilogue_mod.store(out, out_dtype)
-        if alpha is not None:
-            out = torch.cat([out, epilogue_mod.store(alpha, out.dtype)], dim=-3)
-
-    if layout == "HWC":
-        out = out.movedim(-3, -1)
+    else:
+        out = easu_ops.easu(rgb, (out_hw[0] + 2, out_hw[1]), con, compute_dtype=compute_dtype, rows=rows)
+        out = _rcas_strip(out, rcon, compute_dtype, denoise) if apply_rcas else out[..., 1:-1, :]
+    if epilogue is not None:
+        origin = (0 if strip is None else strip.row0, 0)
+        out = _apply_epilogue(out, epilogue, frame, grain, dither_page=dither_page, origin=origin)
+    if out_dtype is not None:
+        out = epilogue_mod.store(out, out_dtype)
+    if alpha is not None:
+        out = torch.cat([out, epilogue_mod.store(alpha, out.dtype)], dim=-3)
     return out
+
+
+def _rcas_strip(easu_out, rcon: RcasConstants, dt, denoise: bool):
+    """RCAS over a strip's rows given its EASU rows -1 .. hl (torch path).
+    The row plans repeat the frame's edge row outside it, so the global top
+    and bottom rows see e in place of their missing neighbour, as
+    ``ops.rcas`` clamps them."""
+    e = easu_out[..., 1:-1, :]
+    sharp = rcon.sharpness_f16 if dt == torch.float16 else rcon.sharpness
+    return easu_math.rcas_resolve(easu_out[..., :-2, :], rcas_ops.shift_clamped(e, 0, -1), e,
+                                  rcas_ops.shift_clamped(e, 0, 1), easu_out[..., 2:, :], float(sharp),
+                                  denoise=denoise)
 
 
 def sharpen(
@@ -318,9 +369,12 @@ class UpscalePipeline:
     ``ops.extras`` after-pass on the output's device, as the JAX package
     runs its XLA after-pass.
     impl: "auto" | "torch" | "kernel", as ``upscale``.
-    mesh / spatial_axis / batch_axis: multi-GPU execution is not ported
-    (a mesh raises NotImplementedError naming ROADMAP queue item 6; the
-    axis names are taken for the JAX constructor's signature).
+    mesh / spatial_axis / batch_axis: run the chain row-sharded across
+    ``mesh[spatial_axis]`` (and the batch across ``mesh[batch_axis]``), each
+    strip through the same kernel launches, with the dither at global rows
+    (``parallel.spatial.upscale_spatial_sharded``); the result equals the
+    single-device pipeline's and lies on the input's device.  The bf16
+    after-pass runs on the gathered frame.
     """
 
     def __init__(
@@ -354,8 +408,6 @@ class UpscalePipeline:
         if hdr_out and dither_bits is not None:
             raise ValueError("TEPD dithering expects {0..1} input, not HDR out")
         _check_impl(impl)
-        if mesh is not None:
-            raise _not_ported("mesh= (multi-GPU execution)", "6")
         self.out_size = tuple(out_size)
         self.sharpness = sharpness
         self.apply_rcas = apply_rcas
@@ -371,6 +423,9 @@ class UpscalePipeline:
         self.compute_dtype = compute_dtype
         self.impl = impl
         self.out_dtype = out_dtype
+        self.mesh = mesh
+        self.spatial_axis = spatial_axis
+        self.batch_axis = batch_axis
 
     def _texture(self, device) -> Optional[torch.Tensor]:
         """The dither texture as (pages, th, tw) on ``device`` (moved once)."""
@@ -400,9 +455,7 @@ class UpscalePipeline:
         )
         # The frame's page is a view, chosen on the host.
         page = tex[int(frame) % tex.shape[0]] if fuse and tex is not None else None
-        x = upscale(
-            image,
-            out_size=self.out_size,
+        kw = dict(
             sharpness=self.sharpness,
             apply_rcas=self.apply_rcas,
             denoise=self.denoise,
@@ -415,6 +468,13 @@ class UpscalePipeline:
             out_dtype=self.out_dtype if (fuse or self.dither_bits is None) else None,
             dither_page=page,
         )
+        if self.mesh is not None:
+            from fsr_tpu_torch.parallel import spatial
+
+            x = spatial.upscale_spatial_sharded(image, self.out_size, self.mesh, axis=self.spatial_axis,
+                                                batch_axis=self.batch_axis, **kw)
+        else:
+            x = upscale(image, out_size=self.out_size, **kw)
         if self.dither_bits is not None and not fuse:
             if tex is not None:
                 dit = extras.texture_dither(self.out_size, frame, tex)

@@ -348,13 +348,16 @@ struct EpilogueParams {
   int dither_bits;  // 0 (no TEPD), 8 or 10
   unsigned frame;   // the TEPD hash's frame index
   int page_h, page_w;
+  int row0;  // global output row of the frame's row 0 (a row strip's offset; 0 for a whole frame)
 };
 
 // The K5 epilogue on output pixel (Y, X)'s float32 channels v, before the
 // store (epilogue.apply: the ops.extras chain): SRTM^-1 or gamma2, LFGA
 // grain, TEPD dithered quantize.  The grain shares the output frame's
-// layout (plane stride oplane, offset at).  For finite values every
-// operation rounds as the plain version's does.
+// layout (plane stride oplane, offset at); the TEPD hash and the dither page
+// take the global row Y + row0, so a row strip dithers as its rows of the
+// whole frame do.  For finite values every operation rounds as the plain
+// version's does.
 __device__ __forceinline__ void epilogue(const EpilogueParams& e, int64_t oplane, int64_t at,
                                          int Y, int X, float v[3]) {
   if (e.transform == 1) {
@@ -376,12 +379,13 @@ __device__ __forceinline__ void epilogue(const EpilogueParams& e, int64_t oplane
   }
   if (e.dither_bits != 0) {
     float dit;
+    const int gy = Y + e.row0;
     if (e.page != nullptr) {
-      dit = __ldg(e.page + (Y % e.page_h) * e.page_w + (X % e.page_w));
+      dit = __ldg(e.page + (gy % e.page_h) * e.page_w + (X % e.page_w));
     } else {
       // FsrTepdDitF: fract(phi * (x + frame) + y / 3.69), coordinates as uint32.
       const float x = __uint2float_rn((unsigned)X + e.frame);
-      const float hv = __fadd_rn(__fmul_rn(x, DIT_A), __fmul_rn(__int2float_rn(Y), DIT_B));
+      const float hv = __fadd_rn(__fmul_rn(x, DIT_A), __fmul_rn(__int2float_rn(gy), DIT_B));
       dit = __fsub_rn(hv, floorf(hv));
     }
     const float steps = e.dither_bits == 8 ? 255.0f : 1023.0f;

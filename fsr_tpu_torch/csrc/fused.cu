@@ -37,13 +37,25 @@
 // and stores it by the colour's rule.  The channel count is a template
 // parameter (RGBA), so the RGB kernels carry no alpha code.
 //
-// Each output pixel (Y, X) lies in phase (a, b) = (Y % qy, X % qx) with
-// 'f' texel (Y / qy + ry[a], X / qx + rx[b]) in the padded source and
-// constant subpixel fractions (py[a], px[b]).  The host derives all four
-// from the float32 coordinate tables (fused.py:_phase_structure); the device
-// never recomputes x*sx+ox or floor(), which an FMA contraction would flip
-// at integer positions.  The source is pre-padded by K4 far enough that no
-// load needs bounds logic.
+// Row strips (fused.py:412-437, :1174-1184; parallel/spatial.py): the
+// output may be rows row0 .. row0 + hout - 1 of a frame of global_rows rows,
+// computed from the strip's rows with a halo around them.  The ring's rows
+// clamp to [ylo, yhi]: [0, hout - 1] for a whole frame, and -1 or hout where
+// the strip has a neighbour row, which the ring then computes from the halo
+// as the whole frame's EASU would; only global row 0 and global_rows - 1
+// clamp.  The epilogue's dither takes the global row (EpilogueParams.row0),
+// the grain stays the strip's own.  The kernel stores the strip's own rows.
+//
+// Each output pixel (Y, X) lies in phase (a, b) = (Y mod qy, X mod qx) with
+// 'f' texel (floor(Y / qy) + ry[a], floor(X / qx) + rx[b]) in the padded
+// source and constant subpixel fractions (py[a], px[b]).  qy and qx are 1, 2
+// or 4, so the kernel takes their logarithms and shifts and masks, which
+// floor as the phase arithmetic needs at the ring's row -1 (C's / and %
+// truncate toward zero there).  The host derives ry, rx, py, px from the
+// float32 coordinate tables (fused.py:_phase_structure); the device never
+// recomputes x*sx+ox or floor(), which an FMA contraction would flip at
+// integer positions.  The source is pre-padded by K4 far enough that no load
+// needs bounds logic.
 //
 // Bound: f32 arithmetic.  Per output pixel it reads 12 taps x 3 channels
 // (mostly from L1/L2: a 2x2 quad of outputs shares its taps) and runs a
@@ -73,11 +85,12 @@ using namespace fsr;
 namespace {
 
 struct Params {
-  int qy, qx;
+  int ly, lx;  // log2 of the phase counts qy, qx
   int ry[4], rx[4];  // padded-frame row/col of phase a/b's 'f' texel at plane index 0
   float py[4], px[4];
   int hp, wp;  // padded source extent
   int hout, wout;
+  int ylo, yhi;  // the RCAS ring's row clamp (row strips: -1 / hout at a neighbour)
   float sharp;  // linear RCAS sharpness
   int srtm;     // SRTM prologue on each loaded texel
   EpilogueParams epi;
@@ -88,10 +101,10 @@ struct Params {
 template <typename S>
 __device__ __forceinline__ void easu_pixel(const S* __restrict__ src, const Params& p, int Y,
                                            int X, float out[3]) {
-  const int a = Y % p.qy;
-  const int b = X % p.qx;
-  const int fy = Y / p.qy + p.ry[a];
-  const int fx = X / p.qx + p.rx[b];
+  const int a = Y & ((1 << p.ly) - 1);
+  const int b = X & ((1 << p.lx) - 1);
+  const int fy = (Y >> p.ly) + p.ry[a];
+  const int fx = (X >> p.lx) + p.rx[b];
   const int64_t plane = (int64_t)p.hp * p.wp;
   const S* base = src + (int64_t)(fy - 1) * p.wp + (fx - 1);
 
@@ -115,10 +128,10 @@ __device__ __forceinline__ void easu_pixel(const S* __restrict__ src, const Para
 template <typename S>
 __device__ __forceinline__ float alpha_pixel(const S* __restrict__ src, const Params& p, int Y,
                                              int X) {
-  const int a = Y % p.qy;
-  const int b = X % p.qx;
+  const int a = Y & ((1 << p.ly) - 1);
+  const int b = X & ((1 << p.lx) - 1);
   const int64_t plane = (int64_t)p.hp * p.wp;
-  const S* q = src + 3 * plane + (int64_t)(Y / p.qy + p.ry[a]) * p.wp + (X / p.qx + p.rx[b]);
+  const S* q = src + 3 * plane + (int64_t)((Y >> p.ly) + p.ry[a]) * p.wp + ((X >> p.lx) + p.rx[b]);
   return bilinear_alpha(ld(q), ld(q + 1), ld(q + p.wp), ld(q + p.wp + 1), p.px[b], p.py[a]);
 }
 
@@ -157,9 +170,9 @@ __global__ void __launch_bounds__(NTHREADS)
     };
     if constexpr (RCAS) {
       // Ring positions outside the image clamp to the edge pixel.
-      const int hout = p.hout;
-      auto ring = [&f, hout, wout](int Y, int X, float v[3]) {
-        f.easu(min(max(Y, 0), hout - 1), min(max(X, 0), wout - 1), v);
+      const int ylo = p.ylo, yhi = p.yhi;
+      auto ring = [&f, ylo, yhi, wout](int Y, int X, float v[3]) {
+        f.easu(min(max(Y, ylo), yhi), min(max(X, 0), wout - 1), v);
       };
       rcas_tile<DENOISE>(ring, store, p.hout, p.wout, p.sharp);
     } else {
@@ -177,7 +190,7 @@ __global__ void __launch_bounds__(NTHREADS)
     if constexpr (RCAS) {
       // Ring positions outside the image clamp to the edge pixel.
       auto ring = [=](int Y, int X, float v[3]) {
-        easu_pixel(s, p, min(max(Y, 0), p.hout - 1), min(max(X, 0), p.wout - 1), v);
+        easu_pixel(s, p, min(max(Y, p.ylo), p.yhi), min(max(X, 0), p.wout - 1), v);
       };
       rcas_tile<DENOISE>(ring, store, p.hout, p.wout, p.sharp);
     } else {
@@ -223,18 +236,21 @@ constexpr int pair(int src_dtype, int out_dtype) { return src_dtype * 8 + out_dt
 // storage (float32, bfloat16 or uint8), out_dtype the output's: the
 // source's float type, or uint8/uint16 codes; a uint8 source may also store
 // float32 or bfloat16.  channels: 3, or 4 with alpha in plane 3 of the
-// source and the output.  srtm: 1 runs the SRTM prologue; epi: the K5
-// epilogue (host struct, device pointers inside).
+// source and the output.  qy, qx: 1, 2 or 4.  srtm: 1 runs the SRTM
+// prologue; ylo, yhi: the ring's row clamp; epi: the K5 epilogue (host
+// struct, device pointers inside).
 extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int out_dtype, int nb,
                                  int channels, int hp, int wp, int hout, int wout, int qy, int qx,
                                  const int* ry, const int* rx, const float* py, const float* px,
-                                 float sharp, int apply_rcas, int denoise, int srtm,
-                                 const EpilogueParams* epi, void* stream) {
-  if (qy < 1 || qy > 4 || qx < 1 || qx > 4) return (int)cudaErrorInvalidValue;
+                                 float sharp, int apply_rcas, int denoise, int srtm, int ylo,
+                                 int yhi, const EpilogueParams* epi, void* stream) {
+  if ((qy != 1 && qy != 2 && qy != 4) || (qx != 1 && qx != 2 && qx != 4))
+    return (int)cudaErrorInvalidValue;
   if (channels != 3 && channels != 4) return (int)cudaErrorInvalidValue;
+  if (ylo < -1 || ylo > 0 || yhi < hout - 1 || yhi > hout) return (int)cudaErrorInvalidValue;
   Params p;
-  p.qy = qy;
-  p.qx = qx;
+  p.ly = qy / 2;  // log2 of 1, 2, 4
+  p.lx = qx / 2;
   for (int k = 0; k < 4; ++k) {
     p.ry[k] = k < qy ? ry[k] : 0;
     p.py[k] = k < qy ? py[k] : 0.0f;
@@ -245,6 +261,8 @@ extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int 
   p.wp = wp;
   p.hout = hout;
   p.wout = wout;
+  p.ylo = ylo;
+  p.yhi = yhi;
   p.sharp = sharp;
   p.srtm = srtm;
   p.epi = epi != nullptr ? *epi : EpilogueParams{};

@@ -7,7 +7,8 @@ non-integer Dynamic Resolution Scaling ratios and odd output extents.
 The host builds per-axis tables from the float32 coordinate mapping
 (``ops.easu.easu_coords``): for each output column the four source columns
 ``clip(fx + dx, 0, win - 1)`` (dx = -1..2) and the subpixel fraction, and the
-same for rows.  The clip is the CLAMP sampler that ``ops.easu`` applies, so
+same for rows, for output rows -1 .. Hout (the RCAS ring's; a row outside
+the frame repeats its edge row).  The clip is the CLAMP sampler that ``ops.easu`` applies, so
 the kernel reads the unpadded source (no K4 pass in front of it), and the
 device never recomputes a coordinate.  ``easu_gather`` launches
 ``csrc/easu_gather.cu`` for a CUDA tensor and counts the launch in
@@ -21,10 +22,18 @@ plan's rows[1..2] and cols[1..2] at (px, py), as ``ops.easu.bilinear``
 computes it (the JAX ``api`` splits alpha off for its gather kernel,
 ``fsr_tpu/kernels/dispatch.py:31-35``; the f32 results agree).
 
+Row strips (``build_shard_plans``, easu_gather.py:216-311 in the JAX
+package; ``parallel/spatial.py`` calls them): ``shard_plan`` builds strip
+k's row tables from the GLOBAL mapping, for output rows k*hl - 1 .. (k+1)*hl
+clipped to the frame (the global RCAS border), with source rows relative to
+the strip and its halo rows; ``easu_gather(row_plan=, row_offset=)`` runs K2
+on the strip with them, the epilogue's dither at global rows.  The kernel is
+the same: only its tables differ.
+
 The TPU kernel's hybrid X-phase, one-hot row selectors, dynamic-roll column
-gathers, tile sweeps and one-tile software pipeline are TPU layout machinery
-with no counterpart here.  Sharded row plans wait (ROADMAP.md queue item
-6).
+gathers, tile sweeps and one-tile software pipeline, and the shard plans'
+R selectors, ``tih`` windows and ``pad_bottom``, are TPU layout machinery
+with no counterpart here.
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import fused, pad
 from fsr_tpu_torch.ops.easu import easu_coords
 
-__all__ = ["supported", "GatherPlan", "plan", "easu_gather", "easu_gather_reference"]
+__all__ = ["supported", "GatherPlan", "plan", "shard_rows", "shard_plan", "easu_gather",
+           "easu_gather_reference"]
 
 
 def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
@@ -63,10 +73,12 @@ def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=N
 class GatherPlan:
     """Host tables for one K2 configuration.
 
-    rows (4, Hout) / cols (4, Wout) int32: the source row/column of the taps
-    at offsets -1..2 around each output pixel's 'f' texel, clipped to the
-    image; py (Hout,) / px (Wout,) float32: the subpixel fractions.  Plans
-    are cached and compared by identity.
+    rows (4, Hout + 2) / cols (4, Wout) int32: the source row/column of the
+    taps at offsets -1..2 around each output pixel's 'f' texel, clipped to
+    the source, the rows for output rows -1 .. Hout (the RCAS ring's; a row
+    outside the frame repeats its edge row); py (Hout + 2,) / px (Wout,)
+    float32: the subpixel fractions.  Plans are cached and compared by
+    identity.
     """
 
     rows: np.ndarray
@@ -75,16 +87,52 @@ class GatherPlan:
     px: np.ndarray
 
 
+_D = np.arange(-1, 3, dtype=np.int64)[:, None]  # tap offsets around 'f'
+
+
 @functools.lru_cache(maxsize=64)
 def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) -> GatherPlan:
     """The tables for an (Hin, Win) -> out_size upscale under ``con``; cached
     per configuration, so both size arguments must be int tuples."""
     hin, win = in_hw
     fx, fy, px, py = easu_coords(con, out_size)
-    d = np.arange(-1, 3, dtype=np.int64)[:, None]
-    rows = np.clip(fy.astype(np.int64)[None, :] + d, 0, hin - 1).astype(np.int32)
-    cols = np.clip(fx.astype(np.int64)[None, :] + d, 0, win - 1).astype(np.int32)
-    return GatherPlan(rows=rows, cols=cols, py=py, px=px)
+    idx = np.clip(np.arange(-1, out_size[0] + 1), 0, out_size[0] - 1)
+    rows = np.clip(fy[idx].astype(np.int64)[None, :] + _D, 0, hin - 1).astype(np.int32)
+    cols = np.clip(fx.astype(np.int64)[None, :] + _D, 0, win - 1).astype(np.int32)
+    return GatherPlan(rows=rows, cols=cols, py=py[idx], px=px)
+
+
+def shard_rows(in_hw, out_size, con: EasuConstants, n: int, k: int, halo: int):
+    """Row strip k of n: the 'f' source row of each output row k*hl - 1 ..
+    (k+1)*hl (hl = Hout / n), clipped to the frame, relative to the strip's
+    halo'd source (global input rows k*Hin/n - halo ..), and its float32
+    fraction, taken from the GLOBAL mapping (``build_shard_plans``'s
+    ``rows_xla``/``py_xla``).  Raises when ``halo`` rows cannot host the
+    taps."""
+    (hin, _), (hout, wout) = in_hw, out_size
+    if hout % n or hin % n:
+        raise ValueError(f"row sharding needs n | sizes (h {hin}->{hout}, n={n})")
+    hl, hin_l = hout // n, hin // n
+    _, fy, _, py = easu_coords(con, (hout, wout))
+    idx = np.clip(np.arange(k * hl - 1, (k + 1) * hl + 1), 0, hout - 1)
+    base = fy[idx].astype(np.int64) - (k * hin_l - halo)
+    if base.min() < 1 or base.max() + 2 >= hin_l + 2 * halo:
+        raise ValueError(f"halo {halo} cannot host shard {k}'s taps "
+                         f"(local rows {base.min()}..{base.max()} of {hin_l + 2 * halo})")
+    return base.astype(np.int32), py[idx]
+
+
+@functools.lru_cache(maxsize=256)
+def shard_plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants, n: int, k: int,
+               halo: int) -> GatherPlan:
+    """K2's tables for row strip k of n of an (Hin, Win) -> out_size upscale:
+    the rows of ``shard_rows`` (taps -1..2 around each; the halo rows, which
+    the caller edge-replicates at the frame's top and bottom, are the
+    CLAMP) and the whole frame's columns; cached per strip."""
+    base, py = shard_rows(in_hw, out_size, con, n, k, halo)
+    full = plan(in_hw, out_size, con)
+    rows = (base.astype(np.int64)[None, :] + _D).astype(np.int32)
+    return GatherPlan(rows=rows, cols=full.cols, py=py, px=full.px)
 
 
 @functools.lru_cache(maxsize=64)
@@ -93,7 +141,7 @@ def _device_tables(gplan: GatherPlan, device: torch.device):
     return tuple(torch.as_tensor(a, device=device) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
 
 
-def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype, prologue, out_dtype):
+def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype, prologue, out_dtype, row_plan):
     if apply_rcas and rcon is None:
         raise ValueError("apply_rcas=True requires rcon")
     if image.dim() < 3 or image.shape[-3] not in (3, 4):
@@ -106,10 +154,17 @@ def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype, prologue, ou
         raise ValueError(f"unknown prologue {prologue!r}")
     out_hw = (int(out_size[0]), int(out_size[1]))
     in_hw = (int(image.shape[-2]), int(image.shape[-1]))
-    if not supported(tuple(image.shape), out_hw, con, compute_dtype):
-        raise ValueError(f"K2 takes upscales only (1x-4x area), got {in_hw} -> {out_hw}")
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return plan(in_hw, out_hw, con), out_hw, sharp, out_dtype or compute_dtype
+    if row_plan is None:
+        if not supported(tuple(image.shape), out_hw, con, compute_dtype):
+            raise ValueError(f"K2 takes upscales only (1x-4x area), got {in_hw} -> {out_hw}")
+        return plan(in_hw, out_hw, con), out_hw, sharp, out_dtype or compute_dtype
+    # A strip's tables (shard_plan) must fit the strip: no bounds logic on the loads.
+    if (row_plan.rows.shape != (4, out_hw[0] + 2) or row_plan.cols.shape != (4, out_hw[1])
+            or row_plan.rows.min() < 0 or row_plan.rows.max() >= in_hw[0]
+            or row_plan.cols.max() >= in_hw[1]):
+        raise ValueError(f"row_plan does not fit a {in_hw} source and a {out_hw} output")
+    return row_plan, out_hw, sharp, out_dtype or compute_dtype
 
 
 def easu_gather_reference(
@@ -127,14 +182,16 @@ def easu_gather_reference(
     prologue: str = "none",
     out_dtype=None,
     dither_page=None,
+    row_plan: Optional[GatherPlan] = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version of K2, on any device: the source as the kernel loads
     it (rounded to the storage dtype, or a decoded byte), then
     ``fused.easu_rcas_reference`` on the plan's clipped tap indices, the
     epilogue and one store."""
     gplan, out_hw, sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype,
-                                            prologue, out_dtype)
-    epi = epilogue_mod.bind(epilogue, out_hw, frame, grain, dither_page, image.device)
+                                            prologue, out_dtype, row_plan)
+    epi = epilogue_mod.bind(epilogue, out_hw, frame, grain, dither_page, image.device, row_offset)
     dev = image.device
     rows, cols, py, px = (torch.as_tensor(a, device=dev) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
     res = fused.easu_rcas_reference(
@@ -159,14 +216,19 @@ def easu_gather(
     prologue: str = "none",
     out_dtype=None,
     dither_page=None,
+    row_plan: Optional[GatherPlan] = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """EASU (+ RCAS when ``apply_rcas``) of a (..., C, Hin, Win) float32,
     bfloat16 or uint8 image, C = 3 or 4, to (..., C, Hout, Wout) in
     ``out_dtype`` (default compute_dtype, the storage; the math is float32),
-    with the prologue, the epilogue and RGBA's bilinear alpha inside.  CUDA tensors launch
+    with the prologue, the epilogue and RGBA's bilinear alpha inside.  A row
+    strip passes its halo'd source, ``out_size`` (hl, Wout), its
+    ``row_plan`` (``shard_plan``) and ``row_offset`` (its first global output
+    row; ``grain`` is the strip's own rows).  CUDA tensors launch
     ``csrc/easu_gather.cu``; CPU tensors run ``easu_gather_reference``."""
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
-              out_dtype=out_dtype, dither_page=dither_page)
+              out_dtype=out_dtype, dither_page=dither_page, row_plan=row_plan, row_offset=row_offset)
     if image.device.type == "cpu":
         return easu_gather_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
     if image.device.type != "cuda":
@@ -174,8 +236,8 @@ def easu_gather(
     if image.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
         raise TypeError(f"gather kernel takes float32/bfloat16/uint8 images, got {image.dtype}")
     gplan, (hout, wout), sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas,
-                                                  compute_dtype, prologue, out_dtype)
-    epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device)
+                                                  compute_dtype, prologue, out_dtype, row_plan)
+    epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device, row_offset)
     image = image.contiguous()
     *lead, nc, hin, win = image.shape
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dt, device=image.device)

@@ -17,6 +17,9 @@ version of the per-pixel epilogue: the ``ops.extras`` chain in float32.
 The grain is plain output-space (3, Hout, Wout) and a dither page of any
 shape (th, tw) tiles the output as page[y % th, x % tw]; the TPU's
 phase-planar grain and its 128-wide page restriction have no counterpart.
+A row strip of a row-sharded frame (``parallel/spatial.py``) binds its
+global row origin ``row0``: the TEPD hash and the page then take global rows
+(y + row0), while the grain is the strip's own rows.
 """
 
 from __future__ import annotations
@@ -126,6 +129,7 @@ class _CEpilogue(ctypes.Structure):
         ("frame", ctypes.c_uint),
         ("page_h", ctypes.c_int),
         ("page_w", ctypes.c_int),
+        ("row0", ctypes.c_int),
     ]
 
 
@@ -135,19 +139,22 @@ class EpilogueArgs:
 
     frame: the TEPD hash's frame index (0 when unused); grain: float32
     (3, Hout, Wout) contiguous, or None; page: float32 (th, tw) contiguous
-    dither positions, or None for the hash.
+    dither positions, or None for the hash; row0: the global output row of
+    the result's row 0 (a row strip's offset), for the dither positions.
     """
 
     epi: Epilogue
     frame: int = 0
     grain: Optional[torch.Tensor] = None
     page: Optional[torch.Tensor] = None
+    row0: int = 0
 
 
 def bind(epi: Optional[Epilogue], out_hw, frame=None, grain=None, dither_page=None,
-         device=None) -> Optional[EpilogueArgs]:
+         device=None, row0: int = 0) -> Optional[EpilogueArgs]:
     """Validate an epilogue's operands for an (Hout, Wout) output on
-    ``device``; None when there is nothing to apply."""
+    ``device`` whose row 0 is global output row ``row0``; None when there is
+    nothing to apply."""
     if epi is None:
         return None
     if not isinstance(epi, Epilogue):
@@ -169,13 +176,16 @@ def bind(epi: Optional[Epilogue], out_hw, frame=None, grain=None, dither_page=No
         if page.dim() != 2 or min(page.shape) < 1:
             raise ValueError(f"dither_page must be a (th, tw) page, got {tuple(page.shape)}")
     f = int(frame) if (epi.needs_frame and frame is not None) else 0
-    return EpilogueArgs(epi, f, g, page)
+    if int(row0) < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    return EpilogueArgs(epi, f, g, page, int(row0))
 
 
 def apply(res: torch.Tensor, args: Optional[EpilogueArgs]) -> torch.Tensor:
     """The epilogue on a float32 (..., 3, Hout, Wout) result, as the kernels
     run it per pixel: the transform, LFGA grain, then the TEPD quantize
-    with hash or page dither positions at the pixel's output coordinates.
+    with hash or page dither positions at the pixel's output coordinates
+    (rows from ``args.row0``).
     On (..., 4, Hout, Wout) the ops run on RGB and alpha rides through
     (fsr_tpu/kernels/fused.py:1052-1056, easu_gather.py:757-761)."""
     if args is None:
@@ -192,10 +202,11 @@ def apply(res: torch.Tensor, args: Optional[EpilogueArgs]) -> torch.Tensor:
         x = extras.lfga(x, args.grain, epi.grain_amount)
     if epi.dither_bits is not None:
         shape = tuple(x.shape[-2:])
+        origin = (args.row0, 0)
         if epi.dither_texture:
-            dit = extras.texture_dither(shape, 0, args.page)
+            dit = extras.texture_dither(shape, 0, args.page, origin=origin)
         else:
-            dit = extras.tepd_dither(shape, args.frame, device=x.device)
+            dit = extras.tepd_dither(shape, args.frame, origin=origin, device=x.device)
         x = extras.tepd_quantize(x, dit, bits=epi.dither_bits)
     return x
 
@@ -215,6 +226,7 @@ def c_params(args: Optional[EpilogueArgs]) -> _CEpilogue:
         frame=args.frame % (1 << 32),
         page_h=int(args.page.shape[0]) if args.page is not None else 0,
         page_w=int(args.page.shape[1]) if args.page is not None else 0,
+        row0=args.row0,
     )
 
 

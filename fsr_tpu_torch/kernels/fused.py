@@ -24,7 +24,15 @@ image (..., 4, H, W) goes through the same launches: alpha is resolved
 bilinearly in the kernel's store pass from the padded source, never
 sharpened, tonemapped or touched by the epilogue, and stored by the
 colour's rule (``easu_rcas_reference`` is its plain version).
-``row_offset`` waits (ROADMAP.md queue item 6).
+
+Row strips (``row_offset``/``global_rows``, fused.py:412-437 in the JAX
+package; ``parallel/spatial.py`` calls them): the output is rows
+``row_offset`` .. ``row_offset + Hout - 1`` of a frame of ``global_rows``
+rows, from a source strip with halo rows around it and shard-local
+constants (``parallel.spatial._local_constants``).  The RCAS ring computes
+the neighbour rows from the halo, and clamps only at global row 0 and
+``global_rows - 1``; the epilogue's dither takes global rows.  K1 stores
+the strip's own rows, no ring rows.
 
 The TPU kernel's tile plans, riffles, row packing, in-kernel pad and
 software pipeline are TPU layout machinery with no counterpart here.
@@ -57,6 +65,7 @@ __all__ = [
     "easu_rcas_reference",
     "upscale_fused",
     "upscale_fused_reference",
+    "ring_rows",
 ]
 
 _QX_SUPPORTED = (1, 2, 4)
@@ -173,14 +182,37 @@ def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) 
     )
 
 
-def _axis_tables(q, r, frac, n, device):
-    """Per output row/column: the padded-frame indices of the four taps
-    around 'f' (offsets -1..2, shape (4, n)) and the subpixel fraction."""
-    idx = np.arange(n)
-    f = idx // q + np.asarray(r, np.int64)[idx % q]
+def ring_rows(hout: int, row_offset: int = 0, global_rows=None) -> Tuple[int, int]:
+    """(ylo, yhi): the rows the RCAS ring of an ``hout``-row output clamps
+    to, when the output is rows ``row_offset`` .. ``row_offset + hout - 1``
+    of a ``global_rows``-row frame (default: the whole frame).  -1 and
+    ``hout`` where the strip has a neighbour row, else its edge row."""
+    global_rows = hout if global_rows is None else int(global_rows)
+    row_offset = int(row_offset)
+    if row_offset < 0 or row_offset + hout > global_rows:
+        raise ValueError(f"rows {row_offset}..{row_offset + hout - 1} are not in a {global_rows}-row frame")
+    return (0 if row_offset == 0 else -1), (hout - 1 if row_offset + hout == global_rows else hout)
+
+
+def _taps(q, r, idx):
+    """'f' index of each output position idx (may be -1): floor(idx / q) +
+    r[idx mod q]."""
+    return idx // q + np.asarray(r, np.int64)[idx % q]
+
+
+def _axis_tables(q, r, frac, idx, device):
+    """Per output row/column index in ``idx``: the padded-frame indices of
+    the four taps around 'f' (offsets -1..2, shape (4, n)) and the subpixel
+    fraction."""
+    f = _taps(q, r, idx)
     p = np.asarray(frac, np.float32)[idx % q]
     taps = f[None, :] + np.arange(-1, 3)[:, None]
     return torch.as_tensor(taps, device=device), torch.as_tensor(p, device=device)
+
+
+def _row_index(hout, ylo, yhi):
+    """Output rows -1 .. hout, each clamped to the ring's [ylo, yhi]."""
+    return np.clip(np.arange(-1, hout + 1), ylo, yhi)
 
 
 def easu_rcas_reference(
@@ -203,18 +235,20 @@ def easu_rcas_reference(
     from the taps at offsets 0 and 1 of the same tables, in its op order;
     it is never tonemapped nor sharpened.
 
-    rows (4, Hout) / cols (4, Wout): the source row/column of the taps at
-    offsets -1..2 around each output pixel's 'f' texel; ppy (Hout,) / ppx
-    (Wout,): the float32 subpixel fractions.
+    rows (4, Hout + 2) / cols (4, Wout): the source row/column of the taps at
+    offsets -1..2 around each output pixel's 'f' texel, the rows for output
+    rows -1 .. Hout (the RCAS ring's, where the caller's border rule has
+    made a row outside the frame repeat its edge row); ppy (Hout + 2,) /
+    ppx (Wout,): the float32 subpixel fractions.  Returns Hout rows.
     """
     alpha = None
     if srcf.shape[-3] == 4:
         a = srcf[..., 3, :, :]
-        r0, r1, c0, c1 = rows[1][:, None], rows[2][:, None], cols[1][None, :], cols[2][None, :]
+        r0, r1, c0, c1 = rows[1][1:-1, None], rows[2][1:-1, None], cols[1][None, :], cols[2][None, :]
         tl, tr, bl, br = a[..., r0, c0], a[..., r0, c1], a[..., r1, c0], a[..., r1, c1]
         top = tl + (tr - tl) * ppx[None, :]
         bot = bl + (br - bl) * ppx[None, :]
-        alpha = (top + (bot - top) * ppy[:, None])[..., None, :, :]
+        alpha = (top + (bot - top) * ppy[1:-1, None])[..., None, :, :]
         srcf = srcf[..., :3, :, :]
     if srtm:
         srcf = extras.srtm(srcf)
@@ -230,18 +264,19 @@ def easu_rcas_reference(
     out = easu_math.easu_resolve(
         taps, ppx[None, :], ppy[:, None], dtype=torch.float32, fast=True, quad_g=quad_g
     )
+    e = out[..., 1:-1, :]
     if apply_rcas:
-        out = easu_math.rcas_resolve(
-            shift_clamped(out, -1, 0),
-            shift_clamped(out, 0, -1),
-            out,
-            shift_clamped(out, 0, 1),
-            shift_clamped(out, 1, 0),
+        e = easu_math.rcas_resolve(
+            out[..., :-2, :],
+            shift_clamped(e, 0, -1),
+            e,
+            shift_clamped(e, 0, 1),
+            out[..., 2:, :],
             sharpness,
             denoise=denoise,
             fast=True,
         )
-    return out if alpha is None else torch.cat([out, alpha], dim=-3)
+    return e if alpha is None else torch.cat([e, alpha], dim=-3)
 
 
 def _check_prologue(prologue):
@@ -273,17 +308,20 @@ def upscale_padded_reference(
     prologue: str = "none",
     epi=None,
     out_dtype=None,
+    row_offset: int = 0,
+    global_rows=None,
 ) -> torch.Tensor:
     """Plain version of K1: ``easu_rcas_reference`` with the phase plan's
-    padded-frame tap indices, then ``epilogue.apply`` (``epi``: bound
-    ``EpilogueArgs``) and one store in ``out_dtype`` (default: the padded
-    source's float type)."""
+    padded-frame tap indices (the ring's rows clamped by ``ring_rows``),
+    then ``epilogue.apply`` (``epi``: bound ``EpilogueArgs``) and one store
+    in ``out_dtype`` (default: the padded source's float type)."""
     _check_prologue(prologue)
     out_dtype = _out_dtype(padded.dtype, out_dtype)
     hout, wout = out_size
+    ylo, yhi = ring_rows(hout, row_offset, global_rows)
     dev = padded.device
-    rows, ppy = _axis_tables(fplan.qy, fplan.ry, fplan.py, hout, dev)
-    cols, ppx = _axis_tables(fplan.qx, fplan.rx, fplan.px, wout, dev)
+    rows, ppy = _axis_tables(fplan.qy, fplan.ry, fplan.py, _row_index(hout, ylo, yhi), dev)
+    cols, ppx = _axis_tables(fplan.qx, fplan.rx, fplan.px, np.arange(wout), dev)
     res = easu_rcas_reference(epilogue_mod.decode(padded), rows, cols, ppy, ppx, sharpness,
                               apply_rcas, denoise, prologue == "srtm")
     return epilogue_mod.store(epilogue_mod.apply(res, epi), out_dtype)
@@ -300,14 +338,18 @@ def upscale_padded(
     prologue: str = "none",
     epi=None,
     out_dtype=None,
+    row_offset: int = 0,
+    global_rows=None,
 ) -> torch.Tensor:
     """K1 on the K4-padded source (..., C, Hp, Wp), C = 3 or 4, of float32,
-    bfloat16 or uint8 -> (..., C, Hout, Wout) in ``out_dtype``.  CUDA
-    tensors launch ``csrc/fused.cu``; CPU tensors run
+    bfloat16 or uint8 -> (..., C, Hout, Wout) in ``out_dtype``; the output
+    is rows ``row_offset`` .. of a ``global_rows``-row frame (default: the
+    whole frame).  CUDA tensors launch ``csrc/fused.cu``; CPU tensors run
     ``upscale_padded_reference``."""
     if padded.device.type == "cpu":
         return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise,
-                                        prologue=prologue, epi=epi, out_dtype=out_dtype)
+                                        prologue=prologue, epi=epi, out_dtype=out_dtype,
+                                        row_offset=row_offset, global_rows=global_rows)
     if padded.device.type != "cuda":
         raise ValueError(f"upscale_padded takes a CPU or CUDA tensor, got {padded.device}")
     if padded.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
@@ -317,10 +359,10 @@ def upscale_padded(
     _check_prologue(prologue)
     out_dtype = _out_dtype(padded.dtype, out_dtype)
     hout, wout = (int(v) for v in out_size)
+    ylo, yhi = ring_rows(hout, row_offset, global_rows)
     *lead, nc, hp, wp = padded.shape
     # The plan's reach must fit the padded extent: no bounds logic on the loads.
-    if (max(fplan.ry) + (hout - 1) // fplan.qy + 2 >= hp or min(fplan.ry) < 1
-            or max(fplan.rx) + (wout - 1) // fplan.qx + 2 >= wp or min(fplan.rx) < 1):
+    if not (_covers(fplan.qy, fplan.ry, ylo, yhi, hp) and _covers(fplan.qx, fplan.rx, 0, wout - 1, wp)):
         raise ValueError("padded source does not cover the plan's tap reach")
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=padded.device)
     nb = padded.numel() // (nc * hp * wp)
@@ -339,7 +381,7 @@ def upscale_padded(
         err = lib.fsr_upscale_fused(
             padded.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[padded.dtype],
             pad.DTYPE_CODES[out_dtype], nb, nc, hp, wp, hout, wout, fplan.qy, fplan.qx, ry, rx, py, px,
-            float(sharpness), int(apply_rcas), int(denoise), int(prologue == "srtm"),
+            float(sharpness), int(apply_rcas), int(denoise), int(prologue == "srtm"), ylo, yhi,
             ctypes.addressof(cepi), stream,
         )
     if err != 0:
@@ -349,6 +391,15 @@ def upscale_padded(
 
 
 upscale_padded.launches = 0
+
+
+def _covers(q, r, lo, hi, n) -> bool:
+    """True when the taps (offsets -1..2 around 'f') of output positions
+    lo..hi all lie in [0, n).  'f' advances by one every q positions, so its
+    least and greatest values lie in the first and the last q positions."""
+    idx = np.concatenate([np.arange(lo, min(lo + q, hi + 1)), np.arange(max(hi - q + 1, lo), hi + 1)])
+    f = _taps(q, r, idx)
+    return int(f.min()) >= 1 and int(f.max()) + 2 < n
 
 
 def _prepare(image, out_size, con, compute_dtype, out_dtype):
@@ -377,18 +428,22 @@ def upscale_fused(
     prologue: str = "none",
     out_dtype=None,
     dither_page=None,
+    row_offset: int = 0,
+    global_rows=None,
 ) -> torch.Tensor:
     """Fused EASU(+RCAS): K4 pads the (..., C, Hin, Win) image, C = 3 or 4,
     into the storage dtype (a uint8 image stays bytes), K1 upscales it, with
     the prologue, the epilogue and RGBA's alpha inside.  Returns (..., C,
     Hout, Wout) in ``out_dtype`` (default compute_dtype, the storage; the
-    math is float32)."""
+    math is float32).  A row strip passes its halo'd source, shard-local
+    constants, ``row_offset`` and ``global_rows`` (``grain`` is then the
+    strip's own rows)."""
     fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
-    epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device)
+    epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device, row_offset)
     padded = pad.edge_pad(image.contiguous(), fplan.pads, storage)
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return upscale_padded(padded, fplan, out_size, sharp, apply_rcas, denoise,
-                          prologue=prologue, epi=epi, out_dtype=out_dt)
+    return upscale_padded(padded, fplan, out_size, sharp, apply_rcas, denoise, prologue=prologue,
+                          epi=epi, out_dtype=out_dt, row_offset=row_offset, global_rows=global_rows)
 
 
 def upscale_fused_reference(
@@ -406,12 +461,14 @@ def upscale_fused_reference(
     prologue: str = "none",
     out_dtype=None,
     dither_page=None,
+    row_offset: int = 0,
+    global_rows=None,
 ) -> torch.Tensor:
     """Plain version of ``upscale_fused`` (K4 and K1 plain versions), on
     any device."""
     fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
-    epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device)
+    epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device, row_offset)
     padded = pad.edge_pad_reference(image, fplan.pads, storage)
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return upscale_padded_reference(padded, fplan, out_size, sharp, apply_rcas, denoise,
-                                    prologue=prologue, epi=epi, out_dtype=out_dt)
+    return upscale_padded_reference(padded, fplan, out_size, sharp, apply_rcas, denoise, prologue=prologue,
+                                    epi=epi, out_dtype=out_dt, row_offset=row_offset, global_rows=global_rows)

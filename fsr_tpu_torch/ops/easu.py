@@ -46,12 +46,22 @@ def _index(v: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(v.astype(np.int64), device=device)
 
 
+def _rows(rows, n: int, device):
+    """The vertical plan: the 'f' row of each of the n output rows, as a
+    host int array, and its float32 fractions as a (n, 1) tensor."""
+    row, py = (np.asarray(torch.as_tensor(v).cpu()) for v in rows)
+    if row.shape != (n,) or py.shape != (n,):
+        raise ValueError(f"rows= needs two length-{n} vectors, got {row.shape} and {py.shape}")
+    return row.astype(np.int64), torch.as_tensor(py.astype(np.float32), device=device)[:, None]
+
+
 def easu(
     src: torch.Tensor,
     out_size: Tuple[int, int],
     con: EasuConstants,
     compute_dtype=torch.float32,
     precision: str = "mixed",
+    rows=None,
 ) -> torch.Tensor:
     """EASU upscale.
 
@@ -62,6 +72,13 @@ def easu(
     precision: "mixed" (default) keeps the direction/length estimation in
       float32 under a 16-bit compute_dtype; "strict" runs everything in
       compute_dtype, which with float16 is FsrEasuH (ffx_fsr1.h:505-593).
+    rows: optional (row_idx, py_rows) override of the vertical plan: for
+      each of the Hout output rows, its base source row (an index into
+      ``src``) and its float32 fraction.  Row-sharded execution
+      (``parallel/spatial.py``) passes values taken from the GLOBAL mapping,
+      never recomputed from shard-local constants; tap rows still clamp into
+      ``src`` (a strip at the frame's top or bottom carries edge-replicated
+      halo rows, so the clamp is the sampler's CLAMP).
 
     Returns (..., 3, Hout, Wout) in compute_dtype.
     """
@@ -71,6 +88,10 @@ def easu(
     hin, win = src.shape[-2:]
     col, row, px, py = easu_coords(con, out_size)
     dev = src.device
+    if rows is None:
+        ppy = torch.as_tensor(py, device=dev)[:, None]
+    else:
+        row, ppy = _rows(rows, out_size[0], dev)
     src = src.to(compute_dtype)
     taps = {}
     for name, (dx, dy) in easu_math.TAP_OFFSETS.items():
@@ -78,22 +99,25 @@ def easu(
         c = _index(np.clip(col + dx, 0, win - 1), dev)
         taps[name] = src[..., r[:, None], c[None, :]]
     ppx = torch.as_tensor(px, device=dev)[None, :]
-    ppy = torch.as_tensor(py, device=dev)[:, None]
     return easu_math.easu_resolve(taps, ppx, ppy, dtype=compute_dtype, dir_dtype=dir_dtype)
 
 
-def bilinear(src: torch.Tensor, out_size: Tuple[int, int], con: EasuConstants) -> torch.Tensor:
+def bilinear(src: torch.Tensor, out_size: Tuple[int, int], con: EasuConstants, rows=None) -> torch.Tensor:
     """Bilinear fallback using the same coordinate mapping (the sample's
-    SAMPLE_BILINEAR mode, FSR_Pass.hlsl:70-73)."""
+    SAMPLE_BILINEAR mode, FSR_Pass.hlsl:70-73).  rows: the vertical
+    override of ``easu(rows=)``."""
     hin, win = src.shape[-2:]
     col, row, px, py = easu_coords(con, out_size)
     dev = src.device
+    if rows is None:
+        pyb = torch.as_tensor(py, device=dev)[:, None]
+    else:
+        row, pyb = _rows(rows, out_size[0], dev)
     c0 = _index(np.clip(col, 0, win - 1), dev)
     c1 = _index(np.clip(col + 1, 0, win - 1), dev)
     r0 = _index(np.clip(row, 0, hin - 1), dev)
     r1 = _index(np.clip(row + 1, 0, hin - 1), dev)
     pxb = torch.as_tensor(px, device=dev)[None, :]
-    pyb = torch.as_tensor(py, device=dev)[:, None]
     tl = src[..., r0[:, None], c0[None, :]]
     tr = src[..., r0[:, None], c1[None, :]]
     bl = src[..., r1[:, None], c0[None, :]]

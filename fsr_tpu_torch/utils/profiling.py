@@ -64,12 +64,14 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     """Trace ``calls`` back-to-back calls of ``fn()`` with ``torch.profiler``
     and read the device's share of the window.
 
-    Returns ``{"kernels": {name: ms per call}, "busy_ms", "window_ms",
-    "idle_share"}``.  The same calls run once first as the profiler's
-    warm-up step, so its buffer set-up falls outside the recorded step.
-    The window runs from the host entering the first call to the end of the
-    last device operation; busy is the union of the device operations'
-    intervals clipped to the window (``busy_time``).  A profiling cycle in
+    Returns ``{"kernels": {name: ms per call}, "busy_ms",
+    "busy_ms_by_device", "window_ms", "idle_share"}``.  The same calls run
+    once first as the profiler's warm-up step, so its buffer set-up falls
+    outside the recorded step.  The window runs from the host entering the
+    first call to the end of the last device operation; busy is the union of
+    the device operations' intervals clipped to the window (``busy_time``),
+    over all devices and per device index (cards that overlap sum to more
+    than the union).  A profiling cycle in
     which CUPTI delivered no device activity is taken again, at most
     ``TRACE_ATTEMPTS`` times in all; then it raises."""
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
@@ -105,10 +107,15 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     for e in dev:
         kernels[e.name] = kernels.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
     busy = busy_time(((e.time_range.start, e.time_range.end) for e in dev), start, end)
+    by_device = {
+        i: busy_time(((e.time_range.start, e.time_range.end) for e in dev if e.device_index == i), start, end) / 1e3
+        for i in sorted({e.device_index for e in dev})
+    }
     window = end - start
     return {
         "kernels": kernels,
         "busy_ms": busy / 1e3,
+        "busy_ms_by_device": by_device,
         "window_ms": window / 1e3,
         "idle_share": 1.0 - busy / window,
     }

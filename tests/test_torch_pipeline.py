@@ -173,11 +173,6 @@ def test_constructor_value_errors(case):
         fsr_tpu_torch.UpscalePipeline(OUT_HW, **case[1])
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 6"):
-        fsr_tpu_torch.UpscalePipeline(OUT_HW, mesh=object())
-
-
 def test_bad_epilogue_raises():
     x = torch.from_numpy(_rand(12, (3, *IN_HW)))
     with pytest.raises(TypeError):
