@@ -79,10 +79,23 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      unsharded call; CUDA-event times of each beside its unsharded twin and
      of the strips' kernels beside the unsharded kernel, taken in turn; with
      several cards, (i) and (ii) across them too, with each card's busy time
-     from a trace; with --trace, a trace of each full-width run.
+     from a trace; with --trace, a trace of each full-width run;
+ 19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
+     ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
+     on the K4-padded one-tile frame, on small grids and then on K1's
+     headline grid (120, 135, 4), one launch each, against
+     upscale_padded_reference (within 6e-5) and against K1 on the same
+     frame; P3 fma_rate (float32 and half2, 4 and 8 chains) against its plain
+     recurrence; P4 fp16_probe's three modes (0 and 2 bit-equal, 1 within a
+     float16 step per FMA); then every probe, K1 float32 and K1 bfloat16
+     timed in turn, with nvidia-smi's clocks, power and temperature before
+     and after: K1 - P1 (its global tap loads against shared-memory
+     ones), P1 - P2 (its recompute), whether P2 <= P1 <= K1, P2 against its
+     op floor, the achieved FMA rates, K1's utilization.
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
-the float32 operations the function needs, estimated, over 67 TFLOP/s) and the JSON result line
+the float32 operations the function needs, counted (EASU_OPS, RCAS_OPS),
+over 67 TFLOP/s; half2's over 134) and the JSON result line
 are the last three lines.  Exits non-zero with no result when CUDA is
 unavailable.
 """
@@ -114,6 +127,10 @@ SHARPEN_SHAPE = (4, 3, 2160, 3840)
 F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
 F16_STRICT = dict(median=1e-3, p999=5e-3, share=0.002)
 F16_ULP = 2.0 ** -11  # one float16 step in [0.5, 1)
+# P3 against its plain recurrence (phase 19), relative: float32 (64 FMAs
+# against a mul and an add each); half2 two float16 steps.
+P3_F32_REL = 1e-5
+P3_HALF2_REL = 2.0 ** -9
 
 # The least time the card could take (the kernels line's bound_ms): the
 # larger of the bytes a kernel must move over the HBM3 rate and its
@@ -121,15 +138,21 @@ F16_ULP = 2.0 ** -11  # one float16 step in [0.5, 1)
 # SXM data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# float32 operations the function needs (FMA = 2), estimated from the
-# sources (PERF.md section 3), per output pixel: EASU, RCAS, the TEPD
-# dither, LFGA grain, RGBA's bilinear alpha; per source texel: the SRTM
-# prologue.  The kernels do more than this (K1 and K2 recompute EASU on a
-# one-pixel ring around each 32x16 tile, 1.195x, and the prologue at each
-# of a pixel's 12 tap loads): that recompute is the kernels' cost, not the
-# function's, so the bound leaves it out.
-EASU_OPS = 480
-RCAS_OPS = 85
+HALF2_OPS_PER_S = 134e12  # float16 pairs (__hfma2), twice the float32 rate
+# float32 operations the function needs (FMA = 2), per output pixel: EASU
+# and RCAS counted from the kernels' torch twins, convention 2 of
+# tools_torch/ablation/fused_roofline.py (each aten op weighted by its output
+# elements; a bit trick at its CUDA cost, 1 or 2 integer ops; the texel
+# response and luma per source texel, a quarter per pixel at 2x);
+# tests/test_torch_probes.py holds these to the count.  The
+# TEPD dither, LFGA grain and RGBA's bilinear alpha per output pixel, and
+# the SRTM prologue per source texel, are estimated from the sources
+# (PERF.md section 3).  The kernels do more than this (K1 and K2 recompute
+# EASU on a one-pixel ring around each 32x16 tile, 1.195x, and the prologue
+# at each of a pixel's 12 tap loads): that recompute is the kernels' cost,
+# not the function's, so the bound leaves it out.
+EASU_OPS = 392.75
+RCAS_OPS = 96
 EASU_RCAS_OPS = EASU_OPS + RCAS_OPS
 SRTM_OPS_PER_TEXEL = 10
 TEPD_OPS = 60
@@ -247,17 +270,18 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes: float, ops: float):
+def _bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the byte floor or the operation floor,
     whichever is larger."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms=None):
+def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms=None,
+                  ops_per_s=F32_OPS_PER_S):
     """One entry of the kernels line; the bound from this run's shapes."""
-    bound_ms, bound_by = _bound(nbytes, ops)
+    bound_ms, bound_by = _bound(nbytes, ops, ops_per_s)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -291,25 +315,14 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def _interleaved_ms(fns: dict, rounds: int = 3) -> dict:
-    """``cuda_time_ms`` of each function, the functions taken in turn
-    ``rounds`` times; the median per function."""
-    from fsr_tpu_torch.utils.profiling import cuda_time_ms
-
-    times = {k: [] for k in fns}
-    for _ in range(rounds):
-        for k, fn in fns.items():
-            times[k].append(cuda_time_ms(fn))
-    return {k: float(np.median(v)) for k, v in times.items()}
-
-
 def _wrappers() -> dict:
     """The kernel wrappers, each with its launch count."""
-    from fsr_tpu_torch.kernels import easu_gather, fused, pad
+    from fsr_tpu_torch.kernels import easu_gather, fused, pad, probes
     from fsr_tpu_torch.kernels import rcas as rcas_k
 
     return {"K4": pad.edge_pad, "K1": fused.upscale_padded, "K2": easu_gather.easu_gather,
-            "K3": rcas_k.rcas_fused}
+            "K3": rcas_k.rcas_fused, "P1": probes.opmix_replay, "P2": probes.opmix_replay_shared,
+            "P3": probes.fma_rate, "P4": probes.fp16_probe}
 
 
 def _drive(fn, need):
@@ -371,7 +384,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     from fsr_tpu_torch.kernels import easu_gather, fused, pad
     from fsr_tpu_torch.kernels.epilogue import Epilogue
     from fsr_tpu_torch.parallel import sharding, spatial
-    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn, device_trace
 
     f32, bf16, u8, u16 = torch.float32, torch.bfloat16, torch.uint8, torch.uint16
     cards = torch.cuda.device_count()
@@ -496,7 +509,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
 
     # Times per 4K frame: each sharded call in turn with its unsharded twin.
     for name, call, unsharded, _, _ in runs:
-        t = _interleaved_ms({"sharded": call, "unsharded": unsharded})
+        t = cuda_times_in_turn({"sharded": call, "unsharded": unsharded})
         full[name]["t"] = t
         print(f"    {name}: sharded {t['sharded'] / nframes:.4f} ms/frame, unsharded "
               f"{t['unsharded'] / nframes:.4f} ms/frame ({t['sharded'] / t['unsharded'] - 1:+.1%})")
@@ -532,7 +545,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         return [fn(s, (hl, out4k[1]), qcon, rcon, True, False, bf16, row_plan=gplans[k], row_offset=k * hl)
                 for k, s in enumerate(qstrips)]
 
-    tk = _interleaved_ms({
+    tk = cuda_times_in_turn({
         "K1 x4 strips": k1_strips, "K1 unsharded": lambda: fused.upscale_padded(padded, fplan, out4k, sharp),
         "K2 x4 strips": k2_strips,
         "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16)})
@@ -554,7 +567,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
             out, got_n = _drive(lambda: on(real), want_n)
             if not torch.equal(out, unsharded()):
                 raise AssertionError(f"{name} across {nc} cards: differs from the unsharded call")
-            t = _interleaved_ms({"across cards": lambda: on(real), "one card, sp=4": lambda: on(mesh(4)),
+            t = cuda_times_in_turn({"across cards": lambda: on(real), "one card, sp=4": lambda: on(mesh(4)),
                                  "unsharded": unsharded})
             tr = device_trace(lambda: on(real), 5)
             print(f"    {name.replace('sp=4', f'sp={nc}')}: launches {got_n}, bit-equal to the unsharded call; "
@@ -579,6 +592,169 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     ]
 
 
+def _clocks() -> str:
+    """The card's SM clock and its maximum, power draw and temperature."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def _probes(dev, card: str) -> list:
+    """Phase 19: the probes P1-P4 (kernels/probes.py) through their tools
+    (tools_torch/ablation), held against their plain versions, then timed in
+    turn with K1.  Returns their entries of the kernels line."""
+    from fsr_tpu_torch.kernels import fused, probes
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn
+    from tools_torch.ablation import fp16_probe, fused_roofline, opmix_floor
+
+    f32, f16 = torch.float32, torch.float16
+    print(f"phase 19: the probes P1-P4 on {card}")
+    sharp = opmix_floor.SHARP
+    image = opmix_floor.tiny_frame(dev)
+    padded, fplan = opmix_floor.operand(image)
+    tile = probes.TILE
+    plain = {rcas: fused.upscale_padded_reference(padded, fplan, tile, sharp, rcas) for rcas in (True, False)}
+    k1 = {rcas: fused.upscale_padded(padded, fplan, tile, sharp, rcas) for rcas in (True, False)}
+    replays = [
+        # name, wrapper key, RCAS, the tool's keywords
+        ("P1", "P1", True, {}),
+        ("P1 EASU only", "P1", False, {"rcas": False}),
+        ("P2", "P2", True, {"shared": True}),
+    ]
+    err = {}
+
+    def held(name, got, rcas, what):
+        e = _compare(got, plain[rcas], f"{name} {what} vs upscale_padded_reference")
+        d = (got - k1[rcas]).abs().max().item()
+        print(f"  {name} {what} vs K1 on the same padded frame: max-abs {d:.3e} (limit {F32_TOL:g})"
+              + (", bit-equal" if d == 0 else ""))
+        if not d <= F32_TOL:
+            raise AssertionError(f"{name} {what}: disagrees with K1")
+        err[name] = max(err.get(name, 0.0), e)
+
+    # Small grids, then the headline grid through the tool's path (K4 pads
+    # the frame, one launch of the replay).
+    for grid in ((1, 1, 1), (3, 2, 2)):
+        for name, key, rcas, kw in replays:
+            if key == "P2":
+                fn = lambda: probes.opmix_replay_shared(padded, fplan, sharp, grid)
+            else:
+                fn = lambda: probes.opmix_replay(padded, fplan, sharp, rcas, grid)
+            got, _ = _drive(fn, {key: 1})
+            held(name, got, rcas, f"grid {grid}")
+    runs = {}
+    for name, key, rcas, kw in replays:
+        got, n = _drive(lambda: opmix_floor.replay(image, **kw), {"K4": 1, key: 1})
+        held(name, got, rcas, f"grid {probes.HEADLINE_GRID}, launches {n}")
+        runs[name] = dict(launches=n[key], out=got)
+    d = (runs["P2"]["out"] - runs["P1"]["out"]).abs().max().item()
+    print(f"  P2 vs P1: max-abs {d:.3e}" + (", bit-equal" if d == 0 else ""))
+
+    # P3: both types and chain counts at the reading size, against the plain
+    # recurrence: float32 within P3_F32_REL relative (the kernel's FMAs round
+    # once, the plain version's mul and add twice); half2 within P3_HALF2_REL
+    # (two float16 steps: the plain version rounds each step once from
+    # float32, which holds this block's products and sums, so bit-equality is
+    # expected).
+    x = fused_roofline.fma_input(dev)
+    fma = {}
+    for dt in (f32, f16):
+        for chains in (4, 8):
+            got, n = _drive(lambda: fused_roofline.fma_run(x, dt, chains), {"P3": 1})
+            want = probes.fma_rate_reference(x, dt, chains)
+            rel = ((got.float() - want.float()).abs() / want.float().abs()).max().item()
+            limit = P3_F32_REL if dt == f32 else P3_HALF2_REL
+            off = int((got != want).sum())
+            print(f"  P3 {dt} x{chains} chains, {fused_roofline.fma_reps(dt, chains)} repeats: launches {n}; "
+                  f"vs the plain recurrence max relative {rel:.3e} (limit {limit:g}), {off} of {got.numel()} differ")
+            if not (torch.isfinite(got.float()).all() and rel <= limit):
+                raise AssertionError(f"P3 {dt} x{chains}: disagrees with its plain version")
+            fma[(dt, chains)] = dict(launches=n["P3"], err=rel)
+
+    # P4: the three float16 modes, one launch each.
+    h = fp16_probe.probe_input(dev)
+    outs, n4 = _drive(lambda: [probes.fp16_probe(h, m) for m in range(3)], {"P4": 3})
+    p4_err = 0.0
+    for mode, got in enumerate(outs):
+        a = fp16_probe.agreement(mode, got, probes.fp16_probe_reference(h, mode))
+        print(f"  P4 mode {mode} ({probes.FP16_MODES[mode]}): {'runs and agrees' if a['ok'] else 'DISAGREES'}, "
+              f"max-abs {a['max_abs']:.3e} (limit {a['limit']:.3e}), {a['off']} of {got.numel()} values differ")
+        if not a["ok"]:
+            raise AssertionError(f"P4 mode {mode}: disagrees with its plain version")
+        p4_err = max(p4_err, a["max_abs"])
+
+    # The readings, in turn with K1, with the card's clocks before and after.
+    fns = opmix_floor.reading_fns(dev)
+    for (dt, chains) in fma:
+        fns[f"P3 {'f32' if dt == f32 else 'half2'} x{chains}"] = (
+            lambda dt=dt, chains=chains: fused_roofline.fma_run(x, dt, chains))
+    for mode in range(3):
+        fns[f"P4 mode {mode}"] = lambda mode=mode: probes.fp16_probe(h, mode)
+    before = _clocks()
+    ms = cuda_times_in_turn(fns, 5)
+    after = _clocks()
+    print(f"  readings in turn (5 rounds, CUDA-event medians, ms per call); clocks.sm, clocks.max.sm, power.draw, "
+          f"temperature before: {before}; after: {after}")
+    for k, v in ms.items():
+        print(f"    {k:>16}: {v:.4f} ms")
+    for line in opmix_floor.report(ms):
+        print("  " + line)
+    best = {}
+    for (dt, chains), r in fma.items():
+        name = f"P3 {'f32' if dt == f32 else 'half2'} x{chains}"
+        r["flops"] = fused_roofline.fma_flops(x, dt, chains)
+        tf = r["flops"] / (ms[name] * 1e-3) / 1e12
+        peak = fused_roofline.PEAK_TFLOPS[dt]
+        print(f"  {name}: {tf:.2f} TFLOP/s ({tf / 2:.2f} T el-ops/s, FMA = 1), {tf / peak:.1%} of the data "
+              f"sheet's {peak:g}")
+        if dt not in best or tf > best[dt][1]:
+            best[dt] = (chains, tf)
+
+    ops = fused_roofline.ops_per_pixel()
+    npix = opmix_floor.headline_pixels()
+    for conv, c in ops.items():
+        print(f"  ops per pixel, {conv}: " + ", ".join(f"{k} {v:g}" for k, v in c.items()))
+    rate = best[f32][1] * 1e12
+    for dt in ("f32", "bf16"):
+        t = ms[f"K1 {dt}"] * 1e-3
+        u2 = ops["convention 2"]["per_px"] * npix / rate / t
+        u1 = ops["convention 1"]["per_px"] * npix / (rate / 2) / t
+        print(f"  K1 {dt}: utilization at the achieved float32 rate {u2:.1%} (convention 2), "
+              f"{u1:.1%} (convention 1, FMA = 1)")
+
+    # Plain versions' times, and the kernels line's entries.
+    plain_ms = {rcas: cuda_time_ms(lambda: fused.upscale_padded_reference(padded, fplan, tile, sharp, rcas),
+                                   warmup=1, iters=5) for rcas in (True, False)}
+    src, nb = "fsr_tpu_torch/csrc/probes.cu", _nbytes(padded) + _nbytes(plain[True])
+    entries = [
+        _kernel_entry("opmix_replay (P1): K1's math stream, no global tap loads", src,
+                      "tools/ablation/opmix_floor.py:73", runs["P1"]["launches"], err["P1"], ms["P1"],
+                      plain_ms[True], nb, opmix_floor.stream_ops("replay") * npix),
+        _kernel_entry("opmix_replay (P1), EASU only", src, "tools/ablation/opmix_floor.py:73",
+                      runs["P1 EASU only"]["launches"], err["P1 EASU only"], ms["P1 EASU only"], plain_ms[False], nb,
+                      opmix_floor.stream_ops("replay easu_only") * npix),
+        _kernel_entry("opmix_replay_shared (P2): the shared-dataflow floor", src,
+                      "tools/ablation/opmix_floor.py:179", runs["P2"]["launches"], err["P2"], ms["P2"],
+                      plain_ms[True], nb, opmix_floor.stream_ops("shared") * npix),
+    ]
+    for dt, what, rate in ((f32, "f32", F32_OPS_PER_S), (f16, "half2", HALF2_OPS_PER_S)):
+        chains = best[dt][0]
+        r = fma[(dt, chains)]
+        entries.append(_kernel_entry(
+            f"fma_rate (P3), {what}, {chains} chains", src, "tools/ablation/fused_roofline.py:108", r["launches"],
+            r["err"], ms[f"P3 {what} x{chains}"],
+            cuda_time_ms(lambda: probes.fma_rate_reference(x, dt, chains), warmup=1, iters=3),
+            _nbytes(x) + x.numel() * (4 if dt == f32 else 2), r["flops"], ops_per_s=rate))
+    p4_plain = sum(cuda_time_ms(lambda: probes.fp16_probe_reference(h, m)) for m in range(3))
+    entries.append(_kernel_entry(
+        "fp16_probe (P4): f16 load, f16 FMA chain, f16 store", src, "tools/ablation/fp16_probe.py:41",
+        n4["P4"], p4_err, sum(ms[f"P4 mode {m}"] for m in range(3)), p4_plain,
+        3 * _nbytes(h) + _nbytes(*outs), 0))
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -594,7 +770,7 @@ def main() -> int:
     from fsr_tpu_torch.kernels import _build, easu_gather, fused, pad
     from fsr_tpu_torch.kernels import rcas as rcas_k
     from fsr_tpu_torch.reference import scalar as ref
-    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn, device_trace
 
     dev = torch.device("cuda:0")
     laps = []  # (phase, start time): the seconds each phase takes
@@ -1189,13 +1365,13 @@ def main() -> int:
         del out
         # Each RGBA time is taken in turn with its RGB-slice twin, so that
         # alpha's cost is read under the same clocks and card state.
-        t = _interleaved_ms({"call": lambda: ft.upscale(x4, **kw),
+        t = cuda_times_in_turn({"call": lambda: ft.upscale(x4, **kw),
                              "call on the RGB slice": lambda: ft.upscale(x3, **kw)})
         od = kw.get("out_dtype")
         if "K1" in need:
             st = x4.dtype
             p4, p3 = pad.edge_pad(x4, main_plan.pads, st), pad.edge_pad(x3, main_plan.pads, st)
-            t.update(_interleaved_ms({
+            t.update(cuda_times_in_turn({
                 "K4": lambda: pad.edge_pad(x4, main_plan.pads, st),
                 "K4 RGB": lambda: pad.edge_pad(x3, main_plan.pads, st),
                 "K1": lambda: fused.upscale_padded(p4, main_plan, out4k, sharp, out_dtype=od),
@@ -1207,7 +1383,7 @@ def main() -> int:
             del p4, p3
         else:
             q16 = qframes.to(bf16)  # phase 10's frames, beside the RGB slice of the RGBA frames
-            t.update(_interleaved_ms({
+            t.update(cuda_times_in_turn({
                 "K2": lambda: easu_gather.easu_gather(x4, out4k, qcon, rcon, True, False, bf16),
                 "K2 RGB": lambda: easu_gather.easu_gather(x3, out4k, qcon, rcon, True, False, bf16),
                 "K2 phase 10": lambda: easu_gather.easu_gather(q16, out4k, qcon, rcon, True, False, bf16)}))
@@ -1347,6 +1523,10 @@ def main() -> int:
     # --- 18. row-sharded and batch-sharded execution ---------------------------
     lap("18")
     kernels += _row_sharded(dev, card, gen, trace)
+
+    # --- 19. the probes P1-P4 ----------------------------------------------------
+    lap("19")
+    kernels += _probes(dev, card)
     laps.append(("end", time.perf_counter()))
     print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
           + f"; {laps[-1][1] - laps[0][1]:.1f} in all")

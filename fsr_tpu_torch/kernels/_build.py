@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "build_dir", "NVCC_FLAGS"]
+__all__ = ["library", "library_path", "build_dir", "cuda_tool", "NVCC_FLAGS"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -40,15 +40,16 @@ def _sources():
     return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """The path of the CUDA toolkit's program ``name`` (nvcc, cuobjdump)."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    cand = pathlib.Path(cuda_home) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} on PATH)")
 
 
 def build_dir() -> pathlib.Path:
@@ -75,13 +76,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsr_easu_gather.restype = i
     lib.fsr_rcas.argtypes = [vp, vp, i, i, i, i, i, f, i, i, vp]
     lib.fsr_rcas.restype = i
+    replay = [vp, vp, i, i, i, i, i, i, ip, ip, fp, fp, f]
+    lib.fsr_opmix_replay.argtypes = replay + [i, i, i, i, vp]
+    lib.fsr_opmix_replay.restype = i
+    lib.fsr_opmix_replay_shared.argtypes = replay + [ip, i, i, i, vp]
+    lib.fsr_opmix_replay_shared.restype = i
+    lib.fsr_fma_rate.argtypes = [vp, vp, i, i, i, i, f, fp, vp]
+    lib.fsr_fma_rate.restype = i
+    lib.fsr_fp16_probe.argtypes = [vp, vp, ll, i, vp]
+    lib.fsr_fp16_probe.restype = i
 
 
 def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
     """One nvcc per .cu source, all started together, then one link.  Objects
     go to a private scratch directory, so concurrent builders never share a
     file; the library appears at ``so`` atomically."""
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     try:
         jobs = []
@@ -112,11 +122,16 @@ def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def library_path() -> pathlib.Path:
+    """Where ``library`` builds the shared library."""
+    return build_dir() / "libfsr_kernels.so"
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from the sources on first call."""
-    out_dir = build_dir()
-    so = out_dir / "libfsr_kernels.so"
+    so = library_path()
+    out_dir = so.parent
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         _compile(out_dir, so)

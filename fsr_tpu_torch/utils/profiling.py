@@ -12,7 +12,7 @@ from typing import Callable, Iterable, Tuple
 
 import torch
 
-__all__ = ["cuda_time_ms", "device_trace", "busy_time"]
+__all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time"]
 
 # A torch.profiler cycle can come back with no device activity (seen once on
 # an H100 in a trace that succeeds on a second take): device_trace retakes it.
@@ -38,6 +38,17 @@ def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20) -> 
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_times_in_turn(fns: dict, rounds: int = 3, **kw) -> dict:
+    """``cuda_time_ms`` of each function of ``fns``, the functions taken in
+    turn ``rounds`` times, so that every reading sees the same clocks and
+    card state; the median per function."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(cuda_time_ms(fn, **kw))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def busy_time(intervals: Iterable[Tuple[float, float]], start: float, end: float) -> float:
