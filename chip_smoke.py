@@ -6,7 +6,11 @@
 Phases (each raises on a mismatch, so any failure exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from fsr_tpu_torch/csrc (timed);
-  3. K4 edge_pad bit-equal to edge_pad_reference on the card;
+  3. K4 edge_pad bit-equal to edge_pad_reference on the card, for every
+     dtype pair it takes, output rows of every length modulo its 16-byte
+     vector, 1, 3 and 4 planes, a 1x1 source under larger pads and a row
+     strip's pads; same-type pads also bit-equal to F.pad(mode="replicate")
+     for each dtype F.pad takes on CUDA;
   4. K1 upscale_fused against upscale_fused_reference on the card (f32
      within 6e-5; bf16 by median/p99 and max <= 2**-8), including the
      hazard cases (isolated bright pixel, DRS offset, all-black frame);
@@ -147,10 +151,11 @@ HALF2_OPS_PER_S = 134e12  # float16 pairs (__hfma2), twice the float32 rate
 # tests/test_torch_probes.py holds these to the count.  The
 # TEPD dither, LFGA grain and RGBA's bilinear alpha per output pixel, and
 # the SRTM prologue per source texel, are estimated from the sources
-# (PERF.md section 3).  The kernels do more than this (K1 and K2 recompute
-# EASU on a one-pixel ring around each 32x16 tile, 1.195x, and the prologue
-# at each of a pixel's 12 tap loads): that recompute is the kernels' cost,
-# not the function's, so the bound leaves it out.
+# (PERF.md section 3).  The kernels do more than this (K1 recomputes EASU
+# on a one-pixel ring around each 32x16 tile, 1.195x, and the prologue at
+# each of a pixel's 12 tap loads; K2 around each 32x32 tile, 1.129x): that
+# recompute is the kernels' cost, not the function's, so the bound leaves
+# it out.
 EASU_OPS = 392.75
 RCAS_OPS = 96
 EASU_RCAS_OPS = EASU_OPS + RCAS_OPS
@@ -800,21 +805,44 @@ def main() -> int:
 
     # --- 3. K4 -------------------------------------------------------------
     lap("3")
-    print("phase 3: K4 edge_pad vs edge_pad_reference (bit-equal)")
+    print("phase 3: K4 edge_pad vs edge_pad_reference (bit-equal) and vs F.pad(mode='replicate')")
     k4_err = 0.0
-    main_plan = fused.plan(MAIN_SHAPE[-2:], (2160, 3840),
-                           EasuConstants.create((1920, 1080), None, (3840, 2160)))
-    for shape, pads in ((MAIN_SHAPE, main_plan.pads), ((2, 3, 67, 131), (3, 5, 2, 7))):
+    f32, bf16, u8 = torch.float32, torch.bfloat16, torch.uint8
+    main_con = EasuConstants.create((1920, 1080), None, (3840, 2160))
+    main_plan = fused.plan(MAIN_SHAPE[-2:], (2160, 3840), main_con)
+    # A K1 row strip's pads (phase 18's 4 strips of the Performance frame).
+    from fsr_tpu_torch.parallel import spatial
+    strip_pads = fused.plan((MAIN_SHAPE[2] // 4 + 2 * spatial._HALO, MAIN_SHAPE[3]), (540, 3840),
+                            spatial._local_constants(main_con, spatial._HALO)).pads
+    pairs = ((f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16), (u8, u8))
+    k4_cases = [((2, 3, 67, 131), (3, 5, 2, 7)), ((1, 3, 1, 1), (5, 7, 9, 20)), ((3, 1, 1), (2, 0, 0, 40)),
+                ((2, 4, 9, 23), (1, 2, 3, 4)), ((1, 4, 270 + 2 * spatial._HALO, 480), strip_pads)]
+    # Output rows of every length modulo each vector (4 float32, 8 bfloat16,
+    # 16 uint8 elements), so that row starts take every 16-byte residue and
+    # the source shift every value; 3 and 4 planes.
+    k4_cases += [((2, 3 + r % 2, 5, 32 + r - r % 5 - r % 3), (1, 2, r % 5, r % 3)) for r in range(16)]
+    checks = 0
+    for shape, pads in [(MAIN_SHAPE, main_plan.pads)] + k4_cases:
         x32 = rand(shape)
-        for src, dt in ((x32, torch.float32), (x32, torch.bfloat16),
-                        (x32.to(torch.bfloat16), torch.bfloat16)):
+        srcs = {f32: x32, bf16: x32.to(bf16), u8: (x32 * 255).to(u8)}
+        for sdt, dt in pairs:
+            src = srcs[sdt]
             got = pad.edge_pad(src, pads, dt)
             want = pad.edge_pad_reference(src, pads, dt)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"K4 {shape} {src.dtype}->{dt} pads {pads}: not bit-equal")
+                raise AssertionError(f"K4 {shape} {sdt}->{dt} pads {pads}: not bit-equal")
+            if sdt == dt:  # F.pad pads without converting
+                pt, pb, pl, pr = pads
+                fp = torch.nn.functional.pad(src.unsqueeze(0) if src.dim() == 3 else src, (pl, pr, pt, pb),
+                                             mode="replicate")
+                if not torch.equal(fp.reshape(got.shape), got):
+                    raise AssertionError(f"K4 {shape} {dt} pads {pads}: differs from F.pad")
             k4_err = max(k4_err, (got.float() - want.float()).abs().max().item())
-            print(f"  {tuple(shape)} {src.dtype}->{dt} pads {pads}: bit-equal")
+            checks += 1
+        print(f"  {tuple(shape)} pads {pads}: bit-equal")
+    print(f"  {checks} pads ({len(k4_cases) + 1} shapes x {', '.join(f'{a}->{b}' for a, b in pairs)}) bit-equal "
+          f"to the plain version; the same-type pads also to F.pad")
 
     # --- 4. K1 -------------------------------------------------------------
     lap("4")

@@ -8,7 +8,8 @@
 // in output coordinates, and one rounding to the storage type at the store.
 // The TPU's hybrid X-phase, one-hot MXU row selectors, dynamic-roll column
 // gathers and one-tile software pipeline existed because a TPU has no
-// vector gather; a Hopper thread simply loads its taps.
+// vector gather; a Hopper block stages its source footprint in shared
+// memory and each thread reads its taps there.
 //
 // Coordinates: the host builds per-axis tables from the float32 coordinate
 // mapping (kernels/easu_gather.py:plan) -- for each output column X the four
@@ -29,46 +30,68 @@
 // (EpilogueParams.row0).  The kernel is the same for a whole frame and a
 // strip: only the tables differ.
 //
-// Design, as K1 (fused.cu): one block per TILE_H x TILE_W output tile.
-//   Phase 1: EASU in f32 for the tile and a one-pixel ring into shared
-//     memory.  Ring columns are clamped to the image, ring rows to the
-//     tables' -1 .. hout, whose rows outside the frame repeat its edge rows:
-//     a ring slot outside the image holds exactly the edge pixel's value, so
-//     RCAS sees e in place of the missing neighbour with no per-pixel border
-//     tests.
-//   Barrier.
-//   Phase 2: RCAS (limiter, optional denoise) and one store.
+// Design: one block per TH x TILE_W output tile (TH = FSR_K2_TILE_H), in
+// three steps.
+//   Stage: the tables are non-decreasing in the output coordinate and in
+//     the tap offset (floors of an increasing map, clipped), so the source
+//     texels that the block's tile and its one-pixel RCAS ring read form one
+//     rectangle, from the first ring pixel's dx = -1 tap to the last one's
+//     dx = +2 tap: at most (TH + 5) x (TILE_W + 5) texels for an upscale
+//     (easu_gather.py:footprint mirrors the rule; the host checks the fit
+//     before the launch).  The block loads it once, coalesced, into shared
+//     memory: each texel converted by the load rule below, tonemapped by the
+//     SRTM prologue when it is on, and its luma taken, as one float4 (r, g,
+//     b, luma).  Beside it, the block's slice of the tables as byte offsets
+//     into the footprint: per ring column the four tap columns and px, per
+//     ring row the four tap rows and py.  Ring columns are clamped to the
+//     image, ring rows to the tables' -1 .. hout, whose rows outside the
+//     frame repeat its edge rows: a ring slot outside the image holds
+//     exactly the edge pixel's value, so RCAS sees e in place of the missing
+//     neighbour with no per-pixel border tests.
+//   Barrier.  EASU in float32 for the tile and its ring into shared memory:
+//     per pixel two table entries and 12 taps, each one 16-byte shared load
+//     at the sum of its row and column offsets, then the shared resolve on
+//     the staged lumas.
+//   Barrier.  RCAS (limiter, optional denoise) and one store.
 // With apply_rcas off the kernel stores EASU directly.
 //
 // Storage: the source is float32, bfloat16 or uint8; the output float32,
 // bfloat16, or uint8/uint16 UNORM codes.  A float32 source under bfloat16
-// storage is rounded (RNE) at each load before widening, which is what
+// storage is rounded (RNE) at its load before widening, which is what
 // converting the source first would give; a byte decodes v * float32(1/255)
-// at each load and is never rounded to the storage type.
+// at its load and is never rounded to the storage type.
 //
 // Options, as easu_gather.py:919-930 and :748-784 run them: the SRTM
-// prologue on each loaded texel (srtm_window), and the K5 epilogue on the
-// float32 RCAS result at the pixel's output coordinates before the one
-// store (fsr_pixel.cuh:epilogue); the grain is plain output-space (3, Hout,
-// Wout).  Source, load-rounding and output types are template parameters;
-// the prologue and epilogue flags are uniform runtime branches.
+// prologue on each staged texel, and the K5 epilogue on the float32 RCAS
+// result at the pixel's output coordinates before the one store
+// (fsr_pixel.cuh:epilogue); the grain is plain output-space (3, Hout, Wout).
+// Source, load-rounding and output types are template parameters; the
+// prologue and epilogue flags are uniform runtime branches.
 //
 // RGBA (easu_gather.py:400-403, :757-761, :1372-1375): alpha in plane 3 of
-// the source and the output.  The store pass resolves it bilinearly from the
-// plan's rows[1..2], cols[1..2] (the clipped 'f' and next texels, the CLAMP
-// of ops.easu.bilinear) at (px, py), loaded as the colour is (rounded to the
-// storage type, or a decoded byte), never tonemapped nor touched by the
-// epilogue, and stores it by the colour's rule; RGB is as for three
-// channels, and alpha never enters the RCAS ring.  The channel count is a
-// template parameter (RGBA), so the RGB kernels carry no alpha code.
+// the source and the output.  The block stages the alpha plane of its
+// footprint beside the colour, loaded as the colour is (rounded to the
+// storage type, or a decoded byte), never tonemapped; the store pass
+// resolves it bilinearly from the tables' rows[1..2], cols[1..2] (the
+// clipped 'f' and next texels, the CLAMP of ops.easu.bilinear) at (px, py),
+// never touched by the epilogue, and stores it by the colour's rule; RGB is
+// as for three channels, and alpha never enters the RCAS ring.  The channel
+// count is a template parameter (RGBA), so the RGB kernels carry no alpha
+// code.
 //
-// Bound: f32 arithmetic, as K1 (the function needs ~565 flops per output
-// pixel; with the ring recompute the kernel runs ~660); the
-// table loads (10 per pixel, L1-resident) replace K1's phase arithmetic.
-// Device-memory traffic is one read of the source and one write of the
-// output (plus the grain's 12 bytes per pixel with LFGA; the epilogue and
-// prologue cost as in K1).  Sharing tap loads and texel responses between
-// neighbouring pixels is later work.
+// Bound: f32 arithmetic, as K1 (the function needs ~489 ops per output
+// pixel; with the ring recompute the kernel runs 1.129x that at 32 x 32,
+// where a 32 x 16 tile ran 1.195x with 156 of 768 thread slots of its ring
+// loop idle) and the instruction stream around it.  The staging takes out of the per-pixel
+// stream what the old design (one thread per pixel loading its own taps)
+// repeated at every tap: 10 global table loads and four 64-bit row offsets
+// per evaluation, and 36 global loads, each with its own conversion, SRTM
+// and a third of a luma, where a footprint texel serves about 17 taps at
+// 1.5x.  Device-memory traffic stays one read of the source and one write
+// of the output (plus the grain's 12 bytes per pixel with LFGA).  Left: the
+// ring recompute, the texel responses per pixel (sharing them per block
+// cost K1's replay as much as it saved, PERF.md), and the staging's latency,
+// which one buffer does not overlap with the math.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -81,6 +104,16 @@
 using namespace fsr;
 
 namespace {
+
+// The tile's height: 32 (measured against 16 and 28 in turn,
+// tools_torch/ablation/kernel_ab.py --define FSR_K2_TILE_H=...).
+#ifndef FSR_K2_TILE_H
+#define FSR_K2_TILE_H 32
+#endif
+constexpr int TH = FSR_K2_TILE_H;  // the tile's rows (its columns: TILE_W)
+constexpr int RH = TH + 2;         // the RCAS ring's rows
+constexpr int FP_H = RH + 3;       // the footprint's rows at most: ring rows and taps -1..2
+constexpr int FP_W = RING_W + 3;   // its columns at most
 
 struct GatherParams {
   const int* rows;   // rows[k * rstride + Y]: source row of tap dy = k - 1 of output row Y = -1..hout
@@ -95,79 +128,127 @@ struct GatherParams {
   EpilogueParams epi;
 };
 
-// EASU for output pixel (Y, X) of one frame: the tables give the 4x4 tap
-// window's rows and columns in the unpadded source, then the shared resolve
-// runs.  T is the storage type a float source rounds to, S the source's.
-template <typename T, typename S>
-__device__ __forceinline__ void easu_at(const S* __restrict__ src, const GatherParams& p, int Y,
-                                        int X, float out[3]) {
-  int64_t row[4];
-  int col[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    row[k] = (int64_t)__ldg(p.rows + k * p.rstride + Y) * p.win;
-    col[k] = __ldg(p.cols + k * p.wout + X);
-  }
-  const int64_t plane = (int64_t)p.hin * p.win;
+// One block's source footprint and its slice of the tables, in shared
+// memory.  Offsets are in bytes into tex: a tap of ring row ly and ring
+// column lx, at offsets dy, dx = -1..2, is at row[ly][dy + 1] + col[lx][dx + 1].
+template <bool RGBA>
+struct Stage {
+  float4 tex[FP_H * FP_W];                // (r, g, b, luma2), rows of the footprint's width
+  float alpha[RGBA ? FP_H * FP_W : 1];    // RGBA: the alpha plane, as tex
+  int4 col[RING_W];
+  float px[RING_W];
+  int4 row[RH];
+  float py[RH];
+};
 
+// Load the block's footprint of one frame's source and its table slice
+// (see the source note), then a barrier.  T is the storage type a float
+// source rounds to, S the source's.
+template <typename T, typename S, bool RGBA>
+__device__ __forceinline__ void stage(Stage<RGBA>& st, const S* __restrict__ src, const GatherParams& p) {
+  const int x0 = blockIdx.x * TILE_W;
+  const int y0 = blockIdx.y * TH;
+  const int r0 = __ldg(p.rows + y0 - 1);
+  const int c0 = __ldg(p.cols + max(x0 - 1, 0));
+  const int fh = __ldg(p.rows + 3 * p.rstride + min(y0 + TH, p.hout)) - r0 + 1;
+  const int fw = __ldg(p.cols + 3 * p.wout + min(x0 + TILE_W, p.wout - 1)) - c0 + 1;
+  if (fh > FP_H || fw > FP_W) __trap();  // the host's footprint check failed to hold
+  const int64_t plane = (int64_t)p.hin * p.win;
+  const S* base = src + (int64_t)r0 * p.win + c0;
+  for (int k = threadIdx.x; k < fh * fw; k += NTHREADS) {
+    const int r = k / fw;
+    const S* at = base + (int64_t)r * p.win + (k - r * fw);
+    float cr = ld_as<T>(at), cg = ld_as<T>(at + plane), cb = ld_as<T>(at + 2 * plane);
+    if (p.srtm) srtm_texel(cr, cg, cb);
+    st.tex[k] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
+    if constexpr (RGBA) st.alpha[k] = ld_as<T>(at + 3 * plane);
+  }
+  for (int i = threadIdx.x; i < RING_W + RH; i += NTHREADS) {
+    if (i < RING_W) {
+      const int* c = p.cols + min(max(x0 + i - 1, 0), p.wout - 1);
+      const int w = p.wout;
+      st.col[i] = make_int4(16 * (__ldg(c) - c0), 16 * (__ldg(c + w) - c0), 16 * (__ldg(c + 2 * w) - c0),
+                            16 * (__ldg(c + 3 * w) - c0));
+      st.px[i] = __ldg(p.px + (c - p.cols));
+    } else {
+      const int ly = i - RING_W;
+      const int Y = min(y0 + ly - 1, p.hout);
+      const int* r = p.rows + Y;
+      const int rs = p.rstride;
+      const int b = 16 * fw;
+      st.row[ly] = make_int4(b * (__ldg(r) - r0), b * (__ldg(r + rs) - r0), b * (__ldg(r + 2 * rs) - r0),
+                             b * (__ldg(r + 3 * rs) - r0));
+      st.py[ly] = __ldg(p.py + Y);
+    }
+  }
+  __syncthreads();
+}
+
+// EASU for ring pixel (ly, lx) of the block (output pixel y0 - 1 + ly,
+// x0 - 1 + lx) from the staged footprint: 12 taps and their lumas, then the
+// shared resolve.
+template <bool RGBA>
+__device__ __forceinline__ void easu_staged(const Stage<RGBA>& st, int ly, int lx, float out[3]) {
+  const int4 cv = st.col[lx];
+  const int4 rv = st.row[ly];
+  const int co[4] = {cv.x, cv.y, cv.z, cv.w};
+  const int ro[4] = {rv.x, rv.y, rv.z, rv.w};
+  const char* tex = reinterpret_cast<const char*>(st.tex);
   // The corners of the 4x4 window are unused.
-  float t[3][4][4];
+  float t[3][4][4], L[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       if ((r == 0 || r == 3) && (q == 0 || q == 3)) continue;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) t[c][r][q] = ld_as<T>(src + c * plane + row[r] + col[q]);
+      const float4 v = *reinterpret_cast<const float4*>(tex + ro[r] + co[q]);
+      t[0][r][q] = v.x;
+      t[1][r][q] = v.y;
+      t[2][r][q] = v.z;
+      L[r][q] = v.w;
     }
   }
-  if (p.srtm) srtm_window(t);
-  easu_resolve(t, __ldg(p.px + X), __ldg(p.py + Y), out);
+  easu_resolve_luma(t, L, st.px[lx], st.py[ly], out);
 }
 
-// Bilinear alpha for output pixel (Y, X) of one frame, from the tables' 'f'
-// and next rows and columns of the alpha plane.
-template <typename T, typename S>
-__device__ __forceinline__ float alpha_at(const S* __restrict__ src, const GatherParams& p, int Y,
-                                          int X) {
-  const S* a = src + 3 * (int64_t)p.hin * p.win;
-  const int64_t r0 = (int64_t)__ldg(p.rows + p.rstride + Y) * p.win;
-  const int64_t r1 = (int64_t)__ldg(p.rows + 2 * p.rstride + Y) * p.win;
-  const int c0 = __ldg(p.cols + p.wout + X);
-  const int c1 = __ldg(p.cols + 2 * p.wout + X);
-  return bilinear_alpha(ld_as<T>(a + r0 + c0), ld_as<T>(a + r0 + c1), ld_as<T>(a + r1 + c0),
-                        ld_as<T>(a + r1 + c1), __ldg(p.px + X), __ldg(p.py + Y));
+// Bilinear alpha of ring pixel (ly, lx) from the staged alpha plane, at the
+// tables' 'f' and next rows and columns.
+template <bool RGBA>
+__device__ __forceinline__ float alpha_staged(const Stage<RGBA>& st, int ly, int lx) {
+  const int4 cv = st.col[lx];
+  const int4 rv = st.row[ly];
+  const float* a = st.alpha;
+  return bilinear_alpha(a[(rv.y + cv.y) >> 4], a[(rv.y + cv.z) >> 4], a[(rv.z + cv.y) >> 4],
+                        a[(rv.z + cv.z) >> 4], st.px[lx], st.py[ly]);
 }
 
 template <typename S, typename T, typename O, bool RCAS, bool DENOISE, bool RGBA>
 __global__ void __launch_bounds__(NTHREADS)
-    gather_kernel(const S* __restrict__ src, O* __restrict__ dst, GatherParams p) {
+    staged_gather_kernel(const S* __restrict__ src, O* __restrict__ dst, GatherParams p) {
   constexpr int C = RGBA ? 4 : 3;
+  __shared__ Stage<RGBA> st;
   const int64_t n = blockIdx.z;
-  const S* s = src + n * C * (int64_t)p.hin * p.win;
+  stage<T>(st, src + n * C * (int64_t)p.hin * p.win, p);
   O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const EpilogueParams e = p.epi;
   const int wout = p.wout;
-  auto store = [=](int Y, int X, float v[3]) {
+  // The ring's origin: output pixel (y0, x0) is ring pixel (0, 0).
+  const int y0 = blockIdx.y * TH - 1;
+  const int x0 = blockIdx.x * TILE_W - 1;
+  auto store = [&](int Y, int X, float v[3]) {
     const int64_t at = (int64_t)Y * wout + X;
     epilogue(e, oplane, at, Y, X, v);
     if constexpr (RGBA)
-      st4(o, oplane, at, v, alpha_at<T>(s, p, Y, X));
+      st4(o, oplane, at, v, alpha_staged(st, Y - y0, X - x0));
     else
       st3(o, oplane, at, v);
   };
-  if constexpr (RCAS) {
-    // Ring columns clamp to the image, ring rows to the tables' -1..hout
-    // (a ragged last tile's ring reaches past hout), before the lookup.
-    auto ring = [=](int Y, int X, float v[3]) {
-      easu_at<T>(s, p, min(max(Y, -1), p.hout), min(max(X, 0), p.wout - 1), v);
-    };
-    rcas_tile<DENOISE>(ring, store, p.hout, p.wout, p.sharp);
-  } else {
-    store_tile([=](int Y, int X, float v[3]) { easu_at<T>(s, p, Y, X, v); }, store, p.hout,
-               p.wout);
-  }
+  auto pixel = [&](int Y, int X, float v[3]) { easu_staged(st, Y - y0, X - x0, v); };
+  if constexpr (RCAS)
+    rcas_tile<DENOISE, TH>(pixel, store, p.hout, p.wout, p.sharp);
+  else
+    store_tile<TH>(pixel, store, p.hout, p.wout);
 }
 
 template <typename S, typename T, typename O, bool RGBA>
@@ -176,15 +257,15 @@ int launch_planes(const void* src, void* dst, int nb, const GatherParams& p, boo
   constexpr int C = RGBA ? 4 : 3;
   const int64_t in_frame = C * (int64_t)p.hin * p.win;
   const int64_t out_frame = C * (int64_t)p.hout * p.wout;
-  return launch_frames(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
+  return launch_frames<TH>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
     const S* s = static_cast<const S*>(src) + n0 * in_frame;
     O* d = static_cast<O*>(dst) + n0 * out_frame;
     if (!rcas)
-      gather_kernel<S, T, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      staged_gather_kernel<S, T, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else if (denoise)
-      gather_kernel<S, T, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      staged_gather_kernel<S, T, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
     else
-      gather_kernel<S, T, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      staged_gather_kernel<S, T, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
   });
 }
 

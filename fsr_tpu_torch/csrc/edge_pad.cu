@@ -3,15 +3,31 @@
 //
 // Replaces the TPU kernel fsr_tpu/kernels/pad.py:edge_pad (pallas_call at
 // pad.py:132), which DMAs clamped row windows and realigns them with rolls.
-// On Hopper the same result is one thread per output element reading the
-// source at clamped indices: neighbouring threads read neighbouring
-// addresses, so the loads coalesce and the L1/L2 caches serve the replicated
-// border rows.
+//
+// Design: an aligned row copy.  One block row (blockIdx.y) per output row,
+// plane * hout + y, launched in chunks of at most 65535 rows (the grid's y
+// limit); blockIdx.x cuts the row into chunks of THREADS vectors.  The
+// source row min(max(y - pt, 0), h - 1) and the row's 64-bit base are
+// computed once per block; every index inside a row is 32-bit, and no
+// thread divides.  Each thread stores one aligned 16-byte vector of the
+// output row (4 float32, 8 bfloat16 or 16 uint8); the elements before the
+// row's first 16-byte boundary (the head: a row of wout * sizeof elements
+// need not start aligned) and after its last (the tail) are stored one by
+// one by two more threads.  A vector inside the source row's columns reads
+// its elements as they lie: for a same-type pad, as the one or two aligned
+// 16-byte source vectors that hold them, realigned with funnel shifts (the
+// shift is the same for every vector of a row, since source and output
+// advance by 16 bytes together); for a convert, one coalesced scalar load
+// per element.  A vector that reaches into the left or right pad band reads
+// each element at its clamped column: src[row][0] and src[row][w - 1]
+// replicate.
 //
 // Bound: device-memory bytes (one read of the source, one write of the
-// padded copy; no arithmetic to speak of).  The design keeps it to that
-// single pass; folding the pad into K1's loads removes it altogether and is
-// later work.
+// padded copy).  The old design (one element per thread, two 64-bit
+// divisions and remainders per element) was bound by its instruction
+// stream: its uint8 pad took as long as its float32 one.  K4 still costs a
+// pass over the source in front of every K1; folding it into K1's loads
+// waits for K1's redesign, whose staging would take the clamps.
 //
 // Bit-equal to the plain version (a clamped-index gather followed by a
 // round-to-nearest-even convert): f32->bf16 uses __float2bfloat16_rn,
@@ -28,6 +44,10 @@
 
 namespace {
 
+constexpr int THREADS = 128;
+constexpr int VEC = 16;  // bytes of one store
+constexpr int MAX_GRID_Y = 65535;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -41,39 +61,111 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 template <typename Tin, typename Tout>
-__global__ void edge_pad_kernel(const Tin* __restrict__ src, Tout* __restrict__ dst,
-                                int64_t total, int h, int w, int hout, int wout,
-                                int pt, int pl) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const int x = (int)(i % wout);
-    const int64_t t = i / wout;
-    const int y = (int)(t % hout);
-    const int64_t plane = t / hout;
-    const int sy = min(max(y - pt, 0), h - 1);
-    const int sx = min(max(x - pl, 0), w - 1);
-    const Tin v = src[(plane * h + sy) * w + sx];
+__device__ __forceinline__ Tout convert(Tin v) {
+  if constexpr (std::is_same<Tin, Tout>::value) {
+    return v;
+  } else {
+    return from_f32<Tout>(to_f32(v));
+  }
+}
+
+// An element's bits, widened to 32.
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+__device__ __forceinline__ uint32_t bits(uint8_t v) { return v; }
+
+// V = 16 / sizeof(T) elements as one 16-byte vector, little-endian.
+template <typename T, int V>
+__device__ __forceinline__ uint4 pack(const T (&e)[V]) {
+  constexpr int per = V / 4;
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[j] = 0;
+#pragma unroll
+    for (int i = 0; i < per; ++i) w[j] |= bits(e[j * per + i]) << (i * 8 * (int)sizeof(T));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 16 bytes at byte offset k (0..15) of the 32 bytes a, b.
+__device__ __forceinline__ uint4 realign(uint4 a, uint4 b, int k) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = k >> 2;
+  const int s = (k & 3) * 8;
+  uint32_t u[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    u[j] = q == 0 ? w[j] : q == 1 ? w[j + 1] : q == 2 ? w[j + 2] : w[j + 3];
+  return make_uint4(__funnelshift_r(u[0], u[1], s), __funnelshift_r(u[1], u[2], s),
+                    __funnelshift_r(u[2], u[3], s), __funnelshift_r(u[3], u[4], s));
+}
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(THREADS)
+    edge_pad_kernel(const Tin* __restrict__ src, Tout* __restrict__ dst, int64_t row0, int h, int w,
+                    int hout, int wout, int pt, int pl) {
+  constexpr int V = VEC / sizeof(Tout);
+  const int64_t row = row0 + blockIdx.y;
+  const int64_t plane = row / hout;
+  const int y = (int)(row - plane * hout);
+  const Tin* s = src + (plane * h + min(max(y - pt, 0), h - 1)) * w;
+  Tout* d = dst + row * wout;
+  const int head = min((int)((-(uintptr_t)d & (VEC - 1)) / sizeof(Tout)), wout);
+  const int nvec = (wout - head) / V;
+  const int item = blockIdx.x * THREADS + threadIdx.x;
+  auto at = [&](int x) { return convert<Tin, Tout>(s[min(max(x - pl, 0), w - 1)]); };
+
+  if (item < nvec) {
+    const int x = head + item * V;
+    const int sx = x - pl;
+    uint4* out = reinterpret_cast<uint4*>(d + x);
+    const bool inside = sx >= 0 && sx + V <= w;
     if constexpr (std::is_same<Tin, Tout>::value) {
-      dst[i] = v;
-    } else {
-      dst[i] = from_f32<Tout>(to_f32(v));
+      if (inside) {
+        const uintptr_t p = (uintptr_t)(s + sx);
+        const uint4* a = reinterpret_cast<const uint4*>(p & ~(uintptr_t)(VEC - 1));
+        const int k = (int)(p & (VEC - 1));
+        // k is the same for every vector of the row: a uniform branch.
+        *out = k == 0 ? __ldg(a) : realign(__ldg(a), __ldg(a + 1), k);
+        return;
+      }
     }
+    Tout e[V];
+    if (inside) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) e[i] = convert<Tin, Tout>(s[sx + i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) e[i] = at(x + i);
+    }
+    *out = pack(e);
+  } else if (item == nvec) {
+    for (int x = 0; x < head; ++x) d[x] = at(x);
+  } else if (item == nvec + 1) {
+    for (int x = head + nvec * V; x < wout; ++x) d[x] = at(x);
   }
 }
 
 template <typename Tin, typename Tout>
-int launch(const void* src, void* dst, int64_t planes, int h, int w, int pt, int pb,
-           int pl, int pr, cudaStream_t stream) {
+int launch(const void* src, void* dst, int64_t planes, int h, int w, int pt, int pb, int pl, int pr,
+           cudaStream_t stream) {
   const int hout = h + pt + pb;
   const int wout = w + pl + pr;
-  const int64_t total = planes * hout * wout;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < (1 << 20) ? want : (1 << 20));
-  edge_pad_kernel<Tin, Tout><<<blocks, threads, 0, stream>>>(
-      static_cast<const Tin*>(src), static_cast<Tout*>(dst), total, h, w, hout, wout, pt, pl);
-  return (int)cudaGetLastError();
+  const int64_t rows = planes * hout;
+  if (rows == 0 || wout == 0) return 0;
+  constexpr int V = VEC / sizeof(Tout);
+  // Vectors of the row at most, plus the head's and the tail's threads.
+  const int items = wout / V + 2;
+  const int gx = (items + THREADS - 1) / THREADS;
+  for (int64_t r0 = 0; r0 < rows; r0 += MAX_GRID_Y) {
+    const int ny = (int)(rows - r0 < MAX_GRID_Y ? rows - r0 : MAX_GRID_Y);
+    edge_pad_kernel<Tin, Tout><<<dim3(gx, ny), THREADS, 0, stream>>>(
+        static_cast<const Tin*>(src), static_cast<Tout*>(dst), r0, h, w, hout, wout, pt, pl);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace

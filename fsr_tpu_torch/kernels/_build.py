@@ -7,6 +7,9 @@ hashed with the sources.  The build happens at first use, into
 ``fsr_tpu_torch/_build/<hash of the sources and flags>/``, so a fresh
 checkout builds everything the first time a kernel launches and reuses the
 library afterwards.  A failed build raises with the compiler's output.
+``load`` builds another source directory or with more flags the same way
+(the measurement tools build a parent commit's kernels and variants beside
+these); ``library`` is the package's own.
 
 Nothing here runs at import: the CPU tests import every module on machines
 with no ``nvcc``.
@@ -23,7 +26,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "library_path", "build_dir", "cuda_tool", "NVCC_FLAGS"]
+__all__ = ["library", "load", "library_path", "build_dir", "cuda_tool", "NVCC_FLAGS"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -36,8 +39,8 @@ NVCC_FLAGS = (
 )
 
 
-def _sources():
-    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def _sources(csrc: pathlib.Path = _CSRC):
+    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def cuda_tool(name: str) -> str:
@@ -52,12 +55,12 @@ def cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} on PATH)")
 
 
-def build_dir() -> pathlib.Path:
+def build_dir(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> pathlib.Path:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in _sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return _BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -87,7 +90,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsr_fp16_probe.restype = i
 
 
-def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
+def _compile(out_dir: pathlib.Path, so: pathlib.Path, csrc: pathlib.Path, flags) -> None:
     """One nvcc per .cu source, all started together, then one link.  Objects
     go to a private scratch directory, so concurrent builders never share a
     file; the library appears at ``so`` atomically."""
@@ -95,9 +98,9 @@ def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
     work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     try:
         jobs = []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
+        for src in (p for p in _sources(csrc) if p.suffix == ".cu"):
             obj = work / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((cmd, obj, proc))
         log, failed = [], []
@@ -108,7 +111,7 @@ def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
                 failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out}")
         if not failed:
             lib = work / "lib.so"
-            cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(lib), *(str(o) for _, o, _ in jobs)]
+            cmd = [nvcc, "-shared", *flags[:2], "-o", str(lib), *(str(o) for _, o, _ in jobs)]
             res = subprocess.run(cmd, capture_output=True, text=True)
             log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
             if res.returncode != 0:
@@ -122,19 +125,26 @@ def _compile(out_dir: pathlib.Path, so: pathlib.Path) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def library_path() -> pathlib.Path:
-    """Where ``library`` builds the shared library."""
-    return build_dir() / "libfsr_kernels.so"
+def library_path(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> pathlib.Path:
+    """Where ``load`` builds the shared library of ``csrc`` under ``flags``."""
+    return build_dir(csrc, flags) / "libfsr_kernels.so"
+
+
+def load(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> ctypes.CDLL:
+    """The shared library of the sources in ``csrc`` (a directory with this
+    package's C interface) compiled with ``flags``, built on first call."""
+    so = library_path(csrc, flags)
+    out_dir = so.parent
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        _compile(out_dir, so, csrc, tuple(flags))
+    lib = ctypes.CDLL(str(so))
+    _declare(lib)
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built from the sources on first call."""
-    so = library_path()
-    out_dir = so.parent
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        _compile(out_dir, so)
-    lib = ctypes.CDLL(str(so))
-    _declare(lib)
-    return lib
+    """The kernels' shared library, built from the package's sources on
+    first call."""
+    return load()

@@ -14,6 +14,13 @@ device never recomputes a coordinate.  ``easu_gather`` launches
 ``csrc/easu_gather.cu`` for a CUDA tensor and counts the launch in
 ``easu_gather.launches``; for a CPU tensor it runs ``easu_gather_reference``.
 
+Each block of the kernel stages its source footprint in shared memory: the
+rectangle of texels its TILE output pixels and their RCAS ring read, which
+the tables' monotonicity bounds by the first ring pixel's first tap and the
+last one's last tap.  ``footprint`` computes it as the device does, and
+``easu_gather`` checks before the launch that every block's fits
+``FOOTPRINT_MAX`` and holds every tap of its pixels.
+
 Options, as K1 takes them (``kernels/fused.py``): a uint8 image (decoded
 at each load, never rounded to the storage type), the SRTM prologue, the
 K5 epilogue with plain output-space grain (``kernels/epilogue.py``),
@@ -51,8 +58,15 @@ from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import fused, pad
 from fsr_tpu_torch.ops.easu import easu_coords
 
-__all__ = ["supported", "GatherPlan", "plan", "shard_rows", "shard_plan", "easu_gather",
-           "easu_gather_reference"]
+__all__ = ["supported", "GatherPlan", "plan", "shard_rows", "shard_plan", "Footprint", "footprint",
+           "easu_gather", "easu_gather_reference", "TILE", "FOOTPRINT_MAX"]
+
+# csrc/easu_gather.cu: one block per TILE = (TH, TILE_W) output pixels, and
+# the largest source footprint a block stages, (TH + 5, TILE_W + 5): its
+# tile and one-pixel RCAS ring, and their taps -1..2.  An upscale (at most
+# one source texel per output pixel on each axis) always fits.
+TILE = (32, 32)
+FOOTPRINT_MAX = (TILE[0] + 5, TILE[1] + 5)
 
 
 def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
@@ -66,7 +80,11 @@ def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=N
         return False
     hout, wout = out_size
     hin, win = in_shape[-2:]
-    return min(hin, win) >= 1 and hout >= hin and wout >= win
+    if not (min(hin, win) >= 1 and hout >= hin and wout >= win):
+        return False
+    # The constants' own scale must be an upscale too (a viewport larger
+    # than the output is a downscale whatever the image's size).
+    return footprint(plan((int(hin), int(win)), (int(hout), int(wout)), con)).fits
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -133,6 +151,47 @@ def shard_plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConst
     full = plan(in_hw, out_size, con)
     rows = (base.astype(np.int64)[None, :] + _D).astype(np.int32)
     return GatherPlan(rows=rows, cols=full.cols, py=py, px=full.px)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Footprint:
+    """The source rectangle each block of K2 stages, per axis: for block row
+    i, source rows r0[i] .. r0[i] + h[i] - 1; for block column j, columns
+    c0[j] .. c0[j] + w[j] - 1.  ``fits``: every block's is at most
+    FOOTPRINT_MAX and holds every tap row and column of its tile and ring."""
+
+    r0: np.ndarray
+    h: np.ndarray
+    c0: np.ndarray
+    w: np.ndarray
+    fits: bool
+
+
+def _ring(n: int, size: int, lo: int, hi: int) -> np.ndarray:
+    """(blocks, size + 2): each block's ring coordinates, one before its
+    ``size`` pixels to one past them, clamped to lo..hi."""
+    start = np.arange(0, n, size)[:, None] - 1
+    return np.clip(start + np.arange(size + 2)[None, :], lo, hi)
+
+
+@functools.lru_cache(maxsize=256)
+def footprint(gplan: GatherPlan) -> Footprint:
+    """The device's rule (csrc/easu_gather.cu:stage), block by block: rows
+    from the first ring row's dy = -1 tap to the last ring row's dy = +2
+    tap, columns likewise; ring rows clamped to the tables' -1..Hout, ring
+    columns to the image.  The tables are non-decreasing, so the rule bounds
+    every tap; ``fits`` checks that it does and that the rectangle fits."""
+    hout, wout = gplan.rows.shape[1] - 2, gplan.cols.shape[1]
+    rows = _ring(hout, TILE[0], -1, hout) + 1  # row tables start at output row -1
+    cols = _ring(wout, TILE[1], 0, wout - 1)
+    r0, r1 = gplan.rows[0][rows[:, 0]], gplan.rows[3][rows[:, -1]]
+    c0, c1 = gplan.cols[0][cols[:, 0]], gplan.cols[3][cols[:, -1]]
+    taps_r, taps_c = gplan.rows[:, rows], gplan.cols[:, cols]  # (4, blocks, ring)
+    fits = bool(
+        (r1 - r0 + 1 <= FOOTPRINT_MAX[0]).all() and (c1 - c0 + 1 <= FOOTPRINT_MAX[1]).all()
+        and (taps_r.min(axis=(0, 2)) >= r0).all() and (taps_r.max(axis=(0, 2)) <= r1).all()
+        and (taps_c.min(axis=(0, 2)) >= c0).all() and (taps_c.max(axis=(0, 2)) <= c1).all())
+    return Footprint(r0=r0, h=r1 - r0 + 1, c0=c0, w=c1 - c0 + 1, fits=fits)
 
 
 @functools.lru_cache(maxsize=64)
@@ -237,6 +296,9 @@ def easu_gather(
         raise TypeError(f"gather kernel takes float32/bfloat16/uint8 images, got {image.dtype}")
     gplan, (hout, wout), sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas,
                                                   compute_dtype, prologue, out_dtype, row_plan)
+    if not footprint(gplan).fits:
+        raise ValueError(f"K2's blocks cannot stage the source footprint of this plan ({tuple(image.shape[-2:])} -> "
+                         f"{(hout, wout)}): the constants' scale is a downscale, or its tables decrease")
     epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device, row_offset)
     image = image.contiguous()
     *lead, nc, hin, win = image.shape

@@ -315,4 +315,5 @@ def test_port_and_tools_leave_jax_out():
         "print(len([m for m in sys.modules if m.startswith('tools_torch.')]), bad)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
-    assert res.stdout.split(None, 1) == ["4", "[]\n"]
+    # tools_torch.ablation and its four tools (kernel_ab among them).
+    assert res.stdout.split(None, 1) == ["5", "[]\n"]

@@ -59,10 +59,15 @@ RING = (probes.TILE[0] + 2) * (probes.TILE[1] + 2) / (probes.TILE[0] * probes.TI
 # The data sheet's float32 rate outside the tensor cores (H100 SXM, 700 W).
 F32_TFLOPS = fused_roofline.PEAK_TFLOPS[torch.float32]
 # sass_counts: the kernels it reads (a label, a piece of the mangled name:
-# K1 is fused_kernel<float, float, RCAS, no denoise, RGB>) and the
+# K1 is fused_kernel<float, float, RCAS, no denoise, RGB>, K2 its
+# <float, float, float, ...> twin, staged_gather_kernel since K2 stages its
+# source footprint and gather_kernel in a build of the per-pixel design
+# before it, the length prefixes keeping the two apart) and the
 # instructions it prints.
 SASS_KERNELS = (("K1 f32", "fused_kernelIffLb1ELb0ELb0E"), ("P1", "replay_kernelILb1E"),
-                ("P1 EASU only", "replay_kernelILb0E"), ("P2", "replay_shared_kernel"))
+                ("P1 EASU only", "replay_kernelILb0E"), ("P2", "replay_shared_kernel"),
+                ("K2 f32", "20staged_gather_kernelIfffLb1ELb0ELb0E"),
+                ("K2 f32 per-pixel", "13gather_kernelIfffLb1ELb0ELb0E"))
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "MUFU", "IMAD", "IADD3", "LOP3", "LEA", "SHF",
             "LDS", "LDG", "LDC", "STS", "STG", "BAR")
 # One instruction of cuobjdump -sass: "/*0a30*/  @!P0 FFMA.FTZ R1, ..."
@@ -156,16 +161,19 @@ def parse_sass(lines) -> dict:
     return counts
 
 
-def sass_counts() -> dict:
-    """``parse_sass`` of the built library's ``cuobjdump -sass``.  The
-    counts are static: each instruction of a kernel's code once, a tile
-    loop's body once.  They show whether nvcc kept the replays' math (their
-    float instructions beside K1's) and that their taps are LDS where K1's
-    are LDG."""
+def sass_counts(library=None) -> dict:
+    """``parse_sass`` of ``cuobjdump -sass`` of the library at path
+    ``library`` (default: the package's, built first).  The counts are
+    static: each instruction of a kernel's code once, a tile loop's body
+    once.  They show whether nvcc kept the replays' math (their float
+    instructions beside K1's), that their taps are LDS where K1's are LDG,
+    and K2's instruction mix beside K1's."""
     from fsr_tpu_torch.kernels import _build
 
-    _build.library()
-    cmd = [_build.cuda_tool("cuobjdump"), "-sass", str(_build.library_path())]
+    if library is None:
+        _build.library()
+        library = _build.library_path()
+    cmd = [_build.cuda_tool("cuobjdump"), "-sass", str(library)]
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
         counts = parse_sass(proc.stdout)
     if proc.returncode != 0:
