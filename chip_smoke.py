@@ -13,24 +13,30 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      for each dtype F.pad takes on CUDA;
   4. K1 upscale_fused against upscale_fused_reference on the card (f32
      within 6e-5; bf16 by median/p99 and max <= 2**-8), including the
-     hazard cases (isolated bright pixel, DRS offset, all-black frame);
+     hazard cases (isolated bright pixel, DRS offset, all-black frame); the
+     quad path (2x) bit-equal to the generic staged path on the same frames,
+     and K1 on the K4-padded frame (upscale_padded) bit-equal to K1 on the
+     image;
   5. fsr_tpu_torch.upscale(preset="performance") against the port's numpy
      oracle at 540p -> 1080p f32 (max-abs <= 2e-5);
   6. the Performance path: upscale(x, preset="performance") on a (4, 3,
      1080, 1920) CUDA tensor in f32 and bf16, held against
-     upscale_fused_reference (the phase-4 limits), with launch counts and
-     CUDA-event times of each kernel beside its plain version;
+     upscale_fused_reference (the phase-4 limits), with launch counts (one
+     K1, no K4) and CUDA-event times of each kernel beside its plain
+     version (K4 timed on its own at this shape);
   7. K2 easu_gather against easu_gather_reference (the phase-4 limits) at
      every preset ratio, native 1x, a ragged ratio, 2x with an odd width, a
      DRS offset, bf16, EASU-only, denoise, batch 2 and the hazard cases;
-  8. K3 rcas_fused against rcas_fused_reference (the same limits): clamp
-     and zero borders, denoise, bf16, an isolated pixel, a ragged image;
+  8. K3 rcas_fused against rcas_fused_reference (the same limits; uint8
+     bit-equal): clamp and zero borders, denoise, bf16, an isolated pixel, a
+     ragged image; then every storage type at widths of every residue of
+     its 16-byte vector and from an unaligned row start;
   9. upscale(preset="quality") at 720p -> 1080p and sharpen at 1080p, f32,
      against the numpy oracle (max-abs <= 2e-5);
  10. the Quality path: upscale(x, preset="quality") on a (4, 3, 1440, 2560)
      CUDA tensor (-> 4K) and sharpen(y) on a (4, 3, 2160, 3840) one, in f32
      and bf16, held against their plain versions, with launch counts (K2 on
-     the Quality path and K1, K4 not; K3 on sharpen) and CUDA-event times;
+     the Quality path and K1 not; K3 on sharpen) and CUDA-event times;
  11. with --trace only: a torch.profiler trace of the Performance path, the
      Quality path and sharpen (device time per kernel, busy time and idle
      share of the window);
@@ -45,10 +51,10 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      limits and against the plain-torch pipeline, CUDA-event times beside
      the same upscale without the epilogue and the plain versions): (a) the
      HDR frame tail UpscalePipeline((2160, 3840), hdr_srtm=True,
-     grain_amount=0.3, dither_bits=10) on float32 1080p frames (K4 + K1),
+     grain_amount=0.3, dither_bits=10) on float32 1080p frames (K1),
      (b) the display path (grain, 8-bit dither, uint8 out, bf16 storage) on
      uint8 1440p frames (K2), (c) the byte video path upscale(frame_u8,
-     scale=2.0, out_dtype=uint8) (K4 + K1 on bytes), and sharpen on uint8 4K
+     scale=2.0, out_dtype=uint8) (K1 on bytes), and sharpen on uint8 4K
      frames (K3);
  14. with --trace only: traces of (a) and (b), which must show only their
      kernels;
@@ -58,8 +64,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      plain versions: alpha bit-equal, RGB bit-equal to the 3-channel call of
      the same kernel and within the phase-12 limits of the plain version;
  16. the RGBA paths on batches of 4: (d) upscale(rgba, preset="performance")
-     on (4, 4, 1080, 1920) float32 and uint8 (-> uint8), exactly one K4 and
-     one K1 each, (e) upscale(rgba, preset="quality") on (4, 4, 1440, 2560)
+     on (4, 4, 1080, 1920) float32 and uint8 (-> uint8), exactly one K1
+     each, (e) upscale(rgba, preset="quality") on (4, 4, 1440, 2560)
      bfloat16, exactly one K2; the same checks, and CUDA-event times of each
      kernel and the same call on the RGB slice, taken in turn (with --trace,
      traces of both, which must show only those kernels);
@@ -70,7 +76,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      through K3 (one launch), within one half step of its plain version;
      times of both, the float16 upscale at batch 4 beside K1;
  18. row-sharded execution (fsr_tpu_torch.parallel) on meshes of the card
-     repeated: at small sizes K4 + K1 with row_offset/global_rows (2x, 4x,
+     repeated: at small sizes K1 with row_offset/global_rows (2x, 4x,
      2x rows by 1x columns; 2, 4 and 8 strips) and K2 with per-strip row
      plans (1.5x, 1.3x, ~1.7x, a DRS offset; 2, 3 and 4 strips), and each
      storage type, code, epilogue and RGBA option on 4 strips, each
@@ -117,6 +123,11 @@ import numpy as np
 import torch
 
 F32_TOL = 6e-5
+# The kernels' readings (K* and the library call) bracket this many calls
+# queued back to back per CUDA-event sample (profiling.cuda_time_ms): each
+# call's host work overlaps the kernels before it, so they read device time
+# per call.  The "call" readings stay one call each (latency, host included).
+KQ = dict(queue=10)
 BF16_MAX = 2.0 ** -8
 BF16_MEDIAN = 1.0 / 1250.0
 BF16_P99 = 1.25 / 255.0
@@ -152,10 +163,10 @@ HALF2_OPS_PER_S = 134e12  # float16 pairs (__hfma2), twice the float32 rate
 # TEPD dither, LFGA grain and RGBA's bilinear alpha per output pixel, and
 # the SRTM prologue per source texel, are estimated from the sources
 # (PERF.md section 3).  The kernels do more than this (K1 recomputes EASU
-# on a one-pixel ring around each 32x16 tile, 1.195x, and the prologue at
-# each of a pixel's 12 tap loads; K2 around each 32x32 tile, 1.129x): that
-# recompute is the kernels' cost, not the function's, so the bound leaves
-# it out.
+# on a one-pixel ring around each 30x30 tile, 1.138x; K2 around each 32x32
+# tile, 1.129x; both run the prologue once per staged texel, and a block's
+# window re-reads the texels of its neighbours' windows): that recompute is
+# the kernels' cost, not the function's, so the bound leaves it out.
 EASU_OPS = 392.75
 RCAS_OPS = 96
 EASU_RCAS_OPS = EASU_OPS + RCAS_OPS
@@ -348,18 +359,20 @@ def _drive(fn, need):
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """K4, K1 and K2's plain versions in place of their wrappers, so that a
-    path runs on the card with the same inputs and no kernel."""
+    """K1's (both entry points), K2's and K4's plain versions in place of
+    their wrappers, so that a path runs on the card with the same inputs and
+    no kernel."""
     from fsr_tpu_torch.kernels import easu_gather, fused, pad
 
-    saved = pad.edge_pad, fused.upscale_padded, easu_gather.easu_gather
+    saved = pad.edge_pad, fused.upscale_padded, fused.upscale_fused, easu_gather.easu_gather
     pad.edge_pad = pad.edge_pad_reference
     fused.upscale_padded = fused.upscale_padded_reference
+    fused.upscale_fused = fused.upscale_fused_reference
     easu_gather.easu_gather = easu_gather.easu_gather_reference
     try:
         yield
     finally:
-        pad.edge_pad, fused.upscale_padded, easu_gather.easu_gather = saved
+        pad.edge_pad, fused.upscale_padded, fused.upscale_fused, easu_gather.easu_gather = saved
 
 
 def _check_sharded(got, want, plain, epi, what) -> float:
@@ -386,7 +399,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     full-width run.  Returns its entries of the kernels line."""
     import fsr_tpu_torch as ft
     from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-    from fsr_tpu_torch.kernels import easu_gather, fused, pad
+    from fsr_tpu_torch.kernels import easu_gather, fused
     from fsr_tpu_torch.kernels.epilogue import Epilogue
     from fsr_tpu_torch.parallel import sharding, spatial
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn, device_trace
@@ -440,7 +453,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         kw = dict(kw, grain=torch.rand((3, *out_hw), generator=gen, device=dev) - 0.5,
                   dither_page=torch.rand((24, 40), generator=gen, device=dev))
         kname = what[:2]
-        need = {"K4": n, "K1": n} if kname == "K1" else {"K2": n}
+        need = {kname: n}
         got, _ = _drive(lambda: spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw), need)
         want = ft.upscale(x, out_size=out_hw, impl="kernel", **kw)
         with _plain_kernels():
@@ -472,19 +485,19 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     runs = [
         # name, sharded call, unsharded call, launches, sharded call on a mesh (None: no run across cards)
         ("(i) performance f32, sp=4", lambda: spatial.upscale_spatial_sharded(frames, out4k, mesh(4)),
-         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K4": 4, "K1": 4},
+         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K1": 4},
          lambda m: spatial.upscale_spatial_sharded(frames, out4k, m)),
         ("(ii) quality bf16, sp=4",
          lambda: spatial.upscale_spatial_sharded(qframes, out4k, mesh(4), compute_dtype=bf16),
          lambda: ft.upscale(qframes, preset="quality", compute_dtype=bf16, impl="kernel"), {"K2": 4},
          lambda m: spatial.upscale_spatial_sharded(qframes, out4k, m, compute_dtype=bf16)),
         ("(iii) HDR tail (a), sp=4", lambda: pipes_a(hdr, grain=grain4k, frame=7),
-         lambda: pipe_a(hdr, grain=grain4k, frame=7), {"K4": 4, "K1": 4}, None),
+         lambda: pipe_a(hdr, grain=grain4k, frame=7), {"K1": 4}, None),
         ("(iv) display (b) with a dither page, u8 ->u8, sp=4", lambda: pipes_b(q8, grain=grain4k, frame=7),
          lambda: pipe_b(q8, grain=grain4k, frame=7), {"K2": 4}, None),
         ("(v) performance f32, dp=2 x sp=2",
          lambda: spatial.upscale_spatial_sharded(frames, out4k, dpsp, axis="sp", batch_axis="dp"),
-         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K4": 4, "K1": 4}, None),
+         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K1": 4}, None),
     ]
     full = {}
     print(f"  full width, batch {nframes}, on {card}; mesh [{dev}] * 4:")
@@ -526,35 +539,30 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                 print(f"      {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname[:100]}")
 
     # The strips' kernels alone, in turn with the unsharded kernel.
-    sharp = float(RcasConstants(0.25).sharpness)
     (ph, pw), (qh, qw) = MAIN_SHAPE[2:], QUALITY_SHAPE[2:]
     pcon = EasuConstants.create((pw, ph), None, out4k[::-1])
     qcon = EasuConstants.create((qw, qh), None, out4k[::-1])
     rcon = RcasConstants(0.25)
     n, hl = 4, out4k[0] // 4
     strips = spatial._exchange_halo([frames[..., k * ph // n:(k + 1) * ph // n, :] for k in range(n)], spatial._HALO)
-    lplan = fused.plan((ph // n + 2 * spatial._HALO, pw), (hl, out4k[1]),
-                       spatial._local_constants(pcon, spatial._HALO))
-    pstrips = [pad.edge_pad(s, lplan.pads, f32) for s in strips]
-    fplan = fused.plan((ph, pw), out4k, pcon)
-    padded = pad.edge_pad(frames, fplan.pads, f32)
+    lcon = spatial._local_constants(pcon, spatial._HALO)
     qstrips = spatial._exchange_halo([qframes[..., k * qh // n:(k + 1) * qh // n, :] for k in range(n)],
                                      spatial._GHALO)
     gplans = [easu_gather.shard_plan((qh, qw), out4k, qcon, n, k, spatial._GHALO) for k in range(n)]
 
-    def k1_strips(fn=fused.upscale_padded):
-        return [fn(p, lplan, (hl, out4k[1]), sharp, row_offset=k * hl, global_rows=out4k[0])
-                for k, p in enumerate(pstrips)]
+    def k1_strips(fn=fused.upscale_fused):
+        return [fn(s, (hl, out4k[1]), lcon, rcon, row_offset=k * hl, global_rows=out4k[0])
+                for k, s in enumerate(strips)]
 
     def k2_strips(fn=easu_gather.easu_gather):
         return [fn(s, (hl, out4k[1]), qcon, rcon, True, False, bf16, row_plan=gplans[k], row_offset=k * hl)
                 for k, s in enumerate(qstrips)]
 
     tk = cuda_times_in_turn({
-        "K1 x4 strips": k1_strips, "K1 unsharded": lambda: fused.upscale_padded(padded, fplan, out4k, sharp),
+        "K1 x4 strips": k1_strips, "K1 unsharded": lambda: fused.upscale_fused(frames, out4k, pcon, rcon),
         "K2 x4 strips": k2_strips,
-        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16)})
-    tk["K1 x4 strips, plain"] = cuda_time_ms(lambda: k1_strips(fused.upscale_padded_reference), warmup=1, iters=3)
+        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16)}, **KQ)
+    tk["K1 x4 strips, plain"] = cuda_time_ms(lambda: k1_strips(fused.upscale_fused_reference), warmup=1, iters=3)
     tk["K2 x4 strips, plain"] = cuda_time_ms(lambda: k2_strips(easu_gather.easu_gather_reference),
                                              warmup=1, iters=3)
     for k, v in tk.items():
@@ -588,7 +596,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     return [
         _kernel_entry("upscale_fused (K1), row-sharded: performance f32, sp=4", "fsr_tpu_torch/csrc/fused.cu",
                       "fsr_tpu/kernels/fused.py:403", k1_full["launches"]["K1"], small_err["K1"],
-                      tk["K1 x4 strips"], tk["K1 x4 strips, plain"], _nbytes(*pstrips) + k1_full["nbytes"],
+                      tk["K1 x4 strips"], tk["K1 x4 strips, plain"], _nbytes(*strips) + k1_full["nbytes"],
                       EASU_RCAS_OPS * npix),
         _kernel_entry("easu_gather (K2), row-sharded: quality bf16, sp=4", "fsr_tpu_torch/csrc/easu_gather.cu",
                       "fsr_tpu/kernels/easu_gather.py:350", k2_full["launches"]["K2"], small_err["K2"],
@@ -794,9 +802,17 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2: built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s")
+    entries, spills, entry = 0, [], None
     for line in (_build.build_dir() / "build.log").read_text().splitlines():
         if "Used" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+        if "Compiling entry" in line:
+            entry, entries = line.split("'")[1], entries + 1
+        elif "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill stores"):
+            spills.append(f"{entry}: {line.strip()}")
+    print(f"  ptxas: {entries} kernel instantiations, {len(spills)} with a stack frame or spills")
+    for line in spills:
+        print("    " + line)
 
     rng = np.random.default_rng(0)
 
@@ -822,6 +838,7 @@ def main() -> int:
     # the source shift every value; 3 and 4 planes.
     k4_cases += [((2, 3 + r % 2, 5, 32 + r - r % 5 - r % 3), (1, 2, r % 5, r % 3)) for r in range(16)]
     checks = 0
+    pad.edge_pad.launches = 0  # K4's launches in the kernels line: this phase's
     for shape, pads in [(MAIN_SHAPE, main_plan.pads)] + k4_cases:
         x32 = rand(shape)
         srcs = {f32: x32, bf16: x32.to(bf16), u8: (x32 * 255).to(u8)}
@@ -841,8 +858,9 @@ def main() -> int:
             k4_err = max(k4_err, (got.float() - want.float()).abs().max().item())
             checks += 1
         print(f"  {tuple(shape)} pads {pads}: bit-equal")
+    k4_launches = pad.edge_pad.launches
     print(f"  {checks} pads ({len(k4_cases) + 1} shapes x {', '.join(f'{a}->{b}' for a, b in pairs)}) bit-equal "
-          f"to the plain version; the same-type pads also to F.pad")
+          f"to the plain version; the same-type pads also to F.pad; {k4_launches} K4 launches")
 
     # --- 4. K1 -------------------------------------------------------------
     lap("4")
@@ -863,6 +881,28 @@ def main() -> int:
         ("4x", (1, 3, 135, 240), (540, 960), torch.float32, True, False, 0.25),
         ("2x rows 1x cols", (1, 3, 64, 128), (128, 128), torch.float32, True, False, 0.25),
     ]
+    quads = 0
+
+    def paths_agree(x, out_hw, con, rcon, rcas, denoise, dt, got, what):
+        """The generic staged path bit-equal to ``got`` (the quad path where
+        the plan takes it), and K1 on the K4-padded frame bit-equal too."""
+        nonlocal quads
+        fplan = fused.plan(tuple(x.shape[-2:]), out_hw, con)
+        gen_ = fused.upscale_fused(x, out_hw, con, rcon, rcas, denoise, dt, path="generic")
+        padded = pad.edge_pad(x, fplan.pads, dt)
+        sharp_ = float(rcon.sharpness)
+        on_padded = fused.upscale_padded(padded, fplan, out_hw, sharp_, rcas, denoise)
+        torch.cuda.synchronize()
+        quad = fused.quad_ok(fused.source_plan(fplan))
+        if not torch.equal(gen_, got):
+            raise AssertionError(f"{what}: the generic staged path differs from the "
+                                 f"{'quad' if quad else 'generic'} path in {int((gen_ != got).sum())} values")
+        if not torch.equal(on_padded, got):
+            raise AssertionError(f"{what}: K1 on the K4-padded frame differs from K1 on the image")
+        quads += quad
+        print(f"  {what}: {'quad path bit-equal to the generic staged path' if quad else 'generic path'}; "
+              "bit-equal to K1 on the K4-padded frame")
+
     for what, shape, out_hw, dt, rcas, denoise, stops in cases:
         x = rand(shape)
         con, rcon = con_for(shape[-2:], out_hw), RcasConstants(stops)
@@ -870,6 +910,7 @@ def main() -> int:
         want = fused.upscale_fused_reference(x, out_hw, con, rcon, rcas, denoise, dt)
         torch.cuda.synchronize()
         err = _compare(got, want, what)
+        paths_agree(x.to(dt), out_hw, con, rcon, rcas, denoise, dt, got, what)
         if dt == torch.float32:
             k1_err = max(k1_err, err)
 
@@ -891,6 +932,9 @@ def main() -> int:
         want = fused.upscale_fused_reference(x, out_hw, con, rcon, True, False, torch.float32)
         torch.cuda.synchronize()
         k1_err = max(k1_err, _compare(got, want, what))
+        paths_agree(x, out_hw, con, rcon, True, False, torch.float32, got, what)
+    if quads < 8:
+        raise AssertionError(f"only {quads} phase-4 cases took the quad path")
 
     # --- 5. oracle ---------------------------------------------------------
     lap("5")
@@ -916,17 +960,15 @@ def main() -> int:
     frames = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
     nframes = MAIN_SHAPE[0]
     out_shape = MAIN_SHAPE[:-2] + (2160, 3840)
-    launches = {"K4": 0, "K1": 0, "K2": 0, "K3": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0}
     con = EasuConstants.create((1920, 1080), None, (3840, 2160))
     rcon = RcasConstants(0.25)
-    sharp = float(rcon.sharpness)
     print(f"phase 6: main path upscale(x, preset='performance') on {MAIN_SHAPE}")
     for dt in (torch.float32, torch.bfloat16):
         x = frames.to(dt)
-        out, n = drive(lambda: ft.upscale(x, preset="performance", compute_dtype=dt), ("K4", "K1"))
+        out, n = drive(lambda: ft.upscale(x, preset="performance", compute_dtype=dt), ("K1",))
         if tuple(out.shape) != out_shape or out.dtype != dt or out.device != x.device:
             raise AssertionError(f"main path {dt}: got {tuple(out.shape)} {out.dtype} {out.device}")
-        launches["K4"] += n["K4"]
         launches["K1"] += n["K1"]
         print(f"  {dt}: out {tuple(out.shape)}; launches {n}")
         # The batch and the 4K tile grid held against the plain version.
@@ -939,37 +981,39 @@ def main() -> int:
     timings = {}
     for dt in (torch.float32, torch.bfloat16):
         x = frames.to(dt)
-        padded = pad.edge_pad(x, main_plan.pads, dt)
         t = {
             "call": cuda_time_ms(lambda: ft.upscale(x, preset="performance", compute_dtype=dt)),
             "call_b2b": _back_to_back_ms(lambda: ft.upscale(x, preset="performance", compute_dtype=dt)),
             "call_plain": cuda_time_ms(
                 lambda: fused.upscale_fused_reference(x, (2160, 3840), con, rcon, True, False, dt),
                 warmup=1, iters=5),
-            "K4": cuda_time_ms(lambda: pad.edge_pad(x, main_plan.pads, dt)),
+            "K4": cuda_time_ms(lambda: pad.edge_pad(x, main_plan.pads, dt), **KQ),
             "K4_plain": cuda_time_ms(lambda: pad.edge_pad_reference(x, main_plan.pads, dt)),
-            "K1": cuda_time_ms(lambda: fused.upscale_padded(padded, main_plan, (2160, 3840), sharp)),
-            "K1_plain": cuda_time_ms(
-                lambda: fused.upscale_padded_reference(padded, main_plan, (2160, 3840), sharp),
-                warmup=1, iters=5),
+            "K1": cuda_time_ms(lambda: fused.upscale_fused(x, (2160, 3840), con, rcon, True, False, dt), **KQ),
+            "K1 generic path": cuda_time_ms(
+                lambda: fused.upscale_fused(x, (2160, 3840), con, rcon, True, False, dt, path="generic"), **KQ),
         }
         if dt == torch.float32:
             # The one PyTorch call that computes K4's function (timed, never
             # called by the port): F.pad takes (left, right, top, bottom).
             pt, pb, pl, pr = main_plan.pads
             t["K4_library"] = cuda_time_ms(
-                lambda: torch.nn.functional.pad(x, (pl, pr, pt, pb), mode="replicate"))
+                lambda: torch.nn.functional.pad(x, (pl, pr, pt, pb), mode="replicate"), **KQ)
+            padded = pad.edge_pad(x, main_plan.pads, dt)
             if not torch.equal(torch.nn.functional.pad(x, (pl, pr, pt, pb), mode="replicate"), padded):
                 raise AssertionError("F.pad(mode='replicate') does not compute K4's function")
-            main_bytes = {"K4": _nbytes(x, padded), "K1": _nbytes(padded) + _nbytes(x) * 4}
+            main_bytes = {"K4": _nbytes(x, padded), "K1": _nbytes(x) * 5}
+            del padded
         timings[dt] = t
         print(f"  times {dt}, median CUDA-event ms per 4K frame (batch {nframes}) on {card}:")
         for k, v in t.items():
             print(f"    {k:>10}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
     t32 = timings[torch.float32]
     print("  call: median latency of one call (host work included); call_b2b: per call with "
-          "10 calls queued back to back; K4, K1: the kernels alone; *_plain: their plain "
-          "torch versions on the card")
+          "10 calls queued back to back; call_plain: K1's plain version (K4's and K1's); K1: the "
+          "kernel alone (the quad path), 10 calls queued per sample, K1 generic path: the same on its "
+          "generic staged path; K4: "
+          "the pad alone, not on this path; *_plain: plain torch versions on the card")
     print(f"  f32 output rate: {nframes * 2160 * 3840 / (t32['call'] * 1e-3) / 1e6:.1f} Mpix/s; "
           f"bf16: {nframes * 2160 * 3840 / (timings[torch.bfloat16]['call'] * 1e-3) / 1e6:.1f} Mpix/s")
 
@@ -1044,6 +1088,39 @@ def main() -> int:
         err = _compare(got, want, what)
         if dt == torch.float32:
             k3_err = max(k3_err, err)
+    # K3 stages and stores 16-byte vectors: every storage type at widths of
+    # every residue of its vector (ragged rows, two tiles wide, two tiles
+    # high), and from a row start one element past an aligned address.
+    f16 = torch.float16
+    ragged = 0
+    for tname, sdt, dt in (("f32", f32, f32), ("bf16", bf16, bf16), ("f16", f16, f16), ("u8", u8, None),
+                           ("f32 under bf16", f32, bf16), ("bf16 under f16", bf16, f16)):
+        vec = 16 // torch.empty((), dtype=dt or sdt).element_size()
+        shapes = [((1, 3, 20, 129 + r), r) for r in range(vec)] + [((2, 3, 20, 256), None)]
+        for shape, r in shapes:
+            x = rand(shape)
+            x = (x * 255).to(u8) if sdt == u8 else x.to(sdt)
+            if r is None:  # the same values one element into their storage
+                buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+                buf[1:] = x.flatten()
+                x = buf[1:].view(shape)
+                if x.data_ptr() % 16 == 0:
+                    raise AssertionError("the shifted view is aligned")
+            border, denoise = ("zero", True) if (r or 0) % 2 else ("clamp", False)
+            rcon = RcasConstants(0.25)
+            got = rcas_k.rcas_fused(x, rcon, denoise, dt, border)
+            want = rcas_k.rcas_fused_reference(x, rcon, denoise, dt, border)
+            torch.cuda.synchronize()
+            what = f"K3 {tname} {tuple(shape)} {border} denoise={denoise}" + (", unaligned start" if r is None else "")
+            if sdt == u8:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{what}: not bit-equal")
+            else:
+                err = _compare(got, want, what)
+                if got.dtype == f32:
+                    k3_err = max(k3_err, err)
+            ragged += 1
+    print(f"  {ragged} ragged and unaligned K3 calls within their limits (uint8 bit-equal)")
 
     # --- 9. oracle: Quality and sharpen ---------------------------------------
     lap("9")
@@ -1102,13 +1179,13 @@ def main() -> int:
         t = {
             "call": cuda_time_ms(lambda: ft.upscale(x, preset="quality", compute_dtype=dt)),
             "call_b2b": _back_to_back_ms(lambda: ft.upscale(x, preset="quality", compute_dtype=dt)),
-            "K2": cuda_time_ms(lambda: easu_gather.easu_gather(x, (2160, 3840), qcon, rcon, True, False, dt)),
+            "K2": cuda_time_ms(lambda: easu_gather.easu_gather(x, (2160, 3840), qcon, rcon, True, False, dt), **KQ),
             "K2_plain": cuda_time_ms(
                 lambda: easu_gather.easu_gather_reference(x, (2160, 3840), qcon, rcon, True, False, dt),
                 warmup=1, iters=5),
             "sharpen_call": cuda_time_ms(lambda: ft.sharpen(y)),
             "sharpen_b2b": _back_to_back_ms(lambda: ft.sharpen(y)),
-            "K3": cuda_time_ms(lambda: rcas_k.rcas_fused(y, rcon)),
+            "K3": cuda_time_ms(lambda: rcas_k.rcas_fused(y, rcon), **KQ),
             "K3_plain": cuda_time_ms(lambda: rcas_k.rcas_fused_reference(y, rcon), warmup=1, iters=5),
         }
         qtimings[dt] = t
@@ -1117,7 +1194,7 @@ def main() -> int:
             print(f"    {k:>12}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
     print("  call: one upscale(preset='quality') call (host work included); call_b2b: per call "
           "with 10 calls queued back to back; sharpen_*: the same for sharpen; K2, K3: the "
-          "kernels alone; *_plain: their plain torch versions on the card")
+          "kernels alone, 10 calls queued per sample; *_plain: their plain torch versions on the card")
 
     # --- 11. trace (--trace only) ---------------------------------------------
     lap("11")
@@ -1218,27 +1295,21 @@ def main() -> int:
     torch_a = ft.UpscalePipeline(out4k, hdr_srtm=True, grain_amount=0.3, dither_bits=10, impl="torch")
     torch_b = ft.UpscalePipeline(out4k, grain_amount=0.25, dither_bits=8, out_dtype=u8,
                                  compute_dtype=bf16, impl="torch")
-    sharp = float(rcon.sharpness)
-    args_a = epilogue_mod.bind(epi_a, out4k, 7, grain4k, None, dev)
-    args_b = epilogue_mod.bind(epi_b, out4k, 7, grain4k, None, dev)
-    hdr_padded = pad.edge_pad(hdr, main_plan.pads, f32)
-    m8_padded = pad.edge_pad(m8, main_plan.pads, u8)
     paths = [
         # name, call, kernels it launches, plain version, plain-torch pipeline, torch-path step,
         # epilogue, {timed kernel and its plain version}, {the same upscale without the epilogue}
-        ("(a) HDR frame tail, f32 1080p -> 4K", lambda: pipe_a(hdr, grain=grain4k, frame=7), ("K4", "K1"),
+        ("(a) HDR frame tail, f32 1080p -> 4K", lambda: pipe_a(hdr, grain=grain4k, frame=7), ("K1",),
          lambda: fused.upscale_fused_reference(hdr, out4k, pcon, rcon, epilogue=epi_a, frame=7, grain=grain4k,
                                                prologue="srtm"),
          lambda: torch_a(hdr, grain=grain4k, frame=7), 1.01 / 1023.0, epi_a,
-         {"K1": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp, prologue="srtm", epi=args_a),
-          "K1_plain": lambda: fused.upscale_padded_reference(hdr_padded, main_plan, out4k, sharp,
-                                                             prologue="srtm", epi=args_a),
-          "K1 SRTM prologue only": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp,
-                                                                prologue="srtm"),
-          "K1 grain + TEPD epilogue only": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp,
-                                                                        epi=args_a),
-          "K1 neither": lambda: fused.upscale_padded(hdr_padded, main_plan, out4k, sharp),
-          "K4": lambda: pad.edge_pad(hdr, main_plan.pads, f32)},
+         {"K1": lambda: fused.upscale_fused(hdr, out4k, pcon, rcon, epilogue=epi_a, frame=7, grain=grain4k,
+                                            prologue="srtm"),
+          "K1_plain": lambda: fused.upscale_fused_reference(hdr, out4k, pcon, rcon, epilogue=epi_a, frame=7,
+                                                            grain=grain4k, prologue="srtm"),
+          "K1 SRTM prologue only": lambda: fused.upscale_fused(hdr, out4k, pcon, rcon, prologue="srtm"),
+          "K1 grain + TEPD epilogue only": lambda: fused.upscale_fused(hdr, out4k, pcon, rcon, epilogue=epi_a,
+                                                                       frame=7, grain=grain4k),
+          "K1 neither": lambda: fused.upscale_fused(hdr, out4k, pcon, rcon)},
          {"upscale, no prologue or epilogue": lambda: ft.upscale(hdr, out_size=out4k)}),
         ("(b) display, u8 1440p -> 4K u8, bf16", lambda: pipe_b(q8, grain=grain4k, frame=7), ("K2",),
          lambda: easu_gather.easu_gather_reference(q8, out4k, qcon, rcon, True, False, bf16, epilogue=epi_b,
@@ -1249,13 +1320,11 @@ def main() -> int:
          {"upscale u8 -> bf16, no epilogue": lambda: ft.upscale(q8, out_size=out4k, compute_dtype=bf16),
           "upscale bf16 -> bf16 (phase 10's path)": lambda: ft.upscale(qframes.to(bf16), out_size=out4k,
                                                                          compute_dtype=bf16)}),
-        ("(c) byte video, u8 1080p -> 4K u8", lambda: ft.upscale(m8, scale=2.0, out_dtype=u8), ("K4", "K1"),
+        ("(c) byte video, u8 1080p -> 4K u8", lambda: ft.upscale(m8, scale=2.0, out_dtype=u8), ("K1",),
          lambda: fused.upscale_fused_reference(m8, out4k, pcon, rcon, out_dtype=u8),
          lambda: ft.upscale(m8, scale=2.0, out_dtype=u8, impl="torch"), 1.0, None,
-         {"K1": lambda: fused.upscale_padded(m8_padded, main_plan, out4k, sharp, out_dtype=u8),
-          "K1_plain": lambda: fused.upscale_padded_reference(m8_padded, main_plan, out4k, sharp, out_dtype=u8),
-          "K4": lambda: pad.edge_pad(m8, main_plan.pads, u8),
-          "K4_plain": lambda: pad.edge_pad_reference(m8, main_plan.pads, u8)},
+         {"K1": lambda: fused.upscale_fused(m8, out4k, pcon, rcon, out_dtype=u8),
+          "K1_plain": lambda: fused.upscale_fused_reference(m8, out4k, pcon, rcon, out_dtype=u8)},
          {"upscale f32 -> f32 (phase 6's path)": lambda: ft.upscale(frames, out_size=out4k)}),
         ("sharpen u8 4K", lambda: ft.sharpen(s8), ("K3",), lambda: rcas_k.rcas_fused_reference(s8, rcon),
          lambda: ft.sharpen(s8, impl="torch"), 1.0, None,
@@ -1272,7 +1341,7 @@ def main() -> int:
         _compare_torch_path(out, plain_torch(), name, step)
         t = {"call": cuda_time_ms(call), "call_b2b": _back_to_back_ms(call)}
         for k, f_ in kernel_fns.items():
-            t[k] = cuda_time_ms(f_, warmup=1, iters=5) if k.endswith("_plain") else cuda_time_ms(f_)
+            t[k] = cuda_time_ms(f_, warmup=1, iters=5) if k.endswith("_plain") else cuda_time_ms(f_, **KQ)
         t["plain"] = cuda_time_ms(plain, warmup=1, iters=3)
         t["plain-torch pipeline"] = cuda_time_ms(plain_torch, warmup=1, iters=3)
         for k, f_ in bare_fns.items():
@@ -1282,14 +1351,15 @@ def main() -> int:
             print(f"    {k:>40}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
         del out
     print("  call: median latency of one call (host work included); call_b2b: per call with 10 calls "
-          "queued back to back; K*: the kernel alone; plain: the kernels' plain versions; the rest: "
+          "queued back to back; K*: the kernel alone, 10 calls queued per sample; plain: the kernels' "
+          "plain versions; the rest: "
           "the same upscale without the prologue and epilogue, for the epilogue's cost")
 
     # --- 14. trace of the pipeline paths (--trace only) -------------------------
     lap("14")
     if trace:
         print(f"phase 14: torch.profiler traces of the pipeline paths on {card}")
-        for name, call, kinds in ((paths[0][0], paths[0][1], ("edge_pad_kernel", "fused_kernel")),
+        for name, call, kinds in ((paths[0][0], paths[0][1], ("fused_kernel",)),
                                   (paths[1][0], paths[1][1], ("gather_kernel",))):
             for calls in (1, 5):
                 tr = device_trace(call, calls)
@@ -1364,9 +1434,9 @@ def main() -> int:
     print(f"phase 16: the RGBA paths on batches of {nframes}, on {card}")
     rgba_paths = [
         # name, image, upscale kwargs, kernels, plain version, constants
-        ("(d) performance f32", rgba_frames, dict(preset="performance"), ("K4", "K1"),
+        ("(d) performance f32", rgba_frames, dict(preset="performance"), ("K1",),
          lambda x: fused.upscale_fused_reference(x, out4k, pcon, rcon)),
-        ("(d) performance u8 ->u8", rgba8, dict(preset="performance", out_dtype=u8), ("K4", "K1"),
+        ("(d) performance u8 ->u8", rgba8, dict(preset="performance", out_dtype=u8), ("K1",),
          lambda x: fused.upscale_fused_reference(x, out4k, pcon, rcon, out_dtype=u8)),
         ("(e) quality bf16", rgba_q, dict(preset="quality", compute_dtype=bf16), ("K2",),
          lambda x: easu_gather.easu_gather_reference(x, out4k, qcon, rcon, True, False, bf16)),
@@ -1397,24 +1467,17 @@ def main() -> int:
                              "call on the RGB slice": lambda: ft.upscale(x3, **kw)})
         od = kw.get("out_dtype")
         if "K1" in need:
-            st = x4.dtype
-            p4, p3 = pad.edge_pad(x4, main_plan.pads, st), pad.edge_pad(x3, main_plan.pads, st)
             t.update(cuda_times_in_turn({
-                "K4": lambda: pad.edge_pad(x4, main_plan.pads, st),
-                "K4 RGB": lambda: pad.edge_pad(x3, main_plan.pads, st),
-                "K1": lambda: fused.upscale_padded(p4, main_plan, out4k, sharp, out_dtype=od),
-                "K1 RGB": lambda: fused.upscale_padded(p3, main_plan, out4k, sharp, out_dtype=od)}))
-            t["K1_plain"] = cuda_time_ms(
-                lambda: fused.upscale_padded_reference(p4, main_plan, out4k, sharp, out_dtype=od),
-                warmup=1, iters=3)
-            nbytes = _nbytes(p4) + out_bytes
-            del p4, p3
+                "K1": lambda: fused.upscale_fused(x4, out4k, pcon, rcon, out_dtype=od),
+                "K1 RGB": lambda: fused.upscale_fused(x3, out4k, pcon, rcon, out_dtype=od)}, **KQ))
+            t["K1_plain"] = cuda_time_ms(lambda: plain(x4), warmup=1, iters=3)
+            nbytes = _nbytes(x4) + out_bytes
         else:
             q16 = qframes.to(bf16)  # phase 10's frames, beside the RGB slice of the RGBA frames
             t.update(cuda_times_in_turn({
                 "K2": lambda: easu_gather.easu_gather(x4, out4k, qcon, rcon, True, False, bf16),
                 "K2 RGB": lambda: easu_gather.easu_gather(x3, out4k, qcon, rcon, True, False, bf16),
-                "K2 phase 10": lambda: easu_gather.easu_gather(q16, out4k, qcon, rcon, True, False, bf16)}))
+                "K2 phase 10": lambda: easu_gather.easu_gather(q16, out4k, qcon, rcon, True, False, bf16)}, **KQ))
             del q16
             t["K2_plain"] = cuda_time_ms(lambda: plain(x4), warmup=1, iters=3)
             nbytes = _nbytes(x4) + out_bytes
@@ -1423,11 +1486,12 @@ def main() -> int:
             print(f"    {k:>22}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
         print("    alpha's cost: " + ", ".join(
             f"{k} {t[k] / t[k + ' RGB'] - 1:+.1%}" for k in ("K4", "K1", "K2") if k in t))
-    print("  call: median latency of one upscale call; K*: the kernel alone on the RGBA frames; "
+    print("  call: median latency of one upscale call; K*: the kernel alone on the RGBA frames, 10 calls "
+          "queued per sample; "
           "* RGB: the same on the RGB slice, for alpha's cost (the two taken in turn, 3 rounds, "
           "median); K*_plain: the plain version")
     if trace:
-        kinds_of = {"K4": "edge_pad_kernel", "K1": "fused_kernel", "K2": "gather_kernel"}
+        kinds_of = {"K1": "fused_kernel", "K2": "gather_kernel"}
         for name, x4, kw, need, _ in rgba_paths:
             kinds = tuple(kinds_of[k] for k in need)
             for what, x in (("RGBA", x4), ("the RGB slice", x4[:, :3].contiguous())):
@@ -1482,8 +1546,8 @@ def main() -> int:
     y_bf16 = sframes.to(bf16)
     k3_f16["t"] = {
         "sharpen_call": cuda_time_ms(lambda: ft.sharpen(y16)),
-        "K3": cuda_time_ms(lambda: rcas_k.rcas_fused(y16, rcon)),
-        "K3 bf16": cuda_time_ms(lambda: rcas_k.rcas_fused(y_bf16, rcon)),
+        "K3": cuda_time_ms(lambda: rcas_k.rcas_fused(y16, rcon), **KQ),
+        "K3 bf16": cuda_time_ms(lambda: rcas_k.rcas_fused(y_bf16, rcon), **KQ),
         "K3_plain": cuda_time_ms(lambda: rcas_k.rcas_fused_reference(y16, rcon), warmup=1, iters=5),
     }
     # The float16 upscale runs the torch path: its cost beside K1's.
@@ -1491,10 +1555,8 @@ def main() -> int:
     k3_f16["t"]["upscale f16 (torch path)"] = cuda_time_ms(
         lambda: ft.upscale(f16_frames, preset="performance", compute_dtype=f16), warmup=1, iters=3)
     del f16_frames
-    padded = pad.edge_pad(frames, main_plan.pads, f32)
-    k3_f16["t"]["K1 f32 (phase 6's kernel)"] = cuda_time_ms(
-        lambda: fused.upscale_padded(padded, main_plan, out4k, sharp))
-    del padded
+    k3_f16["t"]["K1 f32 (phase 6's kernel)"] = cuda_time_ms(lambda: fused.upscale_fused(frames, out4k, pcon, rcon),
+                                                            **KQ)
     print(f"  times on {card}, batch {nframes}:")
     for k, v in k3_f16["t"].items():
         print(f"    {k:>26}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
@@ -1509,17 +1571,18 @@ def main() -> int:
     rep = {"K4": "fsr_tpu/kernels/pad.py:50", "K1": "fsr_tpu/kernels/fused.py:403",
            "K2": "fsr_tpu/kernels/easu_gather.py:350", "K3": "fsr_tpu/kernels/rcas_pallas.py:42"}
     kernels = [
-        _kernel_entry("edge_pad (K4)", src["K4"], rep["K4"], launches["K4"], k4_err, t32["K4"],
-                      t32["K4_plain"], main_bytes["K4"], 0, t32["K4_library"]),
+        _kernel_entry("edge_pad (K4), phase 3's pads; timed at the Performance shape, off the K1 paths",
+                      src["K4"], rep["K4"], k4_launches, k4_err, t32["K4"], t32["K4_plain"], main_bytes["K4"], 0,
+                      t32["K4_library"]),
         _kernel_entry("upscale_fused (K1)", src["K1"], rep["K1"], launches["K1"], k1_err, t32["K1"],
-                      t32["K1_plain"], main_bytes["K1"], EASU_RCAS_OPS * npix),
+                      t32["call_plain"], main_bytes["K1"], EASU_RCAS_OPS * npix),
         _kernel_entry("easu_gather (K2)", src["K2"], rep["K2"], launches["K2"], k2_err, q32["K2"],
                       q32["K2_plain"], _nbytes(qframes) + out4k_f32, EASU_RCAS_OPS * npix),
         _kernel_entry("rcas_fused (K3)", src["K3"], rep["K3"], launches["K3"], k3_err, q32["K3"],
                       q32["K3_plain"], 2 * _nbytes(sframes), RCAS_OPS * npix),
         _kernel_entry("upscale_fused (K1) + SRTM prologue + K5 epilogue: HDR frame tail (a)", src["K1"],
                       rep["K1"], ta["launches"]["K1"], max(epi_err["K1"], ta["err"]), ta["t"]["K1"],
-                      ta["t"]["K1_plain"], _nbytes(hdr_padded, grain4k) + out4k_f32,
+                      ta["t"]["K1_plain"], _nbytes(hdr, grain4k) + out4k_f32,
                       (EASU_RCAS_OPS + LFGA_OPS + TEPD_OPS) * npix + SRTM_OPS_PER_TEXEL * hdr.numel() // 3),
         _kernel_entry("easu_gather (K2) + K5 epilogue, uint8 in and out: display path (b)", src["K2"],
                       rep["K2"], tb["launches"]["K2"], max(epi_err["K2"], tb["err"]), tb["t"]["K2"],
@@ -1527,10 +1590,7 @@ def main() -> int:
                       (EASU_RCAS_OPS + LFGA_OPS + TEPD_OPS) * npix),
         _kernel_entry("upscale_fused (K1), uint8 in and out: byte video path (c)", src["K1"], rep["K1"],
                       tc["launches"]["K1"], tc["err"], tc["t"]["K1"], tc["t"]["K1_plain"],
-                      _nbytes(m8_padded) + npix * 3, EASU_RCAS_OPS * npix),
-        _kernel_entry("edge_pad (K4), uint8: byte video path (c)", src["K4"], rep["K4"],
-                      tc["launches"]["K4"], 0.0, tc["t"]["K4"], tc["t"]["K4_plain"],
-                      _nbytes(m8, m8_padded), 0),
+                      _nbytes(m8) + npix * 3, EASU_RCAS_OPS * npix),
         _kernel_entry("rcas_fused (K3), uint8: sharpen on bytes", src["K3"], rep["K3"],
                       ts["launches"]["K3"], ts["err"], ts["t"]["K3"], ts["t"]["K3_plain"],
                       2 * _nbytes(s8), RCAS_OPS * npix),

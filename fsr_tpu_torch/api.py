@@ -1,9 +1,9 @@
 """Top-level user API: ``upscale()``, ``sharpen()`` and ``UpscalePipeline``.
 
 Counterpart of ``fsr_tpu/api.py``.  ``upscale``: constant setup on the host,
-then EASU and RCAS either fused in the hand-written CUDA kernels (K4 pad and
-K1 at integer ratios, K2 at any other upscale; no intermediate image in
-device memory) or as two plain-torch ops.  The SRTM prologue, the K5
+then EASU and RCAS either fused in the hand-written CUDA kernels (K1 at
+integer ratios, with the edge pad folded into its loads; K2 at any other
+upscale; no intermediate image in device memory) or as two plain-torch ops.  The SRTM prologue, the K5
 epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither), byte I/O and RGBA's
 bilinear alpha run inside those kernels, or as ``ops.extras`` passes and a
 bilinear pass on the torch path.  float16 runs the torch path, as it runs
@@ -122,8 +122,8 @@ def upscale(
     impl: "auto" | "torch" | "kernel".  "auto" takes the kernel path for a
       CUDA tensor and the plain-torch path for a CPU tensor; "torch" is the
       plain-torch path on any device; "kernel" forces the kernel path (on
-      CPU tensors the kernels' plain versions).  The kernel path runs K4
-      then K1 at integer per-axis ratios (1, 2 or 4: the Performance
+      CPU tensors the kernels' plain versions).  The kernel path runs K1
+      (one launch) at integer per-axis ratios (1, 2 or 4: the Performance
       preset) and K2 at every other upscale (the other presets, native 1x,
       DRS ratios, odd extents); a downscale raises (pass impl="torch"),
       and float16 raises ValueError (the kernels store float32/bfloat16).
@@ -215,7 +215,7 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
 
     strip: a ``parallel.spatial.Strip`` when the image is one halo'd row
     strip of a row-sharded frame and ``out_hw`` its (hl, Wout) output rows:
-    K4 + K1 on its shard-local constants with ``row_offset``/``global_rows``
+    K1 on its shard-local constants with ``row_offset``/``global_rows``
     at an exact-phase ratio, else K2 on its row tables from the global
     mapping; the torch path runs EASU over the same tables for its rows -1
     .. hl, then RCAS on its own rows.  ``grain`` is then the strip's rows,
@@ -351,7 +351,7 @@ class UpscalePipeline:
     -> (optional TEPD dither to 8/10-bit gamma-2.0).
 
     Construct once with static configuration; each call is one ``upscale``
-    (on a CUDA tensor: K4 + K1 or K2, with the whole chain inside).
+    (on a CUDA tensor: one launch of K1 or K2, with the whole chain inside).
 
     hdr_srtm / hdr_out: the reference pairs the reversible tonemap with its
     inverse around the filter chain for HDR inputs (ffx_fsr1.h:1039-1041);

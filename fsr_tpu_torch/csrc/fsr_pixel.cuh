@@ -487,14 +487,14 @@ __device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, 
 }
 
 // Host side: launch(grid, n0) once per chunk of at most 65535 frames (the
-// grid's z limit) starting at frame n0, one block per TH x TILE_W tile of an
+// grid's z limit) starting at frame n0, one block per TH x TW tile of an
 // h x w output; returns the first launch error.
-template <int TH = TILE_H, typename Launch>
+template <int TH = TILE_H, int TW = TILE_W, typename Launch>
 int launch_frames(int nb, int h, int w, Launch launch) {
   const int max_z = 65535;
   for (int n0 = 0; n0 < nb; n0 += max_z) {
     const int nz = nb - n0 < max_z ? nb - n0 : max_z;
-    launch(dim3((w + TILE_W - 1) / TILE_W, (h + TH - 1) / TH, nz), n0);
+    launch(dim3((w + TW - 1) / TW, (h + TH - 1) / TH, nz), n0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -70,7 +70,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsr_edge_pad.argtypes = [vp, vp, i, i, ll, i, i, i, i, i, i, vp]
     lib.fsr_edge_pad.restype = i
     lib.fsr_upscale_fused.argtypes = [
-        vp, vp, i, i, i, i, i, i, i, i, i, i, ip, ip, fp, fp, f, i, i, i, i, i, vp, vp,
+        vp, vp, i, i, i, i, i, i, i, i, i, i, i, ip, ip, fp, fp, f, i, i, i, i, i, i, vp, vp,
     ]
     lib.fsr_upscale_fused.restype = i
     lib.fsr_easu_gather.argtypes = [

@@ -1,11 +1,11 @@
 """Kernel dispatch: pick the kernel that takes a configuration.
 
-Counterpart of ``fsr_tpu/kernels/dispatch.py``.  K1 (K4 then the fused
-kernel, ``kernels/fused.py``) takes the integer phase structures of the
+Counterpart of ``fsr_tpu/kernels/dispatch.py``.  K1 (the fused kernel,
+``kernels/fused.py``, with the edge pad folded into its loads) takes the integer phase structures of the
 coordinate mapping (the 2x Performance preset); K2 (``kernels/easu_gather.py``)
 takes every other upscale (the other presets, native 1x, DRS ratios).  Both
 take the byte source, the SRTM prologue, the K5 epilogue and the integer
-outputs, and RGB or RGBA in one launch (plus K4 in front of K1).  This
+outputs, and RGB or RGBA, in one launch.  This
 module owns the choice and the call, so ``api.upscale`` stays
 device-agnostic.  A configuration neither kernel takes (a downscale,
 float16 or another dtype) raises: the kernel path never falls back to
@@ -48,8 +48,8 @@ def upscale_fused(
     out_dtype=None,
     dither_page=None,
 ) -> torch.Tensor:
-    """Run the kernel path: K4 then K1 at an integer phase structure, else
-    K2; on a CPU tensor their plain versions.  ``grain`` is plain
+    """Run the kernel path: K1 at an integer phase structure, else K2; on a
+    CPU tensor their plain versions.  ``grain`` is plain
     output-space (3, Hout, Wout) for both kernels."""
     shape = tuple(image.shape)
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,

@@ -8,20 +8,27 @@ the host), output pixels split into qy*qx phase classes with constant
 subpixel fractions.  The kernel takes those per-phase source offsets and
 fractions from the host and never recomputes coordinates on the device.
 
-Data flow: ``upscale_fused`` plans the phases and the pad, runs K4
-(``pad.edge_pad``) to make the padded storage-dtype source (bytes stay
-bytes), then K1 (``upscale_padded``), whose launches are counted in
-``upscale_padded.launches``.  The math is float32 throughout; bfloat16 is
-storage only.  For CPU tensors both steps run their plain versions
-(``edge_pad_reference``, ``upscale_padded_reference``).
+Data flow: ``upscale_fused`` plans the phases and launches K1 on the
+image itself: K1 stages each block's source window in shared memory with
+every texel index clamped to the image, which is K4's edge pad
+(``pad.edge_pad``) folded into the load: no pad pass runs in front of it.  At the 2x Performance structure (``quad_ok``) K1 runs one
+thread per 2x2 quad of outputs that share one 'f' texel; every other phase
+structure runs its generic staged path (``path="generic"`` forces it).
+``upscale_padded`` runs the same kernel on a source that K4 already padded
+(the clamp never fires there; the measurement tools use it).  Every K1
+launch, from either entry point, is counted in ``upscale_padded.launches``.
+The math is float32 throughout; bfloat16 is storage only (a float32 source
+under bfloat16 storage rounds at its load, as K4's convert did).  For CPU
+tensors both run their plain versions (``upscale_fused_reference``: K4's
+and K1's plain versions; ``upscale_padded_reference``).
 
-Options, as the JAX kernel takes them: a uint8 image (decoded at each tap
-load), the SRTM prologue (``prologue="srtm"``, at each tap load), the K5
+Options, as the JAX kernel takes them: a uint8 image (decoded at its
+load), the SRTM prologue (``prologue="srtm"``, once per staged texel), the K5
 epilogue (``kernels/epilogue.py``: ``epilogue``, ``frame``, ``grain`` in
 plain output space, ``dither_page``) on the float32 result, and
 ``out_dtype`` uint8/uint16 (UNORM codes of the float32 value).  An RGBA
-image (..., 4, H, W) goes through the same launches: alpha is resolved
-bilinearly in the kernel's store pass from the padded source, never
+image (..., 4, H, W) goes through the same launch: alpha is resolved
+bilinearly in the kernel's store pass from the staged window, never
 sharpened, tonemapped or touched by the epilogue, and stored by the
 colour's rule (``easu_rcas_reference`` is its plain version).
 
@@ -66,6 +73,11 @@ __all__ = [
     "upscale_fused",
     "upscale_fused_reference",
     "ring_rows",
+    "TILE",
+    "WINDOW_MAX",
+    "quad_ok",
+    "source_plan",
+    "window",
 ]
 
 _QX_SUPPORTED = (1, 2, 4)
@@ -152,7 +164,9 @@ class FusedPlan:
 
 
 def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) -> FusedPlan:
-    """Phase structure and pad amounts for K4+K1.
+    """Phase structure and pad amounts of K1 on a K4-padded source
+    (``upscale_padded``; ``source_plan`` shifts the offsets to the unpadded
+    image that ``upscale_fused`` gives K1).
 
     As at fused.py:526-544, the leading pad per axis is lead = 2 - r_min
     (taps reach one texel before 'f' and the RCAS ring one plane row before
@@ -327,6 +341,118 @@ def upscale_padded_reference(
     return epilogue_mod.store(epilogue_mod.apply(res, epi), out_dtype)
 
 
+# K1's output tile (csrc/fused.cu FSR_K1_TILE_H, FSR_K1_TILE_W) and the
+# largest source window a block stages on each path: quad, its ring's 16 x 16
+# quads and their taps; generic, one 'f' per ring position and its taps.
+TILE = (30, 30)
+WINDOW_MAX = {"quad": ((TILE[0] + 2) // 2 + 3, (TILE[1] + 2) // 2 + 3),
+              "generic": (TILE[0] + 5, TILE[1] + 5)}
+# The quad path's fractions: 'f' phase 0 (even outputs) and phase 1 (odd).
+QUAD_FRACTIONS = (np.float32(0.75), np.float32(0.25))
+
+
+def _quad_axis(q, r, frac) -> bool:
+    return (q == 2 and r[1] == r[0] + 1
+            and all(np.float32(f).view(np.uint32) == c.view(np.uint32) for f, c in zip(frac, QUAD_FRACTIONS)))
+
+
+def quad_ok(fplan: FusedPlan) -> bool:
+    """True when K1 takes its quad path for this plan: 2x on both axes, the
+    fractions 0.75 and 0.25 bit for bit and 'f' of phase 1 one past phase
+    0's, so that outputs 2j+1 and 2j+2 share 'f' j + r[1] at fractions 0.25
+    and 0.75 (csrc/fused.cu:quad_axis)."""
+    return _quad_axis(fplan.qy, fplan.ry, fplan.py) and _quad_axis(fplan.qx, fplan.rx, fplan.px)
+
+
+def source_plan(fplan: FusedPlan) -> FusedPlan:
+    """The plan with its 'f' offsets in the unpadded source (the padded
+    offsets less the leading pads; they may be negative) and no pads: what
+    K1 takes on the image itself, every texel index clamped to it."""
+    pt, _, pl, _ = fplan.pads
+    return dataclasses.replace(fplan, ry=tuple(r - pt for r in fplan.ry), rx=tuple(r - pl for r in fplan.rx),
+                               pads=(0, 0, 0, 0))
+
+
+def window(q, r, n_out, tile) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy mirror of csrc/fused.cu:stage on one axis: per block of
+    ``tile`` outputs of ``n_out``, the first source index of its window (the
+    'f' of ring position y0 - 1, less one) and its extent (to the 'f' of
+    ring position y0 + tile, plus two).  Source indices, before the clamp."""
+    y0 = np.arange(0, n_out, tile)
+    lo = _taps(q, r, y0 - 1) - 1
+    return lo, _taps(q, r, y0 + tile) + 2 - lo + 1
+
+
+def _check_window(fplan: FusedPlan, out_size, path: str) -> None:
+    """Raise unless every block's window fits the kernel's maximum for the
+    path (the kernel traps otherwise)."""
+    for axis, (q, r, n, t) in enumerate(((fplan.qy, fplan.ry, out_size[0], TILE[0]),
+                                         (fplan.qx, fplan.rx, out_size[1], TILE[1]))):
+        ext = int(window(q, r, n, t)[1].max())
+        if ext > WINDOW_MAX[path][axis]:
+            raise ValueError(f"K1's {path} window needs {ext} source {'rows' if axis == 0 else 'columns'} "
+                             f"per block, more than its {WINDOW_MAX[path][axis]}")
+
+
+def _pick_path(fplan: FusedPlan, path: str) -> str:
+    if path not in ("auto", "generic"):
+        raise ValueError(f"path must be 'auto' or 'generic', got {path!r}")
+    return "quad" if path == "auto" and quad_ok(fplan) else "generic"
+
+
+@functools.lru_cache(maxsize=64)
+def _checked_path(fplan: FusedPlan, out_size: Tuple[int, int], path: str) -> str:
+    """The path K1 takes for this plan and output, after the window check:
+    once per configuration, off the per-call host work."""
+    path = _pick_path(fplan, path)
+    _check_window(fplan, out_size, path)
+    return path
+
+
+def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologue, epi, out_dtype,
+            row_offset, global_rows, path) -> torch.Tensor:
+    """Launch K1 on the CUDA tensor ``src`` (..., C, H, W), whose texels
+    the plan's 'f' offsets index (clamped to its extent); ``dtype`` the
+    storage type a float32 source rounds to."""
+    if src.device.type != "cuda":
+        raise ValueError(f"K1 takes a CPU or CUDA tensor, got {src.device}")
+    if src.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
+        raise TypeError(f"fused kernel takes float32/bfloat16/uint8 sources, got {src.dtype}")
+    if src.dim() < 3 or src.shape[-3] not in (3, 4) or not src.is_contiguous():
+        raise ValueError(f"fused kernel needs a contiguous (..., 3 or 4, H, W) tensor, got {tuple(src.shape)}")
+    _check_prologue(prologue)
+    hout, wout = (int(v) for v in out_size)
+    ylo, yhi = ring_rows(hout, row_offset, global_rows)
+    path = _checked_path(fplan, (hout, wout), path)
+    *lead, nc, hin, win = src.shape
+    if hin == 0 or win == 0:
+        raise ValueError("fused kernel needs a non-empty source")
+    out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=src.device)
+    nb = src.numel() // (nc * hin * win)
+    if out.numel() == 0:
+        return out
+    from fsr_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    ry = (ctypes.c_int * 4)(*fplan.ry)
+    rx = (ctypes.c_int * 4)(*fplan.rx)
+    py = (ctypes.c_float * 4)(*fplan.py)
+    px = (ctypes.c_float * 4)(*fplan.px)
+    cepi = epilogue_mod.c_params(epi)
+    codes = pad.DTYPE_CODES
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.fsr_upscale_fused(
+            src.data_ptr(), out.data_ptr(), codes[src.dtype], codes[dtype], codes[out_dtype], nb, nc, hin, win,
+            hout, wout, fplan.qy, fplan.qx, ry, rx, py, px, float(sharpness), int(apply_rcas), int(denoise),
+            int(prologue == "srtm"), ylo, yhi, int(path == "quad"), ctypes.addressof(cepi), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused kernel launch failed: cudaError {err}")
+    upscale_padded.launches += 1
+    return out
+
+
 def upscale_padded(
     padded: torch.Tensor,
     fplan: FusedPlan,
@@ -340,54 +466,29 @@ def upscale_padded(
     out_dtype=None,
     row_offset: int = 0,
     global_rows=None,
+    path: str = "auto",
 ) -> torch.Tensor:
     """K1 on the K4-padded source (..., C, Hp, Wp), C = 3 or 4, of float32,
     bfloat16 or uint8 -> (..., C, Hout, Wout) in ``out_dtype``; the output
     is rows ``row_offset`` .. of a ``global_rows``-row frame (default: the
-    whole frame).  CUDA tensors launch ``csrc/fused.cu``; CPU tensors run
-    ``upscale_padded_reference``."""
+    whole frame).  CUDA tensors launch ``csrc/fused.cu`` (``path``: "auto",
+    the quad path where ``quad_ok``, or "generic"); CPU tensors run
+    ``upscale_padded_reference``.
+    ``upscale_padded.launches`` counts every K1 launch."""
     if padded.device.type == "cpu":
         return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise,
                                         prologue=prologue, epi=epi, out_dtype=out_dtype,
                                         row_offset=row_offset, global_rows=global_rows)
-    if padded.device.type != "cuda":
-        raise ValueError(f"upscale_padded takes a CPU or CUDA tensor, got {padded.device}")
-    if padded.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
-        raise TypeError(f"fused kernel takes float32/bfloat16/uint8 sources, got {padded.dtype}")
-    if padded.dim() < 3 or padded.shape[-3] not in (3, 4) or not padded.is_contiguous():
-        raise ValueError(f"fused kernel needs a contiguous (..., 3 or 4, H, W) tensor, got {tuple(padded.shape)}")
-    _check_prologue(prologue)
     out_dtype = _out_dtype(padded.dtype, out_dtype)
     hout, wout = (int(v) for v in out_size)
     ylo, yhi = ring_rows(hout, row_offset, global_rows)
-    *lead, nc, hp, wp = padded.shape
-    # The plan's reach must fit the padded extent: no bounds logic on the loads.
+    hp, wp = padded.shape[-2:]
+    # The plan's reach must fit the padded extent, so that the clamp never fires.
     if not (_covers(fplan.qy, fplan.ry, ylo, yhi, hp) and _covers(fplan.qx, fplan.rx, 0, wout - 1, wp)):
         raise ValueError("padded source does not cover the plan's tap reach")
-    out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=padded.device)
-    nb = padded.numel() // (nc * hp * wp)
-    if out.numel() == 0:
-        return out
-    from fsr_tpu_torch.kernels import _build
-
-    lib = _build.library()
-    ry = (ctypes.c_int * 4)(*fplan.ry)
-    rx = (ctypes.c_int * 4)(*fplan.rx)
-    py = (ctypes.c_float * 4)(*fplan.py)
-    px = (ctypes.c_float * 4)(*fplan.px)
-    cepi = epilogue_mod.c_params(epi)
-    with torch.cuda.device(padded.device):
-        stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = lib.fsr_upscale_fused(
-            padded.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[padded.dtype],
-            pad.DTYPE_CODES[out_dtype], nb, nc, hp, wp, hout, wout, fplan.qy, fplan.qx, ry, rx, py, px,
-            float(sharpness), int(apply_rcas), int(denoise), int(prologue == "srtm"), ylo, yhi,
-            ctypes.addressof(cepi), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused kernel launch failed: cudaError {err}")
-    upscale_padded.launches += 1
-    return out
+    dtype = padded.dtype if padded.dtype in pad.FLOAT_DTYPES else torch.float32
+    return _launch(padded, fplan, dtype, (hout, wout), sharpness, apply_rcas, denoise, prologue, epi, out_dtype,
+                   row_offset, global_rows, path)
 
 
 upscale_padded.launches = 0
@@ -430,20 +531,27 @@ def upscale_fused(
     dither_page=None,
     row_offset: int = 0,
     global_rows=None,
+    path: str = "auto",
 ) -> torch.Tensor:
-    """Fused EASU(+RCAS): K4 pads the (..., C, Hin, Win) image, C = 3 or 4,
-    into the storage dtype (a uint8 image stays bytes), K1 upscales it, with
-    the prologue, the epilogue and RGBA's alpha inside.  Returns (..., C,
-    Hout, Wout) in ``out_dtype`` (default compute_dtype, the storage; the
-    math is float32).  A row strip passes its halo'd source, shard-local
-    constants, ``row_offset`` and ``global_rows`` (``grain`` is then the
-    strip's own rows)."""
+    """Fused EASU(+RCAS): K1 upscales the (..., C, Hin, Win) image, C = 3 or
+    4, with the edge clamp, the storage rounding (a uint8 image stays bytes),
+    the prologue, the epilogue and RGBA's alpha inside: one launch on a CUDA
+    tensor (``path``: "auto", the quad path where ``quad_ok``, or
+    "generic"), the plain version on a CPU tensor.  Returns (..., C, Hout, Wout) in ``out_dtype`` (default
+    compute_dtype, the storage; the math is float32).  A row strip passes
+    its halo'd source, shard-local constants, ``row_offset`` and
+    ``global_rows`` (``grain`` is then the strip's own rows)."""
+    if image.device.type == "cpu":
+        return upscale_fused_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype,
+                                       epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
+                                       out_dtype=out_dtype, dither_page=dither_page, row_offset=row_offset,
+                                       global_rows=global_rows)
     fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
     epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device, row_offset)
-    padded = pad.edge_pad(image.contiguous(), fplan.pads, storage)
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
-    return upscale_padded(padded, fplan, out_size, sharp, apply_rcas, denoise, prologue=prologue,
-                          epi=epi, out_dtype=out_dt, row_offset=row_offset, global_rows=global_rows)
+    dtype = storage if storage in pad.FLOAT_DTYPES else torch.float32
+    return _launch(image.contiguous(), source_plan(fplan), dtype, out_size, sharp, apply_rcas, denoise, prologue,
+                   epi, out_dt, row_offset, global_rows, path)
 
 
 def upscale_fused_reference(

@@ -14,7 +14,7 @@ Two regimes, as in the JAX package, both bit-exact against the unsharded
 kernels:
 
 - **Exact-phase ratios** (2x/4x): every strip's coordinate mapping is a
-  shifted copy of the global one, so each strip runs K4 + K1 with
+  shifted copy of the global one, so each strip runs K1 with
   shard-local constants (``_local_constants``) and ``row_offset`` /
   ``global_rows``: the RCAS ring takes the neighbour rows from the halo and
   clamps only at the frame's first and last rows, and K1 stores the strip's
@@ -123,8 +123,8 @@ class Strip:
     output is rows ``row0`` .. ``row0 + hl - 1`` of a ``global_rows``-row
     frame.  ``rows``: its row tables from the GLOBAL mapping
     (``easu_gather.shard_plan``), which K2 and the torch path run on;
-    ``local_con``: at an exact-phase ratio, the shard-local constants K4 + K1
-    run on (``_local_constants``), else None."""
+    ``local_con``: at an exact-phase ratio, the shard-local constants K1
+    runs on (``_local_constants``), else None."""
 
     row0: int
     global_rows: int
@@ -189,7 +189,7 @@ def upscale_spatial_sharded(
     if exact:
         local_con = _local_constants(con, halo)
         # Every strip shares this plan: its rows need no pad, so no tap of the
-        # ring of an interior strip reaches K4's edge pad instead of the halo.
+        # ring of an interior strip reaches K1's edge clamp instead of the halo.
         fplan = fused.plan((hin_l + 2 * halo, win), (hl, wout), local_con)
         if fplan.pads[:2] != (0, 0):
             raise ValueError(f"a {halo}-row halo cannot host the taps (row pads {fplan.pads[:2]})")

@@ -19,10 +19,15 @@ __all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time"]
 TRACE_ATTEMPTS = 3
 
 
-def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20) -> float:
+def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20, queue: int = 1) -> float:
     """Median device time of ``fn()`` in milliseconds, from CUDA events on
-    the current stream.  Raises when no CUDA device is available: a timing
-    never falls back to the host."""
+    the current stream.  Each sample brackets ``queue`` calls queued back to
+    back and divides by them: with 1, the sample includes the host work of
+    the call before its launch (the device idles through it); with more,
+    each call's host work overlaps the previous call's kernels, so a call
+    that keeps the device busier than the host reads its device time.
+    Raises when no CUDA device is available: a timing never falls back to
+    the host."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
     for _ in range(warmup):
@@ -33,10 +38,11 @@ def cuda_time_ms(fn: Callable[[], object], warmup: int = 3, iters: int = 20) -> 
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(queue):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / queue)
     return statistics.median(times)
 
 

@@ -1,26 +1,47 @@
-"""K4 and K2 against a parent commit's K4 and K2 on the H100, timed in turn.
+"""K1, K2, K3 and K4 against a parent commit's on the H100, timed in turn.
 
     python3 tools_torch/ablation/kernel_ab.py [--parent DIR] [--define NAME=VALUE ...]
 
 Builds three kinds of kernel library, in parallel: this checkout's, the
 parent's from DIR (default ``_parent``: a ``git archive`` of the parent
-commit unpacked at the root of the checkout; its C interfaces are this
-tree's, so the package's wrappers drive either), and this checkout's again
+commit unpacked at the root of the checkout), and this checkout's again
 with each ``--define`` (a preprocessor variant, e.g. ``FSR_K2_TILE_H=16``
-for K2's tile height).  Then, at the main paths' shapes (batch 4 -> 4K):
+for K2's tile height, ``FSR_K1_MIN_BLOCKS=4`` for K1's register cap;
+``FSR_K1_TILE_H=32,FSR_K1_TILE_W=32`` sets two macros at once).  The
+package's wrappers drive every library's K2, K3 and K4, whose C interfaces
+have not changed; the parent's K1 takes a K4-padded source through its own
+C interface (``parent_k1``, ``PARENT_K1_ARGTYPES``).
+
+K1, at the Performance shapes (batch 4, 1080p -> 4K): Performance float32
+and bfloat16, the HDR tail (a) (SRTM prologue, grain, 10-bit dither), the
+byte path (c) (uint8 in and out), RGBA (d) float32 and uint8, and four
+row strips (i); per path, in turn: the parent's K4 + K1 (its main path),
+the parent's K1 alone on the padded frame, this tree's K1 on its quad and
+generic paths (and each variant's), K2 on the same frames (the staging-only
+yardstick), and with Performance float32 this tree's K1 without RCAS and
+the probes P1 and P2.  Every library's quad and generic paths are held
+bit-equal to this tree's quad path, and the parent's output and K2's
+against it (largest difference, values that differ).  K3, at 4K:
+float32, bfloat16, float16 and uint8 storage, each library in turn, after
+every library's output is held against this tree's on every border and
+denoise setting (bit-equal expected).  Before those, as before, at the main paths'
+shapes (batch 4 -> 4K):
 K4 on the Performance source (float32, bfloat16, uint8 for the byte path
 (c), RGBA float32 and uint8 for (d)) beside ``F.pad(mode="replicate")``,
 and K2 on the Quality paths (float32, bfloat16, the display path (b):
 uint8 in, grain, 8-bit dither, uint8 out, bfloat16 storage; RGBA bfloat16
-(e)), each library's kernel in turn (5 rounds, CUDA-event medians).  Every
+(e)), each library's kernel in turn (5 rounds, CUDA-event medians of
+``QUEUE`` calls queued back to back: device time per call).  Every
 library's output is held against this tree's: K4 bit-equal (and to
 ``edge_pad_reference``); K2 by its largest difference and the values that
 differ.  Prints ms per 4K frame, each kernel's bound (bytes over 3.35 TB/s,
 or K2's counted operations over 67 TFLOP/s, chip_smoke's rule), the ptxas
-lines of K4 and of K2 with RCAS, and the static SASS counts of K2 and K1
-(``opmix_floor.sass_counts``) for each library, with the card's name and
-power limit.  Exits non-zero without a card or parent sources, or when a
-K4 disagrees with its plain version.
+lines of K4, of K1, K2 and K3 with RCAS and no denoise, and the static
+SASS counts of K1, K2 and K3 (``opmix_floor.sass_counts``) for each library,
+with the card's name and power limit.  Exits non-zero without a card or
+parent sources, when a K4 disagrees with its plain version, when this
+tree's K1 quad and generic paths differ, or when a K3 differs from this
+tree's.
 """
 
 from __future__ import annotations
@@ -28,6 +49,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import os
 import pathlib
 import re
@@ -41,6 +63,8 @@ import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import _build, easu_gather, fused, pad
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
+from fsr_tpu_torch.kernels import rcas as rcas_k
 from fsr_tpu_torch.kernels.epilogue import Epilogue
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -48,6 +72,10 @@ NFRAMES = 4
 OUT4K = (2160, 3840)
 PERF_IN = (1080, 1920)
 QUALITY_IN = (1440, 2560)
+# Calls queued back to back per timing sample (profiling.cuda_time_ms): each
+# call's host work overlaps the kernels before it, so a reading is the
+# device time per call, the wrappers' host work left out.
+QUEUE = 10
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # The function's float32 ops per output pixel, as chip_smoke.py counts them
@@ -55,8 +83,17 @@ F32_OPS_PER_S = 67e12
 EASU_RCAS_OPS = 488.75
 EPI_OPS = 12 + 60
 ALPHA_OPS = 8
-# ptxas entries printed: every K4, and K2 with RCAS and no denoise.
-PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernelI.*Lb1ELb0EL")
+# ptxas entries printed: every K4; K2 with RCAS and no denoise; K1 float32
+# with no denoise (this tree's <S, T, O, QUAD, DENOISE, RGBA>, the parent's
+# <S, O, RCAS, DENOISE, RGBA> with RCAS); K3 with the clamp border and no
+# denoise.
+PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernelI.*Lb1ELb0EL|fused_kernelIfffLb[01]ELb0ELb[01]EE"
+                           r"|fused_kernelIffLb1ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE")
+# The parent's K1 C interface (a K4-padded source): src, dst, src_dtype,
+# out_dtype, nb, channels, hp, wp, hout, wout, qy, qx, ry, rx, py, px, sharp,
+# apply_rcas, denoise, srtm, ylo, yhi, epi, stream.
+_vp, _i, _ip, _fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+PARENT_K1_ARGTYPES = [_vp, _vp] + [_i] * 10 + [_ip, _ip, _fp, _fp, ctypes.c_float] + [_i] * 5 + [_vp, _vp]
 
 
 @contextlib.contextmanager
@@ -90,6 +127,29 @@ def ptxas_lines(build_dir: pathlib.Path) -> list:
             if PTXAS_KERNELS.search(entry):
                 out.append(f"{entry}: {stack}; {line.split(':', 1)[1].strip()}")
             entry = None
+    return out
+
+
+def parent_k1(lib, padded, fplan, out_size, sharp, *, prologue="none", epi=None, out_dtype=None,
+              row_offset=0, global_rows=None):
+    """The parent's K1 on the K4-padded CUDA tensor ``padded`` with the
+    padded-frame plan ``fplan``, through its own C interface."""
+    lib.fsr_upscale_fused.argtypes = PARENT_K1_ARGTYPES
+    lib.fsr_upscale_fused.restype = ctypes.c_int
+    out_dtype = out_dtype or padded.dtype
+    hout, wout = out_size
+    ylo, yhi = fused.ring_rows(hout, row_offset, global_rows)
+    *lead, nc, hp, wp = padded.shape
+    out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=padded.device)
+    codes = pad.DTYPE_CODES
+    cepi = epilogue_mod.c_params(epi)
+    err = lib.fsr_upscale_fused(
+        padded.data_ptr(), out.data_ptr(), codes[padded.dtype], codes[out_dtype], padded.numel() // (nc * hp * wp),
+        nc, hp, wp, hout, wout, fplan.qy, fplan.qx, (ctypes.c_int * 4)(*fplan.ry), (ctypes.c_int * 4)(*fplan.rx),
+        (ctypes.c_float * 4)(*fplan.py), (ctypes.c_float * 4)(*fplan.px), float(sharp), 1, 0,
+        int(prologue == "srtm"), ylo, yhi, ctypes.addressof(cepi), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"parent K1 launch failed: cudaError {err}")
     return out
 
 
@@ -136,12 +196,167 @@ def k2_cases(dev, gen):
             ("(e) RGBA bf16", k2(x4, bf16), x4, EASU_RCAS_OPS + ALPHA_OPS)]
 
 
+def k1_cases(dev, gen):
+    """(name, source, keywords of ``upscale_fused`` beside the storage type,
+    storage type, ops per output pixel): the K1 paths at the Performance
+    shapes."""
+    f32, bf16, u8 = torch.float32, torch.bfloat16, torch.uint8
+    x = torch.rand((NFRAMES, 3, *PERF_IN), generator=gen, device=dev)
+    x4 = torch.cat([x, torch.rand((NFRAMES, 1, *PERF_IN), generator=gen, device=dev)], 1)
+    grain = torch.rand((3, *OUT4K), generator=gen, device=dev) - 0.5
+    tail = dict(prologue="srtm", epilogue=Epilogue(grain_amount=0.3, dither_bits=10), frame=7, grain=grain)
+    return [("Performance f32", x, {}, f32, EASU_RCAS_OPS),
+            ("Performance bf16", x.to(bf16), {}, bf16, EASU_RCAS_OPS),
+            ("(a) HDR tail", x * 16, tail, f32, EASU_RCAS_OPS + EPI_OPS),
+            ("(c) u8", (x * 255).to(u8), dict(out_dtype=u8), f32, EASU_RCAS_OPS),
+            ("(d) RGBA f32", x4, {}, f32, EASU_RCAS_OPS + ALPHA_OPS),
+            ("(d) RGBA u8", (x4 * 255).to(u8), dict(out_dtype=u8), f32, EASU_RCAS_OPS + ALPHA_OPS)]
+
+
+def k1_strips(x, con):
+    """(i): the Performance frames in four row strips, as
+    ``parallel.spatial`` cuts them: (halo'd strips, their plan, their
+    constants, output rows per strip)."""
+    from fsr_tpu_torch.parallel import spatial
+
+    n, (h, w) = 4, x.shape[-2:]
+    strips = spatial._exchange_halo([x[..., k * h // n:(k + 1) * h // n, :] for k in range(n)], spatial._HALO)
+    lcon = spatial._local_constants(con, spatial._HALO)
+    hl = OUT4K[0] // n
+    return strips, fused.plan((h // n + 2 * spatial._HALO, w), (hl, OUT4K[1]), lcon), lcon, hl
+
+
+def k1_section(libs, dev, gen, cname) -> bool:
+    """K1's paths, each library's in turn (see the module note).  Returns
+    False when this tree's quad and generic paths differ."""
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
+    from tools_torch.ablation import opmix_floor
+
+    con = EasuConstants.create(PERF_IN[::-1], None, OUT4K[::-1])
+    rcon = RcasConstants(0.25)
+    sharp = float(rcon.sharpness)
+    fplan = fused.plan(PERF_IN, OUT4K, con)
+    parent = libs["parent"]
+    ours = {k: v for k, v in libs.items() if k != "parent"}
+    npix = NFRAMES * OUT4K[0] * OUT4K[1]
+    ok = True
+    print(f"K1, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
+    for what, x, kw, dt, ops in k1_cases(dev, gen):
+        storage = torch.uint8 if x.dtype == torch.uint8 else dt
+        epi = epilogue_mod.bind(kw.get("epilogue"), OUT4K, kw.get("frame"), kw.get("grain"), None, dev)
+        padded = pad.edge_pad(x, fplan.pads, storage)
+        pkw = dict(prologue=kw.get("prologue", "none"), epi=epi, out_dtype=kw.get("out_dtype"))
+
+        def new(path, kw=kw, x=x, dt=dt):
+            return lambda: fused.upscale_fused(x, OUT4K, con, rcon, True, False, dt, path=path, **kw)
+
+        fns = {"parent K4 + K1": on(parent, lambda x=x, s=storage, pkw=pkw: parent_k1(
+                   parent, pad.edge_pad(x, fplan.pads, s), fplan, OUT4K, sharp, **pkw)),
+               "parent K1": on(parent, lambda p=padded, pkw=pkw: parent_k1(parent, p, fplan, OUT4K, sharp, **pkw))}
+        for name, lib in ours.items():
+            fns[f"{name} quad"] = on(lib, new("auto"))
+            fns[f"{name} generic"] = on(lib, new("generic"))
+        fns["K2"] = on(libs["this tree"], lambda kw=kw, x=x, dt=dt: easu_gather.easu_gather(
+            x, OUT4K, con, rcon, True, False, dt, **kw))
+        if what == "Performance f32":
+            # EASU alone (the store pass without RCAS): the RCAS pass's share.
+            for name, path in (("quad", "auto"), ("generic", "generic")):
+                fns[f"this tree {name}, EASU only"] = on(libs["this tree"], lambda path=path: fused.upscale_fused(
+                    x, OUT4K, con, rcon, False, False, dt, path=path))
+            for k, fn in opmix_floor.reading_fns(dev).items():
+                if k in ("P1", "P2"):
+                    fns[k] = on(libs["this tree"], fn)
+        outs = {k: fns[k]() for k in fns if k not in ("parent K1", "P1", "P2") and "EASU only" not in k}
+        ref = outs["this tree quad"]
+        for k, out in outs.items():
+            d = (out.float() - ref.float()).abs()
+            print(f"  {what}, {k} vs this tree quad: max-abs {d.max().item():.3e}, "
+                  f"{int((d > 0).sum())} of {d.numel()} values differ")
+            if k.endswith((" quad", " generic")) and not torch.equal(out, ref):
+                ok = False
+        t = cuda_times_in_turn(fns, 5, queue=QUEUE)
+        nbytes = x.numel() * x.element_size() + ref.numel() * ref.element_size()
+        if kw.get("grain") is not None:
+            nbytes += kw["grain"].numel() * kw["grain"].element_size()
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops * npix / F32_OPS_PER_S * 1e3
+        bound = f"{max(by_bytes, by_ops) / NFRAMES:.4f} ({'bytes' if by_bytes >= by_ops else 'operations'})"
+        print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
+              + f"; bound {bound}; quad / parent K4 + K1 {t['this tree quad'] / t['parent K4 + K1']:.3f}")
+        del outs, ref, padded
+
+    # (i): four row strips of the Performance f32 frames, each library's
+    # launches per strip, in turn with the unsharded call.
+    x = k1_cases(dev, gen)[0][1]
+    strips, lplan, lcon, hl = k1_strips(x, con)
+    pstrips = [pad.edge_pad(s, lplan.pads, torch.float32) for s in strips]
+    rows = dict(global_rows=OUT4K[0])
+
+    def new_strips(path):
+        return lambda: [fused.upscale_fused(s, (hl, OUT4K[1]), lcon, rcon, path=path, row_offset=k * hl, **rows)
+                        for k, s in enumerate(strips)]
+
+    fns = {"parent K4 + K1": on(parent, lambda: [parent_k1(parent, pad.edge_pad(s, lplan.pads, torch.float32), lplan,
+                                                           (hl, OUT4K[1]), sharp, row_offset=k * hl, **rows)
+                                                 for k, s in enumerate(strips)]),
+           "parent K1": on(parent, lambda: [parent_k1(parent, p, lplan, (hl, OUT4K[1]), sharp, row_offset=k * hl, **rows)
+                                            for k, p in enumerate(pstrips)]),
+           "this tree quad": on(libs["this tree"], new_strips("auto")),
+           "this tree generic": on(libs["this tree"], new_strips("generic")),
+           "this tree unsharded": on(libs["this tree"], lambda: fused.upscale_fused(x, OUT4K, con, rcon))}
+    whole = fns["this tree unsharded"]()
+    for k in ("parent K4 + K1", "this tree quad", "this tree generic"):
+        got = torch.cat(fns[k](), dim=-2)
+        same = torch.equal(got, whole)
+        print(f"  (i) four strips, {k}: " + ("bit-equal to this tree's unsharded call" if same else
+              f"{int((got != whole).sum())} values differ from this tree's unsharded call"))
+        if k.startswith("this tree") and not same:
+            ok = False
+    t = cuda_times_in_turn(fns, 5, queue=QUEUE)
+    print("  (i) four strips: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items()))
+    return ok
+
+
+def k3_section(libs, dev, gen, cname) -> bool:
+    """K3 at 4K on each storage type, each library's in turn, after every
+    library's output is held against this tree's on every border and
+    denoise setting.  Returns False when one differs."""
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
+
+    rcon = RcasConstants(0.25)
+    ok = True
+    x = torch.rand((NFRAMES, 3, *OUT4K), generator=gen, device=dev)
+    small = torch.rand((2, 3, 67, 131), generator=gen, device=dev)
+    print(f"K3, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
+    for what, conv in (("f32", lambda t: t), ("bf16", lambda t: t.to(torch.bfloat16)),
+                       ("f16", lambda t: t.half()), ("u8", lambda t: (t * 255).to(torch.uint8))):
+        y, ys = conv(x), conv(small)
+        checks = [(y, False, "clamp")] + [(ys, dn, b) for dn in (False, True) for b in ("clamp", "zero")]
+        off = 0
+        for img, dn, border in checks:
+            ref = on(libs["this tree"], lambda: rcas_k.rcas_fused(img, rcon, dn, None, border))()
+            for name, lib in libs.items():
+                got = on(lib, lambda: rcas_k.rcas_fused(img, rcon, dn, None, border))()
+                if not torch.equal(got, ref):
+                    off += 1
+                    print(f"  {what} {tuple(img.shape)} {border} denoise={dn}: {name} NOT bit-equal to this tree")
+        ok = ok and off == 0
+        t = cuda_times_in_turn({name: on(lib, lambda lib=lib: rcas_k.rcas_fused(y, rcon)) for name, lib in libs.items()},
+                               5, queue=QUEUE)
+        bound = 2 * y.numel() * y.element_size() / HBM_BYTES_PER_S * 1e3
+        print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
+              + f"; bound {bound / NFRAMES:.4f} (bytes); this tree / parent {t['this tree'] / t['parent']:.3f}; "
+              + ("every library bit-equal to this tree on " + f"{len(checks)} border/denoise cases" if off == 0 else
+                 "DIFFERS"))
+    return ok
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", default=str(ROOT / "_parent"),
                         help="root of the parent commit's checkout (default _parent)")
     parser.add_argument("--define", action="append", default=[],
-                        help="a -D variant of this tree's kernels to time beside them (repeatable)")
+                        help="a -D variant of this tree's kernels to time beside them (repeatable; "
+                             "NAME=VALUE,NAME=VALUE for several macros in one variant)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; the readings are device times", file=sys.stderr)
@@ -156,7 +371,7 @@ def main() -> int:
     here = ROOT / "fsr_tpu_torch" / "csrc"
     builds = {"this tree": (here, _build.NVCC_FLAGS), "parent": (parent, _build.NVCC_FLAGS)}
     for d in args.define:
-        builds[d] = (here, _build.NVCC_FLAGS + (f"-D{d}",))
+        builds[d] = (here, _build.NVCC_FLAGS + tuple(f"-D{x}" for x in d.split(",")))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         libs = dict(zip(builds, pool.map(lambda b: _build.load(*b), builds.values())))
     cname = card()
@@ -169,7 +384,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
     ok = True
-    print(f"K4, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, on {cname}:")
+    print(f"K4, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
     for what, x, pads, dt in k4_cases(dev, gen):
         want = pad.edge_pad_reference(x, pads, dt)
         for name, lib in libs.items():
@@ -181,13 +396,13 @@ def main() -> int:
         if x.dtype == dt:  # F.pad pads without converting
             pt, pb, pl, pr = pads
             fns["F.pad"] = lambda: torch.nn.functional.pad(x.to(dt), (pl, pr, pt, pb), mode="replicate")
-        t = cuda_times_in_turn(fns, 5)
+        t = cuda_times_in_turn(fns, 5, queue=QUEUE)
         bound = (x.numel() * x.element_size() + want.numel() * want.element_size()) / HBM_BYTES_PER_S * 1e3
         print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
               + f"; bound {bound / NFRAMES:.4f} (bytes)")
         del want
 
-    print(f"K2, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, on {cname}:")
+    print(f"K2, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
     npix = NFRAMES * OUT4K[0] * OUT4K[1]
     for what, call, x, ops in k2_cases(dev, gen):
         ref = on(libs["this tree"], call)()
@@ -196,7 +411,7 @@ def main() -> int:
             d = (got.float() - ref.float()).abs()
             off = int((d > 0).sum())
             print(f"  {what}, {name} vs this tree: max-abs {d.max().item():.3e}, {off} of {d.numel()} values differ")
-        t = cuda_times_in_turn({name: on(lib, call) for name, lib in libs.items()}, 5)
+        t = cuda_times_in_turn({name: on(lib, call) for name, lib in libs.items()}, 5, queue=QUEUE)
         nbytes = x.numel() * x.element_size() + ref.numel() * ref.element_size()
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops * npix / F32_OPS_PER_S * 1e3
         bound = f"{max(by_bytes, by_ops) / NFRAMES:.4f} ({'bytes' if by_bytes >= by_ops else 'operations'})"
@@ -204,16 +419,20 @@ def main() -> int:
               + f"; bound {bound}; this tree / parent {t['this tree'] / t['parent']:.3f}")
         del ref
 
+    k1_ok = k1_section(libs, dev, gen, cname)
+    k3_ok = k3_section(libs, dev, gen, cname)
+
     for name, (csrc, flags) in builds.items():
         print(f"SASS (static), {name}:")
         counts = opmix_floor.sass_counts(_build.library_path(csrc, flags))
-        for line in opmix_floor.sass_lines({k: v for k, v in counts.items() if k.startswith(("K1", "K2"))}):
+        for line in opmix_floor.sass_lines({k: v for k, v in counts.items() if k.startswith(("K1", "K2", "K3"))}):
             print("  " + line)
     print(cname)
-    if not ok:
-        print("kernel_ab: K4 disagrees with its plain version", file=sys.stderr)
-        return 1
-    return 0
+    for good, what in ((ok, "K4 disagrees with its plain version"), (k1_ok, "K1's quad and generic paths differ"),
+                       (k3_ok, "a K3 differs from this tree's")):
+        if not good:
+            print(f"kernel_ab: {what}", file=sys.stderr)
+    return 0 if ok and k1_ok and k3_ok else 1
 
 
 if __name__ == "__main__":

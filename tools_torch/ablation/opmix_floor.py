@@ -24,7 +24,10 @@ loads of the same taps, P1 - P2 the cost of the per-pixel recompute, and P2
 against the convention-2 op floor (``stream_ops``,
 ``fused_roofline.ops_per_pixel``) the instruction-issue efficiency.  The
 replays are what they claim only if P2 <= P1 <= K1 (``report`` says
-whether).  ``sass_counts`` reads the built kernels' SASS (``cuobjdump``):
+whether) for the per-pixel K1 that they replay; K1 now stages its source
+window and runs quads at 2x, so a K1 below P1 reads as the staged design
+beating the per-pixel design's shared-memory floor, not as a fault of the
+replays.  ``sass_counts`` reads the built kernels' SASS (``cuobjdump``):
 the replays' float instructions beside K1's, their LDS beside K1's LDG.
 The plan is fixed by fsr_pixel.cuh's TILE_H x TILE_W, not by a tile sweep.
 
@@ -59,7 +62,10 @@ RING = (probes.TILE[0] + 2) * (probes.TILE[1] + 2) / (probes.TILE[0] * probes.TI
 # The data sheet's float32 rate outside the tensor cores (H100 SXM, 700 W).
 F32_TFLOPS = fused_roofline.PEAK_TFLOPS[torch.float32]
 # sass_counts: the kernels it reads (a label, a piece of the mangled name:
-# K1 is fused_kernel<float, float, RCAS, no denoise, RGB>, K2 its
+# K1 is fused_kernel<float, float, RCAS, no denoise, RGB> in the per-pixel
+# design (a parent build's), fused_kernel<float, float, float, QUAD, no
+# denoise, RGB> in the staged one (quad and generic paths), K3
+# rcas_kernel<T, T, clamp, no denoise> for float32 and uint8, K2 its
 # <float, float, float, ...> twin, staged_gather_kernel since K2 stages its
 # source footprint and gather_kernel in a build of the per-pixel design
 # before it, the length prefixes keeping the two apart) and the
@@ -67,7 +73,9 @@ F32_TFLOPS = fused_roofline.PEAK_TFLOPS[torch.float32]
 SASS_KERNELS = (("K1 f32", "fused_kernelIffLb1ELb0ELb0E"), ("P1", "replay_kernelILb1E"),
                 ("P1 EASU only", "replay_kernelILb0E"), ("P2", "replay_shared_kernel"),
                 ("K2 f32", "20staged_gather_kernelIfffLb1ELb0ELb0E"),
-                ("K2 f32 per-pixel", "13gather_kernelIfffLb1ELb0ELb0E"))
+                ("K2 f32 per-pixel", "13gather_kernelIfffLb1ELb0ELb0E"),
+                ("K1 f32 quad", "fused_kernelIfffLb1ELb0ELb0E"), ("K1 f32 generic", "fused_kernelIfffLb0ELb0ELb0E"),
+                ("K3 f32", "rcas_kernelIffLb0ELb0E"), ("K3 u8", "rcas_kernelIhhLb0ELb0E"))
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "MUFU", "IMAD", "IADD3", "LOP3", "LEA", "SHF",
             "LDS", "LDG", "LDC", "STS", "STG", "BAR")
 # One instruction of cuobjdump -sass: "/*0a30*/  @!P0 FFMA.FTZ R1, ..."
