@@ -101,7 +101,19 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      timed in turn, with nvidia-smi's clocks, power and temperature before
      and after: K1 - P1 (its global tap loads against shared-memory
      ones), P1 - P2 (its recompute), whether P2 <= P1 <= K1, P2 against its
-     op floor, the achieved FMA rates, K1's utilization.
+     op floor, the achieved FMA rates, K1's utilization;
+ 20. autodiff on the card, batch 1: (i) upscale(preset="performance") f32
+     1080p -> 4K, (ii) preset="quality" f32 1440p -> 4K, (iii) sharpen f32
+     at 4K, (iv) performance bf16; each forward launches exactly one K1, K2
+     or K3 (no K4) and its backward none (the torch twin,
+     fsr_tpu_torch/autodiff.py); the gradient under sum(out) bit-equal to
+     impl="torch"'s, under sum(out**2) within tests/test_torch_grad.py's
+     limits; forward and backward ms (CUDA events) and the peak memory per
+     call; at 540p -> 1080p the card's gradient within 1e-5 * max|g| of the
+     port's CPU gradient; then examples_torch/train_through_fsr.py's inverse
+     problem, 3 Adam steps at 1080p -> 4K, one K1 launch each, the
+     displayed MSE lower after them than at the box-downsample baseline;
+     with --trace, a trace of each case's forward and backward.
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
 the float32 operations the function needs, counted (EASU_OPS, RCAS_OPS),
@@ -115,6 +127,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -146,6 +159,12 @@ F16_ULP = 2.0 ** -11  # one float16 step in [0.5, 1)
 # against a mul and an add each); half2 two float16 steps.
 P3_F32_REL = 1e-5
 P3_HALF2_REL = 2.0 ** -9
+# Phase 20's gradient limits, those of tests/test_torch_grad.py: the kernel
+# path against the torch path under a squared loss (float32; bfloat16 by p99
+# and median relative to max|g|), the card against the CPU (float32).
+GRAD_SQ_RTOL, GRAD_SQ_ATOL = 5e-3, 5e-4
+GRAD_BF16_SQ_P99, GRAD_BF16_SQ_MEDIAN = 3e-2, 2e-3
+GRAD_REL = 1e-5
 
 # The least time the card could take (the kernels line's bound_ms): the
 # larger of the bytes a kernel must move over the HBM3 rate and its
@@ -768,10 +787,148 @@ def _probes(dev, card: str) -> list:
     return entries
 
 
+def _autodiff(dev, card: str, trace: bool) -> None:
+    """Phase 20: gradients on the card.  Each case runs its kernel forward
+    (exactly one launch) and the torch twin's backward (no launch); the
+    gradient is held against the torch path's (bit-equal under a linear
+    loss, within the CPU tests' limits under a squared one) and, at 540p ->
+    1080p, against the port's CPU gradient; then the training example's
+    inverse problem takes 3 Adam steps at 1080p -> 4K.  With ``trace``, a
+    profiler trace of one forward and backward of each case: the device's
+    busy time, idle share and its largest kernels."""
+    import fsr_tpu_torch as ft
+    from examples_torch import train_through_fsr as trainer
+    from fsr_tpu_torch.utils.profiling import device_trace
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    wrappers = {k: w for k, w in _wrappers().items() if k in ("K1", "K2", "K3", "K4")}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def grad(fn, x0, square, impl):
+        x = x0.clone().requires_grad_()
+        out = fn(x, impl).float()
+        (out * out if square else out).sum().backward()
+        return x.grad
+
+    print(f"phase 20: autodiff on the card ({card}): kernel forward, torch twin backward, batch 1")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cases = [
+        # name, input shape, dtype, the call, its kernel
+        ("(i) performance f32 1080p->4K", (1, 3, 1080, 1920), f32,
+         lambda x, impl: ft.upscale(x, preset="performance", impl=impl), "K1"),
+        ("(ii) quality f32 1440p->4K", (1, 3, 1440, 2560), f32,
+         lambda x, impl: ft.upscale(x, preset="quality", impl=impl), "K2"),
+        ("(iii) sharpen f32 4K", (1, 3, 2160, 3840), f32, lambda x, impl: ft.sharpen(x, impl=impl), "K3"),
+        ("(iv) performance bf16 1080p->4K", (1, 3, 1080, 1920), bf16,
+         lambda x, impl: ft.upscale(x, preset="performance", compute_dtype=bf16, impl=impl), "K1"),
+    ]
+    for what, shape, dt, fn, kernel in cases:
+        x0 = torch.rand(shape, generator=gen, device=dev).to(dt)
+        grad(fn, x0, False, "kernel")  # warm-up
+        torch.cuda.synchronize()
+        fwd, bwd = [], []
+        for _ in range(3):
+            x = x0.clone().requires_grad_()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            reset()
+            ev[0].record()
+            loss = fn(x, "kernel").float().sum()
+            ev[1].record()
+            n_fwd = counts()
+            reset()
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            n_bwd = counts()
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[2].elapsed_time(ev[3]))
+            want = {k: int(k == kernel) for k in wrappers}
+            if n_fwd != want or any(n_bwd.values()):
+                raise AssertionError(f"{what}: forward launches {n_fwd} (want {want}), backward {n_bwd} (want none)")
+        peak = torch.cuda.max_memory_allocated()
+        g_k = x.grad
+        del x, loss
+        g_t = grad(fn, x0, False, "torch")
+        if not torch.isfinite(g_k).all() or not torch.equal(g_k, g_t):
+            raise AssertionError(f"{what}: the kernel path's gradient is not the torch path's, bit for bit "
+                                 f"({int((g_k != g_t).sum())} values differ)")
+        del g_t
+        gq_k, gq_t = grad(fn, x0, True, "kernel"), grad(fn, x0, True, "torch")
+        scale = gq_t.abs().max().item()
+        if dt == f32:
+            ok = torch.allclose(gq_k, gq_t, rtol=GRAD_SQ_RTOL, atol=GRAD_SQ_ATOL)
+            limits = f"rtol {GRAD_SQ_RTOL:g}, atol {GRAD_SQ_ATOL:g}"
+            stats = f"max {(gq_k - gq_t).abs().max().item():.3e}"
+        else:
+            d = ((gq_k - gq_t).abs() / scale).flatten().float()
+            d = d[:: d.numel() // (1 << 24) + 1]
+            p99, med = torch.quantile(d, 0.99).item(), d.median().item()
+            ok = p99 <= GRAD_BF16_SQ_P99 and med <= GRAD_BF16_SQ_MEDIAN
+            limits = f"p99 {GRAD_BF16_SQ_P99:g}, median {GRAD_BF16_SQ_MEDIAN:g} of max|g|"
+            stats = f"p99 {p99:.3e} median {med:.3e} of max|g|"
+        print(f"  {what}: forward {statistics.median(fwd):.3f} ms ({kernel} x1), backward "
+              f"{statistics.median(bwd):.3f} ms (no kernel), peak {peak / 2**30:.2f} GiB "
+              f"({(peak - before) / 2**30:.2f} GiB above the {before / 2**30:.2f} GiB held before the call); "
+              f"linear-loss gradient bit-equal to impl='torch'; squared loss {stats} (limits {limits}), "
+              f"max|g| {scale:.3e}; {card}")
+        if not ok or not torch.isfinite(gq_k).all():
+            raise AssertionError(f"{what}: squared-loss gradient outside the CPU tests' limits")
+        del gq_k, gq_t
+        if trace:
+            tr = device_trace(lambda: grad(fn, x0, False, "kernel"), 1)
+            top = sorted(tr["kernels"].items(), key=lambda kv: -kv[1])[:8]
+            print(f"    traced forward + backward: busy {tr['busy_ms']:.3f} ms of {tr['window_ms']:.3f}, "
+                  f"idle share {tr['idle_share']:.3f}; largest kernels (ms):")
+            for name, ms in top:
+                print(f"      {ms:9.3f}  {name[:110]}")
+        del x0
+
+    # The card's kernel-path gradient against the port's CPU gradient.
+    img = np.random.default_rng(20).uniform(0, 1, (1, 3, 540, 960)).astype(np.float32)
+    g_card = grad(lambda x, impl: ft.upscale(x, preset="performance", impl=impl), torch.from_numpy(img).to(dev),
+                  False, "kernel").cpu()
+    g_cpu = grad(lambda x, impl: ft.upscale(x, preset="performance", impl=impl), torch.from_numpy(img), False,
+                 "torch")
+    d, scale = (g_card - g_cpu).abs().max().item(), g_cpu.abs().max().item()
+    print(f"  540p->1080p performance f32: card (K1 + twin) vs CPU (torch path) gradient max-abs {d:.3e}, "
+          f"{d / scale:.3e} of max|g| {scale:.3e} (limit {GRAD_REL:g})")
+    if not torch.isfinite(g_card).all() or d > GRAD_REL * scale:
+        raise AssertionError("the card's gradient disagrees with the CPU's")
+
+    # examples_torch/train_through_fsr.py's inverse problem at 1080p -> 4K.
+    hi = torch.from_numpy(trainer.make_scene(np.random.default_rng(0), (2160, 3840))).to(dev)
+    prob = trainer.Inverse(hi, lr=3e-3)
+    mse = [prob.loss()]
+    for step in range(3):
+        reset()
+        t0 = time.perf_counter()
+        loss = prob.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = counts()
+        # The step's own forward is the same K1 call on the same render.
+        if loss != mse[-1] or n != {k: int(k == "K1") for k in wrappers}:
+            raise AssertionError(f"training step {step}: MSE {loss} (before it {mse[-1]}), launches {n}")
+        mse.append(prob.loss())
+        print(f"  training step {step}: displayed MSE {loss:.6e} -> {mse[-1]:.6e}, {ms:.1f} ms "
+              f"(host clock, one K1 launch), {card}")
+    print(f"  displayed MSE after 3 steps: {mse[-1] / mse[0]:.4f} of the box-downsample baseline's")
+    if not mse[-1] < mse[0]:
+        raise AssertionError(f"the displayed MSE did not fall over the 3 steps: {mse}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="add phases 11 and 14 and phase 16's and 18's traces: torch.profiler "
+                        help="add phases 11 and 14 and phase 16's, 18's and 20's traces: torch.profiler "
                              "traces of the main paths")
     args = parser.parse_args()
     trace = args.trace
@@ -1615,6 +1772,10 @@ def main() -> int:
     # --- 19. the probes P1-P4 ----------------------------------------------------
     lap("19")
     kernels += _probes(dev, card)
+
+    # --- 20. autodiff ----------------------------------------------------------------
+    lap("20")
+    _autodiff(dev, card, trace)
     laps.append(("end", time.perf_counter()))
     print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
           + f"; {laps[-1][1] - laps[0][1]:.1f} in all")

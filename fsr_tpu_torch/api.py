@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from fsr_tpu_torch import autodiff
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.core.presets import PRESETS
@@ -53,10 +54,6 @@ def _resolve_out_size(
     if scale is None:
         raise ValueError("provide one of out_size=, scale=, or preset=")
     return (round(in_size[0] * scale), round(in_size[1] * scale))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue item {item})")
 
 
 def _check_impl(impl):
@@ -144,8 +141,13 @@ def upscale(
       with dither_bits=8 the byte is the display code), uint16 the 10-bit
       codes floor(sat(v)*1023 + 0.5); otherwise it must match compute_dtype.
 
-    Inputs that require grad raise NotImplementedError naming their ROADMAP
-    queue item.
+    Gradients: ``upscale`` is differentiable in a floating ``image`` (not
+    through uint8/uint16 outputs).  The torch path differentiates its ops
+    (the bit tricks carry the ideal functions' derivatives); the kernel path
+    runs the same kernel forward and differentiates the torch path's twin
+    of the call (``autodiff.kernel_with_torch_vjp``): its backward launches
+    no kernel.  Alpha takes the bilinear gradient; grain, frame and dither
+    page take none; a TEPD dither's floor gives zero almost everywhere.
 
     Returns the upscaled image in out_dtype (default compute_dtype), in the
     input's layout.
@@ -196,10 +198,6 @@ def _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl):
         raise ValueError("uint8 output cannot hold 10-bit codes")
     if prologue not in ("none", "srtm"):
         raise ValueError(f"unknown prologue {prologue!r}")
-    if image.requires_grad:
-        # The bit tricks have no derivative through their integer views; the
-        # ideal-derivative backward passes come with autodiff.
-        raise _not_ported("autodiff", "4")
     # float16 takes the torch path, chosen from the dtype before any launch,
     # as the JAX package sends it to its XLA path (its kernels refuse it).
     if torch.float16 in (image.dtype, compute_dtype) and impl == "kernel":
@@ -225,13 +223,27 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
     f16 = torch.float16 in (image.dtype, compute_dtype)
     if not f16 and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda")):
         args = (rcon, apply_rcas, denoise, compute_dtype)
-        if strip is None:
-            return dispatch.upscale_fused(image, out_hw, con, *args, **kw)
-        if strip.local_con is not None:
-            return fused.upscale_fused(image, out_hw, strip.local_con, *args, row_offset=strip.row0,
-                                       global_rows=strip.global_rows, **kw)
-        return easu_gather.easu_gather(image, out_hw, con, *args, row_plan=strip.rows, row_offset=strip.row0,
-                                       **kw)
+
+        def kernel(x):
+            if strip is None:
+                return dispatch.upscale_fused(x, out_hw, con, *args, **kw)
+            if strip.local_con is not None:
+                return fused.upscale_fused(x, out_hw, strip.local_con, *args, row_offset=strip.row0,
+                                           global_rows=strip.global_rows, **kw)
+            return easu_gather.easu_gather(x, out_hw, con, *args, row_plan=strip.rows, row_offset=strip.row0,
+                                           **kw)
+
+        if not image.requires_grad or out_dtype in (torch.uint8, torch.uint16):
+            return kernel(image)
+
+        # As fsr_tpu/api.py:269-278: the kernel forward, the backward through
+        # this call on the torch path (RGBA whole, so alpha takes its
+        # bilinear gradient there).
+        def twin(x):
+            return _upscale(x, out_hw, con, rcon, apply_rcas=apply_rcas, denoise=denoise,
+                            compute_dtype=compute_dtype, impl="torch", strip=strip, **kw)
+
+        return autodiff.kernel_with_torch_vjp(kernel, twin, image)
 
     # As fsr_tpu/api.py:196-215, :302-309: alpha is a bilinear pass of its
     # own (a byte decoded first), encoded like the colour, concatenated.
@@ -305,8 +317,10 @@ def sharpen(
     border: "clamp" (edge replication) or "zero" (the sample's out-of-bounds
       imageLoad, which darkens the 1-pixel border; kept for A/B parity).
 
-    Alpha is passed through verbatim.  Inputs that require grad raise
-    NotImplementedError naming their ROADMAP queue item.
+    Alpha is passed through verbatim.  Gradients: differentiable in a
+    floating image; on the kernel path K3 runs forward and the backward
+    differentiates the torch path's ``ops.rcas`` on the RGB planes
+    (``autodiff.kernel_with_torch_vjp``); alpha's gradient is the identity.
     """
     _check_impl(impl)
     if layout == "HWC":
@@ -319,14 +333,17 @@ def sharpen(
         raise ValueError(f"compute_dtype must be float32, bfloat16 or float16, got {compute_dtype}")
     if image.dim() < 3 or image.shape[-3] not in (3, 4):
         raise ValueError(f"image must be (..., 3 or 4, H, W), got {tuple(image.shape)}")
-    if image.requires_grad:
-        raise _not_ported("autodiff", "4")
     rcon = RcasConstants(sharpness_stops=float(sharpness))
 
     if impl == "kernel" or (impl == "auto" and image.device.type == "cuda"):
-        out = rcas_kernel.rcas_fused(
-            image[..., :3, :, :], rcon, denoise=denoise, compute_dtype=compute_dtype, border=border
-        )
+        def kernel(x):
+            return rcas_kernel.rcas_fused(x, rcon, denoise=denoise, compute_dtype=compute_dtype, border=border)
+
+        def twin(x):
+            return rcas_ops.rcas(x, rcon, denoise=denoise, compute_dtype=compute_dtype, border=border)
+
+        rgb = image[..., :3, :, :]
+        out = autodiff.kernel_with_torch_vjp(kernel, twin, rgb) if rgb.requires_grad else kernel(rgb)
         if image.shape[-3] == 4:
             out = torch.cat([out, image[..., 3:4, :, :].to(out.dtype)], dim=-3)
     elif image.dtype == torch.uint8:

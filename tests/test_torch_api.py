@@ -86,20 +86,27 @@ def test_upscale_kernel_impl_on_cpu_matches_xla(dt):
         assert np.median(d) <= 1.0 / 510.0 and np.percentile(d, 99) <= 5.0 / 255.0
 
 
+# The names are those of the raise these cases expected before autodiff;
+# each checks that a gradient flows and equals the torch path's
+# (tests/test_torch_grad.py holds it against jax.grad).
 UNSUPPORTED = [
-    ("grad on the kernel path", lambda x: dict(image=x.clone().requires_grad_(), impl="kernel")),
-    ("grad on the torch path", lambda x: dict(image=x.clone().requires_grad_(), impl="torch")),
+    ("grad on the kernel path", "kernel"),
+    ("grad on the torch path", "torch"),
 ]
 
 
 @pytest.mark.parametrize("case", UNSUPPORTED, ids=lambda c: c[0])
 def test_unsupported_options_raise(case):
-    _, make = case
-    x = torch.from_numpy(_img(3, (3, 27, 48)))
-    kw = dict(image=x, preset="performance")
-    kw.update(make(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fsr_tpu_torch.upscale(**kw)
+    _, impl = case
+
+    def grad(impl):
+        x = torch.from_numpy(_img(3, (3, 27, 48))).requires_grad_()
+        fsr_tpu_torch.upscale(x, preset="performance", impl=impl).sum().backward()
+        return x.grad
+
+    got = grad(impl)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    torch.testing.assert_close(got, grad("torch"), atol=0, rtol=0)
 
 
 PORTED_OPTIONS = [

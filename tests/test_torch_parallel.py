@@ -288,9 +288,21 @@ def test_row_sharded_raises():
     x = torch.from_numpy(_rand(7, (3, 62, 96)))
     with pytest.raises(ValueError, match="spatial sharding needs"):
         spatial.upscale_spatial_sharded(x, (124, 192), _mesh(4))
-    y = torch.from_numpy(_rand(7, (3, 64, 96))).requires_grad_()
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        spatial.upscale_spatial_sharded(y, (128, 192), _mesh(4))
+    # A gradient flows through the strips (it raised here before autodiff),
+    # equals the sharded torch path's, and the unsharded one's up to
+    # summation order (tests/test_torch_grad.py holds it against jax.grad).
+    def grad(fn):
+        v = torch.from_numpy(_rand(7, (3, 64, 96))).requires_grad_()
+        fn(v).sum().backward()
+        return v.grad
+
+    got = grad(lambda v: spatial.upscale_spatial_sharded(v, (128, 192), _mesh(4), impl="kernel"))
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    torch.testing.assert_close(got, grad(lambda v: spatial.upscale_spatial_sharded(v, (128, 192), _mesh(4),
+                                                                                  impl="torch")), atol=0, rtol=0)
+    whole = grad(lambda v: fsr_tpu_torch.upscale(v, out_size=(128, 192), impl="torch"))
+    torch.testing.assert_close(got, whole, atol=1e-6 * whole.abs().max().item(), rtol=0)
+    y = torch.from_numpy(_rand(7, (3, 64, 96)))
     with pytest.raises(ValueError, match="float16 runs the torch path"):
         spatial.upscale_spatial_sharded(y.detach().half(), (128, 192), _mesh(4), impl="kernel")
     with pytest.raises(ValueError, match="10-bit"):

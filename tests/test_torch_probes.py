@@ -306,14 +306,17 @@ def test_wrappers_raise_on_bad_arguments():
 
 def test_port_and_tools_leave_jax_out():
     code = (
-        "import pkgutil, importlib, sys, fsr_tpu_torch, tools_torch\n"
-        "for pkg in (fsr_tpu_torch, tools_torch):\n"
+        "import pkgutil, importlib, sys, fsr_tpu_torch, tools_torch, examples_torch\n"
+        "for pkg in (fsr_tpu_torch, tools_torch, examples_torch):\n"
         "    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "        importlib.import_module(m.name)\n"
+        "assert 'fsr_tpu_torch.autodiff' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'fsr_tpu' "
         "or m.startswith('fsr_tpu.')]\n"
-        "print(len([m for m in sys.modules if m.startswith('tools_torch.')]), bad)\n"
+        "print(len([m for m in sys.modules if m.startswith('tools_torch.')]),\n"
+        "      len([m for m in sys.modules if m.startswith('examples_torch.')]), bad)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
-    # tools_torch.ablation and its four tools (kernel_ab among them).
-    assert res.stdout.split(None, 1) == ["5", "[]\n"]
+    # tools_torch.ablation and its four tools (kernel_ab among them);
+    # examples_torch.train_through_fsr.
+    assert res.stdout.split(None, 2) == ["5", "1", "[]\n"]

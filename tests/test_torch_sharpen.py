@@ -196,19 +196,27 @@ def test_sharpen_float16_runs(case):
         np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
 
 
+# The names are those of the raise this case expected before autodiff; it
+# checks that a gradient flows through K3's plain version (impl="kernel")
+# and equals the torch path's (tests/test_torch_grad.py holds it against
+# jax.grad).
 UNSUPPORTED = [
-    ("grad", lambda x: dict(image=x.clone().requires_grad_()), "item 4"),
+    ("grad", "kernel"),
 ]
 
 
 @pytest.mark.parametrize("case", UNSUPPORTED, ids=lambda c: c[0])
 def test_sharpen_unsupported_options_raise(case):
-    _, make, item = case
-    x = torch.from_numpy(_img(12, (3, 20, 30)))
-    kw = dict(image=x)
-    kw.update(make(x))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue {item}"):
-        fsr_tpu_torch.sharpen(**kw)
+    _, impl = case
+
+    def grad(impl):
+        x = torch.from_numpy(_img(12, (3, 20, 30))).requires_grad_()
+        fsr_tpu_torch.sharpen(x, impl=impl).sum().backward()
+        return x.grad
+
+    got = grad(impl)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    torch.testing.assert_close(got, grad("torch"), atol=0, rtol=0)
 
 
 def test_sharpen_bad_arguments_raise_value_error():
