@@ -114,6 +114,25 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      problem, 3 Adam steps at 1080p -> 4K, one K1 launch each, the
      displayed MSE lower after them than at the box-downsample baseline;
      with --trace, a trace of each case's forward and backward.
+ 21. the application layer on the card, from seeded numpy data in a
+     temporary directory: (i) fsr_tpu_torch.cli --preset performance on a
+     1080p PNG -> 4K with --benchmark 5 --results (one K1 per run, no K4;
+     the PNG's codes equal to upscale(x, preset="performance")'s; the
+     CLI's device ms beside the library call's), (ii) --preset quality
+     --dtype bfloat16 from 1440p (one K2), (iii) --hdr --grain 0.2 and
+     --gamma2-out --grain 0.2 --dither-bits 10, --frame 3 (one K1 each),
+     against the same CLI call on the plain kernels by phase 12's limits,
+     and --hdr --dither-bits 10 refused as the reference refuses it;
+     (iv) examples_torch/sample_app.py at 3840x2160, Quality: a 5-frame
+     flythrough with CSV and two screenshots (one K2 per frame), a frame
+     and the HDR chain against the plain kernels, the frame's traced
+     kernel table and K2's share of it; (v) video_upscale, 16 frames
+     1080p -> 4K in batches of 8 (one K1 per batch); (vi)
+     dataset_preprocessing, u8 batches of 4 per card on make_mesh() (one
+     K1 per card per batch); (vii) frame_graph at
+     1080p -> 4K (one K1) and its kernel table; (viii) tools_torch/
+     quality_study.py on the card within 0.01 dB of its CPU run; (ix) the
+     native host layer built with cc, bit-equal to the numpy constants.
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
 the float32 operations the function needs, counted (EASU_OPS, RCAS_OPS),
@@ -923,6 +942,266 @@ def _autodiff(dev, card: str, trace: bool) -> None:
     print(f"  displayed MSE after 3 steps: {mse[-1] / mse[0]:.4f} of the box-downsample baseline's")
     if not mse[-1] < mse[0]:
         raise AssertionError(f"the displayed MSE did not fall over the 3 steps: {mse}")
+
+
+def _app_layer(dev, card: str) -> None:
+    """Phase 21: the application layer on the card, from seeded numpy data
+    written to a temporary directory: the CLI (Performance with its
+    benchmark, Quality bf16, the pipeline flags), the sample app's
+    flythrough and HDR chain at 4K, the video, dataset and frame-graph
+    examples, the quality study against its CPU run, and the native host
+    layer against the numpy constants.  Each path's launches are counted
+    (exactly its K1 or K2 launches, no K4) and its output held against the
+    same call on the kernels' plain versions or the library call."""
+    import io
+    import os
+    import re
+    import tempfile
+
+    import fsr_tpu_torch as ft
+    from examples_torch import dataset_preprocessing, frame_graph, sample_app, video_upscale
+    from fsr_tpu_torch import cli
+    from fsr_tpu_torch.core import native
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+    from fsr_tpu_torch.parallel import sharding
+    from fsr_tpu_torch.utils import image as im
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+    from tools_torch import quality_study
+
+    print(f"phase 21: the application layer on the card ({card})")
+    rng = np.random.default_rng(21)
+    out4k = (2160, 3840)
+    parts = []  # (part, start time): the seconds each part takes
+
+    def part(name):
+        parts.append((name, time.perf_counter()))
+
+    def run_cli(argv, need):
+        """cli.main under _drive, its stderr echoed; returns the stderr."""
+        buf = io.StringIO()
+        with contextlib.redirect_stderr(buf):
+            rc, got = _drive(lambda: cli.main(argv), need)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            print(f"    cli: {line}")
+        if rc != 0:
+            raise AssertionError(f"cli.main({argv}) returned {rc}")
+        print(f"    launches {got}")
+        return text
+
+    def table(kernels, what):
+        print(f"  {what}: device ms per call by kernel ({card}):")
+        for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {ms:9.4f}  {name[:100]}")
+        print(f"    {sum(kernels.values()):9.4f}  total, {len(kernels)} kernels")
+        return sum(kernels.values())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        im.save_image(path("in1080.png"), rng.uniform(0, 1, (3, 1080, 1920)).astype(np.float32))
+        im.save_image(path("in1440.png"), rng.uniform(0, 1, (3, 1440, 2560)).astype(np.float32))
+
+        def cli_input(name):
+            return torch.from_numpy(np.ascontiguousarray(im.load_image(path(name)))).to(dev)
+
+        def png_codes(name):
+            return im.to_uint8(im.load_image(path(name)))
+
+        part("(i)")
+        # (i) Performance, with the CLI's benchmark: one K1 per run() (the
+        # output, the device reading's warm-up and queued calls, the wall
+        # clock's calls), no K4.
+        n = 5
+        runs = 1 + cli.BENCH_WARMUP + n * cli.BENCH_QUEUE + n
+        text = run_cli([path("in1080.png"), path("perf.png"), "--preset", "performance", "--benchmark", str(n),
+                        "--results", path("perf.csv")], {"K1": runs})
+        cli_ms = float(re.search(r"device ([0-9.]+) ms/frame", text).group(1))
+        rows = open(path("perf.csv")).read().split()
+        if rows[0] != "frame,ms" or len(rows) != n + 1:
+            raise AssertionError(f"(i) the benchmark CSV: {rows}")
+        x = cli_input("in1080.png")
+        lib = ft.upscale(x, preset="performance")
+        want = im.to_uint8(lib.cpu().numpy())
+        got = png_codes("perf.png")
+        print(f"  (i) cli --preset performance 1080p -> 4K f32: {runs} runs, {runs} K1 launches, no K4; PNG codes "
+              f"{'equal' if np.array_equal(got, want) else 'DIFFER'} to upscale(x, preset='performance')'s")
+        if got.shape != (3, *out4k) or not np.array_equal(got, want):
+            raise AssertionError("(i) the CLI's output is not the library call's")
+        lib_ms = cuda_time_ms(lambda: ft.upscale(x, preset="performance"), **KQ)
+        print(f"  (i) device ms per frame: the CLI's {cli_ms:.4f}, the library call's {lib_ms:.4f} "
+              f"(10 calls queued per sample), {card}")
+        del x, lib
+
+        part("(ii)")
+        # (ii) Quality, bfloat16 storage: one K2.
+        run_cli([path("in1440.png"), path("quality.png"), "--preset", "quality", "--dtype", "bfloat16"], {"K2": 1})
+        x = cli_input("in1440.png")
+        want = im.to_uint8(ft.upscale(x, preset="quality", compute_dtype=torch.bfloat16).float().cpu().numpy())
+        got = png_codes("quality.png")
+        print(f"  (ii) cli --preset quality --dtype bfloat16 1440p -> 4K: PNG codes "
+              f"{'equal' if np.array_equal(got, want) else 'DIFFER'} to the library call's")
+        if got.shape != (3, *out4k) or not np.array_equal(got, want):
+            raise AssertionError("(ii) the CLI's output is not the library call's")
+        del x
+
+        part("(iii)")
+        # (iii) The pipeline flags, against the same CLI call on the plain
+        # kernels by phase 12's limits.  The reference's pipeline refuses
+        # TEPD on HDR output (--hdr --dither-bits), and so does the port's:
+        # the HDR tail and the dithered output are two calls.
+        cases = [("hdr", ["--hdr", "--grain", "0.2"], Epilogue(transform="srtm_inv", grain_amount=0.2)),
+                 ("dither10", ["--gamma2-out", "--grain", "0.2", "--dither-bits", "10"],
+                  Epilogue(transform="gamma2", grain_amount=0.2, dither_bits=10))]
+        for name, flags, epi in cases:
+            argv = ["--preset", "performance", *flags, "--frame", "3"]
+            run_cli([path("in1080.png"), path(f"{name}.npy"), *argv], {"K1": 1})
+            with _plain_kernels():
+                run_cli([path("in1080.png"), path(f"{name}_plain.npy"), *argv], {})
+            got, want = (torch.from_numpy(np.load(path(f))) for f in (f"{name}.npy", f"{name}_plain.npy"))
+            _compare_epilogue(got, want, epi, f"(iii) cli {' '.join(flags)} --frame 3 vs the plain kernels")
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli.main([path("in1080.png"), path("bad.npy"), "--hdr", "--dither-bits", "10"])
+        except ValueError as e:
+            print(f"  (iii) --hdr --dither-bits 10 refused, as by the reference: {e}")
+        else:
+            raise AssertionError("(iii) --hdr --dither-bits 10 ran; the reference refuses it")
+
+        part("(iv)")
+        # (iv) The sample app at 4K, Quality (render 2560x1440, K2): a
+        # 5-frame flythrough with its CSV and two screenshots, one K2 per
+        # frame; a frame against the plain kernels and its kernel table; the
+        # HDR chain against the plain kernels.
+        over = {"globals": {"width": out4k[1], "height": out4k[0], "preset": "quality"},
+                "scenes": [{"BenchmarkSettings": {"fps": 2, "warmUpFrames": 1, "resultsFilename": path("bench.csv"),
+                                                  "screenShotName": path("shot")}}]}
+        cfg = sample_app.merge_config(sample_app.DEFAULT_CONFIG, over)
+        bench = cfg["scenes"][0]["BenchmarkSettings"]
+        app = sample_app.SampleApp(cfg)
+        if app.render_hw != (1440, 2560) or app.device.type != "cuda":
+            raise AssertionError(f"(iv) render {app.render_hw} on {app.device}")
+        rows, got = _drive(lambda: sample_app.run_benchmark(app, bench), {"K2": 1 + 5})
+        shots = [r["screenshot"] for r in rows if "screenshot" in r]
+        if len(rows) != 5 or shots != ["shot_0.png", "shot_1.png"] or not all(
+                os.path.exists(path(s)) for s in shots) or len(open(path("bench.csv")).read().split()) != 6:
+            raise AssertionError(f"(iv) the flythrough: {rows}")
+        print(f"  (iv) sample app, quality 2560x1440 -> 3840x2160: {len(rows)} frames + 1 warm-up, launches {got}; "
+              f"wall ms per frame (host clock, synchronised) {[r['ms'] for r in rows]}, median "
+              f"{statistics.median(r['ms'] for r in rows):.3f}, {card}")
+        cam = sample_app.camera_at(bench["keyFrames"], 1.0)
+        for hdr in (False, True):
+            if hdr:
+                app = sample_app.SampleApp(sample_app.merge_config(cfg, {"globals": {"hdr": True}}))
+            out, _ = _drive(lambda: app.render_frame(cam, 1.0, 3), {"K2": 1})
+            with _plain_kernels():
+                want = app.render_frame(cam, 1.0, 3)
+            what = "HDR chain (TEPD10 tonemap, gamma2 out)" if hdr else "frame"
+            _compare(out, want, f"(iv) sample app {what} vs the plain kernels")
+            if out.shape != (3, *out4k) or (hdr and not 0.0 <= out.min().item() <= out.max().item() <= 1.0):
+                raise AssertionError(f"(iv) {what}: {tuple(out.shape)}, range {out.min().item()}..{out.max().item()}")
+            if not hdr:
+                # app.profile's trace, read in full: its kernel table, the
+                # device operations per frame and the device's idle share.
+                tr = device_trace(lambda: app.render_frame(cam, 0.0, 3))
+                kernels = tr["kernels"]
+                if set(app.profile(cam, 3)) != set(kernels):
+                    raise AssertionError("(iv) app.profile's kernels are not the trace's")
+                total = table(kernels, f"(iv) sample app {what}, traced (5 frames)")
+                k2 = sum(ms for name, ms in kernels.items() if "gather_kernel" in name)
+                print(f"  (iv) K2 {k2:.4f} of the frame's {total:.4f} device ms ({k2 / total:.1%}); the scene "
+                      f"stand-in and the tonemap (torch ops) the rest")
+                print(f"  (iv) traced frame: {tr['ops_per_call']:g} device operations per frame, window "
+                      f"{tr['window_ms'] / 5:.4f} ms per frame (host clock), busy {tr['busy_ms'] / 5:.4f}, "
+                      f"idle share {tr['idle_share']:.4f}, {card}")
+        del app, out, want
+
+        part("(v)")
+        # (v) Video: 16 frames 1080p -> 4K in batches of 8, one K1 per batch.
+        clip = video_upscale.synthetic_clip(16, (1080, 1920))
+        up = video_upscale.VideoUpscaler(out4k, dev)
+        up.run(clip[:8], 8)  # warm-up at the timed batch, the copy back included
+        t0 = time.perf_counter()
+        video, got = _drive(lambda: up.run(clip, 8), {"K1": 2})
+        dt = time.perf_counter() - t0
+        with _plain_kernels():
+            want = up.process(torch.from_numpy(clip[:8]).to(dev), 0)
+        _compare_steps(torch.from_numpy(video[:8]).to(dev), want, 8,
+                       "(v) video's first batch (8 frames) vs the plain kernels")
+        if video.shape != (16, 3, *out4k) or not np.isfinite(video).all():
+            raise AssertionError(f"(v) video {video.shape}")
+        print(f"  (v) video 16 frames 1080p -> 4K, batches of 8: launches {got}, {dt:.3f} s, {16 / dt:.1f} frames/s "
+              f"(host clock, the clip's copies both ways included), {card}")
+        del clip, video, want
+
+        part("(vi)")
+        # (vi) Dataset: batches of 4 u8 frames per card, 1080p -> 4K u8 with
+        # TEPD, on make_mesh(): one K1 per card per batch.
+        n_cards = torch.cuda.device_count()
+        dataset_preprocessing.run(1, 4, (1080, 1920), out4k)  # warm-up at the timed batch
+        (outs, dt, n_dev), got = _drive(lambda: dataset_preprocessing.run(4, 4, (1080, 1920), out4k),
+                                        {"K1": 4 * n_cards})
+        mesh = sharding.make_mesh()
+        batch0 = torch.from_numpy(next(dataset_preprocessing.synthetic_corpus(1, 4 * n_dev, (1080, 1920))))
+        with _plain_kernels():
+            want = dataset_preprocessing.preprocess(batch0, 0, out4k, mesh)
+        _compare_steps(outs[0], want, 8, "(vi) dataset batch 0 vs the plain kernels")
+        total = sum(o.shape[0] for o in outs)
+        print(f"  (vi) dataset {total} u8 frames 1080p -> 4K u8 on {n_dev} card(s): launches {got}, {dt:.3f} s, "
+              f"{total / dt:.1f} frames/s (host clock, host transfer and the corpus's generation included), {card}")
+        del outs, want, batch0
+
+        part("(vii)")
+        # (vii) The frame graph at 1080p -> 4K: one K1; its kernel table.
+        scene = torch.from_numpy(frame_graph.render_scene((1080, 1920), 7)).to(dev)
+        out, got = _drive(lambda: frame_graph.frame_tail(scene, out4k), {"K1": 1})
+        with _plain_kernels():
+            want = frame_graph.frame_tail(scene, out4k)
+        _compare(out, want, "(vii) frame graph tail vs the plain kernels")
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = frame_graph.main(["--render", "1080", "1920", "--display", *map(str, out4k), "--out-dir", tmp])
+        print("\n".join(f"    frame_graph: {line}" for line in buf.getvalue().splitlines()))
+        if rc != 0 or not os.path.exists(path("frame_graph_display.png")):
+            raise AssertionError(f"(vii) frame_graph.main returned {rc}")
+        del scene, out, want
+
+        part("(viii)")
+        # (viii) The quality study: on the card (2x at 512x512: K1) within
+        # 0.01 dB of the same study on the CPU.
+        card_rows, got = _drive(lambda: quality_study.study(dev), {"K1": 6})
+        cpu_rows = quality_study.study(torch.device("cpu"))
+        worst = max(abs(a - b) for r, c in zip(card_rows, cpu_rows) for a, b in zip(r[1:], c[1:]))
+        for r, c in zip(card_rows, cpu_rows):
+            print(f"  (viii) {r[0]:10s} bilinear / EASU / EASU+RCAS dB: card {r[1]:.4f} / {r[2]:.4f} / {r[3]:.4f}, "
+                  f"CPU {c[1]:.4f} / {c[2]:.4f} / {c[3]:.4f}")
+        print(f"  (viii) launches {got}; largest difference {worst:.2e} dB (limit 0.01)")
+        if worst > 0.01:
+            raise AssertionError("(viii) the card's quality study disagrees with the CPU's")
+
+    part("(ix)")
+    # (ix) The native host layer, built with cc, bit-equal to the numpy
+    # constants (tests/test_native.py's configurations).
+    if native.load() is None:
+        raise AssertionError("(ix) the native host layer did not build: no cc")
+    configs = [(960, 540, 960, 540, 1920, 1080), (1920, 1080, 1920, 1080, 3840, 2160),
+               (2954, 1662, 2954, 1662, 3840, 2160), (1280, 720, 1920, 1080, 2560, 1440)]
+    for vw, vh, iw, ih, ow, oh in configs:
+        if not np.array_equal(native.easu_con((vw, vh), (iw, ih), (ow, oh)),
+                              EasuConstants.create((vw, vh), (iw, ih), (ow, oh)).as_uint4()):
+            raise AssertionError(f"(ix) native easu_con differs at {(vw, vh, iw, ih, ow, oh)}")
+    if not np.array_equal(native.easu_con((1280, 720), (1920, 1080), (2560, 1440), (64.0, 32.0)),
+                          EasuConstants.create((1280, 720), (1920, 1080), (2560, 1440), (64, 32)).as_uint4()):
+        raise AssertionError("(ix) native easu_con with an offset differs")
+    for s in (0.0, 0.125, 0.25, 0.5, 1.0, 2.0):
+        if not np.array_equal(native.rcas_con(s), RcasConstants(s).as_uint4()):
+            raise AssertionError(f"(ix) native rcas_con differs at {s}")
+    print(f"  (ix) native host layer {native.library_path().parent.name}: the {len(configs)} configurations, "
+          "the offset and 6 sharpness values bit-equal to the numpy constants")
+    part("end")
+    print("  phase 21 seconds per part: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(parts, parts[1:])))
 
 
 def main() -> int:
@@ -1776,6 +2055,10 @@ def main() -> int:
     # --- 20. autodiff ----------------------------------------------------------------
     lap("20")
     _autodiff(dev, card, trace)
+
+    # --- 21. the application layer ----------------------------------------------------
+    lap("21")
+    _app_layer(dev, card)
     laps.append(("end", time.perf_counter()))
     print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
           + f"; {laps[-1][1] - laps[0][1]:.1f} in all")

@@ -2,7 +2,9 @@
 
 The JAX package parses TPU profiler traces; on a CUDA device the timer is a
 pair of CUDA events around each call, and ``device_trace`` reads kernel
-times and the device's idle share from a ``torch.profiler`` trace.
+times and the device's idle share from a ``torch.profiler`` trace (the
+counterpart of ``op_times``).  ``trace_annotation`` names a span in that
+trace (the UserMarker / SetPerfMarker analog).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Callable, Iterable, Tuple
 
 import torch
 
-__all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time"]
+__all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time", "trace_annotation"]
 
 # A torch.profiler cycle can come back with no device activity (seen once on
 # an H100 in a trace that succeeds on a second take): device_trace retakes it.
@@ -81,7 +83,7 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     """Trace ``calls`` back-to-back calls of ``fn()`` with ``torch.profiler``
     and read the device's share of the window.
 
-    Returns ``{"kernels": {name: ms per call}, "busy_ms",
+    Returns ``{"kernels": {name: ms per call}, "ops_per_call", "busy_ms",
     "busy_ms_by_device", "window_ms", "idle_share"}``.  The same calls run
     once first as the profiler's warm-up step, so its buffer set-up falls
     outside the recorded step.  The window runs from the host entering the
@@ -131,8 +133,16 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     window = end - start
     return {
         "kernels": kernels,
+        "ops_per_call": len(dev) / calls,
         "busy_ms": busy / 1e3,
         "busy_ms_by_device": by_device,
         "window_ms": window / 1e3,
         "idle_share": 1.0 - busy / window,
     }
+
+
+def trace_annotation(name: str):
+    """Named scope for traces (the UserMarker / SetPerfMarker analog): a
+    ``torch.profiler.record_function`` span, on the host and, where a CUDA
+    trace is taken, beside the device operations it launched."""
+    return torch.profiler.record_function(name)
