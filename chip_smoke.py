@@ -133,6 +133,15 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      1080p -> 4K (one K1) and its kernel table; (viii) tools_torch/
      quality_study.py on the card within 0.01 dB of its CPU run; (ix) the
      native host layer built with cc, bit-equal to the numpy constants.
+ 22. the measurement tools of tools_torch on the card: headline_probe
+     (K1, 1080p -> 4K bf16, batch 1) and preset_bench (1.3x, 1.5x, 1.7x to
+     4K in bf16: one K2 and no K1 per call, maxdev_f32 within 2e-5) on the
+     production library; u8_writeback_ab's byte-output routes (the
+     bf16+encode codes at most one code from direct_u8's); one K1 knockout
+     (FSR_ABL_K1_POLY) and one K2 knockout (FSR_ABL_K2_NOG) built in
+     parallel, each library's fsr_ablation_mask() exactly its macro and its
+     output different from production's (wrong by design).  Phase 2 holds
+     the production library's mask to 0 (no knockout).
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
 the float32 operations the function needs, counted (EASU_OPS, RCAS_OPS),
@@ -1204,6 +1213,53 @@ def _app_layer(dev, card: str) -> None:
         f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(parts, parts[1:])))
 
 
+def _tools(dev, card: str) -> None:
+    """Phase 22: the measurement tools of tools_torch on the card (their
+    full sweeps run from the tools themselves): the headline probe and the
+    preset bench on the production library, the byte-output routes, and
+    one K1 and one K2 knockout built in parallel, each checked by its mask
+    and held different from production's output."""
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import _build, easu_gather, fused
+    from tools_torch import preset_bench
+    from tools_torch.ablation import fused_stage_ablation, gather_ablation, headline_probe, kernel_ab
+    from tools_torch.ablation import u8_writeback_ab
+
+    print(f"phase 22: the measurement tools on the card ({card})")
+    print("  headline_probe: " + headline_probe.line(headline_probe.headline_ms(dev)) + f", {card}")
+    for name, ms, mpix, d in preset_bench.bench(dev):
+        print(f"  preset_bench: {name} {ms:.4f} ms per 4K frame, {mpix:.0f} Mpix/s, one K2 and no K1, "
+              f"maxdev_f32 {d:.3e} (limit {preset_bench.MAXDEV_F32:g}), {card}")
+        if not d <= preset_bench.MAXDEV_F32:
+            raise AssertionError(f"preset_bench {name}: the f32 kernel path {d:.3e} from the torch path")
+    times, codes = u8_writeback_ab.measure(dev)
+    print(f"  u8_writeback_ab, ms per 4K frame (byte floor), in turn, {card}: "
+          + ", ".join(f"{k} {ms:.4f} ({floor:.4f})" for k, (ms, floor) in times.items()))
+    print(f"  u8_writeback_ab: bf16+encode vs direct_u8 max code dev {codes} (limit 1)")
+    if codes > 1:
+        raise AssertionError(f"bf16_out+encode is {codes} codes from direct_u8")
+
+    # Knockouts: wrong output by design; the production library holds none.
+    macros = ("FSR_ABL_K1_POLY", "FSR_ABL_K2_NOG")
+    libs, secs = fused_stage_ablation.build(macros)
+    rcon = RcasConstants(0.25)
+    x1 = torch.from_numpy(np.random.default_rng(22).uniform(0, 1, (3, 1080, 1920)).astype(np.float32)).to(dev)
+    con1 = EasuConstants.create((1920, 1080), None, (3840, 2160))
+    x2 = gather_ablation.frames("1.7", dev, 1)
+    con2 = EasuConstants.create(gather_ablation.SIZES["1.7"], None, (3840, 2160))
+    calls = {"FSR_ABL_K1_POLY": lambda: fused.upscale_fused(x1, (2160, 3840), con1, rcon, True, False, torch.bfloat16),
+             "FSR_ABL_K2_NOG": lambda: easu_gather.easu_gather(x2, (2160, 3840), con2, rcon, True, False,
+                                                                torch.bfloat16)}
+    for m in macros:
+        want = calls[m]()
+        got = kernel_ab.on(libs[m], calls[m])()
+        d = (got.float() - want.float()).abs().max().item()
+        print(f"  knockout {m}: built in {secs[m]:.1f} s (in parallel with the other), fsr_ablation_mask() "
+              f"{sorted(_build.ablation_mask(libs[m]))}, output max-abs {d:.3e} from production's")
+        if not d > 0.0:
+            raise AssertionError(f"the knockout {m} left the output as it was")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -1238,6 +1294,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2: built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s")
+    knocked = _build.ablation_mask(_build.library())
+    if knocked:
+        raise AssertionError(f"the production library was built with the knockouts {sorted(knocked)}")
+    print("  fsr_ablation_mask() 0: no stage knockout in the production library")
     entries, spills, entry = 0, [], None
     for line in (_build.build_dir() / "build.log").read_text().splitlines():
         if "Used" in line or "Compiling entry" in line:
@@ -2059,6 +2119,10 @@ def main() -> int:
     # --- 21. the application layer ----------------------------------------------------
     lap("21")
     _app_layer(dev, card)
+
+    # --- 22. the measurement tools ----------------------------------------------------
+    lap("22")
+    _tools(dev, card)
     laps.append(("end", time.perf_counter()))
     print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
           + f"; {laps[-1][1] - laps[0][1]:.1f} in all")

@@ -194,6 +194,15 @@ __device__ __forceinline__ void easu_staged(const Stage<RGBA>& st, int ly, int l
   const int co[4] = {cv.x, cv.y, cv.z, cv.w};
   const int ro[4] = {rv.x, rv.y, rv.z, rv.w};
   const char* tex = reinterpret_cast<const char*>(st.tex);
+#if defined(FSR_ABL_K2_STAGEONLY)
+  // Knockout (gather_ablation.py "stageonly"; fsr_pixel.cuh:ABLATION_MASK):
+  // the staged 'f' texel in place of EASU, so the kernel keeps its staging,
+  // its table slice and its store.
+  const float4 f = *reinterpret_cast<const float4*>(tex + ro[1] + co[1]);
+  out[0] = f.x;
+  out[1] = f.y;
+  out[2] = f.z;
+#else
   // The corners of the 4x4 window are unused.
   float t[3][4][4], L[4][4];
 #pragma unroll
@@ -209,6 +218,7 @@ __device__ __forceinline__ void easu_staged(const Stage<RGBA>& st, int ly, int l
     }
   }
   easu_resolve_luma(t, L, st.px[lx], st.py[ly], out);
+#endif
 }
 
 // Bilinear alpha of ring pixel (ly, lx) from the staged alpha plane, at the

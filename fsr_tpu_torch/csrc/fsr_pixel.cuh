@@ -37,6 +37,47 @@ constexpr int RING_W = TILE_W + 2;
 constexpr int NTHREADS = 256;
 constexpr float RCAS_LIMIT4 = 4.0f * (0.25f - 1.0f / 16.0f);
 
+// Stage knockouts, for the ablation tools only (tools_torch/ablation/
+// fused_stage_ablation.py, gather_ablation.py): each FSR_ABL_* macro, passed
+// with -D to a tool's own build, replaces one stage of K1 or K2 with a cheap
+// stand-in that depends on the data, so that nvcc cannot drop the stages
+// upstream of it.  The output is wrong by design.  Every knockout sits under
+// #if defined(...), so a build without the macros compiles the production
+// kernels token for token.  fsr_ablation_mask() (fused.cu) returns this
+// mask: one bit per macro the library was built with, in the order of
+// kernels/_build.py:ABLATION_MACROS; the tools check it (a misspelt -D
+// would build the production kernel), and chip_smoke.py holds the
+// production library's to 0.
+constexpr int ABLATION_MASK = 0
+#if defined(FSR_ABL_K1_SET)
+                              | 1 << 0
+#endif
+#if defined(FSR_ABL_K1_NORM)
+                              | 1 << 1
+#endif
+#if defined(FSR_ABL_K1_WEIGHTS)
+                              | 1 << 2
+#endif
+#if defined(FSR_ABL_K1_POLY)
+                              | 1 << 3
+#endif
+#if defined(FSR_ABL_K1_DERING)
+                              | 1 << 4
+#endif
+#if defined(FSR_ABL_RCASLIMIT)
+                              | 1 << 5
+#endif
+#if defined(FSR_ABL_K2_NOG)
+                              | 1 << 6
+#endif
+#if defined(FSR_ABL_K2_WEIGHTS)
+                              | 1 << 7
+#endif
+#if defined(FSR_ABL_K2_STAGEONLY)
+                              | 1 << 8
+#endif
+    ;
+
 // Float32 constants, bit-exact to the plain versions' (ops/extras.py).
 constexpr float INV255 = 0x1.010102p-8f;    // float32(1/255)
 constexpr float INV1023 = 0x1.00401p-10f;   // float32(1/1023)
@@ -178,10 +219,19 @@ __device__ __forceinline__ void easu_resolve_luma(const float (&t)[3][4][4], con
                                                   float ppx, float ppy, float out[3]) {
   // Quadrant responses at the quad's texels f (1,1), g (1,2), j (2,1), k (2,2).
   float gxs, gys, gls, gxt, gyt, glt, gxu, gyu, glu, gxv, gyv, glv;
+#if defined(FSR_ABL_K2_NOG)
+  // Knockout (gather_ablation.py "nog"): each texel's luma reused as its
+  // response, as the JAX tool's FSR_GATHER_ABL=nog does.
+  gxs = gys = gls = L[1][1];
+  gxt = gyt = glt = L[1][2];
+  gxu = gyu = glu = L[2][1];
+  gxv = gyv = glv = L[2][2];
+#else
   texel_response(L[0][1], L[1][0], L[1][1], L[1][2], L[2][1], gxs, gys, gls);
   texel_response(L[0][2], L[1][1], L[1][2], L[1][3], L[2][2], gxt, gyt, glt);
   texel_response(L[1][1], L[2][0], L[2][1], L[2][2], L[3][1], gxu, gyu, glu);
   texel_response(L[1][2], L[2][1], L[2][2], L[2][3], L[3][2], gxv, gyv, glv);
+#endif
 
   const float ws = (1.0f - ppx) * (1.0f - ppy);
   const float wt = ppx * (1.0f - ppy);
@@ -247,6 +297,11 @@ __device__ __forceinline__ void easu_resolve_luma(const float (&t)[3][4][4], con
   for (int n = 0; n < 12; ++n) {
     const int dx = kTapDx[n] + 1;
     const int dy = kTapDy[n] + 1;
+#if defined(FSR_ABL_K2_WEIGHTS)
+    // Knockout (gather_ablation.py "weights"): the tap distance and weight
+    // stubbed by the lobe or the clip, alternating; the accumulation stays.
+    const float w = (dx + dy) % 2 == 0 ? lob : clp;
+#else
     float d2 = c_dx[dx] + (off_x[dx] * a_dy[dy] + b_dy[dy]);
     d2 = fminf(d2, clp);
     float w_a = lob * d2 - 1.0f;
@@ -255,6 +310,7 @@ __device__ __forceinline__ void easu_resolve_luma(const float (&t)[3][4][4], con
     // factored (a single quartic loses fidelity near the clip point).
     const float w_b = (0.25f * d2 - 1.25f) * d2 + 1.0f;
     const float w = w_b * w_a;
+#endif
     ac0 = ac0 + t[0][dy][dx] * w;
     ac1 = ac1 + t[1][dy][dx] * w;
     ac2 = ac2 + t[2][dy][dx] * w;
@@ -305,6 +361,13 @@ __device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], c
   // selects reproduce the reference's NaN-drop branch (mx4 == 0 under an
   // isolated bright pixel) without forming a NaN; no fmaxf NaN-dropping is
   // relied on.
+#if defined(FSR_ABL_RCASLIMIT)
+  // Knockout (fused_stage_ablation.py "rcaslimit"): the limiter replaced by
+  // a lobe from the centre's red, as the JAX tool's stand-in
+  // (easu_math.rcas_resolve); the resolve below stays.
+  (void)sharp;
+  float lobe = __fmul_rn(e[0], -0.01f);
+#else
   float num = 0.0f, den = 1.0f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -329,6 +392,7 @@ __device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], c
   r = (r < 0.0f) ? 0.0f : r;
   r = (r > RCAS_LIMIT4) ? RCAS_LIMIT4 : r;
   float lobe = r * (sharp * -0.25f);
+#endif
   if (DENOISE) {
     const float bl = luma2(b[0], b[1], b[2]);
     const float dl = luma2(d[0], d[1], d[2]);

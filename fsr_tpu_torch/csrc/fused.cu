@@ -250,10 +250,23 @@ __device__ __forceinline__ void k1_response(float la, float lb, float lc, float 
 }
 
 __device__ __forceinline__ void k1_responses(const float (&L)[4][4], float (&g)[4][3]) {
+#if defined(FSR_ABL_K1_SET)
+  // Knockout (fused_stage_ablation.py "set"; fsr_pixel.cuh:ABLATION_MASK):
+  // the four texel responses replaced by their lumas, as the JAX tool's
+  // stand-in (dir (l, l / 2), length sat(l)).
+  const float l4[4] = {L[1][1], L[1][2], L[2][1], L[2][2]};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    g[k][0] = l4[k];
+    g[k][1] = __fmul_rn(l4[k], 0.5f);
+    g[k][2] = clamp01(l4[k]);
+  }
+#else
   k1_response(L[0][1], L[1][0], L[1][1], L[1][2], L[2][1], g[0]);
   k1_response(L[0][2], L[1][1], L[1][2], L[1][3], L[2][2], g[1]);
   k1_response(L[1][1], L[2][0], L[2][1], L[2][2], L[3][1], g[2]);
   k1_response(L[1][2], L[2][1], L[2][2], L[2][3], L[3][2], g[3]);
+#endif
 }
 
 __device__ __forceinline__ void k1_resolve(const float (&t)[3][4][4], const float (&g)[4][3], float ppx,
@@ -270,6 +283,11 @@ __device__ __forceinline__ void k1_resolve(const float (&t)[3][4][4], const floa
     diry = __fmaf_rn(g[k][1], w4[k], diry);
     len = __fmaf_rn(g[k][2], w4[k], len);
   }
+#if defined(FSR_ABL_K1_NORM)
+  // Knockout ("norm"): no normalisation, stretch or lobe chain; the blended
+  // direction and length stand in, as in the JAX tool.
+  const float len2_x = dirx, len2_y = diry, lob = len, clp = dirx;
+#else
   // Direction normalisation with zero-protect (ffx_fsr1.h:388-395).
   float dir_r = __fmaf_rn(dirx, dirx, __fmul_rn(diry, diry));
   const bool zro = dir_r < (1.0f / 32768.0f);
@@ -288,6 +306,7 @@ __device__ __forceinline__ void k1_resolve(const float (&t)[3][4][4], const floa
   const float len2_y = __fmaf_rn(-0.5f, len, 1.0f);
   const float lob = __fmaf_rn((float)((1.0 / 4.0 - 0.04) - 0.5), len, 0.5f);
   const float clp = prx_lo_rcp(lob);
+#endif
   // Tap distance as a quadratic form, factored per tap row/column.
   const float lx2 = __fmul_rn(len2_x, len2_x);
   const float ly2 = __fmul_rn(len2_y, len2_y);
@@ -314,12 +333,21 @@ __device__ __forceinline__ void k1_resolve(const float (&t)[3][4][4], const floa
   for (int n = 0; n < 12; ++n) {
     const int dx = kTapDx[n] + 1;
     const int dy = kTapDy[n] + 1;
+#if defined(FSR_ABL_K1_WEIGHTS)
+    // Knockout ("weights"): no tap distance and no weight polynomial, the
+    // lobe or the clip in their place, alternating; the accumulation stays.
+    const float w = (dx + dy) % 2 == 0 ? lob : clp;
+#elif defined(FSR_ABL_K1_POLY)
+    // Knockout ("poly"): the tap distance as the weight, no polynomial.
+    const float w = __fadd_rn(c_dx[dx], __fmaf_rn(off_x[dx], a_dy[dy], b_dy[dy]));
+#else
     float d2 = __fadd_rn(c_dx[dx], __fmaf_rn(off_x[dx], a_dy[dy], b_dy[dy]));
     d2 = fminf(d2, clp);
     float w_a = __fmaf_rn(lob, d2, -1.0f);
     w_a = __fmul_rn(w_a, w_a);
     const float w_b = __fmaf_rn(__fmaf_rn(0.25f, d2, -1.25f), d2, 1.0f);
     const float w = __fmul_rn(w_b, w_a);
+#endif
     ac0 = __fmaf_rn(t[0][dy][dx], w, ac0);
     ac1 = __fmaf_rn(t[1][dy][dx], w, ac1);
     ac2 = __fmaf_rn(t[2][dy][dx], w, ac2);
@@ -329,6 +357,10 @@ __device__ __forceinline__ void k1_resolve(const float (&t)[3][4][4], const floa
   const float acc[3] = {ac0, ac1, ac2};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
+#if defined(FSR_ABL_K1_DERING)
+    // Knockout ("dering"): no min/max clamp.
+    out[c] = __fmul_rn(acc[c], inv_w);
+#else
     // Dering clamp to the nearest 2x2 {f, g, j, k}; selects keep a NaN.
     const float mn = fminf(fminf(t[c][1][1], t[c][1][2]), fminf(t[c][2][1], t[c][2][2]));
     const float mx = fmaxf(fmaxf(t[c][1][1], t[c][1][2]), fmaxf(t[c][2][1], t[c][2][2]));
@@ -336,6 +368,7 @@ __device__ __forceinline__ void k1_resolve(const float (&t)[3][4][4], const floa
     v = (v < mn) ? mn : v;
     v = (v > mx) ? mx : v;
     out[c] = v;
+#endif
   }
 }
 
@@ -481,6 +514,10 @@ bool quad_axis(int q, const int* r, const float* f) {
 }
 
 }  // namespace
+
+// The FSR_ABL_* knockouts this library was built with, one bit each
+// (fsr_pixel.cuh:ABLATION_MASK); 0 for the production build.
+extern "C" int fsr_ablation_mask(void) { return ABLATION_MASK; }
 
 // dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
 // bfloat16 or uint8), dtype the storage type (float32 or bfloat16; a

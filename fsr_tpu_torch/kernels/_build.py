@@ -11,6 +11,12 @@ library afterwards.  A failed build raises with the compiler's output.
 (the measurement tools build a parent commit's kernels and variants beside
 these); ``library`` is the package's own.
 
+The ablation tools build variants with one ``-D`` macro of
+``ABLATION_MACROS`` each: a stage of K1 or K2 knocked out, the output wrong
+by design.  ``NVCC_FLAGS`` defines none, and the library's
+``fsr_ablation_mask()`` reports, one bit per macro in that order, which a
+library was built with (``ablation_mask``).
+
 Nothing here runs at import: the CPU tests import every module on machines
 with no ``nvcc``.
 """
@@ -26,7 +32,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "load", "library_path", "build_dir", "cuda_tool", "NVCC_FLAGS"]
+__all__ = ["library", "load", "library_path", "build_dir", "cuda_tool", "ablation_mask", "NVCC_FLAGS",
+           "ABLATION_MACROS"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -36,6 +43,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+)
+
+# The stage knockouts (csrc/fsr_pixel.cuh:ABLATION_MASK), bit k of the mask
+# for ABLATION_MACROS[k].
+ABLATION_MACROS = (
+    "FSR_ABL_K1_SET", "FSR_ABL_K1_NORM", "FSR_ABL_K1_WEIGHTS", "FSR_ABL_K1_POLY", "FSR_ABL_K1_DERING",
+    "FSR_ABL_RCASLIMIT", "FSR_ABL_K2_NOG", "FSR_ABL_K2_WEIGHTS", "FSR_ABL_K2_STAGEONLY",
 )
 
 
@@ -88,6 +102,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsr_fma_rate.restype = i
     lib.fsr_fp16_probe.argtypes = [vp, vp, ll, i, vp]
     lib.fsr_fp16_probe.restype = i
+    # Sources from before the knockouts (a parent commit's, kernel_ab.py)
+    # export no mask.
+    if hasattr(lib, "fsr_ablation_mask"):
+        lib.fsr_ablation_mask.argtypes = []
+        lib.fsr_ablation_mask.restype = i
 
 
 def _compile(out_dir: pathlib.Path, so: pathlib.Path, csrc: pathlib.Path, flags) -> None:
@@ -141,6 +160,13 @@ def load(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     return lib
+
+
+def ablation_mask(lib: ctypes.CDLL) -> frozenset:
+    """The ``ABLATION_MACROS`` that ``lib`` was built with (none for the
+    production build)."""
+    mask = lib.fsr_ablation_mask()
+    return frozenset(m for k, m in enumerate(ABLATION_MACROS) if mask >> k & 1)
 
 
 @functools.lru_cache(maxsize=None)

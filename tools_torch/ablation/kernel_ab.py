@@ -8,20 +8,18 @@ commit unpacked at the root of the checkout), and this checkout's again
 with each ``--define`` (a preprocessor variant, e.g. ``FSR_K2_TILE_H=16``
 for K2's tile height, ``FSR_K1_MIN_BLOCKS=4`` for K1's register cap;
 ``FSR_K1_TILE_H=32,FSR_K1_TILE_W=32`` sets two macros at once).  The
-package's wrappers drive every library's K2, K3 and K4, whose C interfaces
-have not changed; the parent's K1 takes a K4-padded source through its own
-C interface (``parent_k1``, ``PARENT_K1_ARGTYPES``).
+package's wrappers drive every library's K1, K2, K3 and K4, whose C
+interfaces are the same in the parent (a parent from before the K1
+redesign, whose K1 took a K4-padded source, cannot be driven).
 
 K1, at the Performance shapes (batch 4, 1080p -> 4K): Performance float32
 and bfloat16, the HDR tail (a) (SRTM prologue, grain, 10-bit dither), the
 byte path (c) (uint8 in and out), RGBA (d) float32 and uint8, and four
-row strips (i); per path, in turn: the parent's K4 + K1 (its main path),
-the parent's K1 alone on the padded frame, this tree's K1 on its quad and
-generic paths (and each variant's), K2 on the same frames (the staging-only
-yardstick), and with Performance float32 this tree's K1 without RCAS and
-the probes P1 and P2.  Every library's quad and generic paths are held
-bit-equal to this tree's quad path, and the parent's output and K2's
-against it (largest difference, values that differ).  K3, at 4K:
+row strips (i); per path, in turn: each library's K1 on its quad and
+generic paths, K2 on the same frames (the staging-only yardstick), and
+with Performance float32 this tree's K1 without RCAS and the probes P1 and
+P2.  Every library's quad and generic paths and K2's output are held
+against this tree's quad path (largest difference, values that differ).  K3, at 4K:
 float32, bfloat16, float16 and uint8 storage, each library in turn, after
 every library's output is held against this tree's on every border and
 denoise setting (bit-equal expected).  Before those, as before, at the main paths'
@@ -40,8 +38,8 @@ lines of K4, of K1, K2 and K3 with RCAS and no denoise, and the static
 SASS counts of K1, K2 and K3 (``opmix_floor.sass_counts``) for each library,
 with the card's name and power limit.  Exits non-zero without a card or
 parent sources, when a K4 disagrees with its plain version, when this
-tree's K1 quad and generic paths differ, or when a K3 differs from this
-tree's.
+tree's (or a variant's) K1 quad and generic paths differ from this tree's
+quad path, or when a K3 differs from this tree's.
 """
 
 from __future__ import annotations
@@ -49,7 +47,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
-import ctypes
 import os
 import pathlib
 import re
@@ -63,7 +60,6 @@ import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import _build, easu_gather, fused, pad
-from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import rcas as rcas_k
 from fsr_tpu_torch.kernels.epilogue import Epilogue
 
@@ -84,16 +80,10 @@ EASU_RCAS_OPS = 488.75
 EPI_OPS = 12 + 60
 ALPHA_OPS = 8
 # ptxas entries printed: every K4; K2 with RCAS and no denoise; K1 float32
-# with no denoise (this tree's <S, T, O, QUAD, DENOISE, RGBA>, the parent's
-# <S, O, RCAS, DENOISE, RGBA> with RCAS); K3 with the clamp border and no
-# denoise.
+# with no denoise (<S, T, O, QUAD, DENOISE, RGBA>); K3 with the clamp border
+# and no denoise.
 PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernelI.*Lb1ELb0EL|fused_kernelIfffLb[01]ELb0ELb[01]EE"
-                           r"|fused_kernelIffLb1ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE")
-# The parent's K1 C interface (a K4-padded source): src, dst, src_dtype,
-# out_dtype, nb, channels, hp, wp, hout, wout, qy, qx, ry, rx, py, px, sharp,
-# apply_rcas, denoise, srtm, ylo, yhi, epi, stream.
-_vp, _i, _ip, _fp = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
-PARENT_K1_ARGTYPES = [_vp, _vp] + [_i] * 10 + [_ip, _ip, _fp, _fp, ctypes.c_float] + [_i] * 5 + [_vp, _vp]
+                           r"|rcas_kernelI.*Lb0ELb0EE")
 
 
 @contextlib.contextmanager
@@ -127,29 +117,6 @@ def ptxas_lines(build_dir: pathlib.Path) -> list:
             if PTXAS_KERNELS.search(entry):
                 out.append(f"{entry}: {stack}; {line.split(':', 1)[1].strip()}")
             entry = None
-    return out
-
-
-def parent_k1(lib, padded, fplan, out_size, sharp, *, prologue="none", epi=None, out_dtype=None,
-              row_offset=0, global_rows=None):
-    """The parent's K1 on the K4-padded CUDA tensor ``padded`` with the
-    padded-frame plan ``fplan``, through its own C interface."""
-    lib.fsr_upscale_fused.argtypes = PARENT_K1_ARGTYPES
-    lib.fsr_upscale_fused.restype = ctypes.c_int
-    out_dtype = out_dtype or padded.dtype
-    hout, wout = out_size
-    ylo, yhi = fused.ring_rows(hout, row_offset, global_rows)
-    *lead, nc, hp, wp = padded.shape
-    out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=padded.device)
-    codes = pad.DTYPE_CODES
-    cepi = epilogue_mod.c_params(epi)
-    err = lib.fsr_upscale_fused(
-        padded.data_ptr(), out.data_ptr(), codes[padded.dtype], codes[out_dtype], padded.numel() // (nc * hp * wp),
-        nc, hp, wp, hout, wout, fplan.qy, fplan.qx, (ctypes.c_int * 4)(*fplan.ry), (ctypes.c_int * 4)(*fplan.rx),
-        (ctypes.c_float * 4)(*fplan.py), (ctypes.c_float * 4)(*fplan.px), float(sharp), 1, 0,
-        int(prologue == "srtm"), ylo, yhi, ctypes.addressof(cepi), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"parent K1 launch failed: cudaError {err}")
     return out
 
 
@@ -215,45 +182,35 @@ def k1_cases(dev, gen):
 
 def k1_strips(x, con):
     """(i): the Performance frames in four row strips, as
-    ``parallel.spatial`` cuts them: (halo'd strips, their plan, their
-    constants, output rows per strip)."""
+    ``parallel.spatial`` cuts them: (halo'd strips, their constants, output
+    rows per strip)."""
     from fsr_tpu_torch.parallel import spatial
 
-    n, (h, w) = 4, x.shape[-2:]
+    n, h = 4, x.shape[-2]
     strips = spatial._exchange_halo([x[..., k * h // n:(k + 1) * h // n, :] for k in range(n)], spatial._HALO)
     lcon = spatial._local_constants(con, spatial._HALO)
     hl = OUT4K[0] // n
-    return strips, fused.plan((h // n + 2 * spatial._HALO, w), (hl, OUT4K[1]), lcon), lcon, hl
+    return strips, lcon, hl
 
 
 def k1_section(libs, dev, gen, cname) -> bool:
     """K1's paths, each library's in turn (see the module note).  Returns
-    False when this tree's quad and generic paths differ."""
+    False when this tree's or a variant's quad or generic path differs from
+    this tree's quad path."""
     from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
     from tools_torch.ablation import opmix_floor
 
     con = EasuConstants.create(PERF_IN[::-1], None, OUT4K[::-1])
     rcon = RcasConstants(0.25)
-    sharp = float(rcon.sharpness)
-    fplan = fused.plan(PERF_IN, OUT4K, con)
-    parent = libs["parent"]
-    ours = {k: v for k, v in libs.items() if k != "parent"}
     npix = NFRAMES * OUT4K[0] * OUT4K[1]
     ok = True
     print(f"K1, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
     for what, x, kw, dt, ops in k1_cases(dev, gen):
-        storage = torch.uint8 if x.dtype == torch.uint8 else dt
-        epi = epilogue_mod.bind(kw.get("epilogue"), OUT4K, kw.get("frame"), kw.get("grain"), None, dev)
-        padded = pad.edge_pad(x, fplan.pads, storage)
-        pkw = dict(prologue=kw.get("prologue", "none"), epi=epi, out_dtype=kw.get("out_dtype"))
-
         def new(path, kw=kw, x=x, dt=dt):
             return lambda: fused.upscale_fused(x, OUT4K, con, rcon, True, False, dt, path=path, **kw)
 
-        fns = {"parent K4 + K1": on(parent, lambda x=x, s=storage, pkw=pkw: parent_k1(
-                   parent, pad.edge_pad(x, fplan.pads, s), fplan, OUT4K, sharp, **pkw)),
-               "parent K1": on(parent, lambda p=padded, pkw=pkw: parent_k1(parent, p, fplan, OUT4K, sharp, **pkw))}
-        for name, lib in ours.items():
+        fns = {}
+        for name, lib in libs.items():
             fns[f"{name} quad"] = on(lib, new("auto"))
             fns[f"{name} generic"] = on(lib, new("generic"))
         fns["K2"] = on(libs["this tree"], lambda kw=kw, x=x, dt=dt: easu_gather.easu_gather(
@@ -266,13 +223,13 @@ def k1_section(libs, dev, gen, cname) -> bool:
             for k, fn in opmix_floor.reading_fns(dev).items():
                 if k in ("P1", "P2"):
                     fns[k] = on(libs["this tree"], fn)
-        outs = {k: fns[k]() for k in fns if k not in ("parent K1", "P1", "P2") and "EASU only" not in k}
+        outs = {k: fns[k]() for k in fns if k not in ("P1", "P2") and "EASU only" not in k}
         ref = outs["this tree quad"]
         for k, out in outs.items():
             d = (out.float() - ref.float()).abs()
             print(f"  {what}, {k} vs this tree quad: max-abs {d.max().item():.3e}, "
                   f"{int((d > 0).sum())} of {d.numel()} values differ")
-            if k.endswith((" quad", " generic")) and not torch.equal(out, ref):
+            if k.endswith((" quad", " generic")) and not k.startswith("parent") and not torch.equal(out, ref):
                 ok = False
         t = cuda_times_in_turn(fns, 5, queue=QUEUE)
         nbytes = x.numel() * x.element_size() + ref.numel() * ref.element_size()
@@ -281,35 +238,31 @@ def k1_section(libs, dev, gen, cname) -> bool:
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops * npix / F32_OPS_PER_S * 1e3
         bound = f"{max(by_bytes, by_ops) / NFRAMES:.4f} ({'bytes' if by_bytes >= by_ops else 'operations'})"
         print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
-              + f"; bound {bound}; quad / parent K4 + K1 {t['this tree quad'] / t['parent K4 + K1']:.3f}")
-        del outs, ref, padded
+              + f"; bound {bound}; this tree quad / parent quad {t['this tree quad'] / t['parent quad']:.3f}")
+        del outs, ref
 
     # (i): four row strips of the Performance f32 frames, each library's
     # launches per strip, in turn with the unsharded call.
     x = k1_cases(dev, gen)[0][1]
-    strips, lplan, lcon, hl = k1_strips(x, con)
-    pstrips = [pad.edge_pad(s, lplan.pads, torch.float32) for s in strips]
+    strips, lcon, hl = k1_strips(x, con)
     rows = dict(global_rows=OUT4K[0])
 
     def new_strips(path):
         return lambda: [fused.upscale_fused(s, (hl, OUT4K[1]), lcon, rcon, path=path, row_offset=k * hl, **rows)
                         for k, s in enumerate(strips)]
 
-    fns = {"parent K4 + K1": on(parent, lambda: [parent_k1(parent, pad.edge_pad(s, lplan.pads, torch.float32), lplan,
-                                                           (hl, OUT4K[1]), sharp, row_offset=k * hl, **rows)
-                                                 for k, s in enumerate(strips)]),
-           "parent K1": on(parent, lambda: [parent_k1(parent, p, lplan, (hl, OUT4K[1]), sharp, row_offset=k * hl, **rows)
-                                            for k, p in enumerate(pstrips)]),
-           "this tree quad": on(libs["this tree"], new_strips("auto")),
-           "this tree generic": on(libs["this tree"], new_strips("generic")),
-           "this tree unsharded": on(libs["this tree"], lambda: fused.upscale_fused(x, OUT4K, con, rcon))}
+    fns = {}
+    for name, lib in libs.items():
+        fns[f"{name} quad"] = on(lib, new_strips("auto"))
+        fns[f"{name} generic"] = on(lib, new_strips("generic"))
+    fns["this tree unsharded"] = on(libs["this tree"], lambda: fused.upscale_fused(x, OUT4K, con, rcon))
     whole = fns["this tree unsharded"]()
-    for k in ("parent K4 + K1", "this tree quad", "this tree generic"):
+    for k in list(fns)[:-1]:
         got = torch.cat(fns[k](), dim=-2)
         same = torch.equal(got, whole)
         print(f"  (i) four strips, {k}: " + ("bit-equal to this tree's unsharded call" if same else
               f"{int((got != whole).sum())} values differ from this tree's unsharded call"))
-        if k.startswith("this tree") and not same:
+        if not k.startswith("parent") and not same:
             ok = False
     t = cuda_times_in_turn(fns, 5, queue=QUEUE)
     print("  (i) four strips: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items()))

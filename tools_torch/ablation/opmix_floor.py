@@ -152,14 +152,16 @@ def readings(device="cuda", rounds: int = 5) -> dict:
     return cuda_times_in_turn(reading_fns(device), rounds)
 
 
-def parse_sass(lines) -> dict:
-    """{label: Counter of SASS mnemonics (modifiers dropped)} for each of
-    ``SASS_KERNELS`` in the lines of a ``cuobjdump -sass`` listing."""
+def parse_sass(lines, kernels=SASS_KERNELS) -> dict:
+    """{label: Counter of SASS mnemonics (modifiers dropped)} for each
+    (label, pattern) of ``kernels`` whose pattern (a regular expression; a
+    plain substring of the mangled name in ``SASS_KERNELS``) a function of a
+    ``cuobjdump -sass`` listing matches."""
     counts, cur = {}, None
     for line in lines:
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            cur = next((label for label, key in SASS_KERNELS if key in name), None)
+            cur = next((label for label, key in kernels if re.search(key, name)), None)
             if cur is not None:
                 counts[cur] = collections.Counter()
         elif cur is not None:
@@ -169,7 +171,7 @@ def parse_sass(lines) -> dict:
     return counts
 
 
-def sass_counts(library=None) -> dict:
+def sass_counts(library=None, kernels=SASS_KERNELS) -> dict:
     """``parse_sass`` of ``cuobjdump -sass`` of the library at path
     ``library`` (default: the package's, built first).  The counts are
     static: each instruction of a kernel's code once, a tile loop's body
@@ -183,7 +185,7 @@ def sass_counts(library=None) -> dict:
         library = _build.library_path()
     cmd = [_build.cuda_tool("cuobjdump"), "-sass", str(library)]
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
-        counts = parse_sass(proc.stdout)
+        counts = parse_sass(proc.stdout, kernels)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)} exited with {proc.returncode}")
     return counts
