@@ -89,7 +89,10 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      unsharded call; CUDA-event times of each beside its unsharded twin and
      of the strips' kernels beside the unsharded kernel, taken in turn; with
      several cards, (i) and (ii) across them too, with each card's busy time
-     from a trace; with --trace, a trace of each full-width run;
+     from a trace, and the pipeline's (iii) and (iv) chains across them and
+     the batch over them with the frame as a tensor on the first card,
+     bit-equal to the unsharded calls with a host int; with --trace, a
+     trace of each full-width run;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -126,10 +129,12 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      (iv) examples_torch/sample_app.py at 3840x2160, Quality: a 5-frame
      flythrough with CSV and two screenshots (one K2 per frame), a frame
      and the HDR chain against the plain kernels, the frame's traced
-     kernel table and K2's share of it; (v) video_upscale, 16 frames
-     1080p -> 4K in batches of 8 (one K1 per batch); (vi)
-     dataset_preprocessing, u8 batches of 4 per card on make_mesh() (one
-     K1 per card per batch); (vii) frame_graph at
+     kernel table and K2's share of it (the app replays its frame captured
+     as a CUDA graph when it is built: its launches are counted at capture,
+     none at a replay; phase 23 reads a replay's from a trace); (v)
+     video_upscale, 16 frames 1080p -> 4K in batches of 8 (one K1 per
+     batch); (vi) dataset_preprocessing, u8 batches of 4 per card on
+     make_mesh() (one K1 per card, captured, replayed per batch); (vii) frame_graph at
      1080p -> 4K (one K1) and its kernel table; (viii) tools_torch/
      quality_study.py on the card within 0.01 dB of its CPU run; (ix) the
      native host layer built with cc, bit-equal to the numpy constants.
@@ -142,6 +147,32 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      parallel, each library's fsr_ablation_mask() exactly its macro and its
      output different from production's (wrong by design).  Phase 2 holds
      the production library's mask to 0 (no knockout).
+ 23. captured frames (fsr_tpu_torch/utils/capture.py, the counterpart of
+     jax.jit over a frame): K1 and K2 with the 8- and 10-bit hash dither,
+     their plain versions, upscale, tonemap_pass, tepd_dither,
+     texture_dither, and UpscalePipeline with a blue-noise page (fused into
+     K1, and K2's bf16 after-pass) and with the hash after-pass, each with
+     the frame as a 0-d int32 tensor on the card bit-equal to the same call
+     with a host int, frames 0, 7, 2**31 - 1 and -1; the sample app at
+     3840x2160 in every mode (Quality K2 and Performance K1, bilinear,
+     native; HDR on and off), each captured when built (its counted
+     launches the warm-up's and the capture's) and each of 8 replays, with 8 cameras
+     and frame indices, bit-equal to the eager frame on the same inputs
+     (no launch counted at a replay); a traced replay with exactly one K2
+     (Performance: one K1) and no K4; eager against replay in turn, device
+     ms per frame (CUDA events, 10 queued) and wall ms per frame (host
+     clock, synchronised), with each one's device operations per frame and
+     traced idle share; frame_graph's tail and dataset_preprocessing's
+     graphs replayed against the eager calls over 4 frames or batches with
+     distinct frame indices; upscale(preset="performance") at batch 1,
+     captured against eager: one-call latency and 10 calls queued; last,
+     the forms that make a frame capturable (constants filled on the card
+     in core/tonemap, core/transfer, core/easu_math and
+     ops/extras.tepd_quantize; the tap tables of ops/easu and K2 from
+     caches) each captured, its replay bit-equal to the eager call in
+     float32 and bfloat16, and still bit-equal after the table caches are
+     emptied and their freed memory overwritten (a graph keeps the tables
+     it was captured with).
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
 the float32 operations the function needs, counted (EASU_OPS, RCAS_OPS),
@@ -155,6 +186,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -637,6 +669,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
             for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1])[:8]:
                 print(f"      {ms:.4f} ms/call, all cards: {kname[:100]}")
             del out
+        _frames_across_cards(dev, gen, nc)
 
     npix = nframes * out4k[0] * out4k[1]
     k1_full, k2_full = full[runs[0][0]], full[runs[1][0]]
@@ -650,6 +683,40 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                       tk["K2 x4 strips"], tk["K2 x4 strips, plain"], _nbytes(*qstrips) + k2_full["nbytes"],
                       EASU_RCAS_OPS * npix),
     ]
+
+
+def _frames_across_cards(dev, gen, nc: int) -> None:
+    """Phase 18, with several cards: the frame index as a 0-d int32 tensor on
+    ``dev`` through the pipeline's two chains row-sharded across ``nc``
+    cards, and through the batch sharded over them, each strip or share
+    taking it on its own card (``sharding.shard_frame``); each output
+    bit-equal to the unsharded call with the frame as a host int."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+    from fsr_tpu_torch.parallel import sharding
+
+    out4k = (2 * MAIN_SHAPE[2], 2 * MAIN_SHAPE[3])
+    x = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
+    q8 = (torch.rand(QUALITY_SHAPE, generator=gen, device=dev) * 255).to(torch.uint8)
+    grain = torch.rand((3, *out4k), generator=gen, device=dev) - 0.5
+    tex = torch.rand((2, 64, 64), generator=gen, device=dev)
+    chains = {"HDR tail": (x * 16, dict(hdr_srtm=True, grain_amount=0.3, dither_bits=10)),
+              "display with a dither page, u8": (q8, dict(grain_amount=0.25, dither_bits=8, out_dtype=torch.uint8,
+                                                          compute_dtype=torch.bfloat16, dither_texture=tex))}
+    mesh = sharding.make_mesh(nc, ("sp",))
+    on_card = torch.tensor(7, dtype=torch.int32, device=dev)
+    for name, (src, kw) in chains.items():
+        got = ft.UpscalePipeline(out4k, mesh=mesh, impl="kernel", **kw)(src, grain=grain, frame=on_card)
+        want = ft.UpscalePipeline(out4k, impl="kernel", **kw)(src, grain=grain, frame=7)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} across {nc} cards with the frame on {dev}: differs from the unsharded call")
+    epi = Epilogue(dither_bits=10)
+    got = sharding.upscale_batch_sharded(x, sharding.make_mesh(nc), preset="performance", impl="kernel",
+                                         epilogue=epi, frame=on_card)
+    if not torch.equal(got, ft.upscale(x, preset="performance", impl="kernel", epilogue=epi, frame=7)):
+        raise AssertionError(f"the batch over {nc} cards with the frame on {dev}: differs from the unsharded call")
+    print(f"    the frame as a tensor on {dev}: the pipeline's HDR tail and display chains across {nc} cards, and "
+          f"the batch over them, bit-equal to the unsharded calls with a host int")
 
 
 def _clocks() -> str:
@@ -964,7 +1031,6 @@ def _app_layer(dev, card: str) -> None:
     same call on the kernels' plain versions or the library call."""
     import io
     import os
-    import re
     import tempfile
 
     import fsr_tpu_torch as ft
@@ -974,6 +1040,7 @@ def _app_layer(dev, card: str) -> None:
     from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
     from fsr_tpu_torch.kernels.epilogue import Epilogue
     from fsr_tpu_torch.parallel import sharding
+    from fsr_tpu_torch.utils import capture
     from fsr_tpu_torch.utils import image as im
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
     from tools_torch import quality_study
@@ -1089,24 +1156,28 @@ def _app_layer(dev, card: str) -> None:
                                                   "screenShotName": path("shot")}}]}
         cfg = sample_app.merge_config(sample_app.DEFAULT_CONFIG, over)
         bench = cfg["scenes"][0]["BenchmarkSettings"]
-        app = sample_app.SampleApp(cfg)
+        # Built on the card, the app captures its frame: the warm-up's and
+        # the capture's launches are counted, a replay's are not.
+        app, got = _drive(lambda: sample_app.SampleApp(cfg), {"K2": capture.WARMUP + 1})
         if app.render_hw != (1440, 2560) or app.device.type != "cuda":
             raise AssertionError(f"(iv) render {app.render_hw} on {app.device}")
-        rows, got = _drive(lambda: sample_app.run_benchmark(app, bench), {"K2": 1 + 5})
+        print(f"  (iv) sample app built, its frame captured: launches {got}")
+        rows, got = _drive(lambda: sample_app.run_benchmark(app, bench), {})
         shots = [r["screenshot"] for r in rows if "screenshot" in r]
         if len(rows) != 5 or shots != ["shot_0.png", "shot_1.png"] or not all(
                 os.path.exists(path(s)) for s in shots) or len(open(path("bench.csv")).read().split()) != 6:
             raise AssertionError(f"(iv) the flythrough: {rows}")
-        print(f"  (iv) sample app, quality 2560x1440 -> 3840x2160: {len(rows)} frames + 1 warm-up, launches {got}; "
+        print(f"  (iv) sample app, quality 2560x1440 -> 3840x2160: {len(rows)} frames + 1 warm-up, replays, "
+              f"launches counted {got}; "
               f"wall ms per frame (host clock, synchronised) {[r['ms'] for r in rows]}, median "
               f"{statistics.median(r['ms'] for r in rows):.3f}, {card}")
         cam = sample_app.camera_at(bench["keyFrames"], 1.0)
         for hdr in (False, True):
             if hdr:
                 app = sample_app.SampleApp(sample_app.merge_config(cfg, {"globals": {"hdr": True}}))
-            out, _ = _drive(lambda: app.render_frame(cam, 1.0, 3), {"K2": 1})
+            out, _ = _drive(lambda: app.render_frame(cam, 1.0, 3), {})
             with _plain_kernels():
-                want = app.render_frame(cam, 1.0, 3)
+                want = app.frame_tail(*(x.to(dev) for x in app.frame_inputs(cam, 3)))
             what = "HDR chain (TEPD10 tonemap, gamma2 out)" if hdr else "frame"
             _compare(out, want, f"(iv) sample app {what} vs the plain kernels")
             if out.shape != (3, *out4k) or (hdr and not 0.0 <= out.min().item() <= out.max().item() <= 1.0):
@@ -1150,8 +1221,10 @@ def _app_layer(dev, card: str) -> None:
         # TEPD, on make_mesh(): one K1 per card per batch.
         n_cards = torch.cuda.device_count()
         dataset_preprocessing.run(1, 4, (1080, 1920), out4k)  # warm-up at the timed batch
+        # Each run captures one graph per card before its clock starts (the
+        # counted launches) and replays it per batch (none counted).
         (outs, dt, n_dev), got = _drive(lambda: dataset_preprocessing.run(4, 4, (1080, 1920), out4k),
-                                        {"K1": 4 * n_cards})
+                                        {"K1": (capture.WARMUP + 1) * n_cards})
         mesh = sharding.make_mesh()
         batch0 = torch.from_numpy(next(dataset_preprocessing.synthetic_corpus(1, 4 * n_dev, (1080, 1920))))
         with _plain_kernels():
@@ -1258,6 +1331,245 @@ def _tools(dev, card: str) -> None:
               f"{sorted(_build.ablation_mask(libs[m]))}, output max-abs {d:.3e} from production's")
         if not d > 0.0:
             raise AssertionError(f"the knockout {m} left the output as it was")
+
+
+def _wall_ms_in_turn(fns: dict, n: int = 20, rounds: int = 3) -> dict:
+    """Wall-clock ms per call of each function of ``fns`` (host clock around
+    one call and a synchronise), the functions taken in turn ``rounds``
+    times; the median per function."""
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _captured_frames(dev, card: str) -> None:
+    """Phase 23: the frame index as a device operand, and frames captured as
+    CUDA graphs (fsr_tpu_torch/utils/capture.py), each replay held bit-equal
+    to the eager call on the same inputs; a replay's launches from a trace;
+    eager against replay in turn."""
+    import fsr_tpu_torch as ft
+    from examples_torch import dataset_preprocessing, frame_graph, sample_app
+    from fsr_tpu_torch.core import tonemap as tm
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import easu_gather, fused
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+    from fsr_tpu_torch.ops import extras
+    from fsr_tpu_torch.parallel import sharding
+    from fsr_tpu_torch.utils import capture, noise
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn, device_trace
+
+    print(f"phase 23: captured frames ({card})")
+    out4k = (2160, 3840)
+    frames = (0, 7, 2**31 - 1, -1)
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or got.device != want.device:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} {got.device} vs "
+                                 f"{tuple(want.shape)} {want.dtype} {want.device}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: {int((got != want).sum())} of {got.numel()} values differ")
+
+    def on_card(f):
+        return torch.tensor(f, dtype=torch.int32, device=dev)
+
+    # (i) The frame as a device operand against the host int.
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x1 = torch.rand((2, 3, 540, 960), generator=gen, device=dev)
+    x2 = torch.rand((2, 3, 720, 1280), generator=gen, device=dev)
+    out_hw = (1080, 1920)
+    rcon = RcasConstants(0.25)
+    calls = {"K1": (fused.upscale_fused, fused.upscale_fused_reference, x1),
+             "K2": (easu_gather.easu_gather, easu_gather.easu_gather_reference, x2)}
+    checked = 0
+    for name, (kernel, plain, x) in calls.items():
+        con = EasuConstants.create((x.shape[-1], x.shape[-2]), None, (out_hw[1], out_hw[0]))
+        for bits, out_dt in ((8, torch.uint8), (10, torch.float32)):
+            kw = dict(epilogue=Epilogue(dither_bits=bits), out_dtype=out_dt)
+            for f in frames:
+                for which, fn in (("kernel", kernel), ("plain version", plain)):
+                    got = fn(x, out_hw, con, rcon, True, False, torch.float32, frame=on_card(f), **kw)
+                    same(got, fn(x, out_hw, con, rcon, True, False, torch.float32, frame=f, **kw),
+                         f"(i) {name} {which} dither{bits} frame {f}")
+                    checked += 1
+    tex = torch.from_numpy(noise.temporal_blue_noise(4, (32, 32), seed=0)).to(dev)
+    pipes = {"K1 fused page, u8": (ft.UpscalePipeline(out_hw, dither_bits=8, dither_texture=tex,
+                                                       out_dtype=torch.uint8), x1),
+             "K2 bf16, page after-pass": (ft.UpscalePipeline(out_hw, dither_bits=10, dither_texture=tex,
+                                                              compute_dtype=torch.bfloat16), x2)}
+    pipes["K2 bf16, hash after-pass"] = (ft.UpscalePipeline(out_hw, dither_bits=10, compute_dtype=torch.bfloat16),
+                                         x2)
+    hdr = x2[0] * 8
+    others = {"upscale (K1, 10-bit hash)": lambda f: ft.upscale(x1, out_size=out_hw, frame=f,
+                                                                epilogue=Epilogue(dither_bits=10)),
+              "tonemap_pass": lambda f: tm.tonemap_pass(hdr, 0.85, "amd", hdr10_dither_frame=f),
+              "tepd_dither": lambda f: extras.tepd_dither(out_hw, f, origin=(5, 0), device=dev),
+              "texture_dither": lambda f: extras.texture_dither(out_hw, f, tex, origin=(5, 0))}
+    for name, (pipe, x) in pipes.items():
+        others[f"pipeline {name}"] = lambda f, pipe=pipe, x=x: pipe(x, frame=f)
+    for name, fn in others.items():
+        for f in frames:
+            same(fn(on_card(f)), fn(f), f"(i) {name} frame {f}")
+            checked += 1
+    print(f"  (i) {checked} calls with the frame on the card bit-equal to the same call with a host int: K1 and "
+          f"K2 (kernel and plain version, 8- and 10-bit hash dither), upscale, tonemap_pass, tepd_dither, "
+          f"texture_dither, the pipeline with a blue-noise page (fused into K1; K2's bf16 after-pass) and with "
+          f"the hash after-pass; frames {frames}")
+    del x1, x2
+
+    # (ii)-(iv) The sample app at 4K in every mode: built (captured), then 8
+    # replays with 8 cameras and frame indices, each bit-equal to the eager
+    # frame on the same inputs.
+    base = {"globals": {"width": out4k[1], "height": out4k[0], "preset": "quality"}}
+    modes = [("fsr quality", {}, {"K2": 1}), ("fsr quality hdr", {"hdr": True}, {"K2": 1}),
+             ("fsr performance", {"preset": "performance"}, {"K1": 1}),
+             ("bilinear", {"mode": "bilinear"}, {}), ("bilinear hdr", {"mode": "bilinear", "hdr": True}, {}),
+             ("native", {"mode": "native"}, {}), ("native hdr", {"mode": "native", "hdr": True}, {})]
+    kfs = sample_app.DEFAULT_CONFIG["scenes"][0]["BenchmarkSettings"]["keyFrames"]
+    shots = [(sample_app.camera_at(kfs, 2.0 * k / 7), f) for k, f in enumerate((3, 11, 0, 7, 42, 1000, 2**31 - 1, -1))]
+    kinds = {"K1": "fused_kernel", "K2": "gather_kernel", "K4": "edge_pad_kernel"}
+    timed = {}
+    for name, over, need in modes:
+        cfg = sample_app.merge_config(sample_app.DEFAULT_CONFIG, sample_app.merge_config(base, {"globals": over}))
+        app, got = _drive(lambda: sample_app.SampleApp(cfg), {k: capture.WARMUP + 1 for k in need})
+        outs = []
+        for cam, f in shots:
+            rep, counted = _drive(lambda: app.render_frame(cam, 0.0, f).clone(), {})
+            eager = app.frame_tail(*(t.to(dev) for t in app.frame_inputs(cam, f)))
+            same(rep, eager, f"(ii) sample app {name}: the replay at frame {f}")
+            outs.append(rep)
+        if any(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"(ii) sample app {name}: two replays with other inputs gave one frame")
+        cam, f = shots[3]
+        tr = device_trace(lambda: app.render_frame(cam, 0.0, f), 1)
+        counts = {k: round(sum(n for kname, n in tr["launches"].items() if kind in kname), 6)
+                  for k, kind in kinds.items()}
+        if counts != {k: need.get(k, 0) for k in kinds}:
+            raise AssertionError(f"(iii) sample app {name}: a traced replay launched {counts}, not {need}")
+        print(f"  (ii) sample app {name} {app.render_hw} -> {out4k}: built with launches {got} (warm-up and "
+              f"capture); 8 replays bit-equal to the eager frame on their inputs, none counted; (iii) a traced "
+              f"replay: {counts} ({tr['ops_per_call']:g} device operations); {card}")
+        if name in ("fsr quality", "fsr performance"):
+            timed[name] = app
+        del app, outs, rep, eager
+
+    # (iv) Eager against replay, in turn: device ms (10 frames queued) and
+    # wall ms per frame (host clock, synchronised); each one's traced device
+    # operations per frame and idle share.
+    cam, f = shots[3]
+    for name, app in timed.items():
+        fns = {"eager": lambda: app.frame_tail(*(t.to(dev) for t in app.frame_inputs(cam, f))),
+               "replay": lambda: app.render_frame(cam, 0.0, f)}
+        dev_ms = cuda_times_in_turn(fns, **KQ)
+        wall = _wall_ms_in_turn(fns)
+        traces = {k: device_trace(fn, 5) for k, fn in fns.items()}
+        for k in fns:
+            tr = traces[k]
+            print(f"  (iv) sample app {name}, {k}: {dev_ms[k]:.4f} device ms per frame (10 queued), "
+                  f"{wall[k]:.4f} wall ms per frame (host clock, synchronised); traced {tr['ops_per_call']:g} "
+                  f"device operations per frame, busy {tr['busy_ms'] / 5:.4f} ms, idle share "
+                  f"{tr['idle_share']:.4f}; {card}")
+    del timed
+
+    # (v) frame_graph's tail and dataset_preprocessing's graphs against the
+    # eager calls, over 4 frames or batches with distinct frame indices.
+    scenes = [torch.from_numpy(frame_graph.render_scene((1080, 1920), k)).to(dev) for k in (0, 7, 12, 30)]
+    run = capture.CapturedFrame(lambda hdr: frame_graph.frame_tail(hdr, out4k), scenes[0])
+    for k, scene in enumerate(scenes):
+        same(run(scene).clone(), frame_graph.frame_tail(scene, out4k), f"(v) frame_graph scene {k}")
+    mesh = sharding.make_mesh()
+    step = dataset_preprocessing.CapturedPreprocess(mesh, 4, (1080, 1920), out4k)
+    corpus = dataset_preprocessing.synthetic_corpus(4, 4 * mesh.size, (1080, 1920))
+    for f, batch in zip(frames, corpus):
+        b = torch.from_numpy(batch)
+        same(step(b, f), dataset_preprocessing.preprocess(b, f, out4k, mesh), f"(v) dataset batch, frame {f}")
+    print(f"  (v) frame_graph 1080p -> 4K: 4 scenes, replays bit-equal to the eager tail; dataset_preprocessing "
+          f"u8 1080p -> 4K on {mesh.size} card(s): 4 batches with frames {frames}, replays bit-equal to preprocess")
+    del run, scenes, step
+
+    # (vi) upscale(preset="performance") at batch 1: one-call latency and 10
+    # calls queued, eager against the captured call (its input copied in,
+    # and on its static input).
+    x = torch.rand((1, 3, 1080, 1920), generator=gen, device=dev)
+    graph = capture.CapturedFrame(lambda a: ft.upscale(a, preset="performance"), x)
+    same(graph(x).clone(), ft.upscale(x, preset="performance"), "(vi) the captured upscale")
+    fns = {"eager": lambda: ft.upscale(x, preset="performance"), "replay": lambda: graph(x),
+           "replay on its input": lambda: graph(graph.inputs[0])}
+    one = cuda_times_in_turn(fns)
+    queued = cuda_times_in_turn(fns, **KQ)
+    wall = _wall_ms_in_turn(fns)
+    for k in fns:
+        print(f"  (vi) upscale(preset='performance') 1080p -> 4K f32, batch 1, {k}: one call {one[k]:.4f} ms, "
+              f"10 queued {queued[k]:.4f} ms per call (CUDA events), wall {wall[k]:.4f} ms (host clock, "
+              f"synchronised); {card}")
+    del x, graph
+    _captured_forms(dev, gen)
+
+
+def _captured_forms(dev, gen) -> None:
+    """Phase 23 (vii): the forms that make a frame capturable (constants
+    filled on the card; the tap tables of the torch path and K2 from caches)
+    each captured, its replay bit-equal to the eager call in float32 and
+    bfloat16; then the table caches emptied, blocks of the tables' sizes
+    allocated and filled with garbage (where the allocator would hand out
+    the tables' memory had the graphs not kept it, ``capture.keep``), and
+    every replay still bit-equal."""
+    from fsr_tpu_torch.core import tonemap, transfer
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import easu_gather
+    from fsr_tpu_torch.ops import easu as easu_ops
+    from fsr_tpu_torch.ops import extras
+    from fsr_tpu_torch.utils import capture
+
+    con = EasuConstants.create((480, 270), None, (720, 405))
+    rcon = RcasConstants(0.25)
+    dither = extras.tepd_dither((270, 480), 5, device=dev)
+    cases = {
+        "core/tonemap": (8.0, lambda a: torch.stack([tonemap.tonemap(a, 0.85, k) for k in range(5)])),
+        "core/transfer": (1.0, lambda a: torch.stack([
+            transfer.to_srgb(a), transfer.from_709(a), transfer.to_pq(a), transfer.from_pq(a),
+            transfer.prx_med_linear_to_pq(a.float()).to(a.dtype)])),
+        "core/easu_math (ops.easu)": (1.0, lambda a: easu_ops.easu(a, (405, 720), con, compute_dtype=a.dtype)),
+        "ops/extras.tepd_quantize": (1.0, lambda a: extras.tepd_quantize(a.float(), dither, bits=10)),
+        "ops/easu.bilinear": (1.0, lambda a: easu_ops.bilinear(a, (405, 720), con)),
+        "K2 easu_gather": (1.0, lambda a: easu_gather.easu_gather(a, (405, 720), con, rcon, True, False, a.dtype)),
+    }
+
+    def bits(t):  # bit patterns, so that a NaN equals a NaN with the same bits
+        return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+    runs = []
+    for name, (scale, fn) in cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            a = (torch.rand((3, 270, 480), generator=gen, device=dev) * scale).to(dt)
+            run = capture.CapturedFrame(fn, a)
+            runs.append((name, dt, run, a, bits(fn(a)).clone()))
+    torch.cuda.synchronize()
+    # What the graphs keep: tuples of tables, tensors or dicts of them.
+    kept = [t for _, _, run, _, _ in runs for tables in run.kept for item in tables
+            for t in (item.values() if isinstance(item, dict) else [item])]
+    if not kept:
+        raise AssertionError("(vii) no capture kept a cached table")
+    easu_ops._tables.cache_clear()
+    easu_gather._device_tables.cache_clear()
+    garbage = [torch.full_like(t, -7) for t in kept for _ in range(4)]
+    for name, dt, run, a, want in runs:
+        got = run(a)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(bits(got), want):
+            raise AssertionError(f"(vii) {name} {dt}: a replay differs from the eager call")
+    del garbage
+    print(f"  (vii) {', '.join(cases)}: each captured in float32 and bfloat16, its replay bit-equal to the eager "
+          f"call; after the table caches were emptied and {len(kept)} tables' sizes overwritten, still bit-equal")
 
 
 def main() -> int:
@@ -2123,6 +2435,10 @@ def main() -> int:
     # --- 22. the measurement tools ----------------------------------------------------
     lap("22")
     _tools(dev, card)
+
+    # --- 23. captured frames ----------------------------------------------------------
+    lap("23")
+    _captured_frames(dev, card)
     laps.append(("end", time.perf_counter()))
     print("seconds per phase: " + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(laps, laps[1:]))
           + f"; {laps[-1][1] - laps[0][1]:.1f} in all")

@@ -6,7 +6,10 @@ frames stream in as host-side uint8 batches, get batch-sharded over the
 mesh (``fsr_tpu_torch.parallel.sharding``), upscaled (EASU+RCAS), dithered
 to 8-bit codes (TEPD, in K1's store) and gathered back on the host for
 the downstream consumer (e.g. training-data augmentation at higher
-resolution).  One K1 launch per card per batch.
+resolution).  One K1 launch per card per batch.  ``run`` replays one
+captured graph per mesh device (``CapturedPreprocess``), as the JAX
+example jits ``preprocess``; on CPU devices the same calls run eagerly.
+``preprocess`` is the eager reference the replays are held against.
 
 The mesh is every visible CUDA device (``make_mesh()``, which raises with
 none); there is no CPU fallback.  ``devices=`` (e.g. ``[cpu] * 2``) runs
@@ -41,30 +44,70 @@ def synthetic_corpus(n_batches: int, batch: int, hw, seed: int = 0):
         yield (rng.random((batch, 3, *hw)) * 255).astype(np.uint8)
 
 
-def preprocess(frames: torch.Tensor, frame_idx: int, out_hw, mesh) -> torch.Tensor:
+def _upscale_kwargs(out_hw) -> dict:
+    """The upscale each card runs: decode, EASU+RCAS, TEPD and the D3D
+    UNORM encode, one K1 launch."""
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+
+    return dict(out_size=out_hw, sharpness=0.25, impl="auto", epilogue=Epilogue(dither_bits=8),
+                out_dtype=torch.uint8)
+
+
+def preprocess(frames: torch.Tensor, frame_idx, out_hw, mesh) -> torch.Tensor:
     """uint8 in -> dithered uint8 display codes out, on the frames' device:
     each card decodes, runs EASU+RCAS, TEPD and the D3D UNORM encode in one
-    K1 launch on its share of the batch."""
-    from fsr_tpu_torch.kernels.epilogue import Epilogue
+    K1 launch on its share of the batch (eagerly)."""
     from fsr_tpu_torch.parallel import sharding
 
-    return sharding.upscale_batch_sharded(
-        frames, mesh, out_size=out_hw, sharpness=0.25, impl="auto",
-        epilogue=Epilogue(dither_bits=8), frame=frame_idx, out_dtype=torch.uint8,
-    )
+    return sharding.upscale_batch_sharded(frames, mesh, frame=frame_idx, **_upscale_kwargs(out_hw))
+
+
+class CapturedPreprocess:
+    """``preprocess`` as one captured CUDA graph per mesh device (the
+    counterpart of ``jax.jit(preprocess)``; on a CPU device the same call,
+    eagerly): device k's graph upscales its share of a
+    (per_device * devices, 3, H, W) uint8 batch, with the frame index as a
+    0-d int32 device input.  Each call shards the batch over the mesh
+    (``sharding.map_shards``), copies each share and the index into its
+    graph's static inputs (outside the graph), replays the graphs and
+    gathers the outputs on the batch's device."""
+
+    def __init__(self, mesh, per_device: int, in_hw, out_hw):
+        from fsr_tpu_torch import api
+        from fsr_tpu_torch.parallel import sharding
+        from fsr_tpu_torch.utils.capture import CapturedFrame
+
+        kw = _upscale_kwargs(out_hw)
+
+        def share(frames, frame_idx):
+            return api.upscale(frames, frame=frame_idx, **kw)
+
+        self.mesh = mesh
+        self.graphs = [CapturedFrame(share, torch.zeros((per_device, 3, *in_hw), dtype=torch.uint8, device=dev),
+                                     torch.zeros((), dtype=torch.int32, device=dev))
+                       for dev in sharding.axis_devices(mesh, "batch")]
+
+    def __call__(self, frames: torch.Tensor, frame_idx: int) -> torch.Tensor:
+        from fsr_tpu_torch.parallel import sharding
+
+        idx = torch.tensor(frame_idx, dtype=torch.int32)
+        return sharding.map_shards(lambda k, part: self.graphs[k](part, idx), frames, self.mesh)
 
 
 def run(n_batches: int, per_device: int, in_hw, out_hw, devices=None):
     """Preprocess ``n_batches`` of ``per_device`` frames per mesh device;
-    returns (the host outputs, seconds, devices in the mesh)."""
+    returns (the host outputs, seconds, devices in the mesh).  The graphs
+    are captured before the clock starts and replayed per batch
+    (``CapturedPreprocess``; eager calls on CPU devices)."""
     from fsr_tpu_torch.parallel import sharding
 
     mesh = sharding.make_mesh(axis_names=("batch",), devices=devices)
     batch = per_device * mesh.size
+    step = CapturedPreprocess(mesh, per_device, in_hw, out_hw)
     outs = []
     t0 = time.perf_counter()
     for i, host_batch in enumerate(synthetic_corpus(n_batches, batch, in_hw)):
-        out = preprocess(torch.from_numpy(host_batch), i, out_hw, mesh)  # gathered on the host
+        out = step(torch.from_numpy(host_batch), i)  # gathered on the host
         assert out.shape == (batch, 3, *out_hw) and out.dtype == torch.uint8
         outs.append(out)
     return outs, time.perf_counter() - t0, mesh.size

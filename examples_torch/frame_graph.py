@@ -9,7 +9,9 @@ game renderer itself rides Cauldron and is out of scope here; this demo
 reproduces the *post-render frame tail* and its orchestration idioms:
 
 - passes are functions run in stream order on the device (the stream
-  replaces command-list barriers);
+  replaces command-list barriers), and on the card the tail is captured
+  once as a CUDA graph and replayed, as the JAX demo jits it
+  (``utils/capture.py``; ``--cpu`` runs it eagerly);
 - the FSR pass is one kernel launch (K1 at 2x), with tonemap/TEPD
   expressible either as separate passes (this file, for per-pass timing)
   or folded into the kernel prologue/epilogue (UpscalePipeline — the
@@ -88,17 +90,21 @@ def main(argv=None) -> int:
 
     from fsr_tpu_torch.utils import image as im
 
+    from fsr_tpu_torch.utils.capture import CapturedFrame
+
     render_hw, display_hw = tuple(args.render), tuple(args.display)
     frame = 7
     scene = torch.from_numpy(render_scene(render_hw, frame)).to(device)
-    out = frame_tail(scene, display_hw).cpu().numpy()
+    run = CapturedFrame(lambda hdr: frame_tail(hdr, display_hw), scene)
+    out = run(scene).cpu().numpy()
 
     print(f"render {render_hw} -> display {display_hw}   (frame {frame}, {device})")
     if device.type == "cuda":
-        # Profiler window analog: per-kernel device times from the trace.
+        # Profiler window analog: per-kernel device times from a trace of
+        # replays.
         from fsr_tpu_torch.utils.profiling import device_trace
 
-        times = device_trace(lambda: frame_tail(scene, display_hw))["kernels"]
+        times = device_trace(lambda: run(scene))["kernels"]
         print(f"{'pass':<40} {'ms':>8}")
         for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
             print(f"{name[:40]:<40} {ms:>8.4f}")

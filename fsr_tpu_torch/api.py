@@ -470,8 +470,10 @@ class UpscalePipeline:
             dither_bits=self.dither_bits if fuse else None,
             dither_texture=fuse and tex is not None,
         )
-        # The frame's page is a view, chosen on the host.
-        page = tex[int(frame) % tex.shape[0]] if fuse and tex is not None else None
+        # The frame's page: a view for an int frame; for a frame tensor on
+        # the image's device, gathered there (no host read; under capture the
+        # page is written inside the graph, at an address that stays put).
+        page = extras.select_page(tex, frame) if fuse and tex is not None else None
         kw = dict(
             sharpness=self.sharpness,
             apply_rcas=self.apply_rcas,

@@ -71,7 +71,8 @@ def _check_dtype(dt):
 def _consts(dt, device):
     # 0-dim tensors of the working dtype: a Python float would enter bf16
     # arithmetic unrounded, where the JAX math rounds each constant to bf16.
-    return lambda v: torch.tensor(v, dtype=dt, device=device)
+    # Filled on the device, with no host copy (a captured graph may hold them).
+    return lambda v: torch.full((), v, dtype=dt, device=device)
 
 
 def _sat(x):

@@ -15,8 +15,6 @@ the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from fsr_tpu_torch.ops import extras
@@ -28,7 +26,9 @@ __all__ = [
 
 
 def _c(x: torch.Tensor, v: float) -> torch.Tensor:
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+    # A 0-d tensor of x's dtype filled on x's device: no host copy, so a
+    # captured graph may hold it.
+    return torch.full((), v, dtype=x.dtype, device=x.device)
 
 
 def _max3(c):
@@ -116,14 +116,15 @@ def tonemap_pass(
     color: torch.Tensor,
     exposure: float = 1.0,
     tonemapper="amd",
-    hdr10_dither_frame: Optional[int] = None,
+    hdr10_dither_frame=None,
 ) -> torch.Tensor:
     """The whole render-resolution tonemap pass (FSRToneMapping::Draw).
 
     hdr10_dither_frame: when given, the TEPD 10-bit energy-preserving
     dither after the tonemap (the sample's HDR output path,
     FSR_Tonemapping.hlsl:86-88, with the golden-ratio dither in place of the
-    blue-noise texture the sample loads), in float32.
+    blue-noise texture the sample loads), in float32; an int or an integer
+    tensor on the color's device (``ops.extras.frame_index``).
     """
     out = tonemap(color, exposure, tonemapper)
     if hdr10_dither_frame is not None:

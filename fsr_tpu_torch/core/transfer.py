@@ -32,7 +32,9 @@ __all__ = [
 
 
 def _c(x: torch.Tensor, v: float) -> torch.Tensor:
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+    # A 0-d tensor of x's dtype filled on x's device: no host copy, so a
+    # captured graph may hold it.
+    return torch.full((), v, dtype=x.dtype, device=x.device)
 
 
 def to_709(c: torch.Tensor) -> torch.Tensor:

@@ -242,13 +242,14 @@ __global__ void __launch_bounds__(NTHREADS)
   O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const EpilogueParams e = p.epi;
+  const unsigned frame = epilogue_frame(e);
   const int wout = p.wout;
   // The ring's origin: output pixel (y0, x0) is ring pixel (0, 0).
   const int y0 = blockIdx.y * TH - 1;
   const int x0 = blockIdx.x * TILE_W - 1;
   auto store = [&](int Y, int X, float v[3]) {
     const int64_t at = (int64_t)Y * wout + X;
-    epilogue(e, oplane, at, Y, X, v);
+    epilogue(e, frame, oplane, at, Y, X, v);
     if constexpr (RGBA)
       st4(o, oplane, at, v, alpha_staged(st, Y - y0, X - x0));
     else

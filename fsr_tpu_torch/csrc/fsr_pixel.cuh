@@ -414,26 +414,38 @@ __device__ __forceinline__ void rcas_pixel(const float b[3], const float d[3], c
 
 // K5's parameters (kernels/epilogue.py:EpilogueArgs.struct), the same for
 // every thread: the branches on them are uniform.
+// frame_dev comes last, so that the fields before it keep their offsets: a
+// library built before it reads a struct from this one's wrappers as its own
+// (tools_torch/ablation/kernel_ab.py drives both).
 struct EpilogueParams {
   const float* grain;  // [3][h][w] float32 LFGA grain, or null (no grain)
   const float* page;   // [page_h][page_w] float32 dither positions, or null (hash)
   float grain_amount;
   int transform;    // 0 none, 1 srtm_inv, 2 gamma2
   int dither_bits;  // 0 (no TEPD), 8 or 10
-  unsigned frame;   // the TEPD hash's frame index
+  unsigned frame;   // the TEPD hash's frame index from the host
   int page_h, page_w;
   int row0;  // global output row of the frame's row 0 (a row strip's offset; 0 for a whole frame)
+  const int* frame_dev;  // the TEPD hash's frame index on the device (int32), or null: `frame`
 };
+
+// The TEPD hash's frame index as uint32 (JAX's jnp.uint32(frame)): the
+// device operand where there is one (a frame traced on the card, read at
+// each launch, so a captured graph takes each replay's), else the host's.
+// Each thread reads it once, before its pixel loop.
+__device__ __forceinline__ unsigned epilogue_frame(const EpilogueParams& e) {
+  return e.frame_dev != nullptr ? (unsigned)__ldg(e.frame_dev) : e.frame;
+}
 
 // The K5 epilogue on output pixel (Y, X)'s float32 channels v, before the
 // store (epilogue.apply: the ops.extras chain): SRTM^-1 or gamma2, LFGA
-// grain, TEPD dithered quantize.  The grain shares the output frame's
-// layout (plane stride oplane, offset at); the TEPD hash and the dither page
-// take the global row Y + row0, so a row strip dithers as its rows of the
-// whole frame do.  For finite values every operation rounds as the plain
-// version's does.
-__device__ __forceinline__ void epilogue(const EpilogueParams& e, int64_t oplane, int64_t at,
-                                         int Y, int X, float v[3]) {
+// grain, TEPD dithered quantize (the hash's frame: epilogue_frame(e)).  The
+// grain shares the output frame's layout (plane stride oplane, offset at);
+// the TEPD hash and the dither page take the global row Y + row0, so a row
+// strip dithers as its rows of the whole frame do.  For finite values every
+// operation rounds as the plain version's does.
+__device__ __forceinline__ void epilogue(const EpilogueParams& e, unsigned frame, int64_t oplane,
+                                         int64_t at, int Y, int X, float v[3]) {
   if (e.transform == 1) {
     const float m = fmaxf(fmaxf(v[0], v[1]), v[2]);
     const float rc = __frcp_rn(fmaxf(__fsub_rn(1.0f, m), 1.0f / 32768.0f));
@@ -458,7 +470,7 @@ __device__ __forceinline__ void epilogue(const EpilogueParams& e, int64_t oplane
       dit = __ldg(e.page + (gy % e.page_h) * e.page_w + (X % e.page_w));
     } else {
       // FsrTepdDitF: fract(phi * (x + frame) + y / 3.69), coordinates as uint32.
-      const float x = __uint2float_rn((unsigned)X + e.frame);
+      const float x = __uint2float_rn((unsigned)X + frame);
       const float hv = __fadd_rn(__fmul_rn(x, DIT_A), __fmul_rn(__int2float_rn(gy), DIT_B));
       dit = __fsub_rn(hv, floorf(hv));
     }

@@ -441,6 +441,7 @@ __global__ void __launch_bounds__(NTHREADS, QUAD ? FSR_K1_QUAD_MIN_BLOCKS : FSR_
   ring_easu(st);
   O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
+  const unsigned frame = epilogue_frame(p.epi);
   for (int k = threadIdx.x; k < TH * TW; k += NTHREADS) {
     const int ly = k / TW;
     const int lx = k - ly * TW;
@@ -471,7 +472,7 @@ __global__ void __launch_bounds__(NTHREADS, QUAD ? FSR_K1_QUAD_MIN_BLOCKS : FSR_
       for (int c = 0; c < 3; ++c) v[c] = st.ring[c][i][j];
     }
     const int64_t at = (int64_t)Y * p.wout + X;
-    epilogue(p.epi, oplane, at, Y, X, v);
+    epilogue(p.epi, frame, oplane, at, Y, X, v);
     if constexpr (RGBA) {
       const float* a = st.alpha + st.fr[i] + st.fc[j];
       st4(o, oplane, at, v, bilinear_alpha(a[0], a[1], a[WW], a[WW + 1], st.px[j], st.py[i]));

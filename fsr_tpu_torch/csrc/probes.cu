@@ -258,7 +258,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int wout = p.wout;
   auto store = [=](int Y, int X, float v[3]) {
     const int64_t at = (int64_t)(Y - y0) * wout + (X - x0);
-    epilogue(e, oplane, at, Y, X, v);
+    epilogue(e, e.frame, oplane, at, Y, X, v);  // the replays run no epilogue (p.epi is zero)
     if (keep(v, never)) st3(dst, oplane, at, v);
   };
   const int h = gridDim.y * TILE_H;
@@ -307,7 +307,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int wout = p.wout;
   auto store = [=](int Y, int X, float v[3]) {
     const int64_t at = (int64_t)(Y - y0) * wout + (X - x0);
-    epilogue(e, oplane, at, Y, X, v);
+    epilogue(e, e.frame, oplane, at, Y, X, v);  // the replays run no epilogue (p.epi is zero)
     if (keep(v, never)) st3(dst, oplane, at, v);
   };
   const float* s = op;

@@ -12,7 +12,8 @@ the frame repeats its edge row).  The clip is the CLAMP sampler that ``ops.easu`
 the kernel reads the unpadded source (no K4 pass in front of it), and the
 device never recomputes a coordinate.  ``easu_gather`` launches
 ``csrc/easu_gather.cu`` for a CUDA tensor and counts the launch in
-``easu_gather.launches``; for a CPU tensor it runs ``easu_gather_reference``.
+``easu_gather.launches`` (under CUDA graph capture at capture: a replay
+counts nothing); for a CPU tensor it runs ``easu_gather_reference``.
 
 Each block of the kernel stages its source footprint in shared memory: the
 rectangle of texels its TILE output pixels and their RCAS ring read, which
@@ -57,6 +58,7 @@ from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import fused, pad
 from fsr_tpu_torch.ops.easu import easu_coords
+from fsr_tpu_torch.utils import capture
 
 __all__ = ["supported", "GatherPlan", "plan", "shard_rows", "shard_plan", "Footprint", "footprint",
            "easu_gather", "easu_gather_reference", "TILE", "FOOTPRINT_MAX"]
@@ -196,7 +198,8 @@ def footprint(gplan: GatherPlan) -> Footprint:
 
 @functools.lru_cache(maxsize=64)
 def _device_tables(gplan: GatherPlan, device: torch.device):
-    """The plan's tables on ``device`` (copied once per plan and device)."""
+    """The plan's tables on ``device`` (copied once per plan and device; a
+    captured graph holds them, ``capture.keep``)."""
     return tuple(torch.as_tensor(a, device=device) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
 
 
@@ -305,7 +308,7 @@ def easu_gather(
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dt, device=image.device)
     if out.numel() == 0:
         return out
-    rows, cols, py, px = _device_tables(gplan, image.device)
+    rows, cols, py, px = capture.keep(_device_tables(gplan, image.device))
     from fsr_tpu_torch.kernels import _build
 
     lib = _build.library()

@@ -13,6 +13,10 @@ operands (frame, grain, dither page) into an ``EpilogueArgs`` that the
 plain versions and the torch path pass to ``apply`` and the CUDA wrappers
 turn into the C struct (``c_params``).  ``apply`` is the plain torch
 version of the per-pixel epilogue: the ``ops.extras`` chain in float32.
+The frame may be a 0-d integer tensor on the output's device, as JAX's
+traced ``frame``: the kernels then read it through a device pointer
+(``EpilogueParams.frame_dev``), so a captured graph reads each replay's
+frame and no call reads it back to the host.
 
 The grain is plain output-space (3, Hout, Wout) and a dither page of any
 shape (th, tw) tiles the output as page[y % th, x % tw]; the TPU's
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -130,6 +134,7 @@ class _CEpilogue(ctypes.Structure):
         ("page_h", ctypes.c_int),
         ("page_w", ctypes.c_int),
         ("row0", ctypes.c_int),
+        ("frame_dev", ctypes.c_void_p),
     ]
 
 
@@ -137,14 +142,15 @@ class _CEpilogue(ctypes.Structure):
 class EpilogueArgs:
     """An epilogue with its validated call-time operands.
 
-    frame: the TEPD hash's frame index (0 when unused); grain: float32
+    frame: the TEPD hash's frame index (0 when unused), a host int or a 0-d
+    int32 tensor on the output's device (``extras.frame_index``); grain: float32
     (3, Hout, Wout) contiguous, or None; page: float32 (th, tw) contiguous
     dither positions, or None for the hash; row0: the global output row of
     the result's row 0 (a row strip's offset), for the dither positions.
     """
 
     epi: Epilogue
-    frame: int = 0
+    frame: Union[int, torch.Tensor] = 0
     grain: Optional[torch.Tensor] = None
     page: Optional[torch.Tensor] = None
     row0: int = 0
@@ -175,7 +181,7 @@ def bind(epi: Optional[Epilogue], out_hw, frame=None, grain=None, dither_page=No
         page = torch.as_tensor(dither_page, device=device).to(torch.float32).contiguous()
         if page.dim() != 2 or min(page.shape) < 1:
             raise ValueError(f"dither_page must be a (th, tw) page, got {tuple(page.shape)}")
-    f = int(frame) if (epi.needs_frame and frame is not None) else 0
+    f = extras.frame_index(frame, device) if (epi.needs_frame and frame is not None) else 0
     if int(row0) < 0:
         raise ValueError(f"row0 must be >= 0, got {row0}")
     return EpilogueArgs(epi, f, g, page, int(row0))
@@ -213,7 +219,8 @@ def apply(res: torch.Tensor, args: Optional[EpilogueArgs]) -> torch.Tensor:
 
 def c_params(args: Optional[EpilogueArgs]) -> _CEpilogue:
     """The C struct the CUDA wrappers pass by pointer (device pointers
-    inside); all zeros, no epilogue, for None."""
+    inside: a frame tensor goes in as ``frame_dev``, the host ``frame`` then
+    0); all zeros, no epilogue, for None."""
     if args is None:
         return _CEpilogue()
     e = args.epi
@@ -223,7 +230,8 @@ def c_params(args: Optional[EpilogueArgs]) -> _CEpilogue:
         grain_amount=float(e.grain_amount) if e.needs_grain else 0.0,
         transform=_TRANSFORMS[e.transform],
         dither_bits=e.dither_bits or 0,
-        frame=args.frame % (1 << 32),
+        frame_dev=args.frame.data_ptr() if isinstance(args.frame, torch.Tensor) else None,
+        frame=args.frame % (1 << 32) if isinstance(args.frame, int) else 0,
         page_h=int(args.page.shape[0]) if args.page is not None else 0,
         page_w=int(args.page.shape[1]) if args.page is not None else 0,
         row0=args.row0,

@@ -16,7 +16,10 @@ thread per 2x2 quad of outputs that share one 'f' texel; every other phase
 structure runs its generic staged path (``path="generic"`` forces it).
 ``upscale_padded`` runs the same kernel on a source that K4 already padded
 (the clamp never fires there; the measurement tools use it).  Every K1
-launch, from either entry point, is counted in ``upscale_padded.launches``.
+launch, from either entry point, is counted in ``upscale_padded.launches``
+when the wrapper launches it: under CUDA graph capture (``utils/capture.py``)
+that is at capture, and a replay counts nothing (read its launches from a
+trace).
 The math is float32 throughout; bfloat16 is storage only (a float32 source
 under bfloat16 storage rounds at its load, as K4's convert did).  For CPU
 tensors both run their plain versions (``upscale_fused_reference``: K4's
@@ -474,7 +477,8 @@ def upscale_padded(
     whole frame).  CUDA tensors launch ``csrc/fused.cu`` (``path``: "auto",
     the quad path where ``quad_ok``, or "generic"); CPU tensors run
     ``upscale_padded_reference``.
-    ``upscale_padded.launches`` counts every K1 launch."""
+    ``upscale_padded.launches`` counts every K1 launch the wrapper makes
+    (a captured graph's at capture, none at its replays)."""
     if padded.device.type == "cpu":
         return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise,
                                         prologue=prologue, epi=epi, out_dtype=out_dtype,

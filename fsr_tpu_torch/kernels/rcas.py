@@ -16,8 +16,8 @@ A uint8 image sharpens byte in, byte out, whatever ``compute_dtype`` says
 load, float32 math, UNORM8 codes at the store.
 
 ``rcas_fused`` launches ``csrc/rcas.cu`` for a CUDA tensor and counts the
-launch in ``rcas_fused.launches``; for a CPU tensor it runs
-``rcas_fused_reference``.
+launch in ``rcas_fused.launches`` (under CUDA graph capture at capture: a
+replay counts nothing); for a CPU tensor it runs ``rcas_fused_reference``.
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ Reference: FsrEasuF (ffx_fsr1.h:315-437).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants
+from fsr_tpu_torch.utils import capture
 
 __all__ = ["easu", "easu_coords", "bilinear"]
 
@@ -44,6 +46,38 @@ def easu_coords(con: EasuConstants, out_size: Tuple[int, int]):
 
 def _index(v: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(v.astype(np.int64), device=device)
+
+
+_OFFSETS = range(-1, 3)  # tap offsets around 'f'
+
+
+def _tap_rows(row: np.ndarray, hin: int, device) -> dict:
+    """Offset -> the rows of that tap, clamped to the source (the CLAMP
+    sampler), as index tensors on ``device``."""
+    return {d: _index(np.clip(row + d, 0, hin - 1), device) for d in _OFFSETS}
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(con: EasuConstants, out_size: Tuple[int, int], in_hw: Tuple[int, int], device: torch.device):
+    """The plan of an ``in_hw`` -> ``out_size`` upscale under ``con`` on
+    ``device``: the tap columns and rows per offset (``_tap_rows``) and the
+    (1, Wout) and (Hout, 1) fractions, built on the host and copied once per
+    configuration and device, so that a call copies nothing to the device
+    (a captured graph holds them, ``capture.keep``).  Read only."""
+    col, row, px, py = easu_coords(con, out_size)
+    return (_tap_rows(col, in_hw[1], device), _tap_rows(row, in_hw[0], device),
+            torch.as_tensor(px, device=device)[None, :], torch.as_tensor(py, device=device)[:, None])
+
+
+def _plan(src: torch.Tensor, out_size, con: EasuConstants, rows):
+    """(tap columns, tap rows, px, py) of ``_tables`` for ``src``; a row
+    override (``easu(rows=)``) replaces the rows and their fractions."""
+    hin, win = (int(v) for v in src.shape[-2:])
+    cols, trows, ppx, ppy = capture.keep(_tables(con, (int(out_size[0]), int(out_size[1])), (hin, win), src.device))
+    if rows is not None:
+        row, ppy = _rows(rows, out_size[0], src.device)
+        trows = _tap_rows(row, hin, src.device)
+    return cols, trows, ppx, ppy
 
 
 def _rows(rows, n: int, device):
@@ -85,20 +119,10 @@ def easu(
     if precision not in ("mixed", "strict"):
         raise ValueError(f"precision must be 'mixed' or 'strict', got {precision!r}")
     dir_dtype = compute_dtype if precision == "strict" else torch.float32
-    hin, win = src.shape[-2:]
-    col, row, px, py = easu_coords(con, out_size)
-    dev = src.device
-    if rows is None:
-        ppy = torch.as_tensor(py, device=dev)[:, None]
-    else:
-        row, ppy = _rows(rows, out_size[0], dev)
+    cols, trows, ppx, ppy = _plan(src, out_size, con, rows)
     src = src.to(compute_dtype)
-    taps = {}
-    for name, (dx, dy) in easu_math.TAP_OFFSETS.items():
-        r = _index(np.clip(row + dy, 0, hin - 1), dev)
-        c = _index(np.clip(col + dx, 0, win - 1), dev)
-        taps[name] = src[..., r[:, None], c[None, :]]
-    ppx = torch.as_tensor(px, device=dev)[None, :]
+    taps = {name: src[..., trows[dy][:, None], cols[dx][None, :]]
+            for name, (dx, dy) in easu_math.TAP_OFFSETS.items()}
     return easu_math.easu_resolve(taps, ppx, ppy, dtype=compute_dtype, dir_dtype=dir_dtype)
 
 
@@ -106,18 +130,8 @@ def bilinear(src: torch.Tensor, out_size: Tuple[int, int], con: EasuConstants, r
     """Bilinear fallback using the same coordinate mapping (the sample's
     SAMPLE_BILINEAR mode, FSR_Pass.hlsl:70-73).  rows: the vertical
     override of ``easu(rows=)``."""
-    hin, win = src.shape[-2:]
-    col, row, px, py = easu_coords(con, out_size)
-    dev = src.device
-    if rows is None:
-        pyb = torch.as_tensor(py, device=dev)[:, None]
-    else:
-        row, pyb = _rows(rows, out_size[0], dev)
-    c0 = _index(np.clip(col, 0, win - 1), dev)
-    c1 = _index(np.clip(col + 1, 0, win - 1), dev)
-    r0 = _index(np.clip(row, 0, hin - 1), dev)
-    r1 = _index(np.clip(row + 1, 0, hin - 1), dev)
-    pxb = torch.as_tensor(px, device=dev)[None, :]
+    cols, trows, pxb, pyb = _plan(src, out_size, con, rows)
+    c0, c1, r0, r1 = cols[0], cols[1], trows[0], trows[1]
     tl = src[..., r0[:, None], c0[None, :]]
     tr = src[..., r0[:, None], c1[None, :]]
     bl = src[..., r1[:, None], c0[None, :]]

@@ -28,7 +28,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "axis_devices", "shard_batch", "upscale_batch_sharded"]
+__all__ = ["Mesh", "make_mesh", "axis_devices", "shard_batch", "shard_frame", "map_shards",
+           "upscale_batch_sharded"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -105,19 +106,42 @@ def shard_batch(images: torch.Tensor, mesh: Mesh, axis: str = "batch") -> List[t
     return [part.to(dev, non_blocking=True) for part, dev in zip(images.chunk(len(devs)), devs)]
 
 
-def upscale_batch_sharded(images: torch.Tensor, mesh: Mesh, axis: str = "batch", **upscale_kwargs) -> torch.Tensor:
-    """Upscale a batch of frames, batch-sharded across the mesh.
+def shard_frame(frame, src_device, device):
+    """The frame index of a call on ``src_device`` (``ops.extras.frame_index``:
+    an int, or an integer tensor there), as a shard on ``device`` takes it: a
+    tensor on a card is copied to the shard's device card to card, with no
+    host read; an int, a CPU tensor or None stays as it is."""
+    from fsr_tpu_torch.ops import extras
 
-    images: (B, C, H, W) with B divisible by the axis size.  Equivalent to
-    ``fsr_tpu_torch.upscale(images, **upscale_kwargs)``: each device runs
-    the whole kernel path on its frames (the kernels on CUDA devices, their
-    plain versions or the torch path on CPU devices, as ``upscale`` picks),
-    and the outputs are gathered on the input's device.
-    """
-    from fsr_tpu_torch import api
+    if frame is None:
+        return None
+    f = extras.frame_index(frame, src_device)
+    return f if isinstance(f, int) or f.device.type == "cpu" else f.to(device, non_blocking=True)
 
-    outs = [api.upscale(part, **upscale_kwargs) for part in shard_batch(images, mesh, axis)]
+
+def map_shards(fn, images: torch.Tensor, mesh: Mesh, axis: str = "batch") -> torch.Tensor:
+    """``fn(k, part)`` for share k of a (B, ...) batch on the k-th device along
+    ``axis`` (``shard_batch``), the outputs gathered in one tensor on the
+    batch's device."""
+    outs = [fn(k, part) for k, part in enumerate(shard_batch(images, mesh, axis))]
     result = torch.empty((images.shape[0], *outs[0].shape[1:]), dtype=outs[0].dtype, device=images.device)
     for part, out in zip(result.chunk(len(outs)), outs):
         part.copy_(out)  # between cards ordered on both streams, no host wait
     return result
+
+
+def upscale_batch_sharded(images: torch.Tensor, mesh: Mesh, axis: str = "batch", frame=None,
+                          **upscale_kwargs) -> torch.Tensor:
+    """Upscale a batch of frames, batch-sharded across the mesh.
+
+    images: (B, C, H, W) with B divisible by the axis size.  Equivalent to
+    ``fsr_tpu_torch.upscale(images, frame=frame, **upscale_kwargs)``: each
+    device runs the whole kernel path on its frames (the kernels on CUDA
+    devices, their plain versions or the torch path on CPU devices, as
+    ``upscale`` picks), with the frame index on its own device
+    (``shard_frame``), and the outputs are gathered on the input's device.
+    """
+    from fsr_tpu_torch import api
+
+    return map_shards(lambda k, part: api.upscale(part, frame=shard_frame(frame, images.device, part.device),
+                                                  **upscale_kwargs), images, mesh, axis)

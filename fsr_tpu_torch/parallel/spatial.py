@@ -43,7 +43,7 @@ import torch
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import easu_gather, fused
 from fsr_tpu_torch.kernels.epilogue import Epilogue
-from fsr_tpu_torch.parallel.sharding import Mesh, axis_devices
+from fsr_tpu_torch.parallel.sharding import Mesh, axis_devices, shard_frame
 
 __all__ = ["upscale_spatial_sharded", "spatial_shardable", "Strip"]
 
@@ -164,7 +164,8 @@ def upscale_spatial_sharded(
     torch ops, as float16 always does.  uint8 strips stay bytes through the
     halo exchange; ``grain`` is the output-space (3, Hout, Wout) texture,
     row-sharded with the output; ``dither_page`` tiles the whole frame,
-    whatever its shape.
+    whatever its shape; a ``frame`` tensor on the input's card is copied to
+    each strip's (``sharding.shard_frame``).
     batch_axis: also split the leading batch dimension across a second mesh
     axis (dp x sp).
     input_viewport / input_offset: DRS, as ``api.upscale`` takes them.
@@ -196,13 +197,14 @@ def upscale_spatial_sharded(
     strips = [Strip(k * hl, hout, easu_gather.shard_plan((hin, win), (hout, wout), con, n, k, halo), local_con)
               for k in range(n)]
     opts = dict(apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype, impl=impl,
-                epilogue=epilogue, frame=frame, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
+                epilogue=epilogue, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
     rcon = RcasConstants(sharpness)
 
     def run(x, k):
         """Strip k (halo'd, on its device) -> its hl output rows there."""
         g = None if grain is None else grain[:, k * hl:(k + 1) * hl]
-        return api._upscale(x, (hl, wout), con, rcon, grain=g, strip=strips[k], **opts)
+        return api._upscale(x, (hl, wout), con, rcon, grain=g, frame=shard_frame(frame, image.device, x.device),
+                            strip=strips[k], **opts)
 
     # dp x sp: frame group i (of the leading dimension) on the i-th row of
     # devices along batch_axis; without a batch dimension only the first.

@@ -1,0 +1,135 @@
+"""One frame as one captured program: the port's counterpart of ``jax.jit``
+over a frame.
+
+The JAX examples compile each frame into one program (``jax.jit`` of the
+sample app's frame tail, ``examples/sample_app.py:228``; of the frame graph's
+tail, ``examples/frame_graph.py:78``; of the dataset's upscale,
+``examples/dataset_preprocessing.py:64``).  On the card the port records
+the frame's launches once into a CUDA graph and replays it, so a frame costs
+the host one graph launch however many passes it runs.
+
+``CapturedFrame`` takes the frame function and example inputs (tensors, all
+on one device), warms the function up on a side stream (the kernels'
+libraries, their plan tables and the dither texture come into being there,
+so the capture never misses a cache), captures one ``torch.cuda.CUDAGraph``,
+and on each call copies the new inputs into its static ones, replays, and
+returns its static output: the same tensors at every call, overwritten by
+the next replay, so a caller that keeps an output across frames clones it.
+On a CPU device it calls the function eagerly (the examples' ``--cpu``
+path).  A capture that fails raises, naming the last operation dispatched;
+nothing falls back to the eager function.
+
+What a graph does not see: the function's Python runs at capture only, so
+the kernels' launch counters (``launches``) count the warm-up and the
+capture, never a replay (a replay's launches are read from a trace), and a
+value the function reads on the host (a Python int frame, say) is frozen at
+capture: per-frame values enter as input tensors (a frame index as a 0-d
+int32 tensor, ``ops.extras.frame_index``).  Tensors that the function reads
+from a cache (K2's and the torch path's tables) must outlive the graph,
+which holds their addresses while the cache may evict them: the caches hand
+them out through ``keep``, and the graph keeps what it was captured with.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, List, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+__all__ = ["CapturedFrame", "WARMUP", "keep"]
+
+# Eager calls on a side stream before the capture: the first fills every
+# cache the frame reads (libraries, plans, tables, constants on the device),
+# the second runs as the capture will.
+WARMUP = 2
+
+
+# What the frame being captured reads from caches (``keep``); None when no
+# capture is under way.
+_kept: Optional[List] = None
+
+
+def keep(value):
+    """Return ``value``, tensors a cache hands out; during a capture, the
+    captured frame also holds on to them, so that its graph's addresses stay
+    valid when the cache evicts them."""
+    if _kept is not None:
+        _kept.append(value)
+    return value
+
+
+@contextlib.contextmanager
+def _keeping(into: List):
+    global _kept
+    outer, _kept = _kept, into
+    try:
+        yield
+    finally:
+        _kept = outer
+
+
+class _LastOp(TorchDispatchMode):
+    """Remembers the last aten operation dispatched (the one that broke a
+    failed capture)."""
+
+    op = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.op = func
+        return func(*args, **(kwargs or {}))
+
+
+class CapturedFrame:
+    """``fn(*inputs)`` captured once as a CUDA graph and replayed per call.
+
+    fn: the frame, a function of tensors returning a tensor (or a tuple of
+    them) and reading nothing per frame but its inputs; example_inputs: its
+    inputs at the shapes and dtypes every call takes, all on one device (a
+    CUDA device captures; a CPU device calls ``fn`` eagerly).  Each call
+    copies its inputs (any device, same shapes) into the static inputs,
+    replays the graph and returns the static output.
+    """
+
+    def __init__(self, fn: Callable, *example_inputs: torch.Tensor):
+        devices = {x.device for x in example_inputs}
+        if len(devices) != 1:
+            raise ValueError(f"a captured frame takes its inputs on one device, got {sorted(map(str, devices))}")
+        (self.device,) = devices
+        self.fn = fn
+        self.graph = None
+        if self.device.type != "cuda":
+            return
+        self.inputs = tuple(x.clone() for x in example_inputs)
+        name = getattr(fn, "__qualname__", repr(fn))
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    fn(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            last = _LastOp()
+            self.kept = []
+            try:
+                with last, _keeping(self.kept), torch.cuda.graph(graph):
+                    self.output = fn(*self.inputs)
+            except RuntimeError as e:
+                raise RuntimeError(f"capturing {name} on {self.device} failed at {last.op}: {e}") from e
+        self.graph = graph
+
+    def __call__(self, *inputs: torch.Tensor):
+        if self.graph is None:
+            return self.fn(*inputs)
+        if len(inputs) != len(self.inputs):
+            raise ValueError(f"the captured frame takes {len(self.inputs)} inputs, got {len(inputs)}")
+        for static, x in zip(self.inputs, inputs):
+            if x.shape != static.shape:
+                raise ValueError(f"the captured frame takes an input of {tuple(static.shape)}, got {tuple(x.shape)}")
+        with torch.cuda.device(self.device):
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x, non_blocking=True)
+            self.graph.replay()
+        return self.output

@@ -83,8 +83,10 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     """Trace ``calls`` back-to-back calls of ``fn()`` with ``torch.profiler``
     and read the device's share of the window.
 
-    Returns ``{"kernels": {name: ms per call}, "ops_per_call", "busy_ms",
-    "busy_ms_by_device", "window_ms", "idle_share"}``.  The same calls run
+    Returns ``{"kernels": {name: ms per call}, "launches": {name: device
+    operations per call}, "ops_per_call", "busy_ms", "busy_ms_by_device",
+    "window_ms", "idle_share"}`` (the launches of a replayed CUDA graph
+    included, which no launch counter sees).  The same calls run
     once first as the profiler's warm-up step, so its buffer set-up falls
     outside the recorded step.  The window runs from the host entering the
     first call to the end of the last device operation; busy is the union of
@@ -123,8 +125,10 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
                 if e.name == "device_trace_window" and e.device_type != cuda)
     end = max(e.time_range.end for e in dev)
     kernels: dict = {}
+    launches: dict = {}
     for e in dev:
         kernels[e.name] = kernels.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+        launches[e.name] = launches.get(e.name, 0) + 1 / calls
     busy = busy_time(((e.time_range.start, e.time_range.end) for e in dev), start, end)
     by_device = {
         i: busy_time(((e.time_range.start, e.time_range.end) for e in dev if e.device_index == i), start, end) / 1e3
@@ -133,6 +137,7 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     window = end - start
     return {
         "kernels": kernels,
+        "launches": launches,
         "ops_per_call": len(dev) / calls,
         "busy_ms": busy / 1e3,
         "busy_ms_by_device": by_device,
