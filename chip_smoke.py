@@ -85,14 +85,22 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      (i) Performance f32 and (ii) Quality bf16 on 4 strips, (iii) the HDR
      tail (a) and (iv) the display path (b) with a dither page through
      UpscalePipeline(mesh=), (v) Performance f32 on dp=2 x sp=2, each with
-     exactly 4 launches of each of its kernels and bit-equal to the
-     unsharded call; CUDA-event times of each beside its unsharded twin and
-     of the strips' kernels beside the unsharded kernel, taken in turn; with
-     several cards, (i) and (ii) across them too, with each card's busy time
-     from a trace, and the pipeline's (iii) and (iv) chains across them and
-     the batch over them with the frame as a tensor on the first card,
-     bit-equal to the unsharded calls with a host int; with --trace, a
-     trace of each full-width run;
+     exactly 4 launches of each of its kernels, returning a Sharded whose
+     shards lie on the mesh's devices and whose gather is bit-equal to the
+     unsharded call; CUDA-event times of each, in turn: sharded, sharded
+     then .gather(), unsharded; of the strips' kernels beside the unsharded
+     kernel, taken in turn; with several cards, (i) and (ii) across them
+     too, from a tensor and from a Sharded input, the peak memory of a call
+     on the first card below one output's bytes, each card's busy time from
+     a trace, and the pipeline's (iii) and (iv) chains across them and the
+     batch over them with the frame as a tensor on the first card, from a
+     tensor and from a Sharded input, each gather bit-equal to the
+     unsharded calls with a host int, and 16 Performance f32 frames
+     batch-sharded over the cards in turn with one card; with --trace, the
+     device operations of one sharded call of each full-width run, which
+     must be the strips' K1/K2 launches and the operations of the input's
+     put, the halo copies and the strip cats (and each strip's rows of the
+     grain) and nothing else (no output gather), and a trace of each run;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -134,7 +142,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      none at a replay; phase 23 reads a replay's from a trace); (v)
      video_upscale, 16 frames 1080p -> 4K in batches of 8 (one K1 per
      batch); (vi) dataset_preprocessing, u8 batches of 4 per card on
-     make_mesh() (one K1 per card, captured, replayed per batch); (vii) frame_graph at
+     make_mesh() (one K1 per card, captured, replayed per batch; each
+     batch's output a Sharded on the cards); (vii) frame_graph at
      1080p -> 4K (one K1) and its kernel table; (viii) tools_torch/
      quality_study.py on the card within 0.01 dB of its CPU run; (ix) the
      native host layer built with cc, bit-equal to the numpy constants.
@@ -164,7 +173,7 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      clock, synchronised), with each one's device operations per frame and
      traced idle share; frame_graph's tail and dataset_preprocessing's
      graphs replayed against the eager calls over 4 frames or batches with
-     distinct frame indices; upscale(preset="performance") at batch 1,
+     distinct frame indices (the dataset's shard by shard); upscale(preset="performance") at batch 1,
      captured against eager: one-call latency and 10 calls queued; last,
      the forms that make a frame capturable (constants filled on the card
      in core/tonemap, core/transfer, core/easu_math and
@@ -210,6 +219,8 @@ TORCH_SHARE = 1e-3
 MAIN_SHAPE = (4, 3, 1080, 1920)
 QUALITY_SHAPE = (4, 3, 1440, 2560)
 SHARPEN_SHAPE = (4, 3, 2160, 3840)
+# K1's and K2's __global__ functions, as a device trace names them.
+KERNEL_NAMES = {"K1": "fused_kernel", "K2": "staged_gather_kernel"}
 # docs/FIDELITY.md f16 rows: mixed against the float32 oracle, strict
 # against the float16 oracle.
 F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
@@ -471,6 +482,18 @@ def _check_sharded(got, want, plain, epi, what) -> float:
     return _compare_epilogue(got, plain, epi, what + " vs the plain versions")
 
 
+def _on_mesh(out, what) -> None:
+    """``out`` is a ``Sharded`` whose shards lie on their mesh devices."""
+    from fsr_tpu_torch.parallel import sharding
+
+    if not isinstance(out, sharding.Sharded):
+        raise AssertionError(f"{what}: returned a {type(out).__name__}, not a Sharded")
+    where = [s.device for s in out.shards]
+    if where != sharding._shard_devices(out.mesh, out.spec):
+        raise AssertionError(f"{what}: shards on {where}, the mesh places them on "
+                             f"{sharding._shard_devices(out.mesh, out.spec)}")
+
+
 def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     """Phase 18: row-sharded (and dp x sp) execution through
     ``fsr_tpu_torch.parallel`` on meshes of the card repeated, and across
@@ -536,9 +559,11 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         got, _ = _drive(lambda: spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw), need)
         want = ft.upscale(x, out_size=out_hw, impl="kernel", **kw)
         with _plain_kernels():
-            plain = spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw)
+            plain = spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw).gather()
         torch.cuda.synchronize()
         label = f"{what}, sp={n}"
+        _on_mesh(got, label)
+        got = got.gather()
         err = _check_sharded(got, want, plain, kw.get("epilogue"), label)
         print(f"  {label}: launches {need}, bit-equal to the unsharded kernel output")
         if got.dtype == f32 and kw.get("epilogue") is None:
@@ -561,56 +586,109 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     pipes_a = ft.UpscalePipeline(out4k, mesh=mesh(4), **tail)
     pipes_b = ft.UpscalePipeline(out4k, mesh=mesh(4), **disp)
     dpsp = mesh(4, ("dp", "sp"), (2, 2))
+    rows, dp_rows = (None, None, "sp", None), ("dp", None, "sp", None)
+
+    def staged(x, m, spec, halo, grain=None):
+        """What a sharded call runs before its kernels: the input put on the
+        mesh, the halo exchange with its strip cats and, with a grain, each
+        strip's rows of it made contiguous for the kernel."""
+        xs = sharding.Sharded.put(x, m, spec)
+        n = m.shape["sp"]
+        parts = [p for i in range(0, len(xs.shards), n) for p in spatial._exchange_halo(xs.shards[i:i + n], halo)]
+        if grain is not None:
+            hl = grain.shape[-2] // n
+            parts += [grain[:, k * hl:(k + 1) * hl].contiguous() for k in range(n)]
+        return parts
+
     runs = [
-        # name, sharded call, unsharded call, launches, sharded call on a mesh (None: no run across cards)
+        # name, sharded call, unsharded call, launches, what the sharded call
+        # stages before its kernels, (input, call on a mesh) for the run
+        # across cards (None: no run across cards)
         ("(i) performance f32, sp=4", lambda: spatial.upscale_spatial_sharded(frames, out4k, mesh(4)),
          lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K1": 4},
-         lambda m: spatial.upscale_spatial_sharded(frames, out4k, m)),
+         lambda: staged(frames, mesh(4), rows, spatial._HALO),
+         (frames, lambda x, m: spatial.upscale_spatial_sharded(x, out4k, m))),
         ("(ii) quality bf16, sp=4",
          lambda: spatial.upscale_spatial_sharded(qframes, out4k, mesh(4), compute_dtype=bf16),
          lambda: ft.upscale(qframes, preset="quality", compute_dtype=bf16, impl="kernel"), {"K2": 4},
-         lambda m: spatial.upscale_spatial_sharded(qframes, out4k, m, compute_dtype=bf16)),
+         lambda: staged(qframes, mesh(4), rows, spatial._GHALO),
+         (qframes, lambda x, m: spatial.upscale_spatial_sharded(x, out4k, m, compute_dtype=bf16))),
         ("(iii) HDR tail (a), sp=4", lambda: pipes_a(hdr, grain=grain4k, frame=7),
-         lambda: pipe_a(hdr, grain=grain4k, frame=7), {"K1": 4}, None),
+         lambda: pipe_a(hdr, grain=grain4k, frame=7), {"K1": 4},
+         lambda: staged(hdr, mesh(4), rows, spatial._HALO, grain4k), None),
         ("(iv) display (b) with a dither page, u8 ->u8, sp=4", lambda: pipes_b(q8, grain=grain4k, frame=7),
-         lambda: pipe_b(q8, grain=grain4k, frame=7), {"K2": 4}, None),
+         lambda: pipe_b(q8, grain=grain4k, frame=7), {"K2": 4},
+         lambda: staged(q8, mesh(4), rows, spatial._GHALO, grain4k), None),
         ("(v) performance f32, dp=2 x sp=2",
          lambda: spatial.upscale_spatial_sharded(frames, out4k, dpsp, axis="sp", batch_axis="dp"),
-         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K1": 4}, None),
+         lambda: ft.upscale(frames, preset="performance", impl="kernel"), {"K1": 4},
+         lambda: staged(frames, dpsp, dp_rows, spatial._HALO), None),
     ]
     full = {}
     print(f"  full width, batch {nframes}, on {card}; mesh [{dev}] * 4:")
-    for name, call, unsharded, need, _ in runs:
+    for name, call, unsharded, need, _, _ in runs:
         out, got_n = _drive(call, need)
         want = unsharded()
         torch.cuda.synchronize()
-        if out.shape != want.shape or out.dtype != want.dtype or out.device != want.device:
-            raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs {tuple(want.shape)} {want.dtype}")
-        off = int((out != want).sum())
+        _on_mesh(out, name)
+        got = out.gather()
+        if got.shape != want.shape or got.dtype != want.dtype or got.device != want.device:
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+        off = int((got != want).sum())
         if off:
             raise AssertionError(f"{name}: {off} values differ from the unsharded call")
-        print(f"  {name}: out {tuple(out.shape)} {out.dtype}; launches {got_n}; bit-equal to the unsharded "
-              f"call (0 of {out.numel()} values off)")
-        full[name] = dict(launches=got_n, nbytes=_nbytes(out))
-        del out, want
+        print(f"  {name}: a Sharded {out.shape} {out.dtype}, {len(out.shards)} shards laid out as {out.spec} on "
+              f"the mesh's devices; launches {got_n}; its gather bit-equal to the unsharded call (0 of "
+              f"{got.numel()} values off)")
+        full[name] = dict(launches=got_n, nbytes=_nbytes(*out.shards))
+        del out, got, want
     # (i) and (ii) held against the same sharded call on the plain versions.
     for (name, call, *_), key in zip(runs[:2], ("K1", "K2")):
-        out = call()
+        out = call().gather()
         with _plain_kernels():
-            plain = call()
+            plain = call().gather()
         torch.cuda.synchronize()
         err = _compare(out, plain, f"{name} vs the plain versions")
         if out.dtype == f32:
             small_err[key] = max(small_err[key], err)
         del out, plain
 
-    # Times per 4K frame: each sharded call in turn with its unsharded twin.
-    for name, call, unsharded, _, _ in runs:
-        t = cuda_times_in_turn({"sharded": call, "unsharded": unsharded})
-        full[name]["t"] = t
-        print(f"    {name}: sharded {t['sharded'] / nframes:.4f} ms/frame, unsharded "
-              f"{t['unsharded'] / nframes:.4f} ms/frame ({t['sharded'] / t['unsharded'] - 1:+.1%})")
+    def beyond(call, stage, kernel):
+        """One call's device operations (a trace), and those beyond its
+        staging's and its launches of ``kernel``."""
+        ops = device_trace(call, 1)["launches"]
+        base = device_trace(stage, 1)["launches"]
+        extra = {k: round(c - base.get(k, 0.0)) for k, c in ops.items() if kernel not in k}
+        return ops, {k: c for k, c in extra.items() if c > 0}
+
+    # Times per 4K frame, in turn: the sharded call, the same call then its
+    # gather onto the card (the result before sharded results stayed
+    # sharded), the unsharded call; one call (latency, host work included)
+    # and 10 queued (the device's time).
+    for name, call, unsharded, need, stage, _ in runs:
+        fns = {"sharded": call, "sharded + gather": lambda: call().gather(), "unsharded": unsharded}
+        for what, kw in (("one call", {}), ("10 queued", KQ)):
+            t = cuda_times_in_turn(fns, **kw)
+            print(f"    {name}, {what}: sharded {t['sharded'] / nframes:.4f} ms/frame, sharded then .gather() "
+                  f"{t['sharded + gather'] / nframes:.4f}, unsharded {t['unsharded'] / nframes:.4f} (sharded "
+                  f"{t['sharded'] / t['unsharded'] - 1:+.1%}, its gather "
+                  f"{(t['sharded + gather'] - t['sharded']) / nframes:+.4f} ms/frame)")
         if trace:
+            (kid, n_k), = need.items()
+            kernel = KERNEL_NAMES[kid]
+            ops, extra = beyond(call, stage, kernel)
+            launched = round(sum(c for k, c in ops.items() if kernel in k))
+            print(f"      one sharded call, traced: {launched} launches of {kernel}; with them "
+                  + "; ".join(f"{c:g} x {k[:90]}" for k, c in ops.items() if kernel not in k))
+            if extra or launched != n_k:
+                raise AssertionError(f"{name}: operations beyond the strips' {n_k} launches, the input and halo "
+                                     f"copies and the strip cats: {extra}")
+            _, gathered = beyond(lambda: call().gather(), stage, kernel)
+            if not gathered:
+                raise AssertionError(f"{name}: a traced call then .gather() shows no gather: the check above "
+                                     "cannot see one")
+            print("      nothing beyond the strips' launches, the input and halo copies and the strip cats; "
+                  "the gather would add " + "; ".join(f"{c:g} x {k[:90]}" for k, c in gathered.items()))
             tr = device_trace(call, 5)
             print(f"      traced, 5 sharded calls back to back: device busy {tr['busy_ms']:.4f} ms of a "
                   f"{tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
@@ -646,29 +724,46 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                                              warmup=1, iters=3)
     for k, v in tk.items():
         print(f"    {k:>20}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
-    print("  sharded: one call on the mesh (strip copies, n launches of each kernel, the output gather); "
-          "K* x4 strips: the strips' kernels alone, in turn with the unsharded kernel (3 rounds, median)")
+    print("  sharded: one call on the mesh (strip copies and cats, n launches of each kernel; the output stays "
+          "in its strips); + gather: the strips then gathered on the card (Sharded.gather); K* x4 strips: the "
+          "strips' kernels alone, in turn with the unsharded kernel (3 rounds, median)")
     if cards > 1:
         nc = 4 if cards >= 4 else 2
         real = sharding.make_mesh(nc, ("sp",))
-        print(f"  across {nc} cards ({', '.join(str(d) for d in real.devices.flat)}):")
-        for name, _, unsharded, need, on in runs:
-            if on is None:
+        cards_of = list(real.devices.flat)
+        print(f"  across {nc} cards ({', '.join(str(d) for d in cards_of)}):")
+        for name, _, unsharded, need, _, across in runs:
+            if across is None:
                 continue
+            src, on = across
+            xs = sharding.Sharded.put(src, real, rows)
+            want = unsharded()
             want_n = {k: nc for k in need}
-            out, got_n = _drive(lambda: on(real), want_n)
-            if not torch.equal(out, unsharded()):
-                raise AssertionError(f"{name} across {nc} cards: differs from the unsharded call")
-            t = cuda_times_in_turn({"across cards": lambda: on(real), "one card, sp=4": lambda: on(mesh(4)),
-                                 "unsharded": unsharded})
-            tr = device_trace(lambda: on(real), 5)
-            print(f"    {name.replace('sp=4', f'sp={nc}')}: launches {got_n}, bit-equal to the unsharded call; "
+            for label, x in (("a tensor input", src), ("a Sharded input", xs)):
+                out, got_n = _drive(lambda: on(x, real), want_n)
+                _sync_all()
+                _on_mesh(out, f"{name} across {nc} cards, {label}")
+                if not torch.equal(out.gather(dev), want):
+                    raise AssertionError(f"{name} across {nc} cards, {label}: differs from the unsharded call")
+                del out
+            peak = _peak_bytes(lambda: on(xs, real), dev)
+            if peak >= _nbytes(want):
+                raise AssertionError(f"{name} across {nc} cards: {peak} bytes at the peak on {dev}, not below one "
+                                     f"output's {_nbytes(want)}")
+            t = cuda_times_in_turn({"across cards, Sharded input": _joined(lambda: on(xs, real), cards_of),
+                                    "across cards, tensor input": _joined(lambda: on(src, real), cards_of),
+                                    "across cards + gather": lambda: on(xs, real).gather(dev),
+                                    "one card, sp=4": lambda: on(src, mesh(4)), "unsharded": unsharded})
+            tr = device_trace(lambda: on(xs, real), 5)
+            print(f"    {name.replace('sp=4', f'sp={nc}')}: launches {got_n}, shards on their cards, gather "
+                  f"bit-equal to the unsharded call, from a tensor and from a Sharded input; peak on {dev} "
+                  f"{peak / 2**20:.1f} MiB (one output {_nbytes(want) / 2**20:.1f}); "
                   + ", ".join(f"{k} {v / nframes:.4f} ms/frame" for k, v in t.items())
-                  + f"; traced over 5 calls: busy {tr['busy_ms']:.4f} of {tr['window_ms']:.4f} ms, "
-                  "per card " + ", ".join(f"{i}: {ms:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
+                  + f"; traced over 5 calls (Sharded input): busy {tr['busy_ms']:.4f} of {tr['window_ms']:.4f} "
+                  "ms, per card " + ", ".join(f"{i}: {ms:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
             for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1])[:8]:
                 print(f"      {ms:.4f} ms/call, all cards: {kname[:100]}")
-            del out
+            del xs, want
         _frames_across_cards(dev, gen, nc)
 
     npix = nframes * out4k[0] * out4k[1]
@@ -685,15 +780,50 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     ]
 
 
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _joined(fn, cards):
+    """``fn`` followed by a wait of the first card's current stream for
+    every other card's (no device operation), so that CUDA events on the
+    first card bracket a call whose result stays sharded across the cards."""
+    def run():
+        out = fn()
+        first = torch.cuda.current_stream(cards[0])
+        for d in cards[1:]:
+            first.wait_stream(torch.cuda.current_stream(d))
+        return out
+    return run
+
+
+def _peak_bytes(fn, dev) -> int:
+    """The most memory ``fn()`` held on ``dev`` at once, above what was
+    allocated there before it (its result included)."""
+    _sync_all()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    _sync_all()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    return peak
+
+
 def _frames_across_cards(dev, gen, nc: int) -> None:
     """Phase 18, with several cards: the frame index as a 0-d int32 tensor on
     ``dev`` through the pipeline's two chains row-sharded across ``nc``
     cards, and through the batch sharded over them, each strip or share
-    taking it on its own card (``sharding.shard_frame``); each output
-    bit-equal to the unsharded call with the frame as a host int."""
+    taking it on its own card (``sharding.shard_frame``), from a tensor and
+    from a ``Sharded`` input: each result's shards on their cards and its
+    gather bit-equal to the unsharded call with the frame as a host int.
+    Then 16 Performance f32 frames batch-sharded over the cards, in turn
+    with one card, and the peak memory on ``dev`` of the sharded call."""
     import fsr_tpu_torch as ft
     from fsr_tpu_torch.kernels.epilogue import Epilogue
     from fsr_tpu_torch.parallel import sharding
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn, device_trace
 
     out4k = (2 * MAIN_SHAPE[2], 2 * MAIN_SHAPE[3])
     x = torch.rand(MAIN_SHAPE, generator=gen, device=dev)
@@ -705,18 +835,57 @@ def _frames_across_cards(dev, gen, nc: int) -> None:
                                                           compute_dtype=torch.bfloat16, dither_texture=tex))}
     mesh = sharding.make_mesh(nc, ("sp",))
     on_card = torch.tensor(7, dtype=torch.int32, device=dev)
+
+    def check(got, want, what):
+        _sync_all()
+        _on_mesh(got, what)
+        if not torch.equal(got.gather(dev), want):
+            raise AssertionError(f"{what} with the frame on {dev}: differs from the unsharded call")
+
     for name, (src, kw) in chains.items():
-        got = ft.UpscalePipeline(out4k, mesh=mesh, impl="kernel", **kw)(src, grain=grain, frame=on_card)
+        pipe = ft.UpscalePipeline(out4k, mesh=mesh, impl="kernel", **kw)
         want = ft.UpscalePipeline(out4k, impl="kernel", **kw)(src, grain=grain, frame=7)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} across {nc} cards with the frame on {dev}: differs from the unsharded call")
+        for label, s in (("a tensor", src), ("a Sharded", sharding.Sharded.put(src, mesh, (None, None, "sp", None)))):
+            check(pipe(s, grain=grain, frame=on_card), want, f"{name} across {nc} cards from {label} input")
     epi = Epilogue(dither_bits=10)
-    got = sharding.upscale_batch_sharded(x, sharding.make_mesh(nc), preset="performance", impl="kernel",
-                                         epilogue=epi, frame=on_card)
-    if not torch.equal(got, ft.upscale(x, preset="performance", impl="kernel", epilogue=epi, frame=7)):
-        raise AssertionError(f"the batch over {nc} cards with the frame on {dev}: differs from the unsharded call")
+    bmesh = sharding.make_mesh(nc)
+    want = ft.upscale(x, preset="performance", impl="kernel", epilogue=epi, frame=7)
+    for label, s in (("a tensor", x), ("a Sharded", sharding.shard_batch(x, bmesh))):
+        got = sharding.upscale_batch_sharded(s, bmesh, preset="performance", impl="kernel", epilogue=epi,
+                                             frame=on_card)
+        check(got, want, f"the batch over {nc} cards from {label} input")
     print(f"    the frame as a tensor on {dev}: the pipeline's HDR tail and display chains across {nc} cards, and "
-          f"the batch over them, bit-equal to the unsharded calls with a host int")
+          f"the batch over them, from a tensor and from a Sharded input: shards on their cards, each gather "
+          f"bit-equal to the unsharded calls with a host int")
+    del want, got
+
+    # 16 Performance f32 frames, batch-sharded over the cards, against one card.
+    x16 = torch.rand((16, *MAIN_SHAPE[1:]), generator=gen, device=dev)
+    xs16 = sharding.shard_batch(x16, bmesh)
+    cards_of = list(bmesh.devices.flat)
+
+    def over(s):
+        return sharding.upscale_batch_sharded(s, bmesh, preset="performance")
+
+    out, got_n = _drive(lambda: over(xs16), {"K1": nc})
+    want = ft.upscale(x16, preset="performance")
+    check(out, want, f"16 frames over {nc} cards")
+    del out
+    peak = _peak_bytes(lambda: over(xs16), dev)
+    if peak >= _nbytes(want):
+        raise AssertionError(f"16 frames over {nc} cards: {peak} bytes at the peak on {dev}, not below one "
+                             f"output's {_nbytes(want)}")
+    t = cuda_times_in_turn({"over the cards, Sharded input": _joined(lambda: over(xs16), cards_of),
+                            "over the cards, tensor input": _joined(lambda: over(x16), cards_of),
+                            "over the cards + gather": lambda: over(xs16).gather(dev),
+                            "one card": lambda: ft.upscale(x16, preset="performance")})
+    tr = device_trace(lambda: over(xs16), 5)
+    print(f"    16 frames 1080p -> 4K f32 batch-sharded over {nc} cards: launches {got_n}, gather bit-equal to "
+          f"one card's; peak on {dev} {peak / 2**20:.1f} MiB (one output {_nbytes(want) / 2**20:.1f}); ms per call "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+          + f"; traced over 5 calls: busy {tr['busy_ms']:.4f} of {tr['window_ms']:.4f} ms, per card "
+          + ", ".join(f"{i}: {ms:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
+    del x16, xs16, want
 
 
 def _clocks() -> str:
@@ -1229,10 +1398,12 @@ def _app_layer(dev, card: str) -> None:
         batch0 = torch.from_numpy(next(dataset_preprocessing.synthetic_corpus(1, 4 * n_dev, (1080, 1920))))
         with _plain_kernels():
             want = dataset_preprocessing.preprocess(batch0, 0, out4k, mesh)
-        _compare_steps(outs[0], want, 8, "(vi) dataset batch 0 vs the plain kernels")
+        _on_mesh(outs[0], "(vi) dataset batch 0")
+        _compare_steps(outs[0].gather(), want.gather(), 8, "(vi) dataset batch 0 vs the plain kernels")
         total = sum(o.shape[0] for o in outs)
-        print(f"  (vi) dataset {total} u8 frames 1080p -> 4K u8 on {n_dev} card(s): launches {got}, {dt:.3f} s, "
-              f"{total / dt:.1f} frames/s (host clock, host transfer and the corpus's generation included), {card}")
+        print(f"  (vi) dataset {total} u8 frames 1080p -> 4K u8 on {n_dev} card(s), each batch's output sharded on "
+              f"the cards: launches {got}, {dt:.3f} s, {total / dt:.1f} frames/s (host clock, the transfer to "
+              f"the cards and the corpus's generation included), {card}")
         del outs, want, batch0
 
         part("(vii)")
@@ -1490,10 +1661,14 @@ def _captured_frames(dev, card: str) -> None:
     step = dataset_preprocessing.CapturedPreprocess(mesh, 4, (1080, 1920), out4k)
     corpus = dataset_preprocessing.synthetic_corpus(4, 4 * mesh.size, (1080, 1920))
     for f, batch in zip(frames, corpus):
-        b = torch.from_numpy(batch)
-        same(step(b, f), dataset_preprocessing.preprocess(b, f, out4k, mesh), f"(v) dataset batch, frame {f}")
+        b = sharding.shard_batch(torch.from_numpy(batch), mesh)
+        got, want = step(b, f), dataset_preprocessing.preprocess(b, f, out4k, mesh)
+        _on_mesh(got, f"(v) dataset batch, frame {f}")
+        for k, (g, w) in enumerate(zip(got.shards, want.shards)):
+            same(g, w, f"(v) dataset batch, frame {f}, shard {k}")
     print(f"  (v) frame_graph 1080p -> 4K: 4 scenes, replays bit-equal to the eager tail; dataset_preprocessing "
-          f"u8 1080p -> 4K on {mesh.size} card(s): 4 batches with frames {frames}, replays bit-equal to preprocess")
+          f"u8 1080p -> 4K on {mesh.size} card(s): 4 batches with frames {frames}, the replays' shards bit-equal "
+          "to preprocess's, shard by shard")
     del run, scenes, step
 
     # (vi) upscale(preset="performance") at batch 1: one-call latency and 10

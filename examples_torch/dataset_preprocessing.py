@@ -2,12 +2,13 @@
 
 Counterpart of ``examples/dataset_preprocessing.py``.  Batched upscale of
 an image corpus across the cards of a mesh inside an input pipeline:
-frames stream in as host-side uint8 batches, get batch-sharded over the
-mesh (``fsr_tpu_torch.parallel.sharding``), upscaled (EASU+RCAS), dithered
-to 8-bit codes (TEPD, in K1's store) and gathered back on the host for
-the downstream consumer (e.g. training-data augmentation at higher
-resolution).  One K1 launch per card per batch.  ``run`` replays one
-captured graph per mesh device (``CapturedPreprocess``), as the JAX
+frames stream in as host-side uint8 batches, get put batch-sharded over the
+mesh (``fsr_tpu_torch.parallel.shard_batch``, the JAX example's
+``device_put``), upscaled (EASU+RCAS) and dithered to 8-bit codes (TEPD,
+in K1's store), and stay sharded on the cards for the downstream consumer
+(e.g. training-data augmentation at higher resolution), as the JAX
+example's outputs do.  One K1 launch per card per batch.  ``run`` replays
+one captured graph per mesh device (``CapturedPreprocess``), as the JAX
 example jits ``preprocess``; on CPU devices the same calls run eagerly.
 ``preprocess`` is the eager reference the replays are held against.
 
@@ -21,6 +22,7 @@ the same code on other devices.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -53,10 +55,10 @@ def _upscale_kwargs(out_hw) -> dict:
                 out_dtype=torch.uint8)
 
 
-def preprocess(frames: torch.Tensor, frame_idx, out_hw, mesh) -> torch.Tensor:
-    """uint8 in -> dithered uint8 display codes out, on the frames' device:
-    each card decodes, runs EASU+RCAS, TEPD and the D3D UNORM encode in one
-    K1 launch on its share of the batch (eagerly)."""
+def preprocess(frames, frame_idx, out_hw, mesh):
+    """uint8 in -> dithered uint8 display codes out, a ``Sharded`` over the
+    mesh: each card decodes, runs EASU+RCAS, TEPD and the D3D UNORM encode
+    in one K1 launch on its share of the batch (eagerly)."""
     from fsr_tpu_torch.parallel import sharding
 
     return sharding.upscale_batch_sharded(frames, mesh, frame=frame_idx, **_upscale_kwargs(out_hw))
@@ -67,10 +69,11 @@ class CapturedPreprocess:
     counterpart of ``jax.jit(preprocess)``; on a CPU device the same call,
     eagerly): device k's graph upscales its share of a
     (per_device * devices, 3, H, W) uint8 batch, with the frame index as a
-    0-d int32 device input.  Each call shards the batch over the mesh
-    (``sharding.map_shards``), copies each share and the index into its
-    graph's static inputs (outside the graph), replays the graphs and
-    gathers the outputs on the batch's device."""
+    0-d int32 device input.  Each call takes the batch as a tensor or as a
+    ``Sharded`` put over the mesh (``sharding.map_shards``), copies each
+    share and the index into its graph's static inputs (outside the
+    graph), replays the graphs and returns their static outputs as a
+    ``Sharded``, with no gather: the next call overwrites them."""
 
     def __init__(self, mesh, per_device: int, in_hw, out_hw):
         from fsr_tpu_torch import api
@@ -87,7 +90,7 @@ class CapturedPreprocess:
                                      torch.zeros((), dtype=torch.int32, device=dev))
                        for dev in sharding.axis_devices(mesh, "batch")]
 
-    def __call__(self, frames: torch.Tensor, frame_idx: int) -> torch.Tensor:
+    def __call__(self, frames, frame_idx: int):
         from fsr_tpu_torch.parallel import sharding
 
         idx = torch.tensor(frame_idx, dtype=torch.int32)
@@ -96,9 +99,13 @@ class CapturedPreprocess:
 
 def run(n_batches: int, per_device: int, in_hw, out_hw, devices=None):
     """Preprocess ``n_batches`` of ``per_device`` frames per mesh device;
-    returns (the host outputs, seconds, devices in the mesh).  The graphs
-    are captured before the clock starts and replayed per batch
-    (``CapturedPreprocess``; eager calls on CPU devices)."""
+    returns (the outputs, seconds, devices in the mesh).  Each host batch is
+    put sharded over the mesh and the graphs, captured before the clock
+    starts, are replayed on it (``CapturedPreprocess``; eager calls on CPU
+    devices); each batch waits for its cards, as the JAX example's
+    ``block_until_ready``.  The outputs stay on the cards: each batch's
+    ``Sharded``, its shards copied on their own cards since the next replay
+    overwrites the graphs' outputs."""
     from fsr_tpu_torch.parallel import sharding
 
     mesh = sharding.make_mesh(axis_names=("batch",), devices=devices)
@@ -107,9 +114,11 @@ def run(n_batches: int, per_device: int, in_hw, out_hw, devices=None):
     outs = []
     t0 = time.perf_counter()
     for i, host_batch in enumerate(synthetic_corpus(n_batches, batch, in_hw)):
-        out = step(torch.from_numpy(host_batch), i)  # gathered on the host
+        out = step(sharding.shard_batch(torch.from_numpy(host_batch), mesh), i)
         assert out.shape == (batch, 3, *out_hw) and out.dtype == torch.uint8
-        outs.append(out)
+        outs.append(dataclasses.replace(out, shards=tuple(s.clone() for s in out.shards)))
+        for dev in {s.device for s in out.shards if s.device.type == "cuda"}:
+            torch.cuda.synchronize(dev)
     return outs, time.perf_counter() - t0, mesh.size
 
 

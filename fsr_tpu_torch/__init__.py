@@ -7,8 +7,9 @@ integer ratios, K2 at any other upscale), the SRTM prologue, the output
 epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither) and byte I/O inside them
 (``UpscalePipeline``, the sample's frame tail), RCAS alone in a CUDA kernel
 (K3, ``sharpen``), mesh-sharded batch and row (spatial) execution across
-devices (``fsr_tpu_torch.parallel``, ``UpscalePipeline(mesh=)``), and a
-plain-torch path on any device.  The kernels build from
+devices (``fsr_tpu_torch.parallel``, ``UpscalePipeline(mesh=)``, whose
+results stay on their devices as a ``Sharded``, as JAX's sharded arrays
+do), and a plain-torch path on any device.  The kernels build from
 ``fsr_tpu_torch/csrc`` with nvcc at first use.
 """
 
@@ -21,6 +22,7 @@ from fsr_tpu_torch.core.constants import (
 )
 from fsr_tpu_torch.core.presets import PRESETS, Preset, recommended_mip_bias, render_resolution
 from fsr_tpu_torch.kernels.epilogue import Epilogue
+from fsr_tpu_torch.parallel.sharding import Sharded
 
 __version__ = "0.1.0"
 
@@ -29,6 +31,7 @@ __all__ = [
     "sharpen",
     "UpscalePipeline",
     "Epilogue",
+    "Sharded",
     "EasuConstants",
     "RcasConstants",
     "FSR_RCAS_LIMIT",

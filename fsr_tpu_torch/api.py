@@ -389,9 +389,12 @@ class UpscalePipeline:
     mesh / spatial_axis / batch_axis: run the chain row-sharded across
     ``mesh[spatial_axis]`` (and the batch across ``mesh[batch_axis]``), each
     strip through the same kernel launches, with the dither at global rows
-    (``parallel.spatial.upscale_spatial_sharded``); the result equals the
-    single-device pipeline's and lies on the input's device.  The bf16
-    after-pass runs on the gathered frame.
+    (``parallel.spatial.upscale_spatial_sharded``, which also takes the
+    image as a ``Sharded``).  The result is a ``parallel.Sharded`` whose
+    strips stay on their devices, as JAX's sharded result does; its
+    ``gather()`` equals the single-device pipeline's result.  The bf16
+    after-pass runs per strip, on the strip's device, over its rows of the
+    dither pattern.  Without a mesh the result is a tensor.
     """
 
     def __init__(
@@ -437,6 +440,7 @@ class UpscalePipeline:
         self.dither_texture = (
             torch.as_tensor(dither_texture, dtype=torch.float32) if dither_texture is not None else None
         )
+        self._textures = {}  # device -> the texture there
         self.compute_dtype = compute_dtype
         self.impl = impl
         self.out_dtype = out_dtype
@@ -445,15 +449,31 @@ class UpscalePipeline:
         self.batch_axis = batch_axis
 
     def _texture(self, device) -> Optional[torch.Tensor]:
-        """The dither texture as (pages, th, tw) on ``device`` (moved once)."""
-        tex = self.dither_texture
-        if tex is None:
+        """The dither texture as (pages, th, tw) on ``device`` (moved once per
+        device: a sharded call reads it on each strip's)."""
+        if self.dither_texture is None:
             return None
-        if tex.device != device:
-            tex = self.dither_texture = tex.to(device)
-        return tex if tex.dim() == 3 else tex[None]
+        tex = self._textures.get(device)
+        if tex is None:
+            tex = self.dither_texture.to(device)
+            tex = self._textures[device] = tex if tex.dim() == 3 else tex[None]
+        return tex
 
-    def __call__(self, image: torch.Tensor, grain=None, frame=0) -> torch.Tensor:
+    def _after_pass(self, x: torch.Tensor, frame, row0: int = 0) -> torch.Tensor:
+        """The TEPD quantize over ``x``, rows ``row0``.. of the output, with
+        the dither positions computed on ``x``'s device; then the store."""
+        hw, origin = tuple(x.shape[-2:]), (row0, 0)
+        tex = self._texture(x.device)
+        if tex is not None:
+            dit = extras.texture_dither(hw, frame, tex, origin=origin)
+        else:
+            dit = extras.tepd_dither(hw, frame, origin=origin, device=x.device)
+        x = extras.tepd_quantize(x.to(torch.float32), dit, bits=self.dither_bits)
+        return x if self.out_dtype is None else epilogue_mod.store(x, self.out_dtype)
+
+    def __call__(self, image, grain=None, frame=0):
+        from fsr_tpu_torch.parallel import sharding
+
         use_grain = bool(self.grain_amount) and grain is not None
         u8_out = self.out_dtype == torch.uint8
         u16_out = self.out_dtype == torch.uint16
@@ -463,7 +483,8 @@ class UpscalePipeline:
         fuse = self.dither_bits is not None and (
             self.compute_dtype == torch.float32 or (u8_out and self.dither_bits == 8) or u16_out
         )
-        tex = self._texture(image.device)
+        device = image.shards[0].device if isinstance(image, sharding.Sharded) else image.device
+        tex = self._texture(device)
         epi = Epilogue(
             transform="srtm_inv" if self.hdr_out else "gamma2" if self.gamma2_out else "none",
             grain_amount=self.grain_amount if use_grain else 0.0,
@@ -487,19 +508,17 @@ class UpscalePipeline:
             out_dtype=self.out_dtype if (fuse or self.dither_bits is None) else None,
             dither_page=page,
         )
-        if self.mesh is not None:
-            from fsr_tpu_torch.parallel import spatial
-
-            x = spatial.upscale_spatial_sharded(image, self.out_size, self.mesh, axis=self.spatial_axis,
-                                                batch_axis=self.batch_axis, **kw)
-        else:
+        if self.mesh is None:
             x = upscale(image, out_size=self.out_size, **kw)
-        if self.dither_bits is not None and not fuse:
-            if tex is not None:
-                dit = extras.texture_dither(self.out_size, frame, tex)
-            else:
-                dit = extras.tepd_dither(self.out_size, frame, device=x.device)
-            x = extras.tepd_quantize(x.to(torch.float32), dit, bits=self.dither_bits)
-            if self.out_dtype is not None:
-                x = epilogue_mod.store(x, self.out_dtype)
-        return x
+            return self._after_pass(x, frame) if self.dither_bits is not None and not fuse else x
+        from fsr_tpu_torch.parallel import spatial
+
+        x = spatial.upscale_spatial_sharded(image, self.out_size, self.mesh, axis=self.spatial_axis,
+                                            batch_axis=self.batch_axis, **kw)
+        if self.dither_bits is None or fuse:
+            return x
+        # Shard j holds strip j mod n of its frame group (``Sharded.shards``' order).
+        n = self.mesh.shape[self.spatial_axis]
+        shards = tuple(self._after_pass(s, sharding.shard_frame(frame, device, s.device), (j % n) * s.shape[-2])
+                       for j, s in enumerate(x.shards))
+        return sharding.Sharded(x.mesh, x.spec, shards, x.shape, shards[0].dtype)

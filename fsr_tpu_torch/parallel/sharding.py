@@ -1,20 +1,26 @@
-"""Device meshes and batch sharding for video and dataset throughput.
+"""Device meshes, sharded tensors and batch sharding for video and dataset
+throughput.
 
 Counterpart of ``fsr_tpu/parallel/sharding.py``.  The scaling axes are the
 JAX package's:
 
 - data parallelism over frames (this module): a batch of frames split
   across devices; upscaling is embarrassingly parallel, so no device talks
-  to another until the outputs are gathered;
+  to another;
 - spatial parallelism over image rows (``fsr_tpu_torch.parallel.spatial``):
   one frame split across devices with a halo exchange, for frames too large
   for one device or latency-critical single-frame pipelines.
+
+A sharded result stays on its devices, as a sharded ``jax.Array`` does: a
+``Sharded`` holds one block per device, and ``Sharded.gather`` is the one
+call that copies a whole sharded tensor onto one device.
 
 One process drives every device of a ``Mesh``, as ``shard_map`` does in the
 JAX package: launches are asynchronous, so shards on different cards
 overlap, and tensors move between cards with ``Tensor.to(device)``
 (peer-to-peer over NVLink on a multi-card host), ordered on the devices'
-current streams.  No process group is involved.  A mesh may name one device
+current streams.  No process group is involved, which is why ``Sharded`` is
+not a ``DTensor`` (one process per device).  A mesh may name one device
 more than once (``[cuda:0] * 4``, ``[cpu] * 8``): the shards then run in turn
 on it, which is how one card or the CPU rehearses the seams.
 """
@@ -22,13 +28,14 @@ on it, which is how one card or the CPU rehearses the seams.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "axis_devices", "shard_batch", "shard_frame", "map_shards",
+__all__ = ["Mesh", "Sharded", "make_mesh", "axis_devices", "shard_batch", "shard_frame", "map_shards",
            "upscale_batch_sharded"]
 
 
@@ -97,13 +104,115 @@ def axis_devices(mesh: Mesh, axis: str, at: Optional[Dict[str, int]] = None) -> 
     return list(mesh.devices[idx])
 
 
-def shard_batch(images: torch.Tensor, mesh: Mesh, axis: str = "batch") -> List[torch.Tensor]:
-    """Split a (B, ...) batch into ``mesh.shape[axis]`` equal parts, part i
-    on the i-th device along ``axis`` (copies start asynchronously)."""
-    devs = axis_devices(mesh, axis)
-    if images.dim() < 1 or images.shape[0] % len(devs):
-        raise ValueError(f"batch of {tuple(images.shape)[:1]} does not split over {len(devs)} devices")
-    return [part.to(dev, non_blocking=True) for part, dev in zip(images.chunk(len(devs)), devs)]
+def _named(mesh: Mesh, spec: Tuple[Optional[str], ...], shape) -> List[Tuple[int, str]]:
+    """The (dimension, axis name) pairs that ``spec`` splits, checked against
+    the mesh and a global ``shape``."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} names {len(spec)} dimensions of a {len(shape)}-d tensor")
+    named = [(d, a) for d, a in enumerate(spec) if a is not None]
+    axes = [a for _, a in named]
+    if len(set(axes)) != len(axes) or any(a not in mesh.shape for a in axes):
+        raise ValueError(f"spec {spec} needs distinct axes of the mesh (axes {mesh.axis_names})")
+    for d, a in named:
+        if shape[d] % mesh.shape[a]:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not split over the {mesh.shape[a]} devices "
+                             f"of {a!r}")
+    return named
+
+
+def _shard_devices(mesh: Mesh, spec: Tuple[Optional[str], ...]) -> List[torch.device]:
+    """The device of each block of ``spec``, in ``Sharded.shards``' order:
+    row-major over the named axes, index 0 of every other axis."""
+    axes = [a for a in spec if a is not None]
+    devices = []
+    for idx in itertools.product(*(range(mesh.shape[a]) for a in axes)):
+        at = dict(zip(axes, idx))
+        devices.append(mesh.devices[tuple(at.get(name, 0) for name in mesh.axis_names)])
+    return devices
+
+
+def _same_mesh(a: Mesh, b: Mesh) -> bool:
+    return a is b or (a.axis_names == b.axis_names and a.devices.shape == b.devices.shape
+                      and all(x == y for x, y in zip(a.devices.flat, b.devices.flat)))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharded:
+    """A tensor split over the devices of a mesh: the port's counterpart of a
+    ``jax.Array`` laid out by ``NamedSharding(mesh, spec)``.
+
+    spec: one mesh-axis name or None per dimension, as ``PartitionSpec``; a
+    named dimension is split into equal blocks along its axis.
+    shards: one block per index along the named axes, row-major (the first
+    named dimension slowest), each on the mesh's device at that index.  On
+    every axis that ``spec`` does not name, the device at index 0 holds the
+    block, where JAX would replicate it on every index.
+    shape, dtype: the global tensor's.
+
+    ``Sharded.put`` lays a tensor out (``jax.device_put``); ``gather`` is the
+    one way back to a single tensor."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+    shards: Tuple[torch.Tensor, ...]
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    def __post_init__(self):
+        spec, shards, shape = tuple(self.spec), tuple(self.shards), tuple(int(v) for v in self.shape)
+        block = list(shape)
+        for d, a in _named(self.mesh, spec, shape):
+            block[d] //= self.mesh.shape[a]
+        n = math.prod(self.mesh.shape[a] for a in spec if a is not None)
+        if len(shards) != n or any(tuple(s.shape) != tuple(block) or s.dtype != self.dtype for s in shards):
+            raise ValueError(f"a {shape} {self.dtype} tensor laid out as {spec} takes {n} blocks of "
+                             f"{tuple(block)}, got {[(tuple(s.shape), s.dtype) for s in shards]}")
+        object.__setattr__(self, "spec", spec)
+        object.__setattr__(self, "shards", shards)
+        object.__setattr__(self, "shape", shape)
+
+    @classmethod
+    def put(cls, tensor: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]) -> "Sharded":
+        """``tensor`` split into ``spec``'s blocks, each copied to its device
+        (asynchronously; a block already on its device stays a view of
+        ``tensor``): ``jax.device_put(x, NamedSharding(mesh, spec))``."""
+        spec = tuple(spec)
+        blocks = [tensor]
+        for d, a in _named(mesh, spec, tensor.shape):
+            blocks = [b for t in blocks for b in t.chunk(mesh.shape[a], d)]
+        # A copy to the host is made blocking: the host may read it at once.
+        shards = tuple(b.to(dev, non_blocking=dev.type == "cuda") for b, dev in zip(blocks, _shard_devices(mesh, spec)))
+        return cls(mesh, spec, shards, tuple(tensor.shape), tensor.dtype)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The global tensor on ``device`` (default: the first shard's): each
+        block moved there (``Tensor.to``), then ``torch.cat``; a gradient
+        flows through both."""
+        device = self.shards[0].device if device is None else torch.device(device)
+        blocks = [s.to(device) for s in self.shards]
+        for d, a in reversed(_named(self.mesh, self.spec, self.shape)):
+            n = self.mesh.shape[a]
+            blocks = [torch.cat(blocks[i:i + n], d) for i in range(0, len(blocks), n)]
+        return blocks[0]
+
+
+def _as_sharded(x: Union[torch.Tensor, Sharded], mesh: Mesh, spec: Tuple[Optional[str], ...]) -> Sharded:
+    """``x`` laid out by ``spec`` on ``mesh``: a tensor is put there
+    (``Sharded.put``); a ``Sharded`` with that layout is used as it is, with
+    no copy; one with any other raises."""
+    if not isinstance(x, Sharded):
+        return Sharded.put(x, mesh, spec)
+    if x.spec != spec or not _same_mesh(x.mesh, mesh):
+        raise ValueError(f"this call takes a Sharded laid out as {spec} on mesh {mesh.shape}, "
+                         f"got one laid out as {x.spec} on mesh {x.mesh.shape}")
+    return x
+
+
+def shard_batch(images: torch.Tensor, mesh: Mesh, axis: str = "batch") -> Sharded:
+    """A (B, ...) batch with B split into ``mesh.shape[axis]`` equal parts,
+    part i on the i-th device along ``axis`` (copies start asynchronously):
+    spec ``(axis, None, ...)``, as ``fsr_tpu.parallel.shard_batch``."""
+    return Sharded.put(images, mesh, (axis,) + (None,) * (images.dim() - 1))
 
 
 def shard_frame(frame, src_device, device):
@@ -119,29 +228,34 @@ def shard_frame(frame, src_device, device):
     return f if isinstance(f, int) or f.device.type == "cpu" else f.to(device, non_blocking=True)
 
 
-def map_shards(fn, images: torch.Tensor, mesh: Mesh, axis: str = "batch") -> torch.Tensor:
+def map_shards(fn, images: Union[torch.Tensor, Sharded], mesh: Mesh, axis: str = "batch") -> Sharded:
     """``fn(k, part)`` for share k of a (B, ...) batch on the k-th device along
-    ``axis`` (``shard_batch``), the outputs gathered in one tensor on the
-    batch's device."""
-    outs = [fn(k, part) for k, part in enumerate(shard_batch(images, mesh, axis))]
-    result = torch.empty((images.shape[0], *outs[0].shape[1:]), dtype=outs[0].dtype, device=images.device)
-    for part, out in zip(result.chunk(len(outs)), outs):
-        part.copy_(out)  # between cards ordered on both streams, no host wait
-    return result
+    ``axis`` (a tensor is put first, ``shard_batch``; a ``Sharded`` with that
+    layout is used as it is).  The outputs stay on their devices: a
+    ``Sharded`` laid out as ``(axis, None, ...)``."""
+    x = _as_sharded(images, mesh, (axis,) + (None,) * (len(images.shape) - 1))
+    outs = tuple(fn(k, part) for k, part in enumerate(x.shards))
+    return Sharded(mesh, (axis,) + (None,) * (outs[0].dim() - 1), outs,
+                   (outs[0].shape[0] * len(outs), *outs[0].shape[1:]), outs[0].dtype)
 
 
-def upscale_batch_sharded(images: torch.Tensor, mesh: Mesh, axis: str = "batch", frame=None,
-                          **upscale_kwargs) -> torch.Tensor:
+def upscale_batch_sharded(images: Union[torch.Tensor, Sharded], mesh: Mesh, axis: str = "batch", frame=None,
+                          **upscale_kwargs) -> Sharded:
     """Upscale a batch of frames, batch-sharded across the mesh.
 
-    images: (B, C, H, W) with B divisible by the axis size.  Equivalent to
+    images: (B, C, H, W) with B divisible by the axis size, a tensor or a
+    ``Sharded`` laid out as ``(axis, None, None, None)``.  Equivalent to
     ``fsr_tpu_torch.upscale(images, frame=frame, **upscale_kwargs)``: each
     device runs the whole kernel path on its frames (the kernels on CUDA
     devices, their plain versions or the torch path on CPU devices, as
     ``upscale`` picks), with the frame index on its own device
-    (``shard_frame``), and the outputs are gathered on the input's device.
+    (``shard_frame``; a frame tensor lies on the input's device, a
+    ``Sharded``'s first shard's).  No collectives: the result is a
+    ``Sharded`` with the input's layout, as ``out_specs=pspec`` in the JAX
+    package.
     """
     from fsr_tpu_torch import api
 
-    return map_shards(lambda k, part: api.upscale(part, frame=shard_frame(frame, images.device, part.device),
+    src = images.shards[0].device if isinstance(images, Sharded) else images.device
+    return map_shards(lambda k, part: api.upscale(part, frame=shard_frame(frame, src, part.device),
                                                   **upscale_kwargs), images, mesh, axis)

@@ -8,7 +8,10 @@ with edge replication at the frame's top and bottom (the sampler's CLAMP).
 One process drives every device (``parallel/sharding.py``); launches are
 asynchronous, so strips on different cards overlap, and each copy is
 ordered before the kernels that read it on the devices' current streams.
-The strips' outputs are gathered into one tensor on the input's device.
+The input and the result are row-sharded, as JAX's ``shard_map`` takes and
+returns them (``P(..., None, axis, None)``): each strip's output stays on
+its device in a ``sharding.Sharded``, and a row-sharded input moves
+nothing but its halo rows.
 
 Two regimes, as in the JAX package, both bit-exact against the unsharded
 kernels:
@@ -36,14 +39,14 @@ runs it on XLA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import easu_gather, fused
 from fsr_tpu_torch.kernels.epilogue import Epilogue
-from fsr_tpu_torch.parallel.sharding import Mesh, axis_devices, shard_frame
+from fsr_tpu_torch.parallel.sharding import Mesh, Sharded, _as_sharded, shard_frame
 
 __all__ = ["upscale_spatial_sharded", "spatial_shardable", "Strip"]
 
@@ -133,7 +136,7 @@ class Strip:
 
 
 def upscale_spatial_sharded(
-    image: torch.Tensor,
+    image: Union[torch.Tensor, Sharded],
     out_size: Tuple[int, int],
     mesh: Mesh,
     axis: str = "sp",
@@ -151,12 +154,17 @@ def upscale_spatial_sharded(
     impl: str = "auto",
     input_viewport: Optional[Tuple[int, int]] = None,
     input_offset: Tuple[int, int] = (0, 0),
-) -> torch.Tensor:
+) -> Sharded:
     """Upscale (..., 3|4, H, W) with its rows sharded across ``mesh[axis]``.
 
-    Any upscale ratio (1x..4x area, like FsrEasuF); the result equals
-    ``fsr_tpu_torch.upscale`` of the whole frame with the same ``impl`` (on
-    CUDA devices bit for bit) and is one tensor on the input's device.
+    Any upscale ratio (1x..4x area, like FsrEasuF).  ``image`` is a tensor
+    or a ``Sharded`` laid out as JAX's ``spec`` (``P(*lead, None, axis,
+    None)``, ``lead`` ``(batch_axis, None, ...)`` with ``batch_axis`` and a
+    batch dimension, else all None), used with no copy; a ``Sharded`` laid
+    out any other way raises ``ValueError``.  The result is a ``Sharded``
+    with that same spec, each strip's rows on its device; its ``gather()``
+    equals ``fsr_tpu_torch.upscale`` of the whole frame with the same
+    ``impl`` (on CUDA devices bit for bit).
     RGBA, byte I/O, the prologue, the epilogue and ``impl`` follow
     ``api.upscale``'s contract, strip by strip on each strip's device:
     "auto" runs the kernels on CUDA strips and the torch ops on CPU strips,
@@ -164,8 +172,9 @@ def upscale_spatial_sharded(
     torch ops, as float16 always does.  uint8 strips stay bytes through the
     halo exchange; ``grain`` is the output-space (3, Hout, Wout) texture,
     row-sharded with the output; ``dither_page`` tiles the whole frame,
-    whatever its shape; a ``frame`` tensor on the input's card is copied to
-    each strip's (``sharding.shard_frame``).
+    whatever its shape; a ``frame`` tensor on the input's card (a
+    ``Sharded``'s first shard's) is copied to each strip's
+    (``sharding.shard_frame``).
     batch_axis: also split the leading batch dimension across a second mesh
     axis (dp x sp).
     input_viewport / input_offset: DRS, as ``api.upscale`` takes them.
@@ -179,11 +188,18 @@ def upscale_spatial_sharded(
     if not spatial_shardable((hin, win), (hout, wout), n, con):
         raise ValueError(f"spatial sharding needs divisible, halo-sized strips "
                          f"(in={hin}x{win} out={hout}x{wout} shards={n})")
-    api._check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl)
+    sharded_in = isinstance(image, Sharded)
+    api._check_args(image.shards[0] if sharded_in else image, compute_dtype, out_dtype, epilogue, prologue, impl)
     if grain is not None and tuple(grain.shape) != (3, hout, wout):
         raise ValueError(f"grain must be (3, {hout}, {wout}), got {tuple(grain.shape)}")
+    # dp x sp: frame group i (of the leading dimension) on the i-th row of
+    # devices along batch_axis; without a batch dimension only the first.
+    nb = len(image.shape) - 3
+    lead = (batch_axis,) + (None,) * (nb - 1) if (batch_axis is not None and nb) else (None,) * nb
+    x = _as_sharded(image, mesh, (*lead, None, axis, None))
+    src = x.shards[0].device if sharded_in else image.device
 
-    hl, hin_l = hout // n, hin // n
+    hl = hout // n
     exact = _exact_phase((hin, win), (hout, wout), n, con)
     halo = _HALO if exact else _GHALO
     local_con = None
@@ -191,7 +207,7 @@ def upscale_spatial_sharded(
         local_con = _local_constants(con, halo)
         # Every strip shares this plan: its rows need no pad, so no tap of the
         # ring of an interior strip reaches K1's edge clamp instead of the halo.
-        fplan = fused.plan((hin_l + 2 * halo, win), (hl, wout), local_con)
+        fplan = fused.plan((hin // n + 2 * halo, win), (hl, wout), local_con)
         if fplan.pads[:2] != (0, 0):
             raise ValueError(f"a {halo}-row halo cannot host the taps (row pads {fplan.pads[:2]})")
     strips = [Strip(k * hl, hout, easu_gather.shard_plan((hin, win), (hout, wout), con, n, k, halo), local_con)
@@ -200,31 +216,13 @@ def upscale_spatial_sharded(
                 epilogue=epilogue, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
     rcon = RcasConstants(sharpness)
 
-    def run(x, k):
+    def run(s, k):
         """Strip k (halo'd, on its device) -> its hl output rows there."""
         g = None if grain is None else grain[:, k * hl:(k + 1) * hl]
-        return api._upscale(x, (hl, wout), con, rcon, grain=g, frame=shard_frame(frame, image.device, x.device),
+        return api._upscale(s, (hl, wout), con, rcon, grain=g, frame=shard_frame(frame, src, s.device),
                             strip=strips[k], **opts)
 
-    # dp x sp: frame group i (of the leading dimension) on the i-th row of
-    # devices along batch_axis; without a batch dimension only the first.
-    groups = [image]
-    rows_of = [axis_devices(mesh, axis)]
-    if batch_axis is not None and image.dim() > 3:
-        m = mesh.shape[batch_axis]
-        if image.shape[0] % m:
-            raise ValueError(f"batch of {image.shape[0]} does not split over {m} devices of {batch_axis!r}")
-        groups = list(image.chunk(m))
-        rows_of = [axis_devices(mesh, axis, {batch_axis: i}) for i in range(m)]
-
     outs = []
-    for group, devs in zip(groups, rows_of):
-        parts = [group[..., k * hin_l:(k + 1) * hin_l, :].to(dev, non_blocking=True)
-                 for k, dev in enumerate(devs)]
-        outs.append([run(x, k) for k, x in enumerate(_exchange_halo(parts, halo))])
-    first = outs[0][0]
-    result = torch.empty((*image.shape[:-3], first.shape[-3], hout, wout), dtype=first.dtype, device=image.device)
-    for part, strip_outs in zip(result.chunk(len(groups)) if len(groups) > 1 else [result], outs):
-        for k, out in enumerate(strip_outs):
-            part[..., k * hl:(k + 1) * hl, :].copy_(out)  # between cards ordered on both streams
-    return result
+    for i in range(0, len(x.shards), n):  # one frame group at a time
+        outs += [run(s, k) for k, s in enumerate(_exchange_halo(x.shards[i:i + n], halo))]
+    return Sharded(mesh, x.spec, tuple(outs), (*x.shape[:-3], outs[0].shape[-3], hout, wout), outs[0].dtype)

@@ -328,14 +328,15 @@ def test_sharded_paths_take_a_tensor_frame(impl):
         for out_hw in ((64, 96), (48, 72)):
             def rows(f):
                 return spatial.upscale_spatial_sharded(x, out_hw, _cpu_mesh(4), epilogue=epi, frame=f, impl=impl,
-                                                       out_dtype=torch.uint8)
+                                                       out_dtype=torch.uint8).gather()
             _same(rows(_t(frame)), rows(frame), f"rows to {out_hw}, frame {frame}")
         for k, pipe in enumerate(pipes):
-            _same(pipe(x, frame=_t(frame)), pipe(x, frame=frame), f"pipeline {k} on a mesh, frame {frame}")
+            _same(pipe(x, frame=_t(frame)).gather(), pipe(x, frame=frame).gather(),
+                  f"pipeline {k} on a mesh, frame {frame}")
 
         def batch(f):
             return sharding.upscale_batch_sharded(x, _cpu_mesh(2, ("batch",)), scale=2.0, impl=impl, epilogue=epi,
-                                                  frame=f)
+                                                  frame=f).gather()
         _same(batch(_t(frame)), batch(frame), f"batch, frame {frame}")
     assert sharding.shard_frame(None, "cpu", "cpu") is None and sharding.shard_frame(np.int64(3), "cpu", "cpu") == 3
     with pytest.raises(ValueError, match="lies on meta"):

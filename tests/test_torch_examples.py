@@ -35,6 +35,7 @@ from fsr_tpu.kernels.epilogue import Epilogue as JEpilogue
 from fsr_tpu.ops import easu as jeasu
 from fsr_tpu.utils.image import psnr as jpsnr
 
+import fsr_tpu_torch
 from examples_torch import dataset_preprocessing, frame_graph, sample_app, video_upscale
 from tools_torch import quality_study
 
@@ -233,10 +234,12 @@ def test_dataset_preprocessing_matches_jax(jax_examples):
     outs, _, n_dev = dataset_preprocessing.run(2, 2, in_hw, out_hw, devices=[CPU] * 2)
     assert n_dev == 2 and len(outs) == 2
     for i, (out, frames) in enumerate(zip(outs, jdp.synthetic_corpus(2, 4, in_hw))):
-        assert out.dtype == torch.uint8 and out.device == CPU
+        # The outputs stay sharded over the mesh, as the JAX example's do.
+        assert isinstance(out, fsr_tpu_torch.Sharded) and out.spec == ("batch", None, None, None)
+        assert out.dtype == torch.uint8 and [s.device for s in out.shards] == [CPU] * 2
         want = np.asarray(fsr_tpu.upscale(jnp.asarray(frames), out_size=out_hw, sharpness=0.25, impl="xla",
                                           epilogue=JEpilogue(dither_bits=8), frame=i, out_dtype=jnp.uint8))
-        _codes(out.numpy(), want, scale=None)
+        _codes(out.gather().numpy(), want, scale=None)
 
 
 def test_dataset_preprocessing_needs_a_device(monkeypatch):

@@ -366,16 +366,17 @@ def test_pipeline_grad():
 
 def test_row_sharded_grad_matches_jax():
     """Every strip runs ``api._upscale``, so a row-sharded call
-    differentiates: the port's sharded gradient on 4 CPU strips (torch ops
-    and the kernels' plain versions) against jax.grad of the JAX sharded
-    call on 4 of the conftest's CPU devices."""
+    differentiates, through ``Sharded.gather()``: the port's sharded
+    gradient on 4 CPU strips (torch ops and the kernels' plain versions)
+    against jax.grad of the JAX sharded call on 4 of the conftest's CPU
+    devices."""
     img = _img(11, (3, 64, 96))
     assert len(jax.devices()) >= 4, "conftest should provide 8 CPU devices"
     jmesh = jsharding.make_mesh(4, ("sp",))
     want = _jgrad(lambda x: jspatial.upscale_spatial_sharded(x, (128, 192), jmesh, axis="sp"), img)
     mesh = sharding.make_mesh(4, ("sp",), devices=[torch.device("cpu")] * 4)
     for impl in ("torch", "kernel"):
-        _, got = _grad(lambda x: spatial.upscale_spatial_sharded(x, (128, 192), mesh, impl=impl), img)
+        _, got = _grad(lambda x: spatial.upscale_spatial_sharded(x, (128, 192), mesh, impl=impl).gather(), img)
         _close_rel(got, want)
 
 

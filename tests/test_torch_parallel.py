@@ -1,7 +1,9 @@
 """Batch- and row-sharded execution (``fsr_tpu_torch.parallel``) on the CPU,
 on meshes of ``torch.device("cpu")``, against the unsharded port and the
 JAX package (``fsr_tpu.parallel`` on the conftest's 8 virtual CPU devices,
-its XLA path).  Mirrors tests/test_parallel.py.
+its XLA path).  Mirrors tests/test_parallel.py.  Each sharded result is
+compared through ``Sharded.gather()``; tests/test_torch_sharded.py holds
+the shards themselves against JAX's ``addressable_shards``.
 
 Limits:
 - row-sharded against the unsharded port: bit-equal float32, bfloat16,
@@ -110,8 +112,9 @@ def test_make_mesh_without_a_card_raises(monkeypatch):
 def test_shard_batch_layout():
     imgs = torch.arange(8 * 3 * 2 * 2, dtype=torch.float32).reshape(8, 3, 2, 2)
     parts = sharding.shard_batch(imgs, _mesh(4, ("batch",)))
-    assert [tuple(p.shape) for p in parts] == [(2, 3, 2, 2)] * 4
-    torch.testing.assert_close(torch.cat(parts), imgs, atol=0, rtol=0)
+    assert parts.spec == ("batch", None, None, None) and parts.shape == (8, 3, 2, 2)
+    assert [tuple(p.shape) for p in parts.shards] == [(2, 3, 2, 2)] * 4
+    torch.testing.assert_close(parts.gather(), imgs, atol=0, rtol=0)
     with pytest.raises(ValueError):
         sharding.shard_batch(imgs[:6], _mesh(4, ("batch",)))
 
@@ -119,7 +122,7 @@ def test_shard_batch_layout():
 @pytest.mark.parametrize("impl", ["torch", "kernel"])
 def test_batch_sharded_matches_single(impl):
     imgs = _rand(0, (8, 3, 32, 48))
-    got = sharding.upscale_batch_sharded(torch.from_numpy(imgs), _mesh(8, ("batch",)), scale=2.0, impl=impl)
+    got = sharding.upscale_batch_sharded(torch.from_numpy(imgs), _mesh(8, ("batch",)), scale=2.0, impl=impl).gather()
     torch.testing.assert_close(got, fsr_tpu_torch.upscale(torch.from_numpy(imgs), scale=2.0, impl=impl),
                                atol=0, rtol=0)
     want = np.asarray(fsr_tpu.upscale(jnp.asarray(imgs), scale=2.0, impl="xla"))
@@ -215,7 +218,7 @@ def test_row_sharded_equals_unsharded(case, impl):
     if not spatial.spatial_shardable(in_hw, out_hw, n):
         pytest.fail(f"{case} is not shardable")
     x = torch.from_numpy(_rand(1, (2, 3, *in_hw)))
-    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(n), impl=impl)
+    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(n), impl=impl).gather()
     torch.testing.assert_close(got, fsr_tpu_torch.upscale(x, out_size=out_hw, impl=impl), atol=0, rtol=0)
 
 
@@ -224,7 +227,7 @@ def test_row_sharded_drs_equals_unsharded(n):
     """A DRS viewport and offset inside a larger container (K2 strips)."""
     x = torch.from_numpy(_rand(2, (3, 96, 144)))
     kw = dict(input_viewport=(92, 138), input_offset=(2, 3))
-    got = spatial.upscale_spatial_sharded(x, (132, 192), _mesh(n), impl="kernel", **kw)
+    got = spatial.upscale_spatial_sharded(x, (132, 192), _mesh(n), impl="kernel", **kw).gather()
     want = fsr_tpu_torch.upscale(x, out_size=(132, 192), impl="kernel", **kw)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
@@ -265,7 +268,7 @@ def test_row_sharded_options_equal_unsharded(name, geom):
     kw = dict(kw, grain=torch.from_numpy(_rand(4, (3, *out_hw), -0.5, 0.5)),
               dither_page=torch.from_numpy(_rand(5, (24, 40))))
     impl = "auto" if F16 in kw.values() else "kernel"
-    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), impl=impl, **kw)
+    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), impl=impl, **kw).gather()
     want = fsr_tpu_torch.upscale(x, out_size=out_hw, impl=impl, **kw)
     assert got.dtype == want.dtype and got.shape == want.shape
     if bits is None:
@@ -278,7 +281,7 @@ def test_row_sharded_options_equal_unsharded(name, geom):
 def test_row_sharded_dp_by_sp_equals_unsharded():
     mesh = _mesh(8, ("dp", "sp"), (2, 4))
     x = torch.from_numpy(_rand(6, (4, 3, 32, 64)))
-    got = spatial.upscale_spatial_sharded(x, (64, 128), mesh, axis="sp", batch_axis="dp", impl="kernel")
+    got = spatial.upscale_spatial_sharded(x, (64, 128), mesh, axis="sp", batch_axis="dp", impl="kernel").gather()
     torch.testing.assert_close(got, fsr_tpu_torch.upscale(x, out_size=(64, 128), impl="kernel"), atol=0, rtol=0)
     with pytest.raises(ValueError, match="does not split"):
         spatial.upscale_spatial_sharded(x[:3], (64, 128), mesh, axis="sp", batch_axis="dp")
@@ -296,10 +299,11 @@ def test_row_sharded_raises():
         fn(v).sum().backward()
         return v.grad
 
-    got = grad(lambda v: spatial.upscale_spatial_sharded(v, (128, 192), _mesh(4), impl="kernel"))
+    got = grad(lambda v: spatial.upscale_spatial_sharded(v, (128, 192), _mesh(4), impl="kernel").gather())
     assert torch.isfinite(got).all() and got.abs().max() > 0
     torch.testing.assert_close(got, grad(lambda v: spatial.upscale_spatial_sharded(v, (128, 192), _mesh(4),
-                                                                                  impl="torch")), atol=0, rtol=0)
+                                                                                  impl="torch").gather()),
+                               atol=0, rtol=0)
     whole = grad(lambda v: fsr_tpu_torch.upscale(v, out_size=(128, 192), impl="torch"))
     torch.testing.assert_close(got, whole, atol=1e-6 * whole.abs().max().item(), rtol=0)
     y = torch.from_numpy(_rand(7, (3, 64, 96)))
@@ -341,7 +345,7 @@ def test_row_sharded_default_impl_equals_upscale(case, monkeypatch):
 
     for mod, name in ((tfused, "upscale_fused"), (tgather, "easu_gather"), (tfused, "upscale_padded")):
         monkeypatch.setattr(mod, name, no_kernel)
-    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), **kw)
+    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), **kw).gather()
     assert got.dtype == want.dtype and got.shape == want.shape
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
@@ -403,7 +407,7 @@ def test_row_sharded_matches_jax_sharded(case, impl):
     _, in_hw, out_hw, n = case
     img = _rand(12, (2, 3, *in_hw))
     want = np.asarray(jspatial.upscale_spatial_sharded(jnp.asarray(img), out_hw, _jmesh(n), axis="sp"))
-    got = spatial.upscale_spatial_sharded(torch.from_numpy(img), out_hw, _mesh(n), impl=impl).numpy()
+    got = spatial.upscale_spatial_sharded(torch.from_numpy(img), out_hw, _mesh(n), impl=impl).gather().numpy()
     np.testing.assert_allclose(got, want, atol=TORCH_TOL if impl == "torch" else KERNEL_TOL, rtol=0)
 
 
@@ -435,7 +439,7 @@ def test_row_sharded_options_match_jax_sharded(geom, name):
     x = _source(kind, in_hw)
     kw = dict(kw, grain=torch.from_numpy(_rand(4, (3, *out_hw), -0.5, 0.5)),
               dither_page=torch.from_numpy(_rand(5, (24, 40))))
-    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), **kw).numpy()
+    got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), **kw).gather().numpy()
     want = np.asarray(jspatial.upscale_spatial_sharded(jnp.asarray(x.numpy()), out_hw, _jmesh(4), axis="sp",
                                                        **_jax_kw(kw)))
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -457,7 +461,7 @@ def test_dp_by_sp_matches_jax_sharded():
     want = np.asarray(jspatial.upscale_spatial_sharded(
         jnp.asarray(img), (64, 128), _jmesh(8, ("dp", "sp"), (2, 4)), axis="sp", batch_axis="dp"))
     got = spatial.upscale_spatial_sharded(torch.from_numpy(img), (64, 128), _mesh(8, ("dp", "sp"), (2, 4)),
-                                          axis="sp", batch_axis="dp", impl="torch")
+                                          axis="sp", batch_axis="dp", impl="torch").gather()
     np.testing.assert_allclose(got.numpy(), want, atol=TORCH_TOL, rtol=0)
 
 
@@ -484,7 +488,7 @@ def test_pipeline_mesh_equals_single_device(name):
     grain = torch.from_numpy(_rand(16, (3, *out_hw), -0.5, 0.5)) if use_grain else None
     sharded = fsr_tpu_torch.UpscalePipeline(out_hw, mesh=_mesh(4), **kw)
     single = fsr_tpu_torch.UpscalePipeline(out_hw, **kw)  # the same impl: "auto" is the torch path on the CPU
-    got, want = sharded(x, grain=grain, frame=3), single(x, grain=grain, frame=3)
+    got, want = sharded(x, grain=grain, frame=3).gather(), single(x, grain=grain, frame=3)
     assert got.dtype == want.dtype and got.shape == want.shape
     if bits is None:
         torch.testing.assert_close(got, want, atol=0, rtol=0)
@@ -502,5 +506,5 @@ def test_pipeline_mesh_matches_jax():
     want = np.asarray(fsr_tpu.UpscalePipeline(mesh=_jmesh(4), **kw)(jnp.asarray(hdr), grain=jnp.asarray(grain),
                                                                      frame=3))
     got = fsr_tpu_torch.UpscalePipeline(mesh=_mesh(4), **kw)(torch.from_numpy(hdr), grain=torch.from_numpy(grain),
-                                                             frame=3)
+                                                             frame=3).gather()
     _check_steps(got.numpy(), want, 10)
