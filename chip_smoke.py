@@ -101,6 +101,20 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      must be the strips' K1/K2 launches and the operations of the input's
      put, the halo copies and the strip cats (and each strip's rows of the
      grain) and nothing else (no output gather), and a trace of each run;
+     then (i)-(v) captured once per device (parallel.spatial.CapturedSpatial
+     and CapturedSpatial.from_pipeline: one CUDA graph of the four strips on
+     the card), each with warm-up + 1 launches of K1 or K2 per strip at
+     construction and none at a replay, 8 replays on fresh seeded inputs
+     with the frame as a 0-d int32 tensor on the card (0, 7, 2**31 - 1, -1)
+     each bit-equal shard by shard to the eager call on the same inputs, a
+     replay after the K2 table and strip-plan caches are emptied and
+     overwritten still bit-equal; eager against replay in turn, device and
+     wall ms per call, one call and 10 queued; with --trace one replayed
+     call's device operations held to the strips' launches and the
+     staging's copies (own rows, halo rows, edge rows, frame, grain strips,
+     the page); with several cards, (i) and (ii) across them and 16 frames
+     through parallel.sharding.CapturedBatch over them, the same checks and
+     each card's busy time and the idle share, eager against replay;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -695,6 +709,34 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
             for kname, ms in sorted(tr["kernels"].items(), key=lambda kv: -kv[1]):
                 print(f"      {ms:.4f} ms/call ({ms / nframes:.4f} ms/frame) {kname[:100]}")
 
+    # The same runs captured once per device (CapturedSpatial), each replay
+    # against the eager call on the same inputs.
+    def fresh(kind):
+        def make():
+            x = torch.rand(QUALITY_SHAPE if kind in ("bf16", "u8") else MAIN_SHAPE, generator=gen, device=dev)
+            return {"hdr": lambda: x * 16, "bf16": lambda: x.to(bf16), "u8": lambda: (x * 255).to(u8)}.get(
+                kind, lambda: x)()
+        return make
+
+    captured = [
+        # name, the capture, the eager call on (input, frame, grain), its
+        # launches per call, fresh inputs, whether it takes grain
+        (runs[0][0], lambda: spatial.CapturedSpatial(frames, out4k, mesh(4)),
+         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), frame=f), {"K1": 4}, fresh("f32"), False),
+        (runs[1][0], lambda: spatial.CapturedSpatial(qframes, out4k, mesh(4), compute_dtype=bf16),
+         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), compute_dtype=bf16, frame=f), {"K2": 4},
+         fresh("bf16"), False),
+        (runs[2][0], lambda: spatial.CapturedSpatial.from_pipeline(pipes_a, hdr, grain=grain4k),
+         lambda x, f, g: pipes_a(x, grain=g, frame=f), {"K1": 4}, fresh("hdr"), True),
+        (runs[3][0], lambda: spatial.CapturedSpatial.from_pipeline(pipes_b, q8, grain=grain4k),
+         lambda x, f, g: pipes_b(x, grain=g, frame=f), {"K2": 4}, fresh("u8"), True),
+        (runs[4][0], lambda: spatial.CapturedSpatial(frames, out4k, dpsp, batch_axis="dp"),
+         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, dpsp, axis="sp", batch_axis="dp", frame=f),
+         {"K1": 4}, fresh("f32"), False),
+    ]
+    print(f"  captured (CapturedSpatial, one graph per device: one graph of four strips on {dev}):")
+    _captured_sharded(dev, card, gen, trace, captured, out4k, _sync_all)
+
     # The strips' kernels alone, in turn with the unsharded kernel.
     (ph, pw), (qh, qw) = MAIN_SHAPE[2:], QUALITY_SHAPE[2:]
     pcon = EasuConstants.create((pw, ph), None, out4k[::-1])
@@ -765,6 +807,32 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                 print(f"      {ms:.4f} ms/call, all cards: {kname[:100]}")
             del xs, want
         _frames_across_cards(dev, gen, nc)
+        # Captured across the cards: (i), (ii) and 16 frames batch-sharded,
+        # each fresh input a Sharded on the cards.
+        bmesh = sharding.make_mesh(nc)
+        x16 = torch.rand((16, *MAIN_SHAPE[1:]), generator=gen, device=dev)
+
+        def on_cards(make, m, spec):
+            return lambda: sharding.Sharded.put(make(), m, spec)
+
+        across_cards = [
+            (runs[0][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards",
+             lambda: spatial.CapturedSpatial(frames, out4k, real),
+             lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, frame=f), {"K1": nc},
+             on_cards(fresh("f32"), real, rows), False),
+            (runs[1][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards",
+             lambda: spatial.CapturedSpatial(qframes, out4k, real, compute_dtype=bf16),
+             lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, compute_dtype=bf16, frame=f),
+             {"K2": nc}, on_cards(fresh("bf16"), real, rows), False),
+            (f"16 frames 1080p -> 4K f32 batch-sharded over {nc} cards",
+             lambda: sharding.CapturedBatch(x16, bmesh, preset="performance"),
+             lambda x, f, g: sharding.upscale_batch_sharded(x, bmesh, preset="performance", frame=f), {"K1": nc},
+             on_cards(lambda: torch.rand(x16.shape, generator=gen, device=dev), bmesh, ("batch", None, None, None)),
+             False),
+        ]
+        print(f"  captured across {nc} cards (one graph per card), each input a Sharded on the cards:")
+        _captured_sharded(dev, card, gen, trace, across_cards, out4k, _sync_all, cards=cards_of)
+        del x16
 
     npix = nframes * out4k[0] * out4k[1]
     k1_full, k2_full = full[runs[0][0]], full[runs[1][0]]
@@ -778,6 +846,123 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                       tk["K2 x4 strips"], tk["K2 x4 strips, plain"], _nbytes(*qstrips) + k2_full["nbytes"],
                       EASU_RCAS_OPS * npix),
     ]
+
+
+FRAMES_ON_CARD = (0, 7, 2**31 - 1, -1)
+
+
+def _same_sharded(got, want, what) -> None:
+    """Two ``Sharded`` results: the same layout, each shard bit-equal."""
+    _on_mesh(got, what)
+    if got.spec != want.spec or got.shape != want.shape or len(got.shards) != len(want.shards):
+        raise AssertionError(f"{what}: {got.spec} {got.shape} vs {want.spec} {want.shape}")
+    for j, (a, b) in enumerate(zip(got.shards, want.shards)):
+        if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b):
+            off = int((a != b).sum()) if a.shape == b.shape and a.device == b.device else a.numel()
+            raise AssertionError(f"{what}, shard {j}: {off} of {a.numel()} values differ from the eager call")
+
+
+# Device operations a captured sharded call may run besides its kernels: the
+# staging's copies (own rows, halo rows, edge rows, grain strips, the page)
+# and the frame's fill or copy.
+STAGING_OPS = re.compile(r"copy|memcpy|fill|memset", re.IGNORECASE)
+
+
+def _replay_ops(call, kernel: str, n_k: int, what: str) -> dict:
+    """One traced call of a captured sharded call: its launches of
+    ``kernel`` must be ``n_k`` and every other device operation a staging
+    copy or fill (``STAGING_OPS``).  Returns the operations per call."""
+    from fsr_tpu_torch.utils.profiling import device_trace
+
+    ops = device_trace(call, 1)["launches"]
+    launched = round(sum(c for k, c in ops.items() if kernel in k))
+    other = {k: c for k, c in ops.items() if kernel not in k and not STAGING_OPS.search(k)}
+    if launched != n_k or other:
+        raise AssertionError(f"{what}: a traced replay ran {launched} launches of {kernel} (want {n_k}) and "
+                             f"operations beyond the staging's copies: {other}")
+    return ops
+
+
+def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, cards=None) -> None:
+    """Phase 18, captured: each full-width run as one captured program per
+    device (``CapturedSpatial``, ``CapturedBatch``).  Its launches are
+    counted at construction only (the warm-up's and the capture's, per
+    strip or share); 8 replays on fresh seeded inputs and grain, with the
+    frame as a 0-d int32 tensor on the card (``FRAMES_ON_CARD``), are each
+    bit-equal shard by shard to the eager call on the same inputs and count
+    no launch; the tables a K2 graph read stay valid when their caches are
+    emptied and their memory overwritten (``capture.keep``).  Then eager
+    against replay in turn: device ms (CUDA events on the first card; with
+    ``cards``, after every card's stream) and wall ms per call (host clock,
+    synchronised), one call and 10 queued; with ``trace`` (or across
+    ``cards``) each one's traced busy time per card and idle share, and
+    with ``trace`` a replay's device operations held to its launches and
+    its staging's copies (``_replay_ops``)."""
+    from fsr_tpu_torch.kernels import easu_gather
+    from fsr_tpu_torch.parallel import spatial
+    from fsr_tpu_torch.utils import capture
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn, device_trace
+
+    for name, build, eager, need, fresh, with_grain in cases:
+        cap, built = _drive(build, {k: (capture.WARMUP + 1) * v for k, v in need.items()})
+        grains = [torch.rand((3, *out4k), generator=gen, device=dev) - 0.5 if with_grain else None for _ in range(2)]
+
+        def replay(x, f, g):
+            return cap(x, frame=f, grain=g) if with_grain else cap(x, frame=f)
+
+        def staging(x, f, g):
+            return cap._stage(x, f, g) if with_grain else cap._stage(x, f)
+
+        last = None
+        for r in range(8):
+            x, f, g = fresh(), torch.tensor(FRAMES_ON_CARD[r % 4], dtype=torch.int32, device=dev), grains[r % 2]
+            rep, _ = _drive(lambda: replay(x, f, g), {})
+            _same_sharded(rep, eager(x, f, g), f"{name}, captured: replay {r}")
+            if last is not None and torch.equal(last, rep.shards[-1]):
+                raise AssertionError(f"{name}, captured: replays {r - 1} and {r} on other inputs gave one output")
+            last = rep.shards[-1].clone()
+        kept = [t for frame in cap.programs.captured.values() for tables in frame.kept for item in tables
+                for t in (item.values() if isinstance(item, dict) else [item])]
+        if "K2" in need and not kept:
+            raise AssertionError(f"{name}, captured: the graphs kept no table of K2's strip plans")
+        easu_gather._device_tables.cache_clear()
+        easu_gather.shard_plan.cache_clear()
+        spatial._layout.cache_clear()
+        garbage = [torch.full_like(t, -7) for t in kept for _ in range(4)]
+        _same_sharded(replay(x, f, g), eager(x, f, g), f"{name}, captured: a replay after the caches went")
+        del garbage
+        print(f"    {name}, captured: built with launches {built} (warm-up and capture), "
+              f"{len(cap.programs.captured)} graph(s); 8 replays with frames {FRAMES_ON_CARD} on the card, each "
+              f"bit-equal shard by shard to the eager call, none counted; {len(kept)} K2 tables kept, a replay "
+              f"after the table and plan caches were emptied and overwritten still bit-equal")
+        x, f, g = fresh(), torch.tensor(7, dtype=torch.int32, device=dev), grains[0]
+        fns = {"eager": lambda: eager(x, f, g), "replay": lambda: replay(x, f, g),
+               "its staging alone": lambda: staging(x, f, g)}
+        if cards:
+            fns = {k: _joined(fn, cards) for k, fn in fns.items()}
+        one = cuda_times_in_turn(fns)
+        queued = cuda_times_in_turn(fns, iters=10, **KQ)
+        wall = _wall_ms_in_turn(fns, n=10, sync=sync)
+        wall_q = _wall_ms_in_turn(fns, n=3, queue=10, sync=sync)
+        nf = rep.shape[0]  # the staging alone: the call's host work and copies, with no replay
+        for k in fns:
+            print(f"    {name}, {k}: one call {one[k]:.4f} device ms ({one[k] / nf:.4f} per frame), {wall[k]:.4f} "
+                  f"wall ms ({wall[k] / nf:.4f}); 10 queued {queued[k]:.4f} device ms ({queued[k] / nf:.4f}), "
+                  f"{wall_q[k]:.4f} wall ms ({wall_q[k] / nf:.4f}) per call (CUDA events on {dev}; host clock, "
+                  f"synchronised); {card}")
+        if trace or cards:
+            for k in ("eager", "replay"):
+                tr = device_trace(fns[k], 5)
+                print(f"      {k}, traced over 5 calls: {tr['ops_per_call']:g} device operations per call, busy "
+                      f"{tr['busy_ms'] / 5:.4f} ms per call of a {tr['window_ms'] / 5:.4f} ms window, idle share "
+                      f"{tr['idle_share']:.4f}; per card " + ", ".join(
+                          f"{i}: {ms / 5:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
+        if trace:
+            (kid, n_k), = need.items()
+            ops = _replay_ops(lambda: replay(x, 7, g), KERNEL_NAMES[kid], n_k, name)
+            print(f"      a traced replay (a host int frame): {n_k} launches of {KERNEL_NAMES[kid]}; with them "
+                  + "; ".join(f"{c:g} x {k[:90]}" for k, c in ops.items() if KERNEL_NAMES[kid] not in k))
+        del cap, rep, last, x, fns
 
 
 def _sync_all() -> None:
@@ -1504,21 +1689,24 @@ def _tools(dev, card: str) -> None:
             raise AssertionError(f"the knockout {m} left the output as it was")
 
 
-def _wall_ms_in_turn(fns: dict, n: int = 20, rounds: int = 3) -> dict:
+def _wall_ms_in_turn(fns: dict, n: int = 20, rounds: int = 3, queue: int = 1, sync=None) -> dict:
     """Wall-clock ms per call of each function of ``fns`` (host clock around
-    one call and a synchronise), the functions taken in turn ``rounds``
-    times; the median per function."""
+    ``queue`` calls and a synchronise, ``sync`` or the current card's,
+    divided by ``queue``), ``n`` samples per turn, the functions taken in
+    turn ``rounds`` times; the median per function."""
+    sync = sync or torch.cuda.synchronize
     times = {k: [] for k in fns}
     for fn in fns.values():
         fn()
-    torch.cuda.synchronize()
+    sync()
     for _ in range(rounds):
         for k, fn in fns.items():
             for _ in range(n):
                 t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times[k].append((time.perf_counter() - t0) * 1e3)
+                for _ in range(queue):
+                    fn()
+                sync()
+                times[k].append((time.perf_counter() - t0) * 1e3 / queue)
     return {k: statistics.median(v) for k, v in times.items()}
 
 

@@ -65,36 +65,24 @@ def preprocess(frames, frame_idx, out_hw, mesh):
 
 
 class CapturedPreprocess:
-    """``preprocess`` as one captured CUDA graph per mesh device (the
-    counterpart of ``jax.jit(preprocess)``; on a CPU device the same call,
-    eagerly): device k's graph upscales its share of a
-    (per_device * devices, 3, H, W) uint8 batch, with the frame index as a
-    0-d int32 device input.  Each call takes the batch as a tensor or as a
-    ``Sharded`` put over the mesh (``sharding.map_shards``), copies each
-    share and the index into its graph's static inputs (outside the
-    graph), replays the graphs and returns their static outputs as a
-    ``Sharded``, with no gather: the next call overwrites them."""
+    """``preprocess`` as one captured CUDA graph per mesh device
+    (``sharding.CapturedBatch``, the counterpart of ``jax.jit(preprocess)``;
+    on a CPU device the same call, eagerly): device k's graph upscales its
+    share of a (per_device * devices, 3, H, W) uint8 batch, with the frame
+    index as a 0-d int32 device input.  Each call takes the batch as a
+    tensor or as a ``Sharded`` put over the mesh, copies each share and the
+    index into its graph's static inputs (outside the graph), replays the
+    graphs and returns their static outputs as a ``Sharded``, with no
+    gather: the next call overwrites them."""
 
     def __init__(self, mesh, per_device: int, in_hw, out_hw):
-        from fsr_tpu_torch import api
         from fsr_tpu_torch.parallel import sharding
-        from fsr_tpu_torch.utils.capture import CapturedFrame
 
-        kw = _upscale_kwargs(out_hw)
-
-        def share(frames, frame_idx):
-            return api.upscale(frames, frame=frame_idx, **kw)
-
-        self.mesh = mesh
-        self.graphs = [CapturedFrame(share, torch.zeros((per_device, 3, *in_hw), dtype=torch.uint8, device=dev),
-                                     torch.zeros((), dtype=torch.int32, device=dev))
-                       for dev in sharding.axis_devices(mesh, "batch")]
+        example = torch.zeros((per_device * mesh.shape["batch"], 3, *in_hw), dtype=torch.uint8)
+        self.batch = sharding.CapturedBatch(example, mesh, **_upscale_kwargs(out_hw))
 
     def __call__(self, frames, frame_idx: int):
-        from fsr_tpu_torch.parallel import sharding
-
-        idx = torch.tensor(frame_idx, dtype=torch.int32)
-        return sharding.map_shards(lambda k, part: self.graphs[k](part, idx), frames, self.mesh)
+        return self.batch(frames, frame_idx)
 
 
 def run(n_batches: int, per_device: int, in_hw, out_hw, devices=None):

@@ -395,6 +395,8 @@ class UpscalePipeline:
     ``gather()`` equals the single-device pipeline's result.  The bf16
     after-pass runs per strip, on the strip's device, over its rows of the
     dither pattern.  Without a mesh the result is a tensor.
+    ``parallel.spatial.CapturedSpatial.from_pipeline`` captures the mesh
+    path once per device (the same per-strip body, ``_strip_body``).
     """
 
     def __init__(
@@ -471,54 +473,69 @@ class UpscalePipeline:
         x = extras.tepd_quantize(x.to(torch.float32), dit, bits=self.dither_bits)
         return x if self.out_dtype is None else epilogue_mod.store(x, self.out_dtype)
 
-    def __call__(self, image, grain=None, frame=0):
-        from fsr_tpu_torch.parallel import sharding
-
-        use_grain = bool(self.grain_amount) and grain is not None
-        u8_out = self.out_dtype == torch.uint8
-        u16_out = self.out_dtype == torch.uint16
+    def _options(self, use_grain: bool):
+        """The upscale options of a call, with grain or without, and whether
+        the dither runs as an after-pass."""
         # TEPD codes are k/255 or k/1023 levels: bfloat16 storage cannot hold
         # them, so the dither fuses into the kernel only when the output
         # dtype can (float32, uint8 for 8-bit, uint16 for either).
         fuse = self.dither_bits is not None and (
-            self.compute_dtype == torch.float32 or (u8_out and self.dither_bits == 8) or u16_out
+            self.compute_dtype == torch.float32 or (self.out_dtype == torch.uint8 and self.dither_bits == 8)
+            or self.out_dtype == torch.uint16
         )
-        device = image.shards[0].device if isinstance(image, sharding.Sharded) else image.device
-        tex = self._texture(device)
         epi = Epilogue(
             transform="srtm_inv" if self.hdr_out else "gamma2" if self.gamma2_out else "none",
             grain_amount=self.grain_amount if use_grain else 0.0,
             dither_bits=self.dither_bits if fuse else None,
-            dither_texture=fuse and tex is not None,
+            dither_texture=fuse and self.dither_texture is not None,
         )
-        # The frame's page: a view for an int frame; for a frame tensor on
-        # the image's device, gathered there (no host read; under capture the
-        # page is written inside the graph, at an address that stays put).
-        page = extras.select_page(tex, frame) if fuse and tex is not None else None
-        kw = dict(
-            sharpness=self.sharpness,
+        opts = dict(
             apply_rcas=self.apply_rcas,
             denoise=self.denoise,
             compute_dtype=self.compute_dtype,
             impl=self.impl,
             epilogue=None if epi.is_noop else epi,
-            frame=frame,
-            grain=grain if use_grain else None,
             prologue="srtm" if self.hdr_srtm else "none",
             out_dtype=self.out_dtype if (fuse or self.dither_bits is None) else None,
-            dither_page=page,
         )
-        if self.mesh is None:
-            x = upscale(image, out_size=self.out_size, **kw)
-            return self._after_pass(x, frame) if self.dither_bits is not None and not fuse else x
+        return opts, self.dither_bits is not None and not fuse
+
+    def _page(self, device, frame, opts) -> Optional[torch.Tensor]:
+        """The frame's page of the dither texture on ``device`` when the
+        kernel reads one: a view for an int frame; for a frame tensor there,
+        gathered there (no host read; in a ``CapturedFrame`` the page is
+        written inside the graph, at an address that stays put, and a
+        ``CapturedSpatial`` copies it into each card's static page per
+        call)."""
+        epi = opts["epilogue"]
+        return extras.select_page(self._texture(device), frame) if epi is not None and epi.dither_texture else None
+
+    def _strip_body(self, opts, after: bool):
+        """The chain on one row strip (``parallel.spatial._body``), then the
+        after-pass over the strip's rows of the dither pattern: what the mesh
+        path runs per strip, eagerly or captured
+        (``parallel.spatial.CapturedSpatial.from_pipeline``)."""
         from fsr_tpu_torch.parallel import spatial
 
-        x = spatial.upscale_spatial_sharded(image, self.out_size, self.mesh, axis=self.spatial_axis,
-                                            batch_axis=self.batch_axis, **kw)
-        if self.dither_bits is None or fuse:
-            return x
-        # Shard j holds strip j mod n of its frame group (``Sharded.shards``' order).
-        n = self.mesh.shape[self.spatial_axis]
-        shards = tuple(self._after_pass(s, sharding.shard_frame(frame, device, s.device), (j % n) * s.shape[-2])
-                       for j, s in enumerate(x.shards))
-        return sharding.Sharded(x.mesh, x.spec, shards, x.shape, shards[0].dtype)
+        strip = spatial._body(self.sharpness, opts)
+        if not after:
+            return strip
+
+        def body(layout, k, s, frame, grain, page):
+            return self._after_pass(strip(layout, k, s, frame, grain, page), frame, layout.strips[k].row0)
+        return body
+
+    def __call__(self, image, grain=None, frame=0):
+        from fsr_tpu_torch.parallel import sharding, spatial
+
+        use_grain = bool(self.grain_amount) and grain is not None
+        opts, after = self._options(use_grain)
+        grain = grain if use_grain else None
+        device = image.shards[0].device if isinstance(image, sharding.Sharded) else image.device
+        page = self._page(device, frame, opts)
+        if self.mesh is None:
+            x = upscale(image, out_size=self.out_size, sharpness=self.sharpness, frame=frame, grain=grain,
+                        dither_page=page, **opts)
+            return self._after_pass(x, frame) if after else x
+        return spatial._run(image, self.out_size, self.mesh, self.spatial_axis, self.batch_axis, frame, grain, page,
+                            self._strip_body(opts, after), opts)

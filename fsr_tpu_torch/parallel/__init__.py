@@ -1,8 +1,16 @@
 """Multi-device execution: batch sharding and row (spatial) sharding, with
-results that stay on their devices (``Sharded``)."""
+results that stay on their devices (``Sharded``), eager or captured once per
+device (``CapturedBatch``, ``CapturedSpatial``)."""
 
-from fsr_tpu_torch.parallel.sharding import Mesh, Sharded, make_mesh, shard_batch, upscale_batch_sharded
-from fsr_tpu_torch.parallel.spatial import spatial_shardable, upscale_spatial_sharded
+from fsr_tpu_torch.parallel.sharding import (
+    CapturedBatch,
+    Mesh,
+    Sharded,
+    make_mesh,
+    shard_batch,
+    upscale_batch_sharded,
+)
+from fsr_tpu_torch.parallel.spatial import CapturedSpatial, spatial_shardable, upscale_spatial_sharded
 
 __all__ = [
     "Mesh",
@@ -10,6 +18,8 @@ __all__ = [
     "make_mesh",
     "shard_batch",
     "upscale_batch_sharded",
+    "CapturedBatch",
     "spatial_shardable",
     "upscale_spatial_sharded",
+    "CapturedSpatial",
 ]

@@ -23,20 +23,28 @@ current streams.  No process group is involved, which is why ``Sharded`` is
 not a ``DTensor`` (one process per device).  A mesh may name one device
 more than once (``[cuda:0] * 4``, ``[cpu] * 8``): the shards then run in turn
 on it, which is how one card or the CPU rehearses the seams.
+
+``CapturedBatch`` (and ``spatial.CapturedSpatial``) run a sharded call as
+one captured CUDA graph per device, as JAX jits its ``shard_map``: the
+host stages each call's input into the graphs' static inputs and replays
+one graph per card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from fsr_tpu_torch.utils.capture import CapturedFrame
+
 __all__ = ["Mesh", "Sharded", "make_mesh", "axis_devices", "shard_batch", "shard_frame", "map_shards",
-           "upscale_batch_sharded"]
+           "upscale_batch_sharded", "CapturedBatch"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -177,11 +185,9 @@ class Sharded:
         (asynchronously; a block already on its device stays a view of
         ``tensor``): ``jax.device_put(x, NamedSharding(mesh, spec))``."""
         spec = tuple(spec)
-        blocks = [tensor]
-        for d, a in _named(mesh, spec, tensor.shape):
-            blocks = [b for t in blocks for b in t.chunk(mesh.shape[a], d)]
         # A copy to the host is made blocking: the host may read it at once.
-        shards = tuple(b.to(dev, non_blocking=dev.type == "cuda") for b, dev in zip(blocks, _shard_devices(mesh, spec)))
+        shards = tuple(b.to(dev, non_blocking=dev.type == "cuda")
+                       for b, dev in zip(_blocks(tensor, mesh, spec), _shard_devices(mesh, spec)))
         return cls(mesh, spec, shards, tuple(tensor.shape), tensor.dtype)
 
     def gather(self, device=None) -> torch.Tensor:
@@ -194,6 +200,15 @@ class Sharded:
             n = self.mesh.shape[a]
             blocks = [torch.cat(blocks[i:i + n], d) for i in range(0, len(blocks), n)]
         return blocks[0]
+
+
+def _blocks(tensor: torch.Tensor, mesh: Mesh, spec: Tuple[Optional[str], ...]) -> List[torch.Tensor]:
+    """``tensor`` split into ``spec``'s blocks, in ``Sharded.shards``' order:
+    views of it, where it lies."""
+    blocks = [tensor]
+    for d, a in _named(mesh, spec, tensor.shape):
+        blocks = [b for t in blocks for b in t.chunk(mesh.shape[a], d)]
+    return blocks
 
 
 def _as_sharded(x: Union[torch.Tensor, Sharded], mesh: Mesh, spec: Tuple[Optional[str], ...]) -> Sharded:
@@ -259,3 +274,149 @@ def upscale_batch_sharded(images: Union[torch.Tensor, Sharded], mesh: Mesh, axis
     src = images.shards[0].device if isinstance(images, Sharded) else images.device
     return map_shards(lambda k, part: api.upscale(part, frame=shard_frame(frame, src, part.device),
                                                   **upscale_kwargs), images, mesh, axis)
+
+
+# --- captured sharded calls ----------------------------------------------------
+
+
+def _on(device: torch.device):
+    """The context a copy or a replay on ``device`` runs in:
+    ``torch.cuda.device`` on a card, none on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _parts(x: Union[torch.Tensor, Sharded], mesh: Mesh, spec: Tuple[Optional[str], ...]) -> Tuple[torch.Tensor, ...]:
+    """The blocks of ``x`` laid out by ``spec``, where they lie: a
+    ``Sharded``'s shards (its layout checked, as ``_as_sharded`` does) or
+    views of a tensor (``_blocks``), each copied only where a call writes it
+    into its device's static input."""
+    return _as_sharded(x, mesh, spec).shards if isinstance(x, Sharded) else tuple(_blocks(x, mesh, spec))
+
+
+def _check_like(x, shape, dtype, what: str) -> None:
+    """A captured call takes one shape and dtype: raise naming both."""
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+        raise ValueError(f"{what} was captured for a {tuple(shape)} {dtype} input, "
+                         f"got a {tuple(x.shape)} {x.dtype} one")
+
+
+def _put_frame(frame, src, statics: Dict[torch.device, torch.Tensor]) -> None:
+    """The frame index of a call on ``src`` (``ops.extras.frame_index``: an
+    int, or an integer tensor there; None is 0) written into each device's
+    static 0-d int32: an int filled in (wrapped to 32 bits, as a wider
+    tensor is cast), a tensor copied card to card with no host read."""
+    from fsr_tpu_torch.ops import extras
+
+    f = extras.frame_index(0 if frame is None else frame, src)
+    for dev, static in statics.items():
+        with _on(dev):
+            if isinstance(f, int):
+                static.fill_((f + 2**31) % 2**32 - 2**31)
+            else:
+                static.copy_(f)
+
+
+class _PerDevice:
+    """One program per device of a sharded call, as ``shard_map`` compiles
+    one for each device: ``body(j, ins, shared)`` gives shard j's output
+    from its static inputs ``ins`` and the inputs ``shared`` by every shard
+    on its device; a device's bodies are captured together as one
+    ``CapturedFrame`` on a card (a mesh that names a card four times gives
+    one graph of four shards), or called eagerly on the CPU.
+
+    shard_inputs[j], device_inputs[device]: the static inputs, made from the
+    examples given (shard j's device is that of its first input).  A call
+    writes its inputs into them, then ``run`` replays each device's graph on
+    that device's current stream and returns the shards' outputs in shard
+    order: on a card the graphs' static outputs, overwritten by the next
+    run."""
+
+    def __init__(self, body: Callable, shard_inputs: Sequence[Tuple[torch.Tensor, ...]],
+                 device_inputs: Dict[torch.device, Tuple[torch.Tensor, ...]]):
+        groups: Dict[torch.device, List[int]] = {}
+        for j, ins in enumerate(shard_inputs):
+            groups.setdefault(ins[0].device, []).append(j)
+        self.shard_inputs: List[Tuple[torch.Tensor, ...]] = [()] * len(shard_inputs)
+        self.device_inputs: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        self.captured: Dict[torch.device, CapturedFrame] = {}
+        self._runs = []
+        for dev, js in groups.items():
+            sizes = [len(shard_inputs[j]) for j in js]
+            flat = [t for j in js for t in shard_inputs[j]] + list(device_inputs[dev])
+
+            def program(*ins, js=tuple(js), sizes=tuple(sizes)):
+                shared, at, outs = ins[sum(sizes):], 0, []
+                for j, m in zip(js, sizes):
+                    outs.append(body(j, ins[at:at + m], shared))
+                    at += m
+                return tuple(outs)
+
+            frame = self.captured[dev] = CapturedFrame(program, *flat)
+            static = frame.inputs if frame.graph is not None else tuple(t.clone() for t in flat)
+            at = 0
+            for j, m in zip(js, sizes):
+                self.shard_inputs[j] = static[at:at + m]
+                at += m
+            self.device_inputs[dev] = static[at:]
+            self._runs.append((js, frame.replay if frame.graph is not None else
+                               (lambda program=program, static=static: program(*static))))
+
+    def run(self) -> List[torch.Tensor]:
+        outs: List[Optional[torch.Tensor]] = [None] * len(self.shard_inputs)
+        for js, run in self._runs:
+            for j, out in zip(js, run()):
+                outs[j] = out
+        return outs
+
+
+class CapturedBatch:
+    """``upscale_batch_sharded`` captured once per device: the counterpart
+    of ``jax.jit(shard_map(upscale))`` (``fsr_tpu/parallel/sharding.py``).
+
+    example: the (B, C, H, W) batch every call takes, a tensor or a
+    ``Sharded`` laid out as ``(axis, None, None, None)``;
+    upscale_kwargs: ``fsr_tpu_torch.upscale``'s options but ``frame``
+    (tensors among them, a grain or a dither page, are copied once to each
+    device).  Each device's shares run ``upscale`` in one captured graph on
+    its static inputs, with the frame index as a static 0-d int32 there
+    (``_PerDevice``; on CPU devices the same calls run eagerly).
+
+    A call ``(images, frame=0)`` copies each share of ``images`` (a tensor or
+    a ``Sharded`` in the example's layout and shape, else ``ValueError``) into
+    its device's static input and the frame to each device
+    (``sharding.shard_frame``'s rule, no host read for a tensor on the
+    input's device), replays the graphs and returns a ``Sharded`` of their
+    static outputs, which the next call overwrites: a caller that keeps one
+    clones it."""
+
+    def __init__(self, example: Union[torch.Tensor, Sharded], mesh: Mesh, axis: str = "batch", **upscale_kwargs):
+        from fsr_tpu_torch import api
+
+        self.mesh = mesh
+        self.spec = (axis,) + (None,) * (len(example.shape) - 1)
+        self.shape, self.dtype = tuple(example.shape), example.dtype
+        devices = _shard_devices(mesh, self.spec)
+        kw = {dev: {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in upscale_kwargs.items()}
+              for dev in set(devices)}
+
+        def body(j, share, shared):
+            return api.upscale(share[0], frame=shared[0], **kw[share[0].device])
+
+        self.programs = _PerDevice(body, [(p.to(dev),) for p, dev in zip(_parts(example, mesh, self.spec), devices)],
+                                   {dev: (torch.zeros((), dtype=torch.int32, device=dev),) for dev in devices})
+
+    def __call__(self, images: Union[torch.Tensor, Sharded], frame=0) -> Sharded:
+        self._stage(images, frame)
+        outs = self.programs.run()
+        return Sharded(self.mesh, self.spec, tuple(outs), (outs[0].shape[0] * len(outs), *outs[0].shape[1:]),
+                       outs[0].dtype)
+
+    def _stage(self, images, frame) -> None:
+        """A call's checks and its copies into the static inputs, before the
+        replays."""
+        _check_like(images, self.shape, self.dtype, "this captured batch")
+        parts = _parts(images, self.mesh, self.spec)
+        for (static,), part in zip(self.programs.shard_inputs, parts):
+            with _on(static.device):
+                static.copy_(part)
+        _put_frame(frame, parts[0].device, {dev: ins[0] for dev, ins in self.programs.device_inputs.items()})

@@ -34,11 +34,22 @@ rows and takes the strip's rows of the grain.  The torch path (CPU strips
 under "auto", ``impl="torch"``, float16) runs the torch ops on each strip
 with the same global row plans (``ops.easu(rows=)``), as the JAX package
 runs it on XLA.
+
+A call is three parts: the host layout of its configuration (``_layout``,
+cached: strips, ``Strip``s, halo, row plans, local constants), the staging
+step that builds each strip's halo'd input (``_exchange_halo``), and the
+per-strip body (``_body``: ``api._upscale(..., strip=)``).  The eager call
+(``upscale_spatial_sharded``, ``UpscalePipeline(mesh=)``) stages into fresh
+tensors and runs the bodies; ``CapturedSpatial``, the counterpart of JAX's
+``jax.jit`` over its ``shard_map``s, captures each device's bodies once as
+one CUDA graph and per call stages into the graphs' static inputs, outside
+the graphs, then replays one graph per device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -46,9 +57,10 @@ import torch
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import easu_gather, fused
 from fsr_tpu_torch.kernels.epilogue import Epilogue
+from fsr_tpu_torch.parallel import sharding
 from fsr_tpu_torch.parallel.sharding import Mesh, Sharded, _as_sharded, shard_frame
 
-__all__ = ["upscale_spatial_sharded", "spatial_shardable", "Strip"]
+__all__ = ["upscale_spatial_sharded", "spatial_shardable", "Strip", "CapturedSpatial"]
 
 _HALO = 4   # exact-phase regime: input rows taken from each neighbour
 _GHALO = 8  # any other ratio: covers float32 coordinate drift and the taps
@@ -106,18 +118,32 @@ def _local_constants(con: EasuConstants, halo: int) -> EasuConstants:
     )
 
 
-def _exchange_halo(strips, halo: int):
-    """Each strip with ``halo`` neighbour rows on each side, copied from the
-    neighbours' devices to its own; edge replication at the global top and
-    bottom."""
-    out = []
-    for k, s in enumerate(strips):
-        edge = (*s.shape[:-2], halo, s.shape[-1])
-        up = strips[k - 1][..., -halo:, :].to(s.device, non_blocking=True) if k else s[..., :1, :].expand(edge)
-        down = (strips[k + 1][..., :halo, :].to(s.device, non_blocking=True) if k + 1 < len(strips)
-                else s[..., -1:, :].expand(edge))
-        out.append(torch.cat([up, s, down], dim=-2))
-    return out
+def _exchange_halo(strips, halo: int, into=None):
+    """The staging step: each strip with ``halo`` neighbour rows on each
+    side, copied from the neighbours' devices to its own, with edge
+    replication at the global top and bottom.  Returns fresh tensors (one
+    ``torch.cat`` per strip, the eager call), or, given ``into`` (one
+    (..., h + 2 * halo, W) buffer per strip, on its device), writes the same
+    rows into those buffers (the strip's own rows, its up and down halo rows
+    card to card, the replicated rows at the frame's ends) and returns
+    them: a captured call's static inputs."""
+    if into is None:
+        out = []
+        for k, s in enumerate(strips):
+            edge = (*s.shape[:-2], halo, s.shape[-1])
+            up = strips[k - 1][..., -halo:, :].to(s.device, non_blocking=True) if k else s[..., :1, :].expand(edge)
+            down = (strips[k + 1][..., :halo, :].to(s.device, non_blocking=True) if k + 1 < len(strips)
+                    else s[..., -1:, :].expand(edge))
+            out.append(torch.cat([up, s, down], dim=-2))
+        return out
+    for k, (s, buf) in enumerate(zip(strips, into)):
+        edge, h = (*s.shape[:-2], halo, s.shape[-1]), s.shape[-2]
+        with sharding._on(buf.device):
+            buf[..., halo:halo + h, :].copy_(s)
+            buf[..., :halo, :].copy_(strips[k - 1][..., -halo:, :] if k else s[..., :1, :].expand(edge))
+            buf[..., halo + h:, :].copy_(strips[k + 1][..., :halo, :] if k + 1 < len(strips)
+                                         else s[..., -1:, :].expand(edge))
+    return list(into)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +159,109 @@ class Strip:
     global_rows: int
     rows: easu_gather.GatherPlan
     local_con: Optional[EasuConstants]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """The host side of one configuration, built once (``_layout``): the
+    global constants, the number of strips, the halo, a strip's output
+    (hl, Wout) and each strip's ``Strip``."""
+
+    con: EasuConstants
+    n: int
+    halo: int
+    out_hw: Tuple[int, int]
+    strips: Tuple[Strip, ...]
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(in_hw, out_hw, n: int, input_viewport, input_offset) -> _Layout:
+    """The strips of an (H, W) -> out_hw frame over ``n`` devices, cached
+    per configuration (the row plans behind them are ``shard_plan``'s)."""
+    (hin, win), (hout, wout) = in_hw, out_hw
+    con = _constants((hin, win), (hout, wout), input_viewport, input_offset)
+    if not spatial_shardable((hin, win), (hout, wout), n, con):
+        raise ValueError(f"spatial sharding needs divisible, halo-sized strips "
+                         f"(in={hin}x{win} out={hout}x{wout} shards={n})")
+    hl = hout // n
+    exact = _exact_phase((hin, win), (hout, wout), n, con)
+    halo = _HALO if exact else _GHALO
+    local_con = None
+    if exact:
+        local_con = _local_constants(con, halo)
+        # Every strip shares this plan: its rows need no pad, so no tap of the
+        # ring of an interior strip reaches K1's edge clamp instead of the halo.
+        fplan = fused.plan((hin // n + 2 * halo, win), (hl, wout), local_con)
+        if fplan.pads[:2] != (0, 0):
+            raise ValueError(f"a {halo}-row halo cannot host the taps (row pads {fplan.pads[:2]})")
+    strips = tuple(Strip(k * hl, hout, easu_gather.shard_plan((hin, win), (hout, wout), con, n, k, halo), local_con)
+                   for k in range(n))
+    return _Layout(con, n, halo, (hl, wout), strips)
+
+
+def _options(apply_rcas=True, denoise=False, compute_dtype=torch.float32, epilogue=None, prologue="none",
+             out_dtype=None, impl="auto") -> dict:
+    """The options a strip's ``api._upscale`` takes besides its operands."""
+    return dict(apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype, epilogue=epilogue,
+                prologue=prologue, out_dtype=out_dtype, impl=impl)
+
+
+def _body(sharpness: float, opts: dict):
+    """The per-strip body: ``body(layout, k, s, frame, grain, page)`` is
+    strip k's output rows from its halo'd input ``s``, with the frame index,
+    the strip's rows of the grain and the dither page as it takes them
+    (``api._upscale(..., strip=)``)."""
+    from fsr_tpu_torch import api
+
+    rcon = RcasConstants(sharpness)
+
+    def body(layout: _Layout, k: int, s, frame, grain, page):
+        return api._upscale(s, layout.out_hw, layout.con, rcon, grain=grain, frame=frame, dither_page=page,
+                            strip=layout.strips[k], **opts)
+    return body
+
+
+def _prepare(image, out_size, mesh: Mesh, axis: str, batch_axis, grain, opts: dict, input_viewport, input_offset):
+    """A row-sharded call's checks, its layout and its spec (JAX's
+    ``P(*lead, None, axis, None)``: ``lead`` is ``(batch_axis, None, ...)``
+    with ``batch_axis`` and a batch dimension, else all None)."""
+    from fsr_tpu_torch import api
+
+    hout, wout = out_size
+    layout = _layout(tuple(image.shape[-2:]), (hout, wout), mesh.shape[axis],
+                     None if input_viewport is None else tuple(input_viewport), tuple(input_offset))
+    api._check_args(image.shards[0] if isinstance(image, Sharded) else image, opts["compute_dtype"],
+                    opts["out_dtype"], opts["epilogue"], opts["prologue"], opts["impl"])
+    if grain is not None and tuple(grain.shape) != (3, hout, wout):
+        raise ValueError(f"grain must be (3, {hout}, {wout}), got {tuple(grain.shape)}")
+    # dp x sp: frame group i (of the leading dimension) on the i-th row of
+    # devices along batch_axis; without a batch dimension only the first.
+    nb = len(image.shape) - 3
+    lead = (batch_axis,) + (None,) * (nb - 1) if (batch_axis is not None and nb) else (None,) * nb
+    return layout, (*lead, None, axis, None)
+
+
+def _result(mesh: Mesh, spec, outs, in_shape, out_size) -> Sharded:
+    return Sharded(mesh, spec, tuple(outs), (*in_shape[:-3], outs[0].shape[-3], *out_size), outs[0].dtype)
+
+
+def _run(image, out_size, mesh: Mesh, axis: str, batch_axis, frame, grain, page, body, opts: dict,
+         input_viewport=None, input_offset=(0, 0)) -> Sharded:
+    """The eager row-sharded call: the input laid out on the mesh, then per
+    frame group the halo exchange (``_exchange_halo``, fresh tensors) and
+    ``body`` on each strip's device, the frame copied there
+    (``sharding.shard_frame``)."""
+    out_size = tuple(int(v) for v in out_size)
+    layout, spec = _prepare(image, out_size, mesh, axis, batch_axis, grain, opts, input_viewport, input_offset)
+    x = _as_sharded(image, mesh, spec)
+    src = x.shards[0].device if isinstance(image, Sharded) else image.device
+    n, hl = layout.n, layout.out_hw[0]
+    outs = []
+    for i in range(0, len(x.shards), n):  # one frame group at a time
+        for k, s in enumerate(_exchange_halo(x.shards[i:i + n], layout.halo)):
+            g = None if grain is None else grain[:, k * hl:(k + 1) * hl]
+            outs.append(body(layout, k, s, shard_frame(frame, src, s.device), g, page))
+    return _result(mesh, x.spec, outs, x.shape, out_size)
 
 
 def upscale_spatial_sharded(
@@ -178,51 +307,130 @@ def upscale_spatial_sharded(
     batch_axis: also split the leading batch dimension across a second mesh
     axis (dp x sp).
     input_viewport / input_offset: DRS, as ``api.upscale`` takes them.
+    ``CapturedSpatial`` runs the same call as one captured graph per device.
     """
-    from fsr_tpu_torch import api
+    opts = _options(apply_rcas, denoise, compute_dtype, epilogue, prologue, out_dtype, impl)
+    return _run(image, out_size, mesh, axis, batch_axis, frame, grain, dither_page, _body(sharpness, opts), opts,
+                input_viewport, input_offset)
 
-    hout, wout = (int(v) for v in out_size)
-    hin, win = image.shape[-2:]
-    n = mesh.shape[axis]
-    con = _constants((hin, win), (hout, wout), input_viewport, input_offset)
-    if not spatial_shardable((hin, win), (hout, wout), n, con):
-        raise ValueError(f"spatial sharding needs divisible, halo-sized strips "
-                         f"(in={hin}x{win} out={hout}x{wout} shards={n})")
-    sharded_in = isinstance(image, Sharded)
-    api._check_args(image.shards[0] if sharded_in else image, compute_dtype, out_dtype, epilogue, prologue, impl)
-    if grain is not None and tuple(grain.shape) != (3, hout, wout):
-        raise ValueError(f"grain must be (3, {hout}, {wout}), got {tuple(grain.shape)}")
-    # dp x sp: frame group i (of the leading dimension) on the i-th row of
-    # devices along batch_axis; without a batch dimension only the first.
-    nb = len(image.shape) - 3
-    lead = (batch_axis,) + (None,) * (nb - 1) if (batch_axis is not None and nb) else (None,) * nb
-    x = _as_sharded(image, mesh, (*lead, None, axis, None))
-    src = x.shards[0].device if sharded_in else image.device
 
-    hl = hout // n
-    exact = _exact_phase((hin, win), (hout, wout), n, con)
-    halo = _HALO if exact else _GHALO
-    local_con = None
-    if exact:
-        local_con = _local_constants(con, halo)
-        # Every strip shares this plan: its rows need no pad, so no tap of the
-        # ring of an interior strip reaches K1's edge clamp instead of the halo.
-        fplan = fused.plan((hin // n + 2 * halo, win), (hl, wout), local_con)
-        if fplan.pads[:2] != (0, 0):
-            raise ValueError(f"a {halo}-row halo cannot host the taps (row pads {fplan.pads[:2]})")
-    strips = [Strip(k * hl, hout, easu_gather.shard_plan((hin, win), (hout, wout), con, n, k, halo), local_con)
-              for k in range(n)]
-    opts = dict(apply_rcas=apply_rcas, denoise=denoise, compute_dtype=compute_dtype, impl=impl,
-                epilogue=epilogue, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
-    rcon = RcasConstants(sharpness)
+class CapturedSpatial:
+    """``upscale_spatial_sharded`` captured once per device: the
+    counterpart of ``jax.jit`` over the JAX package's ``shard_map``s
+    (``fsr_tpu/parallel/spatial.py``).
 
-    def run(s, k):
-        """Strip k (halo'd, on its device) -> its hl output rows there."""
-        g = None if grain is None else grain[:, k * hl:(k + 1) * hl]
-        return api._upscale(s, (hl, wout), con, rcon, grain=g, frame=shard_frame(frame, src, s.device),
-                            strip=strips[k], **opts)
+    example: a tensor or a ``Sharded`` in the call's layout, at the shape
+    and dtype every call takes; options: ``upscale_spatial_sharded``'s, but
+    ``frame``, which each call takes, and ``grain``, which here is an
+    example of the call's (a call takes one when the epilogue has grain).
+    The host layout (``_layout``) is built once.  Each device holds static
+    inputs: the halo'd buffer of every strip it hosts, its rows of the grain
+    when the epilogue has grain, a 0-d int32 frame, and the dither page when
+    the epilogue reads one; all the strips a device hosts run in one
+    ``CapturedFrame`` there (``sharding._PerDevice``), so ``[cuda:0] * 4``
+    gives one graph of four strips.  On CPU devices the same staging and
+    bodies run eagerly.
 
-    outs = []
-    for i in range(0, len(x.shards), n):  # one frame group at a time
-        outs += [run(s, k) for k, s in enumerate(_exchange_halo(x.shards[i:i + n], halo))]
-    return Sharded(mesh, x.spec, tuple(outs), (*x.shape[:-3], outs[0].shape[-3], hout, wout), outs[0].dtype)
+    A call ``(image, frame=0, grain=None)`` takes a tensor or a ``Sharded``
+    of the example's shape, dtype and layout (else ``ValueError``, naming
+    both) and stages it into the static buffers (``_exchange_halo(...,
+    into=)``: each strip's own rows, its halo rows card to card, the
+    replicated rows at the frame's ends), its grain rows and the frame
+    (``sharding.shard_frame``'s rule: no host read for a tensor on the
+    input's device).  The copies run outside the graphs, ordered on both
+    cards' current streams; then each device's graph replays on its current
+    stream.  Returns a ``Sharded`` of the static outputs, overwritten by
+    the next call (``CapturedFrame``'s contract: clone what you keep).
+    ``from_pipeline`` captures ``UpscalePipeline(mesh=)``."""
+
+    def __init__(self, example: Union[torch.Tensor, Sharded], out_size, mesh: Mesh, axis: str = "sp",
+                 batch_axis: Optional[str] = None, sharpness: float = 0.25, grain=None, dither_page=None,
+                 input_viewport=None, input_offset=(0, 0), **options):
+        opts = _options(**options)
+        self._build(example, out_size, mesh, axis, batch_axis, _body(sharpness, opts), opts, grain, dither_page, None,
+                    input_viewport, input_offset)
+
+    @classmethod
+    def from_pipeline(cls, pipe, example: Union[torch.Tensor, Sharded], grain=None) -> "CapturedSpatial":
+        """``pipe`` (an ``UpscalePipeline`` with a mesh) captured over its
+        per-strip body, the bf16 after-pass included
+        (``UpscalePipeline._strip_body``, which its eager mesh path runs
+        too); ``grain``: an example of the calls' grain (without one the
+        capture runs the chain without grain, as the pipeline does).  The
+        dither page, where the chain reads one, is staged per call from the
+        frame."""
+        if pipe.mesh is None:
+            raise ValueError("from_pipeline captures an UpscalePipeline(mesh=...); this one has no mesh")
+        opts, after = pipe._options(bool(pipe.grain_amount) and grain is not None)
+        epi = opts["epilogue"]
+        paged = epi is not None and epi.needs_dither_tex
+        page_of = (lambda dev, frame: pipe._page(dev, frame, opts)) if paged else None
+        self = cls.__new__(cls)
+        self._build(example, pipe.out_size, pipe.mesh, pipe.spatial_axis, pipe.batch_axis,
+                    pipe._strip_body(opts, after), opts, grain, None, page_of, None, (0, 0))
+        return self
+
+    def _build(self, example, out_size, mesh, axis, batch_axis, body, opts, grain, page, page_of, input_viewport,
+               input_offset):
+        out_size = tuple(int(v) for v in out_size)
+        layout, spec = _prepare(example, out_size, mesh, axis, batch_axis, grain, opts, input_viewport,
+                                input_offset)
+        epi = opts["epilogue"]
+        self.mesh, self.spec, self.layout, self.out_size = mesh, spec, layout, out_size
+        self.shape, self.dtype = tuple(example.shape), example.dtype
+        self.takes_grain = epi is not None and epi.needs_grain
+        self._page_of = page_of
+        paged = epi is not None and epi.needs_dither_tex
+        if paged and page is None and page_of is None:
+            raise ValueError("epilogue.dither_texture requires dither_page")
+        parts = sharding._parts(example, mesh, spec)
+        devices = sharding._shard_devices(mesh, spec)
+        n, (hl, wout) = layout.n, layout.out_hw
+        shard_inputs = []
+        for i in range(0, len(parts), n):
+            strips = [p.to(dev) for p, dev in zip(parts[i:i + n], devices[i:i + n])]
+            for k, s in enumerate(_exchange_halo(strips, layout.halo)):
+                rows = (torch.zeros((3, hl, wout), dtype=torch.float32, device=s.device) if grain is None
+                        else grain[:, k * hl:(k + 1) * hl].to(s.device, torch.float32))
+                shard_inputs.append((s, rows) if self.takes_grain else (s,))
+        src = parts[0].device
+        if page_of is not None:
+            page = page_of(src, 0)
+        shared = {dev: (torch.zeros((), dtype=torch.int32, device=dev),)
+                  + ((torch.as_tensor(page, device=dev).to(torch.float32).contiguous(),) if paged else ())
+                  for dev in devices}
+
+        def strip(j, ins, shared):
+            return body(layout, j % n, ins[0], shared[0], ins[1] if self.takes_grain else None,
+                        shared[1] if paged else None)
+
+        self.programs = sharding._PerDevice(strip, shard_inputs, shared)
+
+    def __call__(self, image: Union[torch.Tensor, Sharded], frame=0, grain=None) -> Sharded:
+        self._stage(image, frame, grain)
+        return _result(self.mesh, self.spec, self.programs.run(), self.shape, self.out_size)
+
+    def _stage(self, image, frame, grain=None) -> None:
+        """A call's checks and its staging into the static inputs, before the
+        replays."""
+        sharding._check_like(image, self.shape, self.dtype, "this captured call")
+        if grain is not None and tuple(grain.shape) != (3, *self.out_size):
+            raise ValueError(f"this captured call takes a grain of {(3, *self.out_size)}, got {tuple(grain.shape)}")
+        if self.takes_grain and grain is None:
+            raise ValueError("this call was captured with grain: pass grain=")
+        parts = sharding._parts(image, self.mesh, self.spec)
+        n, halo, hl = self.layout.n, self.layout.halo, self.layout.out_hw[0]
+        static = self.programs.shard_inputs
+        for i in range(0, len(parts), n):
+            _exchange_halo(parts[i:i + n], halo, into=[ins[0] for ins in static[i:i + n]])
+            for k, ins in enumerate(static[i:i + n] if self.takes_grain else ()):
+                with sharding._on(ins[1].device):
+                    ins[1].copy_(grain[:, k * hl:(k + 1) * hl])
+        src = parts[0].device
+        shared = self.programs.device_inputs
+        sharding._put_frame(frame, src, {dev: ins[0] for dev, ins in shared.items()})
+        if self._page_of is not None:
+            page = self._page_of(src, frame)
+            for dev, ins in shared.items():
+                with sharding._on(dev):
+                    ins[1].copy_(page)

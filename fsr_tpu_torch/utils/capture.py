@@ -14,7 +14,9 @@ libraries, their plan tables and the dither texture come into being there,
 so the capture never misses a cache), captures one ``torch.cuda.CUDAGraph``,
 and on each call copies the new inputs into its static ones, replays, and
 returns its static output: the same tensors at every call, overwritten by
-the next replay, so a caller that keeps an output across frames clones it.
+the next replay, so a caller that keeps an output across frames clones it
+(``replay`` replays on the static inputs as they stand, for a caller that
+writes them itself: a sharded call's staging, ``parallel``).
 On a CPU device it calls the function eagerly (the examples' ``--cpu``
 path).  A capture that fails raises, naming the last operation dispatched;
 nothing falls back to the eager function.
@@ -114,7 +116,11 @@ class CapturedFrame:
             last = _LastOp()
             self.kept = []
             try:
-                with last, _keeping(self.kept), torch.cuda.graph(graph):
+                # Captured on the side stream, this device's: torch.cuda.graph's
+                # default capture stream is one for the whole process, made on
+                # the device current at its first use, so a capture on a
+                # second card would run on the first card's stream and fail.
+                with last, _keeping(self.kept), torch.cuda.graph(graph, stream=side):
                     self.output = fn(*self.inputs)
             except RuntimeError as e:
                 raise RuntimeError(f"capturing {name} on {self.device} failed at {last.op}: {e}") from e
@@ -131,5 +137,16 @@ class CapturedFrame:
         with torch.cuda.device(self.device):
             for static, x in zip(self.inputs, inputs):
                 static.copy_(x, non_blocking=True)
+        return self.replay()
+
+    def replay(self):
+        """Replay the graph on the static inputs as they stand (``inputs``),
+        with no copy, and return the static output: a caller that writes a
+        frame's inputs straight into ``inputs`` (a sharded call's staging)
+        saves the copies ``__call__`` makes.  A CPU frame has no graph and
+        raises."""
+        if self.graph is None:
+            raise RuntimeError(f"a captured frame on {self.device} has no graph to replay: call it")
+        with torch.cuda.device(self.device):
             self.graph.replay()
         return self.output
