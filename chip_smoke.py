@@ -101,20 +101,32 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      must be the strips' K1/K2 launches and the operations of the input's
      put, the halo copies and the strip cats (and each strip's rows of the
      grain) and nothing else (no output gather), and a trace of each run;
-     then (i)-(v) captured once per device (parallel.spatial.CapturedSpatial
-     and CapturedSpatial.from_pipeline: one CUDA graph of the four strips on
-     the card), each with warm-up + 1 launches of K1 or K2 per strip at
-     construction and none at a replay, 8 replays on fresh seeded inputs
-     with the frame as a 0-d int32 tensor on the card (0, 7, 2**31 - 1, -1)
-     each bit-equal shard by shard to the eager call on the same inputs, a
-     replay after the K2 table and strip-plan caches are emptied and
-     overwritten still bit-equal; eager against replay in turn, device and
-     wall ms per call, one call and 10 queued; with --trace one replayed
-     call's device operations held to the strips' launches and the
-     staging's copies (own rows, halo rows, edge rows, frame, grain strips,
-     the page); with several cards, (i) and (ii) across them and 16 frames
-     through parallel.sharding.CapturedBatch over them, the same checks and
-     each card's busy time and the idle share, eager against replay;
+     then H1 (kernels/halo.py, csrc/halo.cu: a strip's halo rows read from
+     its neighbours' buffers) bit-equal to its plain version for every
+     dtype, RGB and RGBA, 2/3/4/8 strips, a batch and dp x sp, every copy
+     unit, on the card repeated and with several cards across them (peer
+     access), the frame index copied beside; then (i)-(v) captured once per
+     device (parallel.spatial.CapturedSpatial and
+     CapturedSpatial.from_pipeline: one CUDA graph of the four strips on the
+     card, each strip's part beginning with H1), each with warm-up + 1
+     launches of K1 or K2 and of H1 per strip at construction and none at a
+     replay, 8 replays on fresh seeded inputs with the frame as a 0-d int32
+     tensor on the card (0, 7, 2**31 - 1, -1) each bit-equal shard by shard
+     to the eager call on the same inputs, a replay after the K2 table and
+     strip-plan caches are emptied and overwritten still bit-equal; 10 calls
+     queued with no host sync from a Sharded input and from a tensor, each
+     call's shards cloned on their cards right after it, all bit-equal to
+     the eager calls, and the copies one call issues from the host (none
+     card to card from a Sharded input); eager against replay against the
+     staging alone in turn, device and wall ms per call, one call and 10
+     queued; with --trace one replayed call's device operations held to the
+     strips' K1/K2 and H1 launches and the staging's copies and fill (own
+     rows, grain strips, the page, the frame; across cards from a Sharded
+     input no copy between cards); H1 on (i)'s strips timed in turn with its
+     plain version; with several cards, (i) and (ii) across them and 16
+     frames through parallel.sharding.CapturedBatch over them, the same
+     checks and each card's busy time and the idle share, eager against
+     replay, and H1 across the cards beside H1 on one;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -207,7 +219,9 @@ unavailable.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -233,8 +247,8 @@ TORCH_SHARE = 1e-3
 MAIN_SHAPE = (4, 3, 1080, 1920)
 QUALITY_SHAPE = (4, 3, 1440, 2560)
 SHARPEN_SHAPE = (4, 3, 2160, 3840)
-# K1's and K2's __global__ functions, as a device trace names them.
-KERNEL_NAMES = {"K1": "fused_kernel", "K2": "staged_gather_kernel"}
+# K1's, K2's and H1's __global__ functions, as a device trace names them.
+KERNEL_NAMES = {"K1": "fused_kernel", "K2": "staged_gather_kernel", "H1": "halo_kernel"}
 # docs/FIDELITY.md f16 rows: mixed against the float32 oracle, strict
 # against the float16 oracle.
 F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
@@ -437,12 +451,12 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
 
 def _wrappers() -> dict:
     """The kernel wrappers, each with its launch count."""
-    from fsr_tpu_torch.kernels import easu_gather, fused, pad, probes
+    from fsr_tpu_torch.kernels import easu_gather, fused, halo, pad, probes
     from fsr_tpu_torch.kernels import rcas as rcas_k
 
     return {"K4": pad.edge_pad, "K1": fused.upscale_padded, "K2": easu_gather.easu_gather,
             "K3": rcas_k.rcas_fused, "P1": probes.opmix_replay, "P2": probes.opmix_replay_shared,
-            "P3": probes.fma_rate, "P4": probes.fp16_probe}
+            "P3": probes.fma_rate, "P4": probes.fp16_probe, "H1": halo.halo_rows}
 
 
 def _drive(fn, need):
@@ -515,7 +529,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     full-width run.  Returns its entries of the kernels line."""
     import fsr_tpu_torch as ft
     from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-    from fsr_tpu_torch.kernels import easu_gather, fused
+    from fsr_tpu_torch.kernels import easu_gather, fused, halo
     from fsr_tpu_torch.kernels.epilogue import Epilogue
     from fsr_tpu_torch.parallel import sharding, spatial
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn, device_trace
@@ -722,20 +736,22 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         # name, the capture, the eager call on (input, frame, grain), its
         # launches per call, fresh inputs, whether it takes grain
         (runs[0][0], lambda: spatial.CapturedSpatial(frames, out4k, mesh(4)),
-         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), frame=f), {"K1": 4}, fresh("f32"), False),
+         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), frame=f), {"K1": 4, "H1": 4},
+         fresh("f32"), False),
         (runs[1][0], lambda: spatial.CapturedSpatial(qframes, out4k, mesh(4), compute_dtype=bf16),
-         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), compute_dtype=bf16, frame=f), {"K2": 4},
-         fresh("bf16"), False),
+         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), compute_dtype=bf16, frame=f),
+         {"K2": 4, "H1": 4}, fresh("bf16"), False),
         (runs[2][0], lambda: spatial.CapturedSpatial.from_pipeline(pipes_a, hdr, grain=grain4k),
-         lambda x, f, g: pipes_a(x, grain=g, frame=f), {"K1": 4}, fresh("hdr"), True),
+         lambda x, f, g: pipes_a(x, grain=g, frame=f), {"K1": 4, "H1": 4}, fresh("hdr"), True),
         (runs[3][0], lambda: spatial.CapturedSpatial.from_pipeline(pipes_b, q8, grain=grain4k),
-         lambda x, f, g: pipes_b(x, grain=g, frame=f), {"K2": 4}, fresh("u8"), True),
+         lambda x, f, g: pipes_b(x, grain=g, frame=f), {"K2": 4, "H1": 4}, fresh("u8"), True),
         (runs[4][0], lambda: spatial.CapturedSpatial(frames, out4k, dpsp, batch_axis="dp"),
          lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, dpsp, axis="sp", batch_axis="dp", frame=f),
-         {"K1": 4}, fresh("f32"), False),
+         {"K1": 4, "H1": 4}, fresh("f32"), False),
     ]
+    h1_err = _halo_kernel_checks(dev, gen, cards)
     print(f"  captured (CapturedSpatial, one graph per device: one graph of four strips on {dev}):")
-    _captured_sharded(dev, card, gen, trace, captured, out4k, _sync_all)
+    built = _captured_sharded(dev, card, gen, trace, captured, out4k, _sync_all)
 
     # The strips' kernels alone, in turn with the unsharded kernel.
     (ph, pw), (qh, qw) = MAIN_SHAPE[2:], QUALITY_SHAPE[2:]
@@ -757,10 +773,20 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         return [fn(s, (hl, out4k[1]), qcon, rcon, True, False, bf16, row_plan=gplans[k], row_offset=k * hl)
                 for k, s in enumerate(qstrips)]
 
+    def h1_strips(fn=halo.halo_rows, bufs=strips):
+        return [fn(bufs, k, spatial._HALO) for k in range(n)]
+
     tk = cuda_times_in_turn({
         "K1 x4 strips": k1_strips, "K1 unsharded": lambda: fused.upscale_fused(frames, out4k, pcon, rcon),
         "K2 x4 strips": k2_strips,
-        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16)}, **KQ)
+        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16),
+        "H1 x4 strips": h1_strips, "H1 x4 strips, plain": lambda: h1_strips(halo.halo_rows_reference)}, **KQ)
+    # H1's readings above are the wrappers' host work (a launch ~30 us of
+    # Python; in a graph there is none): its device time comes from a trace.
+    tk["H1 x4 strips, traced"] = sum(ms for k, ms in device_trace(h1_strips, 5)["kernels"].items()
+                                     if KERNEL_NAMES["H1"] in k)
+    tk["H1 x4 strips, plain, traced"] = sum(device_trace(lambda: h1_strips(halo.halo_rows_reference),
+                                                         5)["kernels"].values())
     tk["K1 x4 strips, plain"] = cuda_time_ms(lambda: k1_strips(fused.upscale_fused_reference), warmup=1, iters=3)
     tk["K2 x4 strips, plain"] = cuda_time_ms(lambda: k2_strips(easu_gather.easu_gather_reference),
                                              warmup=1, iters=3)
@@ -768,12 +794,23 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         print(f"    {k:>20}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
     print("  sharded: one call on the mesh (strip copies and cats, n launches of each kernel; the output stays "
           "in its strips); + gather: the strips then gathered on the card (Sharded.gather); K* x4 strips: the "
-          "strips' kernels alone, in turn with the unsharded kernel (3 rounds, median)")
+          "strips' kernels alone, in turn with the unsharded kernel (3 rounds, median); H1 x4 strips: the halo "
+          "rows of (i)'s four halo'd strips, in turn with its plain version, host-bound; traced: their device "
+          "time")
     if cards > 1:
         nc = 4 if cards >= 4 else 2
         real = sharding.make_mesh(nc, ("sp",))
         cards_of = list(real.devices.flat)
         print(f"  across {nc} cards ({', '.join(str(d) for d in cards_of)}):")
+        xbufs = [s.to(d) for s, d in zip(strips, itertools.cycle(cards_of))]
+        th = cuda_times_in_turn({"H1 x4 strips across the cards": _joined(lambda: h1_strips(bufs=xbufs), cards_of),
+                                 "H1 x4 strips on one card": lambda: h1_strips()}, **KQ)
+        traced = device_trace(lambda: h1_strips(bufs=xbufs), 5)
+        th["H1 x4 strips across the cards, traced device ms"] = sum(
+            ms for k, ms in traced["kernels"].items() if KERNEL_NAMES["H1"] in k)
+        print("    " + ", ".join(f"{k} {v:.4f} ms per call" for k, v in th.items()) + f" (10 queued; {card}); "
+              "per card busy " + ", ".join(f"{i}: {ms / 5:.4f}" for i, ms in traced["busy_ms_by_device"].items()))
+        del xbufs
         for name, _, unsharded, need, _, across in runs:
             if across is None:
                 continue
@@ -818,12 +855,12 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         across_cards = [
             (runs[0][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards",
              lambda: spatial.CapturedSpatial(frames, out4k, real),
-             lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, frame=f), {"K1": nc},
+             lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, frame=f), {"K1": nc, "H1": nc},
              on_cards(fresh("f32"), real, rows), False),
             (runs[1][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards",
              lambda: spatial.CapturedSpatial(qframes, out4k, real, compute_dtype=bf16),
              lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, compute_dtype=bf16, frame=f),
-             {"K2": nc}, on_cards(fresh("bf16"), real, rows), False),
+             {"K2": nc, "H1": nc}, on_cards(fresh("bf16"), real, rows), False),
             (f"16 frames 1080p -> 4K f32 batch-sharded over {nc} cards",
              lambda: sharding.CapturedBatch(x16, bmesh, preset="performance"),
              lambda x, f, g: sharding.upscale_batch_sharded(x, bmesh, preset="performance", frame=f), {"K1": nc},
@@ -836,7 +873,15 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
 
     npix = nframes * out4k[0] * out4k[1]
     k1_full, k2_full = full[runs[0][0]], full[runs[1][0]]
+    # H1's bytes: each strip's halo rows written once, and what they are read
+    # from once (a neighbour's rows, or one edge row repeated).
+    row_bytes = _nbytes(strips[0]) // strips[0].shape[-2]
+    h1_bytes = sum(row_bytes * (2 * spatial._HALO + (spatial._HALO if 0 < k else 1)
+                                + (spatial._HALO if k + 1 < n else 1)) for k in range(n))
     return [
+        _kernel_entry("halo_rows (H1): the halo rows of (i)'s 4 strips, captured per card",
+                      "fsr_tpu_torch/csrc/halo.cu", "fsr_tpu/parallel/spatial.py:104", built[runs[0][0]]["H1"],
+                      h1_err, tk["H1 x4 strips, traced"], tk["H1 x4 strips, plain, traced"], h1_bytes, 0),
         _kernel_entry("upscale_fused (K1), row-sharded: performance f32, sp=4", "fsr_tpu_torch/csrc/fused.cu",
                       "fsr_tpu/kernels/fused.py:403", k1_full["launches"]["K1"], small_err["K1"],
                       tk["K1 x4 strips"], tk["K1 x4 strips, plain"], _nbytes(*strips) + k1_full["nbytes"],
@@ -862,49 +907,97 @@ def _same_sharded(got, want, what) -> None:
             raise AssertionError(f"{what}, shard {j}: {off} of {a.numel()} values differ from the eager call")
 
 
-# Device operations a captured sharded call may run besides its kernels: the
-# staging's copies (own rows, halo rows, edge rows, grain strips, the page)
-# and the frame's fill or copy.
+# Device operations a captured sharded call may run besides its kernels (K1
+# or K2, and H1 on each strip): the staging's own-row copies, grain strips
+# and page, and the frame's fill or copy.
 STAGING_OPS = re.compile(r"copy|memcpy|fill|memset", re.IGNORECASE)
+# A device trace's name of a copy between cards.
+PEER_COPY = re.compile(r"PtoP", re.IGNORECASE)
 
 
-def _replay_ops(call, kernel: str, n_k: int, what: str) -> dict:
+def _replay_ops(call, kernel: str, n_k: int, n_h1: int, what: str, peer_copies: bool = True) -> dict:
     """One traced call of a captured sharded call: its launches of
-    ``kernel`` must be ``n_k`` and every other device operation a staging
-    copy or fill (``STAGING_OPS``).  Returns the operations per call."""
+    ``kernel`` must be ``n_k``, of H1 ``n_h1``, and every other device
+    operation a staging copy or fill (``STAGING_OPS``); with
+    ``peer_copies`` False none of them a copy between cards
+    (``PEER_COPY``).  Returns the operations per call."""
     from fsr_tpu_torch.utils.profiling import device_trace
 
     ops = device_trace(call, 1)["launches"]
+    h1 = KERNEL_NAMES["H1"]
     launched = round(sum(c for k, c in ops.items() if kernel in k))
-    other = {k: c for k, c in ops.items() if kernel not in k and not STAGING_OPS.search(k)}
-    if launched != n_k or other:
-        raise AssertionError(f"{what}: a traced replay ran {launched} launches of {kernel} (want {n_k}) and "
-                             f"operations beyond the staging's copies: {other}")
+    halos = round(sum(c for k, c in ops.items() if h1 in k))
+    other = {k: c for k, c in ops.items() if kernel not in k and h1 not in k
+             and (not STAGING_OPS.search(k) or (not peer_copies and PEER_COPY.search(k)))}
+    if launched != n_k or halos != n_h1 or other:
+        raise AssertionError(f"{what}: a traced replay ran {launched} launches of {kernel} (want {n_k}), {halos} of "
+                             f"{h1} (want {n_h1}) and operations beyond the staging's copies: {other}")
     return ops
 
 
-def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, cards=None) -> None:
+class _HostCopies:
+    """Counts the copies and fills a call issues from the host (aten
+    ``copy_``, ``_to_copy``, ``fill_``), by (operation, source device,
+    destination device): a replayed graph's own work is no aten call."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = collections.Counter()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = func.overloadpacket.__name__
+                if name in ("copy_", "_to_copy", "fill_"):
+                    dst = torch.device(kwargs.get("device") or args[0].device) if name == "_to_copy" else args[0].device
+                    src = args[1].device if name == "copy_" else args[0].device
+                    counts[(name, str(src), str(dst))] += 1
+                return func(*args, **kwargs)
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def across_cards(self) -> int:
+        return sum(c for (_, a, b), c in self.counts.items() if a != b and "cuda" in a and "cuda" in b)
+
+
+def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, cards=None) -> dict:
     """Phase 18, captured: each full-width run as one captured program per
-    device (``CapturedSpatial``, ``CapturedBatch``).  Its launches are
-    counted at construction only (the warm-up's and the capture's, per
-    strip or share); 8 replays on fresh seeded inputs and grain, with the
-    frame as a 0-d int32 tensor on the card (``FRAMES_ON_CARD``), are each
-    bit-equal shard by shard to the eager call on the same inputs and count
-    no launch; the tables a K2 graph read stay valid when their caches are
-    emptied and their memory overwritten (``capture.keep``).  Then eager
-    against replay in turn: device ms (CUDA events on the first card; with
-    ``cards``, after every card's stream) and wall ms per call (host clock,
-    synchronised), one call and 10 queued; with ``trace`` (or across
-    ``cards``) each one's traced busy time per card and idle share, and
-    with ``trace`` a replay's device operations held to its launches and
-    its staging's copies (``_replay_ops``)."""
+    device (``CapturedSpatial``, each strip's part beginning with H1;
+    ``CapturedBatch``).  Its launches are counted at construction only (the
+    warm-up's and the capture's, per strip or share); 8 replays on fresh
+    seeded inputs and grain, with the frame as a 0-d int32 tensor on the
+    card (``FRAMES_ON_CARD``), are each bit-equal shard by shard to the
+    eager call on the same inputs and count no launch; the tables a K2 graph
+    read stay valid when their caches are emptied and their memory
+    overwritten (``capture.keep``).  Then 10 calls queued with no host
+    sync, from a ``Sharded`` input and from a tensor, each call's shards
+    cloned on their cards' streams right after it, all bit-equal to the
+    eager calls; the copies and fills one call issues from the host
+    (``_HostCopies``: none card to card from a ``Sharded`` input).  Then
+    eager against replay in turn: device ms (CUDA events on the first card;
+    with ``cards``, after every card's stream) and wall ms per call (host
+    clock, synchronised), one call and 10 queued; with ``trace`` (or across
+    ``cards``) each one's traced busy time per card and idle share, and with
+    ``trace`` a replay's device operations held to its launches and its
+    staging's copies (``_replay_ops``).  Returns each case's launch counts
+    at construction."""
     from fsr_tpu_torch.kernels import easu_gather
-    from fsr_tpu_torch.parallel import spatial
+    from fsr_tpu_torch.parallel import sharding, spatial
     from fsr_tpu_torch.utils import capture
     from fsr_tpu_torch.utils.profiling import cuda_times_in_turn, device_trace
 
+    counts = {}
     for name, build, eager, need, fresh, with_grain in cases:
         cap, built = _drive(build, {k: (capture.WARMUP + 1) * v for k, v in need.items()})
+        counts[name] = built
         grains = [torch.rand((3, *out4k), generator=gen, device=dev) - 0.5 if with_grain else None for _ in range(2)]
 
         def replay(x, f, g):
@@ -921,8 +1014,12 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
             if last is not None and torch.equal(last, rep.shards[-1]):
                 raise AssertionError(f"{name}, captured: replays {r - 1} and {r} on other inputs gave one output")
             last = rep.shards[-1].clone()
+        # What the graphs keep from caches (the static inputs they read of
+        # other devices aside).
+        static = {id(t) for ins in cap.programs.shard_inputs + list(cap.programs.device_inputs.values())
+                  for t in ins}
         kept = [t for frame in cap.programs.captured.values() for tables in frame.kept for item in tables
-                for t in (item.values() if isinstance(item, dict) else [item])]
+                for t in (item.values() if isinstance(item, dict) else [item]) if id(t) not in static]
         if "K2" in need and not kept:
             raise AssertionError(f"{name}, captured: the graphs kept no table of K2's strip plans")
         easu_gather._device_tables.cache_clear()
@@ -935,6 +1032,41 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
               f"{len(cap.programs.captured)} graph(s); 8 replays with frames {FRAMES_ON_CARD} on the card, each "
               f"bit-equal shard by shard to the eager call, none counted; {len(kept)} K2 tables kept, a replay "
               f"after the table and plan caches were emptied and overwritten still bit-equal")
+        # 10 calls queued with no host sync, each call's shards cloned on
+        # their cards' streams right after it, then held against the eager
+        # calls: a wrong order across cards shows as a stale or early halo.
+        for kind in ("a Sharded input", "a tensor input"):
+            xs = []
+            for r in range(10):
+                x = fresh()
+                if kind == "a Sharded input" and not isinstance(x, sharding.Sharded):
+                    x = sharding.Sharded.put(x, cap.mesh, cap.spec)
+                elif kind == "a tensor input" and isinstance(x, sharding.Sharded):
+                    x = x.gather(dev)
+                xs.append((x, torch.tensor(13 * r - 40, dtype=torch.int32, device=dev), grains[r % 2]))
+            sync()
+            outs = [[s.clone() for s in replay(*args).shards] for args in xs]
+            sync()
+            for r, (args, got) in enumerate(zip(xs, outs)):
+                want = eager(*args)
+                _same_sharded(sharding.Sharded(want.mesh, want.spec, tuple(got), want.shape, want.dtype), want,
+                              f"{name}, captured: queued call {r} of 10 from {kind}")
+            if isinstance(cap, spatial.CapturedSpatial):
+                with _HostCopies() as host:
+                    replay(*xs[0])
+                sync()
+                crossed = host.across_cards()
+                if kind == "a Sharded input" and crossed:
+                    raise AssertionError(f"{name}, captured: a call from {kind} issued {crossed} copies between "
+                                         f"cards from the host: {dict(host.counts)}")
+                print(f"    {name}, captured, from {kind}: 10 calls queued with no host sync, each bit-equal shard "
+                      f"by shard to the eager call; one call's host-issued copies and fills "
+                      + ", ".join(f"{c} x {op} {a} -> {b}" for (op, a, b), c in sorted(host.counts.items()))
+                      + f" ({crossed} between cards)")
+            else:
+                print(f"    {name}, captured, from {kind}: 10 calls queued with no host sync, each bit-equal shard "
+                      f"by shard to the eager call")
+            del xs, outs
         x, f, g = fresh(), torch.tensor(7, dtype=torch.int32, device=dev), grains[0]
         fns = {"eager": lambda: eager(x, f, g), "replay": lambda: replay(x, f, g),
                "its staging alone": lambda: staging(x, f, g)}
@@ -944,12 +1076,13 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
         queued = cuda_times_in_turn(fns, iters=10, **KQ)
         wall = _wall_ms_in_turn(fns, n=10, sync=sync)
         wall_q = _wall_ms_in_turn(fns, n=3, queue=10, sync=sync)
+        issue = _host_issue_ms(fns, sync)
         nf = rep.shape[0]  # the staging alone: the call's host work and copies, with no replay
         for k in fns:
             print(f"    {name}, {k}: one call {one[k]:.4f} device ms ({one[k] / nf:.4f} per frame), {wall[k]:.4f} "
                   f"wall ms ({wall[k] / nf:.4f}); 10 queued {queued[k]:.4f} device ms ({queued[k] / nf:.4f}), "
                   f"{wall_q[k]:.4f} wall ms ({wall_q[k] / nf:.4f}) per call (CUDA events on {dev}; host clock, "
-                  f"synchronised); {card}")
+                  f"synchronised); the host returns after {issue[k]:.4f} ms; {card}")
         if trace or cards:
             for k in ("eager", "replay"):
                 tr = device_trace(fns[k], 5)
@@ -958,11 +1091,93 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
                       f"{tr['idle_share']:.4f}; per card " + ", ".join(
                           f"{i}: {ms / 5:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
         if trace:
-            (kid, n_k), = need.items()
-            ops = _replay_ops(lambda: replay(x, 7, g), KERNEL_NAMES[kid], n_k, name)
-            print(f"      a traced replay (a host int frame): {n_k} launches of {KERNEL_NAMES[kid]}; with them "
-                  + "; ".join(f"{c:g} x {k[:90]}" for k, c in ops.items() if KERNEL_NAMES[kid] not in k))
+            kid = next(k for k in need if k != "H1")
+            n_k, n_h1 = need[kid], need.get("H1", 0)
+            ops = _replay_ops(lambda: replay(x, 7, g), KERNEL_NAMES[kid], n_k, n_h1, name,
+                              peer_copies=not isinstance(x, sharding.Sharded))
+            print(f"      a traced replay (a host int frame): {n_k} launches of {KERNEL_NAMES[kid]}, {n_h1} of "
+                  f"{KERNEL_NAMES['H1']}; with them " + "; ".join(
+                      f"{c:g} x {k[:90]}" for k, c in ops.items()
+                      if KERNEL_NAMES[kid] not in k and KERNEL_NAMES["H1"] not in k))
         del cap, rep, last, x, fns
+    return counts
+
+
+def _halo_kernel_checks(dev, gen, cards: int) -> float:
+    """Phase 18: H1 (``kernels.halo.halo_rows``) bit-equal to its plain
+    version, buffers of garbage but their own rows, for float32, bfloat16,
+    float16 and uint8, RGB and RGBA, 2, 3, 4 and 8 strips, a batch and dp x
+    sp frame groups, halos of 4 and 8 rows, rows of every copy unit (16, 8,
+    4, 2 and 1 bytes; a buffer one element past an aligned address), with
+    the frame index copied beside them; on ``[cuda:0] * n`` and, with several
+    cards, strip k on card k mod 4 (read by peer access).  Returns the
+    largest difference (0.0)."""
+    from fsr_tpu_torch.kernels import halo
+
+    places = [("[cuda:0] * n", lambda n: [dev] * n)]
+    if cards > 1:
+        nc = min(cards, 4)
+        places.append((f"strip k on cuda:(k mod {nc})", lambda n: [torch.device("cuda", k % nc) for k in range(n)]))
+        halo.enable_peers((torch.device("cuda", a), torch.device("cuda", b)) for a in range(nc) for b in range(nc))
+    frame_src = torch.tensor(-123457, dtype=torch.int32, device=dev)
+    cases = 0
+    for where, devices_of in places:
+        for dtype, channels, n, groups, (halo_n, width, offset) in itertools.product(
+                (torch.float32, torch.bfloat16, torch.float16, torch.uint8), (3, 4), (2, 3, 4, 8), (1, 2),
+                ((4, 1920, 0), (8, 11, 0), (4, 6, 0), (8, 64, 1))):
+            devices = devices_of(n)
+            h = halo_n + 3
+            shape = (2 * groups, channels, n * h, width)
+            x = torch.rand(shape, generator=gen, device=dev)
+            x = (x * 255).to(dtype) if dtype == torch.uint8 else x.to(dtype)
+            for g, frames in enumerate(x.chunk(groups, 0)):
+                strips = frames.chunk(n, -2)
+                bshape = (*strips[0].shape[:-2], h + 2 * halo_n, width)
+                numel = int(np.prod(bshape))
+
+                def buffers():
+                    bufs = []
+                    for s, d in zip(strips, devices):
+                        b = torch.full((numel + offset,), 77, dtype=dtype, device=d)[offset:].view(bshape)
+                        b[..., halo_n:halo_n + h, :].copy_(s)
+                        bufs.append(b)
+                    return bufs
+
+                got, want = buffers(), buffers()
+                _sync_all()
+                for k in range(n):
+                    dsts = [torch.zeros((), dtype=torch.int32, device=d) for d in (devices[k], devices[k])]
+                    halo.halo_rows(got, k, halo_n, frame_src, dsts[0])
+                    _sync_all()
+                    halo.halo_rows_reference(want, k, halo_n, frame_src, dsts[1])
+                    if int(dsts[0]) != -123457 or int(dsts[1]) != -123457:
+                        raise AssertionError(f"H1 {where}: the frame was not copied to strip {k}")
+                _sync_all()
+                for k, (a, b) in enumerate(zip(got, want)):
+                    if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                        raise AssertionError(f"H1 {where}: {dtype} {channels} channels, {n} strips, group {g}, halo "
+                                             f"{halo_n}, width {width}, offset {offset}: strip {k} differs from "
+                                             "the plain version")
+            cases += 1
+    print(f"  H1 (kernels.halo.halo_rows) bit-equal to its plain version in {cases} cases ("
+          + "; ".join(w for w, _ in places) + "): float32/bfloat16/float16/uint8, RGB/RGBA, 2/3/4/8 strips, "
+          "batch and dp x sp, halos 4 and 8, copy units of 16 to 1 bytes, the frame copied")
+    return 0.0
+
+
+def _host_issue_ms(fns: dict, sync, n: int = 20) -> dict:
+    """The host's time to issue one call of each function of ``fns`` (host
+    clock from the call to its return, the devices idle before it: ``sync``),
+    the median of ``n``, in turn."""
+    times = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    sync()
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def _sync_all() -> None:

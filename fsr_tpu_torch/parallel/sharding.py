@@ -324,10 +324,12 @@ class _PerDevice:
     ``CapturedFrame`` on a card (a mesh that names a card four times gives
     one graph of four shards), or called eagerly on the CPU.
 
-    shard_inputs[j], device_inputs[device]: the static inputs, made from the
-    examples given (shard j's device is that of its first input).  A call
-    writes its inputs into them, then ``run`` replays each device's graph on
-    that device's current stream and returns the shards' outputs in shard
+    shard_inputs[j], device_inputs[device]: the static inputs, the tensors
+    given themselves (shard j's device is that of its first input): the
+    caller allocates them, all before any capture, so that one device's
+    program may read another's.  A call writes its inputs into them, then
+    ``run`` replays each device's graph on that device's current stream
+    (``run_on`` one device's) and returns the shards' outputs in shard
     order: on a card the graphs' static outputs, overwritten by the next
     run."""
 
@@ -336,10 +338,11 @@ class _PerDevice:
         groups: Dict[torch.device, List[int]] = {}
         for j, ins in enumerate(shard_inputs):
             groups.setdefault(ins[0].device, []).append(j)
+        self.devices = list(groups)
         self.shard_inputs: List[Tuple[torch.Tensor, ...]] = [()] * len(shard_inputs)
         self.device_inputs: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
         self.captured: Dict[torch.device, CapturedFrame] = {}
-        self._runs = []
+        self._runs = {}
         for dev, js in groups.items():
             sizes = [len(shard_inputs[j]) for j in js]
             flat = [t for j in js for t in shard_inputs[j]] + list(device_inputs[dev])
@@ -351,20 +354,26 @@ class _PerDevice:
                     at += m
                 return tuple(outs)
 
-            frame = self.captured[dev] = CapturedFrame(program, *flat)
-            static = frame.inputs if frame.graph is not None else tuple(t.clone() for t in flat)
+            frame = self.captured[dev] = CapturedFrame(program, *flat, static=True)
+            ins = tuple(flat)
             at = 0
             for j, m in zip(js, sizes):
-                self.shard_inputs[j] = static[at:at + m]
+                self.shard_inputs[j] = ins[at:at + m]
                 at += m
-            self.device_inputs[dev] = static[at:]
-            self._runs.append((js, frame.replay if frame.graph is not None else
-                               (lambda program=program, static=static: program(*static))))
+            self.device_inputs[dev] = ins[at:]
+            self._runs[dev] = (js, frame.replay if frame.graph is not None else
+                               (lambda program=program, ins=ins: program(*ins)))
+
+    def run_on(self, device: torch.device) -> Dict[int, torch.Tensor]:
+        """Replay ``device``'s graph (call its program on the CPU): shard j's
+        output for each shard j it hosts."""
+        js, run = self._runs[device]
+        return dict(zip(js, run()))
 
     def run(self) -> List[torch.Tensor]:
         outs: List[Optional[torch.Tensor]] = [None] * len(self.shard_inputs)
-        for js, run in self._runs:
-            for j, out in zip(js, run()):
+        for dev in self.devices:
+            for j, out in self.run_on(dev).items():
                 outs[j] = out
         return outs
 
@@ -402,7 +411,8 @@ class CapturedBatch:
         def body(j, share, shared):
             return api.upscale(share[0], frame=shared[0], **kw[share[0].device])
 
-        self.programs = _PerDevice(body, [(p.to(dev),) for p, dev in zip(_parts(example, mesh, self.spec), devices)],
+        self.programs = _PerDevice(body, [(torch.empty_like(p, device=dev).copy_(p),)
+                                          for p, dev in zip(_parts(example, mesh, self.spec), devices)],
                                    {dev: (torch.zeros((), dtype=torch.int32, device=dev),) for dev in devices})
 
     def __call__(self, images: Union[torch.Tensor, Sharded], frame=0) -> Sharded:

@@ -42,8 +42,11 @@ per-strip body (``_body``: ``api._upscale(..., strip=)``).  The eager call
 (``upscale_spatial_sharded``, ``UpscalePipeline(mesh=)``) stages into fresh
 tensors and runs the bodies; ``CapturedSpatial``, the counterpart of JAX's
 ``jax.jit`` over its ``shard_map``s, captures each device's bodies once as
-one CUDA graph and per call stages into the graphs' static inputs, outside
-the graphs, then replays one graph per device.
+one CUDA graph, each strip's body preceded by H1 (``kernels.halo``), which
+reads its halo rows from the neighbours' static buffers card to card, as
+JAX's ``ppermute`` runs inside its program; per call the host writes only
+each strip's own rows and the frame, then replays one graph per device,
+the devices ordered by CUDA events (``_schedule``).
 """
 
 from __future__ import annotations
@@ -56,9 +59,11 @@ import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import easu_gather, fused
+from fsr_tpu_torch.kernels import halo as halo_k
 from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.parallel import sharding
 from fsr_tpu_torch.parallel.sharding import Mesh, Sharded, _as_sharded, shard_frame
+from fsr_tpu_torch.utils import capture
 
 __all__ = ["upscale_spatial_sharded", "spatial_shardable", "Strip", "CapturedSpatial"]
 
@@ -124,9 +129,10 @@ def _exchange_halo(strips, halo: int, into=None):
     replication at the global top and bottom.  Returns fresh tensors (one
     ``torch.cat`` per strip, the eager call), or, given ``into`` (one
     (..., h + 2 * halo, W) buffer per strip, on its device), writes the same
-    rows into those buffers (the strip's own rows, its up and down halo rows
-    card to card, the replicated rows at the frame's ends) and returns
-    them: a captured call's static inputs."""
+    rows into those buffers (each strip's own rows, then its halo and edge
+    rows by H1's plain version, ``halo.halo_rows_reference``, from the
+    neighbours' buffers card to card) and returns them: a captured call's
+    static inputs as its construction lays them in."""
     if into is None:
         out = []
         for k, s in enumerate(strips):
@@ -136,14 +142,57 @@ def _exchange_halo(strips, halo: int, into=None):
                     else s[..., -1:, :].expand(edge))
             out.append(torch.cat([up, s, down], dim=-2))
         return out
-    for k, (s, buf) in enumerate(zip(strips, into)):
-        edge, h = (*s.shape[:-2], halo, s.shape[-1]), s.shape[-2]
+    for s, buf in zip(strips, into):
         with sharding._on(buf.device):
-            buf[..., halo:halo + h, :].copy_(s)
-            buf[..., :halo, :].copy_(strips[k - 1][..., -halo:, :] if k else s[..., :1, :].expand(edge))
-            buf[..., halo + h:, :].copy_(strips[k + 1][..., :halo, :] if k + 1 < len(strips)
-                                         else s[..., -1:, :].expand(edge))
+            buf[..., halo:halo + s.shape[-2], :].copy_(s)
+    for k, buf in enumerate(into):
+        with sharding._on(buf.device):
+            halo_k.halo_rows_reference(into, k, halo)
     return list(into)
+
+
+def _reads(devices, n: int):
+    """The distinct devices of a row-sharded call, in order, and what each
+    one's program reads of the others' static inputs: its strips'
+    neighbours' buffers (strip ``j`` of ``devices`` is strip ``j % n`` of
+    frame group ``j // n``) and the frame on the first strip's device."""
+    order = list(dict.fromkeys(devices))
+    reads = {d: {devices[0]} for d in order}
+    for j, d in enumerate(devices):
+        reads[d].update(devices[j + i] for i in (-1, 1) if 0 <= j % n + i < n)
+    return order, {d: tuple(e for e in order if e in r and e != d) for d, r in reads.items()}
+
+
+def _schedule(devices, reads):
+    """The host's order of one captured call's work across devices, as a
+    pure function: (staging steps, replay steps).  A step is ``("stage",
+    d)``, ``("replay", d)``, ``("record", d, event)`` or ``("wait", d,
+    event)``; an event is ``("staged", e)`` or ``("done", e)``, recorded on
+    device e's stream, and a wait on d's stream binds to its latest record.
+    ``devices``: distinct, in order; ``reads[d]``: the other devices whose
+    static inputs d's program reads (its strips' neighbours' buffers, the
+    frame on the source card).  Two hazards, and no host sync:
+
+    - within a call (read after write): d's replay waits for the staging of
+      every device it reads (``staged``);
+    - across calls (write after read): the staging on e waits for the
+      replay, in the call before, of every device that reads e (``done``).
+
+    A device that no other reads, or that reads no other, records nothing:
+    its own stream orders its staging and its replay."""
+    readers = {e: [d for d in devices if e in reads[d]] for e in devices}
+    stage, replay = [], []
+    for e in devices:
+        stage += [("wait", e, ("done", d)) for d in readers[e]]
+        stage.append(("stage", e))
+        if readers[e]:
+            stage.append(("record", e, ("staged", e)))
+    for d in devices:
+        replay += [("wait", d, ("staged", e)) for e in reads[d]]
+        replay.append(("replay", d))
+        if reads[d]:
+            replay.append(("record", d, ("done", d)))
+    return stage, replay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,23 +372,30 @@ class CapturedSpatial:
     and dtype every call takes; options: ``upscale_spatial_sharded``'s, but
     ``frame``, which each call takes, and ``grain``, which here is an
     example of the call's (a call takes one when the epilogue has grain).
-    The host layout (``_layout``) is built once.  Each device holds static
-    inputs: the halo'd buffer of every strip it hosts, its rows of the grain
-    when the epilogue has grain, a 0-d int32 frame, and the dither page when
-    the epilogue reads one; all the strips a device hosts run in one
+    The host layout (``_layout``) is built once.  Every strip's halo'd
+    buffer is allocated before any device's program is captured; each device
+    holds those of the strips it hosts, its rows of the grain when the
+    epilogue has grain, a 0-d int32 frame, and the dither page when the
+    epilogue reads one.  All the strips a device hosts run in one
     ``CapturedFrame`` there (``sharding._PerDevice``), so ``[cuda:0] * 4``
-    gives one graph of four strips.  On CPU devices the same staging and
-    bodies run eagerly.
+    gives one graph of four strips; each strip's part begins with H1
+    (``kernels.halo.halo_rows``: its halo rows from its neighbours' buffers,
+    by peer access where they lie on other cards; on a device other than the
+    first strip's, the first strip's H1 also copies the frame from there),
+    then runs the strip's body.  Neighbouring cards without peer access
+    raise ``ValueError`` at construction (``halo.enable_peers``): the eager
+    ``upscale_spatial_sharded`` is for such hosts.  On CPU devices the same
+    staging, H1's plain version and bodies run eagerly.
 
     A call ``(image, frame=0, grain=None)`` takes a tensor or a ``Sharded``
     of the example's shape, dtype and layout (else ``ValueError``, naming
-    both) and stages it into the static buffers (``_exchange_halo(...,
-    into=)``: each strip's own rows, its halo rows card to card, the
-    replicated rows at the frame's ends), its grain rows and the frame
-    (``sharding.shard_frame``'s rule: no host read for a tensor on the
-    input's device).  The copies run outside the graphs, ordered on both
-    cards' current streams; then each device's graph replays on its current
-    stream.  Returns a ``Sharded`` of the static outputs, overwritten by
+    both) and stages it: each strip's own rows into its buffer (a same-card
+    copy from a ``Sharded`` on the mesh; from a tensor on one card, the
+    put), its grain rows, the page, and the frame on the first strip's
+    device (``sharding._put_frame``: no host read for a tensor on the
+    input's device).  Then each device's graph replays on its current
+    stream, ordered across devices by events (``_schedule``), never by a
+    host sync.  Returns a ``Sharded`` of the static outputs, overwritten by
     the next call (``CapturedFrame``'s contract: clone what you keep).
     ``from_pipeline`` captures ``UpscalePipeline(mesh=)``."""
 
@@ -385,52 +441,107 @@ class CapturedSpatial:
             raise ValueError("epilogue.dither_texture requires dither_page")
         parts = sharding._parts(example, mesh, spec)
         devices = sharding._shard_devices(mesh, spec)
-        n, (hl, wout) = layout.n, layout.out_hw
-        shard_inputs = []
+        n, halo, (hl, wout) = layout.n, layout.halo, layout.out_hw
+        self._home = home = devices[0]
+        order, reads = _reads(devices, n)
+        halo_k.enable_peers((d, e) for d, r in reads.items() for e in r)
+        self._stage_steps, self._replay_steps = _schedule(order, reads)
+        self._events = {step[2]: torch.cuda.Event() for step in self._stage_steps + self._replay_steps
+                        if step[0] == "record"}
+        self._strips_on = {d: [j for j, e in enumerate(devices) if e == d] for d in order}
+        # Every strip's halo'd buffer, allocated before any capture so that
+        # each device's program can name its neighbours'.
+        self.buffers = bufs = [
+            torch.empty((*p.shape[:-2], p.shape[-2] + 2 * halo, p.shape[-1]), dtype=p.dtype, device=dev)
+            for p, dev in zip(parts, devices)]
+        self._own_rows = [b[..., halo:b.shape[-2] - halo, :] for b in bufs]
         for i in range(0, len(parts), n):
-            strips = [p.to(dev) for p, dev in zip(parts[i:i + n], devices[i:i + n])]
-            for k, s in enumerate(_exchange_halo(strips, layout.halo)):
-                rows = (torch.zeros((3, hl, wout), dtype=torch.float32, device=s.device) if grain is None
-                        else grain[:, k * hl:(k + 1) * hl].to(s.device, torch.float32))
-                shard_inputs.append((s, rows) if self.takes_grain else (s,))
+            _exchange_halo(parts[i:i + n], halo, into=bufs[i:i + n])
+        shard_inputs = []
+        for j, dev in enumerate(devices):
+            rows = torch.zeros((3, hl, wout), dtype=torch.float32, device=dev)
+            if grain is not None:
+                k = j % n
+                rows.copy_(grain[:, k * hl:(k + 1) * hl])
+            shard_inputs.append((bufs[j], rows) if self.takes_grain else (bufs[j],))
         src = parts[0].device
         if page_of is not None:
             page = page_of(src, 0)
         shared = {dev: (torch.zeros((), dtype=torch.int32, device=dev),)
-                  + ((torch.as_tensor(page, device=dev).to(torch.float32).contiguous(),) if paged else ())
-                  for dev in devices}
+                  + ((torch.as_tensor(page, device=dev).to(torch.float32).clone(
+                      memory_format=torch.contiguous_format),) if paged else ())
+                  for dev in order}
+        frame_home = shared[home][0]
+        first = {d: js[0] for d, js in self._strips_on.items()}
+
+        def settle():  # construction leaves no copy or warm-up in flight on any card
+            for d in order:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+
+        settle()  # the buffers complete before any program reads a neighbour's
 
         def strip(j, ins, shared):
-            return body(layout, j % n, ins[0], shared[0], ins[1] if self.takes_grain else None,
+            k, dev = j % n, ins[0].device
+            group = bufs[j - k:j - k + n]
+            moves = first[dev] == j and dev != home  # this strip's H1 brings the frame
+            capture.keep(tuple(group) + ((frame_home,) if moves else ()))  # what the graph reads
+            halo_k.halo_rows(group, k, halo, *((frame_home, shared[0]) if moves else ()))
+            return body(layout, k, ins[0], shared[0], ins[1] if self.takes_grain else None,
                         shared[1] if paged else None)
 
         self.programs = sharding._PerDevice(strip, shard_inputs, shared)
+        settle()
 
     def __call__(self, image: Union[torch.Tensor, Sharded], frame=0, grain=None) -> Sharded:
         self._stage(image, frame, grain)
-        return _result(self.mesh, self.spec, self.programs.run(), self.shape, self.out_size)
+        outs = [None] * len(self.buffers)
+
+        def replay(dev):
+            for j, out in self.programs.run_on(dev).items():
+                outs[j] = out
+
+        self._issue(self._replay_steps, replay)
+        return _result(self.mesh, self.spec, outs, self.shape, self.out_size)
+
+    def _issue(self, steps, run) -> None:
+        """Issue ``_schedule``'s steps: events waited for and recorded on the
+        devices' current streams, ``run(device)`` for a stage or a replay."""
+        streams = {e: torch.cuda.current_stream(e) for e in self._strips_on} if self._events else {}
+        for step in steps:
+            kind, dev = step[:2]
+            if kind == "wait":
+                streams[dev].wait_event(self._events[step[2]])
+            elif kind == "record":
+                self._events[step[2]].record(streams[dev])
+            else:
+                run(dev)
 
     def _stage(self, image, frame, grain=None) -> None:
-        """A call's checks and its staging into the static inputs, before the
-        replays."""
+        """A call's checks and its staging, device by device, each after the
+        replays of the call before that read it (``_schedule``): its strips'
+        own rows and grain rows, the page, and on the first strip's device
+        the frame."""
         sharding._check_like(image, self.shape, self.dtype, "this captured call")
         if grain is not None and tuple(grain.shape) != (3, *self.out_size):
             raise ValueError(f"this captured call takes a grain of {(3, *self.out_size)}, got {tuple(grain.shape)}")
         if self.takes_grain and grain is None:
             raise ValueError("this call was captured with grain: pass grain=")
         parts = sharding._parts(image, self.mesh, self.spec)
-        n, halo, hl = self.layout.n, self.layout.halo, self.layout.out_hw[0]
-        static = self.programs.shard_inputs
-        for i in range(0, len(parts), n):
-            _exchange_halo(parts[i:i + n], halo, into=[ins[0] for ins in static[i:i + n]])
-            for k, ins in enumerate(static[i:i + n] if self.takes_grain else ()):
-                with sharding._on(ins[1].device):
-                    ins[1].copy_(grain[:, k * hl:(k + 1) * hl])
+        n, hl = self.layout.n, self.layout.out_hw[0]
         src = parts[0].device
-        shared = self.programs.device_inputs
-        sharding._put_frame(frame, src, {dev: ins[0] for dev, ins in shared.items()})
-        if self._page_of is not None:
-            page = self._page_of(src, frame)
-            for dev, ins in shared.items():
-                with sharding._on(dev):
-                    ins[1].copy_(page)
+        page = None if self._page_of is None else self._page_of(src, frame)
+
+        def stage(dev):  # each copy runs on its destination's current stream
+            ins = self.programs.device_inputs[dev]
+            for j in self._strips_on[dev]:
+                self._own_rows[j].copy_(parts[j])
+                if self.takes_grain:
+                    k = j % n
+                    self.programs.shard_inputs[j][1].copy_(grain[:, k * hl:(k + 1) * hl])
+            if page is not None:
+                ins[1].copy_(page)
+            if dev == self._home:
+                sharding._put_frame(frame, src, {dev: ins[0]})
+
+        self._issue(self._stage_steps, stage)

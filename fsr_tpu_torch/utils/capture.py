@@ -91,10 +91,13 @@ class CapturedFrame:
     inputs at the shapes and dtypes every call takes, all on one device (a
     CUDA device captures; a CPU device calls ``fn`` eagerly).  Each call
     copies its inputs (any device, same shapes) into the static inputs,
-    replays the graph and returns the static output.
+    replays the graph and returns the static output.  static: the example
+    inputs are the static inputs themselves, not copied (a caller that
+    allocated them, so that other graphs can name them too: a row-sharded
+    call's buffers, ``parallel.spatial.CapturedSpatial``).
     """
 
-    def __init__(self, fn: Callable, *example_inputs: torch.Tensor):
+    def __init__(self, fn: Callable, *example_inputs: torch.Tensor, static: bool = False):
         devices = {x.device for x in example_inputs}
         if len(devices) != 1:
             raise ValueError(f"a captured frame takes its inputs on one device, got {sorted(map(str, devices))}")
@@ -103,7 +106,7 @@ class CapturedFrame:
         self.graph = None
         if self.device.type != "cuda":
             return
-        self.inputs = tuple(x.clone() for x in example_inputs)
+        self.inputs = tuple(example_inputs) if static else tuple(x.clone() for x in example_inputs)
         name = getattr(fn, "__qualname__", repr(fn))
         with torch.cuda.device(self.device):
             side = torch.cuda.Stream()

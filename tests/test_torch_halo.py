@@ -1,0 +1,268 @@
+"""H1 (``fsr_tpu_torch/kernels/halo.py``) and the captured row-sharded call's
+order across devices, on the CPU.
+
+H1 fills a row strip's static buffer with its halo rows from its
+neighbours' buffers, the counterpart of ``fsr_tpu/parallel/spatial.py:
+_exchange_halo`` (``lax.ppermute`` + ``jnp.where`` + ``concatenate``
+inside each shard's body).  Held here:
+
+- its plain version (what ``halo_rows`` runs on a CPU buffer) bit-equal to
+  the rows of ``parallel.spatial._exchange_halo``'s ``torch.cat`` for 2, 3,
+  4 and 8 strips, uint8 / bfloat16 / float32, RGB and RGBA, a batch and
+  dp x sp frame groups, with the frame index copied beside them and no
+  launch counted;
+- every strip's halo'd buffer of a ``CapturedSpatial`` call on a mesh of
+  CPU devices bit-equal to JAX's ``_exchange_halo`` run under ``shard_map``
+  on the conftest's 8 virtual CPU devices, shard by shard;
+- the event schedule (``spatial._schedule`` over ``spatial._reads``) on
+  2, 3 and 4 cards and dp x sp, over a queue of three calls: every read of
+  a buffer comes after that call's write of it and before the next call's
+  write (and a schedule without its waits is caught);
+- a mesh whose cards lack peer access raising ``ValueError`` at
+  construction, naming the pair (the peer query monkeypatched), and the
+  pairs that construction enables.
+
+The kernel itself runs only on the card: ``chip_smoke.py`` phase 18 holds it
+bit-equal to this plain version there.
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+from jax.experimental.shard_map import shard_map
+from jax.sharding import PartitionSpec as P
+
+from fsr_tpu.parallel import sharding as jsharding
+from fsr_tpu.parallel import spatial as jspatial
+
+from fsr_tpu_torch.kernels import halo
+from fsr_tpu_torch.parallel import Sharded, sharding, spatial
+
+CPU = torch.device("cpu")
+DTYPES = {"u8": torch.uint8, "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread, as tests/test_torch_sharded_capture.py."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _frames(seed, dtype, shape):
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(0, 1, shape).astype(np.float32))
+    return (x * 255).to(torch.uint8) if dtype == torch.uint8 else x.to(dtype)
+
+
+def _strips(x, n, groups):
+    """``x``'s row strips, frame group by frame group (dp x sp: the batch
+    split into ``groups``), in ``Sharded.shards``' order."""
+    return [s for g in x.chunk(groups, 0) for s in g.chunk(n, -2)]
+
+
+# --- the plain version against the exchange ---------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["batch", "dp x sp"])
+@pytest.mark.parametrize("channels", [3, 4], ids=["RGB", "RGBA"])
+@pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_plain_halo_rows_equal_the_exchange(n, dtype, channels, layout):
+    """Buffers full of garbage but their own rows: after ``halo_rows`` on
+    each strip (its plain version on the CPU), each buffer equals that
+    strip's ``_exchange_halo`` ``torch.cat``, and the frame index is copied."""
+    groups = 2 if layout == "dp x sp" else 1
+    for halo_n, width in ((spatial._HALO, 11), (spatial._GHALO, 16)):
+        h = halo_n + 1
+        x = _frames(n + channels, DTYPES[dtype], (2 * groups, channels, n * h, width))
+        strips = _strips(x, n, groups)
+        halo.halo_rows.launches = 0
+        for g in range(groups):
+            group = strips[g * n:(g + 1) * n]
+            want = spatial._exchange_halo(group, halo_n)
+            bufs = [torch.full_like(w, 77) for w in want]
+            for s, b in zip(group, bufs):
+                b[..., halo_n:halo_n + h, :].copy_(s)
+            for k in range(n):
+                src, dst = torch.tensor(k - 5, dtype=torch.int32), torch.tensor(0, dtype=torch.int32)
+                assert halo.halo_rows(bufs, k, halo_n, src, dst) is bufs[k]
+                assert int(dst) == k - 5
+            for k, (b, w) in enumerate(zip(bufs, want)):
+                assert torch.equal(b, w), f"{n} strips, halo {halo_n}, group {g}: strip {k}"
+        assert halo.halo_rows.launches == 0  # the plain version counts no launch
+
+
+def test_halo_rows_refuses_what_the_kernel_does_not_take():
+    bufs = [torch.zeros((3, 10, 8)) for _ in range(2)]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        halo.halo_rows([b.to("meta") for b in bufs], 0, 2)
+
+
+# --- the captured call's buffers against JAX's exchange ----------------------------
+
+# strips, dtype, channels, dp x sp
+JAX_CASES = ([(n, "f32", 3, False) for n in (2, 3, 4, 8)] + [(4, "u8", 4, False), (2, "bf16", 3, False)]
+             + [(n, "f32", 3, True) for n in (2, 4)] + [(3, "u8", 3, True)])
+
+
+def _jax_exchange(x: np.ndarray, n: int, halo_n: int, dp: bool):
+    """JAX's halo exchange on the conftest's virtual CPU devices: each
+    shard's ``_exchange_halo`` under ``shard_map``, as the JAX package's
+    row-sharded call runs it."""
+    assert len(jax.devices()) >= 8, "conftest should provide 8 CPU devices"
+    mesh = jsharding.make_mesh(2 * n if dp else n, ("dp", "sp"), shape=(2, n) if dp else (1, n))
+    spec = P("dp" if dp else None, None, "sp", None)
+    run = shard_map(lambda b: jspatial._exchange_halo(b, lax.axis_index("sp"), "sp", n, halo_n), mesh=mesh,
+                    in_specs=spec, out_specs=spec)
+    return jax.jit(run)(jnp.asarray(x))
+
+
+@pytest.mark.parametrize("case", JAX_CASES, ids=[f"{n} strips {d} {c}ch{' dp x sp' if dp else ''}"
+                                                for n, d, c, dp in JAX_CASES])
+def test_captured_buffers_equal_jax_exchange(case):
+    """A ``CapturedSpatial`` call on ``[cpu] * n`` (own rows staged, then H1
+    per strip in its program): each strip's halo'd buffer bit-equal to the
+    JAX shard of ``_exchange_halo``, also on the second call, from a
+    ``Sharded`` input."""
+    n, dtype, channels, dp = case
+    in_hw, out_hw = (8 * n, 24), (16 * n, 48)
+    shape = (4 if dp else 2, channels, *in_hw)
+    mesh = sharding.make_mesh(2 * n if dp else n, ("dp", "sp"), (2, n) if dp else (1, n), devices=[CPU] * (2 * n))
+    cap = spatial.CapturedSpatial(_frames(0, DTYPES[dtype], shape), out_hw, mesh, batch_axis="dp" if dp else None,
+                                  impl="kernel")
+    halo_n = cap.layout.halo
+    for call in range(2):
+        x = _frames(1 + call, DTYPES[dtype], shape)
+        cap(x if call == 0 else Sharded.put(x, mesh, cap.spec))
+        want = _jax_exchange(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) if dtype == "bf16" else x.numpy(),
+                             n, halo_n, dp)
+        rows = in_hw[0] // n + 2 * halo_n
+        shards = {(s.index[0].start or 0, s.index[2].start or 0): np.asarray(s.data) for s in want.addressable_shards}
+        for j, buf in enumerate(cap.buffers):
+            g, k = divmod(j, n)
+            w = shards[(g * shape[0] // 2 if dp else 0, k * rows)]
+            got = buf.float().numpy() if dtype == "bf16" else buf.numpy()
+            assert w.dtype == (np.dtype(jnp.bfloat16) if dtype == "bf16" else got.dtype)
+            np.testing.assert_array_equal(got, w.astype(got.dtype), err_msg=f"call {call}, strip {j}")
+
+
+# --- the event schedule ------------------------------------------------------------
+
+
+def _violations(order, reads, steps, calls: int = 3):
+    """Run the host's steps of ``calls`` calls on a model of one stream per
+    device (a wait binds to its event's latest record, as
+    ``cudaStreamWaitEvent`` does) and return the broken orders: a replay
+    reading a device's buffers before that call's staging there, or a
+    staging that may overwrite them before the previous call's replay read
+    them."""
+    edges, last, events, node = {}, {}, {}, itertools.count()
+    stage, replay = {}, {}
+
+    def add(dev, after=()):
+        v = next(node)
+        edges[v] = set(after) | ({last[dev]} if dev in last else set())
+        last[dev] = v
+        return v
+
+    for c in range(calls):
+        for step in steps:
+            kind, dev = step[:2]
+            if kind == "wait":
+                add(dev, [events[step[2]]] if step[2] in events else [])
+            elif kind == "record":
+                events[step[2]] = add(dev)
+            else:
+                (stage if kind == "stage" else replay)[(dev, c)] = add(dev)
+
+    def before(a, b):  # a happens before b
+        seen, todo = set(), [b]
+        while todo:
+            v = todo.pop()
+            if v == a:
+                return True
+            if v not in seen:
+                seen.add(v)
+                todo.extend(edges[v])
+        return False
+
+    bad = []
+    for c in range(calls):
+        for d in order:
+            for e in (d, *reads[d]):
+                if not before(stage[(e, c)], replay[(d, c)]):
+                    bad.append(f"call {c}: {d}'s replay may read {e} before its staging")
+                if c + 1 < calls and not before(replay[(d, c)], stage[(e, c + 1)]):
+                    bad.append(f"call {c + 1}: the staging on {e} may overwrite what {d}'s replay reads")
+    return bad
+
+
+@pytest.mark.parametrize("cards,n", [(2, 2), (3, 3), (4, 4), (4, 2)], ids=["2 cards", "3 cards", "4 cards",
+                                                                           "dp x sp on 4 cards"])
+def test_event_schedule_orders_three_queued_calls(cards, n):
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    order, reads = spatial._reads(devices, n)
+    assert order == devices
+    stage, replay = spatial._schedule(order, reads)
+    assert _violations(order, reads, stage + replay) == []
+    # Every step names an event of the device it runs on or a wait on
+    # another's; a device's stage and replay come once each per call.
+    assert [s[1] for s in stage if s[0] == "stage"] == devices == [s[1] for s in replay if s[0] == "replay"]
+    assert all(s[2][1] == s[1] for s in stage + replay if s[0] == "record")
+    # Without either kind of wait the model finds the hazard.
+    for kind in ("staged", "done"):
+        cut = [s for s in stage + replay if not (s[0] == "wait" and s[2][0] == kind)]
+        assert _violations(order, reads, cut), f"a schedule without its {kind!r} waits passed"
+
+
+def test_reads_are_the_neighbours_and_the_frame():
+    c = [torch.device("cuda", i) for i in range(4)]
+    order, reads = spatial._reads(c, 4)
+    assert reads == {c[0]: (c[1],), c[1]: (c[0], c[2]), c[2]: (c[0], c[1], c[3]), c[3]: (c[0], c[2])}
+    _, reads = spatial._reads(c, 2)  # dp x sp: (c0, c1) and (c2, c3), the frame on c0
+    assert reads == {c[0]: (c[1],), c[1]: (c[0],), c[2]: (c[0], c[3]), c[3]: (c[0], c[2])}
+    order, reads = spatial._reads([c[0]] * 4, 4)  # one card: its stream orders everything
+    assert order == [c[0]] and reads == {c[0]: ()}
+    assert spatial._schedule(order, reads) == ([("stage", c[0])], [("replay", c[0])])
+
+
+# --- peer access -------------------------------------------------------------------
+
+
+def test_cards_without_peer_access_raise(monkeypatch):
+    """Construction checks every pair of cards whose programs read each
+    other before it allocates anything, and names the pair without access."""
+    monkeypatch.setattr(halo, "can_access_peer", lambda a, b: (a.index, b.index) != (2, 1))
+    mesh = sharding.make_mesh(4, ("sp",), devices=[torch.device("cuda", i) for i in range(4)])
+    x = torch.zeros((2, 3, 32, 48))
+    with pytest.raises(ValueError, match=r"cuda:2 cannot read cuda:1's memory \(no peer access\)"):
+        spatial.CapturedSpatial(x, (64, 96), mesh)
+
+
+def test_enable_peers_enables_each_pair_once(monkeypatch):
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def fsr_enable_peer(a, b):
+            calls.append((a, b))
+            return 0
+
+    from fsr_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(halo, "can_access_peer", lambda a, b: True)
+    monkeypatch.setattr(_build, "library", lambda: Lib)
+    c = [torch.device("cuda", i) for i in range(4)]
+    _, reads = spatial._reads(c, 4)
+    halo.enable_peers([(d, e) for d, r in reads.items() for e in r] + [(c[1], c[0]), (c[0], c[0])])
+    assert sorted(calls) == [(0, 1), (1, 0), (1, 2), (2, 0), (2, 1), (2, 3), (3, 0), (3, 2)]
+    calls.clear()
+    halo.enable_peers([(c[0], c[0]), (CPU, CPU)])  # one device, or the CPU: nothing to enable
+    assert calls == []
