@@ -98,19 +98,24 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      unsharded calls with a host int, and 16 Performance f32 frames
      batch-sharded over the cards in turn with one card; with --trace, the
      device operations of one sharded call of each full-width run, which
-     must be the strips' K1/K2 launches and the operations of the input's
-     put, the halo copies and the strip cats (and each strip's rows of the
-     grain) and nothing else (no output gather), and a trace of each run;
-     then H1 (kernels/halo.py, csrc/halo.cu: a strip's halo rows read from
-     its neighbours' buffers) bit-equal to its plain version for every
-     dtype, RGB and RGBA, 2/3/4/8 strips, a batch and dp x sp, every copy
-     unit, on the card repeated and with several cards across them (peer
-     access), the frame index copied beside; then (i)-(v) captured once per
+     must be the strips' K1/K2 launches, in their strip-source form, and
+     the operations of the input's put, the halo rows' copies between cards
+     (and each strip's rows of the grain) and nothing else (no output
+     gather, no strip cat; (i) on the card: its 4 launches and nothing
+     else), and a trace of each run; then K1 and K2 with a strip source
+     (kernels/halo.py:StripSource, H1 folded into their staging loads:
+     a strip's rows read in place from the strip above's, its own and the
+     strip below's) bit-equal to the same kernels on the torch.cat'd
+     halo'd strip for uint8/bfloat16/float32, RGB and RGBA, K1's quad and
+     generic paths and K2, halos 4 and 8, own rows as views of a larger
+     tensor and as buffers, the neighbours whole or their edge rows only, a
+     batch and dp x sp frame groups, on the card and with several cards
+     the neighbours on other cards (peer access); then (i)-(v) captured once per
      device (parallel.spatial.CapturedSpatial and
      CapturedSpatial.from_pipeline: one CUDA graph of the four strips on the
-     card, each strip's part beginning with H1), each with warm-up + 1
-     launches of K1 or K2 and of H1 per strip at construction and none at a
-     replay, 8 replays on fresh seeded inputs with the frame as a 0-d int32
+     card, each strip's kernel reading its neighbours' static buffers),
+     each with warm-up + 1 launches of K1 or K2 per strip at construction
+     and none at a replay, 8 replays on fresh seeded inputs with the frame as a 0-d int32
      tensor on the card (0, 7, 2**31 - 1, -1) each bit-equal shard by shard
      to the eager call on the same inputs, a replay after the K2 table and
      strip-plan caches are emptied and overwritten still bit-equal; 10 calls
@@ -120,13 +125,18 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      card to card from a Sharded input); eager against replay against the
      staging alone in turn, device and wall ms per call, one call and 10
      queued; with --trace one replayed call's device operations held to the
-     strips' K1/K2 and H1 launches and the staging's copies and fill (own
-     rows, grain strips, the page, the frame; across cards from a Sharded
-     input no copy between cards); H1 on (i)'s strips timed in turn with its
-     plain version; with several cards, (i) and (ii) across them and 16
-     frames through parallel.sharding.CapturedBatch over them, the same
-     checks and each card's busy time and the idle share, eager against
-     replay, and H1 across the cards beside H1 on one;
+     strips' K1/K2 launches in their strip-source form, no H1 launch, and
+     the staging's copies and fill (own rows, grain strips, the page, the
+     frame; across cards from a Sharded input no copy between cards but
+     the frame's); the
+     strips' K1 read in place timed in turn with K1 on the halo'd strips
+     and their plain version (the torch.cat); with several cards, (i) and
+     (ii), the pipeline's (iii) and (iv) with the frame on every card, and
+     16 frames through parallel.sharding.CapturedBatch across them, the
+     same checks and each card's busy time and the idle share, eager
+     against replay, the eager call's copies between cards no larger than a
+     strip's halo rows, and the strips' K1 with their neighbours on other
+     cards beside K1 with them on one;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -247,8 +257,11 @@ TORCH_SHARE = 1e-3
 MAIN_SHAPE = (4, 3, 1080, 1920)
 QUALITY_SHAPE = (4, 3, 1440, 2560)
 SHARPEN_SHAPE = (4, 3, 2160, 3840)
-# K1's, K2's and H1's __global__ functions, as a device trace names them.
+# K1's and K2's __global__ functions, as a device trace names them (their
+# strip-source forms too), the strip-source forms alone, and H1's before it
+# was folded into them (a trace must hold none).
 KERNEL_NAMES = {"K1": "fused_kernel", "K2": "staged_gather_kernel", "H1": "halo_kernel"}
+STRIP_NAMES = {"K1": "fused_kernel_strip", "K2": "staged_gather_kernel_strip"}
 # docs/FIDELITY.md f16 rows: mixed against the float32 oracle, strict
 # against the float16 oracle.
 F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
@@ -451,12 +464,12 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
 
 def _wrappers() -> dict:
     """The kernel wrappers, each with its launch count."""
-    from fsr_tpu_torch.kernels import easu_gather, fused, halo, pad, probes
+    from fsr_tpu_torch.kernels import easu_gather, fused, pad, probes
     from fsr_tpu_torch.kernels import rcas as rcas_k
 
     return {"K4": pad.edge_pad, "K1": fused.upscale_padded, "K2": easu_gather.easu_gather,
             "K3": rcas_k.rcas_fused, "P1": probes.opmix_replay, "P2": probes.opmix_replay_shared,
-            "P3": probes.fma_rate, "P4": probes.fp16_probe, "H1": halo.halo_rows}
+            "P3": probes.fma_rate, "P4": probes.fp16_probe}
 
 
 def _drive(fn, need):
@@ -618,11 +631,12 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
 
     def staged(x, m, spec, halo, grain=None):
         """What a sharded call runs before its kernels: the input put on the
-        mesh, the halo exchange with its strip cats and, with a grain, each
-        strip's rows of it made contiguous for the kernel."""
+        mesh, each strip's source (the neighbours' edge rows copied where
+        they lie on another device; on one card nothing) and, with a grain,
+        each strip's rows of it made contiguous for the kernel."""
         xs = sharding.Sharded.put(x, m, spec)
         n = m.shape["sp"]
-        parts = [p for i in range(0, len(xs.shards), n) for p in spatial._exchange_halo(xs.shards[i:i + n], halo)]
+        parts = [p for i in range(0, len(xs.shards), n) for p in spatial._sources(xs.shards[i:i + n], halo)]
         if grain is not None:
             hl = grain.shape[-2] // n
             parts += [grain[:, k * hl:(k + 1) * hl].contiguous() for k in range(n)]
@@ -685,7 +699,12 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         """One call's device operations (a trace), and those beyond its
         staging's and its launches of ``kernel``."""
         ops = device_trace(call, 1)["launches"]
-        base = device_trace(stage, 1)["launches"]
+        try:
+            base = device_trace(stage, 1)["launches"]
+        except RuntimeError as e:  # a staging of views only: no device operation to trace
+            if "no device operation" not in str(e):
+                raise
+            base = {}
         extra = {k: round(c - base.get(k, 0.0)) for k, c in ops.items() if kernel not in k}
         return ops, {k: c for k, c in extra.items() if c > 0}
 
@@ -706,17 +725,20 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
             kernel = KERNEL_NAMES[kid]
             ops, extra = beyond(call, stage, kernel)
             launched = round(sum(c for k, c in ops.items() if kernel in k))
-            print(f"      one sharded call, traced: {launched} launches of {kernel}; with them "
-                  + "; ".join(f"{c:g} x {k[:90]}" for k, c in ops.items() if kernel not in k))
-            if extra or launched != n_k:
-                raise AssertionError(f"{name}: operations beyond the strips' {n_k} launches, the input and halo "
-                                     f"copies and the strip cats: {extra}")
+            in_place = round(sum(c for k, c in ops.items() if STRIP_NAMES[kid] in k))
+            print(f"      one sharded call, traced: {launched} launches of {kernel}, {in_place} in its strip-source "
+                  "form; with them " + "; ".join(f"{c:g} x {k[:90]}" for k, c in ops.items() if kernel not in k))
+            if extra or launched != n_k or in_place != n_k:
+                raise AssertionError(f"{name}: operations beyond the strips' {n_k} strip-source launches, the input "
+                                     f"and the halo rows' copies: {extra}")
+            if name.startswith("(i) ") and set(ops) - {k for k in ops if STRIP_NAMES[kid] in k}:
+                raise AssertionError(f"{name}: on one card a traced call holds more than its {n_k} launches: {ops}")
             _, gathered = beyond(lambda: call().gather(), stage, kernel)
             if not gathered:
                 raise AssertionError(f"{name}: a traced call then .gather() shows no gather: the check above "
                                      "cannot see one")
-            print("      nothing beyond the strips' launches, the input and halo copies and the strip cats; "
-                  "the gather would add " + "; ".join(f"{c:g} x {k[:90]}" for k, c in gathered.items()))
+            print("      nothing beyond the strips' launches, the input's put and the halo rows' copies (no strip "
+                  "cat); the gather would add " + "; ".join(f"{c:g} x {k[:90]}" for k, c in gathered.items()))
             tr = device_trace(call, 5)
             print(f"      traced, 5 sharded calls back to back: device busy {tr['busy_ms']:.4f} ms of a "
                   f"{tr['window_ms']:.4f} ms window, idle share {tr['idle_share']:.4f}")
@@ -736,81 +758,101 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
         # name, the capture, the eager call on (input, frame, grain), its
         # launches per call, fresh inputs, whether it takes grain
         (runs[0][0], lambda: spatial.CapturedSpatial(frames, out4k, mesh(4)),
-         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), frame=f), {"K1": 4, "H1": 4},
+         lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), frame=f), {"K1": 4},
          fresh("f32"), False),
         (runs[1][0], lambda: spatial.CapturedSpatial(qframes, out4k, mesh(4), compute_dtype=bf16),
          lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, mesh(4), compute_dtype=bf16, frame=f),
-         {"K2": 4, "H1": 4}, fresh("bf16"), False),
+         {"K2": 4}, fresh("bf16"), False),
         (runs[2][0], lambda: spatial.CapturedSpatial.from_pipeline(pipes_a, hdr, grain=grain4k),
-         lambda x, f, g: pipes_a(x, grain=g, frame=f), {"K1": 4, "H1": 4}, fresh("hdr"), True),
+         lambda x, f, g: pipes_a(x, grain=g, frame=f), {"K1": 4}, fresh("hdr"), True),
         (runs[3][0], lambda: spatial.CapturedSpatial.from_pipeline(pipes_b, q8, grain=grain4k),
-         lambda x, f, g: pipes_b(x, grain=g, frame=f), {"K2": 4, "H1": 4}, fresh("u8"), True),
+         lambda x, f, g: pipes_b(x, grain=g, frame=f), {"K2": 4}, fresh("u8"), True),
         (runs[4][0], lambda: spatial.CapturedSpatial(frames, out4k, dpsp, batch_axis="dp"),
          lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, dpsp, axis="sp", batch_axis="dp", frame=f),
-         {"K1": 4, "H1": 4}, fresh("f32"), False),
+         {"K1": 4}, fresh("f32"), False),
     ]
-    h1_err = _halo_kernel_checks(dev, gen, cards)
+    strip_err = _strip_source_checks(dev, gen, cards)
     print(f"  captured (CapturedSpatial, one graph per device: one graph of four strips on {dev}):")
     built = _captured_sharded(dev, card, gen, trace, captured, out4k, _sync_all)
 
-    # The strips' kernels alone, in turn with the unsharded kernel.
+    # The strips' kernels alone, in turn with the unsharded kernel: read in
+    # place (strip sources over views of the frames, as the eager call on
+    # the card passes them), and on the halo'd strips (the torch.cat that
+    # the kernels read before H1 was folded into them).
     (ph, pw), (qh, qw) = MAIN_SHAPE[2:], QUALITY_SHAPE[2:]
     pcon = EasuConstants.create((pw, ph), None, out4k[::-1])
     qcon = EasuConstants.create((qw, qh), None, out4k[::-1])
     rcon = RcasConstants(0.25)
     n, hl = 4, out4k[0] // 4
-    strips = spatial._exchange_halo([frames[..., k * ph // n:(k + 1) * ph // n, :] for k in range(n)], spatial._HALO)
+    own = [frames[..., k * ph // n:(k + 1) * ph // n, :] for k in range(n)]
+    qown = [qframes[..., k * qh // n:(k + 1) * qh // n, :] for k in range(n)]
+    srcs, qsrcs = spatial._sources(own, spatial._HALO), spatial._sources(qown, spatial._GHALO)
+    strips, qstrips = spatial._exchange_halo(own, spatial._HALO), spatial._exchange_halo(qown, spatial._GHALO)
     lcon = spatial._local_constants(pcon, spatial._HALO)
-    qstrips = spatial._exchange_halo([qframes[..., k * qh // n:(k + 1) * qh // n, :] for k in range(n)],
-                                     spatial._GHALO)
     gplans = [easu_gather.shard_plan((qh, qw), out4k, qcon, n, k, spatial._GHALO) for k in range(n)]
 
-    def k1_strips(fn=fused.upscale_fused):
+    def k1_strips(fn=fused.upscale_fused, of=srcs):
         return [fn(s, (hl, out4k[1]), lcon, rcon, row_offset=k * hl, global_rows=out4k[0])
-                for k, s in enumerate(strips)]
+                for k, s in enumerate(of)]
 
-    def k2_strips(fn=easu_gather.easu_gather):
+    def k2_strips(fn=easu_gather.easu_gather, of=qsrcs):
         return [fn(s, (hl, out4k[1]), qcon, rcon, True, False, bf16, row_plan=gplans[k], row_offset=k * hl)
-                for k, s in enumerate(qstrips)]
-
-    def h1_strips(fn=halo.halo_rows, bufs=strips):
-        return [fn(bufs, k, spatial._HALO) for k in range(n)]
+                for k, s in enumerate(of)]
 
     tk = cuda_times_in_turn({
-        "K1 x4 strips": k1_strips, "K1 unsharded": lambda: fused.upscale_fused(frames, out4k, pcon, rcon),
-        "K2 x4 strips": k2_strips,
-        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16),
-        "H1 x4 strips": h1_strips, "H1 x4 strips, plain": lambda: h1_strips(halo.halo_rows_reference)}, **KQ)
-    # H1's readings above are the wrappers' host work (a launch ~30 us of
-    # Python; in a graph there is none): its device time comes from a trace.
-    tk["H1 x4 strips, traced"] = sum(ms for k, ms in device_trace(h1_strips, 5)["kernels"].items()
-                                     if KERNEL_NAMES["H1"] in k)
-    tk["H1 x4 strips, plain, traced"] = sum(device_trace(lambda: h1_strips(halo.halo_rows_reference),
-                                                         5)["kernels"].values())
+        "K1 x4 strips": k1_strips, "K1 x4 halo'd strips": lambda: k1_strips(of=strips),
+        "K1 unsharded": lambda: fused.upscale_fused(frames, out4k, pcon, rcon),
+        "K2 x4 strips": k2_strips, "K2 x4 halo'd strips": lambda: k2_strips(of=qstrips),
+        "K2 unsharded": lambda: easu_gather.easu_gather(qframes, out4k, qcon, rcon, True, False, bf16)}, **KQ)
+    # The halo rows' plain version (the strips' torch.cat), its device time
+    # from a trace; the strips' kernels traced read in place and on the
+    # halo'd strips.
+    tk["halo'd strips, plain (cat), traced"] = sum(
+        device_trace(lambda: spatial._exchange_halo(own, spatial._HALO), 5)["kernels"].values())
+    for kid, run, of_in_place, of_cat in (("K1", k1_strips, srcs, strips), ("K2", k2_strips, qsrcs, qstrips)):
+        for what, of in ((f"{kid} x4 strips, traced", of_in_place), (f"{kid} x4 halo'd strips, traced", of_cat)):
+            tk[what] = sum(ms for k, ms in device_trace(lambda run=run, of=of: run(of=of), 5)["kernels"].items()
+                           if KERNEL_NAMES[kid] in k)
     tk["K1 x4 strips, plain"] = cuda_time_ms(lambda: k1_strips(fused.upscale_fused_reference), warmup=1, iters=3)
     tk["K2 x4 strips, plain"] = cuda_time_ms(lambda: k2_strips(easu_gather.easu_gather_reference),
                                              warmup=1, iters=3)
     for k, v in tk.items():
-        print(f"    {k:>20}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
-    print("  sharded: one call on the mesh (strip copies and cats, n launches of each kernel; the output stays "
+        print(f"    {k:>36}: {v / nframes:.4f} ms/frame ({v:.4f} ms/call)")
+    print("  sharded: one call on the mesh (n launches of each kernel, each strip read in place; the output stays "
           "in its strips); + gather: the strips then gathered on the card (Sharded.gather); K* x4 strips: the "
-          "strips' kernels alone, in turn with the unsharded kernel (3 rounds, median); H1 x4 strips: the halo "
-          "rows of (i)'s four halo'd strips, in turn with its plain version, host-bound; traced: their device "
-          "time")
+          "strips' kernels alone, read in place, in turn with the same kernels on the halo'd strips and the "
+          f"unsharded kernel (3 rounds, median; {card}); traced: device time; plain (cat): the halo'd strips "
+          "built by the plain row rule")
     if cards > 1:
         nc = 4 if cards >= 4 else 2
         real = sharding.make_mesh(nc, ("sp",))
         cards_of = list(real.devices.flat)
         print(f"  across {nc} cards ({', '.join(str(d) for d in cards_of)}):")
-        xbufs = [s.to(d) for s, d in zip(strips, itertools.cycle(cards_of))]
-        th = cuda_times_in_turn({"H1 x4 strips across the cards": _joined(lambda: h1_strips(bufs=xbufs), cards_of),
-                                 "H1 x4 strips on one card": lambda: h1_strips()}, **KQ)
-        traced = device_trace(lambda: h1_strips(bufs=xbufs), 5)
-        th["H1 x4 strips across the cards, traced device ms"] = sum(
-            ms for k, ms in traced["kernels"].items() if KERNEL_NAMES["H1"] in k)
-        print("    " + ", ".join(f"{k} {v:.4f} ms per call" for k, v in th.items()) + f" (10 queued; {card}); "
-              "per card busy " + ", ".join(f"{i}: {ms / 5:.4f}" for i, ms in traced["busy_ms_by_device"].items()))
-        del xbufs
+        # The strips' K1 with strip k on card k mod nc, its neighbours read by
+        # peer access, against the four with their neighbours on one card.
+        halo.enable_peers((a, b) for a in cards_of for b in cards_of)
+        xown = [o.to(d) for o, d in zip(own, itertools.cycle(cards_of))]
+        bown = [o.clone() for o in own]
+        xsrcs = [halo.StripSource(xown[k - 1] if k else None, xown[k], xown[k + 1] if k + 1 < n else None,
+                                  spatial._HALO) for k in range(n)]
+        bsrcs = [halo.StripSource(bown[k - 1] if k else None, bown[k], bown[k + 1] if k + 1 < n else None,
+                                  spatial._HALO) for k in range(n)]
+        _sync_all()
+        for k, (a, b) in enumerate(zip(k1_strips(of=xsrcs), k1_strips(of=bsrcs))):
+            _sync_all()
+            if not torch.equal(a.to(dev), b):
+                raise AssertionError(f"K1 on strip {k} with its neighbours on other cards differs from one card")
+        th = cuda_times_in_turn({"K1 x4 strips across the cards": _joined(lambda: k1_strips(of=xsrcs), cards_of),
+                                 "K1 x4 strips on one card": lambda: k1_strips(of=bsrcs)}, **KQ)
+        for where, of in (("across the cards", xsrcs), ("on one card", bsrcs)):
+            traced = device_trace(lambda of=of: k1_strips(of=of), 5)
+            th[f"K1 x4 strips {where}, traced device ms"] = sum(
+                ms for k, ms in traced["kernels"].items() if KERNEL_NAMES["K1"] in k)
+            print(f"    K1 x4 strips {where}, traced over 5 calls: per card busy "
+                  + ", ".join(f"{i}: {ms / 5:.4f}" for i, ms in traced["busy_ms_by_device"].items()))
+        print("    bit-equal; " + ", ".join(f"{k} {v:.4f} ms per call" for k, v in th.items())
+              + f" (10 queued; {card})")
+        del xown, bown, xsrcs, bsrcs
         for name, _, unsharded, need, _, across in runs:
             if across is None:
                 continue
@@ -825,6 +867,17 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                 if not torch.equal(out.gather(dev), want):
                     raise AssertionError(f"{name} across {nc} cards, {label}: differs from the unsharded call")
                 del out
+            # The eager call from a Sharded moves only halo rows between
+            # cards: no copy larger than one strip's edge rows.
+            halo_n = spatial._HALO if "K1" in need else spatial._GHALO
+            edge = _nbytes(xs.shards[0]) // xs.shards[0].shape[-2] * halo_n
+            with _HostCopies() as host:
+                on(xs, real)
+            _sync_all()
+            big = {k: b for k, b in host.largest.items() if k[1] != k[2] and b > edge}
+            if big or not host.across_cards():
+                raise AssertionError(f"{name} across {nc} cards: copies between cards {dict(host.counts)}, larger "
+                                     f"than a strip's {edge} bytes of halo rows: {big}")
             peak = _peak_bytes(lambda: on(xs, real), dev)
             if peak >= _nbytes(want):
                 raise AssertionError(f"{name} across {nc} cards: {peak} bytes at the peak on {dev}, not below one "
@@ -835,7 +888,9 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                                     "one card, sp=4": lambda: on(src, mesh(4)), "unsharded": unsharded})
             tr = device_trace(lambda: on(xs, real), 5)
             print(f"    {name.replace('sp=4', f'sp={nc}')}: launches {got_n}, shards on their cards, gather "
-                  f"bit-equal to the unsharded call, from a tensor and from a Sharded input; peak on {dev} "
+                  f"bit-equal to the unsharded call, from a tensor and from a Sharded input; from a Sharded input "
+                  f"{host.across_cards()} copies between cards, none over a strip's {edge} bytes of halo rows "
+                  f"(largest {max(b for k, b in host.largest.items() if k[1] != k[2])}); peak on {dev} "
                   f"{peak / 2**20:.1f} MiB (one output {_nbytes(want) / 2**20:.1f}); "
                   + ", ".join(f"{k} {v / nframes:.4f} ms/frame" for k, v in t.items())
                   + f"; traced over 5 calls (Sharded input): busy {tr['busy_ms']:.4f} of {tr['window_ms']:.4f} "
@@ -844,23 +899,31 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                 print(f"      {ms:.4f} ms/call, all cards: {kname[:100]}")
             del xs, want
         _frames_across_cards(dev, gen, nc)
-        # Captured across the cards: (i), (ii) and 16 frames batch-sharded,
-        # each fresh input a Sharded on the cards.
+        # Captured across the cards: (i), (ii), the pipeline's (iii) (its
+        # hash dither reads the frame on every card) and (iv), and 16 frames
+        # batch-sharded, each fresh input a Sharded on the cards.
         bmesh = sharding.make_mesh(nc)
         x16 = torch.rand((16, *MAIN_SHAPE[1:]), generator=gen, device=dev)
+        xpipe_a = ft.UpscalePipeline(out4k, mesh=real, **tail)
+        xpipe_b = ft.UpscalePipeline(out4k, mesh=real, **disp)
 
         def on_cards(make, m, spec):
             return lambda: sharding.Sharded.put(make(), m, spec)
 
+        def across(run):
+            return runs[run][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards"
+
         across_cards = [
-            (runs[0][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards",
-             lambda: spatial.CapturedSpatial(frames, out4k, real),
-             lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, frame=f), {"K1": nc, "H1": nc},
+            (across(0), lambda: spatial.CapturedSpatial(frames, out4k, real),
+             lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, frame=f), {"K1": nc},
              on_cards(fresh("f32"), real, rows), False),
-            (runs[1][0].replace("sp=4", f"sp={nc}") + f" across {nc} cards",
-             lambda: spatial.CapturedSpatial(qframes, out4k, real, compute_dtype=bf16),
+            (across(1), lambda: spatial.CapturedSpatial(qframes, out4k, real, compute_dtype=bf16),
              lambda x, f, g: spatial.upscale_spatial_sharded(x, out4k, real, compute_dtype=bf16, frame=f),
-             {"K2": nc, "H1": nc}, on_cards(fresh("bf16"), real, rows), False),
+             {"K2": nc}, on_cards(fresh("bf16"), real, rows), False),
+            (across(2), lambda: spatial.CapturedSpatial.from_pipeline(xpipe_a, hdr, grain=grain4k),
+             lambda x, f, g: xpipe_a(x, grain=g, frame=f), {"K1": nc}, on_cards(fresh("hdr"), real, rows), True),
+            (across(3), lambda: spatial.CapturedSpatial.from_pipeline(xpipe_b, q8, grain=grain4k),
+             lambda x, f, g: xpipe_b(x, grain=g, frame=f), {"K2": nc}, on_cards(fresh("u8"), real, rows), True),
             (f"16 frames 1080p -> 4K f32 batch-sharded over {nc} cards",
              lambda: sharding.CapturedBatch(x16, bmesh, preset="performance"),
              lambda x, f, g: sharding.upscale_batch_sharded(x, bmesh, preset="performance", frame=f), {"K1": nc},
@@ -878,18 +941,27 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     row_bytes = _nbytes(strips[0]) // strips[0].shape[-2]
     h1_bytes = sum(row_bytes * (2 * spatial._HALO + (spatial._HALO if 0 < k else 1)
                                 + (spatial._HALO if k + 1 < n else 1)) for k in range(n))
+    # The strips' K1 launches are close to their wrappers' host work, so the
+    # in-place read's cost is read from their traced device times.
+    in_place, on_cat = tk["K1 x4 strips, traced"], tk["K1 x4 halo'd strips, traced"]
+    queued = tk["K1 x4 strips"], tk["K1 x4 halo'd strips"]
+    print(f"  H1 folded into K1/K2: 0 launches; (i)'s 4 strips read in place {in_place:.4f} device ms per call "
+          f"against {on_cat:.4f} on the halo'd strips (traced; in turn, 10 queued: {queued[0]:.4f} and "
+          f"{queued[1]:.4f}); the halo rows' byte bound {_bound(h1_bytes, 0)[0]:.4f} ms")
     return [
-        _kernel_entry("halo_rows (H1): the halo rows of (i)'s 4 strips, captured per card",
-                      "fsr_tpu_torch/csrc/halo.cu", "fsr_tpu/parallel/spatial.py:104", built[runs[0][0]]["H1"],
-                      h1_err, tk["H1 x4 strips, traced"], tk["H1 x4 strips, plain, traced"], h1_bytes, 0),
-        _kernel_entry("upscale_fused (K1), row-sharded: performance f32, sp=4", "fsr_tpu_torch/csrc/fused.cu",
-                      "fsr_tpu/kernels/fused.py:403", k1_full["launches"]["K1"], small_err["K1"],
-                      tk["K1 x4 strips"], tk["K1 x4 strips, plain"], _nbytes(*strips) + k1_full["nbytes"],
-                      EASU_RCAS_OPS * npix),
-        _kernel_entry("easu_gather (K2), row-sharded: quality bf16, sp=4", "fsr_tpu_torch/csrc/easu_gather.cu",
-                      "fsr_tpu/kernels/easu_gather.py:350", k2_full["launches"]["K2"], small_err["K2"],
-                      tk["K2 x4 strips"], tk["K2 x4 strips, plain"], _nbytes(*qstrips) + k2_full["nbytes"],
-                      EASU_RCAS_OPS * npix),
+        _kernel_entry("halo rows (H1), folded into K1/K2's strip-source loads (0 launches): (i)'s 4 strips, ms = "
+                      "K1 read in place less K1 on the halo'd strips, traced device time; plain: the strips' "
+                      "torch.cat, traced",
+                      "fsr_tpu_torch/csrc/fused.cu", "fsr_tpu/parallel/spatial.py:104", 0, strip_err,
+                      in_place - on_cat, tk["halo'd strips, plain (cat), traced"], h1_bytes, 0),
+        _kernel_entry("upscale_fused (K1), row-sharded, strips read in place: performance f32, sp=4",
+                      "fsr_tpu_torch/csrc/fused.cu", "fsr_tpu/kernels/fused.py:403", k1_full["launches"]["K1"],
+                      max(small_err["K1"], strip_err), tk["K1 x4 strips"], tk["K1 x4 strips, plain"],
+                      _nbytes(*strips) + k1_full["nbytes"], EASU_RCAS_OPS * npix),
+        _kernel_entry("easu_gather (K2), row-sharded, strips read in place: quality bf16, sp=4",
+                      "fsr_tpu_torch/csrc/easu_gather.cu", "fsr_tpu/kernels/easu_gather.py:350",
+                      k2_full["launches"]["K2"], max(small_err["K2"], strip_err), tk["K2 x4 strips"],
+                      tk["K2 x4 strips, plain"], _nbytes(*qstrips) + k2_full["nbytes"], EASU_RCAS_OPS * npix),
     ]
 
 
@@ -908,42 +980,47 @@ def _same_sharded(got, want, what) -> None:
 
 
 # Device operations a captured sharded call may run besides its kernels (K1
-# or K2, and H1 on each strip): the staging's own-row copies, grain strips
-# and page, and the frame's fill or copy.
+# or K2 on each strip): the staging's own-row copies, grain strips and page,
+# and the frame's fill or copy.
 STAGING_OPS = re.compile(r"copy|memcpy|fill|memset", re.IGNORECASE)
 # A device trace's name of a copy between cards.
 PEER_COPY = re.compile(r"PtoP", re.IGNORECASE)
 
 
-def _replay_ops(call, kernel: str, n_k: int, n_h1: int, what: str, peer_copies: bool = True) -> dict:
-    """One traced call of a captured sharded call: its launches of
-    ``kernel`` must be ``n_k``, of H1 ``n_h1``, and every other device
-    operation a staging copy or fill (``STAGING_OPS``); with
-    ``peer_copies`` False none of them a copy between cards
-    (``PEER_COPY``).  Returns the operations per call."""
+def _replay_ops(call, kid: str, n_k: int, what: str, peer_copies: bool = True, strips: bool = True) -> dict:
+    """One traced call of a captured sharded call: its launches of kernel
+    ``kid`` must be ``n_k`` (with ``strips``, all in the strip-source form:
+    each strip's rows read in place), with no H1 launch, and every other
+    device operation a staging copy or fill (``STAGING_OPS``); with
+    ``peer_copies`` False none of them a copy between cards (``PEER_COPY``).
+    Returns the operations per call."""
     from fsr_tpu_torch.utils.profiling import device_trace
 
     ops = device_trace(call, 1)["launches"]
-    h1 = KERNEL_NAMES["H1"]
+    kernel, h1 = KERNEL_NAMES[kid], KERNEL_NAMES["H1"]
     launched = round(sum(c for k, c in ops.items() if kernel in k))
+    in_place = round(sum(c for k, c in ops.items() if STRIP_NAMES[kid] in k)) if strips else n_k
     halos = round(sum(c for k, c in ops.items() if h1 in k))
-    other = {k: c for k, c in ops.items() if kernel not in k and h1 not in k
+    other = {k: c for k, c in ops.items() if kernel not in k
              and (not STAGING_OPS.search(k) or (not peer_copies and PEER_COPY.search(k)))}
-    if launched != n_k or halos != n_h1 or other:
-        raise AssertionError(f"{what}: a traced replay ran {launched} launches of {kernel} (want {n_k}), {halos} of "
-                             f"{h1} (want {n_h1}) and operations beyond the staging's copies: {other}")
+    if launched != n_k or in_place != n_k or halos or other:
+        raise AssertionError(f"{what}: a traced replay ran {launched} launches of {kernel} (want {n_k}), {in_place} "
+                             f"of them in the strip-source form, {halos} of {h1} (want 0) and operations beyond "
+                             f"the staging's copies: {other}")
     return ops
 
 
 class _HostCopies:
     """Counts the copies and fills a call issues from the host (aten
     ``copy_``, ``_to_copy``, ``fill_``), by (operation, source device,
-    destination device): a replayed graph's own work is no aten call."""
+    destination device), and the most bytes one of them moved: a replayed
+    graph's own work is no aten call."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
 
         counts = self.counts = collections.Counter()
+        largest = self.largest = collections.Counter()  # the most bytes one copy moved, by key
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -952,7 +1029,9 @@ class _HostCopies:
                 if name in ("copy_", "_to_copy", "fill_"):
                     dst = torch.device(kwargs.get("device") or args[0].device) if name == "_to_copy" else args[0].device
                     src = args[1].device if name == "copy_" else args[0].device
-                    counts[(name, str(src), str(dst))] += 1
+                    key = (name, str(src), str(dst))
+                    counts[key] += 1
+                    largest[key] = max(largest[key], _nbytes(args[1] if name == "copy_" else args[0]))
                 return func(*args, **kwargs)
 
         self.mode = Mode()
@@ -964,14 +1043,17 @@ class _HostCopies:
     def __exit__(self, *exc):
         return self.mode.__exit__(*exc)
 
-    def across_cards(self) -> int:
-        return sum(c for (_, a, b), c in self.counts.items() if a != b and "cuda" in a and "cuda" in b)
+    def across_cards(self, min_bytes: int = 0) -> int:
+        """The copies between cards, of those moving more than ``min_bytes``
+        (by the most one copy of their kind moved)."""
+        return sum(c for (op, a, b), c in self.counts.items()
+                   if a != b and "cuda" in a and "cuda" in b and self.largest[(op, a, b)] > min_bytes)
 
 
 def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, cards=None) -> dict:
     """Phase 18, captured: each full-width run as one captured program per
-    device (``CapturedSpatial``, each strip's part beginning with H1;
-    ``CapturedBatch``).  Its launches are counted at construction only (the
+    device (``CapturedSpatial``, each strip's kernel reading its neighbours'
+    static buffers in place; ``CapturedBatch``).  Its launches are counted at construction only (the
     warm-up's and the capture's, per strip or share); 8 replays on fresh
     seeded inputs and grain, with the frame as a 0-d int32 tensor on the
     card (``FRAMES_ON_CARD``), are each bit-equal shard by shard to the
@@ -981,7 +1063,8 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
     sync, from a ``Sharded`` input and from a tensor, each call's shards
     cloned on their cards' streams right after it, all bit-equal to the
     eager calls; the copies and fills one call issues from the host
-    (``_HostCopies``: none card to card from a ``Sharded`` input).  Then
+    (``_HostCopies``: from a ``Sharded`` input none card to card but a 0-d
+    frame's, for a case without grain).  Then
     eager against replay in turn: device ms (CUDA events on the first card;
     with ``cards``, after every card's stream) and wall ms per call (host
     clock, synchronised), one call and 10 queued; with ``trace`` (or across
@@ -1056,7 +1139,10 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
                     replay(*xs[0])
                 sync()
                 crossed = host.across_cards()
-                if kind == "a Sharded input" and crossed:
+                # From a Sharded input no rows cross cards: only a 0-d frame
+                # (4 bytes) may, on cards whose graphs read it; a case with
+                # grain also moves the caller's grain and page (not checked).
+                if kind == "a Sharded input" and not with_grain and host.across_cards(min_bytes=4):
                     raise AssertionError(f"{name}, captured: a call from {kind} issued {crossed} copies between "
                                          f"cards from the host: {dict(host.counts)}")
                 print(f"    {name}, captured, from {kind}: 10 calls queued with no host sync, each bit-equal shard "
@@ -1091,77 +1177,88 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
                       f"{tr['idle_share']:.4f}; per card " + ", ".join(
                           f"{i}: {ms / 5:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
         if trace:
-            kid = next(k for k in need if k != "H1")
-            n_k, n_h1 = need[kid], need.get("H1", 0)
-            ops = _replay_ops(lambda: replay(x, 7, g), KERNEL_NAMES[kid], n_k, n_h1, name,
-                              peer_copies=not isinstance(x, sharding.Sharded))
-            print(f"      a traced replay (a host int frame): {n_k} launches of {KERNEL_NAMES[kid]}, {n_h1} of "
-                  f"{KERNEL_NAMES['H1']}; with them " + "; ".join(
-                      f"{c:g} x {k[:90]}" for k, c in ops.items()
-                      if KERNEL_NAMES[kid] not in k and KERNEL_NAMES["H1"] not in k))
+            (kid, n_k), = need.items()
+            strips = isinstance(cap, spatial.CapturedSpatial)
+            # (a case with grain stages the caller's grain and page, which lie
+            # on the first card, into every card's graph)
+            ops = _replay_ops(lambda: replay(x, 7, g), kid, n_k, name,
+                              peer_copies=with_grain or not isinstance(x, sharding.Sharded), strips=strips)
+            print(f"      a traced replay (a host int frame): {n_k} launches of "
+                  f"{(STRIP_NAMES if strips else KERNEL_NAMES)[kid]}, none of {KERNEL_NAMES['H1']}; with them "
+                  + "; ".join(
+                      f"{c:g} x {k[:90]}" for k, c in ops.items() if KERNEL_NAMES[kid] not in k))
         del cap, rep, last, x, fns
     return counts
 
 
-def _halo_kernel_checks(dev, gen, cards: int) -> float:
-    """Phase 18: H1 (``kernels.halo.halo_rows``) bit-equal to its plain
-    version, buffers of garbage but their own rows, for float32, bfloat16,
-    float16 and uint8, RGB and RGBA, 2, 3, 4 and 8 strips, a batch and dp x
-    sp frame groups, halos of 4 and 8 rows, rows of every copy unit (16, 8,
-    4, 2 and 1 bytes; a buffer one element past an aligned address), with
-    the frame index copied beside them; on ``[cuda:0] * n`` and, with several
-    cards, strip k on card k mod 4 (read by peer access).  Returns the
-    largest difference (0.0)."""
-    from fsr_tpu_torch.kernels import halo
+def _strip_source_checks(dev, gen, cards: int) -> float:
+    """Phase 18: K1 and K2 with a strip source (``kernels.halo.StripSource``:
+    each strip's rows read in place from the strip above's, its own and the
+    strip below's) bit-equal to the same kernels on the ``torch.cat``'d
+    halo'd strips (``spatial._exchange_halo``), for uint8, bfloat16 and
+    float32, RGB and RGBA, K1's quad and generic paths at 2x and its
+    generic path at 4x (a halo of 4 rows) and K2 at 1.5x (8 rows), own rows
+    as views of a larger tensor and as buffers of their own, the neighbours
+    whole or their edge rows only, a batch and dp x sp frame groups; on
+    ``dev`` and, with several cards, strip j on card j mod 4 (its
+    neighbours read by peer access).  Returns the largest difference
+    (0.0)."""
+    from fsr_tpu_torch.core.constants import RcasConstants
+    from fsr_tpu_torch.kernels import easu_gather, fused, halo
+    from fsr_tpu_torch.parallel import spatial
 
-    places = [("[cuda:0] * n", lambda n: [dev] * n)]
+    rcon = RcasConstants(0.25)
+    places = [(f"[{dev}] * n", lambda j: dev)]
     if cards > 1:
         nc = min(cards, 4)
-        places.append((f"strip k on cuda:(k mod {nc})", lambda n: [torch.device("cuda", k % nc) for k in range(n)]))
-        halo.enable_peers((torch.device("cuda", a), torch.device("cuda", b)) for a in range(nc) for b in range(nc))
-    frame_src = torch.tensor(-123457, dtype=torch.int32, device=dev)
+        on = [torch.device("cuda", i) for i in range(nc)]
+        halo.enable_peers((a, b) for a in on for b in on)
+        places.append((f"strip j on cuda:(j mod {nc})", lambda j: on[j % nc]))
+    configs = [("K1 2x quad", (96, 160), (192, 320), 4, "auto"), ("K1 2x generic", (96, 160), (192, 320), 4, "generic"),
+               ("K1 4x", (48, 80), (192, 320), 4, "auto"), ("K2 1.5x", (144, 240), (216, 360), 3, None)]
     cases = 0
-    for where, devices_of in places:
-        for dtype, channels, n, groups, (halo_n, width, offset) in itertools.product(
-                (torch.float32, torch.bfloat16, torch.float16, torch.uint8), (3, 4), (2, 3, 4, 8), (1, 2),
-                ((4, 1920, 0), (8, 11, 0), (4, 6, 0), (8, 64, 1))):
-            devices = devices_of(n)
-            h = halo_n + 3
-            shape = (2 * groups, channels, n * h, width)
-            x = torch.rand(shape, generator=gen, device=dev)
-            x = (x * 255).to(dtype) if dtype == torch.uint8 else x.to(dtype)
+    for where, card_of in places:
+        for (what, in_hw, out_hw, n, path), dtype, channels, groups in itertools.product(
+                configs, (torch.float32, torch.bfloat16, torch.uint8), (3, 4), (1, 2)):
+            lay = spatial._layout(in_hw, out_hw, n, None, (0, 0))
+            x = torch.rand((2 * groups, channels, *in_hw), generator=gen, device=dev)
+            x = (x * 255).to(torch.uint8) if dtype == torch.uint8 else x.to(dtype)
+            store = torch.float32 if dtype == torch.uint8 else dtype
+            kw = dict(out_dtype=torch.uint8) if dtype == torch.uint8 else {}
             for g, frames in enumerate(x.chunk(groups, 0)):
-                strips = frames.chunk(n, -2)
-                bshape = (*strips[0].shape[:-2], h + 2 * halo_n, width)
-                numel = int(np.prod(bshape))
-
-                def buffers():
-                    bufs = []
-                    for s, d in zip(strips, devices):
-                        b = torch.full((numel + offset,), 77, dtype=dtype, device=d)[offset:].view(bshape)
-                        b[..., halo_n:halo_n + h, :].copy_(s)
-                        bufs.append(b)
-                    return bufs
-
-                got, want = buffers(), buffers()
-                _sync_all()
-                for k in range(n):
-                    dsts = [torch.zeros((), dtype=torch.int32, device=d) for d in (devices[k], devices[k])]
-                    halo.halo_rows(got, k, halo_n, frame_src, dsts[0])
-                    _sync_all()
-                    halo.halo_rows_reference(want, k, halo_n, frame_src, dsts[1])
-                    if int(dsts[0]) != -123457 or int(dsts[1]) != -123457:
-                        raise AssertionError(f"H1 {where}: the frame was not copied to strip {k}")
-                _sync_all()
-                for k, (a, b) in enumerate(zip(got, want)):
-                    if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
-                        raise AssertionError(f"H1 {where}: {dtype} {channels} channels, {n} strips, group {g}, halo "
-                                             f"{halo_n}, width {width}, offset {offset}: strip {k} differs from "
-                                             "the plain version")
+                on_cards = {card_of(j): frames.to(card_of(j)) for j in range(n)}
+                views = [on_cards[card_of(j)][..., j * (in_hw[0] // n):(j + 1) * (in_hw[0] // n), :] for j in range(n)]
+                for own_form, neighbours in itertools.product(("views", "buffers"), ("whole", "edge rows")):
+                    rows = views if own_form == "views" else [v.clone() for v in views]
+                    for k in range(n):
+                        up = rows[k - 1] if k else None
+                        down = rows[k + 1] if k + 1 < n else None
+                        if neighbours == "edge rows":
+                            up = None if up is None else up[..., -lay.halo:, :]
+                            down = None if down is None else down[..., :lay.halo, :]
+                        src = halo.StripSource(up, rows[k], down, lay.halo)
+                        cat = halo.halo_rows_reference(src)
+                        st = lay.strips[k]
+                        if st.local_con is not None:
+                            args = (lay.out_hw, st.local_con, rcon, True, False, store)
+                            kk = dict(kw, row_offset=st.row0, global_rows=st.global_rows, path=path)
+                            got, want = fused.upscale_fused(src, *args, **kk), fused.upscale_fused(cat, *args, **kk)
+                        else:
+                            args = (lay.out_hw, lay.con, rcon, True, False, store)
+                            kk = dict(kw, row_plan=st.rows, row_offset=st.row0)
+                            got = easu_gather.easu_gather(src, *args, **kk)
+                            want = easu_gather.easu_gather(cat, *args, **kk)
+                        _sync_all()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"strip source {where}: {what} {dtype} {channels} channels, group {g} of {groups}, "
+                                f"own rows as {own_form}, neighbours {neighbours}: strip {k} has "
+                                f"{int((got != want).sum())} values unlike the kernel on the halo'd strip")
             cases += 1
-    print(f"  H1 (kernels.halo.halo_rows) bit-equal to its plain version in {cases} cases ("
-          + "; ".join(w for w, _ in places) + "): float32/bfloat16/float16/uint8, RGB/RGBA, 2/3/4/8 strips, "
-          "batch and dp x sp, halos 4 and 8, copy units of 16 to 1 bytes, the frame copied")
+    print(f"  K1 and K2 with a strip source (rows read in place) bit-equal to the same kernels on the halo'd strips "
+          f"in {cases} cases ({'; '.join(w for w, _ in places)}): K1 2x quad and generic, K1 4x, K2 1.5x; "
+          "float32/bfloat16/uint8, RGB/RGBA, a batch and dp x sp; own rows as views and as buffers, the "
+          "neighbours whole and their edge rows only")
     return 0.0
 
 

@@ -25,7 +25,7 @@ from fsr_tpu_torch import autodiff
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.core.presets import PRESETS
-from fsr_tpu_torch.kernels import dispatch, easu_gather, fused
+from fsr_tpu_torch.kernels import dispatch, easu_gather, fused, halo
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import rcas as rcas_kernel
 from fsr_tpu_torch.kernels.epilogue import Epilogue
@@ -217,7 +217,10 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
     at an exact-phase ratio, else K2 on its row tables from the global
     mapping; the torch path runs EASU over the same tables for its rows -1
     .. hl, then RCAS on its own rows.  ``grain`` is then the strip's rows,
-    and the epilogue dithers at global rows."""
+    and the epilogue dithers at global rows.  The strip may be a
+    ``kernels.halo.StripSource``: the kernels read its rows in place; the
+    torch path and a kernel forward under autograd take its halo'd rows as
+    one tensor (``halo.halo_rows_reference``)."""
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue, out_dtype=out_dtype,
               dither_page=dither_page)
     f16 = torch.float16 in (image.dtype, compute_dtype)
@@ -235,6 +238,8 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
 
         if not image.requires_grad or out_dtype in (torch.uint8, torch.uint16):
             return kernel(image)
+        if isinstance(image, halo.StripSource):
+            image = halo.halo_rows_reference(image)
 
         # As fsr_tpu/api.py:269-278: the kernel forward, the backward through
         # this call on the torch path (RGBA whole, so alpha takes its
@@ -245,6 +250,8 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
 
         return autodiff.kernel_with_torch_vjp(kernel, twin, image)
 
+    if isinstance(image, halo.StripSource):
+        image = halo.halo_rows_reference(image)
     # As fsr_tpu/api.py:196-215, :302-309: alpha is a bilinear pass of its
     # own (a byte decoded first), encoded like the colour, concatenated.
     # A strip's row plan: the 'f' row and fraction of its output rows -1 .. hl.

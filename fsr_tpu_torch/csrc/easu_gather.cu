@@ -28,7 +28,12 @@
 // side, clipped to the frame (the global RCAS border), and index the strip's
 // source with its halo rows; the epilogue's dither takes the global row
 // (EpilogueParams.row0).  The kernel is the same for a whole frame and a
-// strip: only the tables differ.
+// strip: only the tables differ.  A strip's source is either its halo'd
+// rows as one tensor, or, in the strip-source form
+// (staged_gather_kernel_strip, fsr_easu_gather_strip, compiled in
+// easu_gather_strip.cu), three parts read in place (fsr_pixel.cuh:
+// StripSrc): only the staging load's address changes, so a strip's bits
+// are those of the halo'd tensor.
 //
 // Design: one block per TH x TILE_W output tile (TH = FSR_K2_TILE_H), in
 // three steps.
@@ -143,9 +148,11 @@ struct Stage {
 
 // Load the block's footprint of one frame's source and its table slice
 // (see the source note), then a barrier.  T is the storage type a float
-// source rounds to, S the source's.
-template <typename T, typename S, bool RGBA>
-__device__ __forceinline__ void stage(Stage<RGBA>& st, const S* __restrict__ src, const GatherParams& p) {
+// source rounds to, S the source's; strip: empty for a whole source, else
+// its strip source (the loads' addresses).
+template <typename T, typename S, bool RGBA, typename... Strip>
+__device__ __forceinline__ void stage(Stage<RGBA>& st, const S* __restrict__ src, const GatherParams& p,
+                                      const Strip&... strip) {
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y * TH;
   const int r0 = __ldg(p.rows + y0 - 1);
@@ -153,15 +160,31 @@ __device__ __forceinline__ void stage(Stage<RGBA>& st, const S* __restrict__ src
   const int fh = __ldg(p.rows + 3 * p.rstride + min(y0 + TH, p.hout)) - r0 + 1;
   const int fw = __ldg(p.cols + 3 * p.wout + min(x0 + TILE_W, p.wout - 1)) - c0 + 1;
   if (fh > FP_H || fw > FP_W) __trap();  // the host's footprint check failed to hold
-  const int64_t plane = (int64_t)p.hin * p.win;
-  const S* base = src + (int64_t)r0 * p.win + c0;
-  for (int k = threadIdx.x; k < fh * fw; k += NTHREADS) {
-    const int r = k / fw;
-    const S* at = base + (int64_t)r * p.win + (k - r * fw);
-    float cr = ld_as<T>(at), cg = ld_as<T>(at + plane), cb = ld_as<T>(at + 2 * plane);
-    if (p.srtm) srtm_texel(cr, cg, cb);
-    st.tex[k] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
-    if constexpr (RGBA) st.alpha[k] = ld_as<T>(at + 3 * plane);
+  if constexpr (sizeof...(Strip) > 0) {
+    // A strip's parts, run by run, loaded through the read-only cache; the
+    // tables keep every row inside the virtual strip.
+    auto run = [&](int rb, int re, const S* base, int64_t pl, auto row) {
+      for (int k = rb * fw + threadIdx.x; k < re * fw; k += NTHREADS) {
+        const int r = k / fw;
+        const S* at = base + (int64_t)row(r) * p.win + c0 + (k - r * fw);
+        float cr = ld_as<T, true>(at), cg = ld_as<T, true>(at + pl), cb = ld_as<T, true>(at + 2 * pl);
+        if (p.srtm) srtm_texel(cr, cg, cb);
+        st.tex[k] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
+        if constexpr (RGBA) st.alpha[k] = ld_as<T, true>(at + 3 * pl);
+      }
+    };
+    stage_strip(only(strip...), blockIdx.z, r0, fh, p.hin, run);
+  } else {
+    const int64_t plane = (int64_t)p.hin * p.win;
+    const S* base = src + (int64_t)r0 * p.win + c0;
+    for (int k = threadIdx.x; k < fh * fw; k += NTHREADS) {
+      const int r = k / fw;
+      const S* at = base + (int64_t)r * p.win + (k - r * fw);
+      float cr = ld_as<T>(at), cg = ld_as<T>(at + plane), cb = ld_as<T>(at + 2 * plane);
+      if (p.srtm) srtm_texel(cr, cg, cb);
+      st.tex[k] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
+      if constexpr (RGBA) st.alpha[k] = ld_as<T>(at + 3 * plane);
+    }
   }
   for (int i = threadIdx.x; i < RING_W + RH; i += NTHREADS) {
     if (i < RING_W) {
@@ -232,13 +255,15 @@ __device__ __forceinline__ float alpha_staged(const Stage<RGBA>& st, int ly, int
                         a[(rv.z + cv.z) >> 4], st.px[lx], st.py[ly]);
 }
 
-template <typename S, typename T, typename O, bool RCAS, bool DENOISE, bool RGBA>
-__global__ void __launch_bounds__(NTHREADS)
-    staged_gather_kernel(const S* __restrict__ src, O* __restrict__ dst, GatherParams p) {
+// One block's tile: the kernels' body, for a whole source (src) or a strip
+// source (strip).
+template <typename S, typename T, typename O, bool RCAS, bool DENOISE, bool RGBA, typename... Strip>
+__device__ __forceinline__ void gather_tile(const S* __restrict__ src, O* __restrict__ dst, const GatherParams& p,
+                                            const Strip&... strip) {
   constexpr int C = RGBA ? 4 : 3;
   __shared__ Stage<RGBA> st;
   const int64_t n = blockIdx.z;
-  stage<T>(st, src + n * C * (int64_t)p.hin * p.win, p);
+  stage<T>(st, src + n * C * (int64_t)p.hin * p.win, p, strip...);
   O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const EpilogueParams e = p.epi;
@@ -262,47 +287,68 @@ __global__ void __launch_bounds__(NTHREADS)
     store_tile<TH>(pixel, store, p.hout, p.wout);
 }
 
-template <typename S, typename T, typename O, bool RGBA>
-int launch_planes(const void* src, void* dst, int nb, const GatherParams& p, bool rcas,
+template <typename S, typename T, typename O, bool RCAS, bool DENOISE, bool RGBA>
+__global__ void __launch_bounds__(NTHREADS)
+    staged_gather_kernel(const S* __restrict__ src, O* __restrict__ dst, GatherParams p) {
+  gather_tile<S, T, O, RCAS, DENOISE, RGBA>(src, dst, p);
+}
+
+// The strip-source form (fsr_pixel.cuh:StripSrc): the same tile, each texel
+// loaded from the part that holds its row of the virtual halo'd strip.
+template <typename S, typename T, typename O, bool RCAS, bool DENOISE, bool RGBA>
+__global__ void __launch_bounds__(NTHREADS)
+    staged_gather_kernel_strip(StripSrc<S> strip, O* __restrict__ dst, GatherParams p) {
+  gather_tile<S, T, O, RCAS, DENOISE, RGBA>(static_cast<const S*>(nullptr), dst, p, strip);
+}
+
+// STRIP: launch the strip-source form on sp, else the whole-frame form on
+// src.  Each form is compiled in its own translation unit
+// (easu_gather_strip.cu).
+template <bool STRIP, typename S, typename T, typename O, bool RGBA>
+int launch_planes(const void* src, const StripParts* sp, void* dst, int nb, const GatherParams& p, bool rcas,
                   bool denoise, cudaStream_t stream) {
   constexpr int C = RGBA ? 4 : 3;
   const int64_t in_frame = C * (int64_t)p.hin * p.win;
   const int64_t out_frame = C * (int64_t)p.hout * p.wout;
   return launch_frames<TH>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
-    const S* s = static_cast<const S*>(src) + n0 * in_frame;
     O* d = static_cast<O*>(dst) + n0 * out_frame;
-    if (!rcas)
-      staged_gather_kernel<S, T, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
-    else if (denoise)
-      staged_gather_kernel<S, T, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
-    else
-      staged_gather_kernel<S, T, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    if constexpr (STRIP) {
+      const StripSrc<S> s = strip_src<S>(*sp, n0);
+      if (!rcas)
+        staged_gather_kernel_strip<S, T, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      else if (denoise)
+        staged_gather_kernel_strip<S, T, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      else
+        staged_gather_kernel_strip<S, T, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    } else {
+      const S* s = static_cast<const S*>(src) + n0 * in_frame;
+      if (!rcas)
+        staged_gather_kernel<S, T, O, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      else if (denoise)
+        staged_gather_kernel<S, T, O, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      else
+        staged_gather_kernel<S, T, O, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    }
   });
 }
 
 // The channel count is a template parameter, as in K1 (fused.cu).
-template <typename S, typename T, typename O>
-int launch(const void* src, void* dst, int nb, int channels, const GatherParams& p, bool rcas,
-           bool denoise, cudaStream_t stream) {
-  return channels == 4 ? launch_planes<S, T, O, true>(src, dst, nb, p, rcas, denoise, stream)
-                       : launch_planes<S, T, O, false>(src, dst, nb, p, rcas, denoise, stream);
+template <bool STRIP, typename S, typename T, typename O>
+int launch(const void* src, const StripParts* sp, void* dst, int nb, int channels, const GatherParams& p,
+           bool rcas, bool denoise, cudaStream_t stream) {
+  return channels == 4 ? launch_planes<STRIP, S, T, O, true>(src, sp, dst, nb, p, rcas, denoise, stream)
+                       : launch_planes<STRIP, S, T, O, false>(src, sp, dst, nb, p, rcas, denoise, stream);
 }
 
-}  // namespace
-
-// dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
-// bfloat16 or uint8), dtype the storage type (float32 or bfloat16),
-// out_dtype the output's: the storage type, or uint8/uint16 codes.
-// channels: 3, or 4 with alpha in plane 3 of the source and the output.
-// rows/cols (int32 [4][hout + 2], [4][wout]) and py/px (float32 [hout + 2],
-// [wout]) are device pointers; the row tables cover output rows -1..hout.
-// srtm: 1 runs the SRTM prologue; epi: the K5 epilogue (host struct, device
-// pointers inside).
-extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dtype,
-                               int out_dtype, int nb, int channels, int hin, int win, int hout,
-                               int wout, const void* rows, const void* cols, const void* py,
-                               const void* px, float sharp, int apply_rcas, int denoise,
-                               int srtm, const EpilogueParams* epi, void* stream) {
+// The C entry points' body: the parameters, the checks and the dispatch on
+// the types, for the whole-frame form (STRIP false: src) or the strip-source
+// form (sp).
+template <bool STRIP>
+int easu_gather(const void* src, const StripParts* sp, void* dst, int src_dtype, int dtype, int out_dtype, int nb,
+                int channels, int hin, int win, int hout, int wout, const void* rows, const void* cols,
+                const void* py, const void* px, float sharp, int apply_rcas, int denoise, int srtm,
+                const EpilogueParams* epi, void* stream) {
+  if (STRIP && !strip_ok(sp, hin)) return (int)cudaErrorInvalidValue;
   GatherParams p;
   // The row tables start at output row -1: their bases move one entry on,
   // so the device indexes them by the output row itself.
@@ -329,27 +375,60 @@ extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dt
   // Only a float32 source rounds to a bfloat16 storage type at load; a
   // bfloat16 source widens exactly and a byte decodes, whatever the storage.
   if (src_dtype == F32 && dtype == BF16) {
-    if (out_dtype == BF16) return launch<float, bf16, bf16>(src, dst, nb, channels, p, r, dn, s);
-    if (out_dtype == U8) return launch<float, bf16, uint8_t>(src, dst, nb, channels, p, r, dn, s);
-    return launch<float, bf16, uint16_t>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == BF16) return launch<STRIP, float, bf16, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<STRIP, float, bf16, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    return launch<STRIP, float, bf16, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == F32) {
-    if (out_dtype == F32) return launch<float, float, float>(src, dst, nb, channels, p, r, dn, s);
-    if (out_dtype == U8) return launch<float, float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
-    return launch<float, float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == F32) return launch<STRIP, float, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<STRIP, float, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    return launch<STRIP, float, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == BF16) {
-    if (out_dtype == F32) return launch<bf16, float, float>(src, dst, nb, channels, p, r, dn, s);
-    if (out_dtype == BF16) return launch<bf16, float, bf16>(src, dst, nb, channels, p, r, dn, s);
-    if (out_dtype == U8) return launch<bf16, float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
-    return launch<bf16, float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == F32) return launch<STRIP, bf16, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == BF16) return launch<STRIP, bf16, float, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<STRIP, bf16, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    return launch<STRIP, bf16, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == U8) {
-    if (out_dtype == F32) return launch<uint8_t, float, float>(src, dst, nb, channels, p, r, dn, s);
-    if (out_dtype == BF16) return launch<uint8_t, float, bf16>(src, dst, nb, channels, p, r, dn, s);
-    if (out_dtype == U8)
-      return launch<uint8_t, float, uint8_t>(src, dst, nb, channels, p, r, dn, s);
-    return launch<uint8_t, float, uint16_t>(src, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == F32) return launch<STRIP, uint8_t, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == BF16) return launch<STRIP, uint8_t, float, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<STRIP, uint8_t, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    return launch<STRIP, uint8_t, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+#ifndef FSR_STRIP_TU
+// dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
+// bfloat16 or uint8), dtype the storage type (float32 or bfloat16),
+// out_dtype the output's: the storage type, or uint8/uint16 codes.
+// channels: 3, or 4 with alpha in plane 3 of the source and the output.
+// rows/cols (int32 [4][hout + 2], [4][wout]) and py/px (float32 [hout + 2],
+// [wout]) are device pointers; the row tables cover output rows -1..hout.
+// srtm: 1 runs the SRTM prologue; epi: the K5 epilogue (host struct, device
+// pointers inside).
+extern "C" int fsr_easu_gather(const void* src, void* dst, int src_dtype, int dtype,
+                               int out_dtype, int nb, int channels, int hin, int win, int hout,
+                               int wout, const void* rows, const void* cols, const void* py,
+                               const void* px, float sharp, int apply_rcas, int denoise,
+                               int srtm, const EpilogueParams* epi, void* stream) {
+  return easu_gather<false>(src, nullptr, dst, src_dtype, dtype, out_dtype, nb, channels, hin, win, hout, wout,
+                            rows, cols, py, px, sharp, apply_rcas, denoise, srtm, epi, stream);
+}
+#else
+// K2 on a row strip read in place from its three parts (sp: fsr_pixel.cuh's
+// StripParts); hin is the virtual halo'd strip's rows, own's rows plus
+// 2 * halo, which the row tables index.  The other arguments are
+// fsr_easu_gather's.
+extern "C" int fsr_easu_gather_strip(const StripParts* sp, void* dst, int src_dtype, int dtype, int out_dtype,
+                                     int nb, int channels, int hin, int win, int hout, int wout, const void* rows,
+                                     const void* cols, const void* py, const void* px, float sharp,
+                                     int apply_rcas, int denoise, int srtm, const EpilogueParams* epi,
+                                     void* stream) {
+  return easu_gather<true>(nullptr, sp, dst, src_dtype, dtype, out_dtype, nb, channels, hin, win, hout, wout,
+                           rows, cols, py, px, sharp, apply_rcas, denoise, srtm, epi, stream);
+}
+#endif

@@ -121,14 +121,27 @@ __device__ __forceinline__ float as_storage<__half>(float v) {
   return __half2float(__float2half_rn(v));
 }
 
-// Load a source element of type S, rounded to storage type T, widened.  A
-// decoded byte is never rounded to the storage type.
-template <typename T, typename S>
+// The same loads through the read-only data cache (__ldg), for a source the
+// compiler cannot see is read-only (the strip-source form's parts, which no
+// __restrict__ kernel parameter names).
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float ldg(const uint8_t* p) { return __fmul_rn((float)__ldg(p), INV255); }
+
+// Load a source element of type S, rounded to storage type T, widened (NC:
+// through the read-only data cache).  A decoded byte is never rounded to
+// the storage type.
+template <typename T, bool NC = false, typename S>
 __device__ __forceinline__ float ld_as(const S* p) {
+  float v;
+  if constexpr (NC)
+    v = ldg(p);
+  else
+    v = ld(p);
   if constexpr (std::is_same<S, uint8_t>::value) {
-    return ld(p);
+    return v;
   } else {
-    return as_storage<T>(ld(p));
+    return as_storage<T>(v);
   }
 }
 
@@ -560,6 +573,81 @@ __device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, 
     rcas_pixel<DENOISE>(b, d, e, f, hh, sharp, v);
     store(Y, X, v);
   }
+}
+
+// The strip-source form of K1 and K2 (kernels/halo.py:StripSource): a row
+// strip of a row-sharded frame read in place from three parts, as the host
+// passes them.  Each part is (..., C, rows, win) with rows of win contiguous
+// elements, its planes and frames at its own strides (a view of a larger
+// tensor, or a buffer on a neighbour's card read by peer access).  The
+// kernels index the virtual halo'd strip of h + 2 * halo rows as they index
+// a whole source; only the load's address comes from here:
+//   row r < halo           up's row rows_up - halo + r (no up: own row 0);
+//   halo <= r < halo + h   own's row r - halo;
+//   r >= halo + h          down's row r - halo - h (no down: own row h - 1).
+// These are the rows parallel/spatial.py:_exchange_halo's torch.cat gives.
+struct StripParts {
+  const void* ptr[3];  // up (or null), own, down (or null)
+  long long plane[3];  // each part's plane stride, in elements
+  long long frame[3];  // its frame stride, in elements
+  int rows[3];
+  int halo;
+};
+
+template <typename S>
+struct StripSrc {
+  const S* up;
+  const S* own;
+  const S* down;
+  int64_t up_plane, own_plane, down_plane;
+  int64_t up_frame, own_frame, down_frame;
+  int up_row0;  // up's row of virtual row 0: its rows less halo
+  int halo, h;
+};
+
+// A pack of one strip source (the strip-source form's trailing kernel
+// argument), as itself.
+template <typename S>
+__device__ __forceinline__ const StripSrc<S>& only(const StripSrc<S>& s) {
+  return s;
+}
+
+// The strip-source form's staging of frame n: a block's window rows
+// 0 .. fh - 1 hold the virtual rows clamp(r0 + r, 0, hin - 1), which are
+// non-decreasing in r, so they fall into three runs by part: [0, a) from
+// up, [a, b) from own, [b, fh) from down (a = 0 without up and b = fh
+// without down, own's edge row repeated).  run(rb, re, base, plane, row)
+// loads window rows rb .. re - 1 from base + row(r) * win at the part's
+// plane stride: within a run the base and the plane are uniform, so its
+// loads take the whole-frame form's address arithmetic (a select of the
+// part per texel, ahead of every load, slowed K1's quad path).
+template <typename S, typename Run>
+__device__ __forceinline__ void stage_strip(const StripSrc<S>& s, int64_t n, int r0, int fh, int hin, Run run) {
+  const int a = s.up != nullptr ? min(max(s.halo - r0, 0), fh) : 0;
+  const int b = s.down != nullptr ? min(max(s.halo + s.h - r0, 0), fh) : fh;
+  if (a > 0) run(0, a, s.up + n * s.up_frame, s.up_plane, [&](int r) { return s.up_row0 + max(r0 + r, 0); });
+  run(a, b, s.own + n * s.own_frame, s.own_plane, [&](int r) { return min(max(r0 + r - s.halo, 0), s.h - 1); });
+  if (b < fh)
+    run(b, fh, s.down + n * s.down_frame, s.down_plane,
+        [&](int r) { return min(r0 + r, hin - 1) - s.halo - s.h; });
+}
+
+// The parts of frames n0 on, for a launch of K1 or K2 over a chunk of
+// frames (launch_frames).
+template <typename S>
+StripSrc<S> strip_src(const StripParts& sp, int64_t n0) {
+  auto at = [&](int i) {
+    return sp.ptr[i] == nullptr ? nullptr : static_cast<const S*>(sp.ptr[i]) + n0 * sp.frame[i];
+  };
+  return StripSrc<S>{at(0), at(1), at(2), sp.plane[0], sp.plane[1], sp.plane[2], sp.frame[0], sp.frame[1],
+                     sp.frame[2], sp.rows[0] - sp.halo, sp.halo, sp.rows[1]};
+}
+
+// The host's checks of a strip source for an hin-row virtual strip.
+inline bool strip_ok(const StripParts* sp, int hin) {
+  if (sp == nullptr || sp->ptr[1] == nullptr || sp->halo < 1 || sp->rows[1] < 1) return false;
+  if (hin != sp->rows[1] + 2 * sp->halo) return false;
+  return (sp->ptr[0] == nullptr || sp->rows[0] >= sp->halo) && (sp->ptr[2] == nullptr || sp->rows[2] >= sp->halo);
 }
 
 // Host side: launch(grid, n0) once per chunk of at most 65535 frames (the

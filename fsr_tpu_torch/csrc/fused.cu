@@ -85,6 +85,15 @@
 // the strip has a neighbour row, which the ring computes from the halo as
 // the whole frame's EASU would; only global row 0 and global_rows - 1
 // clamp.  The epilogue's dither takes the global row (EpilogueParams.row0).
+// A strip's source is either its halo'd rows as one tensor, or, in the
+// strip-source form (fused_kernel_strip, fsr_upscale_fused_strip), three
+// parts read in place: the strip above's rows, its own and the strip
+// below's (fsr_pixel.cuh:StripSrc).  That form indexes the same virtual
+// halo'd strip and changes only the staging load's address, so a strip's
+// bits are those of the halo'd tensor; the halo rows are H1's, which no
+// launch of its own copies any more.  It is compiled in its own
+// translation unit (fused_strip.cu), and the whole-frame kernels' code is
+// the same as without it.
 //
 // Bound: f32 arithmetic (~489 ops per output pixel for the function; the
 // kernel runs the ring recompute on top, 1.138x at 30 x 30) and the
@@ -182,10 +191,11 @@ struct Stage {
 };
 
 // Load the block's window and tables (see the source note), then a barrier.
-// T is the storage type a float source rounds to, S the source's.
-template <typename T, typename S, bool QUAD, bool RGBA>
+// T is the storage type a float source rounds to, S the source's; strip:
+// empty for a whole source, else its strip source (the loads' addresses).
+template <typename T, typename S, bool QUAD, bool RGBA, typename... Strip>
 __device__ __forceinline__ void stage(Stage<QUAD, RGBA>& st, const S* __restrict__ src, const Params& p,
-                                      int y0, int x0) {
+                                      int y0, int x0, const Strip&... strip) {
   constexpr int WW = Stage<QUAD, RGBA>::WW;
   const int r0 = f_of(y0 - 1, p.ly, p.ry) - 1;
   const int c0 = f_of(x0 - 1, p.lx, p.rx) - 1;
@@ -198,17 +208,33 @@ __device__ __forceinline__ void stage(Stage<QUAD, RGBA>& st, const S* __restrict
     fw = f_of(x0 + TW, p.lx, p.rx) + 2 - c0 + 1;
     if (fh > Win<false>::H || fw > Win<false>::W) __trap();  // the host's window check failed to hold
   }
-  const int64_t plane = (int64_t)p.hin * p.win;
-  for (int k = threadIdx.x; k < fh * fw; k += NTHREADS) {
-    const int r = k / fw;
-    const int c = k - r * fw;
-    const int sr = min(max(r0 + r, 0), p.hin - 1);
-    const int sc = min(max(c0 + c, 0), p.win - 1);
-    const S* at = src + (int64_t)sr * p.win + sc;
-    float cr = ld_as<T>(at), cg = ld_as<T>(at + plane), cb = ld_as<T>(at + 2 * plane);
-    if (p.srtm) srtm_texel(cr, cg, cb);
-    st.tex[r * WW + c] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
-    if constexpr (RGBA) st.alpha[r * WW + c] = ld_as<T>(at + 3 * plane);
+  if constexpr (sizeof...(Strip) > 0) {
+    // A strip's parts, run by run, loaded through the read-only cache.
+    auto run = [&](int rb, int re, const S* base, int64_t pl, auto row) {
+      for (int k = rb * fw + threadIdx.x; k < re * fw; k += NTHREADS) {
+        const int r = k / fw;
+        const int c = k - r * fw;
+        const S* at = base + (int64_t)row(r) * p.win + min(max(c0 + c, 0), p.win - 1);
+        float cr = ld_as<T, true>(at), cg = ld_as<T, true>(at + pl), cb = ld_as<T, true>(at + 2 * pl);
+        if (p.srtm) srtm_texel(cr, cg, cb);
+        st.tex[r * WW + c] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
+        if constexpr (RGBA) st.alpha[r * WW + c] = ld_as<T, true>(at + 3 * pl);
+      }
+    };
+    stage_strip(only(strip...), blockIdx.z, r0, fh, p.hin, run);
+  } else {
+    const int64_t plane = (int64_t)p.hin * p.win;
+    for (int k = threadIdx.x; k < fh * fw; k += NTHREADS) {
+      const int r = k / fw;
+      const int c = k - r * fw;
+      const int sr = min(max(r0 + r, 0), p.hin - 1);
+      const int sc = min(max(c0 + c, 0), p.win - 1);
+      const S* at = src + (int64_t)sr * p.win + sc;
+      float cr = ld_as<T>(at), cg = ld_as<T>(at + plane), cb = ld_as<T>(at + 2 * plane);
+      if (p.srtm) srtm_texel(cr, cg, cb);
+      st.tex[r * WW + c] = make_float4(cr, cg, cb, luma2(cr, cg, cb));
+      if constexpr (RGBA) st.alpha[r * WW + c] = ld_as<T>(at + 3 * plane);
+    }
   }
   for (int i = threadIdx.x; i < RH + RW; i += NTHREADS) {
     if (i < RH) {
@@ -428,16 +454,18 @@ __device__ __forceinline__ void ring_easu(Stage<QUAD, RGBA>& st) {
   __syncthreads();
 }
 
-template <typename S, typename T, typename O, bool QUAD, bool DENOISE, bool RGBA>
-__global__ void __launch_bounds__(NTHREADS, QUAD ? FSR_K1_QUAD_MIN_BLOCKS : FSR_K1_MIN_BLOCKS)
-    fused_kernel(const S* __restrict__ src, O* __restrict__ dst, Params p) {
+// One block's tile: the kernels' body, for a whole source (src) or a strip
+// source (strip).
+template <typename S, typename T, typename O, bool QUAD, bool DENOISE, bool RGBA, typename... Strip>
+__device__ __forceinline__ void fused_tile(const S* __restrict__ src, O* __restrict__ dst, const Params& p,
+                                           const Strip&... strip) {
   constexpr int C = RGBA ? 4 : 3;
   constexpr int WW = Stage<QUAD, RGBA>::WW;
   __shared__ Stage<QUAD, RGBA> st;
   const int64_t n = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
-  stage<T>(st, src + n * C * (int64_t)p.hin * p.win, p, y0, x0);
+  stage<T>(st, src + n * C * (int64_t)p.hin * p.win, p, y0, x0, strip...);
   ring_easu(st);
   O* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
@@ -482,31 +510,56 @@ __global__ void __launch_bounds__(NTHREADS, QUAD ? FSR_K1_QUAD_MIN_BLOCKS : FSR_
   }
 }
 
-template <typename S, typename T, typename O, bool QUAD, bool RGBA>
-int launch_planes(const void* src, void* dst, int nb, const Params& p, bool denoise, cudaStream_t stream) {
+template <typename S, typename T, typename O, bool QUAD, bool DENOISE, bool RGBA>
+__global__ void __launch_bounds__(NTHREADS, QUAD ? FSR_K1_QUAD_MIN_BLOCKS : FSR_K1_MIN_BLOCKS)
+    fused_kernel(const S* __restrict__ src, O* __restrict__ dst, Params p) {
+  fused_tile<S, T, O, QUAD, DENOISE, RGBA>(src, dst, p);
+}
+
+// The strip-source form (fsr_pixel.cuh:StripSrc): the same tile, each texel
+// loaded from the part that holds its row of the virtual halo'd strip.
+template <typename S, typename T, typename O, bool QUAD, bool DENOISE, bool RGBA>
+__global__ void __launch_bounds__(NTHREADS, QUAD ? FSR_K1_QUAD_MIN_BLOCKS : FSR_K1_MIN_BLOCKS)
+    fused_kernel_strip(StripSrc<S> strip, O* __restrict__ dst, Params p) {
+  fused_tile<S, T, O, QUAD, DENOISE, RGBA>(static_cast<const S*>(nullptr), dst, p, strip);
+}
+
+// STRIP: launch the strip-source form on sp, else the whole-frame form on
+// src.  Each form is compiled in its own translation unit (fused_strip.cu).
+template <bool STRIP, typename S, typename T, typename O, bool QUAD, bool RGBA>
+int launch_planes(const void* src, const StripParts* sp, void* dst, int nb, const Params& p, bool denoise,
+                  cudaStream_t stream) {
   constexpr int C = RGBA ? 4 : 3;
   const int64_t in_frame = C * (int64_t)p.hin * p.win;
   const int64_t out_frame = C * (int64_t)p.hout * p.wout;
   return launch_frames<TH, TW>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
-    const S* s = static_cast<const S*>(src) + n0 * in_frame;
     O* d = static_cast<O*>(dst) + n0 * out_frame;
-    if (denoise)
-      fused_kernel<S, T, O, QUAD, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
-    else
-      fused_kernel<S, T, O, QUAD, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    if constexpr (STRIP) {
+      const StripSrc<S> s = strip_src<S>(*sp, n0);
+      if (denoise)
+        fused_kernel_strip<S, T, O, QUAD, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      else
+        fused_kernel_strip<S, T, O, QUAD, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    } else {
+      const S* s = static_cast<const S*>(src) + n0 * in_frame;
+      if (denoise)
+        fused_kernel<S, T, O, QUAD, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      else
+        fused_kernel<S, T, O, QUAD, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+    }
   });
 }
 
 // The path and the channel count are template parameters, so the RGB
 // kernels carry no alpha code and the quad kernels no table reads per tap.
-template <typename S, typename T, typename O>
-int launch(const void* src, void* dst, int nb, int channels, bool quad, const Params& p, bool denoise,
-           cudaStream_t stream) {
+template <bool STRIP, typename S, typename T, typename O>
+int launch(const void* src, const StripParts* sp, void* dst, int nb, int channels, bool quad, const Params& p,
+           bool denoise, cudaStream_t stream) {
   if (quad)
-    return channels == 4 ? launch_planes<S, T, O, true, true>(src, dst, nb, p, denoise, stream)
-                         : launch_planes<S, T, O, true, false>(src, dst, nb, p, denoise, stream);
-  return channels == 4 ? launch_planes<S, T, O, false, true>(src, dst, nb, p, denoise, stream)
-                       : launch_planes<S, T, O, false, false>(src, dst, nb, p, denoise, stream);
+    return channels == 4 ? launch_planes<STRIP, S, T, O, true, true>(src, sp, dst, nb, p, denoise, stream)
+                         : launch_planes<STRIP, S, T, O, true, false>(src, sp, dst, nb, p, denoise, stream);
+  return channels == 4 ? launch_planes<STRIP, S, T, O, false, true>(src, sp, dst, nb, p, denoise, stream)
+                       : launch_planes<STRIP, S, T, O, false, false>(src, sp, dst, nb, p, denoise, stream);
 }
 
 // The quad path's structure on one axis (see the source note).
@@ -514,34 +567,21 @@ bool quad_axis(int q, const int* r, const float* f) {
   return q == 2 && r[1] == r[0] + 1 && f[0] == 0.75f && f[1] == 0.25f;
 }
 
-}  // namespace
-
-// The FSR_ABL_* knockouts this library was built with, one bit each
-// (fsr_pixel.cuh:ABLATION_MASK); 0 for the production build.
-extern "C" int fsr_ablation_mask(void) { return ABLATION_MASK; }
-
-// dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
-// bfloat16 or uint8), dtype the storage type (float32 or bfloat16; a
-// float32 source rounds to it at load), out_dtype the output's: the storage
-// type, or uint8/uint16 codes; a uint8 source may also store float32 or
-// bfloat16.  channels: 3, or 4 with alpha in plane 3 of the source and the
-// output.  hin, win: the source's extent, which every texel index is
-// clamped to.  qy, qx: 1, 2 or 4; ry, rx: the source row/column of each
-// phase's 'f' texel at plane index 0 (may lie outside the source).  quad: 1
-// takes the quad path, which the phase structure must allow; 0 the generic
-// path.  srtm: 1 runs the SRTM prologue; ylo, yhi: the ring's row clamp;
-// epi: the K5 epilogue (host struct, device pointers inside).
-extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int dtype, int out_dtype, int nb,
-                                 int channels, int hin, int win, int hout, int wout, int qy, int qx,
-                                 const int* ry, const int* rx, const float* py, const float* px, float sharp,
-                                 int apply_rcas, int denoise, int srtm, int ylo, int yhi, int quad,
-                                 const EpilogueParams* epi, void* stream) {
+// The C entry points' body: the checks, the parameters and the dispatch on
+// the types, for the whole-frame form (STRIP false: src) or the strip-source
+// form (sp).
+template <bool STRIP>
+int upscale_fused(const void* src, const StripParts* sp, void* dst, int src_dtype, int dtype, int out_dtype,
+                  int nb, int channels, int hin, int win, int hout, int wout, int qy, int qx, const int* ry,
+                  const int* rx, const float* py, const float* px, float sharp, int apply_rcas, int denoise,
+                  int srtm, int ylo, int yhi, int quad, const EpilogueParams* epi, void* stream) {
   if ((qy != 1 && qy != 2 && qy != 4) || (qx != 1 && qx != 2 && qx != 4))
     return (int)cudaErrorInvalidValue;
   if (channels != 3 && channels != 4) return (int)cudaErrorInvalidValue;
   if (ylo < -1 || ylo > 0 || yhi < hout - 1 || yhi > hout) return (int)cudaErrorInvalidValue;
   if (quad && !(quad_axis(qy, ry, py) && quad_axis(qx, rx, px))) return (int)cudaErrorInvalidValue;
   if (hin < 1 || win < 1) return (int)cudaErrorInvalidValue;
+  if (STRIP && !strip_ok(sp, hin)) return (int)cudaErrorInvalidValue;
   Params p;
   p.ly = qy / 2;  // log2 of 1, 2, 4
   p.lx = qx / 2;
@@ -572,26 +612,68 @@ extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int 
   // Only a float32 source rounds to a bfloat16 storage type at load; a
   // bfloat16 source widens exactly and a byte decodes, whatever the storage.
   if (src_dtype == F32 && dtype == BF16) {
-    if (out_dtype == BF16) return launch<float, bf16, bf16>(src, dst, nb, channels, q, p, dn, s);
-    if (out_dtype == U8) return launch<float, bf16, uint8_t>(src, dst, nb, channels, q, p, dn, s);
-    return launch<float, bf16, uint16_t>(src, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == BF16) return launch<STRIP, float, bf16, bf16>(src, sp, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == U8) return launch<STRIP, float, bf16, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
+    return launch<STRIP, float, bf16, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
   }
   if (src_dtype == F32) {
-    if (out_dtype == F32) return launch<float, float, float>(src, dst, nb, channels, q, p, dn, s);
-    if (out_dtype == U8) return launch<float, float, uint8_t>(src, dst, nb, channels, q, p, dn, s);
-    return launch<float, float, uint16_t>(src, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == F32) return launch<STRIP, float, float, float>(src, sp, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == U8) return launch<STRIP, float, float, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
+    return launch<STRIP, float, float, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
   }
   if (src_dtype == BF16) {
-    if (out_dtype == F32) return launch<bf16, float, float>(src, dst, nb, channels, q, p, dn, s);
-    if (out_dtype == BF16) return launch<bf16, float, bf16>(src, dst, nb, channels, q, p, dn, s);
-    if (out_dtype == U8) return launch<bf16, float, uint8_t>(src, dst, nb, channels, q, p, dn, s);
-    return launch<bf16, float, uint16_t>(src, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == F32) return launch<STRIP, bf16, float, float>(src, sp, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == BF16) return launch<STRIP, bf16, float, bf16>(src, sp, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == U8) return launch<STRIP, bf16, float, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
+    return launch<STRIP, bf16, float, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
   }
   if (src_dtype == U8) {
-    if (out_dtype == F32) return launch<uint8_t, float, float>(src, dst, nb, channels, q, p, dn, s);
-    if (out_dtype == BF16) return launch<uint8_t, float, bf16>(src, dst, nb, channels, q, p, dn, s);
-    if (out_dtype == U8) return launch<uint8_t, float, uint8_t>(src, dst, nb, channels, q, p, dn, s);
-    return launch<uint8_t, float, uint16_t>(src, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == F32) return launch<STRIP, uint8_t, float, float>(src, sp, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == BF16) return launch<STRIP, uint8_t, float, bf16>(src, sp, dst, nb, channels, q, p, dn, s);
+    if (out_dtype == U8) return launch<STRIP, uint8_t, float, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
+    return launch<STRIP, uint8_t, float, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+#ifndef FSR_STRIP_TU
+// The FSR_ABL_* knockouts this library was built with, one bit each
+// (fsr_pixel.cuh:ABLATION_MASK); 0 for the production build.
+extern "C" int fsr_ablation_mask(void) { return ABLATION_MASK; }
+
+// dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
+// bfloat16 or uint8), dtype the storage type (float32 or bfloat16; a
+// float32 source rounds to it at load), out_dtype the output's: the storage
+// type, or uint8/uint16 codes; a uint8 source may also store float32 or
+// bfloat16.  channels: 3, or 4 with alpha in plane 3 of the source and the
+// output.  hin, win: the source's extent, which every texel index is
+// clamped to.  qy, qx: 1, 2 or 4; ry, rx: the source row/column of each
+// phase's 'f' texel at plane index 0 (may lie outside the source).  quad: 1
+// takes the quad path, which the phase structure must allow; 0 the generic
+// path.  srtm: 1 runs the SRTM prologue; ylo, yhi: the ring's row clamp;
+// epi: the K5 epilogue (host struct, device pointers inside).
+extern "C" int fsr_upscale_fused(const void* src, void* dst, int src_dtype, int dtype, int out_dtype, int nb,
+                                 int channels, int hin, int win, int hout, int wout, int qy, int qx,
+                                 const int* ry, const int* rx, const float* py, const float* px, float sharp,
+                                 int apply_rcas, int denoise, int srtm, int ylo, int yhi, int quad,
+                                 const EpilogueParams* epi, void* stream) {
+  return upscale_fused<false>(src, nullptr, dst, src_dtype, dtype, out_dtype, nb, channels, hin, win, hout, wout,
+                              qy, qx, ry, rx, py, px, sharp, apply_rcas, denoise, srtm, ylo, yhi, quad, epi,
+                              stream);
+}
+#else
+// K1 on a row strip read in place from its three parts (sp: fsr_pixel.cuh's
+// StripParts); hin is the virtual halo'd strip's rows, own's rows plus
+// 2 * halo.  The other arguments are fsr_upscale_fused's.
+extern "C" int fsr_upscale_fused_strip(const StripParts* sp, void* dst, int src_dtype, int dtype, int out_dtype,
+                                       int nb, int channels, int hin, int win, int hout, int wout, int qy, int qx,
+                                       const int* ry, const int* rx, const float* py, const float* px,
+                                       float sharp, int apply_rcas, int denoise, int srtm, int ylo, int yhi,
+                                       int quad, const EpilogueParams* epi, void* stream) {
+  return upscale_fused<true>(nullptr, sp, dst, src_dtype, dtype, out_dtype, nb, channels, hin, win, hout, wout,
+                             qy, qx, ry, rx, py, px, sharp, apply_rcas, denoise, srtm, ylo, yhi, quad, epi,
+                             stream);
+}
+#endif

@@ -102,11 +102,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsr_fma_rate.restype = i
     lib.fsr_fp16_probe.argtypes = [vp, vp, ll, i, vp]
     lib.fsr_fp16_probe.restype = i
-    # Sources from before H1 (a parent commit's, kernel_ab.py) have no halo
-    # kernel.
-    if hasattr(lib, "fsr_halo_rows"):
-        lib.fsr_halo_rows.argtypes = [vp, vp, vp, ll, i, i, ll, vp, vp, vp]
-        lib.fsr_halo_rows.restype = i
+    # Sources from before the strip-source form or peer access (a parent
+    # commit's, kernel_ab.py) have neither.
+    if hasattr(lib, "fsr_upscale_fused_strip"):
+        lib.fsr_upscale_fused_strip.argtypes = list(lib.fsr_upscale_fused.argtypes)
+        lib.fsr_upscale_fused_strip.restype = i
+        lib.fsr_easu_gather_strip.argtypes = list(lib.fsr_easu_gather.argtypes)
+        lib.fsr_easu_gather_strip.restype = i
+    if hasattr(lib, "fsr_enable_peer"):
         lib.fsr_enable_peer.argtypes = [i, i]
         lib.fsr_enable_peer.restype = i
     # Sources from before the knockouts (a parent commit's, kernel_ab.py)

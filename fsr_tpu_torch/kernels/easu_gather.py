@@ -36,7 +36,9 @@ k's row tables from the GLOBAL mapping, for output rows k*hl - 1 .. (k+1)*hl
 clipped to the frame (the global RCAS border), with source rows relative to
 the strip and its halo rows; ``easu_gather(row_plan=, row_offset=)`` runs K2
 on the strip with them, the epilogue's dither at global rows.  The kernel is
-the same: only its tables differ.
+the same: only its tables differ.  The strip's source is one halo'd tensor,
+or a ``halo.StripSource`` that K2's strip-source form reads in place (the
+halo rows of H1 with no copy).
 
 The TPU kernel's hybrid X-phase, one-hot row selectors, dynamic-roll column
 gathers, tile sweeps and one-tile software pipeline, and the shard plans'
@@ -49,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -56,7 +59,7 @@ import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
-from fsr_tpu_torch.kernels import fused, pad
+from fsr_tpu_torch.kernels import fused, halo, pad
 from fsr_tpu_torch.ops.easu import easu_coords
 from fsr_tpu_torch.utils import capture
 
@@ -248,9 +251,12 @@ def easu_gather_reference(
     row_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version of K2, on any device: the source as the kernel loads
-    it (rounded to the storage dtype, or a decoded byte), then
+    it (rounded to the storage dtype, or a decoded byte; a
+    ``halo.StripSource`` first read by ``halo.halo_rows_reference``), then
     ``fused.easu_rcas_reference`` on the plan's clipped tap indices, the
     epilogue and one store."""
+    if isinstance(image, halo.StripSource):
+        image = halo.halo_rows_reference(image)
     gplan, out_hw, sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype,
                                             prologue, out_dtype, row_plan)
     epi = epilogue_mod.bind(epilogue, out_hw, frame, grain, dither_page, image.device, row_offset)
@@ -287,7 +293,9 @@ def easu_gather(
     with the prologue, the epilogue and RGBA's bilinear alpha inside.  A row
     strip passes its halo'd source, ``out_size`` (hl, Wout), its
     ``row_plan`` (``shard_plan``) and ``row_offset`` (its first global output
-    row; ``grain`` is the strip's own rows).  CUDA tensors launch
+    row; ``grain`` is the strip's own rows); its source may be a
+    ``halo.StripSource``, read in place from its parts (K2's strip-source
+    form, the parts checked by ``halo.check``).  CUDA tensors launch
     ``csrc/easu_gather.cu``; CPU tensors run ``easu_gather_reference``."""
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
               out_dtype=out_dtype, dither_page=dither_page, row_plan=row_plan, row_offset=row_offset)
@@ -303,7 +311,10 @@ def easu_gather(
         raise ValueError(f"K2's blocks cannot stage the source footprint of this plan ({tuple(image.shape[-2:])} -> "
                          f"{(hout, wout)}): the constants' scale is a downscale, or its tables decrease")
     epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device, row_offset)
-    image = image.contiguous()
+    strip = isinstance(image, halo.StripSource)
+    parts = halo.check(image) if strip else None
+    if not strip:
+        image = image.contiguous()
     *lead, nc, hin, win = image.shape
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dt, device=image.device)
     if out.numel() == 0:
@@ -313,12 +324,16 @@ def easu_gather(
 
     lib = _build.library()
     cepi = epilogue_mod.c_params(epi)
+    if strip:
+        entry, first = lib.fsr_easu_gather_strip, ctypes.addressof(parts)
+    else:
+        entry, first = lib.fsr_easu_gather, image.data_ptr()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.fsr_easu_gather(
-            image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype],
+        err = entry(
+            first, out.data_ptr(), pad.DTYPE_CODES[image.dtype],
             pad.DTYPE_CODES[compute_dtype], pad.DTYPE_CODES[out_dt],
-            image.numel() // (nc * hin * win), nc, hin, win, hout, wout,
+            math.prod(lead), nc, hin, win, hout, wout,
             rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
             sharp, int(apply_rcas), int(denoise), int(prologue == "srtm"),
             ctypes.addressof(cepi), stream,

@@ -42,7 +42,10 @@ rows, from a source strip with halo rows around it and shard-local
 constants (``parallel.spatial._local_constants``).  The RCAS ring computes
 the neighbour rows from the halo, and clamps only at global row 0 and
 ``global_rows - 1``; the epilogue's dither takes global rows.  K1 stores
-the strip's own rows, no ring rows.
+the strip's own rows, no ring rows.  The strip's source is one halo'd
+tensor, or a ``halo.StripSource`` (the strip above's rows, its own, the
+strip below's), which K1's strip-source form reads in place: the halo rows
+of H1 with no copy, bit-equal to K1 on the halo'd tensor.
 
 The TPU kernel's tile plans, riffles, row packing, in-kernel pad and
 software pipeline are TPU layout machinery with no counterpart here.
@@ -53,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Tuple
 
 import numpy as np
@@ -61,7 +65,7 @@ import torch
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
-from fsr_tpu_torch.kernels import pad
+from fsr_tpu_torch.kernels import halo, pad
 from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops.easu import easu_coords
 from fsr_tpu_torch.ops.rcas import shift_clamped
@@ -414,15 +418,18 @@ def _checked_path(fplan: FusedPlan, out_size: Tuple[int, int], path: str) -> str
 
 def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologue, epi, out_dtype,
             row_offset, global_rows, path) -> torch.Tensor:
-    """Launch K1 on the CUDA tensor ``src`` (..., C, H, W), whose texels
-    the plan's 'f' offsets index (clamped to its extent); ``dtype`` the
-    storage type a float32 source rounds to."""
+    """Launch K1 on ``src``: a CUDA tensor (..., C, H, W), whose texels the
+    plan's 'f' offsets index (clamped to its extent), or a
+    ``halo.StripSource`` on a card (its virtual halo'd strip, read in place);
+    ``dtype`` the storage type a float32 source rounds to."""
+    strip = isinstance(src, halo.StripSource)
     if src.device.type != "cuda":
         raise ValueError(f"K1 takes a CPU or CUDA tensor, got {src.device}")
     if src.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
         raise TypeError(f"fused kernel takes float32/bfloat16/uint8 sources, got {src.dtype}")
-    if src.dim() < 3 or src.shape[-3] not in (3, 4) or not src.is_contiguous():
+    if src.dim() < 3 or src.shape[-3] not in (3, 4) or not (strip or src.is_contiguous()):
         raise ValueError(f"fused kernel needs a contiguous (..., 3 or 4, H, W) tensor, got {tuple(src.shape)}")
+    parts = halo.check(src) if strip else None
     _check_prologue(prologue)
     hout, wout = (int(v) for v in out_size)
     ylo, yhi = ring_rows(hout, row_offset, global_rows)
@@ -431,7 +438,7 @@ def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologu
     if hin == 0 or win == 0:
         raise ValueError("fused kernel needs a non-empty source")
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dtype, device=src.device)
-    nb = src.numel() // (nc * hin * win)
+    nb = math.prod(lead)
     if out.numel() == 0:
         return out
     from fsr_tpu_torch.kernels import _build
@@ -443,10 +450,14 @@ def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologu
     px = (ctypes.c_float * 4)(*fplan.px)
     cepi = epilogue_mod.c_params(epi)
     codes = pad.DTYPE_CODES
+    if strip:
+        entry, first = lib.fsr_upscale_fused_strip, ctypes.addressof(parts)
+    else:
+        entry, first = lib.fsr_upscale_fused, src.data_ptr()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.fsr_upscale_fused(
-            src.data_ptr(), out.data_ptr(), codes[src.dtype], codes[dtype], codes[out_dtype], nb, nc, hin, win,
+        err = entry(
+            first, out.data_ptr(), codes[src.dtype], codes[dtype], codes[out_dtype], nb, nc, hin, win,
             hout, wout, fplan.qy, fplan.qx, ry, rx, py, px, float(sharpness), int(apply_rcas), int(denoise),
             int(prologue == "srtm"), ylo, yhi, int(path == "quad"), ctypes.addressof(cepi), stream,
         )
@@ -544,7 +555,10 @@ def upscale_fused(
     "generic"), the plain version on a CPU tensor.  Returns (..., C, Hout, Wout) in ``out_dtype`` (default
     compute_dtype, the storage; the math is float32).  A row strip passes
     its halo'd source, shard-local constants, ``row_offset`` and
-    ``global_rows`` (``grain`` is then the strip's own rows)."""
+    ``global_rows`` (``grain`` is then the strip's own rows); its source may
+    be a ``halo.StripSource``, its rows read in place from their parts (on
+    a card, K1's strip-source form, the parts checked by ``halo.check``; on
+    the CPU, ``halo.halo_rows_reference`` then the plain version)."""
     if image.device.type == "cpu":
         return upscale_fused_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype,
                                        epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
@@ -554,8 +568,9 @@ def upscale_fused(
     epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device, row_offset)
     sharp = float(rcon.sharpness) if rcon is not None else 1.0
     dtype = storage if storage in pad.FLOAT_DTYPES else torch.float32
-    return _launch(image.contiguous(), source_plan(fplan), dtype, out_size, sharp, apply_rcas, denoise, prologue,
-                   epi, out_dt, row_offset, global_rows, path)
+    src = image if isinstance(image, halo.StripSource) else image.contiguous()
+    return _launch(src, source_plan(fplan), dtype, out_size, sharp, apply_rcas, denoise, prologue, epi, out_dt,
+                   row_offset, global_rows, path)
 
 
 def upscale_fused_reference(
@@ -577,7 +592,10 @@ def upscale_fused_reference(
     global_rows=None,
 ) -> torch.Tensor:
     """Plain version of ``upscale_fused`` (K4 and K1 plain versions), on
-    any device."""
+    any device; a ``halo.StripSource`` is first read by its plain version,
+    ``halo.halo_rows_reference``."""
+    if isinstance(image, halo.StripSource):
+        image = halo.halo_rows_reference(image)
     fplan, storage, out_dt = _prepare(image, out_size, con, compute_dtype, out_dtype)
     epi = epilogue_mod.bind(epilogue, out_size, frame, grain, dither_page, image.device, row_offset)
     padded = pad.edge_pad_reference(image, fplan.pads, storage)

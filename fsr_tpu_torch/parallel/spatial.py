@@ -2,12 +2,15 @@
 
 Counterpart of ``fsr_tpu/parallel/spatial.py``.  One frame is split along
 its rows across the ``axis`` of a ``Mesh``; each device upscales its strip
-after taking a few rows of halo from its neighbours' strips, copied
-device-to-device (``Tensor.to``; peer-to-peer over NVLink between cards),
-with edge replication at the frame's top and bottom (the sampler's CLAMP).
-One process drives every device (``parallel/sharding.py``); launches are
-asynchronous, so strips on different cards overlap, and each copy is
-ordered before the kernels that read it on the devices' current streams.
+with a few rows of halo from its neighbours' strips, with edge replication
+at the frame's top and bottom (the sampler's CLAMP).  The kernels read a
+strip's rows in place (``kernels.halo.StripSource``: the strip above's
+rows, its own, the strip below's): a neighbour on the same device is read
+where it lies, and one on another card sends only its ``halo`` edge rows,
+copied card to card (``Tensor.to``; peer-to-peer over NVLink).  One process
+drives every device (``parallel/sharding.py``); launches are asynchronous,
+so strips on different cards overlap, and each copy is ordered before the
+kernels that read it on the devices' current streams.
 The input and the result are row-sharded, as JAX's ``shard_map`` takes and
 returns them (``P(..., None, axis, None)``): each strip's output stays on
 its device in a ``sharding.Sharded``, and a row-sharded input moves
@@ -36,17 +39,19 @@ with the same global row plans (``ops.easu(rows=)``), as the JAX package
 runs it on XLA.
 
 A call is three parts: the host layout of its configuration (``_layout``,
-cached: strips, ``Strip``s, halo, row plans, local constants), the staging
-step that builds each strip's halo'd input (``_exchange_halo``), and the
-per-strip body (``_body``: ``api._upscale(..., strip=)``).  The eager call
-(``upscale_spatial_sharded``, ``UpscalePipeline(mesh=)``) stages into fresh
-tensors and runs the bodies; ``CapturedSpatial``, the counterpart of JAX's
+cached: strips, ``Strip``s, halo, row plans, local constants), each
+strip's source (``_sources``: its own rows and its neighbours', as
+``StripSource``s; ``_exchange_halo`` is the plain row rule, the halo'd
+strips as fresh tensors), and the per-strip body (``_body``:
+``api._upscale(..., strip=)``).  The eager call (``upscale_spatial_sharded``,
+``UpscalePipeline(mesh=)``) runs the bodies on the input's own shards, with
+no copy on one device; ``CapturedSpatial``, the counterpart of JAX's
 ``jax.jit`` over its ``shard_map``s, captures each device's bodies once as
-one CUDA graph, each strip's body preceded by H1 (``kernels.halo``), which
-reads its halo rows from the neighbours' static buffers card to card, as
-JAX's ``ppermute`` runs inside its program; per call the host writes only
-each strip's own rows and the frame, then replays one graph per device,
-the devices ordered by CUDA events (``_schedule``).
+one CUDA graph, each strip's kernel reading its halo rows from the
+neighbours' static buffers card to card, as JAX's ``ppermute`` runs inside
+its program (H1, folded into K1 and K2); per call the host writes only each
+strip's own rows and the frame, then replays one graph per device, the
+devices ordered by CUDA events (``_schedule``).
 """
 
 from __future__ import annotations
@@ -123,31 +128,40 @@ def _local_constants(con: EasuConstants, halo: int) -> EasuConstants:
     )
 
 
+def _sources(strips, halo: int):
+    """Each strip of a frame group as its kernel reads it, a
+    ``StripSource``: its own rows (the shard itself, no copy), and its
+    neighbours' rows above and below, a neighbour's shard as it is where it
+    lies on the strip's device, else only its ``halo`` edge rows copied
+    there; None at the frame's top and bottom."""
+    out = []
+    for k, s in enumerate(strips):
+        up = down = None
+        if k:
+            up = strips[k - 1]
+            up = up if up.device == s.device else up[..., -halo:, :].to(s.device, non_blocking=True)
+        if k + 1 < len(strips):
+            down = strips[k + 1]
+            down = down if down.device == s.device else down[..., :halo, :].to(s.device, non_blocking=True)
+        out.append(halo_k.StripSource(up, s, down, halo))
+    return out
+
+
 def _exchange_halo(strips, halo: int, into=None):
-    """The staging step: each strip with ``halo`` neighbour rows on each
-    side, copied from the neighbours' devices to its own, with edge
-    replication at the global top and bottom.  Returns fresh tensors (one
-    ``torch.cat`` per strip, the eager call), or, given ``into`` (one
-    (..., h + 2 * halo, W) buffer per strip, on its device), writes the same
-    rows into those buffers (each strip's own rows, then its halo and edge
-    rows by H1's plain version, ``halo.halo_rows_reference``, from the
-    neighbours' buffers card to card) and returns them: a captured call's
-    static inputs as its construction lays them in."""
+    """The plain row rule of a frame group's halo exchange: each strip with
+    ``halo`` neighbour rows on each side, copied from the neighbours'
+    devices to its own, with edge replication at the global top and bottom
+    (``halo.halo_rows_reference`` of each ``_sources`` entry).  Returns fresh
+    tensors (one ``torch.cat`` per strip), or, given ``into`` (one (...,
+    h + 2 * halo, W) buffer per strip, on its device), writes the same rows
+    into those buffers and returns them.  The calls themselves read the
+    strips in place; this is what the plain versions read."""
+    out = [halo_k.halo_rows_reference(src) for src in _sources(strips, halo)]
     if into is None:
-        out = []
-        for k, s in enumerate(strips):
-            edge = (*s.shape[:-2], halo, s.shape[-1])
-            up = strips[k - 1][..., -halo:, :].to(s.device, non_blocking=True) if k else s[..., :1, :].expand(edge)
-            down = (strips[k + 1][..., :halo, :].to(s.device, non_blocking=True) if k + 1 < len(strips)
-                    else s[..., -1:, :].expand(edge))
-            out.append(torch.cat([up, s, down], dim=-2))
         return out
-    for s, buf in zip(strips, into):
+    for buf, rows in zip(into, out):
         with sharding._on(buf.device):
-            buf[..., halo:halo + s.shape[-2], :].copy_(s)
-    for k, buf in enumerate(into):
-        with sharding._on(buf.device):
-            halo_k.halo_rows_reference(into, k, halo)
+            buf.copy_(rows)
     return list(into)
 
 
@@ -155,7 +169,10 @@ def _reads(devices, n: int):
     """The distinct devices of a row-sharded call, in order, and what each
     one's program reads of the others' static inputs: its strips'
     neighbours' buffers (strip ``j`` of ``devices`` is strip ``j % n`` of
-    frame group ``j // n``) and the frame on the first strip's device."""
+    frame group ``j // n``), and the first strip's device, the frame's home.
+    Each card's program reads the frame from its own static, which its own
+    staging writes, so that last entry orders no read: its waits are
+    conservative."""
     order = list(dict.fromkeys(devices))
     reads = {d: {devices[0]} for d in order}
     for j, d in enumerate(devices):
@@ -257,9 +274,9 @@ def _options(apply_rcas=True, denoise=False, compute_dtype=torch.float32, epilog
 
 def _body(sharpness: float, opts: dict):
     """The per-strip body: ``body(layout, k, s, frame, grain, page)`` is
-    strip k's output rows from its halo'd input ``s``, with the frame index,
-    the strip's rows of the grain and the dither page as it takes them
-    (``api._upscale(..., strip=)``)."""
+    strip k's output rows from its source ``s`` (a ``StripSource``), with
+    the frame index, the strip's rows of the grain and the dither page as it
+    takes them (``api._upscale(..., strip=)``)."""
     from fsr_tpu_torch import api
 
     rcon = RcasConstants(sharpness)
@@ -297,8 +314,9 @@ def _result(mesh: Mesh, spec, outs, in_shape, out_size) -> Sharded:
 def _run(image, out_size, mesh: Mesh, axis: str, batch_axis, frame, grain, page, body, opts: dict,
          input_viewport=None, input_offset=(0, 0)) -> Sharded:
     """The eager row-sharded call: the input laid out on the mesh, then per
-    frame group the halo exchange (``_exchange_halo``, fresh tensors) and
-    ``body`` on each strip's device, the frame copied there
+    frame group each strip's source (``_sources``: its own shard and its
+    neighbours', only their edge rows copied between devices) and ``body``
+    on each strip's device, the frame copied there
     (``sharding.shard_frame``)."""
     out_size = tuple(int(v) for v in out_size)
     layout, spec = _prepare(image, out_size, mesh, axis, batch_axis, grain, opts, input_viewport, input_offset)
@@ -307,7 +325,7 @@ def _run(image, out_size, mesh: Mesh, axis: str, batch_axis, frame, grain, page,
     n, hl = layout.n, layout.out_hw[0]
     outs = []
     for i in range(0, len(x.shards), n):  # one frame group at a time
-        for k, s in enumerate(_exchange_halo(x.shards[i:i + n], layout.halo)):
+        for k, s in enumerate(_sources(x.shards[i:i + n], layout.halo)):
             g = None if grain is None else grain[:, k * hl:(k + 1) * hl]
             outs.append(body(layout, k, s, shard_frame(frame, src, s.device), g, page))
     return _result(mesh, x.spec, outs, x.shape, out_size)
@@ -372,28 +390,30 @@ class CapturedSpatial:
     and dtype every call takes; options: ``upscale_spatial_sharded``'s, but
     ``frame``, which each call takes, and ``grain``, which here is an
     example of the call's (a call takes one when the epilogue has grain).
-    The host layout (``_layout``) is built once.  Every strip's halo'd
-    buffer is allocated before any device's program is captured; each device
-    holds those of the strips it hosts, its rows of the grain when the
-    epilogue has grain, a 0-d int32 frame, and the dither page when the
-    epilogue reads one.  All the strips a device hosts run in one
-    ``CapturedFrame`` there (``sharding._PerDevice``), so ``[cuda:0] * 4``
-    gives one graph of four strips; each strip's part begins with H1
-    (``kernels.halo.halo_rows``: its halo rows from its neighbours' buffers,
-    by peer access where they lie on other cards; on a device other than the
-    first strip's, the first strip's H1 also copies the frame from there),
-    then runs the strip's body.  Neighbouring cards without peer access
-    raise ``ValueError`` at construction (``halo.enable_peers``): the eager
+    The host layout (``_layout``) is built once.  Every strip's buffer of
+    its own rows (``buffers``, each of a shard's shape) is allocated before
+    any device's program is captured; each device holds those of the strips
+    it hosts, its rows of the grain when the epilogue has grain, a 0-d int32
+    frame, and the dither page when the epilogue reads one.  All the strips
+    a device hosts run in one ``CapturedFrame`` there
+    (``sharding._PerDevice``), so ``[cuda:0] * 4`` gives one graph of four
+    strips; each strip's body reads its source as a
+    ``kernels.halo.StripSource`` over the buffers: its own, and its
+    neighbours' above and below, read in place by K1 or K2 (by peer access
+    where they lie on other cards; H1 folded into the kernels).
+    Neighbouring cards without peer access raise ``ValueError`` at
+    construction (``halo.enable_peers``): the eager
     ``upscale_spatial_sharded`` is for such hosts.  On CPU devices the same
-    staging, H1's plain version and bodies run eagerly.
+    staging and bodies run eagerly, each strip read by its plain version.
 
     A call ``(image, frame=0, grain=None)`` takes a tensor or a ``Sharded``
     of the example's shape, dtype and layout (else ``ValueError``, naming
     both) and stages it: each strip's own rows into its buffer (a same-card
     copy from a ``Sharded`` on the mesh; from a tensor on one card, the
-    put), its grain rows, the page, and the frame on the first strip's
-    device (``sharding._put_frame``: no host read for a tensor on the
-    input's device).  Then each device's graph replays on its current
+    put), its grain rows, the page, and the frame, on the first strip's
+    device and, when the programs read it (a hash dither, the pipeline's
+    after-pass), on every device (``sharding._put_frame``: no host read for
+    a tensor on the input's device).  Then each device's graph replays on its current
     stream, ordered across devices by events (``_schedule``), never by a
     host sync.  Returns a ``Sharded`` of the static outputs, overwritten by
     the next call (``CapturedFrame``'s contract: clone what you keep).
@@ -423,11 +443,11 @@ class CapturedSpatial:
         page_of = (lambda dev, frame: pipe._page(dev, frame, opts)) if paged else None
         self = cls.__new__(cls)
         self._build(example, pipe.out_size, pipe.mesh, pipe.spatial_axis, pipe.batch_axis,
-                    pipe._strip_body(opts, after), opts, grain, None, page_of, None, (0, 0))
+                    pipe._strip_body(opts, after), opts, grain, None, page_of, None, (0, 0), after)
         return self
 
     def _build(self, example, out_size, mesh, axis, batch_axis, body, opts, grain, page, page_of, input_viewport,
-               input_offset):
+               input_offset, after=False):
         out_size = tuple(int(v) for v in out_size)
         layout, spec = _prepare(example, out_size, mesh, axis, batch_axis, grain, opts, input_viewport,
                                 input_offset)
@@ -442,21 +462,19 @@ class CapturedSpatial:
         parts = sharding._parts(example, mesh, spec)
         devices = sharding._shard_devices(mesh, spec)
         n, halo, (hl, wout) = layout.n, layout.halo, layout.out_hw
-        self._home = home = devices[0]
+        home = devices[0]
         order, reads = _reads(devices, n)
         halo_k.enable_peers((d, e) for d, r in reads.items() for e in r)
         self._stage_steps, self._replay_steps = _schedule(order, reads)
         self._events = {step[2]: torch.cuda.Event() for step in self._stage_steps + self._replay_steps
                         if step[0] == "record"}
         self._strips_on = {d: [j for j, e in enumerate(devices) if e == d] for d in order}
-        # Every strip's halo'd buffer, allocated before any capture so that
-        # each device's program can name its neighbours'.
-        self.buffers = bufs = [
-            torch.empty((*p.shape[:-2], p.shape[-2] + 2 * halo, p.shape[-1]), dtype=p.dtype, device=dev)
-            for p, dev in zip(parts, devices)]
-        self._own_rows = [b[..., halo:b.shape[-2] - halo, :] for b in bufs]
-        for i in range(0, len(parts), n):
-            _exchange_halo(parts[i:i + n], halo, into=bufs[i:i + n])
+        # Every strip's own rows, allocated before any capture so that each
+        # device's program can name its neighbours'.
+        self.buffers = bufs = [torch.empty(p.shape, dtype=p.dtype, device=dev) for p, dev in zip(parts, devices)]
+        for b, p in zip(bufs, parts):
+            with sharding._on(b.device):
+                b.copy_(p)
         shard_inputs = []
         for j, dev in enumerate(devices):
             rows = torch.zeros((3, hl, wout), dtype=torch.float32, device=dev)
@@ -471,8 +489,10 @@ class CapturedSpatial:
                   + ((torch.as_tensor(page, device=dev).to(torch.float32).clone(
                       memory_format=torch.contiguous_format),) if paged else ())
                   for dev in order}
-        frame_home = shared[home][0]
-        first = {d: js[0] for d, js in self._strips_on.items()}
+        # The devices whose static frame a call writes: the first strip's, and
+        # every one when the programs read the frame.
+        reads_frame = after or (epi is not None and epi.needs_frame)
+        self._frame_devices = order if reads_frame else [home]
 
         def settle():  # construction leaves no copy or warm-up in flight on any card
             for d in order:
@@ -482,12 +502,10 @@ class CapturedSpatial:
         settle()  # the buffers complete before any program reads a neighbour's
 
         def strip(j, ins, shared):
-            k, dev = j % n, ins[0].device
-            group = bufs[j - k:j - k + n]
-            moves = first[dev] == j and dev != home  # this strip's H1 brings the frame
-            capture.keep(tuple(group) + ((frame_home,) if moves else ()))  # what the graph reads
-            halo_k.halo_rows(group, k, halo, *((frame_home, shared[0]) if moves else ()))
-            return body(layout, k, ins[0], shared[0], ins[1] if self.takes_grain else None,
+            k = j % n
+            src = halo_k.StripSource(bufs[j - 1] if k else None, ins[0], bufs[j + 1] if k + 1 < n else None, halo)
+            capture.keep(tuple(t for t in (src.up, src.down) if t is not None))  # what the graph reads
+            return body(layout, k, src, shared[0], ins[1] if self.takes_grain else None,
                         shared[1] if paged else None)
 
         self.programs = sharding._PerDevice(strip, shard_inputs, shared)
@@ -520,8 +538,8 @@ class CapturedSpatial:
     def _stage(self, image, frame, grain=None) -> None:
         """A call's checks and its staging, device by device, each after the
         replays of the call before that read it (``_schedule``): its strips'
-        own rows and grain rows, the page, and on the first strip's device
-        the frame."""
+        own rows and grain rows, the page, and the frame on the devices that
+        hold one (``_frame_devices``)."""
         sharding._check_like(image, self.shape, self.dtype, "this captured call")
         if grain is not None and tuple(grain.shape) != (3, *self.out_size):
             raise ValueError(f"this captured call takes a grain of {(3, *self.out_size)}, got {tuple(grain.shape)}")
@@ -535,13 +553,13 @@ class CapturedSpatial:
         def stage(dev):  # each copy runs on its destination's current stream
             ins = self.programs.device_inputs[dev]
             for j in self._strips_on[dev]:
-                self._own_rows[j].copy_(parts[j])
+                self.buffers[j].copy_(parts[j])
                 if self.takes_grain:
                     k = j % n
                     self.programs.shard_inputs[j][1].copy_(grain[:, k * hl:(k + 1) * hl])
             if page is not None:
                 ins[1].copy_(page)
-            if dev == self._home:
+            if dev in self._frame_devices:
                 sharding._put_frame(frame, src, {dev: ins[0]})
 
         self._issue(self._stage_steps, stage)

@@ -1,19 +1,27 @@
-"""H1 (``fsr_tpu_torch/kernels/halo.py``) and the captured row-sharded call's
-order across devices, on the CPU.
+"""The strip source of K1 and K2 (``fsr_tpu_torch/kernels/halo.py``: H1 folded
+into the kernels) and the captured row-sharded call's order across devices,
+on the CPU.
 
-H1 fills a row strip's static buffer with its halo rows from its
-neighbours' buffers, the counterpart of ``fsr_tpu/parallel/spatial.py:
-_exchange_halo`` (``lax.ppermute`` + ``jnp.where`` + ``concatenate``
-inside each shard's body).  Held here:
+A row strip's kernel reads its halo rows in place from its neighbours' rows,
+the counterpart of ``fsr_tpu/parallel/spatial.py:_exchange_halo``
+(``lax.ppermute`` + ``jnp.where`` + ``concatenate`` inside each shard's
+body).  Held here:
 
-- its plain version (what ``halo_rows`` runs on a CPU buffer) bit-equal to
-  the rows of ``parallel.spatial._exchange_halo``'s ``torch.cat`` for 2, 3,
-  4 and 8 strips, uint8 / bfloat16 / float32, RGB and RGBA, a batch and
-  dp x sp frame groups, with the frame index copied beside them and no
-  launch counted;
-- every strip's halo'd buffer of a ``CapturedSpatial`` call on a mesh of
-  CPU devices bit-equal to JAX's ``_exchange_halo`` run under ``shard_map``
-  on the conftest's 8 virtual CPU devices, shard by shard;
+- the plain version of the strip read (``halo.halo_rows_reference`` over
+  own-row buffers, what K1's and K2's wrappers run for a CPU strip)
+  bit-equal to the rows of ``parallel.spatial._exchange_halo``'s
+  ``torch.cat`` for 2, 3, 4 and 8 strips, uint8 / bfloat16 / float32, RGB
+  and RGBA, a batch and dp x sp frame groups, with the neighbours' whole
+  buffers and with only their edge rows, and no launch counted;
+- every strip of a ``CapturedSpatial`` call on a mesh of CPU devices, read
+  by that plain version over the call's own-row buffers, bit-equal to JAX's
+  ``_exchange_halo`` run under ``shard_map`` on the conftest's 8 virtual CPU
+  devices, shard by shard;
+- the eager call handing each strip's kernel views of the input's shards,
+  with no copy and no ``torch.cat`` of a strip's rows;
+- the wrappers' checks of a strip source (``halo.check``), one refusal per
+  part the kernels do not take (the card faked by a monkeypatch), and the
+  strides it lays out for the kernels;
 - the event schedule (``spatial._schedule`` over ``spatial._reads``) on
   2, 3 and 4 cards and dp x sp, over a queue of three calls: every read of
   a buffer comes after that call's write of it and before the next call's
@@ -22,8 +30,8 @@ inside each shard's body).  Held here:
   construction, naming the pair (the peer query monkeypatched), and the
   pairs that construction enables.
 
-The kernel itself runs only on the card: ``chip_smoke.py`` phase 18 holds it
-bit-equal to this plain version there.
+The strip-source kernels run only on the card: ``chip_smoke.py`` phase 18
+holds them bit-equal to the same kernels on the ``torch.cat``'d strips there.
 """
 
 import itertools
@@ -75,34 +83,162 @@ def _strips(x, n, groups):
 @pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES))
 @pytest.mark.parametrize("n", [2, 3, 4, 8])
 def test_plain_halo_rows_equal_the_exchange(n, dtype, channels, layout):
-    """Buffers full of garbage but their own rows: after ``halo_rows`` on
-    each strip (its plain version on the CPU), each buffer equals that
-    strip's ``_exchange_halo`` ``torch.cat``, and the frame index is copied."""
+    """Own-row buffers holding each strip's rows: the plain strip read of
+    each strip (its neighbours' whole buffers, or only their edge rows, as
+    the eager call sends them between cards) equals that strip's
+    ``_exchange_halo`` ``torch.cat``, and no launch is counted."""
+    from fsr_tpu_torch.kernels import easu_gather, fused
+
     groups = 2 if layout == "dp x sp" else 1
     for halo_n, width in ((spatial._HALO, 11), (spatial._GHALO, 16)):
         h = halo_n + 1
         x = _frames(n + channels, DTYPES[dtype], (2 * groups, channels, n * h, width))
         strips = _strips(x, n, groups)
-        halo.halo_rows.launches = 0
+        fused.upscale_padded.launches = easu_gather.easu_gather.launches = 0
         for g in range(groups):
             group = strips[g * n:(g + 1) * n]
             want = spatial._exchange_halo(group, halo_n)
-            bufs = [torch.full_like(w, 77) for w in want]
-            for s, b in zip(group, bufs):
-                b[..., halo_n:halo_n + h, :].copy_(s)
+            bufs = [s.clone() for s in group]
             for k in range(n):
-                src, dst = torch.tensor(k - 5, dtype=torch.int32), torch.tensor(0, dtype=torch.int32)
-                assert halo.halo_rows(bufs, k, halo_n, src, dst) is bufs[k]
-                assert int(dst) == k - 5
-            for k, (b, w) in enumerate(zip(bufs, want)):
-                assert torch.equal(b, w), f"{n} strips, halo {halo_n}, group {g}: strip {k}"
-        assert halo.halo_rows.launches == 0  # the plain version counts no launch
+                for edges in (False, True):
+                    up = bufs[k - 1][..., -halo_n:, :].clone() if edges and k else (bufs[k - 1] if k else None)
+                    down = (bufs[k + 1][..., :halo_n, :].clone() if edges and k + 1 < n
+                            else (bufs[k + 1] if k + 1 < n else None))
+                    got = halo.halo_rows_reference(halo.StripSource(up, bufs[k], down, halo_n))
+                    assert got.shape == halo.StripSource(up, bufs[k], down, halo_n).shape
+                    assert torch.equal(got, want[k]), f"{n} strips, halo {halo_n}, group {g}: strip {k}, edges {edges}"
+        assert fused.upscale_padded.launches == easu_gather.easu_gather.launches == 0
 
 
-def test_halo_rows_refuses_what_the_kernel_does_not_take():
-    bufs = [torch.zeros((3, 10, 8)) for _ in range(2)]
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        halo.halo_rows([b.to("meta") for b in bufs], 0, 2)
+# --- the wrappers' checks of a strip source -----------------------------------------
+
+
+def _source(**change):
+    """A strip source the kernels take: (2, 3, 6, 16) float32 own rows between
+    whole neighbours, with one part replaced from ``change``."""
+    own = torch.zeros((2, 3, 6, 16))
+    parts = dict(up=torch.zeros((2, 3, 6, 16)), own=own, down=torch.zeros((2, 3, 6, 16)), halo=4)
+    parts.update(change)
+    return halo.StripSource(**parts)
+
+
+REFUSED = {
+    "dtype": (dict(up=torch.zeros((2, 3, 6, 16), dtype=torch.bfloat16)), "up part is torch.bfloat16"),
+    "width": (dict(down=torch.zeros((2, 3, 6, 17))), "down part is 17 wide"),
+    "channels": (dict(up=torch.zeros((2, 4, 6, 16))), "up part has 4 channels"),
+    "frames": (dict(down=torch.zeros((1, 3, 6, 16))), "down part has frames"),
+    "too few rows": (dict(up=torch.zeros((2, 3, 3, 16))), "up part holds 3 rows"),
+    "non-contiguous rows": (dict(down=torch.zeros((2, 3, 6, 32))[..., ::2]), "down part needs rows of 16 contiguous"),
+    "frames of two strides": (dict(own=torch.zeros((2, 2, 3, 6, 16)).transpose(0, 1),
+                                   up=torch.zeros((2, 2, 3, 6, 16)), down=None), "own part needs rows"),
+    "a CPU part on a CUDA launch": (dict(down=torch.zeros((2, 3, 6, 16))), "down part lies on cpu"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_strip_source_refused_before_a_launch(case, monkeypatch):
+    """``halo.check``, which K1's and K2's wrappers run before a strip-source
+    launch, refuses each part they do not take with a ``ValueError`` naming
+    it.  The card is faked: every part but a CPU one "lies on a card"."""
+    change, message = REFUSED[case]
+    src = _source(**change)
+    cpu_part = src.down if case == "a CPU part on a CUDA launch" else None
+    monkeypatch.setattr(halo, "_on_card", lambda t: t is not cpu_part)
+    with pytest.raises(ValueError, match=message):
+        halo.check(src)
+
+
+def test_strip_source_taken_and_laid_out(monkeypatch):
+    """A source of views (own rows of a larger frame, an edge-rows part, two
+    leading dimensions of one stride) and a neighbour on a peer card pass
+    ``halo.check``, which gives each part's pointer, plane and frame strides
+    and rows, as ``csrc/fsr_pixel.cuh:StripParts`` reads them; a neighbour on
+    a card this card cannot read is refused."""
+    monkeypatch.setattr(halo, "_on_card", lambda t: True)
+    frame = torch.zeros((2, 3, 24, 16))
+    src = halo.StripSource(frame[..., 0:6, :], frame[..., 6:12, :], frame[..., 12:16, :].clone(), 4)
+    parts = halo.check(src)
+    assert list(parts.plane) == [24 * 16, 24 * 16, 4 * 16] and list(parts.frame) == [3 * 24 * 16] * 2 + [3 * 4 * 16]
+    assert list(parts.rows) == [6, 6, 4] and parts.halo == 4
+    assert parts.ptr[1] - parts.ptr[0] == 6 * 16 * 4 and src.shape == (2, 3, 14, 16)
+    top = halo.check(halo.StripSource(None, frame[0, :, :6, :], frame[0, :, 6:10, :], 4))
+    assert top.ptr[0] is None and top.frame[1] == 0 and top.plane[1] == 24 * 16
+    batch = torch.zeros((2, 1, 3, 3, 10, 16))[:, :, :, :, 2:8, :]  # frames (2, 1, 3) of one stride
+    assert halo.check(halo.StripSource(None, batch, None, 4)).frame[1] == 3 * 10 * 16
+
+    class Card:  # a part on another card, as check sees it
+        def __init__(self, t, index):
+            self.t, self.device = t, torch.device("cuda", index)
+
+        def __getattr__(self, name):
+            return getattr(self.t, name)
+
+    own = Card(torch.zeros((3, 6, 16)), 0)
+    for readable in (True, False):
+        monkeypatch.setattr(halo, "can_access_peer", lambda a, b, readable=readable: readable)
+        src = halo.StripSource(Card(torch.zeros((3, 6, 16)), 1), own, None, 4)
+        if readable:
+            halo.check(src)
+        else:
+            with pytest.raises(ValueError, match="up part lies on cuda:1, which cuda:0 cannot read"):
+                halo.check(src)
+
+
+# --- the eager call reads its shards in place ----------------------------------------
+
+
+@pytest.mark.parametrize("ratio", ["2x K1", "1.5x K2"])
+@pytest.mark.parametrize("given", ["a tensor", "a Sharded"])
+def test_eager_call_hands_each_strip_views_of_the_shards(ratio, given, monkeypatch):
+    """The eager row-sharded call on ``[cpu] * 4`` gives each strip's kernel
+    a ``StripSource`` whose own rows are the input's shard (the same tensor
+    from a ``Sharded``, a view of the input's storage from a tensor) and
+    whose neighbours are the neighbouring shards as they lie: no copy and no
+    ``torch.cat`` runs outside the kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fsr_tpu_torch.kernels import easu_gather, fused
+
+    x = _frames(3, torch.float32, (2, 3, 32, 48))
+    out_hw = (64, 96) if ratio == "2x K1" else (48, 72)
+    mesh = sharding.make_mesh(4, ("sp",), devices=[CPU] * 4)
+    xs = Sharded.put(x, mesh, (None, None, "sp", None))
+    seen, inside = [], []
+
+    def kernel(image, out_size, *args, **kw):
+        seen.append(image)
+        inside.append(True)
+        try:
+            return torch.zeros((*image.shape[:-2], *out_size))
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(fused if ratio == "2x K1" else easu_gather,
+                        "upscale_fused" if ratio == "2x K1" else "easu_gather", kernel)
+    ops = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside:
+                ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Ops():
+        out = spatial.upscale_spatial_sharded(x if given == "a tensor" else xs, out_hw, mesh, impl="kernel")
+    assert len(seen) == 4 and len(out.shards) == 4
+    for k, src in enumerate(seen):
+        assert isinstance(src, halo.StripSource) and src.halo == (spatial._HALO if ratio == "2x K1" else spatial._GHALO)
+        shard = xs.shards[k]
+        if given == "a Sharded":
+            assert src.own is shard
+        assert src.own.shape == shard.shape and src.own.data_ptr() == shard.data_ptr()
+        assert src.own.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+        for near, j in ((src.up, k - 1), (src.down, k + 1)):
+            if 0 <= j < 4:
+                assert near.data_ptr() == xs.shards[j].data_ptr() and near.shape == xs.shards[j].shape
+            else:
+                assert near is None
+    assert not [op for op in ops if op in ("cat", "copy_", "_to_copy", "clone", "contiguous")], ops
 
 
 # --- the captured call's buffers against JAX's exchange ----------------------------
@@ -127,10 +263,11 @@ def _jax_exchange(x: np.ndarray, n: int, halo_n: int, dp: bool):
 @pytest.mark.parametrize("case", JAX_CASES, ids=[f"{n} strips {d} {c}ch{' dp x sp' if dp else ''}"
                                                 for n, d, c, dp in JAX_CASES])
 def test_captured_buffers_equal_jax_exchange(case):
-    """A ``CapturedSpatial`` call on ``[cpu] * n`` (own rows staged, then H1
-    per strip in its program): each strip's halo'd buffer bit-equal to the
-    JAX shard of ``_exchange_halo``, also on the second call, from a
-    ``Sharded`` input."""
+    """A ``CapturedSpatial`` call on ``[cpu] * n`` (own rows staged into its
+    buffers, each strip's kernel reading its neighbours' buffers): each
+    strip read by the plain strip read over the buffers bit-equal to the JAX
+    shard of ``_exchange_halo``, also on the second call, from a ``Sharded``
+    input."""
     n, dtype, channels, dp = case
     in_hw, out_hw = (8 * n, 24), (16 * n, 48)
     shape = (4 if dp else 2, channels, *in_hw)
@@ -145,8 +282,13 @@ def test_captured_buffers_equal_jax_exchange(case):
                              n, halo_n, dp)
         rows = in_hw[0] // n + 2 * halo_n
         shards = {(s.index[0].start or 0, s.index[2].start or 0): np.asarray(s.data) for s in want.addressable_shards}
-        for j, buf in enumerate(cap.buffers):
+        bufs = cap.buffers
+        assert all(tuple(b.shape) == (shape[0] // 2 if dp else shape[0], channels, in_hw[0] // n, in_hw[1])
+                   for b in bufs)
+        for j in range(len(bufs)):
             g, k = divmod(j, n)
+            buf = halo.halo_rows_reference(halo.StripSource(bufs[j - 1] if k else None, bufs[j],
+                                                            bufs[j + 1] if k + 1 < n else None, halo_n))
             w = shards[(g * shape[0] // 2 if dp else 0, k * rows)]
             got = buf.float().numpy() if dtype == "bf16" else buf.numpy()
             assert w.dtype == (np.dtype(jnp.bfloat16) if dtype == "bf16" else got.dtype)

@@ -15,7 +15,8 @@ redesign, whose K1 took a K4-padded source, cannot be driven).
 K1, at the Performance shapes (batch 4, 1080p -> 4K): Performance float32
 and bfloat16, the HDR tail (a) (SRTM prologue, grain, 10-bit dither), the
 byte path (c) (uint8 in and out), RGBA (d) float32 and uint8, and four
-row strips (i); per path, in turn: each library's K1 on its quad and
+row strips (i) (this tree's also read in place, the strip-source form);
+per path, in turn: each library's K1 on its quad and
 generic paths, K2 on the same frames (the staging-only yardstick), and
 with Performance float32 this tree's K1 without RCAS and the probes P1 and
 P2.  Every library's quad and generic paths and K2's output are held
@@ -80,10 +81,16 @@ EASU_RCAS_OPS = 488.75
 EPI_OPS = 12 + 60
 ALPHA_OPS = 8
 # ptxas entries printed: every K4; K2 with RCAS and no denoise; K1 float32
-# with no denoise (<S, T, O, QUAD, DENOISE, RGBA>); K3 with the clamp border
-# and no denoise.
-PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernelI.*Lb1ELb0EL|fused_kernelIfffLb[01]ELb0ELb[01]EE"
-                           r"|rcas_kernelI.*Lb0ELb0EE")
+# with no denoise (<S, T, O, QUAD, DENOISE, RGBA>), each K1 and K2 also in
+# its strip-source form; K3 with the clamp border and no denoise.
+PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernel(_strip)?I.*Lb1ELb0EL"
+                           r"|fused_kernel(_strip)?IfffLb[01]ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE")
+
+# The strip-source forms' SASS, beside the whole-frame kernels' (a parent
+# from before them has none).
+STRIP_SASS = (("K1 f32 quad, strip", "fused_kernel_stripIfffLb1ELb0ELb0E"),
+              ("K1 f32 generic, strip", "fused_kernel_stripIfffLb0ELb0ELb0E"),
+              ("K2 f32, strip", "staged_gather_kernel_stripIfffLb1ELb0ELb0E"))
 
 
 @contextlib.contextmanager
@@ -182,15 +189,19 @@ def k1_cases(dev, gen):
 
 def k1_strips(x, con):
     """(i): the Performance frames in four row strips, as
-    ``parallel.spatial`` cuts them: (halo'd strips, their constants, output
-    rows per strip)."""
+    ``parallel.spatial`` cuts them: (halo'd strips, the same strips as
+    strip sources read in place from views of the frames, as the eager call
+    passes them, and from own-row buffers, as the captured call does, their
+    constants, output rows per strip)."""
     from fsr_tpu_torch.parallel import spatial
 
     n, h = 4, x.shape[-2]
-    strips = spatial._exchange_halo([x[..., k * h // n:(k + 1) * h // n, :] for k in range(n)], spatial._HALO)
+    own = [x[..., k * h // n:(k + 1) * h // n, :] for k in range(n)]
+    strips = spatial._exchange_halo(own, spatial._HALO)
     lcon = spatial._local_constants(con, spatial._HALO)
     hl = OUT4K[0] // n
-    return strips, lcon, hl
+    buffers = [o.clone() for o in own]
+    return strips, spatial._sources(own, spatial._HALO), spatial._sources(buffers, spatial._HALO), lcon, hl
 
 
 def k1_section(libs, dev, gen, cname) -> bool:
@@ -242,19 +253,24 @@ def k1_section(libs, dev, gen, cname) -> bool:
         del outs, ref
 
     # (i): four row strips of the Performance f32 frames, each library's
-    # launches per strip, in turn with the unsharded call.
+    # launches per strip on the halo'd strips and, where the library has
+    # the strip-source form, read in place, in turn with the unsharded call.
     x = k1_cases(dev, gen)[0][1]
-    strips, lcon, hl = k1_strips(x, con)
+    strips, sources, buffers, lcon, hl = k1_strips(x, con)
     rows = dict(global_rows=OUT4K[0])
 
-    def new_strips(path):
+    def new_strips(path, of=strips):
         return lambda: [fused.upscale_fused(s, (hl, OUT4K[1]), lcon, rcon, path=path, row_offset=k * hl, **rows)
-                        for k, s in enumerate(strips)]
+                        for k, s in enumerate(of)]
 
     fns = {}
     for name, lib in libs.items():
         fns[f"{name} quad"] = on(lib, new_strips("auto"))
         fns[f"{name} generic"] = on(lib, new_strips("generic"))
+        if hasattr(lib, "fsr_upscale_fused_strip"):
+            fns[f"{name} quad, read in place"] = on(lib, new_strips("auto", sources))
+            fns[f"{name} generic, read in place"] = on(lib, new_strips("generic", sources))
+            fns[f"{name} quad, read in place from own-row buffers"] = on(lib, new_strips("auto", buffers))
     fns["this tree unsharded"] = on(libs["this tree"], lambda: fused.upscale_fused(x, OUT4K, con, rcon))
     whole = fns["this tree unsharded"]()
     for k in list(fns)[:-1]:
@@ -377,7 +393,7 @@ def main() -> int:
 
     for name, (csrc, flags) in builds.items():
         print(f"SASS (static), {name}:")
-        counts = opmix_floor.sass_counts(_build.library_path(csrc, flags))
+        counts = opmix_floor.sass_counts(_build.library_path(csrc, flags), opmix_floor.SASS_KERNELS + STRIP_SASS)
         for line in opmix_floor.sass_lines({k: v for k, v in counts.items() if k.startswith(("K1", "K2", "K3"))}):
             print("  " + line)
     print(cname)
