@@ -122,9 +122,15 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      queued with no host sync from a Sharded input and from a tensor, each
      call's shards cloned on their cards right after it, all bit-equal to
      the eager calls, and the copies one call issues from the host (none
-     card to card from a Sharded input); eager against replay against the
-     staging alone in turn, device and wall ms per call, one call and 10
-     queued; with --trace one replayed call's device operations held to the
+     card to card from a Sharded input); the same 8 synced and 10 queued
+     calls from the graphs' own inputs (cap.inputs), filled by put and
+     written in place by a producer (after CapturedSpatial.writable()),
+     each bit-equal, and no copy into cap.inputs from such a call; across
+     cards a producer's write delayed on the last card and a replay delayed
+     on the first, each call bit-equal; eager against replay (from an input
+     and from cap.inputs) against the staging alone in turn, device and
+     wall ms per call, one call and 10 queued, and the host's issue time
+     split by step; with --trace one replayed call's device operations held to the
      strips' K1/K2 launches in their strip-source form, no H1 launch, and
      the staging's copies and fill (own rows, grain strips, the page, the
      frame; across cards from a Sharded input no copy between cards but
@@ -136,7 +142,10 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      same checks and each card's busy time and the idle share, eager
      against replay, the eager call's copies between cards no larger than a
      strip's halo rows, and the strips' K1 with their neighbours on other
-     cards beside K1 with them on one;
+     cards beside K1 with them on one; and a two-card probe of what an
+     event wait captured into a graph binds to (the record at capture, the
+     latest at launch, or the latest when the node runs) and what a host
+     wait after a launch binds to;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -930,6 +939,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
              on_cards(lambda: torch.rand(x16.shape, generator=gen, device=dev), bmesh, ("batch", None, None, None)),
              False),
         ]
+        _external_wait_probe(cards_of[:2])
         print(f"  captured across {nc} cards (one graph per card), each input a Sharded on the cards:")
         _captured_sharded(dev, card, gen, trace, across_cards, out4k, _sync_all, cards=cards_of)
         del x16
@@ -1014,13 +1024,18 @@ class _HostCopies:
     """Counts the copies and fills a call issues from the host (aten
     ``copy_``, ``_to_copy``, ``fill_``), by (operation, source device,
     destination device), and the most bytes one of them moved: a replayed
-    graph's own work is no aten call."""
+    graph's own work is no aten call.  ``watch``: tensors (a captured call's
+    own-row or share statics) whose writes by ``copy_`` are counted apart
+    (``into_watched``)."""
 
-    def __init__(self):
+    def __init__(self, watch=()):
         from torch.utils._python_dispatch import TorchDispatchMode
 
         counts = self.counts = collections.Counter()
         largest = self.largest = collections.Counter()  # the most bytes one copy moved, by key
+        watched = {t.untyped_storage().data_ptr() for t in watch}
+        self.into_watched = 0
+        this = self
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1032,6 +1047,8 @@ class _HostCopies:
                     key = (name, str(src), str(dst))
                     counts[key] += 1
                     largest[key] = max(largest[key], _nbytes(args[1] if name == "copy_" else args[0]))
+                    if name == "copy_" and args[0].untyped_storage().data_ptr() in watched:
+                        this.into_watched += 1
                 return func(*args, **kwargs)
 
         self.mode = Mode()
@@ -1059,16 +1076,26 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
     card (``FRAMES_ON_CARD``), are each bit-equal shard by shard to the
     eager call on the same inputs and count no launch; the tables a K2 graph
     read stay valid when their caches are emptied and their memory
-    overwritten (``capture.keep``).  Then 10 calls queued with no host
-    sync, from a ``Sharded`` input and from a tensor, each call's shards
-    cloned on their cards' streams right after it, all bit-equal to the
-    eager calls; the copies and fills one call issues from the host
-    (``_HostCopies``: from a ``Sharded`` input none card to card but a 0-d
-    frame's, for a case without grain).  Then
-    eager against replay in turn: device ms (CUDA events on the first card;
-    with ``cards``, after every card's stream) and wall ms per call (host
-    clock, synchronised), one call and 10 queued; with ``trace`` (or across
-    ``cards``) each one's traced busy time per card and idle share, and with
+    overwritten (``capture.keep``).  Then 8 calls from the graphs' own
+    inputs (``cap.inputs``) each way: filled by ``put`` (its grain given to
+    ``put``), and written in place by a producer (seeded ``uniform_`` or
+    ``random_`` on each shard's card, after ``CapturedSpatial.writable()``), each bit-equal
+    to the eager call.  Then 10 calls queued with no host sync, from a
+    ``Sharded`` input, from a tensor, by ``put`` and written in place, each
+    call's shards cloned on their cards' streams right after it, all
+    bit-equal to the eager calls; the copies and fills one call issues from
+    the host (``_HostCopies``: from a ``Sharded`` input none card to card
+    but a 0-d frame's, for a case without grain; from ``cap.inputs`` none
+    into an own-row buffer or share, which a call from a tensor makes);
+    across ``cards``, a producer's write on the last card delayed on its
+    stream, and a reader's replay delayed before the next call's writes,
+    each call still bit-equal (the events' two hazards).  Then eager
+    against replay (from the input, and from ``cap.inputs``) in turn:
+    device ms (CUDA events on the first card; with ``cards``, after every
+    card's stream) and wall ms per call (host clock, synchronised), one
+    call and 10 queued, the host's issue time and its split by step
+    (``_host_split``); with ``trace`` (or across ``cards``) each one's
+    traced operations per call, busy time per card and idle share, and with
     ``trace`` a replay's device operations held to its launches and its
     staging's copies (``_replay_ops``).  Returns each case's launch counts
     at construction."""
@@ -1082,12 +1109,38 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
         cap, built = _drive(build, {k: (capture.WARMUP + 1) * v for k, v in need.items()})
         counts[name] = built
         grains = [torch.rand((3, *out4k), generator=gen, device=dev) - 0.5 if with_grain else None for _ in range(2)]
+        rows = isinstance(cap, spatial.CapturedSpatial)
+        gens = {d: torch.Generator(device=d).manual_seed(1800 + i)
+                for i, d in enumerate(dict.fromkeys(s.device for s in cap.inputs.shards))}
 
         def replay(x, f, g):
             return cap(x, frame=f, grain=g) if with_grain else cap(x, frame=f)
 
         def staging(x, f, g):
             return cap._stage(x, f, g) if with_grain else cap._stage(x, f)
+
+        def put(x, g):
+            return cap.put(x, grain=g) if with_grain else cap.put(x)
+
+        def from_inputs(f, g=None):
+            return cap(cap.inputs, frame=f, grain=g) if g is not None else cap(cap.inputs, frame=f)
+
+        def produce(delay=None):
+            """A producer writing seeded frames into ``cap.inputs`` where they
+            lie, on each card's current stream after ``writable()`` (with
+            ``delay``, (card, cycles), that card's writes held back by a
+            spin first); returns a copy of what it wrote, for the eager
+            call."""
+            ins = cap.writable() if rows else cap.inputs  # the batch's cards read only their own shares
+            if delay is not None:
+                with torch.cuda.device(delay[0]):
+                    torch.cuda._sleep(delay[1])
+            for sh in ins.shards:
+                if sh.dtype == torch.uint8:
+                    sh.random_(0, 256, generator=gens[sh.device])
+                else:
+                    sh.uniform_(generator=gens[sh.device])
+            return sharding.Sharded(ins.mesh, ins.spec, tuple(sh.clone() for sh in ins.shards), ins.shape, ins.dtype)
 
         last = None
         for r in range(8):
@@ -1111,30 +1164,55 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
         garbage = [torch.full_like(t, -7) for t in kept for _ in range(4)]
         _same_sharded(replay(x, f, g), eager(x, f, g), f"{name}, captured: a replay after the caches went")
         del garbage
+        # From the graphs' own inputs: filled by put (its grain given there,
+        # the call without one), and written in place by a producer (the
+        # grain given to the call).
+        for mode in ("put", "written in place"):
+            for r in range(8):
+                f, g = torch.tensor(FRAMES_ON_CARD[r % 4], dtype=torch.int32, device=dev), grains[r % 2]
+                if mode == "put":
+                    x = fresh()
+                    rep, _ = _drive(lambda: (put(x, g), from_inputs(f))[1], {})
+                else:
+                    x = produce()
+                    rep, _ = _drive(lambda: from_inputs(f, g), {})
+                _same_sharded(rep, eager(x, f, g), f"{name}, captured: replay {r} from cap.inputs, {mode}")
         print(f"    {name}, captured: built with launches {built} (warm-up and capture), "
               f"{len(cap.programs.captured)} graph(s); 8 replays with frames {FRAMES_ON_CARD} on the card, each "
               f"bit-equal shard by shard to the eager call, none counted; {len(kept)} K2 tables kept, a replay "
-              f"after the table and plan caches were emptied and overwritten still bit-equal")
+              f"after the table and plan caches were emptied and overwritten still bit-equal; 8 replays from "
+              f"cap.inputs filled by put and 8 written in place by a producer, each bit-equal")
         # 10 calls queued with no host sync, each call's shards cloned on
         # their cards' streams right after it, then held against the eager
         # calls: a wrong order across cards shows as a stale or early halo.
-        for kind in ("a Sharded input", "a tensor input"):
+        for kind in ("a Sharded input", "a tensor input", "cap.inputs by put", "cap.inputs written in place"):
             xs = []
             for r in range(10):
-                x = fresh()
+                x = None if kind == "cap.inputs written in place" else fresh()
                 if kind == "a Sharded input" and not isinstance(x, sharding.Sharded):
                     x = sharding.Sharded.put(x, cap.mesh, cap.spec)
                 elif kind == "a tensor input" and isinstance(x, sharding.Sharded):
                     x = x.gather(dev)
                 xs.append((x, torch.tensor(13 * r - 40, dtype=torch.int32, device=dev), grains[r % 2]))
             sync()
-            outs = [[s.clone() for s in replay(*args).shards] for args in xs]
+            outs = []
+            for r, (x, f, g) in enumerate(xs):
+                if kind == "cap.inputs by put":
+                    put(x, g)
+                    out = from_inputs(f)
+                elif kind == "cap.inputs written in place":
+                    x = produce()
+                    xs[r] = (x, f, g)
+                    out = from_inputs(f, g)
+                else:
+                    out = replay(x, f, g)
+                outs.append([sh.clone() for sh in out.shards])
             sync()
             for r, (args, got) in enumerate(zip(xs, outs)):
                 want = eager(*args)
                 _same_sharded(sharding.Sharded(want.mesh, want.spec, tuple(got), want.shape, want.dtype), want,
                               f"{name}, captured: queued call {r} of 10 from {kind}")
-            if isinstance(cap, spatial.CapturedSpatial):
+            if rows and kind in ("a Sharded input", "a tensor input"):
                 with _HostCopies() as host:
                     replay(*xs[0])
                 sync()
@@ -1153,9 +1231,48 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
                 print(f"    {name}, captured, from {kind}: 10 calls queued with no host sync, each bit-equal shard "
                       f"by shard to the eager call")
             del xs, outs
+        # A call from cap.inputs copies nothing into them; one from a tensor
+        # copies each strip's rows or share (the check can see them).
         x, f, g = fresh(), torch.tensor(7, dtype=torch.int32, device=dev), grains[0]
+        put(x, g)
+        with _HostCopies(watch=cap.inputs.shards) as own:
+            from_inputs(f, g)
+        with _HostCopies(watch=cap.inputs.shards) as other:
+            replay(x, f, g)
+        sync()
+        if own.into_watched or other.into_watched != len(cap.inputs.shards):
+            raise AssertionError(f"{name}, captured: {own.into_watched} copies into cap.inputs from a call from "
+                                 f"cap.inputs (want 0), {other.into_watched} from a call from a tensor (want "
+                                 f"{len(cap.inputs.shards)})")
+        print(f"    {name}, captured: a call from cap.inputs issues no copy into its {len(cap.inputs.shards)} "
+              f"{'own-row buffers' if rows else 'shares'} (from a tensor: {other.into_watched}); its host-issued "
+              "copies and fills " + ", ".join(f"{c} x {op} {a} -> {b}" for (op, a, b), c in sorted(own.counts.items())))
+        if cards and rows:
+            # The two hazards on the cards, made likely: the last card's write
+            # held back ~20 ms (every reader's replay must wait for it), then
+            # the first card's replay held back before the next call's writes
+            # (its neighbour's write must wait for it).
+            spin = 40_000_000
+            sync()
+            x1 = produce(delay=(cards[-1], spin))
+            out1 = [sh.clone() for sh in from_inputs(f, g).shards]
+            with torch.cuda.device(cards[0]):
+                torch.cuda._sleep(spin)
+            out2 = [sh.clone() for sh in from_inputs(f, g).shards]
+            x3 = produce()
+            out3 = [sh.clone() for sh in from_inputs(f, g).shards]
+            sync()
+            for what, x, got in (("a write delayed on the last card", x1, out1),
+                                 ("a replay delayed on the first card", x1, out2),
+                                 ("the call after the delayed replay", x3, out3)):
+                want = eager(x, f, g)
+                _same_sharded(sharding.Sharded(want.mesh, want.spec, tuple(got), want.shape, want.dtype), want,
+                              f"{name}, captured: {what}")
+            print(f"    {name}, captured: a producer's write delayed on {cards[-1]}, and a replay delayed on "
+                  f"{cards[0]} before the next call's writes: each call bit-equal to the eager call")
         fns = {"eager": lambda: eager(x, f, g), "replay": lambda: replay(x, f, g),
-               "its staging alone": lambda: staging(x, f, g)}
+               "replay from cap.inputs": lambda: from_inputs(f, g), "its staging alone": lambda: staging(x, f, g),
+               "its staging alone, from cap.inputs": lambda: staging(cap.inputs, f, g)}
         if cards:
             fns = {k: _joined(fn, cards) for k, fn in fns.items()}
         one = cuda_times_in_turn(fns)
@@ -1169,8 +1286,11 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
                   f"wall ms ({wall[k] / nf:.4f}); 10 queued {queued[k]:.4f} device ms ({queued[k] / nf:.4f}), "
                   f"{wall_q[k]:.4f} wall ms ({wall_q[k] / nf:.4f}) per call (CUDA events on {dev}; host clock, "
                   f"synchronised); the host returns after {issue[k]:.4f} ms; {card}")
+        for k, fn in (("replay", lambda: replay(x, f, g)), ("replay from cap.inputs", lambda: from_inputs(f, g))):
+            print(f"      {k}, the host's issue by step, ms (count) per call, instrumented, median of 20: "
+                  + _split_line(_host_split(fn, cap.inputs.shards, sync)))
         if trace or cards:
-            for k in ("eager", "replay"):
+            for k in ("eager", "replay", "replay from cap.inputs"):
                 tr = device_trace(fns[k], 5)
                 print(f"      {k}, traced over 5 calls: {tr['ops_per_call']:g} device operations per call, busy "
                       f"{tr['busy_ms'] / 5:.4f} ms per call of a {tr['window_ms'] / 5:.4f} ms window, idle share "
@@ -1178,17 +1298,109 @@ def _captured_sharded(dev, card: str, gen, trace: bool, cases, out4k, sync, card
                           f"{i}: {ms / 5:.4f}" for i, ms in tr["busy_ms_by_device"].items()))
         if trace:
             (kid, n_k), = need.items()
-            strips = isinstance(cap, spatial.CapturedSpatial)
             # (a case with grain stages the caller's grain and page, which lie
             # on the first card, into every card's graph)
-            ops = _replay_ops(lambda: replay(x, 7, g), kid, n_k, name,
-                              peer_copies=with_grain or not isinstance(x, sharding.Sharded), strips=strips)
-            print(f"      a traced replay (a host int frame): {n_k} launches of "
-                  f"{(STRIP_NAMES if strips else KERNEL_NAMES)[kid]}, none of {KERNEL_NAMES['H1']}; with them "
-                  + "; ".join(
-                      f"{c:g} x {k[:90]}" for k, c in ops.items() if KERNEL_NAMES[kid] not in k))
+            for k, call in (("a traced replay", lambda: replay(x, 7, g)),
+                            ("a traced replay from cap.inputs", lambda: from_inputs(7, g))):
+                ops = _replay_ops(call, kid, n_k, f"{name}, {k}", strips=rows, peer_copies=with_grain or (
+                    "cap.inputs" not in k and not isinstance(x, sharding.Sharded)))
+                print(f"      {k} (a host int frame): {n_k} launches of "
+                      f"{(STRIP_NAMES if rows else KERNEL_NAMES)[kid]}, none of {KERNEL_NAMES['H1']}; with them "
+                      + "; ".join(f"{c:g} x {k2[:90]}" for k2, c in ops.items() if KERNEL_NAMES[kid] not in k2))
         del cap, rep, last, x, fns
     return counts
+
+
+def _external_wait_probe(cards) -> dict:
+    """Phase 18, two cards: what an event wait captured into a CUDA graph
+    binds to (``torch.cuda.Event(external=True)``: an external wait node),
+    and what a host wait on an event recorded inside a graph binds to.  A
+    graph on ``cards[1]`` waits for an event of ``cards[0]``, then adds one
+    to a counter.  (a) The event's record at capture is complete; after
+    the capture a record is enqueued on ``cards[0]`` behind a ~40 ms spin,
+    then the graph is launched: it runs at once if its wait binds to the
+    record at capture, ~40 ms later if to the record standing at launch or
+    later.  (b) ``cards[1]``'s stream spins ~10 ms, then the graph is
+    launched; only after the launch a record is enqueued on ``cards[0]``
+    behind a ~40 ms spin: ~10 ms if the wait binds at launch (to the
+    complete record before it), ~40 ms if to the latest record when the
+    node runs.  (c) A graph on ``cards[1]`` spins ~40 ms, then records an
+    event (an external record node); the host enqueues a wait for it on
+    ``cards[0]`` right after the launch: ~40 ms if the wait binds to the
+    graph's record, at once if to the record standing before the launch.
+    Times are CUDA events on the waiting card."""
+    import inspect
+
+    if "external" not in inspect.signature(torch.cuda.Event.__new__).parameters:
+        print(f"    captured event waits: torch {torch.__version__} has no torch.cuda.Event(external=True)")
+        return {}
+    a, b = cards
+    sa, sb = torch.cuda.current_stream(a), torch.cuda.current_stream(b)
+    ev = torch.cuda.Event(external=True)
+    ev.record(sa)  # the record at capture, complete before it
+    rec = torch.cuda.Event(external=True)
+    rec.record(sb)
+    _sync_all()
+
+    def bracket(stream, work):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _sync_all()
+        t0.record(stream)
+        work()
+        t1.record(stream)
+        _sync_all()
+        return t0.elapsed_time(t1)
+
+    def spin_on(dev, cycles):
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(cycles)
+
+    # ~40 ms and ~10 ms spins, from the cycles a 10**7-cycle spin takes.
+    cycles_per_ms = 10**7 / bracket(sa, lambda: spin_on(a, 10**7))
+    long_spin, mid_spin = int(40 * cycles_per_ms), int(10 * cycles_per_ms)
+
+    count = torch.zeros((), device=b)
+    waits, records = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.device(b):
+        side = torch.cuda.Stream()
+        with torch.cuda.graph(waits, stream=side):
+            torch.cuda.current_stream().wait_event(ev)
+            count.add_(1)
+        with torch.cuda.graph(records, stream=side):
+            torch.cuda._sleep(long_spin)
+            rec.record(torch.cuda.current_stream())
+
+    def late_record():
+        spin_on(a, long_spin)
+        ev.record(sa)
+
+    def launch(graph, spin=0):
+        if spin:
+            spin_on(b, spin)
+        with torch.cuda.device(b):
+            graph.replay()
+
+    out = {"spin ms": bracket(sa, lambda: spin_on(a, long_spin))}
+    out["(a) launched after a late record"] = bracket(sb, lambda: (late_record(), launch(waits)))
+    ev.record(sa)
+    out["(b) a late record after the launch"] = bracket(sb, lambda: (launch(waits, mid_spin), late_record()))
+
+    def host_wait():
+        launch(records)
+        sa.wait_event(rec)
+    out["(c) a host wait after a graph's record"] = bracket(sa, host_wait)
+    if int(count.item()) != 2:
+        raise AssertionError(f"the probe's graph ran {int(count.item())} times, want 2")
+    half = out["spin ms"] / 2
+    wait = ("to the record at capture" if out["(a) launched after a late record"] < half
+            else "to the latest record at launch" if out["(b) a late record after the launch"] < 3 * half / 2
+            else "to the latest record when the node runs")
+    host = ("to the graph's record" if out["(c) a host wait after a graph's record"] > half
+            else "to the record before the launch")
+    print(f"    captured event waits ({b}'s graph waits for an event of {a}'s stream; {a} waits for an event "
+          f"that {b}'s graph records): " + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+          + f"; a captured wait binds {wait}; a host wait enqueued after a graph's launch binds {host}")
+    return {**out, "captured wait": wait, "host wait": host}
 
 
 def _strip_source_checks(dev, gen, cards: int) -> float:
@@ -1275,6 +1487,75 @@ def _host_issue_ms(fns: dict, sync, n: int = 20) -> dict:
             times[k].append((time.perf_counter() - t0) * 1e3)
     sync()
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+SPLIT = ("own rows / shares", "frame", "grain, page", "waits", "records", "graph launches")
+
+
+def _host_split(fn, statics, sync, n: int = 20) -> dict:
+    """The host's issue time of one call of ``fn`` by step (``SPLIT``): its
+    copies into ``statics`` (a captured call's own-row buffers or shares),
+    the frame's fills and copies (0-d), the other copies (grain rows, the
+    page), the event waits and records, the graph launches
+    (``CUDAGraph.replay``), each timed around its call, and the rest (the
+    Python between them, device contexts); medians of ``n`` calls, the
+    devices idle before each (``sync``), with the count of each step per
+    call.  The timers add their own cost to the total and the rest."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ptrs = {t.untyped_storage().data_ptr() for t in statics}
+    acc, cnt = collections.Counter(), collections.Counter()
+
+    def timed(key, f):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t0
+                cnt[key] += 1
+        return run
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name not in ("copy_", "fill_", "_to_copy"):
+                return func(*args, **(kwargs or {}))
+            key = ("own rows / shares" if name == "copy_" and args[0].untyped_storage().data_ptr() in ptrs
+                   else "frame" if args[0].dim() == 0 else "grain, page")
+            return timed(key, func)(*args, **(kwargs or {}))
+
+    patches = [(torch.cuda.Event, "wait", "waits"), (torch.cuda.Event, "record", "records"),
+               (torch.cuda.CUDAGraph, "replay", "graph launches")]
+    saved = [(cls, name, cls.__dict__.get(name)) for cls, name, _ in patches]
+    runs = collections.defaultdict(list)
+    try:
+        for cls, name, key in patches:
+            setattr(cls, name, timed(key, getattr(cls, name)))
+        for _ in range(n):
+            sync()
+            acc.clear()
+            cnt.clear()
+            t0 = time.perf_counter()
+            with Mode():
+                fn()
+            total = time.perf_counter() - t0
+            for key in SPLIT:
+                runs[key].append((acc[key] * 1e3, cnt[key]))
+            runs["the rest"].append(((total - sum(acc.values())) * 1e3, 0))
+            runs["total"].append((total * 1e3, 0))
+    finally:
+        for cls, name, orig in saved:
+            if orig is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, orig)
+        sync()
+    return {k: (statistics.median(ms for ms, _ in v), statistics.median(c for _, c in v)) for k, v in runs.items()}
+
+
+def _split_line(split: dict) -> str:
+    return ", ".join(f"{k} {ms:.4f}" + (f" ({c:g})" if c else "") for k, (ms, c) in split.items())
 
 
 def _sync_all() -> None:

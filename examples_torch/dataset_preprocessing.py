@@ -3,7 +3,8 @@
 Counterpart of ``examples/dataset_preprocessing.py``.  Batched upscale of
 an image corpus across the cards of a mesh inside an input pipeline:
 frames stream in as host-side uint8 batches, get put batch-sharded over the
-mesh (``fsr_tpu_torch.parallel.shard_batch``, the JAX example's
+mesh straight into the captured graphs' static inputs
+(``CapturedBatch.put``: one host-to-device copy per card, the JAX example's
 ``device_put``), upscaled (EASU+RCAS) and dithered to 8-bit codes (TEPD,
 in K1's store), and stay sharded on the cards for the downstream consumer
 (e.g. training-data augmentation at higher resolution), as the JAX
@@ -69,11 +70,13 @@ class CapturedPreprocess:
     (``sharding.CapturedBatch``, the counterpart of ``jax.jit(preprocess)``;
     on a CPU device the same call, eagerly): device k's graph upscales its
     share of a (per_device * devices, 3, H, W) uint8 batch, with the frame
-    index as a 0-d int32 device input.  Each call takes the batch as a
-    tensor or as a ``Sharded`` put over the mesh, copies each share and the
-    index into its graph's static inputs (outside the graph), replays the
-    graphs and returns their static outputs as a ``Sharded``, with no
-    gather: the next call overwrites them."""
+    index as a 0-d int32 device input.  ``batch.put(frames)`` copies a
+    host batch straight into the graphs' static inputs (``batch.inputs``,
+    a ``Sharded``), the one copy per share; a call from ``batch.inputs``
+    copies no share, a call from another tensor or ``Sharded`` copies each
+    share into them first.  A call writes the index (outside the graph),
+    replays the graphs and returns their static outputs as a ``Sharded``,
+    with no gather: the next call overwrites them."""
 
     def __init__(self, mesh, per_device: int, in_hw, out_hw):
         from fsr_tpu_torch.parallel import sharding
@@ -88,9 +91,10 @@ class CapturedPreprocess:
 def run(n_batches: int, per_device: int, in_hw, out_hw, devices=None):
     """Preprocess ``n_batches`` of ``per_device`` frames per mesh device;
     returns (the outputs, seconds, devices in the mesh).  Each host batch is
-    put sharded over the mesh and the graphs, captured before the clock
-    starts, are replayed on it (``CapturedPreprocess``; eager calls on CPU
-    devices); each batch waits for its cards, as the JAX example's
+    put sharded over the mesh into the graphs' static inputs
+    (``CapturedBatch.put``, one copy per share) and the graphs, captured
+    before the clock starts, are replayed on them (``CapturedPreprocess``;
+    eager calls on CPU devices); each batch waits for its cards, as the JAX example's
     ``block_until_ready``.  The outputs stay on the cards: each batch's
     ``Sharded``, its shards copied on their own cards since the next replay
     overwrites the graphs' outputs."""
@@ -102,7 +106,7 @@ def run(n_batches: int, per_device: int, in_hw, out_hw, devices=None):
     outs = []
     t0 = time.perf_counter()
     for i, host_batch in enumerate(synthetic_corpus(n_batches, batch, in_hw)):
-        out = step(sharding.shard_batch(torch.from_numpy(host_batch), mesh), i)
+        out = step(step.batch.put(torch.from_numpy(host_batch)), i)
         assert out.shape == (batch, 3, *out_hw) and out.dtype == torch.uint8
         outs.append(dataclasses.replace(out, shards=tuple(s.clone() for s in out.shards)))
         for dev in {s.device for s in out.shards if s.device.type == "cuda"}:

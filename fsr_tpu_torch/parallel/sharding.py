@@ -26,8 +26,10 @@ on it, which is how one card or the CPU rehearses the seams.
 
 ``CapturedBatch`` (and ``spatial.CapturedSpatial``) run a sharded call as
 one captured CUDA graph per device, as JAX jits its ``shard_map``: the
-host stages each call's input into the graphs' static inputs and replays
-one graph per card.
+graphs' static inputs are a ``Sharded`` of their own (``inputs``), which a
+producer writes or ``put`` fills, as ``jax.device_put`` lays out the
+jitted call's input, and a call from it copies nothing; any other input is
+copied into them first.  Then the host replays one graph per card.
 """
 
 from __future__ import annotations
@@ -293,6 +295,22 @@ def _parts(x: Union[torch.Tensor, Sharded], mesh: Mesh, spec: Tuple[Optional[str
     return _as_sharded(x, mesh, spec).shards if isinstance(x, Sharded) else tuple(_blocks(x, mesh, spec))
 
 
+def _home(x: Union[torch.Tensor, Sharded]) -> torch.device:
+    """The device of a call's input: a tensor's, a ``Sharded``'s first
+    shard's (where a frame tensor of the call lies)."""
+    return x.shards[0].device if isinstance(x, Sharded) else x.device
+
+
+def _write(statics: Sequence[torch.Tensor], parts: Sequence[torch.Tensor]) -> None:
+    """Each part copied into its static input, ordered on the static's
+    device's current stream (``copy_`` guards the devices itself; from the
+    host asynchronously, as ``Sharded.put``; between cards on both cards'
+    current streams), a part that is its static left as it is."""
+    for static, part in zip(statics, parts):
+        if part is not static:
+            static.copy_(part, non_blocking=static.device.type == "cuda")
+
+
 def _check_like(x, shape, dtype, what: str) -> None:
     """A captured call takes one shape and dtype: raise naming both."""
     if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
@@ -331,10 +349,18 @@ class _PerDevice:
     ``run`` replays each device's graph on that device's current stream
     (``run_on`` one device's) and returns the shards' outputs in shard
     order: on a card the graphs' static outputs, overwritten by the next
-    run."""
+    run.
+
+    around[device]: (events, event), the events that device's program waits
+    for before its bodies and the one it records after them, captured into
+    its graph as external event nodes (``torch.cuda.Event(external=True)``,
+    each recorded once before the capture): a captured wait binds to the
+    event's latest record when the graph is launched, and a host wait
+    enqueued after the launch to the graph's record, as enqueued on the
+    host around the replay (``chip_smoke.py`` phase 18's probe)."""
 
     def __init__(self, body: Callable, shard_inputs: Sequence[Tuple[torch.Tensor, ...]],
-                 device_inputs: Dict[torch.device, Tuple[torch.Tensor, ...]]):
+                 device_inputs: Dict[torch.device, Tuple[torch.Tensor, ...]], around=None):
         groups: Dict[torch.device, List[int]] = {}
         for j, ins in enumerate(shard_inputs):
             groups.setdefault(ins[0].device, []).append(j)
@@ -347,11 +373,16 @@ class _PerDevice:
             sizes = [len(shard_inputs[j]) for j in js]
             flat = [t for j in js for t in shard_inputs[j]] + list(device_inputs[dev])
 
-            def program(*ins, js=tuple(js), sizes=tuple(sizes)):
+            def program(*ins, js=tuple(js), sizes=tuple(sizes), around=(around or {}).get(dev, ((), None))):
+                waits, done = around
+                for event in waits:
+                    torch.cuda.current_stream().wait_event(event)
                 shared, at, outs = ins[sum(sizes):], 0, []
                 for j, m in zip(js, sizes):
                     outs.append(body(j, ins[at:at + m], shared))
                     at += m
+                if done is not None:
+                    done.record(torch.cuda.current_stream())
                 return tuple(outs)
 
             frame = self.captured[dev] = CapturedFrame(program, *flat, static=True)
@@ -390,9 +421,17 @@ class CapturedBatch:
     its static inputs, with the frame index as a static 0-d int32 there
     (``_PerDevice``; on CPU devices the same calls run eagerly).
 
-    A call ``(images, frame=0)`` copies each share of ``images`` (a tensor or
-    a ``Sharded`` in the example's layout and shape, else ``ValueError``) into
-    its device's static input and the frame to each device
+    ``inputs``: the graphs' static shares as a ``Sharded`` in the example's
+    layout, the buffers that JAX's jitted call would read of a sharded
+    array.  ``put(images)`` writes a tensor (from the host, one copy per
+    share straight into its static) or a ``Sharded`` in the example's layout
+    and shape (else ``ValueError``) into them and returns ``inputs``; a
+    producer may also write a share itself on its card's current stream
+    (each card's graph reads only its own shares: the stream orders the
+    write after the call before).
+
+    A call ``(images, frame=0)`` from ``inputs`` copies no share; from any
+    other input it ``put``s it first.  It writes the frame to each device
     (``sharding.shard_frame``'s rule, no host read for a tensor on the
     input's device), replays the graphs and returns a ``Sharded`` of their
     static outputs, which the next call overwrites: a caller that keeps one
@@ -414,6 +453,16 @@ class CapturedBatch:
         self.programs = _PerDevice(body, [(torch.empty_like(p, device=dev).copy_(p),)
                                           for p, dev in zip(_parts(example, mesh, self.spec), devices)],
                                    {dev: (torch.zeros((), dtype=torch.int32, device=dev),) for dev in devices})
+        self.inputs = Sharded(mesh, self.spec, tuple(ins[0] for ins in self.programs.shard_inputs), self.shape,
+                              self.dtype)
+
+    def put(self, images: Union[torch.Tensor, Sharded]) -> Sharded:
+        """``images`` written into ``inputs`` (``jax.device_put`` into the
+        jitted call's sharding): one copy per share, none for ``inputs``
+        itself."""
+        _check_like(images, self.shape, self.dtype, "this captured batch")
+        _write(self.inputs.shards, _parts(images, self.mesh, self.spec))
+        return self.inputs
 
     def __call__(self, images: Union[torch.Tensor, Sharded], frame=0) -> Sharded:
         self._stage(images, frame)
@@ -422,11 +471,8 @@ class CapturedBatch:
                        outs[0].dtype)
 
     def _stage(self, images, frame) -> None:
-        """A call's checks and its copies into the static inputs, before the
-        replays."""
-        _check_like(images, self.shape, self.dtype, "this captured batch")
-        parts = _parts(images, self.mesh, self.spec)
-        for (static,), part in zip(self.programs.shard_inputs, parts):
-            with _on(static.device):
-                static.copy_(part)
-        _put_frame(frame, parts[0].device, {dev: ins[0] for dev, ins in self.programs.device_inputs.items()})
+        """A call's staging before the replays: the shares, unless ``images``
+        is ``inputs``, and the frame."""
+        if images is not self.inputs:
+            self.put(images)
+        _put_frame(frame, _home(images), {dev: ins[0] for dev, ins in self.programs.device_inputs.items()})

@@ -49,9 +49,12 @@ no copy on one device; ``CapturedSpatial``, the counterpart of JAX's
 ``jax.jit`` over its ``shard_map``s, captures each device's bodies once as
 one CUDA graph, each strip's kernel reading its halo rows from the
 neighbours' static buffers card to card, as JAX's ``ppermute`` runs inside
-its program (H1, folded into K1 and K2); per call the host writes only each
-strip's own rows and the frame, then replays one graph per device, the
-devices ordered by CUDA events (``_schedule``).
+its program (H1, folded into K1 and K2).  Its own-row buffers are a
+``Sharded`` (``inputs``) that a producer writes or ``put`` fills, as
+``jax.device_put`` lays out the jitted call's input: a call from it copies
+no rows, and per call the host stages only the frame (and the grain rows
+and page it reads), then replays one graph per device, the devices ordered
+by CUDA events (``_schedule``).
 """
 
 from __future__ import annotations
@@ -169,38 +172,47 @@ def _reads(devices, n: int):
     """The distinct devices of a row-sharded call, in order, and what each
     one's program reads of the others' static inputs: its strips'
     neighbours' buffers (strip ``j`` of ``devices`` is strip ``j % n`` of
-    frame group ``j // n``), and the first strip's device, the frame's home.
-    Each card's program reads the frame from its own static, which its own
-    staging writes, so that last entry orders no read: its waits are
-    conservative."""
+    frame group ``j // n``).  The frame, the grain rows and the page each
+    program reads from its own statics, which only its own device's staging
+    writes."""
     order = list(dict.fromkeys(devices))
-    reads = {d: {devices[0]} for d in order}
+    reads = {d: set() for d in order}
     for j, d in enumerate(devices):
         reads[d].update(devices[j + i] for i in (-1, 1) if 0 <= j % n + i < n)
     return order, {d: tuple(e for e in order if e in r and e != d) for d, r in reads.items()}
 
 
 def _schedule(devices, reads):
-    """The host's order of one captured call's work across devices, as a
-    pure function: (staging steps, replay steps).  A step is ``("stage",
-    d)``, ``("replay", d)``, ``("record", d, event)`` or ``("wait", d,
-    event)``; an event is ``("staged", e)`` or ``("done", e)``, recorded on
-    device e's stream, and a wait on d's stream binds to its latest record.
-    ``devices``: distinct, in order; ``reads[d]``: the other devices whose
-    static inputs d's program reads (its strips' neighbours' buffers, the
-    frame on the source card).  Two hazards, and no host sync:
+    """The host's order of a captured call's work across devices, as a pure
+    function: (write steps, stage steps, replay steps).  A step is
+    ``("stage", d)``, ``("replay", d)``, ``("record", d, event)`` or
+    ``("wait", d, event)``; an event is ``("staged", e)`` or ``("done",
+    e)``, recorded on device e's stream, and a wait on d's stream binds to
+    its latest record.  ``devices``: distinct, in order; ``reads[d]``: the
+    other devices whose own-row buffers d's program reads.
+
+    The write steps make every device's buffers writable on its current
+    stream (``CapturedSpatial.writable``, the start of ``put``): what
+    follows there may overwrite them.  A call then stages each device's own
+    statics (its frame, grain rows and page, which only its program reads)
+    and records ``staged``, which covers whatever was written there before
+    (by ``put``, by a producer after ``writable()``, by the call's own copy
+    of an input), then replays.  Two hazards, and no host sync:
 
     - within a call (read after write): d's replay waits for the staging of
       every device it reads (``staged``);
-    - across calls (write after read): the staging on e waits for the
-      replay, in the call before, of every device that reads e (``done``).
+    - across calls (write after read): a write on e waits for the replay, in
+      the call before, of every device that reads e (``done``).
 
     A device that no other reads, or that reads no other, records nothing:
-    its own stream orders its staging and its replay."""
+    its own stream orders its writes, its staging and its replay.
+    ``CapturedSpatial`` runs the replay steps' waits and record inside each
+    card's graph, where they bind at the graph's launch as the host's would
+    there."""
     readers = {e: [d for d in devices if e in reads[d]] for e in devices}
+    write = [("wait", e, ("done", d)) for e in devices for d in readers[e]]
     stage, replay = [], []
     for e in devices:
-        stage += [("wait", e, ("done", d)) for d in readers[e]]
         stage.append(("stage", e))
         if readers[e]:
             stage.append(("record", e, ("staged", e)))
@@ -209,7 +221,7 @@ def _schedule(devices, reads):
         replay.append(("replay", d))
         if reads[d]:
             replay.append(("record", d, ("done", d)))
-    return stage, replay
+    return write, stage, replay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,17 +418,32 @@ class CapturedSpatial:
     ``upscale_spatial_sharded`` is for such hosts.  On CPU devices the same
     staging and bodies run eagerly, each strip read by its plain version.
 
-    A call ``(image, frame=0, grain=None)`` takes a tensor or a ``Sharded``
-    of the example's shape, dtype and layout (else ``ValueError``, naming
-    both) and stages it: each strip's own rows into its buffer (a same-card
-    copy from a ``Sharded`` on the mesh; from a tensor on one card, the
-    put), its grain rows, the page, and the frame, on the first strip's
-    device and, when the programs read it (a hash dither, the pipeline's
-    after-pass), on every device (``sharding._put_frame``: no host read for
-    a tensor on the input's device).  Then each device's graph replays on its current
-    stream, ordered across devices by events (``_schedule``), never by a
-    host sync.  Returns a ``Sharded`` of the static outputs, overwritten by
-    the next call (``CapturedFrame``'s contract: clone what you keep).
+    ``inputs``: the strips' own-row buffers as a ``Sharded`` in the call's
+    layout, the buffers that JAX's jitted call would read of a sharded
+    array.  ``put(image, grain=None)`` writes a tensor (from the host, one
+    copy per strip straight into its buffer) or a ``Sharded`` of the
+    example's shape, dtype and layout (else ``ValueError``, naming both)
+    into them, and the grain rows when given, and returns ``inputs``.  A
+    producer may write ``inputs.shards[k]`` itself, on that device's current
+    stream, after ``writable()``: it enqueues there the waits for the
+    replays of the call before that read that buffer (the devices whose
+    strips neighbour its strips) and returns ``inputs``; ``put`` is
+    ``writable()`` and the copies.
+
+    A call ``(image, frame=0, grain=None)`` from ``inputs`` copies no rows;
+    from any other input it ``put``s the rows first.  It stages the grain
+    rows given to it (a capture with grain needs them from any other input;
+    from ``inputs`` without grain the rows stand as last written), the page,
+    and the frame, on the first strip's device and, when the programs read
+    it (a hash dither, the pipeline's after-pass), on every device
+    (``sharding._put_frame``: no host read for a tensor on the input's
+    device).  Then each device's graph replays on its current stream,
+    ordered across devices by events (``_schedule``), never by a host sync:
+    each graph waits for its neighbours' ``staged`` events and records its
+    ``done`` event itself (external event nodes,
+    ``sharding._PerDevice``'s ``around``).
+    Returns a ``Sharded`` of the static outputs, overwritten by the next
+    call (``CapturedFrame``'s contract: clone what you keep).
     ``from_pipeline`` captures ``UpscalePipeline(mesh=)``."""
 
     def __init__(self, example: Union[torch.Tensor, Sharded], out_size, mesh: Mesh, axis: str = "sp",
@@ -465,16 +492,23 @@ class CapturedSpatial:
         home = devices[0]
         order, reads = _reads(devices, n)
         halo_k.enable_peers((d, e) for d, r in reads.items() for e in r)
-        self._stage_steps, self._replay_steps = _schedule(order, reads)
-        self._events = {step[2]: torch.cuda.Event() for step in self._stage_steps + self._replay_steps
+        self._write_steps, self._stage_steps, replay = _schedule(order, reads)
+        # The replay steps' waits and records run inside each card's graph
+        # (external event nodes, which bind as the host's would at launch);
+        # the host issues the graphs' launches, the write and stage steps.
+        self._events = {step[2]: torch.cuda.Event(external=True) for step in self._stage_steps + replay
                         if step[0] == "record"}
+        self._replay_steps = [step for step in replay if step[0] == "replay"]
+        around = {d: (tuple(self._events[("staged", e)] for e in reads[d]), self._events.get(("done", d)))
+                  for d in order}
+        for (_, e), event in self._events.items():  # created on its card, so that a capture can name it
+            event.record(torch.cuda.current_stream(e))
         self._strips_on = {d: [j for j, e in enumerate(devices) if e == d] for d in order}
         # Every strip's own rows, allocated before any capture so that each
         # device's program can name its neighbours'.
         self.buffers = bufs = [torch.empty(p.shape, dtype=p.dtype, device=dev) for p, dev in zip(parts, devices)]
-        for b, p in zip(bufs, parts):
-            with sharding._on(b.device):
-                b.copy_(p)
+        sharding._write(bufs, parts)
+        self.inputs = Sharded(mesh, spec, tuple(bufs), self.shape, self.dtype)
         shard_inputs = []
         for j, dev in enumerate(devices):
             rows = torch.zeros((3, hl, wout), dtype=torch.float32, device=dev)
@@ -508,8 +542,28 @@ class CapturedSpatial:
             return body(layout, k, src, shared[0], ins[1] if self.takes_grain else None,
                         shared[1] if paged else None)
 
-        self.programs = sharding._PerDevice(strip, shard_inputs, shared)
+        self.programs = sharding._PerDevice(strip, shard_inputs, shared, around)
         settle()
+
+    def writable(self) -> Sharded:
+        """``inputs``, each buffer writable on its device's current stream
+        once the replays of the call before that read it are done (``done``
+        waits enqueued there, no host sync)."""
+        self._issue(self._write_steps, None)
+        return self.inputs
+
+    def put(self, image: Union[torch.Tensor, Sharded], grain=None) -> Sharded:
+        """``image`` (and ``grain``'s rows, given) written into the statics
+        after ``writable()``: ``jax.device_put`` into the jitted call's
+        sharding.  Returns ``inputs``."""
+        sharding._check_like(image, self.shape, self.dtype, "this captured call")
+        self._check_grain(grain)
+        parts = sharding._parts(image, self.mesh, self.spec)
+        self.writable()
+        sharding._write(self.buffers, parts)
+        if grain is not None:
+            self._put_grain(grain, range(len(self.buffers)))
+        return self.inputs
 
     def __call__(self, image: Union[torch.Tensor, Sharded], frame=0, grain=None) -> Sharded:
         self._stage(image, frame, grain)
@@ -523,40 +577,57 @@ class CapturedSpatial:
         return _result(self.mesh, self.spec, outs, self.shape, self.out_size)
 
     def _issue(self, steps, run) -> None:
-        """Issue ``_schedule``'s steps: events waited for and recorded on the
-        devices' current streams, ``run(device)`` for a stage or a replay."""
-        streams = {e: torch.cuda.current_stream(e) for e in self._strips_on} if self._events else {}
+        """Issue ``_schedule``'s steps from the host: events waited for and
+        recorded on the devices' current streams, ``run(device)`` for a stage
+        or a replay."""
+        streams = {}
         for step in steps:
             kind, dev = step[:2]
             if kind == "wait":
-                streams[dev].wait_event(self._events[step[2]])
+                stream = streams[dev] if dev in streams else streams.setdefault(dev, torch.cuda.current_stream(dev))
+                stream.wait_event(self._events[step[2]])
             elif kind == "record":
-                self._events[step[2]].record(streams[dev])
+                stream = streams[dev] if dev in streams else streams.setdefault(dev, torch.cuda.current_stream(dev))
+                self._events[step[2]].record(stream)
             else:
                 run(dev)
 
-    def _stage(self, image, frame, grain=None) -> None:
-        """A call's checks and its staging, device by device, each after the
-        replays of the call before that read it (``_schedule``): its strips'
-        own rows and grain rows, the page, and the frame on the devices that
-        hold one (``_frame_devices``)."""
-        sharding._check_like(image, self.shape, self.dtype, "this captured call")
+    def _check_grain(self, grain) -> None:
         if grain is not None and tuple(grain.shape) != (3, *self.out_size):
             raise ValueError(f"this captured call takes a grain of {(3, *self.out_size)}, got {tuple(grain.shape)}")
-        if self.takes_grain and grain is None:
-            raise ValueError("this call was captured with grain: pass grain=")
-        parts = sharding._parts(image, self.mesh, self.spec)
+
+    def _put_grain(self, grain, strips) -> None:
+        """Each of ``strips``' rows of the grain into its static, on its
+        device's current stream (only its own program reads it)."""
+        if not self.takes_grain:
+            return
         n, hl = self.layout.n, self.layout.out_hw[0]
-        src = parts[0].device
+        for j in strips:
+            static = self.programs.shard_inputs[j][1]
+            k = j % n
+            static.copy_(grain[:, k * hl:(k + 1) * hl])
+
+    def _stage(self, image, frame, grain=None) -> None:
+        """A call's checks and its staging, before the replays: the rows put
+        (``put``, after ``writable()``'s waits) unless ``image`` is
+        ``inputs``; then on each device (``_schedule``'s stage steps) its
+        strips' grain rows, the page, and the frame on the devices that hold
+        one (``_frame_devices``)."""
+        own = image is self.inputs
+        if not own:
+            sharding._check_like(image, self.shape, self.dtype, "this captured call")
+            if self.takes_grain and grain is None:
+                raise ValueError("this call was captured with grain: pass grain=")
+        self._check_grain(grain)
+        if not own:
+            self.put(image)
+        src = sharding._home(image)
         page = None if self._page_of is None else self._page_of(src, frame)
 
         def stage(dev):  # each copy runs on its destination's current stream
             ins = self.programs.device_inputs[dev]
-            for j in self._strips_on[dev]:
-                self.buffers[j].copy_(parts[j])
-                if self.takes_grain:
-                    k = j % n
-                    self.programs.shard_inputs[j][1].copy_(grain[:, k * hl:(k + 1) * hl])
+            if grain is not None:
+                self._put_grain(grain, self._strips_on[dev])
             if page is not None:
                 ins[1].copy_(page)
             if dev in self._frame_devices:

@@ -22,10 +22,13 @@ body).  Held here:
 - the wrappers' checks of a strip source (``halo.check``), one refusal per
   part the kernels do not take (the card faked by a monkeypatch), and the
   strides it lays out for the kernels;
-- the event schedule (``spatial._schedule`` over ``spatial._reads``) on
-  2, 3 and 4 cards and dp x sp, over a queue of three calls: every read of
-  a buffer comes after that call's write of it and before the next call's
-  write (and a schedule without its waits is caught);
+- the event schedule (``spatial._schedule``'s write, stage and replay
+  steps over ``spatial._reads``, which names only the neighbours: each
+  card reads the frame from its own static) on 2, 3 and 4 cards and dp x
+  sp, over queues of three calls: ``put`` + call, ``writable()`` + a
+  producer's writes + call, and a mix with a call that writes nothing;
+  every read of a buffer comes after that call's write of it and before
+  the next write (and a schedule without either kind of wait is caught);
 - a mesh whose cards lack peer access raising ``ValueError`` at
   construction, naming the pair (the peer query monkeypatched), and the
   pairs that construction enables.
@@ -298,15 +301,18 @@ def test_captured_buffers_equal_jax_exchange(case):
 # --- the event schedule ------------------------------------------------------------
 
 
-def _violations(order, reads, steps, calls: int = 3):
-    """Run the host's steps of ``calls`` calls on a model of one stream per
-    device (a wait binds to its event's latest record, as
-    ``cudaStreamWaitEvent`` does) and return the broken orders: a replay
-    reading a device's buffers before that call's staging there, or a
-    staging that may overwrite them before the previous call's replay read
-    them."""
+def _violations(order, reads, calls):
+    """Run the host's steps of a queue of calls (``calls``: one list of
+    steps each) on a model of one stream per device (a wait binds to its
+    event's latest record, as ``cudaStreamWaitEvent`` does) and return the
+    broken orders.  ``("write", e)`` writes e's own-row buffer (``put``'s
+    copy, a producer's write, a call's copy of another input); ``("stage",
+    d)`` writes d's own statics (frame, grain rows, page), which only d's
+    program reads.  Broken: a replay reading a buffer before that call's
+    write of it, or a write that may land before a replay of the call
+    before has read what it overwrites."""
     edges, last, events, node = {}, {}, {}, itertools.count()
-    stage, replay = {}, {}
+    writes, stage, replay = {}, {}, {}
 
     def add(dev, after=()):
         v = next(node)
@@ -314,7 +320,7 @@ def _violations(order, reads, steps, calls: int = 3):
         last[dev] = v
         return v
 
-    for c in range(calls):
+    for c, steps in enumerate(calls):
         for step in steps:
             kind, dev = step[:2]
             if kind == "wait":
@@ -322,7 +328,7 @@ def _violations(order, reads, steps, calls: int = 3):
             elif kind == "record":
                 events[step[2]] = add(dev)
             else:
-                (stage if kind == "stage" else replay)[(dev, c)] = add(dev)
+                {"write": writes, "stage": stage, "replay": replay}[kind][(dev, c)] = add(dev)
 
     def before(a, b):  # a happens before b
         seen, todo = set(), [b]
@@ -336,14 +342,35 @@ def _violations(order, reads, steps, calls: int = 3):
         return False
 
     bad = []
-    for c in range(calls):
+    for c in range(len(calls)):
         for d in order:
-            for e in (d, *reads[d]):
-                if not before(stage[(e, c)], replay[(d, c)]):
-                    bad.append(f"call {c}: {d}'s replay may read {e} before its staging")
-                if c + 1 < calls and not before(replay[(d, c)], stage[(e, c + 1)]):
-                    bad.append(f"call {c + 1}: the staging on {e} may overwrite what {d}'s replay reads")
+            for e, w in [(e, writes.get((e, c))) for e in (d, *reads[d])] + [(d, stage[(d, c)])]:
+                if w is None:
+                    continue
+                if not before(w, replay[(d, c)]):
+                    bad.append(f"call {c}: {d}'s replay may read {e} before its write")
+                if c and not before(replay[(d, c - 1)], w):
+                    bad.append(f"call {c}: the write on {e} may overwrite what {d}'s replay of call {c - 1} reads")
     return bad
+
+
+def _put_call(write, stage, replay, devices):
+    """``put`` then a call from ``inputs`` (or a call from any other input,
+    which ``put``s it): every buffer written after the write steps."""
+    return write + [("write", e) for e in devices] + stage + replay
+
+
+def _queues(order, reads):
+    """Three queued calls each way: ``put`` + call; ``writable()`` + a
+    producer's writes (in reverse order, then only every other device's) +
+    call; and a mix of the two with a call that writes nothing."""
+    write, stage, replay = spatial._schedule(order, reads)
+    produce = [write + [("write", e) for e in order[::-1]] + stage + replay,
+               write + [("write", e) for e in order[1::2]] + stage + replay,
+               write + [("write", e) for e in order] + stage + replay]
+    return {"put + call": [_put_call(write, stage, replay, order)] * 3,
+            "writable() + write + call": produce,
+            "mixed": [_put_call(write, stage, replay, order), stage + replay, produce[0]]}
 
 
 @pytest.mark.parametrize("cards,n", [(2, 2), (3, 3), (4, 4), (4, 2)], ids=["2 cards", "3 cards", "4 cards",
@@ -352,27 +379,33 @@ def test_event_schedule_orders_three_queued_calls(cards, n):
     devices = [torch.device("cuda", i) for i in range(cards)]
     order, reads = spatial._reads(devices, n)
     assert order == devices
-    stage, replay = spatial._schedule(order, reads)
-    assert _violations(order, reads, stage + replay) == []
-    # Every step names an event of the device it runs on or a wait on
-    # another's; a device's stage and replay come once each per call.
+    write, stage, replay = spatial._schedule(order, reads)
+    # The write steps are waits only; a device's stage and replay come once
+    # each per call; every record names an event of the device it runs on.
+    assert {s[0] for s in write} == {"wait"} and all(s[2][0] == "done" for s in write)
     assert [s[1] for s in stage if s[0] == "stage"] == devices == [s[1] for s in replay if s[0] == "replay"]
     assert all(s[2][1] == s[1] for s in stage + replay if s[0] == "record")
-    # Without either kind of wait the model finds the hazard.
-    for kind in ("staged", "done"):
-        cut = [s for s in stage + replay if not (s[0] == "wait" and s[2][0] == kind)]
-        assert _violations(order, reads, cut), f"a schedule without its {kind!r} waits passed"
+    for what, queue in _queues(order, reads).items():
+        assert _violations(order, reads, queue) == [], what
+        # Without either kind of wait the model finds the hazard.
+        for kind in ("staged", "done"):
+            cut = [[s for s in steps if not (s[0] == "wait" and s[2][0] == kind)] for steps in queue]
+            assert _violations(order, reads, cut), f"{what}: a schedule without its {kind!r} waits passed"
 
 
 def test_reads_are_the_neighbours_and_the_frame():
+    """Each card's program reads its strips' neighbours' buffers, and the
+    frame from its own static: no card reads the first card for the frame."""
     c = [torch.device("cuda", i) for i in range(4)]
     order, reads = spatial._reads(c, 4)
-    assert reads == {c[0]: (c[1],), c[1]: (c[0], c[2]), c[2]: (c[0], c[1], c[3]), c[3]: (c[0], c[2])}
-    _, reads = spatial._reads(c, 2)  # dp x sp: (c0, c1) and (c2, c3), the frame on c0
-    assert reads == {c[0]: (c[1],), c[1]: (c[0],), c[2]: (c[0], c[3]), c[3]: (c[0], c[2])}
+    assert reads == {c[0]: (c[1],), c[1]: (c[0], c[2]), c[2]: (c[1], c[3]), c[3]: (c[2],)}
+    write, stage, replay = spatial._schedule(order, reads)
+    assert sum(s[0] == "wait" for s in write + stage + replay) == 12  # 6 "done", 6 "staged"
+    _, reads = spatial._reads(c, 2)  # dp x sp: (c0, c1) and (c2, c3)
+    assert reads == {c[0]: (c[1],), c[1]: (c[0],), c[2]: (c[3],), c[3]: (c[2],)}
     order, reads = spatial._reads([c[0]] * 4, 4)  # one card: its stream orders everything
     assert order == [c[0]] and reads == {c[0]: ()}
-    assert spatial._schedule(order, reads) == ([("stage", c[0])], [("replay", c[0])])
+    assert spatial._schedule(order, reads) == ([], [("stage", c[0])], [("replay", c[0])])
 
 
 # --- peer access -------------------------------------------------------------------
@@ -404,7 +437,7 @@ def test_enable_peers_enables_each_pair_once(monkeypatch):
     c = [torch.device("cuda", i) for i in range(4)]
     _, reads = spatial._reads(c, 4)
     halo.enable_peers([(d, e) for d, r in reads.items() for e in r] + [(c[1], c[0]), (c[0], c[0])])
-    assert sorted(calls) == [(0, 1), (1, 0), (1, 2), (2, 0), (2, 1), (2, 3), (3, 0), (3, 2)]
+    assert sorted(calls) == [(0, 1), (1, 0), (1, 2), (2, 1), (2, 3), (3, 2)]
     calls.clear()
     halo.enable_peers([(c[0], c[0]), (CPU, CPU)])  # one device, or the CPU: nothing to enable
     assert calls == []

@@ -17,6 +17,12 @@ so each is held here:
   sharded call (on the conftest's 8 virtual CPU devices) within
   tests/test_torch_sharded.py's limits: the torch path within 2e-6, the
   kernels' plain versions within 6e-5;
+- the graphs' static inputs as a ``Sharded`` (``inputs``): the same
+  tensors as the statics; ``put`` from a tensor, a view and a ``Sharded``
+  equal to the call from the tensor; a producer's writes in place and a
+  call from ``inputs`` bit-equal to the eager call and within the limits
+  below of JAX's jitted call, with no copy into a static (and one per strip
+  or share from a tensor); ``put``'s ``ValueError``s;
 - the staging step writing into buffers bit-equal to ``_exchange_halo``'s
   fresh tensors for 2, 3, 4 and 8 strips;
 - no ``aten._local_scalar_dense`` in a call with a tensor frame;
@@ -300,6 +306,157 @@ def test_a_tensor_frame_is_never_read_on_the_host():
     with _NoHostRead():
         for call in (rows, paged, after, batch):
             call(x, frame)
+
+
+# --- the static inputs as a Sharded: inputs, put, writable -------------------------
+
+
+class _CopiesInto(TorchDispatchMode):
+    """Counts the ``copy_``s whose destination shares storage with one of
+    ``statics``."""
+
+    def __init__(self, statics):
+        super().__init__()
+        self.ptrs = {t.untyped_storage().data_ptr() for t in statics}
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ == "copy_" and args[0].untyped_storage().data_ptr() in self.ptrs:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _statics(cap):
+    return [ins[0] for ins in cap.programs.shard_inputs]
+
+
+def _write_in_place(inputs: Sharded, seed: int, kind: str):
+    """A producer's write of each shard where it lies, from numpy-seeded
+    values; returns the global tensor written."""
+    for k, shard in enumerate(inputs.shards):
+        shard.copy_(_image(seed + k, kind, tuple(shard.shape)))
+    return inputs.gather().clone()
+
+
+def _row_capture(case):
+    name, in_hw, out_hw, (names, shape), batch_axis, kind, kw = case
+    mesh = _mesh(int(np.prod(shape)), names, shape)
+    c = 4 if "RGBA" in name else 3
+    kw = dict(kw)
+    if kw.get("epilogue") is not None and kw["epilogue"].dither_texture:
+        kw["dither_page"] = torch.from_numpy(_rand(20, (12, 20)))
+    grain = torch.from_numpy(_rand(21, (3, *out_hw), -0.5, 0.5))
+    full = (4 if batch_axis else 2, c, *in_hw)
+    cap = spatial.CapturedSpatial(_image(0, kind, full), out_hw, mesh, batch_axis=batch_axis, grain=grain, **kw)
+
+    def eager(x, frame, g):
+        return spatial.upscale_spatial_sharded(x, out_hw, mesh, batch_axis=batch_axis, frame=frame, grain=g, **kw)
+    return cap, eager, full, grain
+
+
+@pytest.mark.parametrize("case", ROWS, ids=[c[0] for c in ROWS])
+def test_captured_rows_inputs_put_and_writes_in_place(case):
+    """``inputs`` are the graphs' own-row buffers; ``put`` from a tensor, a
+    view of a larger one and a ``Sharded`` (with the grain) equals the call
+    from the same tensor; a producer's writes in place after ``writable()``
+    and a call from ``inputs`` equal the eager call, with no copy into a
+    buffer; a call from a tensor copies each strip's rows once."""
+    name, *_, kind, _ = case
+    cap, eager, full, grain = _row_capture(case)
+    ins = cap.inputs
+    assert isinstance(ins, Sharded) and ins.spec == cap.spec and ins.shape == cap.shape and ins.dtype == cap.dtype
+    assert all(a is b for a, b in zip(ins.shards, cap.buffers)) and all(a is b for a, b in zip(ins.shards,
+                                                                                           _statics(cap)))
+    assert cap.writable() is ins
+    for k, frame in enumerate((9, _t(-5))):
+        x = _image(40 + k, kind, full)
+        g = grain.flip(-2) if k else grain
+        want = cap(x, frame=frame, grain=g)
+        want = Sharded(want.mesh, want.spec, tuple(s.clone() for s in want.shards), want.shape, want.dtype)
+        wide = torch.cat([x, x], -1)[..., : x.shape[-1]]  # a view of a larger tensor
+        for what, src in (("a tensor", x), ("a view", wide), ("a Sharded", Sharded.put(x, cap.mesh, cap.spec))):
+            assert cap.put(src, grain=g) is ins
+            with _CopiesInto(cap.buffers) as copies:
+                got = cap(ins, frame=frame)
+            assert copies.count == 0
+            _same_shards(got, want, f"{name}: put from {what}, call {k}")
+        written = _write_in_place(cap.writable(), 60 + k, kind)
+        want = eager(written, frame, g)
+        with _CopiesInto(cap.buffers) as copies:
+            got = cap(ins, frame=frame, grain=g)
+        assert copies.count == 0
+        _same_shards(got, want, f"{name}: written in place, call {k}")
+    with _CopiesInto(cap.buffers) as copies:
+        cap(_image(70, kind, full), grain=grain)
+    assert copies.count == len(cap.buffers)
+
+
+@pytest.mark.parametrize("case", JAX_ROWS, ids=[c[0] for c in JAX_ROWS])
+def test_captured_rows_written_in_place_match_jax(case):
+    _, in_hw, out_hw, n, impl = case
+    cap = spatial.CapturedSpatial(torch.zeros((2, 3, *in_hw)), out_hw, _mesh(n), impl=impl)
+    img = _write_in_place(cap.writable(), 80, "float")
+    want = jspatial.upscale_spatial_sharded(jnp.asarray(img.numpy()), out_hw, _jmesh(n), axis="sp")
+    _check_against_jax(cap(cap.inputs), want, TORCH_TOL if impl == "torch" else KERNEL_TOL)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "torch"])
+def test_captured_batch_inputs_put_and_writes_in_place(impl):
+    """The batch's ``inputs`` are its graphs' static shares; ``put`` from a
+    tensor and a ``Sharded`` equals the call from the same tensor; writes in
+    place and a call from ``inputs`` equal the eager call with no copy into
+    a share, and match JAX's jitted ``shard_map``."""
+    mesh = _mesh(4, ("batch",))
+    kw = dict(scale=2.0, impl=impl, epilogue=Epilogue(dither_bits=8), out_dtype=U8)
+    cap = sharding.CapturedBatch(torch.zeros((8, 3, 32, 48)), mesh, **kw)
+    ins = cap.inputs
+    assert ins.spec == cap.spec and ins.shape == (8, 3, 32, 48) and all(a is b for a, b in zip(ins.shards,
+                                                                                              _statics(cap)))
+    x = torch.from_numpy(_rand(90, (8, 3, 32, 48)))
+    want = cap(x, 4)
+    want = Sharded(want.mesh, want.spec, tuple(s.clone() for s in want.shards), want.shape, want.dtype)
+    for what, src in (("a tensor", x), ("a Sharded", sharding.shard_batch(x, mesh))):
+        assert cap.put(src) is ins
+        with _CopiesInto(_statics(cap)) as copies:
+            got = cap(ins, 4)
+        assert copies.count == 0
+        _same_shards(got, want, f"put from {what}")
+    written = _write_in_place(ins, 91, "float")
+    with _CopiesInto(_statics(cap)) as copies:
+        got = cap(ins, _t(6))
+    assert copies.count == 0
+    _same_shards(got, sharding.upscale_batch_sharded(written, mesh, frame=6, **kw), "written in place")
+    with _CopiesInto(_statics(cap)) as copies:
+        cap(x, 4)
+    assert copies.count == 4
+    plain = sharding.CapturedBatch(torch.zeros((8, 3, 32, 48)), mesh, scale=2.0, impl=impl)
+    img = _write_in_place(plain.inputs, 92, "float")
+    want = jsharding.upscale_batch_sharded(jnp.asarray(img.numpy()), _jmesh(4, ("batch",)), scale=2.0, impl="xla")
+    _check_against_jax(plain(plain.inputs), want, TORCH_TOL if impl == "torch" else KERNEL_TOL)
+
+
+def test_put_unlike_its_capture_raises():
+    x = torch.from_numpy(_rand(11, (2, 3, 32, 48)))
+    mesh = _mesh(4)
+    cap = spatial.CapturedSpatial(x, (64, 96), mesh, epilogue=Epilogue(grain_amount=0.2),
+                                  grain=torch.zeros((3, 64, 96)))
+    with pytest.raises(ValueError, match=r"\(2, 3, 32, 48\) torch.float32 input, got a \(1, 3, 32, 48\)"):
+        cap.put(x[:1])
+    with pytest.raises(ValueError, match=r"torch.float32 input, got a \(2, 3, 32, 48\) torch.uint8"):
+        cap.put(x.to(U8))
+    with pytest.raises(ValueError, match=r"\(None, None, 'sp', None\).*\('batch', None, None, None\)"):
+        cap.put(sharding.shard_batch(x, _mesh(2, ("batch",))))
+    with pytest.raises(ValueError, match=r"grain of \(3, 64, 96\), got \(3, 32, 96\)"):
+        cap.put(x, grain=torch.zeros((3, 32, 96)))
+    with pytest.raises(ValueError, match=r"grain of \(3, 64, 96\), got \(3, 32, 96\)"):
+        cap(cap.inputs, grain=torch.zeros((3, 32, 96)))
+    batch = sharding.CapturedBatch(x, _mesh(2, ("batch",)), scale=2.0)
+    with pytest.raises(ValueError, match=r"\(2, 3, 32, 48\) torch.float32 input, got a \(4, 3, 32, 48\)"):
+        batch.put(torch.cat([x, x]))
+    with pytest.raises(ValueError, match=r"torch.float32 input, got a \(2, 3, 32, 48\) torch.bfloat16"):
+        batch.put(x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match=r"\('batch', None, None, None\).*\(None, None, 'batch', None\)"):
+        batch.put(Sharded.put(x, _mesh(2, ("batch",)), (None, None, "batch", None)))
 
 
 # --- the errors -------------------------------------------------------------------
