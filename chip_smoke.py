@@ -169,7 +169,19 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      port's CPU gradient; then examples_torch/train_through_fsr.py's inverse
      problem, 3 Adam steps at 1080p -> 4K, one K1 launch each, the
      displayed MSE lower after them than at the box-downsample baseline;
-     with --trace, a trace of each case's forward and backward.
+     with --trace, a trace of each case's forward and backward; then the
+     trainer's steps captured as one CUDA graph each (capture.CapturedStep:
+     forward K1, the twin's backward, Adam, the clamp), against the eager
+     step function from the same start: (v) the inverse problem and (vi)
+     the prefilter at the example's --size 96, 20 replays bit-equal to 20
+     eager steps, loss and parameters step by step (the prefilter with
+     cuDNN deterministic; if its eager step is not repeatable, its
+     parameters within PREFILTER_REL), (warm-up + 1) K1 launches at
+     capture, none and no aten operation dispatched at a replay; ms per
+     step eager against replay in turn, and a trace of each (busy, idle
+     share, device operations, K1 once); (vii) the inverse problem at
+     1080p -> 4K, 3 replays bit-equal to 3 eager steps, ms per step in
+     turn, the eager step's peak memory and what the graph holds.
  21. the application layer on the card, from seeded numpy data in a
      temporary directory: (i) fsr_tpu_torch.cli --preset performance on a
      1080p PNG -> 4K with --benchmark 5 --results (one K1 per run, no K4;
@@ -286,6 +298,10 @@ P3_HALF2_REL = 2.0 ** -9
 GRAD_SQ_RTOL, GRAD_SQ_ATOL = 5e-3, 5e-4
 GRAD_BF16_SQ_P99, GRAD_BF16_SQ_MEDIAN = 3e-2, 2e-3
 GRAD_REL = 1e-5
+# Phase 20 (vi): the prefilter's parameters after 20 replays against 20
+# eager steps, relative to their largest, where cuDNN's conv backward is
+# not repeatable eager against eager (else bit-equal).
+PREFILTER_REL = 1e-6
 
 # The least time the card could take (the kernels line's bound_ms): the
 # larger of the bytes a kernel must move over the HBM3 rate and its
@@ -1835,7 +1851,8 @@ def _autodiff(dev, card: str, trace: bool) -> None:
     gradient is held against the torch path's (bit-equal under a linear
     loss, within the CPU tests' limits under a squared one) and, at 540p ->
     1080p, against the port's CPU gradient; then the training example's
-    inverse problem takes 3 Adam steps at 1080p -> 4K.  With ``trace``, a
+    inverse problem takes 3 Adam steps at 1080p -> 4K, and its steps run
+    captured against eager (``_captured_training``).  With ``trace``, a
     profiler trace of one forward and backward of each case: the device's
     busy time, idle share and its largest kernels."""
     import fsr_tpu_torch as ft
@@ -1953,18 +1970,187 @@ def _autodiff(dev, card: str, trace: bool) -> None:
     for step in range(3):
         reset()
         t0 = time.perf_counter()
-        loss = prob.step()
+        loss = prob.step()  # a 0-d tensor on the card: the step does not wait for it
+        torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         n = counts()
         # The step's own forward is the same K1 call on the same render.
-        if loss != mse[-1] or n != {k: int(k == "K1") for k in wrappers}:
-            raise AssertionError(f"training step {step}: MSE {loss} (before it {mse[-1]}), launches {n}")
+        if loss.item() != mse[-1] or n != {k: int(k == "K1") for k in wrappers}:
+            raise AssertionError(f"training step {step}: MSE {loss.item()} (before it {mse[-1]}), launches {n}")
         mse.append(prob.loss())
-        print(f"  training step {step}: displayed MSE {loss:.6e} -> {mse[-1]:.6e}, {ms:.1f} ms "
+        print(f"  training step {step}: displayed MSE {loss.item():.6e} -> {mse[-1]:.6e}, {ms:.1f} ms "
               f"(host clock, one K1 launch), {card}")
     print(f"  displayed MSE after 3 steps: {mse[-1] / mse[0]:.4f} of the box-downsample baseline's")
     if not mse[-1] < mse[0]:
         raise AssertionError(f"the displayed MSE did not fall over the 3 steps: {mse}")
+    del prob, hi
+    _captured_training(dev, card)
+
+
+class _OpCount:
+    """Counts the aten operations dispatched from the host while it is
+    entered (a TorchDispatchMode); a graph's replay dispatches none."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+        self.n = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode
+
+    def __enter__(self):
+        self._active = self.mode()
+        self._active.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._active.__exit__(*exc)
+
+
+def _steps(prob, step, n: int, ops: _OpCount) -> list:
+    """``n`` calls of ``step`` (``ops`` entered around each): each step's
+    loss and, after it, clones of ``prob``'s parameters."""
+    out = []
+    for _ in range(n):
+        with ops:
+            loss = step()
+        out.append((loss.clone(), [p.detach().clone() for p in prob.params]))
+    torch.cuda.synchronize()
+    return out
+
+
+def _differ(a: list, b: list) -> list:
+    """The steps (index, what) at which two runs of ``_steps`` differ in a
+    bit of the loss or a parameter."""
+    return [(i, "loss" if not torch.equal(la, lb) else "parameters") for i, ((la, pa), (lb, pb)) in
+            enumerate(zip(a, b)) if not (torch.equal(la, lb) and all(map(torch.equal, pa, pb)))]
+
+
+def _captured_training(dev, card: str) -> None:
+    """Phase 20 (v)-(vii): examples_torch/train_through_fsr.py's steps,
+    each captured as one CUDA graph (``capture.CapturedStep``: forward K1,
+    the twin's backward, Adam, the inverse problem's clamp) against the
+    eager step function from the same start: (v) the inverse problem and
+    (vi) the prefilter at the example's default --size 96, 20 steps each,
+    ms per step in turn (wall, 50 steps per sample after a sync), a trace
+    of one eager step and one replay, and a non-capturable Adam's
+    parameters beside the capturable one's (the update of the eager
+    trainer before the capture); (vii) the inverse problem at
+    1080p -> 4K, 3 replays against 3 eager steps, ms per step in turn and
+    the memory each holds."""
+    from examples_torch import train_through_fsr as trainer
+    from fsr_tpu_torch.utils import capture
+    from fsr_tpu_torch.utils.profiling import device_trace
+
+    def problems(make):
+        """An eager problem, a second one, and a captured one, all from the
+        same start; the capture's launches (warm-up and capture)."""
+        eager, again, cap = make(), make(), make()
+        step, built = _drive(lambda: capture.CapturedStep(cap.step, cap.params, cap.opt),
+                             {"K1": capture.WARMUP + 1})
+        return eager, again, cap, step, built
+
+    def k1(tr):
+        return round(sum(n for name, n in tr["launches"].items() if "fused_kernel" in name), 6)
+
+    size, n = 96, 20
+    rng = np.random.default_rng(0)
+    hi = torch.from_numpy(trainer.make_scene(rng, (2 * size, 4 * size))).to(dev)
+    lo_p, hi_p = (torch.from_numpy(a).to(dev) for a in trainer.prefilter_scenes(np.random.default_rng(0), size))
+    cases = [("(v) inverse", lambda: trainer.Inverse(hi, 3e-3)),
+             ("(vi) prefilter", lambda: trainer.Prefilter(lo_p, hi_p, 1e-3))]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the prefilter's conv backward
+    try:
+        for what, make in cases:
+            eager, again, cap, step, built = problems(make)
+            ops_e, ops_a, ops_c = _OpCount(), _OpCount(), _OpCount()
+            runs = {}
+            for key, prob, fn, ops, need in (("eager", eager, eager.step, ops_e, {"K1": n}),
+                                             ("again", again, again.step, ops_a, {"K1": n}),
+                                             ("replay", cap, step, ops_c, {})):
+                runs[key], _ = _drive(lambda: _steps(prob, fn, n, ops), need)
+            repeatable = not _differ(runs["eager"], runs["again"])
+            off = _differ(runs["eager"], runs["replay"])
+            if off and (repeatable or "inverse" in what):
+                raise AssertionError(f"{what}: the replays differ from the eager steps at {off[:4]} (the eager "
+                                     f"step {'is' if repeatable else 'is not'} repeatable)")
+            if off:
+                # cuDNN's conv backward is not repeatable here: the
+                # parameters after the 20 steps within PREFILTER_REL.
+                rel = max(((pc - pe).abs().max() / pe.abs().max()).item()
+                          for pe, pc in zip(runs["eager"][-1][1], runs["replay"][-1][1]))
+                if not rel <= PREFILTER_REL:
+                    raise AssertionError(f"{what}: parameters {rel:.3e} apart after {n} steps "
+                                         f"(limit {PREFILTER_REL:g})")
+                held = f"within {rel:.3e} of the eager parameters (limit {PREFILTER_REL:g}; eager not repeatable)"
+            else:
+                held = "bit-equal to the eager steps, losses and parameters step by step"
+            if ops_c.n:
+                raise AssertionError(f"{what}: {ops_c.n} aten operations dispatched by {n} replays")
+            # What capturable Adam changes: the same steps with the update of
+            # a non-capturable Adam (bias corrections in host doubles), the
+            # parent commit's eager trainer's.
+            host = make()
+            for g in host.opt.param_groups:
+                g["capturable"] = False
+            ran = _steps(host, host.step, n, _OpCount())
+            drift = [max(((ph - pe).abs().max() / pe.abs().max()).item()
+                         for ph, pe in zip(ran[i][1], runs["eager"][i][1])) for i in (0, n - 1)]
+            wall = _wall_ms_in_turn({"eager": eager.step, "replay": step}, n=1, rounds=3, queue=50)
+            tr_e = device_trace(eager.step, 1)
+            tr_c = device_trace(step, 1)
+            if k1(tr_e) != 1 or k1(tr_c) != 1:
+                raise AssertionError(f"{what}: K1 {k1(tr_e)} times in a traced eager step, {k1(tr_c)} in a replay")
+            print(f"  {what} at --size {size}: captured with launches {built} (warm-up and capture); {n} replays "
+                  f"{held}; the first replay's loss {runs['replay'][0][0].item():.6e} (eager "
+                  f"{runs['eager'][0][0].item():.6e}); eager step repeatable: {repeatable}; aten operations "
+                  f"dispatched per step: eager {ops_e.n / n:g}, replay {ops_c.n / n:g}; a non-capturable Adam's "
+                  f"parameters from the capturable one's after step 1 {drift[0]:.3e}, after step {n} {drift[1]:.3e} "
+                  f"(of their largest); {card}")
+            print(f"    ms per step in turn (wall, 50 steps per sample after a sync): eager {wall['eager']:.4f}, "
+                  f"replay {wall['replay']:.4f} ({wall['eager'] / wall['replay']:.2f}x); traced eager step: "
+                  f"busy {tr_e['busy_ms']:.4f} ms of {tr_e['window_ms']:.4f}, idle share {tr_e['idle_share']:.4f}, "
+                  f"{tr_e['ops_per_call']:g} device operations, K1 x{k1(tr_e):g}; traced replay: busy "
+                  f"{tr_c['busy_ms']:.4f} ms of {tr_c['window_ms']:.4f}, idle share {tr_c['idle_share']:.4f}, "
+                  f"{tr_c['ops_per_call']:g} device operations, K1 x{k1(tr_c):g}; {card}")
+            del eager, again, cap, step, runs
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # (vii) The inverse problem at 1080p -> 4K: 3 replays against 3 eager
+    # steps, then each in turn; the eager step's peak, and what the graph
+    # holds between replays (its pool, the Adam state).
+    hi = torch.from_numpy(trainer.make_scene(np.random.default_rng(0), (2160, 3840))).to(dev)
+    eager = trainer.Inverse(hi, 3e-3)
+    ops = _OpCount()
+    peak = _peak_bytes(lambda: _steps(eager, eager.step, 1, ops), dev)
+    eager = trainer.Inverse(hi, 3e-3)
+    cap = trainer.Inverse(hi, 3e-3)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    step, built = _drive(lambda: capture.CapturedStep(cap.step, cap.params, cap.opt), {"K1": capture.WARMUP + 1})
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev) - before
+    runs = {"eager": _drive(lambda: _steps(eager, eager.step, 3, ops), {"K1": 3})[0],
+            "replay": _drive(lambda: _steps(cap, step, 3, ops), {})[0]}
+    off = _differ(runs["eager"], runs["replay"])
+    if off:
+        raise AssertionError(f"(vii) the 4K replays differ from the eager steps at {off}")
+    wall = _wall_ms_in_turn({"eager": eager.step, "replay": step}, n=2, rounds=2)
+    print(f"  (vii) inverse 1080p -> 4K: captured with launches {built}; 3 replays bit-equal to 3 eager steps "
+          f"(losses {[f'{l.item():.6e}' for l, _ in runs['replay']]}); ms per step in turn (wall, one step per "
+          f"sample after a sync): eager {wall['eager']:.3f}, replay {wall['replay']:.3f} "
+          f"({wall['replay'] / wall['eager'] - 1:+.2%}); the eager step's peak {peak / 2**30:.2f} GiB above what "
+          f"it held before; the captured step holds {held / 2**30:.2f} GiB between replays (reserved: its pool "
+          f"and Adam state); {card}")
 
 
 def _app_layer(dev, card: str) -> None:

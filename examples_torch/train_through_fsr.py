@@ -38,6 +38,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import fsr_tpu_torch  # noqa: E402
+from fsr_tpu_torch.utils import capture  # noqa: E402
 
 
 def make_scene(rng, hw, noise=0.0):
@@ -85,28 +86,91 @@ def displayed_mse(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return torch.mean((fsr_tpu_torch.upscale(lo, scale=2.0) - hi) ** 2)
 
 
+def _adam(params, lr: float) -> torch.optim.Adam:
+    """Adam on ``params``; on a card ``capturable``, so that its step can be
+    captured (``capture.CapturedStep``) and an eager step runs the same
+    update."""
+    return torch.optim.Adam(params, lr=lr, capturable=params[0].device.type == "cuda")
+
+
 class Inverse:
     """The inverse problem: Adam on the render ``lo``, kept in [0, 1]."""
 
     def __init__(self, hi: torch.Tensor, lr: float):
         self.hi = hi
         self.lo = torch.from_numpy(downsample(hi.cpu().numpy())).to(hi.device).requires_grad_()
-        self.opt = torch.optim.Adam([self.lo], lr=lr)
+        self.params = [self.lo]
+        self.opt = _adam(self.params, lr)
 
     def loss(self) -> float:
         """The displayed MSE at the current render."""
         with torch.no_grad():
             return float(displayed_mse(self.lo, self.hi))
 
-    def step(self) -> float:
-        """One Adam step; returns the displayed MSE before it."""
+    def step(self) -> torch.Tensor:
+        """One Adam step; returns the displayed MSE before it as a 0-d
+        tensor, with no host sync (the caller floats it where it prints)."""
         self.opt.zero_grad()
         loss = displayed_mse(self.lo, self.hi)
         loss.backward()
         self.opt.step()
         with torch.no_grad():
             self.lo.clamp_(0.0, 1.0)
-        return loss.item()
+        return loss.detach()
+
+
+def prefilter_scenes(rng, size: int):
+    """The prefilter demo's four frames: blurred renders (4, 3, size, 2
+    size) and their sharp targets (4, 3, 2 size, 4 size), float32."""
+    frames_hi = [make_scene(rng, (size * 2, size * 4), noise=0.02) for _ in range(4)]
+    frames_lo = [gaussian_blur(downsample(f)) for f in frames_hi]
+    return np.stack(frames_lo), np.stack(frames_hi)
+
+
+class Prefilter:
+    """The prefilter problem: Adam on one linear 5x5 conv (``k``, ``b``),
+    identity-initialised (a delta kernel), in front of the upscale of the
+    blurred renders ``lo`` (N, 3, h, w), against ``hi``."""
+
+    def __init__(self, lo: torch.Tensor, hi: torch.Tensor, lr: float):
+        self.lo, self.hi = lo, hi  # batch dims ride through upscale natively
+        k = torch.zeros((3, 3, 5, 5), device=lo.device)
+        for c in range(3):
+            k[c, c, 2, 2] = 1.0
+        self.k = k.requires_grad_()
+        self.b = torch.zeros((3,), device=lo.device, requires_grad=True)
+        self.params = [self.k, self.b]
+        self.opt = _adam(self.params, lr)
+
+    def _loss(self) -> torch.Tensor:
+        filt = F.conv2d(self.lo, self.k, self.b, padding=2)
+        shown = fsr_tpu_torch.upscale(torch.clamp(filt, 0.0, 1.0), scale=2.0)
+        return torch.mean((shown - self.hi) ** 2)
+
+    def loss(self) -> float:
+        """The displayed MSE at the current filter."""
+        with torch.no_grad():
+            return float(self._loss())
+
+    def step(self) -> torch.Tensor:
+        """One Adam step; returns the loss before it as a 0-d tensor, with
+        no host sync."""
+        self.opt.zero_grad()
+        loss = self._loss()
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+
+def _train(prob, steps: int, what: str) -> None:
+    """``steps`` steps of ``prob``, captured as one graph on a card and
+    eager on the CPU (``capture.CapturedStep``); the loss is read on the
+    host only at the steps it prints, as the JAX example reads it."""
+    step = capture.CapturedStep(prob.step, prob.params, prob.opt)
+    for i in range(steps):
+        loss = step()
+        if i % 50 == 0 or i == steps - 1:
+            print(f"step {i:4d}  {what} {float(loss):.4e}")
 
 
 def run_inverse(args, rng, device) -> int:
@@ -114,45 +178,20 @@ def run_inverse(args, rng, device) -> int:
     prob = Inverse(hi, args.lr)
     base = prob.loss()
     print(f"baseline (box downsample) displayed MSE: {base:.4e}")
-    for i in range(args.steps):
-        loss = prob.step()
-        if i % 50 == 0 or i == args.steps - 1:
-            print(f"step {i:4d}  displayed MSE {loss:.4e}")
+    _train(prob, args.steps, "displayed MSE")
     final = prob.loss()
     print(f"optimized render MSE: {final:.4e}  ({base / final:.1f}x lower)")
     return 0 if final < 0.9 * base else 1
 
 
 def run_prefilter(args, rng, device) -> int:
-    frames_hi = [make_scene(rng, (args.size * 2, args.size * 4), noise=0.02) for _ in range(4)]
-    frames_lo = [gaussian_blur(downsample(f)) for f in frames_hi]
-    lo = torch.from_numpy(np.stack(frames_lo)).to(device)  # (N, 3, h, w): batch dims
-    hi = torch.from_numpy(np.stack(frames_hi)).to(device)  # ride through upscale natively
-    # One linear 5x5 conv, identity-initialised (a delta kernel).
-    k = torch.zeros((3, 3, 5, 5), device=device)
-    for c in range(3):
-        k[c, c, 2, 2] = 1.0
-    k.requires_grad_()
-    b = torch.zeros((3,), device=device, requires_grad=True)
-    opt = torch.optim.Adam([k, b], lr=args.lr)
-
-    def loss_fn():
-        filt = F.conv2d(lo, k, b, padding=2)
-        shown = fsr_tpu_torch.upscale(torch.clamp(filt, 0.0, 1.0), scale=2.0)
-        return torch.mean((shown - hi) ** 2)
-
+    lo, hi = (torch.from_numpy(a).to(device) for a in prefilter_scenes(rng, args.size))
+    prob = Prefilter(lo, hi, args.lr)
     with torch.no_grad():
         base = float(torch.mean((fsr_tpu_torch.upscale(lo, scale=2.0) - hi) ** 2))
     print(f"baseline (blurred, no prefilter) MSE: {base:.4e}")
-    for i in range(args.steps):
-        opt.zero_grad()
-        loss = loss_fn()
-        loss.backward()
-        opt.step()
-        if i % 50 == 0 or i == args.steps - 1:
-            print(f"step {i:4d}  loss {loss.item():.4e}")
-    with torch.no_grad():
-        final = float(loss_fn())
+    _train(prob, args.steps, "loss")
+    final = prob.loss()
     print(f"trained deblur prefilter MSE:         {final:.4e} ({(1 - final / base) * 100:.1f}% lower)")
     return 0 if final < base else 1
 

@@ -30,17 +30,26 @@ int32 tensor, ``ops.extras.frame_index``).  Tensors that the function reads
 from a cache (K2's and the torch path's tables) must outlive the graph,
 which holds their addresses while the cache may evict them: the caches hand
 them out through ``keep``, and the graph keeps what it was captured with.
+
+``CapturedStep`` is the same for a training step, the counterpart of
+``jax.jit`` over ``examples/train_through_fsr.py``'s step (forward,
+gradient, Adam update and clip in one program): the forward, the backward,
+the optimiser's update and whatever else the step does to its parameters
+are one graph.  A step mutates state, so its warm-up (``warm_up_step``)
+puts the parameters and the optimiser's state back as they were: the first
+replay is the first step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["CapturedFrame", "WARMUP", "keep"]
+__all__ = ["CapturedFrame", "CapturedStep", "WARMUP", "keep", "warm_up_step"]
 
 # Eager calls on a side stream before the capture: the first fills every
 # cache the frame reads (libraries, plans, tables, constants on the device),
@@ -83,6 +92,35 @@ class _LastOp(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+@contextlib.contextmanager
+def _capturing(graph, device, name: str, kept: List):
+    """Capture into ``graph`` on the current stream of ``device`` (the side
+    stream of a warm-up), naming the last operation dispatched if it fails.
+
+    The cyclic garbage collector is off while the capture runs: a dead
+    captured object in a reference cycle (a graph, its pool) that it frees
+    mid-capture resets its graph and frees device memory, which a stream
+    that is capturing does not permit, and the capture fails at the next
+    launch (seen on an H100: "operation not permitted when stream is
+    capturing (function reset)", then cudaError 901).  It runs again, as
+    before, once the capture has ended."""
+    last = _LastOp()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        # Captured on the side stream, this device's: torch.cuda.graph's
+        # default capture stream is one for the whole process, made on the
+        # device current at its first use, so a capture on a second card
+        # would run on the first card's stream and fail.
+        with last, _keeping(kept), torch.cuda.graph(graph, stream=torch.cuda.current_stream(device)):
+            yield
+    except RuntimeError as e:
+        raise RuntimeError(f"capturing {name} on {device} failed at {last.op}: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
+
+
 class CapturedFrame:
     """``fn(*inputs)`` captured once as a CUDA graph and replayed per call.
 
@@ -116,17 +154,9 @@ class CapturedFrame:
                     fn(*self.inputs)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            last = _LastOp()
             self.kept = []
-            try:
-                # Captured on the side stream, this device's: torch.cuda.graph's
-                # default capture stream is one for the whole process, made on
-                # the device current at its first use, so a capture on a
-                # second card would run on the first card's stream and fail.
-                with last, _keeping(self.kept), torch.cuda.graph(graph, stream=side):
-                    self.output = fn(*self.inputs)
-            except RuntimeError as e:
-                raise RuntimeError(f"capturing {name} on {self.device} failed at {last.op}: {e}") from e
+            with torch.cuda.stream(side), _capturing(graph, self.device, name, self.kept):
+                self.output = fn(*self.inputs)
         self.graph = graph
 
     def __call__(self, *inputs: torch.Tensor):
@@ -153,3 +183,88 @@ class CapturedFrame:
         with torch.cuda.device(self.device):
             self.graph.replay()
         return self.output
+
+
+def warm_up_step(step: Callable, params, optimizer) -> None:
+    """Take ``WARMUP`` steps, then put ``params`` and ``optimizer``'s state
+    back, in place, as they were before them, and set the gradients to None.
+
+    step, params, optimizer: as ``CapturedStep`` takes them.  State that
+    the warm-up created (Adam's moments and step count) is zeroed, the
+    state the optimiser would create at its first step; state that existed
+    before is copied back.  The tensors stay the same tensors, so a graph
+    captured after the warm-up names them, and the next step is the first
+    step from where the warm-up started, bit for bit."""
+    params = list(params)
+    before = [p.detach().clone() for p in params]
+    state = {p: {k: v.clone() for k, v in s.items() if torch.is_tensor(v)} for p, s in optimizer.state.items()}
+    for _ in range(WARMUP):
+        step()
+    with torch.no_grad():
+        for p, p0 in zip(params, before):
+            p.copy_(p0)
+        for p, s in optimizer.state.items():
+            old = state.get(p, {})
+            for k, v in s.items():
+                if k in old:
+                    v.copy_(old[k])
+                elif torch.is_tensor(v):
+                    v.zero_()
+    optimizer.zero_grad(set_to_none=True)
+
+
+class CapturedStep:
+    """A training step captured once as a CUDA graph and replayed per call.
+
+    step: a function of no arguments that runs one step (the forward, the
+    backward, ``optimizer.step()`` and anything else the step does to its
+    parameters, a clamp say) and returns the loss as a 0-d tensor, reading
+    nothing per step from the host; params: every tensor the step updates
+    in place, all on one device; optimizer: its ``torch.optim`` optimiser,
+    whose fresh state is zeros (Adam, AdamW), built with
+    ``capturable=True`` on a CUDA device.  A CUDA device warms the step up
+    on a side stream (``warm_up_step``: the optimiser's state comes into
+    being there, the caches the step reads fill, and the parameters and
+    state are put back), captures one step with the gradients set to None
+    (the backward assigns them in the graph's pool), and each call replays
+    it and returns the static loss, overwritten by the next replay: nothing
+    waits for the device.  A CPU device calls ``step`` eagerly.  A capture
+    that fails raises, naming the last operation dispatched.
+
+    The graph's pool keeps what the step allocates (the backward's saved
+    tensors among it) between replays, as much as an eager step's peak.
+    """
+
+    def __init__(self, step: Callable, params, optimizer: torch.optim.Optimizer):
+        params = list(params)
+        devices = {p.device for p in params}
+        if len(devices) != 1:
+            raise ValueError(f"a captured step takes its parameters on one device, got {sorted(map(str, devices))}")
+        (self.device,) = devices
+        self.step = step
+        self.graph = None
+        if self.device.type != "cuda":
+            return
+        if not all(g.get("capturable", False) for g in optimizer.param_groups):
+            raise ValueError(f"a step captured on {self.device} needs its optimiser built with capturable=True")
+        name = getattr(step, "__qualname__", repr(step))
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                warm_up_step(step, params, optimizer)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            self.kept = []
+            with torch.cuda.stream(side), _capturing(graph, self.device, name, self.kept):
+                self.loss = step()
+        self.graph = graph
+
+    def __call__(self) -> torch.Tensor:
+        """One step: the graph replayed on the card, ``step()`` on the CPU;
+        the loss as a 0-d tensor."""
+        if self.graph is None:
+            return self.step()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        return self.loss

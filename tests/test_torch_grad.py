@@ -67,6 +67,7 @@ from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.ops import easu as teasu
 from fsr_tpu_torch.ops import rcas as trcas
 from fsr_tpu_torch.parallel import sharding, spatial
+from fsr_tpu_torch.utils import capture
 
 REL = 1e-5
 # (max, p99, median) of |dg| / max|g|
@@ -443,7 +444,10 @@ def test_adam_update_matches_jax_adam_step():
 @pytest.mark.parametrize("size,steps", [(16, 5), (96, 2)], ids=["size16", "size96"])
 def test_inverse_steps_match_jax(size, steps):
     """The inverse problem's displayed MSE, step by step, through the port's
-    ``Inverse.step`` and through a JAX loop built from the JAX example's own
+    ``Inverse.step`` as the example calls it (through
+    ``capture.CapturedStep``, which on the CPU calls it eagerly; on a card
+    it replays the captured step, bit-equal to it, ``chip_smoke.py`` phase
+    20) and through a JAX loop built from the JAX example's own
     ``make_scene``, ``downsample``, ``adam_step`` and ``jnp.clip`` (its
     ``run_inverse`` prints only every 50th step), both from ``make_scene``
     with seed 0, lr 3e-3, at ``--size`` 16 (16 -> 32 rows; the example test's
@@ -492,7 +496,8 @@ def test_inverse_steps_match_jax(size, steps):
     want.append(float(jax.jit(loss_fn)(lo)))
 
     prob = ttrain.Inverse(torch.from_numpy(hi_np), INVERSE_LR)
-    got = [prob.step() for _ in range(steps)] + [prob.loss()]
+    step = capture.CapturedStep(prob.step, prob.params, prob.opt)  # on the CPU: the eager step
+    got = [float(step()) for _ in range(steps)] + [prob.loss()]
     rel = [abs(a - b) / b for a, b in zip(got, want)]
     print(f"size {size}: JAX MSE {want}, port {got}, relative {rel}")
     limits = [1e-5, 1e-4] + [5e-3] * (steps - 1)
@@ -501,3 +506,73 @@ def test_inverse_steps_match_jax(size, steps):
     assert (got[1] > got[0]) == (want[1] > want[0])
     if size == 96:
         assert want[1] > want[0], "the JAX reference's first step no longer raises the displayed MSE"
+
+
+PREFILTER_LR = 1e-3  # both examples' prefilter default
+
+
+def test_prefilter_steps_match_jax():
+    """The prefilter's loss, step by step, through the port's
+    ``Prefilter.step`` as the example calls it (``capture.CapturedStep``,
+    eager on the CPU) and through a JAX loop built from the JAX example's
+    own ``make_scene``, ``downsample``, ``gaussian_blur``, ``conv_apply``
+    and ``adam_step`` and its ``run_prefilter``'s loss (a vmapped
+    ``conv_apply``, ``jnp.clip``, ``fsr_tpu.upscale`` at scale 2, the mean
+    squared error; its ``loss_fn`` and ``step`` are local to
+    ``run_prefilter``, and it prints only every 50th step): four scenes
+    from seed 0 with noise 0.02, an identity 5x5 kernel, lr 1e-3, at
+    ``--size`` 16 for 5 steps.
+
+    Limits, relative to JAX's loss, those of
+    ``test_inverse_steps_match_jax``: before the first step 1e-5 (the two
+    forwards, within f32 rounding); after one step 1e-4 (the gradients
+    within 1e-5 of max|g|, the optimizers within an ulp); after later steps
+    5e-3 (Adam's per-parameter normalisation lets a parameter with a
+    near-zero gradient take a step of another size).  Measured at most
+    6.4e-7, 3.4e-6 and 5.4e-6."""
+    import fsr_tpu
+
+    from examples_torch import train_through_fsr as ttrain
+
+    size, steps = 16, 5
+    jex = _jax_example()
+    rng = np.random.default_rng(0)
+    frames_hi = [jex.make_scene(rng, (2 * size, 4 * size), noise=0.02) for _ in range(4)]
+    lo_np = np.stack([jex.gaussian_blur(jex.downsample(f)) for f in frames_hi])
+    hi_np = np.stack(frames_hi)
+    for got, want in zip(ttrain.prefilter_scenes(np.random.default_rng(0), size), (lo_np, hi_np)):
+        np.testing.assert_array_equal(got, want)
+    lo, hi = jnp.asarray(lo_np), jnp.asarray(hi_np)
+
+    def loss_fn(params):
+        filt = jax.vmap(lambda f: jex.conv_apply(params, f))(lo)
+        shown = fsr_tpu.upscale(jnp.clip(filt, 0.0, 1.0), scale=2.0)
+        return jnp.mean((shown - hi) ** 2)
+
+    @jax.jit
+    def step(params, m, v, t):
+        loss, g = jax.value_and_grad(loss_fn)(params)
+        upd, m, v = jex.adam_step(g, m, v, t, PREFILTER_LR)
+        return jax.tree.map(lambda p, u: p - u, params, upd), m, v, loss
+
+    k0 = np.zeros((3, 3, 5, 5), np.float32)
+    for c in range(3):
+        k0[c, c, 2, 2] = 1.0
+    params = [(jnp.asarray(k0), jnp.zeros((3,), jnp.float32))]
+    m = jax.tree.map(jnp.zeros_like, params)
+    v = jax.tree.map(jnp.zeros_like, params)
+    want = []
+    for i in range(steps):
+        params, m, v, loss = step(params, m, v, jnp.float32(i + 1))
+        want.append(float(loss))
+    want.append(float(jax.jit(loss_fn)(params)))
+
+    prob = ttrain.Prefilter(torch.from_numpy(lo_np), torch.from_numpy(hi_np), PREFILTER_LR)
+    np.testing.assert_array_equal(prob.k.detach().numpy(), k0)
+    tstep = capture.CapturedStep(prob.step, prob.params, prob.opt)
+    got = [float(tstep()) for _ in range(steps)] + [prob.loss()]
+    rel = [abs(a - b) / b for a, b in zip(got, want)]
+    print(f"prefilter: JAX loss {want}, port {got}, relative {rel}")
+    limits = [1e-5, 1e-4] + [5e-3] * (steps - 1)
+    for i, (r, lim) in enumerate(zip(rel, limits)):
+        assert r <= lim, f"loss after {i} steps: {got[i]:.6e} vs JAX {want[i]:.6e} ({r:.2e} > {lim:g})"
