@@ -70,11 +70,25 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      kernel and the same call on the RGB slice, taken in turn (with --trace,
      traces of both, which must show only those kernels);
  17. float16: upscale(x.half(), preset="performance", compute_dtype=float16)
-     at 540p -> 1080p on the torch path (no kernel launch), "mixed" against
-     the float32 oracle and ops.easu "strict" against the float16 oracle by
-     the docs/FIDELITY.md f16 rows; sharpen on (4, 3, 2160, 3840) float16
+     at 540p -> 1080p through K6 (one launch each), "mixed" against the
+     float32 oracle and ops.easu "strict" against the float16 oracle by the
+     docs/FIDELITY.md f16 rows; sharpen on (4, 3, 2160, 3840) float16
      through K3 (one launch), within one half step of its plain version;
-     times of both, the float16 upscale at batch 4 beside K1;
+     then K6 (kernels/easu_h.py) at batch 4 through upscale(compute_dtype=
+     float16): Performance 1080p -> 4K, Quality 1440p -> 4K, RGBA
+     Performance, RCAS off, denoise and a float32 source, each exactly one
+     K6 launch and no K1, K2 or K3, bit-equal to easu_h_reference (or at
+     most F16_SHARE of the values one float16 step off), alpha bit-equal;
+     at (2, C, 90, 160) every source type (float16, float32, bfloat16,
+     uint8) x RGB/RGBA x RCAS off/on/denoise, a DRS viewport and the 1.7x
+     preset, each one K6 launch and held the same way; one call under
+     autograd (one K6 forward, none backward, the gradient bit-equal to
+     impl="torch"'s); K6 (10 queued), its plain version (the torch path)
+     and K2 bf16 timed in turn; K6's ptxas lines; then float16 images under
+     float32 and bfloat16 math at batch 4 (Performance, Quality, RGBA):
+     one K1 or K2 launch and no K6 each, bit-equal to the call on the image
+     widened to float32 and within phase 4's limits of the plain versions,
+     K1/K2 on the float16 and the float32 source timed in turn;
  18. row-sharded execution (fsr_tpu_torch.parallel) on meshes of the card
      repeated: at small sizes K1 with row_offset/global_rows (2x, 4x,
      2x rows by 1x columns; 2, 4 and 8 strips) and K2 with per-strip row
@@ -242,7 +256,8 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
 The card's name and power limit, a JSON object describing the kernels
 (times per call, and bound_ms: the larger of the bytes over 3.35 TB/s and
 the float32 operations the function needs, counted (EASU_OPS, RCAS_OPS),
-over 67 TFLOP/s; half2's over 134) and the JSON result line
+over 67 TFLOP/s; operations on halves over 134: half2's, and K6's float16
+share, EASU_H_OPS and RCAS_H_OPS) and the JSON result line
 are the last three lines.  Exits non-zero with no result when CUDA is
 unavailable.
 """
@@ -288,6 +303,9 @@ STRIP_NAMES = {"K1": "fused_kernel_strip", "K2": "staged_gather_kernel_strip"}
 F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
 F16_STRICT = dict(median=1e-3, p999=5e-3, share=0.002)
 F16_ULP = 2.0 ** -11  # one float16 step in [0.5, 1)
+# K6 against its plain version (phase 17): bit-equal, or at most this share
+# of the values off, each by one float16 step.
+F16_SHARE = 1e-4
 # P3 against its plain recurrence (phase 19), relative: float32 (64 FMAs
 # against a mul and an add each); half2 two float16 steps.
 P3_F32_REL = 1e-5
@@ -326,6 +344,14 @@ HALF2_OPS_PER_S = 134e12  # float16 pairs (__hfma2), twice the float32 rate
 EASU_OPS = 392.75
 RCAS_OPS = 96
 EASU_RCAS_OPS = EASU_OPS + RCAS_OPS
+# K6's function, the float16 torch path (ops.easu "mixed" in its non-fast
+# forms, then FsrRcasH), per output pixel by the same convention, as
+# (float32, float16) operations: the halves' over HALF2_OPS_PER_S, the
+# direction estimate's float32 and the bit tricks' integer operations over
+# F32_OPS_PER_S (fused_roofline.easu_rcas_h_ops; tests/test_torch_probes.py
+# holds these to the count).
+EASU_H_OPS = (73.75, 413)
+RCAS_H_OPS = (1, 128)
 SRTM_OPS_PER_TEXEL = 10
 TEPD_OPS = 60
 LFGA_OPS = 12
@@ -442,18 +468,19 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
-    """(bound_ms, bound_by): the byte floor or the operation floor,
-    whichever is larger."""
+def _bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S, half_ops: float = 0):
+    """(bound_ms, bound_by): the byte floor or the operation floor (``ops``
+    at ``ops_per_s``, ``half_ops`` at the half rate), whichever is
+    larger."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ops_per_s * 1e3
+    by_ops = (ops / ops_per_s + half_ops / HALF2_OPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, library_ms=None,
-                  ops_per_s=F32_OPS_PER_S):
+                  ops_per_s=F32_OPS_PER_S, half_ops=0):
     """One entry of the kernels line; the bound from this run's shapes."""
-    bound_ms, bound_by = _bound(nbytes, ops, ops_per_s)
+    bound_ms, bound_by = _bound(nbytes, ops, ops_per_s, half_ops)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -489,12 +516,12 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
 
 def _wrappers() -> dict:
     """The kernel wrappers, each with its launch count."""
-    from fsr_tpu_torch.kernels import easu_gather, fused, pad, probes
+    from fsr_tpu_torch.kernels import easu_gather, easu_h, fused, pad, probes
     from fsr_tpu_torch.kernels import rcas as rcas_k
 
     return {"K4": pad.edge_pad, "K1": fused.upscale_padded, "K2": easu_gather.easu_gather,
-            "K3": rcas_k.rcas_fused, "P1": probes.opmix_replay, "P2": probes.opmix_replay_shared,
-            "P3": probes.fma_rate, "P4": probes.fp16_probe}
+            "K3": rcas_k.rcas_fused, "K6": easu_h.easu_h, "P1": probes.opmix_replay,
+            "P2": probes.opmix_replay_shared, "P3": probes.fma_rate, "P4": probes.fp16_probe}
 
 
 def _drive(fn, need):
@@ -515,20 +542,21 @@ def _drive(fn, need):
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """K1's (both entry points), K2's and K4's plain versions in place of
-    their wrappers, so that a path runs on the card with the same inputs and
-    no kernel."""
-    from fsr_tpu_torch.kernels import easu_gather, fused, pad
+    """K1's (both entry points), K2's, K4's and K6's plain versions in place
+    of their wrappers, so that a path runs on the card with the same inputs
+    and no kernel."""
+    from fsr_tpu_torch.kernels import easu_gather, easu_h, fused, pad
 
-    saved = pad.edge_pad, fused.upscale_padded, fused.upscale_fused, easu_gather.easu_gather
+    saved = pad.edge_pad, fused.upscale_padded, fused.upscale_fused, easu_gather.easu_gather, easu_h.easu_h
     pad.edge_pad = pad.edge_pad_reference
     fused.upscale_padded = fused.upscale_padded_reference
     fused.upscale_fused = fused.upscale_fused_reference
     easu_gather.easu_gather = easu_gather.easu_gather_reference
+    easu_h.easu_h = easu_h.easu_h_reference
     try:
         yield
     finally:
-        pad.edge_pad, fused.upscale_padded, fused.upscale_fused, easu_gather.easu_gather = saved
+        pad.edge_pad, fused.upscale_padded, fused.upscale_fused, easu_gather.easu_gather, easu_h.easu_h = saved
 
 
 def _check_sharded(got, want, plain, epi, what) -> float:
@@ -1022,8 +1050,9 @@ def _replay_ops(call, kid: str, n_k: int, what: str, peer_copies: bool = True, s
     Returns the operations per call."""
     from fsr_tpu_torch.utils.profiling import device_trace
 
-    ops = device_trace(call, 1)["launches"]
     kernel, h1 = KERNEL_NAMES[kid], KERNEL_NAMES["H1"]
+    ops = device_trace(call, 1, short=lambda tr: sum(c for k, c in tr["launches"].items() if kernel in k) < n_k
+                       )["launches"]
     launched = round(sum(c for k, c in ops.items() if kernel in k))
     in_place = round(sum(c for k, c in ops.items() if STRIP_NAMES[kid] in k)) if strips else n_k
     halos = round(sum(c for k, c in ops.items() if h1 in k))
@@ -1845,6 +1874,221 @@ def _probes(dev, card: str) -> list:
     return entries
 
 
+def _compare_f16(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """K6 against its plain version: bit-equal, or at most F16_SHARE of the
+    values off, each by one float16 step (adjacent bit patterns of one
+    sign).  Prints both counts; returns the largest difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    gb, wb = got.view(torch.int16).int(), want.view(torch.int16).int()
+    bits = int((gb != wb).sum())
+    differ = got != want
+    off = int(differ.sum())
+    step = (gb - wb).abs()[differ].max().item() if off else 0
+    same_sign = bool(((gb < 0) == (wb < 0))[differ].all()) if off else True
+    mx = (got.float() - want.float()).abs().max().item()
+    print(f"  {what}: {bits} of {got.numel()} bit patterns differ, {off} values "
+          f"(share {off / got.numel():.2e}, limit {F16_SHARE:g}), largest {step} float16 step(s), max-abs {mx:.3e}")
+    if off / got.numel() > F16_SHARE or step > 1 or not same_sign:
+        raise AssertionError(f"{what}: K6 disagrees with its plain version")
+    return mx
+
+
+def _k6(dev, card: str, frames, qframes, rgba_frames) -> list:
+    """Phase 17's K6 part: the float16 upscale at batch 4 through the entry
+    point, one K6 launch and no K1, K2 or K3 per call, each bit-equal to
+    ``easu_h_reference`` on the same inputs (alpha bit-equal); one call
+    under autograd; K6 (10 queued), the torch path and K2 bf16 timed in
+    turn; K6's ptxas lines.  Returns K6's entries of the kernels line."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import _build, easu_gather, easu_h
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms
+
+    f16, bf16 = torch.float16, torch.bfloat16
+    # The Performance frames' 2x and the Quality frames' 1.5x: 4K from the
+    # main shapes.
+    (ph, pw), (qh, qw) = frames.shape[-2:], qframes.shape[-2:]
+    out4k = (2 * ph, 2 * pw)
+    if (round(1.5 * qh), round(1.5 * qw)) != out4k:
+        raise ValueError("the Quality frames must upscale by 1.5x to the Performance frames' output")
+    pcon = EasuConstants.create((pw, ph), None, out4k[::-1])
+    qcon = EasuConstants.create((qw, qh), None, out4k[::-1])
+    rcon = RcasConstants(0.25)
+    entry = None
+    for line in (_build.build_dir() / "build.log").read_text().splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif entry is not None and "easu_h_kernel" in entry and ("Used" in line or "spill" in line):
+            print(f"  ptxas K6 {entry.split('easu_h_kernel', 1)[1][:24]}: {line.split('info    :')[-1].strip()}")
+    p16, q16, r16 = frames.half(), qframes.half(), rgba_frames.half()
+    paths = [
+        # name, image, upscale kwargs, constants, K6's (apply_rcas, denoise)
+        ("performance f16", p16, dict(preset="performance"), pcon, (True, False)),
+        ("quality f16", q16, dict(preset="quality"), qcon, (True, False)),
+        ("RGBA performance f16", r16, dict(preset="performance"), pcon, (True, False)),
+        ("performance f16, RCAS off", p16, dict(preset="performance", apply_rcas=False), pcon, (False, False)),
+        ("performance f16, denoise", p16, dict(preset="performance", denoise=True), pcon, (True, True)),
+        ("performance, f32 source", frames, dict(preset="performance"), pcon, (True, False)),
+    ]
+    runs = {}
+    for name, x, kw, con, (rc, dn) in paths:
+        out, n = _drive(lambda: ft.upscale(x, compute_dtype=f16, **kw), ("K6",))
+        if tuple(out.shape) != tuple(x.shape[:2]) + out4k or out.dtype != f16 or out.device != x.device:
+            raise AssertionError(f"{name}: got {tuple(out.shape)} {out.dtype} {out.device}")
+        want = easu_h.easu_h_reference(x, out4k, con, rcon, rc, dn)
+        if x.shape[1] == 4 and not torch.equal(out[:, 3].view(torch.int16), want[:, 3].view(torch.int16)):
+            raise AssertionError(f"{name}: alpha not bit-equal to the plain version")
+        err = _compare_f16(out, want, f"{name}: launches {n}; vs easu_h_reference")
+        runs[name] = dict(launches=n["K6"], err=err, nbytes=_nbytes(x, out))
+        del out, want
+
+    # Every source type, RGB and RGBA, RCAS off, on and denoise, at a small
+    # size; then a DRS viewport and the 1.7x preset: one K6 launch each,
+    # bit-equal to its plain version (alpha bit-equal).
+    small = torch.from_numpy(np.random.default_rng(19).uniform(0, 1, (2, 4, 90, 160)).astype(np.float32)).to(dev)
+
+    def source(kind, nc):
+        x = small[:, :nc].contiguous()
+        return (x * 255).to(torch.uint8) if kind == "uint8" else x.to(getattr(torch, kind))
+
+    sweep = [(f"{kind} {('RGB', 'RGBA')[nc - 3]}, {mode}", source(kind, nc),
+              dict(preset="performance", apply_rcas=rc, denoise=dn))
+             for kind in ("float16", "float32", "bfloat16", "uint8") for nc in (3, 4)
+             for mode, rc, dn in (("RCAS off", False, False), ("RCAS on", True, False), ("denoise", True, True))]
+    sweep += [("float16 RGBA, DRS 1.5x", source("float16", 4),
+               dict(scale=1.5, input_viewport=(80, 144), input_offset=(4, 8))),
+              ("bfloat16 RGB, 1.7x", source("bfloat16", 3), dict(preset="balanced")),
+              ("uint8 RGBA, 1.7x denoise", source("uint8", 4), dict(preset="balanced", denoise=True))]
+    for name, x, kw in sweep:
+        out, n = _drive(lambda: ft.upscale(x, compute_dtype=f16, **kw), ("K6",))
+        (hin, win), (hout, wout) = x.shape[-2:], out.shape[-2:]
+        vh, vw = kw.get("input_viewport", (hin, win))
+        oy, ox = kw.get("input_offset", (0, 0))
+        con = EasuConstants.create((vw, vh), (win, hin), (wout, hout), (ox, oy))
+        want = easu_h.easu_h_reference(x, (hout, wout), con, rcon, kw.get("apply_rcas", True), kw.get("denoise", False))
+        if x.shape[1] == 4 and not torch.equal(out[:, 3].view(torch.int16), want[:, 3].view(torch.int16)):
+            raise AssertionError(f"{name}: alpha not bit-equal to the plain version")
+        _compare_f16(out, want, f"{name}, {hin}x{win} -> {hout}x{wout}: launches {n['K6']}; vs easu_h_reference")
+    del small, sweep, out, want
+
+    # One call under autograd: the K6 forward, the torch twin's backward.
+    x = torch.rand((1, 3, ph // 2, pw // 2), generator=torch.Generator(device=dev).manual_seed(17), device=dev)
+    xg = x.clone().requires_grad_()
+    out, n = _drive(lambda: ft.upscale(xg, preset="performance", compute_dtype=f16), ("K6",))
+    (g,), nb = _drive(lambda: torch.autograd.grad(out.float().sum(), xg), ())
+    xt = x.clone().requires_grad_()
+    (gt,) = torch.autograd.grad(ft.upscale(xt, preset="performance", compute_dtype=f16, impl="torch").float().sum(),
+                                xt)
+    print(f"  autograd {ph // 2}x{pw // 2} -> {ph}x{pw}, f32 source under float16 math: forward launches {n}, "
+          f"backward {nb}; "
+          f"gradient bit-equal to impl='torch': {torch.equal(g, gt)}")
+    if not torch.equal(g, gt) or not torch.isfinite(g).all():
+        raise AssertionError("the float16 kernel path's gradient differs from the torch path's")
+    del x, xg, xt, out, g, gt
+
+    qb = qframes.to(bf16)
+    timed = {
+        "K6 performance": lambda: easu_h.easu_h(p16, out4k, pcon, rcon),
+        "torch path performance": lambda: easu_h.easu_h_reference(p16, out4k, pcon, rcon),
+        "K2 bf16 quality": lambda: easu_gather.easu_gather(qb, out4k, qcon, rcon, True, False, bf16),
+        "K6 quality": lambda: easu_h.easu_h(q16, out4k, qcon, rcon),
+        "torch path quality": lambda: easu_h.easu_h_reference(q16, out4k, qcon, rcon),
+        "K6 RGBA performance": lambda: easu_h.easu_h(r16, out4k, pcon, rcon),
+        "torch path RGBA performance": lambda: easu_h.easu_h_reference(r16, out4k, pcon, rcon),
+    }
+    samples = {k: [] for k in timed}
+    for _ in range(3):  # in turn, so that every reading sees the same clocks and card state
+        for k, fn in timed.items():
+            kw = dict(warmup=1, iters=3) if k.startswith("torch") else KQ
+            samples[k].append(cuda_time_ms(fn, **kw))
+    t = {k: statistics.median(v) for k, v in samples.items()}
+    t["call performance"] = cuda_time_ms(lambda: ft.upscale(p16, preset="performance", compute_dtype=f16))
+    nf = frames.shape[0]
+    print(f"  times on {card}, batch {nf}, medians of 3 rounds in turn:")
+    for k, v in t.items():
+        print(f"    {k:>28}: {v / nf:.4f} ms/frame ({v:.3f} ms/call)")
+    print("  K6*, K2: the kernel alone, 10 calls queued per sample; torch path: K6's plain version "
+          "(easu_h_reference, the float16 torch ops); call: one upscale call, host work included")
+
+    src = "fsr_tpu_torch/csrc/easu_h.cu"
+    rep = "fsr_tpu/ops/easu.py:47 + fsr_tpu/ops/rcas.py:42 (jax.jit, float16; no pallas_call)"
+    npix = nf * out4k[0] * out4k[1]
+    f32_ops, half_ops = (e + r for e, r in zip(EASU_H_OPS, RCAS_H_OPS))
+    return [
+        _kernel_entry(f"easu_h (K6), float16: {name} path", src, rep, runs[run]["launches"], runs[run]["err"],
+                      t["K6 " + key], t["torch path " + key], runs[run]["nbytes"], (f32_ops + alpha) * npix,
+                      half_ops=half_ops * npix)
+        for name, run, key, alpha in (("performance", "performance f16", "performance", 0),
+                                      ("quality", "quality f16", "quality", 0),
+                                      ("RGBA performance", "RGBA performance f16", "RGBA performance", ALPHA_OPS))
+    ]
+
+
+def _f16_sources(card: str, frames, qframes, rgba_frames) -> list:
+    """Phase 17's float16 images under float32 or bfloat16 math, at batch 4:
+    one K1 or K2 launch per call and no K6, bit-equal to the same call on
+    the image widened to float32 (a float16 source widens exactly at the
+    kernels' loads, or rounds there to bfloat16 storage), and within phase
+    4's limits of the kernels' plain versions; float32 math timed against
+    the float32 source, in turn.  Returns the kernels line's entries."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import easu_gather, fused
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    (ph, pw), (qh, qw) = frames.shape[-2:], qframes.shape[-2:]
+    out4k = (2 * ph, 2 * pw)
+    rcon = RcasConstants(0.25)
+    cases = [("performance", frames.half(), dict(preset="performance"), "K1",
+              EasuConstants.create((pw, ph), None, out4k[::-1])),
+             ("quality", qframes.half(), dict(preset="quality"), "K2",
+              EasuConstants.create((qw, qh), None, out4k[::-1])),
+             ("RGBA performance", rgba_frames.half(), dict(preset="performance"), "K1",
+              EasuConstants.create((pw, ph), None, out4k[::-1]))]
+    entries = []
+    for name, x, kw, k, con in cases:
+        for dt in (f32, bf16):
+            what = f"{name}, float16 image under {str(dt)[6:]} math"
+            out, n = _drive(lambda: ft.upscale(x, compute_dtype=dt, **kw), (k,))
+            want, _ = _drive(lambda: ft.upscale(x.float(), compute_dtype=dt, **kw), (k,))
+            print(f"  {what}: launches {n}; bit-equal to the call on the widened image: {torch.equal(out, want)}")
+            if out.dtype != dt or not torch.equal(out, want):
+                raise AssertionError(f"{what}: differs from the call on the widened image")
+            del want
+            with _plain_kernels():
+                plain = ft.upscale(x, compute_dtype=dt, impl="kernel", **kw)
+            err = _compare(out, plain, what + " vs the plain versions")
+            del out, plain
+            if dt != f32:
+                continue
+            xf = x.float()
+            if k == "K1":
+                fns = {"float16 source": lambda: fused.upscale_fused(x, out4k, con, rcon),
+                       "float32 source": lambda: fused.upscale_fused(xf, out4k, con, rcon)}
+            else:
+                fns = {"float16 source": lambda: easu_gather.easu_gather(x, out4k, con, rcon, True),
+                       "float32 source": lambda: easu_gather.easu_gather(xf, out4k, con, rcon, True)}
+            t = cuda_times_in_turn(fns, **KQ)
+            with _plain_kernels():
+                plain_ms = cuda_time_ms(lambda: ft.upscale(x, impl="kernel", **kw), warmup=1, iters=3)
+            nf = x.shape[0]
+            print(f"    {k} on {card}, 10 queued: float16 source {t['float16 source'] / nf:.4f} ms/frame, "
+                  f"float32 source {t['float32 source'] / nf:.4f}, in turn; plain {plain_ms / nf:.4f}")
+            npix = nf * out4k[0] * out4k[1]
+            ops = (EASU_RCAS_OPS + (ALPHA_OPS if x.shape[1] == 4 else 0)) * npix
+            src = "fsr_tpu_torch/csrc/fused.cu" if k == "K1" else "fsr_tpu_torch/csrc/easu_gather.cu"
+            rep = "fsr_tpu/kernels/fused.py:403" if k == "K1" else "fsr_tpu/kernels/easu_gather.py:350"
+            kname = "upscale_fused (K1)" if k == "K1" else "easu_gather (K2)"
+            entries.append(_kernel_entry(f"{kname}, float16 source, float32 math: {name} path", src, rep, n[k], err,
+                                         t["float16 source"], plain_ms, _nbytes(x) + npix * x.shape[1] * 4, ops))
+            del xf
+    return entries
+
+
 def _autodiff(dev, card: str, trace: bool) -> None:
     """Phase 20: gradients on the card.  Each case runs its kernel forward
     (exactly one launch) and the torch twin's backward (no launch); the
@@ -2104,10 +2348,14 @@ def _captured_training(dev, card: str) -> None:
             drift = [max(((ph - pe).abs().max() / pe.abs().max()).item()
                          for ph, pe in zip(ran[i][1], runs["eager"][i][1])) for i in (0, n - 1)]
             wall = _wall_ms_in_turn({"eager": eager.step, "replay": step}, n=1, rounds=3, queue=50)
-            tr_e = device_trace(eager.step, 1)
-            tr_c = device_trace(step, 1)
+            # (a trace short of K1 is taken again: CUPTI once delivered a
+            # replay's other operations but not its K1)
+            tr_e = device_trace(eager.step, 1, short=lambda tr: k1(tr) < 1)
+            tr_c = device_trace(step, 1, short=lambda tr: k1(tr) < 1)
             if k1(tr_e) != 1 or k1(tr_c) != 1:
-                raise AssertionError(f"{what}: K1 {k1(tr_e)} times in a traced eager step, {k1(tr_c)} in a replay")
+                raise AssertionError(f"{what}: K1 {k1(tr_e)} times in a traced eager step ({tr_e['ops_per_call']:g} "
+                                     f"device operations, {tr_e['attempts']} trace(s)), {k1(tr_c)} in a replay "
+                                     f"({tr_c['ops_per_call']:g} device operations, {tr_c['attempts']} trace(s))")
             print(f"  {what} at --size {size}: captured with launches {built} (warm-up and capture); {n} replays "
                   f"{held}; the first replay's loss {runs['replay'][0][0].item():.6e} (eager "
                   f"{runs['eager'][0][0].item():.6e}); eager step repeatable: {repeatable}; aten operations "
@@ -2117,9 +2365,10 @@ def _captured_training(dev, card: str) -> None:
             print(f"    ms per step in turn (wall, 50 steps per sample after a sync): eager {wall['eager']:.4f}, "
                   f"replay {wall['replay']:.4f} ({wall['eager'] / wall['replay']:.2f}x); traced eager step: "
                   f"busy {tr_e['busy_ms']:.4f} ms of {tr_e['window_ms']:.4f}, idle share {tr_e['idle_share']:.4f}, "
-                  f"{tr_e['ops_per_call']:g} device operations, K1 x{k1(tr_e):g}; traced replay: busy "
-                  f"{tr_c['busy_ms']:.4f} ms of {tr_c['window_ms']:.4f}, idle share {tr_c['idle_share']:.4f}, "
-                  f"{tr_c['ops_per_call']:g} device operations, K1 x{k1(tr_c):g}; {card}")
+                  f"{tr_e['ops_per_call']:g} device operations, K1 x{k1(tr_e):g} ({tr_e['attempts']} trace(s)); "
+                  f"traced replay: busy {tr_c['busy_ms']:.4f} ms of {tr_c['window_ms']:.4f}, idle share "
+                  f"{tr_c['idle_share']:.4f}, {tr_c['ops_per_call']:g} device operations, K1 x{k1(tr_c):g} "
+                  f"({tr_c['attempts']} trace(s)); {card}")
             del eager, again, cap, step, runs
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -3460,18 +3709,18 @@ def main() -> int:
     from fsr_tpu_torch.ops import rcas as rcas_ops
 
     f16 = torch.float16
-    print("phase 17: float16 (the torch path for upscale, K3 for sharpen)")
+    print("phase 17: float16 (K6 for upscale, K3 for sharpen; K1 and K2 on float16 images)")
     img = rng.uniform(0, 1, (3, 540, 960)).astype(np.float32)
     con = con_for((540, 960), (1080, 1920))
     x16 = torch.from_numpy(img).to(dev).half()
     oracle32 = ref.easu_ref(img, (1080, 1920), con)
-    out, _ = drive(lambda: ft.upscale(x16, preset="performance", compute_dtype=f16, apply_rcas=False), ())
+    out, _ = drive(lambda: ft.upscale(x16, preset="performance", compute_dtype=f16, apply_rcas=False), ("K6",))
     if out.dtype != f16 or tuple(out.shape) != (3, 1080, 1920):
         raise AssertionError(f"float16 upscale: got {tuple(out.shape)} {out.dtype}")
-    _f16_stats(out, oracle32, "upscale f16 mixed EASU 540p->1080p vs the f32 oracle", F16_MIXED)
-    out, _ = drive(lambda: ft.upscale(x16, preset="performance", compute_dtype=f16), ())
+    _f16_stats(out, oracle32, "upscale f16 mixed EASU 540p->1080p (K6) vs the f32 oracle", F16_MIXED)
+    out, _ = drive(lambda: ft.upscale(x16, preset="performance", compute_dtype=f16), ("K6",))
     full32 = ref.rcas_ref(oracle32, RcasConstants(0.25))
-    _f16_stats(out, full32, "upscale f16 mixed EASU+RCAS vs the f32 oracle",
+    _f16_stats(out, full32, "upscale f16 mixed EASU+RCAS (K6) vs the f32 oracle",
                {k: v for k, v in F16_MIXED.items() if k != "median"})
     e16 = easu_ops.easu(x16, (1080, 1920), con, compute_dtype=f16, precision="strict")
     strict = rcas_ops.rcas(e16, RcasConstants(0.25))
@@ -3500,16 +3749,11 @@ def main() -> int:
         "K3 bf16": cuda_time_ms(lambda: rcas_k.rcas_fused(y_bf16, rcon), **KQ),
         "K3_plain": cuda_time_ms(lambda: rcas_k.rcas_fused_reference(y16, rcon), warmup=1, iters=5),
     }
-    # The float16 upscale runs the torch path: its cost beside K1's.
-    f16_frames = frames.half()
-    k3_f16["t"]["upscale f16 (torch path)"] = cuda_time_ms(
-        lambda: ft.upscale(f16_frames, preset="performance", compute_dtype=f16), warmup=1, iters=3)
-    del f16_frames
-    k3_f16["t"]["K1 f32 (phase 6's kernel)"] = cuda_time_ms(lambda: fused.upscale_fused(frames, out4k, pcon, rcon),
-                                                            **KQ)
     print(f"  times on {card}, batch {nframes}:")
     for k, v in k3_f16["t"].items():
         print(f"    {k:>26}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
+    del y_bf16
+    k6_kernels = _k6(dev, card, frames, qframes, rgba_frames) + _f16_sources(card, frames, qframes, rgba_frames)
 
     t32, q32 = timings[torch.float32], qtimings[torch.float32]
     ta, tb, tc, ts = (path_runs[p[0]] for p in paths)
@@ -3556,7 +3800,7 @@ def main() -> int:
         _kernel_entry("rcas_fused (K3), float16: sharpen on halves", src["K3"], rep["K3"], k3_f16["launches"],
                       k3_f16["err"], k3_f16["t"]["K3"], k3_f16["t"]["K3_plain"], 2 * _nbytes(y16),
                       RCAS_OPS * npix),
-    ]
+    ] + k6_kernels
 
     # --- 18. row-sharded and batch-sharded execution ---------------------------
     lap("18")

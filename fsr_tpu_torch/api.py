@@ -6,9 +6,12 @@ integer ratios, with the edge pad folded into its loads; K2 at any other
 upscale; no intermediate image in device memory) or as two plain-torch ops.  The SRTM prologue, the K5
 epilogue (SRTM^-1/gamma2, LFGA grain, TEPD dither), byte I/O and RGBA's
 bilinear alpha run inside those kernels, or as ``ops.extras`` passes and a
-bilinear pass on the torch path.  float16 runs the torch path, as it runs
-the XLA path in the JAX package.  ``sharpen``: RCAS alone, in the CUDA
-kernel K3 (float16 too) or as the plain-torch op.
+bilinear pass on the torch path.  float16 math runs K6 (EASU "mixed" and
+FsrRcasH in one launch, alpha inside), with the prologue, the epilogue and
+integer outputs as torch passes around it, where the JAX package runs two
+jitted XLA programs; K1 and K2 take a float16 image under float32 or
+bfloat16 math.  ``sharpen``: RCAS alone, in the CUDA kernel K3
+(float16 too) or as the plain-torch op.
 ``UpscalePipeline``: the sample's frame tail in one kernel call.
 
 Layouts: planar channels-first (..., C, H, W) as in ``fsr_tpu``; (..., H,
@@ -112,18 +115,20 @@ def upscale(
     sharpness: RCAS sharpness in stops (0 = maximum; sample default 0.25).
     compute_dtype: float32 | bfloat16 | float16.  On the kernel path
       bfloat16 is the storage type and the math runs in float32; on the
-      torch path colour accumulation runs in bfloat16.  float16 (as
-      compute_dtype or as the image's dtype) runs the torch path on the
-      tensor's device, colour accumulation in float16 and the direction
-      estimation in float32 (``ops.easu`` "mixed"), then FsrRcasH.
+      torch path colour accumulation runs in bfloat16.  float16 stores
+      float16, with colour accumulation in float16 and the direction
+      estimation in float32 (``ops.easu`` "mixed"), then FsrRcasH: on the
+      kernel path one K6 launch computes it, bit-equal to the torch path.
+      A float16 image under float32 or bfloat16 math runs K1 or K2, which
+      widen it (or round it to bfloat16) at their loads.
     impl: "auto" | "torch" | "kernel".  "auto" takes the kernel path for a
       CUDA tensor and the plain-torch path for a CPU tensor; "torch" is the
       plain-torch path on any device; "kernel" forces the kernel path (on
       CPU tensors the kernels' plain versions).  The kernel path runs K1
       (one launch) at integer per-axis ratios (1, 2 or 4: the Performance
       preset) and K2 at every other upscale (the other presets, native 1x,
-      DRS ratios, odd extents); a downscale raises (pass impl="torch"),
-      and float16 raises ValueError (the kernels store float32/bfloat16).
+      DRS ratios, odd extents), K6 for compute_dtype=float16 at any
+      upscale; a downscale raises (pass impl="torch").
     input_viewport / input_offset: Dynamic Resolution Scaling — the viewport
       (h, w) actually rendered inside the container image, and its offset
       (FsrEasuConOffset, ffx_fsr1.h:205-225).
@@ -198,18 +203,14 @@ def _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl):
         raise ValueError("uint8 output cannot hold 10-bit codes")
     if prologue not in ("none", "srtm"):
         raise ValueError(f"unknown prologue {prologue!r}")
-    # float16 takes the torch path, chosen from the dtype before any launch,
-    # as the JAX package sends it to its XLA path (its kernels refuse it).
-    if torch.float16 in (image.dtype, compute_dtype) and impl == "kernel":
-        raise ValueError("float16 runs the torch path, as the JAX package runs it on XLA: the kernels "
-                         "store float32/bfloat16; use impl='auto' or 'torch'")
 
 
 def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, impl, epilogue, frame, grain,
              prologue, out_dtype, dither_page, strip=None):
     """``upscale`` after its checks (``_check_args``), on a planar image:
-    the kernel path or the torch path, picked from ``impl``, the dtypes and
-    the image's device.
+    the kernel path (``dispatch.upscale_fused``: K1, K2 or, for float16
+    math, K6) or the torch path, picked from ``impl``, the dtypes and the
+    image's device.
 
     strip: a ``parallel.spatial.Strip`` when the image is one halo'd row
     strip of a row-sharded frame and ``out_hw`` its (hl, Wout) output rows:
@@ -223,8 +224,10 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
     one tensor (``halo.halo_rows_reference``)."""
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue, out_dtype=out_dtype,
               dither_page=dither_page)
-    f16 = torch.float16 in (image.dtype, compute_dtype)
-    if not f16 and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda")):
+    # float16 row strips take the torch path (K6 has no strip form, K1 and K2
+    # no float16 strip source), chosen from the dtypes before any launch.
+    f16_strip = strip is not None and torch.float16 in (image.dtype, compute_dtype)
+    if not f16_strip and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda")):
         args = (rcon, apply_rcas, denoise, compute_dtype)
 
         def kernel(x):

@@ -372,8 +372,9 @@ int easu_gather(const void* src, const StripParts* sp, void* dst, int src_dtype,
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  // Only a float32 source rounds to a bfloat16 storage type at load; a
-  // bfloat16 source widens exactly and a byte decodes, whatever the storage.
+  // Only a float32 (or float16, below) source rounds to a bfloat16 storage
+  // type at load; a bfloat16 source widens exactly and a byte decodes,
+  // whatever the storage.
   if (src_dtype == F32 && dtype == BF16) {
     if (out_dtype == BF16) return launch<STRIP, float, bf16, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
     if (out_dtype == U8) return launch<STRIP, float, bf16, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
@@ -390,6 +391,21 @@ int easu_gather(const void* src, const StripParts* sp, void* dst, int src_dtype,
     if (out_dtype == U8) return launch<STRIP, bf16, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
     return launch<STRIP, bf16, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
+  // A float16 source (whole frames only: float16 row strips take the torch
+  // path) widens exactly, and rounds to a bfloat16 storage type at load as a
+  // float32 source does.
+  if constexpr (!STRIP) {
+    if (src_dtype == F16 && dtype == BF16) {
+      if (out_dtype == BF16) return launch<STRIP, __half, bf16, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
+      if (out_dtype == U8) return launch<STRIP, __half, bf16, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+      return launch<STRIP, __half, bf16, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    }
+    if (src_dtype == F16) {
+      if (out_dtype == F32) return launch<STRIP, __half, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
+      if (out_dtype == U8) return launch<STRIP, __half, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+      return launch<STRIP, __half, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    }
+  }
   if (src_dtype == U8) {
     if (out_dtype == F32) return launch<STRIP, uint8_t, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
     if (out_dtype == BF16) return launch<STRIP, uint8_t, float, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
@@ -403,7 +419,7 @@ int easu_gather(const void* src, const StripParts* sp, void* dst, int src_dtype,
 
 #ifndef FSR_STRIP_TU
 // dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
-// bfloat16 or uint8), dtype the storage type (float32 or bfloat16),
+// bfloat16, float16 or uint8), dtype the storage type (float32 or bfloat16),
 // out_dtype the output's: the storage type, or uint8/uint16 codes.
 // channels: 3, or 4 with alpha in plane 3 of the source and the output.
 // rows/cols (int32 [4][hout + 2], [4][wout]) and py/px (float32 [hout + 2],

@@ -609,8 +609,9 @@ int upscale_fused(const void* src, const StripParts* sp, void* dst, int src_dtyp
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  // Only a float32 source rounds to a bfloat16 storage type at load; a
-  // bfloat16 source widens exactly and a byte decodes, whatever the storage.
+  // Only a float32 (or float16, below) source rounds to a bfloat16 storage
+  // type at load; a bfloat16 source widens exactly and a byte decodes,
+  // whatever the storage.
   if (src_dtype == F32 && dtype == BF16) {
     if (out_dtype == BF16) return launch<STRIP, float, bf16, bf16>(src, sp, dst, nb, channels, q, p, dn, s);
     if (out_dtype == U8) return launch<STRIP, float, bf16, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
@@ -626,6 +627,21 @@ int upscale_fused(const void* src, const StripParts* sp, void* dst, int src_dtyp
     if (out_dtype == BF16) return launch<STRIP, bf16, float, bf16>(src, sp, dst, nb, channels, q, p, dn, s);
     if (out_dtype == U8) return launch<STRIP, bf16, float, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
     return launch<STRIP, bf16, float, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
+  }
+  // A float16 source (whole frames only: float16 row strips take the torch
+  // path) widens exactly, and rounds to a bfloat16 storage type at load as a
+  // float32 source does.
+  if constexpr (!STRIP) {
+    if (src_dtype == F16 && dtype == BF16) {
+      if (out_dtype == BF16) return launch<STRIP, __half, bf16, bf16>(src, sp, dst, nb, channels, q, p, dn, s);
+      if (out_dtype == U8) return launch<STRIP, __half, bf16, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
+      return launch<STRIP, __half, bf16, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
+    }
+    if (src_dtype == F16) {
+      if (out_dtype == F32) return launch<STRIP, __half, float, float>(src, sp, dst, nb, channels, q, p, dn, s);
+      if (out_dtype == U8) return launch<STRIP, __half, float, uint8_t>(src, sp, dst, nb, channels, q, p, dn, s);
+      return launch<STRIP, __half, float, uint16_t>(src, sp, dst, nb, channels, q, p, dn, s);
+    }
   }
   if (src_dtype == U8) {
     if (out_dtype == F32) return launch<STRIP, uint8_t, float, float>(src, sp, dst, nb, channels, q, p, dn, s);
@@ -644,12 +660,12 @@ int upscale_fused(const void* src, const StripParts* sp, void* dst, int src_dtyp
 extern "C" int fsr_ablation_mask(void) { return ABLATION_MASK; }
 
 // dtype codes (fsr_pixel.cuh DType): src_dtype is the source's (float32,
-// bfloat16 or uint8), dtype the storage type (float32 or bfloat16; a
-// float32 source rounds to it at load), out_dtype the output's: the storage
-// type, or uint8/uint16 codes; a uint8 source may also store float32 or
-// bfloat16.  channels: 3, or 4 with alpha in plane 3 of the source and the
-// output.  hin, win: the source's extent, which every texel index is
-// clamped to.  qy, qx: 1, 2 or 4; ry, rx: the source row/column of each
+// bfloat16, float16 or uint8), dtype the storage type (float32 or bfloat16;
+// a float32 or float16 source rounds to it at load), out_dtype the output's:
+// the storage type, or uint8/uint16 codes; a uint8 source may also store
+// float32 or bfloat16.  channels: 3, or 4 with alpha in plane 3 of the
+// source and the output.  hin, win: the source's extent, which every texel
+// index is clamped to.  qy, qx: 1, 2 or 4; ry, rx: the source row/column of each
 // phase's 'f' texel at plane index 0 (may lie outside the source).  quad: 1
 // takes the quad path, which the phase structure must allow; 0 the generic
 // path.  srtm: 1 runs the SRTM prologue; ylo, yhi: the ring's row clamp;

@@ -112,6 +112,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "fsr_enable_peer"):
         lib.fsr_enable_peer.argtypes = [i, i]
         lib.fsr_enable_peer.restype = i
+    # Sources from before K6 (a parent commit's, kernel_ab.py) have no
+    # float16 upscale.
+    if hasattr(lib, "fsr_easu_h"):
+        lib.fsr_easu_h.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, vp]
+        lib.fsr_easu_h.restype = i
     # Sources from before the knockouts (a parent commit's, kernel_ab.py)
     # export no mask.
     if hasattr(lib, "fsr_ablation_mask"):

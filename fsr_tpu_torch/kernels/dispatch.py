@@ -4,12 +4,16 @@ Counterpart of ``fsr_tpu/kernels/dispatch.py``.  K1 (the fused kernel,
 ``kernels/fused.py``, with the edge pad folded into its loads) takes the integer phase structures of the
 coordinate mapping (the 2x Performance preset); K2 (``kernels/easu_gather.py``)
 takes every other upscale (the other presets, native 1x, DRS ratios).  Both
-take the byte source, the SRTM prologue, the K5 epilogue and the integer
-outputs, and RGB or RGBA, in one launch.  This
-module owns the choice and the call, so ``api.upscale`` stays
-device-agnostic.  A configuration neither kernel takes (a downscale,
-float16 or another dtype) raises: the kernel path never falls back to
-plain torch on its own.
+take the byte source, a float16 source, the SRTM prologue, the K5 epilogue
+and the integer outputs, and RGB or RGBA, in one launch.  float16 math
+(``compute_dtype``) goes to K6 (``kernels/easu_h.py``) at any upscale: EASU
+"mixed" and FsrRcasH in one launch, RGB or RGBA, from a float16, float32,
+bfloat16 or uint8 source, storing float16.  The prologue, the epilogue and
+integer outputs run as the torch path's passes around K6
+(``_upscale_h``), as the JAX package runs them around its XLA float16
+path.  This module owns the choice and the call, so ``api.upscale`` stays
+device-agnostic.  A configuration no kernel takes (a downscale, another
+dtype) raises: the kernel path never falls back to plain torch on its own.
 """
 
 from __future__ import annotations
@@ -19,15 +23,21 @@ from typing import Tuple
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-from fsr_tpu_torch.kernels import easu_gather, fused
+from fsr_tpu_torch.kernels import easu_gather, easu_h, fused
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
+from fsr_tpu_torch.ops import easu as easu_ops
+from fsr_tpu_torch.ops import extras
 
 __all__ = ["supported", "upscale_fused"]
 
 
 def supported(image: torch.Tensor, out_size, con: EasuConstants, compute_dtype,
               out_dtype=None) -> bool:
-    """True when the kernel path (K1 or K2) takes this configuration."""
+    """True when the kernel path (K1 or K2; K6 for float16 math) takes this
+    configuration."""
     shape = tuple(image.shape)
+    if compute_dtype == torch.float16:
+        return easu_h.supported(shape, out_size, con)
     return fused.supported(shape, out_size, con, compute_dtype, out_dtype) or easu_gather.supported(
         shape, out_size, con, compute_dtype, out_dtype
     )
@@ -48,19 +58,53 @@ def upscale_fused(
     out_dtype=None,
     dither_page=None,
 ) -> torch.Tensor:
-    """Run the kernel path: K1 at an integer phase structure, else K2; on a
-    CPU tensor their plain versions.  ``grain`` is plain
-    output-space (3, Hout, Wout) for both kernels."""
+    """Run the kernel path: K1 at an integer phase structure, else K2; K6
+    for float16 math; on a CPU tensor their plain versions.  ``grain`` is
+    plain output-space (3, Hout, Wout).  A configuration no kernel takes
+    raises, naming impl='torch'."""
     shape = tuple(image.shape)
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
               out_dtype=out_dtype, dither_page=dither_page)
-    if fused.supported(shape, out_size, con, compute_dtype, out_dtype):
+    if compute_dtype == torch.float16:
+        if easu_h.supported(shape, out_size, con):
+            return _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, **kw)
+        what = "the float16 kernel path (K6) takes RGB and RGBA upscales (1x to 4x area)"
+    elif fused.supported(shape, out_size, con, compute_dtype, out_dtype):
         return fused.upscale_fused(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
-    if easu_gather.supported(shape, out_size, con, compute_dtype, out_dtype):
+    elif easu_gather.supported(shape, out_size, con, compute_dtype, out_dtype):
         return easu_gather.easu_gather(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
+    else:
+        what = ("the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
+                "with float32/bfloat16/float16/uint8 sources and uint8/uint16 or storage-type outputs")
     raise NotImplementedError(
-        "the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
-        "with float32/bfloat16/uint8 sources and uint8/uint16 or storage-type outputs; "
-        f"got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
+        f"{what}; got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
         "Pass impl='torch' for the plain-torch path."
     )
+
+
+def _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, *, epilogue, frame, grain, prologue, out_dtype,
+               dither_page):
+    """float16 math: one K6 launch, which decodes a byte source and
+    resolves RGBA's alpha itself, when no option runs around it; else the
+    torch path's passes (``api._upscale``) around K6, in their order:
+    alpha's bilinear pass, the prologue, K6 on the colour, the epilogue,
+    the store, alpha stacked."""
+    if prologue == "none" and epilogue is None and out_dtype in (None, torch.float16):
+        return easu_h.easu_h(image.contiguous(), out_size, con, rcon, apply_rcas, denoise)
+    rgb, alpha = image, None
+    if image.shape[-3] == 4:
+        rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
+        if a_src.dtype == torch.uint8:
+            a_src = epilogue_mod.decode(a_src)
+        alpha = easu_ops.bilinear(a_src, out_size, con)
+    if prologue == "srtm":
+        rgb = extras.srtm(epilogue_mod.decode(rgb) if rgb.dtype == torch.uint8 else rgb)
+    out = easu_h.easu_h(rgb.contiguous(), out_size, con, rcon, apply_rcas, denoise)
+    if epilogue is not None:
+        args = epilogue_mod.bind(epilogue, tuple(out.shape[-2:]), frame, grain, dither_page, out.device, 0)
+        out = epilogue_mod.apply(out.to(torch.float32), args).to(out.dtype)
+    if out_dtype is not None:
+        out = epilogue_mod.store(out, out_dtype)
+    if alpha is not None:
+        out = torch.cat([out, epilogue_mod.store(alpha, out.dtype)], dim=-3)
+    return out

@@ -22,8 +22,9 @@ last one's last tap.  ``footprint`` computes it as the device does, and
 ``easu_gather`` checks before the launch that every block's fits
 ``FOOTPRINT_MAX`` and holds every tap of its pixels.
 
-Options, as K1 takes them (``kernels/fused.py``): a uint8 image (decoded
-at each load, never rounded to the storage type), the SRTM prologue, the
+Options, as K1 takes them (``kernels/fused.py``): a float16 image (whole
+frames), a uint8 image (decoded at each load, never rounded to the storage
+type), the SRTM prologue, the
 K5 epilogue with plain output-space grain (``kernels/epilogue.py``),
 uint8/uint16 ``out_dtype``, and RGBA in one launch: alpha bilinear from the
 plan's rows[1..2] and cols[1..2] at (px, py), as ``ops.easu.bilinear``
@@ -288,7 +289,7 @@ def easu_gather(
     row_offset: int = 0,
 ) -> torch.Tensor:
     """EASU (+ RCAS when ``apply_rcas``) of a (..., C, Hin, Win) float32,
-    bfloat16 or uint8 image, C = 3 or 4, to (..., C, Hout, Wout) in
+    bfloat16, float16 or uint8 image, C = 3 or 4, to (..., C, Hout, Wout) in
     ``out_dtype`` (default compute_dtype, the storage; the math is float32),
     with the prologue, the epilogue and RGBA's bilinear alpha inside.  A row
     strip passes its halo'd source, ``out_size`` (hl, Wout), its
@@ -303,15 +304,16 @@ def easu_gather(
         return easu_gather_reference(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
     if image.device.type != "cuda":
         raise ValueError(f"easu_gather takes a CPU or CUDA tensor, got {image.device}")
-    if image.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
-        raise TypeError(f"gather kernel takes float32/bfloat16/uint8 images, got {image.dtype}")
+    strip = isinstance(image, halo.StripSource)
+    if image.dtype not in fused.SOURCE_DTYPES or (strip and image.dtype == torch.float16):
+        raise TypeError(f"gather kernel takes float32/bfloat16/float16/uint8 images (a strip no float16), "
+                        f"got {image.dtype}")
     gplan, (hout, wout), sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas,
                                                   compute_dtype, prologue, out_dtype, row_plan)
     if not footprint(gplan).fits:
         raise ValueError(f"K2's blocks cannot stage the source footprint of this plan ({tuple(image.shape[-2:])} -> "
                          f"{(hout, wout)}): the constants' scale is a downscale, or its tables decrease")
     epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device, row_offset)
-    strip = isinstance(image, halo.StripSource)
     parts = halo.check(image) if strip else None
     if not strip:
         image = image.contiguous()

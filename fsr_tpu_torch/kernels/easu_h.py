@@ -1,0 +1,148 @@
+"""K6: the float16 upscale, EASU "mixed" (+ FsrRcasH), in one CUDA kernel.
+
+No TPU kernel of the JAX package computes this: a float16 upscale runs
+there as two jitted XLA programs (``fsr_tpu/ops/easu.py:47`` ``easu`` with
+``compute_dtype=float16``, precision "mixed", and ``fsr_tpu/ops/rcas.py:42``
+``rcas`` in float16), because Mosaic has no float16 vector type on the TPU
+(``fsr_tpu/kernels/fused.py:116-120``).  On the H100 the port's torch path
+runs the same function as about 1,100 eager operations; K6 computes it in
+one launch, bit for bit:
+
+- the source (float16, float32, bfloat16 or uint8) rounded to half as
+  ``src.to(torch.float16)`` rounds it, a byte first decoded as
+  ``epilogue.decode`` decodes it;
+- ``ops.easu(rgb, out_size, con, compute_dtype=float16)``: the direction
+  and length estimate in float32 with the float32 bit tricks, the taps'
+  weights (the non-fast forms), FsrEasuF's single accumulation chain, the
+  reciprocal of the weight sum and the dering clamp in float16;
+- with ``apply_rcas``, ``ops.rcas(out, rcon, denoise, float16)`` on those
+  half values: FsrRcasH with ``sharpness_f16``, the exact reciprocal in the
+  limiters, ``prx_med_rcp`` on halves, the border clamped in output
+  coordinates;
+- RGBA: alpha is ``ops.easu.bilinear`` of the alpha plane as stored (a byte
+  decoded), rounded to float16, never sharpened, plane 3 of the output.
+
+The output is float16.  The SRTM prologue, the K5 epilogue and integer
+outputs are passes of the torch path around K6 (``api._upscale``), as the
+JAX package runs them as jitted passes of their own.
+
+K6 reads K2's host tables (``easu_gather.plan``) and stages each block's
+source footprint as K2 does (``easu_gather.footprint``), so it takes what
+K2 takes: RGB or RGBA, an upscale on both axes whose footprint fits.
+``easu_h`` launches ``csrc/easu_h.cu`` for a CUDA tensor and counts the
+launch in ``easu_h.launches`` (under CUDA graph capture at capture); for a
+CPU tensor it runs ``easu_h_reference``, which calls the same ops.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+from fsr_tpu_torch.kernels import easu_gather, fused
+from fsr_tpu_torch.kernels import epilogue as epilogue_mod
+from fsr_tpu_torch.kernels import pad
+from fsr_tpu_torch.ops import easu as easu_ops
+from fsr_tpu_torch.ops import rcas as rcas_ops
+from fsr_tpu_torch.utils import capture
+
+__all__ = ["supported", "easu_h", "easu_h_reference"]
+
+
+def supported(in_shape, out_size, con: EasuConstants) -> bool:
+    """True when K6 takes this configuration: K2's rule
+    (``easu_gather.supported``) without its storage types: RGB or RGBA and
+    an upscale on both axes whose per-block footprint fits."""
+    return easu_gather.supported(in_shape, out_size, con, torch.float32)
+
+
+def _check(image, out_size, con, rcon, apply_rcas) -> Tuple[int, int]:
+    if apply_rcas and rcon is None:
+        raise ValueError("apply_rcas=True requires rcon")
+    if image.dim() < 3 or image.shape[-3] not in (3, 4):
+        raise ValueError(f"image must be (..., 3 or 4, H, W), got {tuple(image.shape)}")
+    if image.dtype not in fused.SOURCE_DTYPES:
+        raise TypeError(f"K6 takes float16/float32/bfloat16/uint8 images, got {image.dtype}")
+    out_hw = (int(out_size[0]), int(out_size[1]))
+    if not supported(tuple(image.shape), out_hw, con):
+        raise ValueError(f"K6 takes upscales only (1x-4x area), got {tuple(image.shape[-2:])} -> {out_hw}")
+    return out_hw
+
+
+def easu_h_reference(
+    image: torch.Tensor,
+    out_size: Tuple[int, int],
+    con: EasuConstants,
+    rcon: Optional[RcasConstants] = None,
+    apply_rcas: bool = True,
+    denoise: bool = False,
+) -> torch.Tensor:
+    """Plain version of K6, on any device: the torch path's float16 upscale
+    with no prologue or epilogue (``api._upscale``'s torch branch): alpha
+    ``ops.easu.bilinear`` of the alpha plane (a byte decoded), the colour
+    ``ops.easu`` in float16 "mixed" then ``ops.rcas`` in float16, alpha
+    stored as float16 and stacked as plane 3."""
+    out_hw = _check(image, out_size, con, rcon, apply_rcas)
+    f16 = torch.float16
+    rgb, alpha = image, None
+    if image.shape[-3] == 4:
+        rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
+        if a_src.dtype == torch.uint8:
+            a_src = epilogue_mod.decode(a_src)
+        alpha = easu_ops.bilinear(a_src, out_hw, con)
+    if rgb.dtype == torch.uint8:
+        rgb = epilogue_mod.decode(rgb)
+    out = easu_ops.easu(rgb, out_hw, con, compute_dtype=f16)
+    if apply_rcas:
+        out = rcas_ops.rcas(out, rcon, denoise=denoise, compute_dtype=f16)
+    if alpha is not None:
+        out = torch.cat([out, alpha.to(f16)], dim=-3)
+    return out
+
+
+def easu_h(
+    image: torch.Tensor,
+    out_size: Tuple[int, int],
+    con: EasuConstants,
+    rcon: Optional[RcasConstants] = None,
+    apply_rcas: bool = True,
+    denoise: bool = False,
+) -> torch.Tensor:
+    """The float16 upscale of a contiguous (..., C, Hin, Win) image, C = 3
+    or 4, float16, float32, bfloat16 or uint8, to (..., C, Hout, Wout)
+    float16: EASU "mixed", then FsrRcasH when ``apply_rcas``.  CUDA tensors
+    launch ``csrc/easu_h.cu``; CPU tensors run ``easu_h_reference``."""
+    if image.device.type == "cpu":
+        return easu_h_reference(image, out_size, con, rcon, apply_rcas, denoise)
+    if image.device.type != "cuda":
+        raise ValueError(f"easu_h takes a CPU or CUDA tensor, got {image.device}")
+    hout, wout = _check(image, out_size, con, rcon, apply_rcas)
+    if not image.is_contiguous():
+        raise ValueError("easu_h takes a contiguous image")
+    *lead, nc, hin, win = image.shape
+    out = torch.empty((*lead, nc, hout, wout), dtype=torch.float16, device=image.device)
+    if out.numel() == 0:
+        return out
+    gplan = easu_gather.plan((hin, win), (hout, wout), con)
+    rows, cols, py, px = capture.keep(easu_gather._device_tables(gplan, image.device))
+    sharp = float(rcon.sharpness_f16) if rcon is not None else 1.0
+    from fsr_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = lib.fsr_easu_h(
+            image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype], math.prod(lead), nc, hin, win,
+            hout, wout, rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(), sharp,
+            int(apply_rcas), int(denoise), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K6 launch failed: cudaError {err}")
+    easu_h.launches += 1
+    return out
+
+
+easu_h.launches = 0

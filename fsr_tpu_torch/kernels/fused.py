@@ -21,7 +21,9 @@ when the wrapper launches it: under CUDA graph capture (``utils/capture.py``)
 that is at capture, and a replay counts nothing (read its launches from a
 trace).
 The math is float32 throughout; bfloat16 is storage only (a float32 source
-under bfloat16 storage rounds at its load, as K4's convert did).  For CPU
+under bfloat16 storage rounds at its load, as K4's convert did).  A float16
+image (``SOURCE_DTYPES``) widens exactly at its load, or rounds there to
+bfloat16 storage; row strips take no float16 source.  For CPU
 tensors both run their plain versions (``upscale_fused_reference``: K4's
 and K1's plain versions; ``upscale_padded_reference``).
 
@@ -85,7 +87,11 @@ __all__ = [
     "quad_ok",
     "source_plan",
     "window",
+    "SOURCE_DTYPES",
 ]
+
+# The image types K1 and K2 take on a whole frame (a row strip: no float16).
+SOURCE_DTYPES = pad.FLOAT_DTYPES + (torch.float16, torch.uint8)
 
 _QX_SUPPORTED = (1, 2, 4)
 _QY_SUPPORTED = (1, 2, 4)
@@ -308,6 +314,8 @@ def _check_prologue(prologue):
 def _out_dtype(padded_dtype, out_dtype):
     """K1's output type for a padded source: the source's float type by
     default; a byte source stores float32, bfloat16 or codes."""
+    if padded_dtype == torch.float16:
+        raise TypeError("K4 pads to float32/bfloat16/uint8: K1 takes a float16 image through upscale_fused")
     if out_dtype is None:
         if padded_dtype == torch.uint8:
             raise ValueError("a uint8 source needs an explicit out_dtype")
@@ -425,8 +433,9 @@ def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologu
     strip = isinstance(src, halo.StripSource)
     if src.device.type != "cuda":
         raise ValueError(f"K1 takes a CPU or CUDA tensor, got {src.device}")
-    if src.dtype not in pad.FLOAT_DTYPES + (torch.uint8,):
-        raise TypeError(f"fused kernel takes float32/bfloat16/uint8 sources, got {src.dtype}")
+    if src.dtype not in SOURCE_DTYPES or (strip and src.dtype == torch.float16):
+        raise TypeError(f"fused kernel takes float32/bfloat16/float16/uint8 sources (a strip no float16), "
+                        f"got {src.dtype}")
     if src.dim() < 3 or src.shape[-3] not in (3, 4) or not (strip or src.is_contiguous()):
         raise ValueError(f"fused kernel needs a contiguous (..., 3 or 4, H, W) tensor, got {tuple(src.shape)}")
     parts = halo.check(src) if strip else None
@@ -549,7 +558,7 @@ def upscale_fused(
     path: str = "auto",
 ) -> torch.Tensor:
     """Fused EASU(+RCAS): K1 upscales the (..., C, Hin, Win) image, C = 3 or
-    4, with the edge clamp, the storage rounding (a uint8 image stays bytes),
+    4, float32, bfloat16, float16 or uint8, with the edge clamp, the storage rounding (a uint8 image stays bytes),
     the prologue, the epilogue and RGBA's alpha inside: one launch on a CUDA
     tensor (``path``: "auto", the quad path where ``quad_ok``, or
     "generic"), the plain version on a CPU tensor.  Returns (..., C, Hout, Wout) in ``out_dtype`` (default

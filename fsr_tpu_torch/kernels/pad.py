@@ -25,8 +25,8 @@ __all__ = ["edge_pad", "edge_pad_reference"]
 
 # dtype codes of the kernels' C interfaces (csrc/fsr_pixel.cuh DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.uint16: 3, torch.float16: 4}
-# The float storage types of K1, K2 and K4 (float16 runs the torch path, as
-# it runs the XLA path in the JAX package; K3 also stores float16).
+# The float storage types of K1, K2 and K4 (float16 math runs K6, as it runs
+# the XLA path in the JAX package; K3 also stores float16).
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -16,8 +16,9 @@ import torch
 
 __all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time", "trace_annotation"]
 
-# A torch.profiler cycle can come back with no device activity (seen once on
-# an H100 in a trace that succeeds on a second take): device_trace retakes it.
+# A torch.profiler cycle can come back with no device activity, or without
+# some of a replayed CUDA graph's kernels (each seen once on an H100, in a
+# trace that succeeds on a second take): device_trace retakes it.
 TRACE_ATTEMPTS = 3
 
 
@@ -79,13 +80,13 @@ def busy_time(intervals: Iterable[Tuple[float, float]], start: float, end: float
     return busy
 
 
-def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
+def device_trace(fn: Callable[[], object], calls: int = 5, short: Callable[[dict], bool] | None = None) -> dict:
     """Trace ``calls`` back-to-back calls of ``fn()`` with ``torch.profiler``
     and read the device's share of the window.
 
     Returns ``{"kernels": {name: ms per call}, "launches": {name: device
     operations per call}, "ops_per_call", "busy_ms", "busy_ms_by_device",
-    "window_ms", "idle_share"}`` (the launches of a replayed CUDA graph
+    "window_ms", "idle_share", "attempts"}`` (the launches of a replayed CUDA graph
     included, which no launch counter sees).  The same calls run
     once first as the profiler's warm-up step, so its buffer set-up falls
     outside the recorded step.  The window runs from the host entering the
@@ -94,13 +95,18 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
     over all devices and per device index (cards that overlap sum to more
     than the union).  A profiling cycle in
     which CUPTI delivered no device activity is taken again, at most
-    ``TRACE_ATTEMPTS`` times in all; then it raises."""
+    ``TRACE_ATTEMPTS`` times in all; then it raises.  So is one whose
+    reading ``short`` finds missing operations a call is known to launch
+    (a replayed graph's kernel that CUPTI did not deliver); after the last
+    attempt that reading is returned, for the caller's own check to refuse.
+    ``"attempts"`` says how many cycles were taken."""
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     if not torch.cuda.is_available():
         raise RuntimeError("device_trace needs a CUDA device")
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(TRACE_ATTEMPTS):
+    reading = None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
         traced = []
         with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -117,10 +123,20 @@ def device_trace(fn: Callable[[], object], calls: int = 5) -> dict:
         # Device operations only: the annotation also shows as a device-side span.
         dev = [e for e in events if e.device_type == cuda and e.name != "device_trace_window"
                and not getattr(e, "is_user_annotation", False)]
-        if dev:
+        if not dev:
+            continue
+        reading = _reading(events, dev, calls, cuda)
+        reading["attempts"] = attempt
+        if short is None or not short(reading):
             break
-    else:
+    if reading is None:
         raise RuntimeError(f"the profiler recorded no device operation in {TRACE_ATTEMPTS} attempts")
+    return reading
+
+
+def _reading(events, dev, calls: int, cuda) -> dict:
+    """``device_trace``'s reading of one profiling cycle: ``events``, all of
+    it; ``dev``, its device operations."""
     start = min(e.time_range.start for e in events
                 if e.name == "device_trace_window" and e.device_type != cuda)
     end = max(e.time_range.end for e in dev)

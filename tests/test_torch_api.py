@@ -131,17 +131,13 @@ def test_ported_options_agree_across_impl(case):
     """Each option runs on the kernel path (its plain versions here) and the
     torch path and agrees with the JAX XLA path (tests/test_torch_epilogue.py,
     test_torch_uint8.py, test_torch_rgba.py and test_torch_fp16.py hold them
-    closely).  float16 runs the torch path under impl="auto", as the JAX
-    package runs it on XLA, and refuses impl="kernel"."""
+    closely).  float16 math runs K6 on the kernel path, and a float16 image
+    under float32 math K1 or K2."""
     _, make = case
     x = torch.from_numpy(_img(3, (3, 27, 48)))
     kw = dict(image=x, preset="performance")
     kw.update(make(x))
-    f16 = torch.float16 in (kw["image"].dtype, kw.get("compute_dtype"))
-    if f16:
-        with pytest.raises(ValueError, match="torch path"):
-            fsr_tpu_torch.upscale(**kw, impl="kernel")
-    outs = [fsr_tpu_torch.upscale(**kw, impl=impl) for impl in ("auto" if f16 else "kernel", "torch")]
+    outs = [fsr_tpu_torch.upscale(**kw, impl=impl) for impl in ("kernel", "torch")]
     nc = kw["image"].shape[-3]
     assert outs[0].shape == outs[1].shape == (nc, 54, 96) and outs[0].dtype == outs[1].dtype
     d = (outs[0].double() - outs[1].double()).abs()

@@ -243,7 +243,12 @@ def test_upscale_f16_matches_fsr_tpu(case):
 
 @pytest.mark.parametrize("what", ["image", "compute_dtype"])
 def test_upscale_kernel_impl_refuses_f16(what):
+    """impl="kernel" in float16 (a float16 image, then a float32 image under
+    compute_dtype=float16) refuses nothing: it runs K6, here its plain
+    version, bit-equal to impl="torch"."""
     x = torch.from_numpy(_img(11, (3, 27, 48)))
-    kw = dict(image=x.half()) if what == "image" else dict(image=x, compute_dtype=torch.float16)
-    with pytest.raises(ValueError, match="torch path"):
-        fsr_tpu_torch.upscale(**kw, preset="performance", impl="kernel")
+    kw = dict(image=x.half()) if what == "image" else dict(image=x)
+    got = fsr_tpu_torch.upscale(**kw, preset="performance", compute_dtype=torch.float16, impl="kernel")
+    want = fsr_tpu_torch.upscale(**kw, preset="performance", compute_dtype=torch.float16, impl="torch")
+    assert got.dtype == torch.float16 and got.shape == (3, 54, 96)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -257,6 +257,18 @@ def test_chip_smoke_op_constants_are_convention_2():
     assert chip_smoke.EASU_RCAS_OPS == fused_roofline.ops_per_pixel()["convention 2"]["per_px"]
 
 
+def test_chip_smoke_k6_op_constants_are_counted_by_type():
+    """K6's bound: its function's operations (the float16 torch path, its
+    non-fast forms) by type, the halves' at the half rate; more operations
+    than the fast float32 count, but a shorter floor."""
+    chip_smoke = _by_path("chip_smoke", "chip_smoke.py")
+    h = fused_roofline.easu_rcas_h_ops()
+    assert (chip_smoke.EASU_H_OPS, chip_smoke.RCAS_H_OPS) == tuple(zip(h["float32"], h["float16"]))
+    f32, half = (sum(v) for v in zip(chip_smoke.EASU_H_OPS, chip_smoke.RCAS_H_OPS))
+    assert f32 + half > chip_smoke.EASU_RCAS_OPS
+    assert chip_smoke._bound(0, f32, half_ops=half)[0] < chip_smoke._bound(0, chip_smoke.EASU_RCAS_OPS)[0]
+
+
 def _bad_calls():
     img = opmix_floor.tiny_frame("cpu")
     padded, fplan = opmix_floor.operand(img)

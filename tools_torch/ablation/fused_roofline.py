@@ -25,6 +25,11 @@ Counterpart of tools/ablation/fused_roofline.py.  Three parts:
      and add count apart (an FMA is 2).  The texel response and the luma are
      per source texel, amortised at 2x (x 1/4).  ``chip_smoke.py``'s
      ``EASU_OPS``/``RCAS_OPS``, so every kernel's ``bound_ms``, come from it.
+   K6's function, the float16 torch path (``easu_rcas_h_ops``: ``ops.easu``
+   "mixed" in its non-fast forms, then FsrRcasH), is counted by convention
+   2 and split by the type each op runs in (``op_type``): float16 ops at the
+   card's half rate, the rest (the float32 direction estimate, the bit
+   tricks' integer ops) at the float32 rate (``EASU_H_OPS``/``RCAS_H_OPS``).
 2. **Achieved FMA rate** (``fma_rate_tflops``): P3's independent FMA chains
    in float32 (``fmaf``) and half2 (``__hfma2``), 4 and 8 chains of 64, in
    TFLOP/s (FMA = 2) and the JAX tool's el-ops/s (FMA = 1), against the
@@ -96,14 +101,24 @@ def op_cost(func, args, out) -> int:
     return 4 if name in COST4 else 1
 
 
+def op_type(args, out):
+    """The type an op runs in: its output's, or for a comparison or a bit
+    trick (a bool or integer result) its first tensor operand's."""
+    if out.is_floating_point():
+        return out.dtype
+    return next((a.dtype for a in args if isinstance(a, torch.Tensor)), out.dtype)
+
+
 class OpCount(TorchDispatchMode):
     """Counts the aten ops run under it by name: ``calls`` (convention 1)
-    and ``elems`` (convention 2: each weighted by its output's elements)."""
+    and ``elems`` (convention 2: each weighted by its output's elements);
+    ``by_type``: convention 2 by the type each op runs in (``op_type``)."""
 
     def __init__(self):
         super().__init__()
         self.calls = collections.Counter()
         self.elems = collections.Counter()
+        self.by_type = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -112,6 +127,7 @@ class OpCount(TorchDispatchMode):
             name = func.overloadpacket.__name__
             self.calls[name] += cost
             self.elems[name] += cost * out.numel()
+            self.by_type[op_type(args, out)] += cost * out.numel()
         return out
 
 
@@ -166,6 +182,40 @@ def easu_rcas_ops():
     RCAS.  ``chip_smoke.py``'s EASU_OPS and RCAS_OPS."""
     c2 = ops_per_pixel()["convention 2"]
     return c2["easu_resolve"] + (c2["texel_response"] + c2["luma"]) * 0.25, c2["rcas_resolve"]
+
+
+def _twins_h() -> dict:
+    """The twins of K6's function, the float16 torch path, on one pixel's
+    values: ``easu_resolve`` on float16 taps with the direction in float32
+    (its per-texel responses, ``quad_g``), the non-fast forms; the float16
+    luma widened to float32 per texel; ``rcas_resolve`` on float16 taps."""
+    f16, f32 = torch.float16, torch.float32
+    taps = {k: torch.full((3, 1, 1), 0.5, dtype=f16) for k in easu_math.TAP_OFFSETS}
+    s = torch.full((1, 1), 0.5)
+    ppx, ppy = torch.full((1, 1), 0.25), torch.full((1, 1), 0.75)
+    t3 = torch.full((3, 1, 1), 0.5, dtype=f16)
+    quad_g = {k: easu_math.easu_texel_response(s, s, s, s, s) for k in ("s", "t", "u", "v")}
+    return {
+        "easu_resolve": lambda: easu_math.easu_resolve(taps, ppx, ppy, dtype=f16, dir_dtype=f32, quad_g=quad_g),
+        "rcas_resolve": lambda: easu_math.rcas_resolve(t3, t3, t3, t3, t3, 0.87),
+        "texel_response": lambda: easu_math.easu_texel_response(s, s, s, s, s),
+        "luma": lambda: easu_math._luma(t3, easu_math._consts(f16, t3.device)).to(f32),
+    }
+
+
+def easu_rcas_h_ops() -> dict:
+    """K6's function's operations per output pixel at 2x, convention 2, by
+    type: {"float16": (EASU, RCAS), "float32": (EASU, RCAS)}, the float32
+    entry every op not on halves (the bit tricks' integer ops too); the
+    texel response and the luma amortised over 4 pixels.
+    ``chip_smoke.py``'s EASU_H_OPS and RCAS_H_OPS."""
+    counts = {name: count(fn) for name, fn in _twins_h().items()}
+    out = {}
+    for key, half in (("float16", True), ("float32", False)):
+        def n(name):
+            return sum(v for dt, v in counts[name].by_type.items() if (dt == torch.float16) == half)
+        out[key] = (n("easu_resolve") + (n("texel_response") + n("luma")) * 0.25, n("rcas_resolve"))
+    return out
 
 
 def fma_input(device, seed: int = 0) -> torch.Tensor:
