@@ -81,7 +81,12 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      most F16_SHARE of the values one float16 step off), alpha bit-equal;
      at (2, C, 90, 160) every source type (float16, float32, bfloat16,
      uint8) x RGB/RGBA x RCAS off/on/denoise, a DRS viewport and the 1.7x
-     preset, each one K6 launch and held the same way; one call under
+     preset, and three odd output widths with partial last tiles (RGB
+     float16, RGBA uint8 with denoise, bfloat16 with RCAS off), each one K6
+     launch and held the same way; K6's reciprocal over all 65,536 float16
+     bit patterns against torch's 1.0 / x on the card (none may differ);
+     K6's static SASS (its half arithmetic by lanes, packing, MUFU, no
+     CALL: no float32 division's slow path) beside its parent's; one call under
      autograd (one K6 forward, none backward, the gradient bit-equal to
      impl="torch"'s); K6 (10 queued), its plain version (the torch path)
      and K2 bf16 timed in turn; K6's ptxas lines; then float16 images under
@@ -306,6 +311,14 @@ F16_ULP = 2.0 ** -11  # one float16 step in [0.5, 1)
 # K6 against its plain version (phase 17): bit-equal, or at most this share
 # of the values off, each by one float16 step.
 F16_SHARE = 1e-4
+# K6's static SASS (opmix_floor.sass_counts, HALF_SASS_OPS; "other": every
+# other instruction) and its half arithmetic by lanes (two, one) in its
+# first design, one pixel a thread with scalar halves and float32
+# divisions, from tools_torch/ablation/kernel_ab.py's build of that commit
+# (nvcc 12.9, sm_90a); phase 17 prints them beside this tree's.
+K6_SASS_PARENT = dict(HADD2=109, HMUL2=103, HMNMX2=38, HFMA2=55, HSETP2=0, PRMT=168, F2FP=12, MUFU=11, FADD=56,
+                      FMUL=48, FFMA=47, FMNMX=17, LDS=43, STS=25, STG=3, BAR=2, CALL=7, other=936)
+K6_LANES_PARENT = (127, 163)
 # P3 against its plain recurrence (phase 19), relative: float32 (64 FMAs
 # against a mul and an add each); half2 two float16 steps.
 P3_F32_REL = 1e-5
@@ -1896,12 +1909,57 @@ def _compare_f16(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return mx
 
 
+def _k6_reciprocal(dev) -> None:
+    """K6's half reciprocal (fsr_half.cuh:rcp, through the test entry
+    fsr_easu_h_rcp_check) of every float16 bit pattern against torch's
+    ``1.0 / x`` in float16 on the card; fails if any pattern's result
+    differs (a NaN against a NaN of another payload counted apart)."""
+    from fsr_tpu_torch.kernels import _build
+
+    v = torch.arange(65536, dtype=torch.int32, device=dev)
+    x = ((v + 32768) % 65536 - 32768).to(torch.int16).view(torch.float16)
+    want = 1.0 / x
+    got = torch.empty_like(x)
+    err = _build.library().fsr_easu_h_rcp_check(got.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize(dev)
+    if err != 0:
+        raise RuntimeError(f"fsr_easu_h_rcp_check: cudaError {err}")
+    bits = got.view(torch.int16) != want.view(torch.int16)
+    nans = torch.isnan(got) & torch.isnan(want)
+    differ, payload = int((bits & ~nans).sum()), int((bits & nans).sum())
+    print(f"  K6 reciprocal over all 65,536 float16 patterns vs torch's 1.0 / x on the card: {differ} patterns "
+          f"differ ({payload} NaN results of another payload)")
+    if differ:
+        raise AssertionError(f"K6's reciprocal differs from torch's 1.0 / x on {differ} float16 patterns")
+
+
+def _k6_sass() -> None:
+    """K6's static SASS beside its first design's (K6_SASS_PARENT): the half
+    arithmetic by lanes, the packing, MUFU, and no CALL (no float32
+    division's slow path)."""
+    from fsr_tpu_torch.kernels import _build
+    from tools_torch.ablation import opmix_floor
+
+    path = _build.library_path()
+    k6 = tuple(k for k in opmix_floor.SASS_KERNELS if k[0] == "K6 f16")
+    counts, lanes = (table["K6 f16"] for table in opmix_floor.sass_tables(path, k6))
+    rows = {"K6 f16": counts, "K6 f16 scalar": collections.Counter(K6_SASS_PARENT)}
+    for line in opmix_floor.sass_lines(rows, opmix_floor.HALF_SASS_OPS):
+        print("  " + line)
+    print(f"  K6 f16 half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {lanes['two lanes']} on two lanes, "
+          f"{lanes['one lane']} on one (scalar design: {K6_LANES_PARENT[0]}, {K6_LANES_PARENT[1]}); a thread's "
+          "loop body is two pixels here, one there")
+    if counts["CALL"]:
+        raise AssertionError(f"K6 calls a subroutine {counts['CALL']} time(s): a division's slow path")
+
+
 def _k6(dev, card: str, frames, qframes, rgba_frames) -> list:
     """Phase 17's K6 part: the float16 upscale at batch 4 through the entry
     point, one K6 launch and no K1, K2 or K3 per call, each bit-equal to
     ``easu_h_reference`` on the same inputs (alpha bit-equal); one call
     under autograd; K6 (10 queued), the torch path and K2 bf16 timed in
-    turn; K6's ptxas lines.  Returns K6's entries of the kernels line."""
+    turn; K6's ptxas lines, its SASS and its reciprocal over every half.
+    Returns K6's entries of the kernels line."""
     import fsr_tpu_torch as ft
     from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
     from fsr_tpu_torch.kernels import _build, easu_gather, easu_h
@@ -1923,6 +1981,8 @@ def _k6(dev, card: str, frames, qframes, rgba_frames) -> list:
             entry = line.split("'")[1]
         elif entry is not None and "easu_h_kernel" in entry and ("Used" in line or "spill" in line):
             print(f"  ptxas K6 {entry.split('easu_h_kernel', 1)[1][:24]}: {line.split('info    :')[-1].strip()}")
+    _k6_sass()
+    _k6_reciprocal(dev)
     p16, q16, r16 = frames.half(), qframes.half(), rgba_frames.half()
     paths = [
         # name, image, upscale kwargs, constants, K6's (apply_rcas, denoise)
@@ -1961,7 +2021,12 @@ def _k6(dev, card: str, frames, qframes, rgba_frames) -> list:
     sweep += [("float16 RGBA, DRS 1.5x", source("float16", 4),
                dict(scale=1.5, input_viewport=(80, 144), input_offset=(4, 8))),
               ("bfloat16 RGB, 1.7x", source("bfloat16", 3), dict(preset="balanced")),
-              ("uint8 RGBA, 1.7x denoise", source("uint8", 4), dict(preset="balanced", denoise=True))]
+              ("uint8 RGBA, 1.7x denoise", source("uint8", 4), dict(preset="balanced", denoise=True)),
+              ("float16 RGB, odd width, partial tiles", source("float16", 3), dict(out_size=(157, 293))),
+              ("uint8 RGBA denoise, odd width, partial tiles", source("uint8", 4),
+               dict(out_size=(179, 321), denoise=True)),
+              ("bfloat16 RGB RCAS off, odd width, partial tiles", source("bfloat16", 3),
+               dict(out_size=(97, 161), apply_rcas=False))]
     for name, x, kw in sweep:
         out, n = _drive(lambda: ft.upscale(x, compute_dtype=f16, **kw), ("K6",))
         (hin, win), (hout, wout) = x.shape[-2:], out.shape[-2:]

@@ -9,10 +9,11 @@
 // computes what the port's torch path computes for a float16 frame
 // (api._upscale with compute_dtype float16), in one launch, bit for bit:
 //   - the source rounded to half at its load (a byte decoded first);
-//   - EASU "mixed" (fsr_half.cuh:easu_mixed): the direction and length in
-//     float32 with the APrx bit tricks, the taps' weights, the single
-//     accumulation chain, the reciprocal and the dering clamp in half;
-//   - with RCAS, FsrRcasH (fsr_half.cuh:rcas_h) on the half-rounded EASU
+//   - EASU "mixed" (fsr_half.cuh:quad_response, easu_shape, easu_pair): the
+//     direction and length in float32 with the APrx bit tricks, the taps'
+//     weights, the single accumulation chain, the reciprocal and the
+//     dering clamp in half;
+//   - with RCAS, FsrRcasH (fsr_half.cuh:rcas_pair) on the half-rounded EASU
 //     values, the border clamped in output coordinates;
 //   - RGBA: alpha as ops.easu.bilinear computes it on the source's alpha
 //     plane (float32 after the source-type difference), stored as half,
@@ -21,22 +22,42 @@
 // outputs stay torch passes around this kernel (api._upscale), as JAX runs
 // them as passes of their own.
 //
-// Design: K2's (easu_gather.cu), from the same host tables
-// (kernels/easu_gather.py:plan, footprint): one block per TH x TILE_W output
-// tile; the block's source footprint staged once in shared memory, each
-// texel as three halves and the float32 of its half luma (and alpha beside
-// it); the block's slice of the tables as offsets into the footprint;
-// barrier; EASU for the tile and its one-pixel RCAS ring into a ring of
-// halves; barrier; RCAS and one store per pixel.  Ring slots outside the
-// frame hold the edge pixel's value (the tables repeat the edge row; ring
-// columns clamp to the image), so RCAS sees e in place of a missing
-// neighbour.
+// Design: K2's structure (easu_gather.cu) on K2's host tables
+// (kernels/easu_gather.py:plan), with each block's work cut for the half2
+// unit.  One block of NT threads per TH x TW output tile:
+//   - stage: the block's source footprint (its tile's and its one-pixel
+//     RCAS ring's taps) into shared memory, each texel as three halves, and
+//     the block's slice of the tables as offsets into the footprint;
+//     barrier; then every quadrant centre's response (quad_response: dir_x,
+//     len_x^2, dir_y, len_y^2 as a float4) once per texel, on a grid one
+//     texel wider than the footprint on each side (a tap window clamped at
+//     the image's edge puts its centre there: left, centre and right are
+//     then one texel); barrier;
+//   - the ring pass: two ring pixels per thread, adjacent in a row; each
+//     reads its four quadrants' responses (four float4 loads, four
+//     weighted adds), makes its float32 filter shape alone, and the pair
+//     runs EASU's half arithmetic in the paired forms
+//     (fsr_half.cuh:easu_pair) into a ring of halves; barrier;
+//   - the tile pass: two tile pixels per thread read their RCAS crosses
+//     from the ring as pairs, run FsrRcasH paired and store.
+// TH = TW = 30 makes the 32 x 32 ring 512 pairs, two rounds of 256 threads,
+// and divides a 4K frame into whole tiles; 64 registers a thread keep four
+// blocks (32 warps) on an SM, and the taps are read where the accumulation
+// takes them, so none spills.  Ring slots outside the frame hold the edge
+// pixel's value (the tables repeat the edge row; ring columns clamp to the
+// image), so RCAS sees e in place of a missing neighbour; the second pixel
+// of a pair past the frame's right edge is computed from the clamped tables
+// and not stored.
 //
-// Bound: per output pixel ~100 float32 operations for the direction and
-// ~390 half operations in all (EASU_OPS + RCAS_OPS of chip_smoke.py, 488.75),
-// issued one lane at a time (no half2 packing yet) plus the ring's
-// recompute (1.129x at 32 x 32); device memory moves one read of the
-// source and one write of the half output.
+// Bound (tools_torch/ablation/fused_roofline.easu_rcas_h_ops, per output
+// pixel at 2x): 74.75 float32 and 541 float16 operations (convention 2),
+// 0.0427 ms per 4K frame at the H100's float32 and half2 rates; device
+// memory moves one read of the source and one write of the half output
+// (0.0186 ms per 4K frame from float16).  So the kernel is bound by
+// instruction issue: the half arithmetic issues two lanes per instruction,
+// the texel responses are shared by the pixels of a block, the reciprocals
+// are one MUFU.RCP a lane, and the ring's recompute is (32 * 32) / (30 *
+// 30) = 1.138x of the EASU work.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -49,13 +70,19 @@
 #include "fsr_pixel.cuh"
 
 using namespace fsr;
+using fsr::h16::h2;
 
 namespace {
 
-constexpr int TH = 32;            // the tile's rows (its columns: TILE_W)
+constexpr int TH = 30;            // the tile's rows
+constexpr int TW = 30;            // its columns
 constexpr int RH = TH + 2;        // the RCAS ring's rows
+constexpr int RW = TW + 2;        // its columns
+constexpr int PW = RW / 2;        // pairs per ring row
 constexpr int FP_H = RH + 3;      // the footprint's rows at most: ring rows and taps -1..2
-constexpr int FP_W = RING_W + 3;  // its columns at most
+constexpr int FP_W = RW + 3;      // its columns at most
+constexpr int NT = 256;           // threads per block
+constexpr int MIN_BLOCKS = 4;     // blocks per SM: 64 registers a thread, no spills
 
 struct HParams {
   const int* rows;   // rows[k * rstride + Y]: source row of tap dy = k - 1 of output row Y = -1..hout
@@ -68,88 +95,124 @@ struct HParams {
   float sharp;  // RCAS sharpness as a half (sharpness_f16)
 };
 
-// One block's footprint, table slice and ring.  A tap of ring row ly and
-// ring column lx, at offsets dy, dx = -1..2, is texel row[ly][dy + 1] +
-// col[lx][dx + 1] of the footprint.
+// One block's footprint, responses, table slice and ring.  A tap of ring
+// row ly and ring column lx, at offsets dy, dx = -1..2, is texel row[ly][dy
+// + 1] + col[lx][dx + 1] of the footprint.  Its quadrants s, t, u, v read
+// resp[quad_row[ly].x + quad_col[lx].x], [.x + .y], [.y + .x], [.y + .y].
 template <bool RGBA>
 struct StageH {
-  uint2 rgb[FP_H * FP_W];               // r | g << 16, b: the texel's halves
-  float lum[FP_H * FP_W];               // its half luma, widened
-  float alpha[RGBA ? FP_H * FP_W : 1];  // RGBA: the source's alpha as loaded (a byte decoded)
-  int4 col[RING_W];
-  float px[RING_W];
+  uint2 rgb[FP_H * FP_W];                    // r | g << 16, b: the texel's halves
+  float4 resp[(FP_H + 2) * (FP_W + 2)];      // quad_response per centre, one texel of margin around
+  union {
+    float lum[FP_H * FP_W];                  // stage: the texel's half luma, widened
+    unsigned int ring[3][RH][PW + 1];        // then: EASU of ring column c in half c + 1 of its row
+  };
+  float alpha[RGBA ? FP_H * FP_W : 1];       // RGBA: the source's alpha as loaded (a byte decoded)
+  int4 col[RW];
+  int2 quad_col[RW];
+  float px[RW];
   int4 row[RH];
+  int2 quad_row[RH];
   float py[RH];
-  __half ring[3][RH][RING_W];  // EASU of the tile and its ring, in half
 };
 
-// Load the block's footprint of one frame's source and its table slice,
-// then a barrier: K2's rule (easu_gather.cu:stage).
+// The response grid's index of a quadrant centre on one axis, from the
+// pixel's tap offsets a, b, c (centre b) into a footprint of n texels: b + 1
+// for a window inside the image (a, c = b -+ 1, clamped to the image, which
+// the footprint then holds), else 0 or n + 1, where left, centre and right
+// are one edge texel (the window clamped at the image's edge).
+__device__ __forceinline__ int centre(int a, int b, int c, int n) { return a != c ? b + 1 : (b == 0 ? 0 : n + 1); }
+
+// Load the block's footprint of one frame's source and its table slice
+// (K2's rule, easu_gather.cu:stage), then the responses of every centre;
+// a barrier after each.
 template <typename S, bool RGBA>
 __device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ src, const HParams& p) {
-  const int x0 = blockIdx.x * TILE_W;
+  const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
   const int r0 = __ldg(p.rows + y0 - 1);
   const int c0 = __ldg(p.cols + max(x0 - 1, 0));
   const int fh = __ldg(p.rows + 3 * p.rstride + min(y0 + TH, p.hout)) - r0 + 1;
-  const int fw = __ldg(p.cols + 3 * p.wout + min(x0 + TILE_W, p.wout - 1)) - c0 + 1;
+  const int fw = __ldg(p.cols + 3 * p.wout + min(x0 + TW, p.wout - 1)) - c0 + 1;
   if (fh > FP_H || fw > FP_W) __trap();  // the host's footprint check failed to hold
+  const int gw = fw + 2;                 // the response grid's row length
   const int64_t plane = (int64_t)p.hin * p.win;
   const S* base = src + (int64_t)r0 * p.win + c0;
-  for (int k = threadIdx.x; k < fh * fw; k += NTHREADS) {
-    const int r = k / fw;
+  // k / n for k < 40 * 40, n <= 40 as (k + 0.5) * (1 / n) in float32 (1 / n
+  // within 2 ulps): its error is far below the 0.5 / n that (k + 0.5) / n
+  // keeps from an integer.
+  const float inv_fw = __fdividef(1.0f, (float)fw), inv_gw = __fdividef(1.0f, (float)gw);
+  for (int k = threadIdx.x; k < fh * fw; k += NT) {
+    const int r = (int)(__fadd_rn((float)k, 0.5f) * inv_fw);
     const S* at = base + (int64_t)r * p.win + (k - r * fw);
     const __half cr = h16::to_half(at), cg = h16::to_half(at + plane), cb = h16::to_half(at + 2 * plane);
     st.rgb[k] = make_uint2(__half_as_ushort(cr) | (unsigned)__half_as_ushort(cg) << 16, __half_as_ushort(cb));
     st.lum[k] = __half2float(h16::luma(cr, cg, cb));
     if constexpr (RGBA) st.alpha[k] = ld(at + 3 * plane);  // widened exactly, a byte decoded
   }
-  for (int i = threadIdx.x; i < RING_W + RH; i += NTHREADS) {
-    if (i < RING_W) {
+  for (int i = threadIdx.x; i < RW + RH; i += NT) {
+    if (i < RW) {
       const int* c = p.cols + min(max(x0 + i - 1, 0), p.wout - 1);
       const int w = p.wout;
-      st.col[i] = make_int4(__ldg(c) - c0, __ldg(c + w) - c0, __ldg(c + 2 * w) - c0, __ldg(c + 3 * w) - c0);
+      const int4 cv = make_int4(__ldg(c) - c0, __ldg(c + w) - c0, __ldg(c + 2 * w) - c0, __ldg(c + 3 * w) - c0);
+      st.col[i] = cv;
+      st.quad_col[i] = make_int2(centre(cv.x, cv.y, cv.z, fw), centre(cv.y, cv.z, cv.w, fw));
       st.px[i] = __ldg(p.px + (c - p.cols));
     } else {
-      const int ly = i - RING_W;
+      const int ly = i - RW;
       const int Y = min(y0 + ly - 1, p.hout);
       const int* r = p.rows + Y;
       const int rs = p.rstride;
-      st.row[ly] = make_int4(fw * (__ldg(r) - r0), fw * (__ldg(r + rs) - r0), fw * (__ldg(r + 2 * rs) - r0),
-                             fw * (__ldg(r + 3 * rs) - r0));
+      const int4 rv = make_int4(__ldg(r) - r0, __ldg(r + rs) - r0, __ldg(r + 2 * rs) - r0, __ldg(r + 3 * rs) - r0);
+      st.row[ly] = make_int4(fw * rv.x, fw * rv.y, fw * rv.z, fw * rv.w);
+      st.quad_row[ly] = make_int2(gw * centre(rv.x, rv.y, rv.z, fh), gw * centre(rv.y, rv.z, rv.w, fh));
       st.py[ly] = __ldg(p.py + Y);
     }
   }
   __syncthreads();
+  // Response (vr, vc) is the centre at footprint texel (vr - 1, vc - 1)
+  // with its neighbours one texel either way, every index clamped to the
+  // footprint: at the margin the centre and a neighbour are one texel.
+  for (int k = threadIdx.x; k < (fh + 2) * gw; k += NT) {
+    const int vr = (int)(__fadd_rn((float)k, 0.5f) * inv_gw);
+    const int vc = k - vr * gw;
+    const int up = fw * min(max(vr - 2, 0), fh - 1), cr = fw * min(max(vr - 1, 0), fh - 1);
+    const int dn = fw * min(vr, fh - 1);
+    const int lf = min(max(vc - 2, 0), fw - 1), cc = min(max(vc - 1, 0), fw - 1), rt = min(vc, fw - 1);
+    st.resp[k] = h16::quad_response(st.lum[up + cc], st.lum[cr + lf], st.lum[cr + cc], st.lum[cr + rt],
+                                    st.lum[dn + cc]);
+  }
+  __syncthreads();
 }
 
-// EASU of ring pixel (ly, lx) from the staged footprint.
+// EASU of ring pixels (ly, la) and (ly, lb) from the staged footprint, as
+// a pair.
 template <bool RGBA>
-__device__ __forceinline__ void easu_staged(const StageH<RGBA>& st, int ly, int lx, __half out[3]) {
-  const int4 cv = st.col[lx];
+__device__ __forceinline__ void easu_staged(const StageH<RGBA>& st, int ly, int la, int lb, h2 out[3]) {
+  const int2 qr = st.quad_row[ly], qa = st.quad_col[la], qb = st.quad_col[lb];
+  const float4 ga[4] = {st.resp[qr.x + qa.x], st.resp[qr.x + qa.y], st.resp[qr.y + qa.x], st.resp[qr.y + qa.y]};
+  const float4 gb[4] = {st.resp[qr.x + qb.x], st.resp[qr.x + qb.y], st.resp[qr.y + qb.x], st.resp[qr.y + qb.y]};
+  const float py = st.py[ly];
+  float sa[6], sb[6];
+  h16::easu_shape(ga, st.px[la], py, sa);
+  h16::easu_shape(gb, st.px[lb], py, sb);
+  const int4 ca = st.col[la], cb = st.col[lb];
   const int4 rv = st.row[ly];
-  const int co[4] = {cv.x, cv.y, cv.z, cv.w};
+  const int coa[4] = {ca.x, ca.y, ca.z, ca.w};
+  const int cob[4] = {cb.x, cb.y, cb.z, cb.w};
   const int ro[4] = {rv.x, rv.y, rv.z, rv.w};
-  __half t[3][4][4];
-  float L[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if ((r == 0 || r == 3) && (q == 0 || q == 3)) continue;  // the corners are unused
-      const int i = ro[r] + co[q];
-      const uint2 v = st.rgb[i];
-      t[0][r][q] = __ushort_as_half((unsigned short)(v.x & 0xFFFFu));
-      t[1][r][q] = __ushort_as_half((unsigned short)(v.x >> 16));
-      t[2][r][q] = __ushort_as_half((unsigned short)v.y);
-      L[r][q] = st.lum[i];
-    }
-  }
-  h16::easu_mixed(t, L, st.px[lx], st.py[ly], out);
+  // Tap (r, q) of both pixels: r | g << 16 and b of each, packed by channel.
+  auto tap = [&](int r, int q) {
+    const uint2 a = st.rgb[ro[r] + coa[q]];
+    const uint2 b = st.rgb[ro[r] + cob[q]];
+    return h16::Tap2{{h16::as_h2(__byte_perm(a.x, b.x, 0x5410)), h16::as_h2(__byte_perm(a.x, b.x, 0x7632)),
+                      h16::as_h2(__byte_perm(a.y, b.y, 0x5410))}};
+  };
+  h16::easu_pair(tap, sa, sb, st.px[la], st.px[lb], py, out);
 }
 
 template <typename S, bool RCAS, bool DENOISE, bool RGBA>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
     easu_h_kernel(const S* __restrict__ src, __half* __restrict__ dst, HParams p) {
   constexpr int C = RGBA ? 4 : 3;
   __shared__ StageH<RGBA> st;
@@ -157,58 +220,91 @@ __global__ void __launch_bounds__(NTHREADS)
   stage<S>(st, src + n * C * (int64_t)p.hin * p.win, p);
   __half* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
-  const int x0 = blockIdx.x * TILE_W;
+  const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
-  auto store = [&](int ly, int lx, const __half v[3]) {
-    // (ly, lx): the pixel's ring coordinates, one past its tile's.
-    const int64_t at = (int64_t)(y0 + ly - 1) * p.wout + (x0 + lx - 1);
+  // Tile pixel pair m of tile row ly: ring row ly + 1, ring columns 2m + 1
+  // and 2m + 2, output columns X and X + 1 (the second stored when inside
+  // the frame).  Pairs per tile row: TW / 2.
+  auto store = [&](int ly, int m, const h2 v[3]) {
+    const int Y = y0 + ly, X = x0 + 2 * m;
+    const int64_t at = (int64_t)Y * p.wout + X;
+    const bool both = X + 1 < p.wout;
+    if (both && (p.wout & 1) == 0) {  // an even row length: the pair is 4-byte aligned
 #pragma unroll
-    for (int c = 0; c < 3; ++c) o[c * oplane + at] = v[c];
+      for (int c = 0; c < 3; ++c) *reinterpret_cast<h2*>(o + c * oplane + at) = v[c];
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        o[c * oplane + at] = __low2half(v[c]);
+        if (both) o[c * oplane + at + 1] = __high2half(v[c]);
+      }
+    }
     if constexpr (RGBA) {
-      const int4 cv = st.col[lx];
-      const int4 rv = st.row[ly];
       const float* a = st.alpha;
-      o[3 * oplane + at] = __float2half_rn(h16::bilinear_alpha<S>(
-          a[rv.y + cv.y], a[rv.y + cv.z], a[rv.z + cv.y], a[rv.z + cv.z], st.px[lx], st.py[ly]));
+      const int4 rv = st.row[ly + 1];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j == 1 && !both) break;
+        const int lx = 2 * m + 1 + j;
+        const int4 cv = st.col[lx];
+        o[3 * oplane + at + j] = __float2half_rn(h16::bilinear_alpha<S>(
+            a[rv.y + cv.y], a[rv.y + cv.z], a[rv.z + cv.y], a[rv.z + cv.z], st.px[lx], st.py[ly + 1]));
+      }
     }
   };
   if constexpr (RCAS) {
-    for (int k = threadIdx.x; k < RH * RING_W; k += NTHREADS) {
-      const int ly = k / RING_W;
-      const int lx = k % RING_W;
-      __half v[3];
-      easu_staged(st, ly, lx, v);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) st.ring[c][ly][lx] = v[c];
-    }
-    __syncthreads();
-    const __half sharp = __float2half_rn(p.sharp);
-    for (int k = threadIdx.x; k < TILE_W * TH; k += NTHREADS) {
-      const int ly = k / TILE_W;
-      const int lx = k % TILE_W;
-      if (y0 + ly >= p.hout || x0 + lx >= p.wout) continue;
-      __half b[3], d[3], e[3], f[3], hh[3], v[3];
+    for (int k = threadIdx.x; k < RH * PW; k += NT) {
+      const int ly = k / PW;
+      const int lx = 2 * (k % PW);
+      h2 v[3];
+      easu_staged(st, ly, lx, lx + 1, v);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        b[c] = st.ring[c][ly][lx + 1];
-        d[c] = st.ring[c][ly + 1][lx];
-        e[c] = st.ring[c][ly + 1][lx + 1];
-        f[c] = st.ring[c][ly + 1][lx + 2];
-        hh[c] = st.ring[c][ly + 2][lx + 1];
+        __half* row = reinterpret_cast<__half*>(st.ring[c][ly]);
+        row[lx + 1] = __low2half(v[c]);
+        row[lx + 2] = __high2half(v[c]);
       }
-      h16::rcas_h<DENOISE>(b, d, e, f, hh, sharp, v);
-      store(ly + 1, lx + 1, v);
+    }
+    __syncthreads();
+    const h2 sharp = h16::k2(p.sharp);
+    for (int k = threadIdx.x; k < TH * (TW / 2); k += NT) {
+      const int ly = k / (TW / 2);
+      const int m = k % (TW / 2);
+      if (y0 + ly >= p.hout || x0 + 2 * m >= p.wout) continue;
+      // The pair's centres are halves 2m + 2 and 2m + 3 of their ring row:
+      // word m + 1; the left neighbours straddle words m and m + 1, the
+      // right ones m + 1 and m + 2.
+      h2 b[3], d[3], e[3], f[3], hh[3], v[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const unsigned int* mid = st.ring[c][ly + 1];
+        const unsigned int ew = mid[m + 1];
+        b[c] = h16::as_h2(st.ring[c][ly][m + 1]);
+        d[c] = h16::as_h2(__byte_perm(mid[m], ew, 0x5432));
+        e[c] = h16::as_h2(ew);
+        f[c] = h16::as_h2(__byte_perm(ew, mid[m + 2], 0x5432));
+        hh[c] = h16::as_h2(st.ring[c][ly + 2][m + 1]);
+      }
+      h16::rcas_pair<DENOISE>(b, d, e, f, hh, sharp, v);
+      store(ly, m, v);
     }
   } else {
-    for (int k = threadIdx.x; k < TILE_W * TH; k += NTHREADS) {
-      const int ly = k / TILE_W;
-      const int lx = k % TILE_W;
-      if (y0 + ly >= p.hout || x0 + lx >= p.wout) continue;
-      __half v[3];
-      easu_staged(st, ly + 1, lx + 1, v);
-      store(ly + 1, lx + 1, v);
+    for (int k = threadIdx.x; k < TH * (TW / 2); k += NT) {
+      const int ly = k / (TW / 2);
+      const int m = k % (TW / 2);
+      if (y0 + ly >= p.hout || x0 + 2 * m >= p.wout) continue;
+      h2 v[3];
+      easu_staged(st, ly + 1, 2 * m + 1, 2 * m + 2, v);
+      store(ly, m, v);
     }
   }
+}
+
+// The reciprocal check: rcp (the kernel's) of every half bit pattern, two
+// patterns a thread as one pair.
+__global__ void rcp_check_kernel(unsigned int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 32768) out[i] = h16::bits(h16::rcp(h16::as_h2((2u * i) | (2u * i + 1) << 16)));
 }
 
 template <typename S, bool RGBA>
@@ -217,15 +313,15 @@ int launch_planes(const void* src, void* dst, int nb, const HParams& p, bool rca
   constexpr int C = RGBA ? 4 : 3;
   const int64_t in_frame = C * (int64_t)p.hin * p.win;
   const int64_t out_frame = C * (int64_t)p.hout * p.wout;
-  return launch_frames<TH>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
+  return launch_frames<TH, TW>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
     const S* s = static_cast<const S*>(src) + n0 * in_frame;
     __half* d = static_cast<__half*>(dst) + n0 * out_frame;
     if (!rcas)
-      easu_h_kernel<S, false, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      easu_h_kernel<S, false, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
     else if (denoise)
-      easu_h_kernel<S, true, true, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      easu_h_kernel<S, true, true, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
     else
-      easu_h_kernel<S, true, false, RGBA><<<grid, NTHREADS, 0, stream>>>(s, d, p);
+      easu_h_kernel<S, true, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
   });
 }
 
@@ -277,4 +373,12 @@ extern "C" int fsr_easu_h(const void* src, void* dst, int src_dtype, int nb, int
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Test entry: writes rcp (fsr_half.cuh, the kernel's reciprocal) of every
+// float16 bit pattern v = 0..65535 to out[v] (a device buffer of 65,536
+// halves) on stream; chip_smoke.py holds it against torch's `1.0 / x`.
+extern "C" int fsr_easu_h_rcp_check(void* out, void* stream) {
+  rcp_check_kernel<<<128, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<unsigned int*>(out));
+  return (int)cudaGetLastError();
 }

@@ -1,20 +1,32 @@
 // Device math of K6 (easu_h.cu): the float16 upscale's per-pixel EASU in
 // "mixed" precision and FsrRcasH, as the port's torch path computes them
 // (ops.easu with compute_dtype=float16, precision="mixed", then ops.rcas in
-// float16; core/easu_math.easu_resolve / rcas_resolve with fast=False).
+// float16; core/easu_math.easu_resolve / rcas_resolve with fast=False),
+// for two output pixels at once: every half operation is the paired form
+// on a __half2 whose low lane is the first pixel's and high lane the
+// second's.
 //
 // Each torch float16 operation rounds its result to a half, and each
 // float32 one to a float, with no contraction between two operations.  So
-// every operation here is one on its own: __hadd_rn/__hsub_rn/__hmul_rn on
-// halves (IEEE half arithmetic, round to nearest even, never fused into an
-// HFMA), __fadd_rn/__fsub_rn/__fmul_rn on floats (never fused into an
-// FFMA).  A half operation rounds once, as torch's float operation then
-// its rounding to half does: float has 24 bits, more than 2 * 11 + 2, so
-// the double rounding gives the correctly rounded half.  A reciprocal is
-// torch's `1.0 / a`: an IEEE float32 division of the widened half, rounded
-// to half (no __hdiv, whose approximate reciprocal may round otherwise).
-// torch.minimum/maximum propagate NaN (__hmin_nan/__hmax_nan, and selects
-// on floats); the reference's NaN-dropping max (_nan_drop_max) is __hmax.
+// every operation here is one on its own: __hadd2_rn/__hsub2_rn/__hmul2_rn
+// on pairs of halves (IEEE half arithmetic lane by lane, round to nearest
+// even, never fused into an HFMA2), __fadd_rn/__fsub_rn/__fmul_rn on floats
+// (never fused into an FFMA).  A half operation rounds once, as torch's
+// float operation then its rounding to half does: float has 24 bits, more
+// than 2 * 11 + 2, so the double rounding gives the correctly rounded half.
+// torch.minimum/maximum propagate NaN (__hmin2_nan/__hmax2_nan, and selects
+// on floats); the reference's NaN-dropping max (_nan_drop_max) is __hmax2.
+//
+// A reciprocal is torch's `1.0 / a` on a half: the float32 reciprocal of
+// the widened half, rounded to half.  h2rcp gives the same half for every
+// one of the 65,536 patterns: MUFU.RCP is within 1 float32 ulp of 1/a, and
+// 1/a of a finite nonzero half lies more than 2 float32 ulps from every
+// point halfway between two halves, so both round alike; 1/+-0 = +-inf,
+// 1/+-inf = +-0 and NaN stay as torch gives them (the RCAS limiters form
+// min(...) * rcp(0) on purpose).  tests/test_torch_easu_h_pairs.py checks
+// the margin and the identity on the CPU; chip_smoke.py phase 17 runs every
+// pattern through rcp on the card against torch's `1.0 / x`
+// (fsr_easu_h_rcp_check).
 //
 // K1, K2 and K3 do not include this header: their code stays as it was.
 
@@ -28,39 +40,56 @@ namespace fsr {
 namespace h16 {
 
 using h = __half;
+using h2 = __half2;
 
+// Scalar forms: the staging's luma of one texel.
 __device__ __forceinline__ h add(h a, h b) { return __hadd_rn(a, b); }
-__device__ __forceinline__ h sub(h a, h b) { return __hsub_rn(a, b); }
 __device__ __forceinline__ h mul(h a, h b) { return __hmul_rn(a, b); }
-// torch.minimum / torch.maximum: NaN in, NaN out.
-__device__ __forceinline__ h tmin(h a, h b) { return __hmin_nan(a, b); }
-__device__ __forceinline__ h tmax(h a, h b) { return __hmax_nan(a, b); }
-// approx.rcp on a half: reciprocal(a) * 1.0, the reciprocal a float32
-// division rounded to half.
-__device__ __forceinline__ h rcp(h a) { return __float2half_rn(__fdiv_rn(1.0f, __half2float(a))); }
 // A constant as easu_math._consts holds it (torch.full of a half).
 __device__ __forceinline__ h k(float v) { return __float2half_rn(v); }
+
+// Paired forms.
+__device__ __forceinline__ h2 add(h2 a, h2 b) { return __hadd2_rn(a, b); }
+__device__ __forceinline__ h2 sub(h2 a, h2 b) { return __hsub2_rn(a, b); }
+__device__ __forceinline__ h2 mul(h2 a, h2 b) { return __hmul2_rn(a, b); }
+// torch.minimum / torch.maximum: NaN in, NaN out.
+__device__ __forceinline__ h2 tmin(h2 a, h2 b) { return __hmin2_nan(a, b); }
+__device__ __forceinline__ h2 tmax(h2 a, h2 b) { return __hmax2_nan(a, b); }
+// approx.rcp on a half: reciprocal(a) * 1.0 (see the note above).
+__device__ __forceinline__ h2 rcp(h2 a) { return h2rcp(a); }
+__device__ __forceinline__ h2 k2(float v) { return __float2half2_rn(v); }
+__device__ __forceinline__ h2 pair(float a, float b) { return __floats2half2_rn(a, b); }
+__device__ __forceinline__ h2 as_h2(unsigned int v) { return *reinterpret_cast<const h2*>(&v); }
+__device__ __forceinline__ unsigned int bits(h2 v) { return *reinterpret_cast<const unsigned int*>(&v); }
 
 // torch.maximum on floats (NaN in, NaN out).
 __device__ __forceinline__ float tmaxf(float a, float b) { return a != a ? a : (b != b ? b : fmaxf(a, b)); }
 
-// easu_math._sat on halves: where(x > 0, clamp(x, max=1), 0).
-__device__ __forceinline__ h sat(h x) {
-  const h one = k(1.0f);
-  return __hgt(x, k(0.0f)) ? (__hgt(x, one) ? one : x) : k(0.0f);
+// A lane mask of a paired compare's 1.0 / 0.0 results (0xFFFF where true).
+__device__ __forceinline__ unsigned int mask(h2 cmp) { return __vcmpne2(bits(cmp), 0u); }
+
+// easu_math._sat on halves: where(x > 0, clamp(x, max=1), 0), a NaN to +0.
+__device__ __forceinline__ h2 sat(h2 x) {
+  const unsigned int pos = mask(__hgt2(x, k2(0.0f)));
+  const unsigned int big = mask(__hgt2(x, k2(1.0f)));
+  return as_h2(((bits(x) & ~big) | (bits(k2(1.0f)) & big)) & pos);
 }
 
 // APrxMedRcp with the FsrRcasH magic number (approx._MAGIC[float16]): an
-// integer operation on the 16-bit pattern, then one Newton step whose every
-// operation rounds to half.
-__device__ __forceinline__ h prx_med_rcp(h a) {
-  const h b = __ushort_as_half((unsigned short)(0x778Du - __half_as_ushort(a)));
-  return mul(b, add(mul(__hneg(b), a), k(2.0f)));
+// integer operation on each lane's 16-bit pattern (no borrow between the
+// lanes), then one Newton step whose every operation rounds to half.
+__device__ __forceinline__ h2 prx_med_rcp(h2 a) {
+  const h2 b = as_h2(__vsub2(0x778D778Du, bits(a)));
+  return mul(b, add(mul(__hneg2(b), a), k2(2.0f)));
 }
 
 // Luma*2 on halves (easu_math._luma): B * 0.5 + (R * 0.5 + G).
 __device__ __forceinline__ h luma(h r, h g, h b) {
   const h half_ = k(0.5f);
+  return add(mul(b, half_), add(mul(r, half_), g));
+}
+__device__ __forceinline__ h2 luma(h2 r, h2 g, h2 b) {
+  const h2 half_ = k2(0.5f);
   return add(mul(b, half_), add(mul(r, half_), g));
 }
 
@@ -92,44 +121,47 @@ __device__ __forceinline__ float bilinear_alpha(float tl, float tr, float bl, fl
   return __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), py));
 }
 
-// One quadrant of the direction and length estimate, in float32
-// (easu_resolve's accumulate_quads, one FsrEasuSetF call): the '+' pattern
-// a (above), b (left), c (centre), d (right), e (below) of float32 lumas,
-// weighted by w, added to dir_x, dir_y and len in the reference's order.
-__device__ __forceinline__ void set_quad(float la, float lb, float lc, float ld, float le, float w, float& dirx,
-                                         float& diry, float& len) {
+// A texel's share of one quadrant of the direction and length estimate
+// (easu_resolve's accumulate_quads, one FsrEasuSetF call, up to its * w
+// products): from the '+' pattern a (above), b (left), c (centre), d
+// (right), e (below) of float32 lumas, (dir_x, len_x^2, dir_y, len_y^2).
+// It depends on the centre texel and its four neighbours only, so a block
+// computes it once per texel (easu_h.cu:stage).
+__device__ __forceinline__ float4 quad_response(float la, float lb, float lc, float ld, float le) {
   const float dc = __fsub_rn(ld, lc);
   const float cb = __fsub_rn(lc, lb);
   float len_x = prx_lo_rcp(tmaxf(fabsf(dc), fabsf(cb)));
   const float dx = __fsub_rn(ld, lb);
-  dirx = __fadd_rn(dirx, __fmul_rn(dx, w));
   len_x = sat_nan0(__fmul_rn(fabsf(dx), len_x));
-  len = __fadd_rn(len, __fmul_rn(__fmul_rn(len_x, len_x), w));
   const float ec = __fsub_rn(le, lc);
   const float ca = __fsub_rn(lc, la);
   float len_y = prx_lo_rcp(tmaxf(fabsf(ec), fabsf(ca)));
   const float dy = __fsub_rn(le, la);
-  diry = __fadd_rn(diry, __fmul_rn(dy, w));
   len_y = sat_nan0(__fmul_rn(fabsf(dy), len_y));
-  len = __fadd_rn(len, __fmul_rn(__fmul_rn(len_y, len_y), w));
+  return make_float4(dx, __fmul_rn(len_x, len_x), dy, __fmul_rn(len_y, len_y));
 }
 
-// EASU "mixed" from the tap window t[c][r][q] of halves (rows fy-1..fy+2,
-// columns fx-1..fx+2 around 'f' = t[c][1][1]; the corners are not read),
-// the float32 lumas L[r][q] of those texels (each the half luma, widened),
-// at subpixel position (ppx, ppy) (float32): the direction and length in
-// float32 with the APrx bit tricks, the filter shape rounded to half once,
-// then the taps' weights, FsrEasuF's single accumulation chain, the exact
-// reciprocal of the weight sum and the dering clamp, all in half.
-__device__ __forceinline__ void easu_mixed(const h (&t)[3][4][4], const float (&L)[4][4], float ppx, float ppy,
-                                           h out[3]) {
+// The rest of that FsrEasuSetF call: the response g weighted by w, added to
+// dir_x, len, dir_y, len in the reference's order.
+__device__ __forceinline__ void add_quad(float4 g, float w, float& dirx, float& diry, float& len) {
+  dirx = __fadd_rn(dirx, __fmul_rn(g.x, w));
+  len = __fadd_rn(len, __fmul_rn(g.y, w));
+  diry = __fadd_rn(diry, __fmul_rn(g.z, w));
+  len = __fadd_rn(len, __fmul_rn(g.w, w));
+}
+
+// One pixel's filter shape in float32, from the responses of its quadrants
+// s, t, u, v (centres f, g, j, k) at subpixel position (ppx, ppy): the
+// direction and length with the APrx bit tricks (ffx_fsr1.h:388-410).
+// shape: dir_x, dir_y, len2_x, len2_y, lob, clp, still in float32.
+__device__ __forceinline__ void easu_shape(const float4 (&g)[4], float ppx, float ppy, float (&shape)[6]) {
   const float qx = __fsub_rn(1.0f, ppx);
   const float qy = __fsub_rn(1.0f, ppy);
   float dirx = 0.0f, diry = 0.0f, len = 0.0f;
-  set_quad(L[0][1], L[1][0], L[1][1], L[1][2], L[2][1], __fmul_rn(qx, qy), dirx, diry, len);    // s
-  set_quad(L[0][2], L[1][1], L[1][2], L[1][3], L[2][2], __fmul_rn(ppx, qy), dirx, diry, len);   // t
-  set_quad(L[1][1], L[2][0], L[2][1], L[2][2], L[3][1], __fmul_rn(qx, ppy), dirx, diry, len);   // u
-  set_quad(L[1][2], L[2][1], L[2][2], L[2][3], L[3][2], __fmul_rn(ppx, ppy), dirx, diry, len);  // v
+  add_quad(g[0], __fmul_rn(qx, qy), dirx, diry, len);    // s
+  add_quad(g[1], __fmul_rn(ppx, qy), dirx, diry, len);   // t
+  add_quad(g[2], __fmul_rn(qx, ppy), dirx, diry, len);   // u
+  add_quad(g[3], __fmul_rn(ppx, ppy), dirx, diry, len);  // v
 
   // Direction normalisation with zero-protect (ffx_fsr1.h:388-395).
   float dir_r = __fadd_rn(__fmul_rn(dirx, dirx), __fmul_rn(diry, diry));
@@ -145,21 +177,47 @@ __device__ __forceinline__ void easu_mixed(const h (&t)[3][4][4], const float (&
   len = __fmul_rn(len, len);
   const float stretch = __fmul_rn(__fadd_rn(__fmul_rn(dirx, dirx), __fmul_rn(diry, diry)),
                                   prx_lo_rcp(tmaxf(fabsf(dirx), fabsf(diry))));
-  const float len2_x = __fadd_rn(1.0f, __fmul_rn(__fsub_rn(stretch, 1.0f), len));
-  const float len2_y = __fadd_rn(1.0f, __fmul_rn(-0.5f, len));
-  const float lob_f = __fadd_rn(0.5f, __fmul_rn((float)((1.0 / 4.0 - 0.04) - 0.5), len));
-  const float clp_f = prx_lo_rcp(lob_f);
+  const float lob = __fadd_rn(0.5f, __fmul_rn((float)((1.0 / 4.0 - 0.04) - 0.5), len));
+  shape[0] = dirx;
+  shape[1] = diry;
+  shape[2] = __fadd_rn(1.0f, __fmul_rn(__fsub_rn(stretch, 1.0f), len));
+  shape[3] = __fadd_rn(1.0f, __fmul_rn(-0.5f, len));
+  shape[4] = lob;
+  shape[5] = prx_lo_rcp(lob);
+}
 
+// One tap of two pixels: its three channels, each a pair.
+struct Tap2 {
+  h2 c[3];
+};
+
+// EASU "mixed" of two pixels from their tap windows (tap(r, q): rows
+// fy-1..fy+2, columns fx-1..fx+2 around 'f' = tap(1, 1); the corners are
+// not read; each tap read where the accumulation takes it), their float32
+// shapes sa, sb (easu_shape) and subpixel columns pxa, pxb, on one row at
+// ppy: the filter shape handed to half once per pixel and packed, then the
+// taps' weights, FsrEasuF's single accumulation chain, the reciprocal of
+// the weight sum and the dering clamp, all in paired half.
+template <typename TapFn>
+__device__ __forceinline__ void easu_pair(TapFn tap, const float (&sa)[6], const float (&sb)[6], float pxa,
+                                          float pxb, float ppy, h2 out[3]) {
   // The filter shape handed to half (easu_math.py:261-263).
-  const h hdx = __float2half_rn(dirx), hdy = __float2half_rn(diry), ndy = __hneg(hdy);
-  const h l2x = __float2half_rn(len2_x), l2y = __float2half_rn(len2_y);
-  const h lob = __float2half_rn(lob_f), clp = __float2half_rn(clp_f);
-  const h hpx = __float2half_rn(ppx), hpy = __float2half_rn(ppy);
-  h off_x[4], off_y[4];
+  const h2 hdx = pair(sa[0], sb[0]), hdy = pair(sa[1], sb[1]), ndy = __hneg2(hdy);
+  const h2 l2x = pair(sa[2], sb[2]), l2y = pair(sa[3], sb[3]);
+  const h2 lob = pair(sa[4], sb[4]), clp = pair(sa[5], sb[5]);
+  const h2 hpx = pair(pxa, pxb), hpy = k2(ppy);
+  // The tap offsets' products with the shape: each tap's rotated offset
+  // reads one per column q and one per row r (the same operations on the
+  // same values, so the same halves, as computing them per tap).
+  h2 xdx[4], xndy[4], ydy[4], ydx[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    off_x[q] = sub(k((float)(q - 1)), hpx);
-    off_y[q] = sub(k((float)(q - 1)), hpy);
+    const h2 ox = sub(k2((float)(q - 1)), hpx);
+    const h2 oy = sub(k2((float)(q - 1)), hpy);
+    xdx[q] = mul(ox, hdx);
+    xndy[q] = mul(ox, ndy);
+    ydy[q] = mul(oy, hdy);
+    ydx[q] = mul(oy, hdx);
   }
 
   // Taps in FsrEasuF accumulation order (b c i j f e k l h g o n;
@@ -167,70 +225,76 @@ __device__ __forceinline__ void easu_mixed(const h (&t)[3][4][4], const float (&
   // the non-fast weight (2/5 d2 - 1)^2 25/16 - 9/16 times (lob d2 - 1)^2.
   constexpr int kTapDx[12] = {0, 1, -1, 0, 0, -1, 1, 2, 2, 1, 1, 0};
   constexpr int kTapDy[12] = {-1, -1, 1, 1, 0, 0, 1, 1, 0, 0, 2, 2};
-  const h m1 = k(-1.0f), c25 = k(2.0f / 5.0f), c2516 = k(25.0f / 16.0f), c916 = k(-(25.0f / 16.0f - 1.0f));
-  h ac0 = k(0.0f), ac1 = k(0.0f), ac2 = k(0.0f), aw = k(0.0f);
+  const h2 m1 = k2(-1.0f), c25 = k2(2.0f / 5.0f), c2516 = k2(25.0f / 16.0f), c916 = k2(-(25.0f / 16.0f - 1.0f));
+  h2 ac0 = k2(0.0f), ac1 = k2(0.0f), ac2 = k2(0.0f), aw = k2(0.0f);
+  Tap2 tf, tg, tj, tk;  // the nearest 2x2, for the dering clamp
 #pragma unroll
   for (int n = 0; n < 12; ++n) {
     const int q = kTapDx[n] + 1;
     const int r = kTapDy[n] + 1;
-    const h ox = off_x[q], oy = off_y[r];
-    const h vx = mul(add(mul(ox, hdx), mul(oy, hdy)), l2x);
-    const h vy = mul(add(mul(ox, ndy), mul(oy, hdx)), l2y);
-    const h d2 = tmin(add(mul(vx, vx), mul(vy, vy)), clp);
-    h w_a = add(mul(lob, d2), m1);
+    const Tap2 t = tap(r, q);
+    if (r == 1 && q == 1) tf = t;
+    if (r == 1 && q == 2) tg = t;
+    if (r == 2 && q == 1) tj = t;
+    if (r == 2 && q == 2) tk = t;
+    const h2 vx = mul(add(xdx[q], ydy[r]), l2x);
+    const h2 vy = mul(add(xndy[q], ydx[r]), l2y);
+    const h2 d2 = tmin(add(mul(vx, vx), mul(vy, vy)), clp);
+    h2 w_a = add(mul(lob, d2), m1);
     w_a = mul(w_a, w_a);
-    h w_b = add(mul(c25, d2), m1);
+    h2 w_b = add(mul(c25, d2), m1);
     w_b = mul(w_b, w_b);
     w_b = add(mul(c2516, w_b), c916);
-    const h w = mul(w_b, w_a);
-    ac0 = add(ac0, mul(t[0][r][q], w));
-    ac1 = add(ac1, mul(t[1][r][q], w));
-    ac2 = add(ac2, mul(t[2][r][q], w));
+    const h2 w = mul(w_b, w_a);
+    ac0 = add(ac0, mul(t.c[0], w));
+    ac1 = add(ac1, mul(t.c[1], w));
+    ac2 = add(ac2, mul(t.c[2], w));
     aw = add(aw, w);
   }
-  const h inv_w = rcp(aw);
-  const h acc[3] = {ac0, ac1, ac2};
+  const h2 inv_w = rcp(aw);
+  const h2 acc[3] = {ac0, ac1, ac2};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     // Dering clamp to the nearest 2x2 {f, g, j, k} (ffx_fsr1.h:416-419).
-    const h mn = tmin(tmin(t[c][1][1], t[c][1][2]), tmin(t[c][2][1], t[c][2][2]));
-    const h mx = tmax(tmax(t[c][1][1], t[c][1][2]), tmax(t[c][2][1], t[c][2][2]));
+    const h2 mn = tmin(tmin(tf.c[c], tg.c[c]), tmin(tj.c[c], tk.c[c]));
+    const h2 mx = tmax(tmax(tf.c[c], tg.c[c]), tmax(tj.c[c], tk.c[c]));
     out[c] = tmin(mx, tmax(mn, mul(acc[c], inv_w)));
   }
 }
 
-// FsrRcasH (rcas_resolve(fast=False) in float16) on the cross b (above),
-// d (left), e (centre), f (right), h (below), three channels each: the
-// limiters with the exact reciprocal and the NaN-dropping max, the optional
-// denoise, APrxMedRcp on halves.  sharp: sharpness_f16.
+// FsrRcasH (rcas_resolve(fast=False) in float16) of two pixels on their
+// crosses b (above), d (left), e (centre), f (right), h (below), three
+// channels each, as pairs: the limiters with the exact reciprocal and the
+// NaN-dropping max, the optional denoise, APrxMedRcp on halves.  sharp:
+// sharpness_f16 in both lanes.
 template <bool DENOISE>
-__device__ __forceinline__ void rcas_h(const h b[3], const h d[3], const h e[3], const h f[3], const h hh[3],
-                                       h sharp, h out[3]) {
-  const h one = k(1.0f), four = k(4.0f);
-  h lobe = k(0.0f);
+__device__ __forceinline__ void rcas_pair(const h2 b[3], const h2 d[3], const h2 e[3], const h2 f[3], const h2 hh[3],
+                                          h2 sharp, h2 out[3]) {
+  const h2 one = k2(1.0f), four = k2(4.0f);
+  h2 lobe = k2(0.0f);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const h mn4 = tmin(tmin(b[c], d[c]), tmin(f[c], hh[c]));
-    const h mx4 = tmax(tmax(b[c], d[c]), tmax(f[c], hh[c]));
+    const h2 mn4 = tmin(tmin(b[c], d[c]), tmin(f[c], hh[c]));
+    const h2 mx4 = tmax(tmax(b[c], d[c]), tmax(f[c], hh[c]));
     // 0 * inf = NaN under a bright centre (mx4 == 0) is dropped by the
     // HLSL max (ffx_fsr1.h:749), as _nan_drop_max drops it.
-    const h hit_min = mul(tmin(mn4, e[c]), rcp(mul(four, mx4)));
-    const h hit_max = mul(sub(one, tmax(mx4, e[c])), rcp(add(mul(four, mn4), k(-4.0f))));
-    const h lobe_c = __hmax(__hneg(hit_min), hit_max);
+    const h2 hit_min = mul(tmin(mn4, e[c]), rcp(mul(four, mx4)));
+    const h2 hit_max = mul(sub(one, tmax(mx4, e[c])), rcp(add(mul(four, mn4), k2(-4.0f))));
+    const h2 lobe_c = __hmax2(__hneg2(hit_min), hit_max);
     lobe = c == 0 ? lobe_c : tmax(lobe, lobe_c);
   }
-  lobe = mul(tmax(k(-(0.25f - 1.0f / 16.0f)), tmin(lobe, k(0.0f))), sharp);
+  lobe = mul(tmax(k2(-(0.25f - 1.0f / 16.0f)), tmin(lobe, k2(0.0f))), sharp);
   if (DENOISE) {
-    const h q = k(0.25f);
-    const h bl = luma(b[0], b[1], b[2]), dl = luma(d[0], d[1], d[2]), el = luma(e[0], e[1], e[2]);
-    const h fl = luma(f[0], f[1], f[2]), hl = luma(hh[0], hh[1], hh[2]);
-    h nz = sub(add(add(add(mul(q, bl), mul(q, dl)), mul(q, fl)), mul(q, hl)), el);
-    const h rng = sub(tmax(tmax(tmax(bl, dl), tmax(el, fl)), hl), tmin(tmin(tmin(bl, dl), tmin(el, fl)), hl));
-    nz = sat(mul(__habs(nz), prx_med_rcp(rng)));
-    nz = add(mul(k(-0.5f), nz), one);
+    const h2 q = k2(0.25f);
+    const h2 bl = luma(b[0], b[1], b[2]), dl = luma(d[0], d[1], d[2]), el = luma(e[0], e[1], e[2]);
+    const h2 fl = luma(f[0], f[1], f[2]), hl = luma(hh[0], hh[1], hh[2]);
+    h2 nz = sub(add(add(add(mul(q, bl), mul(q, dl)), mul(q, fl)), mul(q, hl)), el);
+    const h2 rng = sub(tmax(tmax(tmax(bl, dl), tmax(el, fl)), hl), tmin(tmin(tmin(bl, dl), tmin(el, fl)), hl));
+    nz = sat(mul(__habs2(nz), prx_med_rcp(rng)));
+    nz = add(mul(k2(-0.5f), nz), one);
     lobe = mul(lobe, nz);
   }
-  const h rcp_l = prx_med_rcp(add(mul(four, lobe), one));
+  const h2 rcp_l = prx_med_rcp(add(mul(four, lobe), one));
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     out[c] = mul(add(add(add(add(mul(lobe, b[c]), mul(lobe, d[c])), mul(lobe, hh[c])), mul(lobe, f[c])), e[c]),

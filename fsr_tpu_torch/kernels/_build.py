@@ -117,6 +117,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "fsr_easu_h"):
         lib.fsr_easu_h.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, vp]
         lib.fsr_easu_h.restype = i
+    # K6's reciprocal over every half pattern (a test entry; sources before
+    # the paired K6 have none).
+    if hasattr(lib, "fsr_easu_h_rcp_check"):
+        lib.fsr_easu_h_rcp_check.argtypes = [vp, vp]
+        lib.fsr_easu_h_rcp_check.restype = i
     # Sources from before the knockouts (a parent commit's, kernel_ab.py)
     # export no mask.
     if hasattr(lib, "fsr_ablation_mask"):

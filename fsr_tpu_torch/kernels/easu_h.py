@@ -27,8 +27,11 @@ outputs are passes of the torch path around K6 (``api._upscale``), as the
 JAX package runs them as jitted passes of their own.
 
 K6 reads K2's host tables (``easu_gather.plan``) and stages each block's
-source footprint as K2 does (``easu_gather.footprint``), so it takes what
-K2 takes: RGB or RGBA, an upscale on both axes whose footprint fits.
+source footprint by K2's rule (``easu_gather.footprint``) for its own tile,
+``TILE``, so it takes what K2 takes: RGB or RGBA, an upscale on both axes.
+Each block computes the quadrant responses of the direction estimate once
+per texel and runs its pixels two a thread in half2; the arithmetic, and so
+every bit, is the plain version's.
 ``easu_h`` launches ``csrc/easu_h.cu`` for a CUDA tensor and counts the
 launch in ``easu_h.launches`` (under CUDA graph capture at capture); for a
 CPU tensor it runs ``easu_h_reference``, which calls the same ops.
@@ -49,7 +52,12 @@ from fsr_tpu_torch.ops import easu as easu_ops
 from fsr_tpu_torch.ops import rcas as rcas_ops
 from fsr_tpu_torch.utils import capture
 
-__all__ = ["supported", "easu_h", "easu_h_reference"]
+__all__ = ["supported", "easu_h", "easu_h_reference", "TILE"]
+
+# csrc/easu_h.cu: one block per TILE = (TH, TW) output pixels; its ring of
+# (TH + 2) x (TW + 2) is two pixels a thread.  An upscale's footprint of a
+# block (its ring's taps) is at most (TH + 5, TW + 5) texels.
+TILE = (30, 30)
 
 
 def supported(in_shape, out_size, con: EasuConstants) -> bool:

@@ -187,6 +187,50 @@ def test_kernel_ab_bounds_count_as_chip_smoke():
     assert (kernel_ab.HBM_BYTES_PER_S, kernel_ab.F32_OPS_PER_S) == (chip_smoke.HBM_BYTES_PER_S, chip_smoke.F32_OPS_PER_S)
 
 
+def test_kernel_ab_k6_bound_counts_as_chip_smoke():
+    """K6's bound in kernel_ab is chip_smoke's (EASU_H_OPS + RCAS_H_OPS by
+    type, the halves at the half2 rate), and phase 17's record of the
+    parent's SASS names only printed columns and its other instructions."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert kernel_ab.K6_F32_OPS == chip_smoke.EASU_H_OPS[0] + chip_smoke.RCAS_H_OPS[0]
+    assert kernel_ab.K6_HALF_OPS == chip_smoke.EASU_H_OPS[1] + chip_smoke.RCAS_H_OPS[1]
+    assert kernel_ab.HALF2_OPS_PER_S == chip_smoke.HALF2_OPS_PER_S
+    assert set(chip_smoke.K6_SASS_PARENT) <= set(opmix_floor.HALF_SASS_OPS) | {"other"}
+    assert sum(chip_smoke.K6_SASS_PARENT.values()) == 1680 and chip_smoke.K6_SASS_PARENT["CALL"] == 7
+
+
+K6_LISTING = """\
+\t\tFunction : _ZN12_GLOBAL__N_113easu_h_kernelI6__halfLb1ELb0ELb0EEEvPKT_PS1_NS_7HParamsE
+        /*0000*/                   HADD2 R4, R4.H0_H0, R5.H0_H0 ;
+        /*0010*/                   HMUL2 R4, R4, R5 ;
+        /*0020*/                   HFMA2.MMA R4, R4, R5.H0_H0, -RZ ;
+        /*0030*/                   HADD2.F32 R4, -RZ, R5.H0_H0 ;
+        /*0040*/                   HFMA2.MMA R4, -RZ, RZ, 0, 0 ;
+        /*0050*/              @!P0 HMNMX2 R1, |R2|.H1_H1, R3.H0_H0, PT ;
+        /*0060*/                   PRMT R1, R2, 0x5410, R3 ;
+\t\tFunction : _ZN12_GLOBAL__N_113easu_h_kernelI6__halfLb1ELb1ELb0EEEvPKT_PS1_NS_7HParamsE
+        /*0000*/                   HADD2 R4, R4, R5 ;
+"""
+
+
+def test_half_lanes_count_k6s_paired_half_instructions():
+    """K6's half arithmetic by lanes: one lane where every register source
+    selects a half; conversions (HADD2.F32) and constant moves (no register
+    source) left out; only the float16 RCAS-on, no-denoise RGB kernel."""
+    lines = K6_LISTING.splitlines(True)
+    assert opmix_floor.parse_half_lanes(lines) == {"K6 f16": {"one lane": 2, "two lanes": 2}}
+    counts = opmix_floor.parse_sass(lines)
+    assert counts == {"K6 f16": {"HADD2": 2, "HMUL2": 1, "HFMA2": 2, "HMNMX2": 1, "PRMT": 1}}
+    table = opmix_floor.sass_lines(counts, opmix_floor.HALF_SASS_OPS)
+    assert table[0].split()[2:7] == ["HADD2", "HMUL2", "HMNMX2", "HFMA2", "HSETP2"]
+    assert table[1].split()[-1] == "7"
+
+
 def test_kernel_ab_reads_ptxas_and_swaps_the_library(tmp_path):
     (tmp_path / "build.log").write_text(PTXAS_LOG)
     lines = kernel_ab.ptxas_lines(tmp_path)

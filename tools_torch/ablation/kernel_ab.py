@@ -1,16 +1,28 @@
-"""K1, K2, K3 and K4 against a parent commit's on the H100, timed in turn.
+"""K1, K2, K3, K4 and K6 against a parent commit's on the H100, timed in turn.
 
-    python3 tools_torch/ablation/kernel_ab.py [--parent DIR] [--define NAME=VALUE ...]
+    python3 tools_torch/ablation/kernel_ab.py [--parent DIR] [--source NAME=DIR ...]
+                                              [--define NAME=VALUE ...] [--sections k4,k2,k1,k3,k6]
 
-Builds three kinds of kernel library, in parallel: this checkout's, the
+Builds four kinds of kernel library, in parallel: this checkout's, the
 parent's from DIR (default ``_parent``: a ``git archive`` of the parent
-commit unpacked at the root of the checkout), and this checkout's again
-with each ``--define`` (a preprocessor variant, e.g. ``FSR_K2_TILE_H=16``
-for K2's tile height, ``FSR_K1_MIN_BLOCKS=4`` for K1's register cap;
+commit unpacked at the root of the checkout), each ``--source``'s (another
+checkout's, or a step of a change, from DIR/fsr_tpu_torch/csrc, timed
+under NAME), and this checkout's again with each ``--define`` (a
+preprocessor variant, e.g. ``FSR_K2_TILE_H=16`` for K2's tile height,
+``FSR_K1_MIN_BLOCKS=4`` for K1's register cap;
 ``FSR_K1_TILE_H=32,FSR_K1_TILE_W=32`` sets two macros at once).  The
-package's wrappers drive every library's K1, K2, K3 and K4, whose C
+package's wrappers drive every library's K1, K2, K3, K4 and K6, whose C
 interfaces are the same in the parent (a parent from before the K1
-redesign, whose K1 took a K4-padded source, cannot be driven).
+redesign, whose K1 took a K4-padded source, cannot be driven; one from
+before K6 is left out of K6's section).  ``--sections`` runs a subset.
+
+K6, the float16 upscale (batch 4 -> 4K, float16 sources): Performance,
+Quality, RGBA, RCAS off and denoise, every library's output held
+bit-equal to the others' and to ``easu_h_reference`` (the torch path's
+float16 ops on the card), then each library's K6 timed in turn, with its
+bound (74.75 float32 and 541 float16 operations per pixel, the halves at
+the half2 rate; RGBA 8 float32 more) and each library's time over the
+parent's.
 
 K1, at the Performance shapes (batch 4, 1080p -> 4K): Performance float32
 and bfloat16, the HDR tail (a) (SRTM prologue, grain, 10-bit dither), the
@@ -35,12 +47,16 @@ library's output is held against this tree's: K4 bit-equal (and to
 ``edge_pad_reference``); K2 by its largest difference and the values that
 differ.  Prints ms per 4K frame, each kernel's bound (bytes over 3.35 TB/s,
 or K2's counted operations over 67 TFLOP/s, chip_smoke's rule), the ptxas
-lines of K4, of K1, K2 and K3 with RCAS and no denoise, and the static
-SASS counts of K1, K2 and K3 (``opmix_floor.sass_counts``) for each library,
-with the card's name and power limit.  Exits non-zero without a card or
-parent sources, when a K4 disagrees with its plain version, when this
-tree's (or a variant's) K1 quad and generic paths differ from this tree's
-quad path, or when a K3 differs from this tree's.
+lines of K4, of K1, K2 and K3 with RCAS and no denoise and of K6 on
+float16 sources, and the static SASS counts of K1, K2 and K3
+(``opmix_floor.sass_counts``) and of K6 (its half arithmetic, packing,
+MUFU and CALL, and its half instructions by lanes,
+``opmix_floor.sass_tables``) for each library, with the card's name
+and power limit.  Exits non-zero without a card or parent sources, when a
+K4 disagrees with its plain version, when this tree's (or a variant's) K1
+quad and generic paths differ from this tree's quad path, when a K3
+differs from this tree's, or when a K6 is not bit-equal to its plain
+version.
 """
 
 from __future__ import annotations
@@ -60,7 +76,7 @@ if __name__ == "__main__":
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-from fsr_tpu_torch.kernels import _build, easu_gather, fused, pad
+from fsr_tpu_torch.kernels import _build, easu_gather, easu_h, fused, pad
 from fsr_tpu_torch.kernels import rcas as rcas_k
 from fsr_tpu_torch.kernels.epilogue import Epilogue
 
@@ -80,11 +96,17 @@ F32_OPS_PER_S = 67e12
 EASU_RCAS_OPS = 488.75
 EPI_OPS = 12 + 60
 ALPHA_OPS = 8
+# K6's function per output pixel by type (chip_smoke.py's EASU_H_OPS +
+# RCAS_H_OPS), the halves at the half2 rate.
+K6_F32_OPS, K6_HALF_OPS = 73.75 + 1, 413 + 128
+HALF2_OPS_PER_S = 134e12
 # ptxas entries printed: every K4; K2 with RCAS and no denoise; K1 float32
 # with no denoise (<S, T, O, QUAD, DENOISE, RGBA>), each K1 and K2 also in
 # its strip-source form; K3 with the clamp border and no denoise.
 PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernel(_strip)?I.*Lb1ELb0EL"
-                           r"|fused_kernel(_strip)?IfffLb[01]ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE")
+                           r"|fused_kernel(_strip)?IfffLb[01]ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE"
+                           r"|easu_h_kernelI6__half")
+SECTIONS = ("k4", "k2", "k1", "k3", "k6")
 
 # The strip-source forms' SASS, beside the whole-frame kernels' (a parent
 # from before them has none).
@@ -319,10 +341,63 @@ def k3_section(libs, dev, gen, cname) -> bool:
     return ok
 
 
+def k6_cases(dev, gen):
+    """(name, float16 source, constants, apply_rcas, denoise): K6 at the
+    main paths' shapes."""
+    f16 = torch.float16
+    pcon = EasuConstants.create(PERF_IN[::-1], None, OUT4K[::-1])
+    qcon = EasuConstants.create(QUALITY_IN[::-1], None, OUT4K[::-1])
+    x = torch.rand((NFRAMES, 3, *PERF_IN), generator=gen, device=dev).to(f16)
+    q = torch.rand((NFRAMES, 3, *QUALITY_IN), generator=gen, device=dev).to(f16)
+    x4 = torch.cat([x, torch.rand((NFRAMES, 1, *PERF_IN), generator=gen, device=dev).to(f16)], 1)
+    return [("Performance f16", x, pcon, True, False), ("Quality f16", q, qcon, True, False),
+            ("RGBA f16", x4, pcon, True, False), ("RCAS off f16", x, pcon, False, False),
+            ("denoise f16", x, pcon, True, True)]
+
+
+def k6_section(libs, dev, gen, cname) -> bool:
+    """K6 on the float16 paths, each library's in turn, after every
+    library's output is held bit-equal to ``easu_h_reference``.  Returns
+    False when one is not."""
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
+
+    rcon = RcasConstants(0.25)
+    libs = {k: v for k, v in libs.items() if hasattr(v, "fsr_easu_h")}
+    npix = NFRAMES * OUT4K[0] * OUT4K[1]
+    ok = True
+    print(f"K6, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
+    for what, x, con, rc, dn in k6_cases(dev, gen):
+        want = easu_h.easu_h_reference(x, OUT4K, con, rcon, rc, dn).view(torch.int16)
+
+        def call(x=x, con=con, rc=rc, dn=dn):
+            return easu_h.easu_h(x, OUT4K, con, rcon, rc, dn)
+
+        for name, lib in libs.items():
+            got = on(lib, call)().view(torch.int16)
+            off = int((got != want).sum())
+            print(f"  {what}, {name} vs easu_h_reference: {off} of {got.numel()} values differ")
+            ok = ok and off == 0
+        del want, got
+        t = cuda_times_in_turn({name: on(lib, call) for name, lib in libs.items()}, 5, queue=QUEUE)
+        f32_ops = K6_F32_OPS + (ALPHA_OPS if x.shape[1] == 4 else 0)
+        by_ops = (f32_ops / F32_OPS_PER_S + K6_HALF_OPS / HALF2_OPS_PER_S) * npix * 1e3
+        by_bytes = (x.numel() + npix * x.shape[1]) * 2 / HBM_BYTES_PER_S * 1e3
+        bound = max(by_ops, by_bytes)
+        print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f} ({bound / v:.1%} of its bound)" for k, v in t.items())
+              + f"; bound {bound / NFRAMES:.4f} ({'operations' if by_ops >= by_bytes else 'bytes'}); "
+              + ", ".join(f"{k} / parent {v / t['parent']:.3f}" for k, v in t.items() if k != "parent" and "parent" in t))
+    return ok
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", default=str(ROOT / "_parent"),
                         help="root of the parent commit's checkout (default _parent)")
+    parser.add_argument("--source", action="append", default=[],
+                        help="NAME=DIR: another checkout's kernels (DIR/fsr_tpu_torch/csrc) to build and time "
+                             "beside this tree's under NAME (repeatable)")
+    parser.add_argument("--sections", default=",".join(SECTIONS),
+                        help=f"the sections to run, comma-separated (default {','.join(SECTIONS)})")
     parser.add_argument("--define", action="append", default=[],
                         help="a -D variant of this tree's kernels to time beside them (repeatable; "
                              "NAME=VALUE,NAME=VALUE for several macros in one variant)")
@@ -330,7 +405,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; the readings are device times", file=sys.stderr)
         return 1
-    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
     from tools_torch.ablation import opmix_floor
 
     parent = pathlib.Path(args.parent).resolve() / "fsr_tpu_torch" / "csrc"
@@ -339,6 +413,17 @@ def main() -> int:
         return 1
     here = ROOT / "fsr_tpu_torch" / "csrc"
     builds = {"this tree": (here, _build.NVCC_FLAGS), "parent": (parent, _build.NVCC_FLAGS)}
+    for spec in args.source:
+        name, _, path = spec.partition("=")
+        csrc = pathlib.Path(path).resolve() / "fsr_tpu_torch" / "csrc"
+        if not name or not csrc.is_dir():
+            print(f"kernel_ab: no sources at {csrc} for --source {spec!r}", file=sys.stderr)
+            return 1
+        builds[name] = (csrc, _build.NVCC_FLAGS)
+    sections = set(args.sections.split(","))
+    if not sections <= set(SECTIONS):
+        print(f"kernel_ab: unknown sections {sorted(sections - set(SECTIONS))}", file=sys.stderr)
+        return 1
     for d in args.define:
         builds[d] = (here, _build.NVCC_FLAGS + tuple(f"-D{x}" for x in d.split(",")))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
@@ -352,6 +437,44 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
+    ok = k1_ok = k3_ok = k6_ok = True
+    if "k4" in sections:
+        ok = k4_section(libs, dev, gen, cname)
+    if "k2" in sections:
+        k2_section(libs, dev, gen, cname)
+    if "k1" in sections:
+        k1_ok = k1_section(libs, dev, gen, cname)
+    if "k3" in sections:
+        k3_ok = k3_section(libs, dev, gen, cname)
+    if "k6" in sections:
+        k6_ok = k6_section(libs, dev, gen, cname)
+
+    for name, (csrc, flags) in builds.items():
+        print(f"SASS (static), {name}:")
+        path = _build.library_path(csrc, flags)
+        counts, lanes = opmix_floor.sass_tables(path, opmix_floor.SASS_KERNELS + STRIP_SASS)
+        for line in opmix_floor.sass_lines({k: v for k, v in counts.items() if k.startswith(("K1", "K2", "K3"))}):
+            print("  " + line)
+        if "K6 f16" in counts:
+            for line in opmix_floor.sass_lines({"K6 f16": counts["K6 f16"]}, opmix_floor.HALF_SASS_OPS):
+                print("  " + line)
+            k6 = lanes["K6 f16"]
+            print(f"  K6 f16 half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {k6['two lanes']} on two lanes, "
+                  f"{k6['one lane']} on one")
+    print(cname)
+    for good, what in ((ok, "K4 disagrees with its plain version"), (k1_ok, "K1's quad and generic paths differ"),
+                       (k3_ok, "a K3 differs from this tree's"), (k6_ok, "a K6 is not bit-equal to its plain version")):
+        if not good:
+            print(f"kernel_ab: {what}", file=sys.stderr)
+    return 0 if ok and k1_ok and k3_ok and k6_ok else 1
+
+
+def k4_section(libs, dev, gen, cname) -> bool:
+    """K4 on the Performance sources, each library's in turn, beside
+    ``F.pad``.  Returns False when a K4 is not bit-equal to its plain
+    version."""
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
+
     ok = True
     print(f"K4, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
     for what, x, pads, dt in k4_cases(dev, gen):
@@ -370,6 +493,13 @@ def main() -> int:
         print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
               + f"; bound {bound / NFRAMES:.4f} (bytes)")
         del want
+    return ok
+
+
+def k2_section(libs, dev, gen, cname) -> None:
+    """K2 on the Quality paths, each library's in turn, every output held
+    against this tree's."""
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
 
     print(f"K2, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
     npix = NFRAMES * OUT4K[0] * OUT4K[1]
@@ -387,21 +517,6 @@ def main() -> int:
         print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
               + f"; bound {bound}; this tree / parent {t['this tree'] / t['parent']:.3f}")
         del ref
-
-    k1_ok = k1_section(libs, dev, gen, cname)
-    k3_ok = k3_section(libs, dev, gen, cname)
-
-    for name, (csrc, flags) in builds.items():
-        print(f"SASS (static), {name}:")
-        counts = opmix_floor.sass_counts(_build.library_path(csrc, flags), opmix_floor.SASS_KERNELS + STRIP_SASS)
-        for line in opmix_floor.sass_lines({k: v for k, v in counts.items() if k.startswith(("K1", "K2", "K3"))}):
-            print("  " + line)
-    print(cname)
-    for good, what in ((ok, "K4 disagrees with its plain version"), (k1_ok, "K1's quad and generic paths differ"),
-                       (k3_ok, "a K3 differs from this tree's")):
-        if not good:
-            print(f"kernel_ab: {what}", file=sys.stderr)
-    return 0 if ok and k1_ok and k3_ok else 1
 
 
 if __name__ == "__main__":

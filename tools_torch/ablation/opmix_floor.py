@@ -75,11 +75,22 @@ SASS_KERNELS = (("K1 f32", "fused_kernelIffLb1ELb0ELb0E"), ("P1", "replay_kernel
                 ("K2 f32", "20staged_gather_kernelIfffLb1ELb0ELb0E"),
                 ("K2 f32 per-pixel", "13gather_kernelIfffLb1ELb0ELb0E"),
                 ("K1 f32 quad", "fused_kernelIfffLb1ELb0ELb0E"), ("K1 f32 generic", "fused_kernelIfffLb0ELb0ELb0E"),
-                ("K3 f32", "rcas_kernelIffLb0ELb0E"), ("K3 u8", "rcas_kernelIhhLb0ELb0E"))
+                ("K3 f32", "rcas_kernelIffLb0ELb0E"), ("K3 u8", "rcas_kernelIhhLb0ELb0E"),
+                ("K6 f16", "easu_h_kernelI6__halfLb1ELb0ELb0E"))
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "MUFU", "IMAD", "IADD3", "LOP3", "LEA", "SHF",
             "LDS", "LDG", "LDC", "STS", "STG", "BAR")
+# K6's table (sass_lines(counts, HALF_SASS_OPS)): its half arithmetic, the
+# packing of pairs (PRMT, F2FP), MUFU (h2rcp), its float32 math, and CALL
+# (a float32 division's slow path is a called subroutine).
+HALF_SASS_OPS = ("HADD2", "HMUL2", "HMNMX2", "HFMA2", "HSETP2", "PRMT", "F2FP", "MUFU", "FADD", "FMUL", "FFMA",
+                 "FMNMX", "LDS", "STS", "STG", "BAR", "CALL")
+# Half arithmetic counted by lanes (parse_half_lanes): an instruction whose
+# every register source selects one half (R2.H0_H0) computes one lane.
+HALF_ARITH = ("HADD2", "HMUL2", "HMNMX2", "HFMA2")
 # One instruction of cuobjdump -sass: "/*0a30*/  @!P0 FFMA.FTZ R1, ..."
 _SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_]*)")
+# Its modifiers and operands.
+_SASS_OPERANDS = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.\w+)*)\s+([^;]*);")
 
 
 def tiny_frame(device, seed: int = 0) -> torch.Tensor:
@@ -152,12 +163,12 @@ def readings(device="cuda", rounds: int = 5) -> dict:
     return cuda_times_in_turn(reading_fns(device), rounds)
 
 
-def parse_sass(lines, kernels=SASS_KERNELS) -> dict:
-    """{label: Counter of SASS mnemonics (modifiers dropped)} for each
-    (label, pattern) of ``kernels`` whose pattern (a regular expression; a
-    plain substring of the mangled name in ``SASS_KERNELS``) a function of a
-    ``cuobjdump -sass`` listing matches."""
-    counts, cur = {}, None
+def _by_kernel(lines, kernels):
+    """({label: empty Counter}, [(label, line)]) for the lines of each
+    function of a ``cuobjdump -sass`` listing that a (label, pattern) of
+    ``kernels`` names (a regular expression; a plain substring of the
+    mangled name in ``SASS_KERNELS``)."""
+    counts, body, cur = {}, [], None
     for line in lines:
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
@@ -165,19 +176,54 @@ def parse_sass(lines, kernels=SASS_KERNELS) -> dict:
             if cur is not None:
                 counts[cur] = collections.Counter()
         elif cur is not None:
-            m = _SASS_LINE.match(line)
-            if m:
-                counts[cur][m.group(1)] += 1
+            body.append((cur, line))
+    return counts, body
+
+
+def _ops(selected) -> dict:
+    counts, body = selected
+    for label, line in body:
+        m = _SASS_LINE.match(line)
+        if m:
+            counts[label][m.group(1)] += 1
     return counts
 
 
-def sass_counts(library=None, kernels=SASS_KERNELS) -> dict:
-    """``parse_sass`` of ``cuobjdump -sass`` of the library at path
-    ``library`` (default: the package's, built first).  The counts are
-    static: each instruction of a kernel's code once, a tile loop's body
-    once.  They show whether nvcc kept the replays' math (their float
-    instructions beside K1's), that their taps are LDS where K1's are LDG,
-    and K2's instruction mix beside K1's."""
+def _lanes(selected) -> dict:
+    counts, body = selected
+    for label, line in body:
+        m = _SASS_OPERANDS.match(line)
+        if not m or m.group(1) not in HALF_ARITH or ".F32" in m.group(2):
+            continue
+        regs = [op for op in m.group(3).split(",")[1:] if re.search(r"\bR\d+", op)]
+        if regs:
+            one = all(re.search(r"\.H[01]_H[01]\b", op) for op in regs)
+            counts[label]["one lane" if one else "two lanes"] += 1
+    return counts
+
+
+def parse_sass(lines, kernels=SASS_KERNELS) -> dict:
+    """{label: Counter of SASS mnemonics (modifiers dropped)} for each
+    kernel of ``kernels`` in a ``cuobjdump -sass`` listing."""
+    return _ops(_by_kernel(lines, kernels))
+
+
+def parse_half_lanes(lines, kernels=SASS_KERNELS) -> dict:
+    """{label: Counter of "one lane" and "two lanes"}: the ``HALF_ARITH``
+    instructions (conversions such as HADD2.F32 and constant moves with no
+    register source left out) of each kernel ``parse_sass`` names, one lane
+    where every register source selects one half."""
+    return _lanes(_by_kernel(lines, kernels))
+
+
+def sass_tables(library=None, kernels=SASS_KERNELS) -> tuple:
+    """(``parse_sass``, ``parse_half_lanes``) of one ``cuobjdump -sass`` of
+    the library at path ``library`` (default: the package's, built first).
+    The counts are static: each instruction of a kernel's code once, a tile
+    loop's body once.  They show whether nvcc kept the replays' math (their
+    float instructions beside K1's), that their taps are LDS where K1's are
+    LDG, K2's instruction mix beside K1's, and whether a kernel's half
+    arithmetic is paired."""
     from fsr_tpu_torch.kernels import _build
 
     if library is None:
@@ -185,17 +231,23 @@ def sass_counts(library=None, kernels=SASS_KERNELS) -> dict:
         library = _build.library_path()
     cmd = [_build.cuda_tool("cuobjdump"), "-sass", str(library)]
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
-        counts = parse_sass(proc.stdout, kernels)
+        counts, body = _by_kernel(proc.stdout, kernels)
     if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)} exited with {proc.returncode}")
-    return counts
+    return _ops((counts, body)), _lanes(({k: collections.Counter() for k in counts}, body))
 
 
-def sass_lines(counts: dict) -> list:
-    """``sass_counts`` as a table: one row per kernel."""
-    lines = [f"{'SASS (static)':<14}" + "".join(f"{op:>7}" for op in SASS_OPS) + f"{'all':>7}"]
+def sass_counts(library=None, kernels=SASS_KERNELS) -> dict:
+    """``parse_sass`` of the library at path ``library`` (``sass_tables``)."""
+    return sass_tables(library, kernels)[0]
+
+
+def sass_lines(counts: dict, ops=SASS_OPS) -> list:
+    """``sass_counts`` as a table: one row per kernel, a column per op of
+    ``ops``."""
+    lines = [f"{'SASS (static)':<14}" + "".join(f"{op:>7}" for op in ops) + f"{'all':>7}"]
     for label, c in counts.items():
-        lines.append(f"{label:<14}" + "".join(f"{c[op]:>7}" for op in SASS_OPS) + f"{sum(c.values()):>7}")
+        lines.append(f"{label:<14}" + "".join(f"{c[op]:>7}" for op in ops) + f"{sum(c.values()):>7}")
     return lines
 
 
