@@ -85,8 +85,10 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      float16, RGBA uint8 with denoise, bfloat16 with RCAS off), each one K6
      launch and held the same way; K6's reciprocal over all 65,536 float16
      bit patterns against torch's 1.0 / x on the card (none may differ);
-     K6's static SASS (its half arithmetic by lanes, packing, MUFU, no
-     CALL: no float32 division's slow path) beside its parent's; one call under
+     K6's static SASS, whole-frame and strip-source forms (its half
+     arithmetic by lanes, packing, MUFU, no CALL: no float32 division's
+     slow path) beside its parent's, listed by a process started after the
+     build so that cuobjdump overlaps phases 3-16; one call under
      autograd (one K6 forward, none backward, the gradient bit-equal to
      impl="torch"'s); K6 (10 queued), its plain version (the torch path)
      and K2 bf16 timed in turn; K6's ptxas lines; then float16 images under
@@ -164,7 +166,22 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      cards beside K1 with them on one; and a two-card probe of what an
      event wait captured into a graph binds to (the record at capture, the
      latest at launch, or the latest when the node runs) and what a host
-     wait after a launch binds to;
+     wait after a launch binds to; then float16 (_f16_strips): fault 21,
+     upscale(impl="auto") on a float32 and a float16 downscale, no launch
+     and bit-equal to impl="torch" (impl="kernel" raises); at small sizes
+     every seam phase in float16 math, each source type x RGB/RGBA x RCAS
+     off/on/denoise and the options around K6, n launches of K6's strip
+     form each, and a float16 image under float32/bfloat16 math, n
+     launches of K1's or K2's, each bit-equal to the unsharded kernel call
+     (bare K6 strips also to the torch ops' strips); at full width (vi)
+     Performance and (vii) Quality in float16 math, (viii) Performance and
+     (ix) Quality (bfloat16) from float16 frames on 4 strips, 4 launches
+     each, bit-equal to the unsharded call, a traced call holding its 4
+     strip-source launches and nothing else, timed in turn with the strips'
+     kernels, the unsharded kernel and the torch ops' strips (K6) or the
+     strips of the widened frames (K1, K2); (vi) captured, replays
+     bit-equal to the eager call, a traced replay only K6's strip form and
+     the frame's fill; across the cards where there are several;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
      ablation): P1 opmix_replay (RCAS on and off) and P2 opmix_replay_shared
      on the K4-padded one-tile frame, on small grids and then on K1's
@@ -270,10 +287,12 @@ unavailable.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -283,6 +302,7 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_TOL = 6e-5
 # The kernels' readings (K* and the library call) bracket this many calls
 # queued back to back per CUDA-event sample (profiling.cuda_time_ms): each
@@ -298,11 +318,11 @@ TORCH_SHARE = 1e-3
 MAIN_SHAPE = (4, 3, 1080, 1920)
 QUALITY_SHAPE = (4, 3, 1440, 2560)
 SHARPEN_SHAPE = (4, 3, 2160, 3840)
-# K1's and K2's __global__ functions, as a device trace names them (their
-# strip-source forms too), the strip-source forms alone, and H1's before it
-# was folded into them (a trace must hold none).
-KERNEL_NAMES = {"K1": "fused_kernel", "K2": "staged_gather_kernel", "H1": "halo_kernel"}
-STRIP_NAMES = {"K1": "fused_kernel_strip", "K2": "staged_gather_kernel_strip"}
+# K1's, K2's and K6's __global__ functions, as a device trace names them
+# (their strip-source forms too), the strip-source forms alone, and H1's
+# before it was folded into them (a trace must hold none).
+KERNEL_NAMES = {"K1": "fused_kernel", "K2": "staged_gather_kernel", "K6": "easu_h_kernel", "H1": "halo_kernel"}
+STRIP_NAMES = {"K1": "fused_kernel_strip", "K2": "staged_gather_kernel_strip", "K6": "easu_h_kernel_strip"}
 # docs/FIDELITY.md f16 rows: mixed against the float32 oracle, strict
 # against the float16 oracle.
 F16_MIXED = dict(median=1.0 / 2040.0, p99=5.0 / 255.0, share=0.04)
@@ -1012,6 +1032,7 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
     # in-place read's cost is read from their traced device times.
     in_place, on_cat = tk["K1 x4 strips, traced"], tk["K1 x4 halo'd strips, traced"]
     queued = tk["K1 x4 strips"], tk["K1 x4 halo'd strips"]
+    f16_entries = _f16_strips(dev, card, gen, cards)
     print(f"  H1 folded into K1/K2: 0 launches; (i)'s 4 strips read in place {in_place:.4f} device ms per call "
           f"against {on_cat:.4f} on the halo'd strips (traced; in turn, 10 queued: {queued[0]:.4f} and "
           f"{queued[1]:.4f}); the halo rows' byte bound {_bound(h1_bytes, 0)[0]:.4f} ms")
@@ -1029,7 +1050,270 @@ def _row_sharded(dev, card: str, gen, trace: bool) -> list:
                       "fsr_tpu_torch/csrc/easu_gather.cu", "fsr_tpu/kernels/easu_gather.py:350",
                       k2_full["launches"]["K2"], max(small_err["K2"], strip_err), tk["K2 x4 strips"],
                       tk["K2 x4 strips, plain"], _nbytes(*qstrips) + k2_full["nbytes"], EASU_RCAS_OPS * npix),
-    ]
+    ] + f16_entries
+
+
+def _f16_strips(dev, card: str, gen, cards: int) -> list:
+    """Phase 18's float16 row strips, and fault 21 on the card.  First
+    ``upscale(impl="auto")`` on a downscale (float32 and float16 math): no
+    launch, bit-equal to ``impl="torch"``; ``impl="kernel"`` raises.  Then
+    at small sizes, on ``[dev] * n``, every seam phase (2x, 4x, 1.5x, 1.3x,
+    ~1.7x, a DRS offset; 2, 3, 4 and 8 strips) in float16 math, each source
+    type x RGB/RGBA x RCAS off/on/denoise on 4 strips, and the prologue, an
+    epilogue and a byte output around K6: n launches of K6's strip form,
+    bit-equal to the unsharded K6 call (the bare calls also to the torch
+    ops on the same strips); a float16 image under float32 and bfloat16
+    math: n launches of K1's or K2's strip form, bit-equal to the unsharded
+    call.  At full width, batch 4, on 4 strips: (vi) Performance and (vii)
+    Quality in float16 math (K6), (viii) Performance and (ix) Quality
+    (bfloat16 storage) from float16 frames (K1, K2), each 4 launches,
+    bit-equal to the unsharded call ((vi)/(vii) also to the torch ops'
+    strips), a traced call holding the 4 strip-source launches and no other
+    device operation; in turn: the sharded call, the strips' kernels read
+    in place, the unsharded kernel, and the torch ops' strips (K6) or the
+    strips of the frames widened to float32 (K1, K2).  (vi) captured
+    (``CapturedSpatial``): (warm-up + 1) x 4 K6 launches at construction,
+    none at a replay, replays on fresh inputs bit-equal to the eager call,
+    a traced replay only K6's strip form and the frame's fill.  Across the
+    cards where there are several, (vi) and (viii) from a tensor and a
+    ``Sharded`` input, and (vi) captured.  Returns the kernels line's
+    entries."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import easu_gather, easu_h, fused
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+    from fsr_tpu_torch.parallel import sharding, spatial
+    from fsr_tpu_torch.utils import capture
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn, device_trace
+
+    f16, f32, bf16, u8 = torch.float16, torch.float32, torch.bfloat16, torch.uint8
+    print("  fault 21: upscale(impl='auto') on a downscale on the card")
+    x = torch.rand((2, 3, 27, 48), generator=gen, device=dev)
+    for dt in (f32, f16):
+        xs = x.to(dt)
+        out, n = _drive(lambda: ft.upscale(xs, out_size=(20, 40), compute_dtype=dt), ())
+        same = torch.equal(out, ft.upscale(xs, out_size=(20, 40), compute_dtype=dt, impl="torch"))
+        try:
+            ft.upscale(xs, out_size=(20, 40), compute_dtype=dt, impl="kernel")
+            raised = False
+        except NotImplementedError:
+            raised = True
+        print(f"    {str(dt)[6:]} 27x48 -> 20x40, auto: {tuple(out.shape)} {out.dtype}, launches {n}, bit-equal to "
+              f"impl='torch': {same}; impl='kernel' raises NotImplementedError: {raised}")
+        if not same or not raised or out.shape[-2:] != (20, 40):
+            raise AssertionError(f"fault 21 on the card ({dt}): impl='auto' must return the torch path's image")
+
+    def mesh(n):
+        return sharding.make_mesh(n, ("sp",), None, devices=[dev] * n)
+
+    def same16(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(torch.int16) if a.dtype == f16 else a, b.view(torch.int16) if b.dtype == f16 else b)
+
+    small = torch.rand((2, 4, 144, 240), generator=gen, device=dev)
+
+    def source(kind, nc, hw):
+        x = small[:, :nc, :hw[0], :hw[1]].contiguous()
+        return (x * 255).to(u8) if kind == "uint8" else x.to(getattr(torch, kind))
+
+    drs = dict(input_viewport=(92, 138), input_offset=(2, 3))
+    geoms = [("2x", (96, 160), (192, 320), (2, 4, 8), {}), ("4x", (48, 80), (192, 320), (2, 4), {}),
+             ("1.5x", (96, 160), (144, 240), (2, 3, 4), {}), ("1.3x", (120, 130), (156, 169), (2, 3, 4), {}),
+             ("~1.7x", (84, 130), (144, 221), (2, 3, 4), {}), ("DRS offset", (96, 144), (132, 192), (2, 3, 4), drs)]
+    cases = [(f"K6 {g}, float16 RGB", "float16", 3, in_hw, out_hw, n, dict(kw, compute_dtype=f16), "K6")
+             for g, in_hw, out_hw, ns, kw in geoms for n in ns]
+    cases += [(f"K6 {g}, {kind} {('RGB', 'RGBA')[nc - 3]}, {mode}", kind, nc, in_hw, out_hw, 4,
+               dict(compute_dtype=f16, apply_rcas=rc, denoise=dn), "K6")
+              for g, in_hw, out_hw, _, _ in geoms[::2] for kind in ("float16", "float32", "bfloat16", "uint8")
+              for nc in (3, 4) for mode, rc, dn in (("RCAS off", False, False), ("RCAS on", True, False),
+                                                   ("denoise", True, True))]
+    opts = [("SRTM + srtm_inv", dict(prologue="srtm", epilogue=Epilogue(transform="srtm_inv"))),
+            ("gamma2 + grain + hash dither10", dict(epilogue=Epilogue(transform="gamma2", grain_amount=0.3,
+                                                                      dither_bits=10), frame=5)),
+            ("grain + page dither8, ->u8", dict(epilogue=Epilogue(grain_amount=0.25, dither_bits=8,
+                                                                  dither_texture=True), out_dtype=u8))]
+    cases += [(f"K6 {g}, float16 RGBA, {name}", "float16", 4, in_hw, out_hw, 4, dict(kw, compute_dtype=f16), "K6")
+              for g, in_hw, out_hw, _, _ in geoms[:3:2] for name, kw in opts]
+    cases += [(f"{kid} {g}, float16 {('RGB', 'RGBA')[nc - 3]} under {str(dt)[6:]} math", "float16", nc, in_hw,
+               out_hw, n, dict(kw, compute_dtype=dt), kid)
+              for (g, in_hw, out_hw, ns, kw), kid in zip(geoms, ("K1", "K1", "K2", "K2", "K2", "K2"))
+              for n in ns[-2:] for nc in (3, 4) for dt in (f32, bf16)]
+    for what, kind, nc, in_hw, out_hw, n, kw, kid in cases:
+        x = source(kind, nc, in_hw)
+        kw = dict(kw, grain=torch.rand((3, *out_hw), generator=gen, device=dev) - 0.5,
+                  dither_page=torch.rand((24, 40), generator=gen, device=dev))
+        got, _ = _drive(lambda: spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw), {kid: n})
+        _on_mesh(got, what)
+        got = got.gather()
+        if not same16(got, ft.upscale(x, out_size=out_hw, impl="kernel", **kw)):
+            raise AssertionError(f"{what}, sp={n}: differs from the unsharded kernel call")
+        if kid == "K6" and "epilogue" not in kw and "prologue" not in kw:
+            if not same16(got, spatial.upscale_spatial_sharded(x, out_hw, mesh(n), impl="torch", **kw).gather()):
+                raise AssertionError(f"{what}, sp={n}: differs from the torch ops on the same strips")
+    print(f"  float16 strips at small sizes: {len(cases)} cases, each n launches of K6's strip form (float16 math) or "
+          "of K1's / K2's (a float16 image under float32 / bfloat16 math) and bit-equal to the unsharded kernel call; "
+          "the bare K6 cases also to the torch ops' strips")
+
+    # Full width, batch 4, 4 strips.
+    out4k = (2 * MAIN_SHAPE[2], 2 * MAIN_SHAPE[3])
+    nframes = MAIN_SHAPE[0]
+    p16 = torch.rand(MAIN_SHAPE, generator=gen, device=dev).half()
+    q16 = torch.rand(QUALITY_SHAPE, generator=gen, device=dev).half()
+    rcon = RcasConstants(0.25)
+    runs = [("(vi) performance f16, sp=4", p16, dict(preset="performance", compute_dtype=f16), "K6"),
+            ("(vii) quality f16, sp=4", q16, dict(preset="quality", compute_dtype=f16), "K6"),
+            ("(viii) performance, float16 frames under float32 math, sp=4", p16, dict(preset="performance"), "K1"),
+            ("(ix) quality, float16 frames under bfloat16 math, sp=4", q16,
+             dict(preset="quality", compute_dtype=bf16), "K2")]
+    full, entries = {}, []
+    print(f"  float16 strips at full width, batch {nframes}, mesh [{dev}] * 4, on {card}:")
+    for name, x, kw, kid in runs:
+        skw = {k: v for k, v in kw.items() if k != "preset"}
+        layout = spatial._layout(tuple(x.shape[-2:]), out4k, 4, None, (0, 0))
+
+        def call(x=x, skw=skw):
+            return spatial.upscale_spatial_sharded(x, out4k, mesh(4), **skw)
+
+        out, got_n = _drive(call, {kid: 4})
+        _on_mesh(out, name)
+        got = out.gather()
+        want = ft.upscale(x, impl="kernel", **kw)
+        if not same16(got, want):
+            raise AssertionError(f"{name}: {int((got != want).sum())} values differ from the unsharded call")
+        err = 0.0
+        if kid == "K6":
+            torch_strips = spatial.upscale_spatial_sharded(x, out4k, mesh(4), impl="torch", **skw).gather()
+            err = _compare_f16(got, torch_strips, f"{name} vs the torch ops on the same strips")
+            del torch_strips
+        else:
+            with _plain_kernels():
+                plain = call().gather()
+            err = _compare(got, plain, f"{name} vs the plain versions")
+            del plain
+        ops = device_trace(call, 1, short=lambda tr, kid=kid: sum(
+            c for k, c in tr["launches"].items() if STRIP_NAMES[kid] in k) < 4)["launches"]
+        in_place = round(sum(c for k, c in ops.items() if STRIP_NAMES[kid] in k))
+        other = {k: c for k, c in ops.items() if STRIP_NAMES[kid] not in k}
+        print(f"  {name}: a Sharded {out.shape} {out.dtype} on the mesh's devices, launches {got_n}, its gather "
+              f"bit-equal to the unsharded call; a traced call: {in_place} launches of {STRIP_NAMES[kid]}, other "
+              f"device operations {other or 'none'}")
+        if in_place != 4 or other:
+            raise AssertionError(f"{name}: a traced call must hold its 4 strip-source launches and nothing else")
+        del out, got, want
+        # In turn: the sharded call, the strips' kernels read in place, the
+        # unsharded kernel; K6 beside the torch ops' strips, K1/K2 beside the
+        # same strips of the frames widened to float32.
+        h = x.shape[-2] // 4
+        sources = spatial._sources([x[..., k * h:(k + 1) * h, :] for k in range(4)], layout.halo)
+        wide = spatial._sources([x.float()[..., k * h:(k + 1) * h, :] for k in range(4)], layout.halo)
+        dt = skw.get("compute_dtype", f32)
+
+        def strips(of=sources, kid=kid, layout=layout, dt=dt):
+            if kid == "K6":
+                return [easu_h.easu_h(s, layout.out_hw, layout.con, rcon, row_plan=st.rows)
+                        for s, st in zip(of, layout.strips)]
+            if kid == "K1":
+                return [fused.upscale_fused(s, layout.out_hw, st.local_con, rcon, row_offset=st.row0,
+                                            global_rows=out4k[0]) for s, st in zip(of, layout.strips)]
+            return [easu_gather.easu_gather(s, layout.out_hw, layout.con, rcon, True, False, dt, row_plan=st.rows,
+                                            row_offset=st.row0) for s, st in zip(of, layout.strips)]
+
+        whole = {"K6": lambda x=x: easu_h.easu_h(x, out4k, layout.con, rcon),
+                 "K1": lambda x=x: fused.upscale_fused(x, out4k, layout.con, rcon),
+                 "K2": lambda x=x: easu_gather.easu_gather(x, out4k, layout.con, rcon, True, False, bf16)}[kid]
+        fns = {"sharded call": call, f"{kid} x4 strips": strips, f"{kid} unsharded": whole}
+        if kid != "K6":
+            fns[f"{kid} x4 strips, float32 frames"] = lambda wide=wide, strips=strips: strips(of=wide)
+        t = cuda_times_in_turn(fns, **KQ)
+        t[f"{kid} x4 strips, traced"] = sum(ms for k, ms in device_trace(strips, 5)["kernels"].items()
+                                            if STRIP_NAMES[kid] in k)
+        t[f"{kid} unsharded, traced"] = sum(ms for k, ms in device_trace(whole, 5)["kernels"].items()
+                                            if KERNEL_NAMES[kid] in k)
+        if kid == "K6":
+            t["torch ops' strips"] = cuda_time_ms(lambda: spatial.upscale_spatial_sharded(
+                x, out4k, mesh(4), impl="torch", **skw), warmup=1, iters=3)
+        else:
+            with _plain_kernels():
+                t["plain versions' strips"] = cuda_time_ms(call, warmup=1, iters=3)
+        print("    in turn, 10 queued (traced: device time of 5 calls): "
+              + ", ".join(f"{k} {v / nframes:.4f}" for k, v in t.items()) + f" ms/frame ({card})")
+        full[name] = dict(launches=got_n[kid], err=err, t=t, nbytes=_nbytes(*spatial._exchange_halo(
+            [x[..., k * h:(k + 1) * h, :] for k in range(4)], layout.halo)) + nframes * out4k[0] * out4k[1]
+            * x.shape[1] * (2 if kid == "K6" else torch.empty((), dtype=dt).element_size()))
+        del sources, wide
+
+    # (vi) captured: one graph of four K6 strips.
+    name = runs[0][0]
+    cap, built = _drive(lambda: spatial.CapturedSpatial(p16, out4k, mesh(4), compute_dtype=f16),
+                        {"K6": (capture.WARMUP + 1) * 4})
+    for f in (0, 7):
+        y = torch.rand(MAIN_SHAPE, generator=gen, device=dev).half()
+        got, n = _drive(lambda: cap(y, frame=torch.tensor(f, dtype=torch.int32, device=dev)), ())
+        _same_sharded(got, spatial.upscale_spatial_sharded(y, out4k, mesh(4), compute_dtype=f16, frame=f),
+                      f"{name} captured, frame {f}")
+    cap.put(y)
+    ops = _replay_ops(lambda: cap(cap.inputs, frame=0), "K6", 4, f"{name} captured")
+    t = cuda_times_in_turn({"eager": lambda: spatial.upscale_spatial_sharded(y, out4k, mesh(4), compute_dtype=f16),
+                            "replay from cap.inputs": lambda: cap(cap.inputs, frame=0)}, **KQ)
+    print(f"  {name} captured (CapturedSpatial): launches at construction {built}, none at 2 replays on fresh inputs, "
+          f"each bit-equal shard by shard to the eager call; a traced replay: "
+          + "; ".join(f"{c:g} x {k[:80]}" for k, c in ops.items())
+          + "; 10 queued: " + ", ".join(f"{k} {v / nframes:.4f}" for k, v in t.items()) + " ms/frame")
+    del cap
+
+    if cards > 1:
+        nc = 4 if cards >= 4 else 2
+        real = sharding.make_mesh(nc, ("sp",))
+        cards_of = list(real.devices.flat)
+        for name, x, kw, kid in (runs[0], runs[2]):
+            skw = {k: v for k, v in kw.items() if k != "preset"}
+            want = ft.upscale(x, impl="kernel", **kw)
+            xs = sharding.Sharded.put(x, real, (None, None, "sp", None))
+            for label, src in (("a tensor input", x), ("a Sharded input", xs)):
+                out, n = _drive(lambda: spatial.upscale_spatial_sharded(src, out4k, real, **skw), {kid: nc})
+                _sync_all()
+                _on_mesh(out, f"{name} across {nc} cards, {label}")
+                if not same16(out.gather(dev), want):
+                    raise AssertionError(f"{name} across {nc} cards, {label}: differs from the unsharded call")
+            t = cuda_times_in_turn({f"across {nc} cards": _joined(
+                lambda: spatial.upscale_spatial_sharded(xs, out4k, real, **skw), cards_of),
+                "one card, sp=4": lambda: spatial.upscale_spatial_sharded(x, out4k, mesh(4), **skw)}, **KQ)
+            print(f"  {name.replace('sp=4', f'sp={nc}')} across {nc} cards: launches {n}, gather bit-equal to the "
+                  "unsharded call from a tensor and a Sharded input; 10 queued: "
+                  + ", ".join(f"{k} {v / nframes:.4f}" for k, v in t.items()) + " ms/frame")
+            del xs, want
+        cap, built = _drive(lambda: spatial.CapturedSpatial(p16, out4k, real, compute_dtype=f16),
+                            {"K6": (capture.WARMUP + 1) * nc})
+        y = sharding.Sharded.put(torch.rand(MAIN_SHAPE, generator=gen, device=dev).half(), real,
+                                 (None, None, "sp", None))
+        got, _ = _drive(lambda: cap(y, frame=0), ())
+        _sync_all()
+        _same_sharded(got, spatial.upscale_spatial_sharded(y, out4k, real, compute_dtype=f16),
+                      f"{runs[0][0]} captured across {nc} cards")
+        print(f"  {runs[0][0]} captured across {nc} cards: launches at construction {built}, a replay bit-equal "
+              "shard by shard to the eager call")
+        del cap, y
+
+    npix = nframes * out4k[0] * out4k[1]
+    f32_ops, half_ops = (e + r for e, r in zip(EASU_H_OPS, RCAS_H_OPS))
+    for name, _, _, kid in runs:
+        r = full[name]
+        kname = {"K6": "easu_h (K6)", "K1": "upscale_fused (K1)", "K2": "easu_gather (K2)"}[kid]
+        src = {"K6": "fsr_tpu_torch/csrc/easu_h.cu", "K1": "fsr_tpu_torch/csrc/fused.cu",
+               "K2": "fsr_tpu_torch/csrc/easu_gather.cu"}[kid]
+        rep = {"K6": "fsr_tpu/ops/easu.py:47 + fsr_tpu/ops/rcas.py:42 (jax.jit, float16; no pallas_call)",
+               "K1": "fsr_tpu/kernels/fused.py:403", "K2": "fsr_tpu/kernels/easu_gather.py:350"}[kid]
+        plain = r["t"].get("torch ops' strips", r["t"].get("plain versions' strips"))
+        if kid == "K6":
+            entries.append(_kernel_entry(f"{kname}, row-sharded, strips read in place: {name[name.index(' ') + 1:]}; "
+                                         "plain: the torch ops' strips", src, rep, r["launches"], r["err"],
+                                         r["t"]["K6 x4 strips"], plain, r["nbytes"], f32_ops * npix,
+                                         half_ops=half_ops * npix))
+        else:
+            entries.append(_kernel_entry(f"{kname}, row-sharded, strips read in place, float16 source: "
+                                         f"{name[name.index(' ') + 1:]}", src, rep, r["launches"], r["err"],
+                                         r["t"][f"{kid} x4 strips"], plain, r["nbytes"], EASU_RCAS_OPS * npix))
+    return entries
 
 
 FRAMES_ON_CARD = (0, 7, 2**31 - 1, -1)
@@ -1933,27 +2217,51 @@ def _k6_reciprocal(dev) -> None:
         raise AssertionError(f"K6's reciprocal differs from torch's 1.0 / x on {differ} float16 patterns")
 
 
-def _k6_sass() -> None:
-    """K6's static SASS beside its first design's (K6_SASS_PARENT): the half
-    arithmetic by lanes, the packing, MUFU, and no CALL (no float32
-    division's slow path)."""
+# K6's kernels read from the library's SASS: the whole-frame form and its
+# strip-source form, float16 RGB with RCAS.
+K6_SASS = (("K6 f16", "easu_h_kernelI6__halfLb1ELb0ELb0E"),
+           ("K6 f16, strip", "easu_h_kernel_stripI6__halfLb1ELb0ELb0E"))
+
+
+def _start_k6_sass() -> subprocess.Popen:
+    """K6's static SASS (``opmix_floor.sass_tables`` of ``K6_SASS``) in a
+    process of its own, started after the build: ``cuobjdump`` lists the
+    whole library, tens of seconds that overlap the phases before 17, which
+    reads the result (``_k6_sass``).  Killed at exit if still running."""
     from fsr_tpu_torch.kernels import _build
+
+    code = ("import json, sys; from tools_torch.ablation import opmix_floor; "
+            "print(json.dumps(opmix_floor.sass_tables(sys.argv[1], json.loads(sys.argv[2]))))")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(_build.library_path()), json.dumps(K6_SASS)],
+                            stdout=subprocess.PIPE, text=True, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def _k6_sass(listing: subprocess.Popen) -> None:
+    """K6's static SASS (``_start_k6_sass``'s result) beside its first
+    design's (K6_SASS_PARENT): the half arithmetic by lanes, the packing,
+    MUFU, and no CALL (no float32 division's slow path), in the whole-frame
+    and the strip-source form."""
     from tools_torch.ablation import opmix_floor
 
-    path = _build.library_path()
-    k6 = tuple(k for k in opmix_floor.SASS_KERNELS if k[0] == "K6 f16")
-    counts, lanes = (table["K6 f16"] for table in opmix_floor.sass_tables(path, k6))
-    rows = {"K6 f16": counts, "K6 f16 scalar": collections.Counter(K6_SASS_PARENT)}
+    out, _ = listing.communicate()
+    if listing.returncode != 0:
+        raise RuntimeError(f"K6's SASS listing exited with {listing.returncode}")
+    counts, lanes = ({k: collections.Counter(v) for k, v in table.items()} for table in json.loads(out))
+    rows = {**counts, "K6 f16 scalar": collections.Counter(K6_SASS_PARENT)}
     for line in opmix_floor.sass_lines(rows, opmix_floor.HALF_SASS_OPS):
         print("  " + line)
-    print(f"  K6 f16 half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {lanes['two lanes']} on two lanes, "
-          f"{lanes['one lane']} on one (scalar design: {K6_LANES_PARENT[0]}, {K6_LANES_PARENT[1]}); a thread's "
-          "loop body is two pixels here, one there")
-    if counts["CALL"]:
-        raise AssertionError(f"K6 calls a subroutine {counts['CALL']} time(s): a division's slow path")
+    for label, _ in K6_SASS:
+        print(f"  {label} half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {lanes[label]['two lanes']} on two "
+              f"lanes, {lanes[label]['one lane']} on one")
+        if counts[label]["CALL"]:
+            raise AssertionError(f"{label} calls a subroutine {counts[label]['CALL']} time(s): a division's slow path")
+    print(f"  (scalar design: {K6_LANES_PARENT[0]} on two lanes, {K6_LANES_PARENT[1]} on one); a thread's loop body is "
+          "two pixels here, one there")
 
 
-def _k6(dev, card: str, frames, qframes, rgba_frames) -> list:
+def _k6(dev, card: str, frames, qframes, rgba_frames, listing: subprocess.Popen) -> list:
     """Phase 17's K6 part: the float16 upscale at batch 4 through the entry
     point, one K6 launch and no K1, K2 or K3 per call, each bit-equal to
     ``easu_h_reference`` on the same inputs (alpha bit-equal); one call
@@ -1981,7 +2289,7 @@ def _k6(dev, card: str, frames, qframes, rgba_frames) -> list:
             entry = line.split("'")[1]
         elif entry is not None and "easu_h_kernel" in entry and ("Used" in line or "spill" in line):
             print(f"  ptxas K6 {entry.split('easu_h_kernel', 1)[1][:24]}: {line.split('info    :')[-1].strip()}")
-    _k6_sass()
+    _k6_sass(listing)
     _k6_reciprocal(dev)
     p16, q16, r16 = frames.half(), qframes.half(), rgba_frames.half()
     paths = [
@@ -3062,6 +3370,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2: built {_build.build_dir().name} in {time.perf_counter() - t0:.1f} s")
+    k6_listing = _start_k6_sass()
     knocked = _build.ablation_mask(_build.library())
     if knocked:
         raise AssertionError(f"the production library was built with the knockouts {sorted(knocked)}")
@@ -3074,7 +3383,8 @@ def main() -> int:
             entry, entries = line.split("'")[1], entries + 1
         elif "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill stores"):
             spills.append(f"{entry}: {line.strip()}")
-    print(f"  ptxas: {entries} kernel instantiations, {len(spills)} with a stack frame or spills")
+    print(f"  ptxas: {entries} kernel instantiations, {len(spills)} with a stack frame or spills; nvcc seconds per "
+          f"source, one nvcc each, all at once: {_build.source_seconds(_build.build_dir()) or 'not recorded'}")
     for line in spills:
         print("    " + line)
 
@@ -3818,7 +4128,8 @@ def main() -> int:
     for k, v in k3_f16["t"].items():
         print(f"    {k:>26}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
     del y_bf16
-    k6_kernels = _k6(dev, card, frames, qframes, rgba_frames) + _f16_sources(card, frames, qframes, rgba_frames)
+    k6_kernels = _k6(dev, card, frames, qframes, rgba_frames, k6_listing) + _f16_sources(card, frames, qframes,
+                                                                                          rgba_frames)
 
     t32, q32 = timings[torch.float32], qtimings[torch.float32]
     ta, tb, tc, ts = (path_runs[p[0]] for p in paths)

@@ -25,10 +25,9 @@ from typing import Optional, Tuple
 import torch
 
 from fsr_tpu_torch import autodiff
-from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.core.presets import PRESETS
-from fsr_tpu_torch.kernels import dispatch, easu_gather, fused, halo
+from fsr_tpu_torch.kernels import dispatch, halo
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import rcas as rcas_kernel
 from fsr_tpu_torch.kernels.epilogue import Epilogue
@@ -128,7 +127,9 @@ def upscale(
       (one launch) at integer per-axis ratios (1, 2 or 4: the Performance
       preset) and K2 at every other upscale (the other presets, native 1x,
       DRS ratios, odd extents), K6 for compute_dtype=float16 at any
-      upscale; a downscale raises (pass impl="torch").
+      upscale.  A configuration no kernel takes (a downscale) runs the
+      plain-torch path under "auto", as the JAX package's "auto" runs its
+      XLA path, and raises under "kernel".
     input_viewport / input_offset: Dynamic Resolution Scaling — the viewport
       (h, w) actually rendered inside the container image, and its offset
       (FsrEasuConOffset, ffx_fsr1.h:205-225).
@@ -205,39 +206,38 @@ def _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl):
         raise ValueError(f"unknown prologue {prologue!r}")
 
 
+def _on_card(image) -> bool:
+    """Whether ``impl="auto"`` looks for a kernel: the image lies on a card."""
+    return image.device.type == "cuda"
+
+
 def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, impl, epilogue, frame, grain,
              prologue, out_dtype, dither_page, strip=None):
     """``upscale`` after its checks (``_check_args``), on a planar image:
     the kernel path (``dispatch.upscale_fused``: K1, K2 or, for float16
     math, K6) or the torch path, picked from ``impl``, the dtypes and the
-    image's device.
+    image's device.  As ``fsr_tpu/api.py:178-189``, "auto" on a card takes
+    the kernel path only where it takes the configuration
+    (``dispatch.supported``) and the torch path elsewhere, chosen before any
+    launch; "kernel" raises there.
 
     strip: a ``parallel.spatial.Strip`` when the image is one halo'd row
     strip of a row-sharded frame and ``out_hw`` its (hl, Wout) output rows:
-    K1 on its shard-local constants with ``row_offset``/``global_rows``
-    at an exact-phase ratio, else K2 on its row tables from the global
-    mapping; the torch path runs EASU over the same tables for its rows -1
-    .. hl, then RCAS on its own rows.  ``grain`` is then the strip's rows,
-    and the epilogue dithers at global rows.  The strip may be a
-    ``kernels.halo.StripSource``: the kernels read its rows in place; the
-    torch path and a kernel forward under autograd take its halo'd rows as
-    one tensor (``halo.halo_rows_reference``)."""
+    the strip form of K1 (shard-local constants with ``row_offset``/
+    ``global_rows`` at an exact-phase ratio), else of K2, or of K6 for
+    float16 math, the latter two on its row tables from the global mapping
+    (``dispatch.upscale_fused(strip=)``); the torch path runs EASU over the
+    same tables for its rows -1 .. hl, then RCAS on its own rows.  ``grain``
+    is then the strip's rows, and the epilogue dithers at global rows.  The
+    strip may be a ``kernels.halo.StripSource``: the kernels read its rows
+    in place; the torch path and a kernel forward under autograd take its
+    halo'd rows as one tensor (``halo.halo_rows_reference``)."""
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue, out_dtype=out_dtype,
               dither_page=dither_page)
-    # float16 row strips take the torch path (K6 has no strip form, K1 and K2
-    # no float16 strip source), chosen from the dtypes before any launch.
-    f16_strip = strip is not None and torch.float16 in (image.dtype, compute_dtype)
-    if not f16_strip and (impl == "kernel" or (impl == "auto" and image.device.type == "cuda")):
-        args = (rcon, apply_rcas, denoise, compute_dtype)
-
+    if impl == "kernel" or (impl == "auto" and _on_card(image)
+                            and dispatch.supported(image, out_hw, con, compute_dtype, out_dtype, strip)):
         def kernel(x):
-            if strip is None:
-                return dispatch.upscale_fused(x, out_hw, con, *args, **kw)
-            if strip.local_con is not None:
-                return fused.upscale_fused(x, out_hw, strip.local_con, *args, row_offset=strip.row0,
-                                           global_rows=strip.global_rows, **kw)
-            return easu_gather.easu_gather(x, out_hw, con, *args, row_plan=strip.rows, row_offset=strip.row0,
-                                           **kw)
+            return dispatch.upscale_fused(x, out_hw, con, rcon, apply_rcas, denoise, compute_dtype, strip=strip, **kw)
 
         if not image.requires_grad or out_dtype in (torch.uint8, torch.uint16):
             return kernel(image)
@@ -276,7 +276,7 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
             out = rcas_ops.rcas(out, rcon, denoise=denoise, compute_dtype=compute_dtype)
     else:
         out = easu_ops.easu(rgb, (out_hw[0] + 2, out_hw[1]), con, compute_dtype=compute_dtype, rows=rows)
-        out = _rcas_strip(out, rcon, compute_dtype, denoise) if apply_rcas else out[..., 1:-1, :]
+        out = rcas_ops.rcas_strip(out, rcon, denoise, compute_dtype) if apply_rcas else out[..., 1:-1, :]
     if epilogue is not None:
         origin = (0 if strip is None else strip.row0, 0)
         out = _apply_epilogue(out, epilogue, frame, grain, dither_page=dither_page, origin=origin)
@@ -285,18 +285,6 @@ def _upscale(image, out_hw, con, rcon, *, apply_rcas, denoise, compute_dtype, im
     if alpha is not None:
         out = torch.cat([out, epilogue_mod.store(alpha, out.dtype)], dim=-3)
     return out
-
-
-def _rcas_strip(easu_out, rcon: RcasConstants, dt, denoise: bool):
-    """RCAS over a strip's rows given its EASU rows -1 .. hl (torch path).
-    The row plans repeat the frame's edge row outside it, so the global top
-    and bottom rows see e in place of their missing neighbour, as
-    ``ops.rcas`` clamps them."""
-    e = easu_out[..., 1:-1, :]
-    sharp = rcon.sharpness_f16 if dt == torch.float16 else rcon.sharpness
-    return easu_math.rcas_resolve(easu_out[..., :-2, :], rcas_ops.shift_clamped(e, 0, -1), e,
-                                  rcas_ops.shift_clamped(e, 0, 1), easu_out[..., 2:, :], float(sharp),
-                                  denoise=denoise)
 
 
 def sharpen(

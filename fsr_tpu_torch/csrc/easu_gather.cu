@@ -391,20 +391,17 @@ int easu_gather(const void* src, const StripParts* sp, void* dst, int src_dtype,
     if (out_dtype == U8) return launch<STRIP, bf16, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
     return launch<STRIP, bf16, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
-  // A float16 source (whole frames only: float16 row strips take the torch
-  // path) widens exactly, and rounds to a bfloat16 storage type at load as a
-  // float32 source does.
-  if constexpr (!STRIP) {
-    if (src_dtype == F16 && dtype == BF16) {
-      if (out_dtype == BF16) return launch<STRIP, __half, bf16, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
-      if (out_dtype == U8) return launch<STRIP, __half, bf16, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
-      return launch<STRIP, __half, bf16, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
-    }
-    if (src_dtype == F16) {
-      if (out_dtype == F32) return launch<STRIP, __half, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
-      if (out_dtype == U8) return launch<STRIP, __half, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
-      return launch<STRIP, __half, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
-    }
+  // A float16 source widens exactly, and rounds to a bfloat16 storage type
+  // at load as a float32 source does.
+  if (src_dtype == F16 && dtype == BF16) {
+    if (out_dtype == BF16) return launch<STRIP, __half, bf16, bf16>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<STRIP, __half, bf16, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    return launch<STRIP, __half, bf16, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
+  }
+  if (src_dtype == F16) {
+    if (out_dtype == F32) return launch<STRIP, __half, float, float>(src, sp, dst, nb, channels, p, r, dn, s);
+    if (out_dtype == U8) return launch<STRIP, __half, float, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
+    return launch<STRIP, __half, float, uint16_t>(src, sp, dst, nb, channels, p, r, dn, s);
   }
   if (src_dtype == U8) {
     if (out_dtype == F32) return launch<STRIP, uint8_t, float, float>(src, sp, dst, nb, channels, p, r, dn, s);

@@ -22,6 +22,18 @@
 // outputs stay torch passes around this kernel (api._upscale), as JAX runs
 // them as passes of their own.
 //
+// Row strips (parallel/spatial.py): a strip of a row-sharded frame runs on
+// K2's per-strip row tables (kernels/easu_gather.py:shard_plan), built from
+// the GLOBAL mapping for its output rows -1 .. hl and clipped to the frame,
+// so the RCAS ring's rows -1 and hl are the neighbours' rows, read through
+// the strip's halo, and only the frame's first and last rows repeat.  The
+// strip-source form (easu_h_kernel_strip, fsr_easu_h_strip, compiled in
+// easu_h_strip.cu) reads the strip in place from its three parts
+// (fsr_pixel.cuh:StripSrc): only the staging load's address changes, so a
+// strip's bits are those of the halo'd strip as one tensor, and those of
+// the whole frame's rows.  A tap window is inside the image wherever its
+// rows differ (centre): a seam's rows come from the halo and are interior.
+//
 // Design: K2's structure (easu_gather.cu) on K2's host tables
 // (kernels/easu_gather.py:plan), with each block's work cut for the half2
 // unit.  One block of NT threads per TH x TW output tile:
@@ -125,9 +137,11 @@ __device__ __forceinline__ int centre(int a, int b, int c, int n) { return a != 
 
 // Load the block's footprint of one frame's source and its table slice
 // (K2's rule, easu_gather.cu:stage), then the responses of every centre;
-// a barrier after each.
-template <typename S, bool RGBA>
-__device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ src, const HParams& p) {
+// a barrier after each.  strip: empty for a whole source, else its strip
+// source (the loads' addresses).
+template <typename S, bool RGBA, typename... Strip>
+__device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ src, const HParams& p,
+                                      const Strip&... strip) {
   const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
   const int r0 = __ldg(p.rows + y0 - 1);
@@ -142,13 +156,29 @@ __device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ sr
   // within 2 ulps): its error is far below the 0.5 / n that (k + 0.5) / n
   // keeps from an integer.
   const float inv_fw = __fdividef(1.0f, (float)fw), inv_gw = __fdividef(1.0f, (float)gw);
-  for (int k = threadIdx.x; k < fh * fw; k += NT) {
-    const int r = (int)(__fadd_rn((float)k, 0.5f) * inv_fw);
-    const S* at = base + (int64_t)r * p.win + (k - r * fw);
-    const __half cr = h16::to_half(at), cg = h16::to_half(at + plane), cb = h16::to_half(at + 2 * plane);
-    st.rgb[k] = make_uint2(__half_as_ushort(cr) | (unsigned)__half_as_ushort(cg) << 16, __half_as_ushort(cb));
-    st.lum[k] = __half2float(h16::luma(cr, cg, cb));
-    if constexpr (RGBA) st.alpha[k] = ld(at + 3 * plane);  // widened exactly, a byte decoded
+  if constexpr (sizeof...(Strip) > 0) {
+    // A strip's parts, run by run, loaded through the read-only cache; the
+    // tables keep every row inside the virtual strip.
+    auto run = [&](int rb, int re, const S* part, int64_t pl, auto row) {
+      for (int k = rb * fw + threadIdx.x; k < re * fw; k += NT) {
+        const int r = (int)(__fadd_rn((float)k, 0.5f) * inv_fw);
+        const S* at = part + (int64_t)row(r) * p.win + c0 + (k - r * fw);
+        const __half cr = h16::to_half_nc(at), cg = h16::to_half_nc(at + pl), cb = h16::to_half_nc(at + 2 * pl);
+        st.rgb[k] = make_uint2(__half_as_ushort(cr) | (unsigned)__half_as_ushort(cg) << 16, __half_as_ushort(cb));
+        st.lum[k] = __half2float(h16::luma(cr, cg, cb));
+        if constexpr (RGBA) st.alpha[k] = ldg(at + 3 * pl);  // widened exactly, a byte decoded
+      }
+    };
+    stage_strip(only(strip...), blockIdx.z, r0, fh, p.hin, run);
+  } else {
+    for (int k = threadIdx.x; k < fh * fw; k += NT) {
+      const int r = (int)(__fadd_rn((float)k, 0.5f) * inv_fw);
+      const S* at = base + (int64_t)r * p.win + (k - r * fw);
+      const __half cr = h16::to_half(at), cg = h16::to_half(at + plane), cb = h16::to_half(at + 2 * plane);
+      st.rgb[k] = make_uint2(__half_as_ushort(cr) | (unsigned)__half_as_ushort(cg) << 16, __half_as_ushort(cb));
+      st.lum[k] = __half2float(h16::luma(cr, cg, cb));
+      if constexpr (RGBA) st.alpha[k] = ld(at + 3 * plane);  // widened exactly, a byte decoded
+    }
   }
   for (int i = threadIdx.x; i < RW + RH; i += NT) {
     if (i < RW) {
@@ -211,13 +241,17 @@ __device__ __forceinline__ void easu_staged(const StageH<RGBA>& st, int ly, int 
   h16::easu_pair(tap, sa, sb, st.px[la], st.px[lb], py, out);
 }
 
-template <typename S, bool RCAS, bool DENOISE, bool RGBA>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    easu_h_kernel(const S* __restrict__ src, __half* __restrict__ dst, HParams p) {
+// One block's tile: the kernels' body, for a whole source (src) or a strip
+// source (strip).  It takes the parameters by value, as the kernels do: a
+// reference to the kernel's parameter moved a few instructions of the
+// whole-frame form's SASS.
+template <typename S, bool RCAS, bool DENOISE, bool RGBA, typename... Strip>
+__device__ __forceinline__ void easu_h_tile(const S* __restrict__ src, __half* __restrict__ dst, HParams p,
+                                            const Strip&... strip) {
   constexpr int C = RGBA ? 4 : 3;
   __shared__ StageH<RGBA> st;
   const int64_t n = blockIdx.z;
-  stage<S>(st, src + n * C * (int64_t)p.hin * p.win, p);
+  stage<S>(st, src + n * C * (int64_t)p.hin * p.win, p, strip...);
   __half* o = dst + n * C * (int64_t)p.hout * p.wout;
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const int x0 = blockIdx.x * TW;
@@ -300,49 +334,74 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
 }
 
+template <typename S, bool RCAS, bool DENOISE, bool RGBA>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    easu_h_kernel(const S* __restrict__ src, __half* __restrict__ dst, HParams p) {
+  easu_h_tile<S, RCAS, DENOISE, RGBA>(src, dst, p);
+}
+
+// The strip-source form (fsr_pixel.cuh:StripSrc): the same tile, each texel
+// loaded from the part that holds its row of the virtual halo'd strip.
+template <typename S, bool RCAS, bool DENOISE, bool RGBA>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    easu_h_kernel_strip(StripSrc<S> strip, __half* __restrict__ dst, HParams p) {
+  easu_h_tile<S, RCAS, DENOISE, RGBA>(static_cast<const S*>(nullptr), dst, p, strip);
+}
+
+#ifndef FSR_STRIP_TU
 // The reciprocal check: rcp (the kernel's) of every half bit pattern, two
 // patterns a thread as one pair.
 __global__ void rcp_check_kernel(unsigned int* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < 32768) out[i] = h16::bits(h16::rcp(h16::as_h2((2u * i) | (2u * i + 1) << 16)));
 }
+#endif
 
-template <typename S, bool RGBA>
-int launch_planes(const void* src, void* dst, int nb, const HParams& p, bool rcas, bool denoise,
-                  cudaStream_t stream) {
+// STRIP: launch the strip-source form on sp, else the whole-frame form on
+// src.  Each form is compiled in its own translation unit (easu_h_strip.cu).
+template <bool STRIP, typename S, bool RGBA>
+int launch_planes(const void* src, const StripParts* sp, void* dst, int nb, const HParams& p, bool rcas,
+                  bool denoise, cudaStream_t stream) {
   constexpr int C = RGBA ? 4 : 3;
   const int64_t in_frame = C * (int64_t)p.hin * p.win;
   const int64_t out_frame = C * (int64_t)p.hout * p.wout;
   return launch_frames<TH, TW>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
-    const S* s = static_cast<const S*>(src) + n0 * in_frame;
     __half* d = static_cast<__half*>(dst) + n0 * out_frame;
-    if (!rcas)
-      easu_h_kernel<S, false, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-    else if (denoise)
-      easu_h_kernel<S, true, true, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-    else
-      easu_h_kernel<S, true, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+    if constexpr (STRIP) {
+      const StripSrc<S> s = strip_src<S>(*sp, n0);
+      if (!rcas)
+        easu_h_kernel_strip<S, false, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+      else if (denoise)
+        easu_h_kernel_strip<S, true, true, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+      else
+        easu_h_kernel_strip<S, true, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+    } else {
+      const S* s = static_cast<const S*>(src) + n0 * in_frame;
+      if (!rcas)
+        easu_h_kernel<S, false, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+      else if (denoise)
+        easu_h_kernel<S, true, true, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+      else
+        easu_h_kernel<S, true, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+    }
   });
 }
 
-template <typename S>
-int launch(const void* src, void* dst, int nb, int channels, const HParams& p, bool rcas, bool denoise,
-           cudaStream_t stream) {
-  return channels == 4 ? launch_planes<S, true>(src, dst, nb, p, rcas, denoise, stream)
-                       : launch_planes<S, false>(src, dst, nb, p, rcas, denoise, stream);
+template <bool STRIP, typename S>
+int launch(const void* src, const StripParts* sp, void* dst, int nb, int channels, const HParams& p, bool rcas,
+           bool denoise, cudaStream_t stream) {
+  return channels == 4 ? launch_planes<STRIP, S, true>(src, sp, dst, nb, p, rcas, denoise, stream)
+                       : launch_planes<STRIP, S, false>(src, sp, dst, nb, p, rcas, denoise, stream);
 }
 
-}  // namespace
-
-// src_dtype: the source's dtype code (fsr_pixel.cuh DType: float16,
-// float32, bfloat16 or uint8); the output is float16.  channels: 3, or 4
-// with alpha in plane 3 of the source and the output.  rows/cols (int32
-// [4][hout + 2], [4][wout]) and py/px (float32 [hout + 2], [wout]) are
-// device pointers, K2's tables; the row tables cover output rows -1..hout.
-// sharp: sharpness_f16.
-extern "C" int fsr_easu_h(const void* src, void* dst, int src_dtype, int nb, int channels, int hin, int win,
-                          int hout, int wout, const void* rows, const void* cols, const void* py, const void* px,
-                          float sharp, int apply_rcas, int denoise, void* stream) {
+// The C entry points' body: the parameters, the checks and the dispatch on
+// the source type, for the whole-frame form (STRIP false: src) or the
+// strip-source form (sp).
+template <bool STRIP>
+int easu_h(const void* src, const StripParts* sp, void* dst, int src_dtype, int nb, int channels, int hin, int win,
+           int hout, int wout, const void* rows, const void* cols, const void* py, const void* px, float sharp,
+           int apply_rcas, int denoise, void* stream) {
+  if (STRIP && !strip_ok(sp, hin)) return (int)cudaErrorInvalidValue;
   HParams p;
   // The row tables start at output row -1: their bases move one entry on,
   // so the device indexes them by the output row itself.
@@ -363,16 +422,32 @@ extern "C" int fsr_easu_h(const void* src, void* dst, int src_dtype, int nb, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (src_dtype) {
     case F16:
-      return launch<__half>(src, dst, nb, channels, p, r, dn, s);
+      return launch<STRIP, __half>(src, sp, dst, nb, channels, p, r, dn, s);
     case F32:
-      return launch<float>(src, dst, nb, channels, p, r, dn, s);
+      return launch<STRIP, float>(src, sp, dst, nb, channels, p, r, dn, s);
     case BF16:
-      return launch<__nv_bfloat16>(src, dst, nb, channels, p, r, dn, s);
+      return launch<STRIP, __nv_bfloat16>(src, sp, dst, nb, channels, p, r, dn, s);
     case U8:
-      return launch<uint8_t>(src, dst, nb, channels, p, r, dn, s);
+      return launch<STRIP, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+#ifndef FSR_STRIP_TU
+// src_dtype: the source's dtype code (fsr_pixel.cuh DType: float16,
+// float32, bfloat16 or uint8); the output is float16.  channels: 3, or 4
+// with alpha in plane 3 of the source and the output.  rows/cols (int32
+// [4][hout + 2], [4][wout]) and py/px (float32 [hout + 2], [wout]) are
+// device pointers, K2's tables; the row tables cover output rows -1..hout.
+// sharp: sharpness_f16.
+extern "C" int fsr_easu_h(const void* src, void* dst, int src_dtype, int nb, int channels, int hin, int win,
+                          int hout, int wout, const void* rows, const void* cols, const void* py, const void* px,
+                          float sharp, int apply_rcas, int denoise, void* stream) {
+  return easu_h<false>(src, nullptr, dst, src_dtype, nb, channels, hin, win, hout, wout, rows, cols, py, px, sharp,
+                       apply_rcas, denoise, stream);
 }
 
 // Test entry: writes rcp (fsr_half.cuh, the kernel's reciprocal) of every
@@ -382,3 +457,15 @@ extern "C" int fsr_easu_h_rcp_check(void* out, void* stream) {
   rcp_check_kernel<<<128, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<unsigned int*>(out));
   return (int)cudaGetLastError();
 }
+#else
+// K6 on a row strip read in place from its three parts (sp: fsr_pixel.cuh's
+// StripParts); hin is the virtual halo'd strip's rows, own's rows plus
+// 2 * halo, which the row tables (K2's, easu_gather.py:shard_plan) index.
+// The other arguments are fsr_easu_h's.
+extern "C" int fsr_easu_h_strip(const StripParts* sp, void* dst, int src_dtype, int nb, int channels, int hin,
+                                int win, int hout, int wout, const void* rows, const void* cols, const void* py,
+                                const void* px, float sharp, int apply_rcas, int denoise, void* stream) {
+  return easu_h<true>(nullptr, sp, dst, src_dtype, nb, channels, hin, win, hout, wout, rows, cols, py, px, sharp,
+                      apply_rcas, denoise, stream);
+}
+#endif

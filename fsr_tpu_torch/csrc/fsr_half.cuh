@@ -99,6 +99,13 @@ __device__ __forceinline__ h to_half(const __half* p) { return *p; }
 __device__ __forceinline__ h to_half(const float* p) { return __float2half_rn(*p); }
 __device__ __forceinline__ h to_half(const __nv_bfloat16* p) { return __float2half_rn(__bfloat162float(*p)); }
 __device__ __forceinline__ h to_half(const uint8_t* p) { return __float2half_rn(__fmul_rn((float)*p, INV255)); }
+// The same through the read-only data cache (__ldg), for the strip-source
+// form's parts, which no __restrict__ kernel parameter names.
+template <typename S>
+__device__ __forceinline__ h to_half_nc(const S* p) {
+  const S v = __ldg(p);
+  return to_half(&v);
+}
 
 // A difference of two source elements (given widened) in the source's own
 // type, as ops.easu.bilinear's `tr - tl` runs on the alpha plane: rounded to

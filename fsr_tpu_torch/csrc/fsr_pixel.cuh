@@ -126,6 +126,7 @@ __device__ __forceinline__ float as_storage<__half>(float v) {
 // __restrict__ kernel parameter names).
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float ldg(const __half* p) { return __half2float(__ldg(p)); }
 __device__ __forceinline__ float ldg(const uint8_t* p) { return __fmul_rn((float)__ldg(p), INV255); }
 
 // Load a source element of type S, rounded to storage type T, widened (NC:

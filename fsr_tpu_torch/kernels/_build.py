@@ -23,6 +23,7 @@ with no ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -31,9 +32,10 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
-__all__ = ["library", "load", "library_path", "build_dir", "cuda_tool", "ablation_mask", "NVCC_FLAGS",
-           "ABLATION_MACROS"]
+__all__ = ["library", "load", "library_path", "build_dir", "cuda_tool", "ablation_mask", "source_seconds",
+           "NVCC_FLAGS", "ABLATION_MACROS", "SECONDS_LINE"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -53,8 +55,19 @@ ABLATION_MACROS = (
 )
 
 
-def _sources(csrc: pathlib.Path = _CSRC):
-    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
+# build.log's last line: each .cu source's nvcc wall seconds, slowest first.
+SECONDS_LINE = "nvcc seconds per source: "
+
+
+def source_seconds(build: pathlib.Path) -> str:
+    """The per-source seconds that build directory ``build``'s log records
+    (empty for a library built before they were recorded)."""
+    log = (build / "build.log").read_text().splitlines() if (build / "build.log").exists() else []
+    return next((line[len(SECONDS_LINE):] for line in log if line.startswith(SECONDS_LINE)), "")
+
+
+def _sources(csrc: pathlib.Path = _CSRC, skip=()):
+    return sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh") and p.name not in skip)
 
 
 def cuda_tool(name: str) -> str:
@@ -69,9 +82,9 @@ def cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} on PATH)")
 
 
-def build_dir(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> pathlib.Path:
+def build_dir(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS, skip=()) -> pathlib.Path:
     h = hashlib.sha256()
-    for p in _sources(csrc):
+    for p in _sources(csrc, skip):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(flags).encode())
@@ -117,6 +130,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "fsr_easu_h"):
         lib.fsr_easu_h.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, vp]
         lib.fsr_easu_h.restype = i
+    # K6's strip-source form (sources before it have none).
+    if hasattr(lib, "fsr_easu_h_strip"):
+        lib.fsr_easu_h_strip.argtypes = list(lib.fsr_easu_h.argtypes)
+        lib.fsr_easu_h_strip.restype = i
     # K6's reciprocal over every half pattern (a test entry; sources before
     # the paired K6 have none).
     if hasattr(lib, "fsr_easu_h_rcp_check"):
@@ -129,34 +146,44 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.fsr_ablation_mask.restype = i
 
 
-def _compile(out_dir: pathlib.Path, so: pathlib.Path, csrc: pathlib.Path, flags) -> None:
+def _nvcc(cmd):
+    """Run one nvcc command; (its result, its wall seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return res, time.perf_counter() - t0
+
+
+def _compile(out_dir: pathlib.Path, so: pathlib.Path, csrc: pathlib.Path, flags, skip) -> None:
     """One nvcc per .cu source, all started together, then one link.  Objects
     go to a private scratch directory, so concurrent builders never share a
-    file; the library appears at ``so`` atomically."""
+    file; the library appears at ``so`` atomically.  ``build.log`` holds
+    each command's output and, last, each source's wall seconds
+    (``SECONDS_LINE``, the slowest first: the build's critical path)."""
     nvcc = cuda_tool("nvcc")
     work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     try:
         jobs = []
-        for src in (p for p in _sources(csrc) if p.suffix == ".cu"):
+        for src in (p for p in _sources(csrc, skip) if p.suffix == ".cu"):
             obj = work / (src.stem + ".o")
-            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((cmd, obj, proc))
+            jobs.append(([nvcc, *flags, "-c", "-o", str(obj), str(src)], obj))
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(_nvcc, [cmd for cmd, _ in jobs]))
         log, failed = [], []
-        for cmd, _, proc in jobs:
-            out, _ = proc.communicate()
-            log.append(" ".join(cmd) + "\n" + out)
-            if proc.returncode != 0:
-                failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out}")
+        for (cmd, _), (res, _) in zip(jobs, done):
+            log.append(" ".join(cmd) + "\n" + res.stdout)
+            if res.returncode != 0:
+                failed.append(f"{cmd[-1]} (exit {res.returncode}):\n{res.stdout}")
+        seconds = sorted(((sec, pathlib.Path(cmd[-1]).name) for (cmd, _), (_, sec) in zip(jobs, done)), reverse=True)
         if not failed:
             lib = work / "lib.so"
-            cmd = [nvcc, "-shared", *flags[:2], "-o", str(lib), *(str(o) for _, o, _ in jobs)]
+            cmd = [nvcc, "-shared", *flags[:2], "-o", str(lib), *(str(o) for _, o in jobs)]
             res = subprocess.run(cmd, capture_output=True, text=True)
             log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
             if res.returncode != 0:
                 failed.append(f"link (exit {res.returncode}):\n{res.stdout}{res.stderr}")
             else:
                 os.replace(lib, so)
+        log.append(SECONDS_LINE + ", ".join(f"{name} {sec:.1f}" for sec, name in seconds))
         (out_dir / "build.log").write_text("\n".join(log))
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
@@ -164,19 +191,22 @@ def _compile(out_dir: pathlib.Path, so: pathlib.Path, csrc: pathlib.Path, flags)
         shutil.rmtree(work, ignore_errors=True)
 
 
-def library_path(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> pathlib.Path:
+def library_path(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS, skip=()) -> pathlib.Path:
     """Where ``load`` builds the shared library of ``csrc`` under ``flags``."""
-    return build_dir(csrc, flags) / "libfsr_kernels.so"
+    return build_dir(csrc, flags, skip) / "libfsr_kernels.so"
 
 
-def load(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS) -> ctypes.CDLL:
+def load(csrc: pathlib.Path = _CSRC, flags=NVCC_FLAGS, skip=()) -> ctypes.CDLL:
     """The shared library of the sources in ``csrc`` (a directory with this
-    package's C interface) compiled with ``flags``, built on first call."""
-    so = library_path(csrc, flags)
+    package's C interface) compiled with ``flags``, built on first call.
+    ``skip``: names of ``.cu`` sources left out (their entry points then
+    missing; the measurement tools' variants leave out what they never
+    launch, and build faster)."""
+    so = library_path(csrc, flags, skip)
     out_dir = so.parent
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        _compile(out_dir, so, csrc, tuple(flags))
+        _compile(out_dir, so, csrc, tuple(flags), tuple(skip))
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     return lib

@@ -11,9 +11,14 @@ and the integer outputs, and RGB or RGBA, in one launch.  float16 math
 bfloat16 or uint8 source, storing float16.  The prologue, the epilogue and
 integer outputs run as the torch path's passes around K6
 (``_upscale_h``), as the JAX package runs them around its XLA float16
-path.  This module owns the choice and the call, so ``api.upscale`` stays
-device-agnostic.  A configuration no kernel takes (a downscale, another
-dtype) raises: the kernel path never falls back to plain torch on its own.
+path.  A row strip of a row-sharded frame (``parallel.spatial.Strip``)
+runs the strip form of the same kernels: K1's on shard-local constants at
+an exact-phase ratio, else K2's on the strip's row tables, K6's on those
+tables for float16 math.  This module owns the choice and the call, so
+``api.upscale`` stays device-agnostic.  A configuration no kernel takes (a
+downscale, another dtype, a strip whose footprint does not fit) raises:
+the kernel path never falls back to plain torch on its own; ``supported``
+lets ``api.upscale(impl="auto")`` choose the torch path before any launch.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Tuple
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-from fsr_tpu_torch.kernels import easu_gather, easu_h, fused
+from fsr_tpu_torch.kernels import easu_gather, easu_h, fused, halo
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.ops import easu as easu_ops
 from fsr_tpu_torch.ops import extras
@@ -31,20 +36,22 @@ from fsr_tpu_torch.ops import extras
 __all__ = ["supported", "upscale_fused"]
 
 
-def supported(image: torch.Tensor, out_size, con: EasuConstants, compute_dtype,
-              out_dtype=None) -> bool:
+def supported(image, out_size, con: EasuConstants, compute_dtype, out_dtype=None, strip=None) -> bool:
     """True when the kernel path (K1 or K2; K6 for float16 math) takes this
-    configuration."""
+    configuration; for a row strip (``strip``, ``image`` its halo'd rows)
+    when the strip form of its kernel takes the strip's plan."""
     shape = tuple(image.shape)
+    rows = None if strip is None else strip.rows
     if compute_dtype == torch.float16:
-        return easu_h.supported(shape, out_size, con)
-    return fused.supported(shape, out_size, con, compute_dtype, out_dtype) or easu_gather.supported(
-        shape, out_size, con, compute_dtype, out_dtype
-    )
+        return easu_h.supported(shape, out_size, con, row_plan=rows)
+    if strip is not None and strip.local_con is not None:
+        return fused.supported(shape, out_size, strip.local_con, compute_dtype, out_dtype)
+    return (strip is None and fused.supported(shape, out_size, con, compute_dtype, out_dtype)) or \
+        easu_gather.supported(shape, out_size, con, compute_dtype, out_dtype, row_plan=rows)
 
 
 def upscale_fused(
-    image: torch.Tensor,
+    image,
     out_size: Tuple[int, int],
     con: EasuConstants,
     rcon: RcasConstants,
@@ -57,25 +64,38 @@ def upscale_fused(
     prologue: str = "none",
     out_dtype=None,
     dither_page=None,
+    strip=None,
 ) -> torch.Tensor:
     """Run the kernel path: K1 at an integer phase structure, else K2; K6
     for float16 math; on a CPU tensor their plain versions.  ``grain`` is
-    plain output-space (3, Hout, Wout).  A configuration no kernel takes
-    raises, naming impl='torch'."""
+    plain output-space (3, Hout, Wout).  ``strip``: a
+    ``parallel.spatial.Strip`` when ``image`` is one row strip's halo'd rows
+    (a tensor or a ``halo.StripSource``) and ``out_size`` its output rows:
+    the strip forms, the epilogue at the strip's global rows (``grain`` its
+    rows).  A configuration no kernel takes raises, naming impl='torch'."""
     shape = tuple(image.shape)
     kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
               out_dtype=out_dtype, dither_page=dither_page)
+    if supported(image, out_size, con, compute_dtype, out_dtype, strip):
+        if compute_dtype == torch.float16:
+            return _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, strip=strip, **kw)
+        args = (rcon, apply_rcas, denoise, compute_dtype)
+        if strip is not None and strip.local_con is not None:
+            return fused.upscale_fused(image, out_size, strip.local_con, *args, row_offset=strip.row0,
+                                       global_rows=strip.global_rows, **kw)
+        if strip is not None:
+            return easu_gather.easu_gather(image, out_size, con, *args, row_plan=strip.rows, row_offset=strip.row0,
+                                           **kw)
+        if fused.supported(shape, out_size, con, compute_dtype, out_dtype):
+            return fused.upscale_fused(image, out_size, con, *args, **kw)
+        return easu_gather.easu_gather(image, out_size, con, *args, **kw)
     if compute_dtype == torch.float16:
-        if easu_h.supported(shape, out_size, con):
-            return _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, **kw)
         what = "the float16 kernel path (K6) takes RGB and RGBA upscales (1x to 4x area)"
-    elif fused.supported(shape, out_size, con, compute_dtype, out_dtype):
-        return fused.upscale_fused(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
-    elif easu_gather.supported(shape, out_size, con, compute_dtype, out_dtype):
-        return easu_gather.easu_gather(image, out_size, con, rcon, apply_rcas, denoise, compute_dtype, **kw)
     else:
         what = ("the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
                 "with float32/bfloat16/float16/uint8 sources and uint8/uint16 or storage-type outputs")
+    if strip is not None:
+        what += f", a row strip where its blocks can stage the strip's footprint (strip at row {strip.row0})"
     raise NotImplementedError(
         f"{what}; got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
         "Pass impl='torch' for the plain-torch path."
@@ -83,25 +103,33 @@ def upscale_fused(
 
 
 def _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, *, epilogue, frame, grain, prologue, out_dtype,
-               dither_page):
+               dither_page, strip=None):
     """float16 math: one K6 launch, which decodes a byte source and
     resolves RGBA's alpha itself, when no option runs around it; else the
     torch path's passes (``api._upscale``) around K6, in their order:
     alpha's bilinear pass, the prologue, K6 on the colour, the epilogue,
-    the store, alpha stacked."""
+    the store, alpha stacked.  A row strip runs K6's strip form on its row
+    tables, and the passes on its halo'd rows (``halo.halo_rows_reference``
+    of a ``StripSource``), the dither at its global rows."""
+    rows = None if strip is None else strip.rows
     if prologue == "none" and epilogue is None and out_dtype in (None, torch.float16):
-        return easu_h.easu_h(image.contiguous(), out_size, con, rcon, apply_rcas, denoise)
+        src = image if isinstance(image, halo.StripSource) else image.contiguous()
+        return easu_h.easu_h(src, out_size, con, rcon, apply_rcas, denoise, row_plan=rows)
+    if isinstance(image, halo.StripSource):
+        image = halo.halo_rows_reference(image)
     rgb, alpha = image, None
     if image.shape[-3] == 4:
         rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
         if a_src.dtype == torch.uint8:
             a_src = epilogue_mod.decode(a_src)
-        alpha = easu_ops.bilinear(a_src, out_size, con)
+        alpha = easu_ops.bilinear(a_src, out_size, con, rows=None if rows is None else (rows.rows[1][1:-1],
+                                                                                        rows.py[1:-1]))
     if prologue == "srtm":
         rgb = extras.srtm(epilogue_mod.decode(rgb) if rgb.dtype == torch.uint8 else rgb)
-    out = easu_h.easu_h(rgb.contiguous(), out_size, con, rcon, apply_rcas, denoise)
+    out = easu_h.easu_h(rgb.contiguous(), out_size, con, rcon, apply_rcas, denoise, row_plan=rows)
     if epilogue is not None:
-        args = epilogue_mod.bind(epilogue, tuple(out.shape[-2:]), frame, grain, dither_page, out.device, 0)
+        row0 = 0 if strip is None else strip.row0
+        args = epilogue_mod.bind(epilogue, tuple(out.shape[-2:]), frame, grain, dither_page, out.device, row0)
         out = epilogue_mod.apply(out.to(torch.float32), args).to(out.dtype)
     if out_dtype is not None:
         out = epilogue_mod.store(out, out_dtype)

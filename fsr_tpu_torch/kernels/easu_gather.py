@@ -22,8 +22,8 @@ last one's last tap.  ``footprint`` computes it as the device does, and
 ``easu_gather`` checks before the launch that every block's fits
 ``FOOTPRINT_MAX`` and holds every tap of its pixels.
 
-Options, as K1 takes them (``kernels/fused.py``): a float16 image (whole
-frames), a uint8 image (decoded at each load, never rounded to the storage
+Options, as K1 takes them (``kernels/fused.py``): a float16 image, a
+uint8 image (decoded at each load, never rounded to the storage
 type), the SRTM prologue, the
 K5 epilogue with plain output-space grain (``kernels/epilogue.py``),
 uint8/uint16 ``out_dtype``, and RGBA in one launch: alpha bilinear from the
@@ -64,7 +64,7 @@ from fsr_tpu_torch.kernels import fused, halo, pad
 from fsr_tpu_torch.ops.easu import easu_coords
 from fsr_tpu_torch.utils import capture
 
-__all__ = ["supported", "GatherPlan", "plan", "shard_rows", "shard_plan", "Footprint", "footprint",
+__all__ = ["supported", "GatherPlan", "plan", "plan_fits", "shard_rows", "shard_plan", "Footprint", "footprint",
            "easu_gather", "easu_gather_reference", "TILE", "FOOTPRINT_MAX"]
 
 # csrc/easu_gather.cu: one block per TILE = (TH, TILE_W) output pixels, and
@@ -75,22 +75,34 @@ TILE = (32, 32)
 FOOTPRINT_MAX = (TILE[0] + 5, TILE[1] + 5)
 
 
-def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None) -> bool:
+def supported(in_shape, out_size, con: EasuConstants, compute_dtype, out_dtype=None,
+              row_plan: Optional["GatherPlan"] = None) -> bool:
     """True when K2 takes this configuration: RGB or RGBA, float32/bfloat16
     storage, an output of the storage type or uint8/uint16 codes, and an
     upscale on both axes (the EASU 1x-4x contract).  The JAX kernel's
-    minimum output of 16 x 128 is a TPU tiling limit and does not apply."""
+    minimum output of 16 x 128 is a TPU tiling limit and does not apply.
+    A row strip (``in_shape`` its halo'd rows, ``row_plan`` its
+    ``shard_plan``): the plan fits the strip and its footprint fits."""
     if len(in_shape) < 3 or in_shape[-3] not in (3, 4):
         return False
     if compute_dtype not in pad.FLOAT_DTYPES or not fused.out_dtype_ok(out_dtype, compute_dtype):
         return False
-    hout, wout = out_size
-    hin, win = in_shape[-2:]
+    hout, wout = (int(v) for v in out_size)
+    hin, win = (int(v) for v in in_shape[-2:])
+    if row_plan is not None:
+        return plan_fits(row_plan, (hin, win), (hout, wout)) and wout >= win and footprint(row_plan).fits
     if not (min(hin, win) >= 1 and hout >= hin and wout >= win):
         return False
     # The constants' own scale must be an upscale too (a viewport larger
     # than the output is a downscale whatever the image's size).
-    return footprint(plan((int(hin), int(win)), (int(hout), int(wout)), con)).fits
+    return footprint(plan((hin, win), (hout, wout), con)).fits
+
+
+def plan_fits(gplan: "GatherPlan", in_hw: Tuple[int, int], out_hw: Tuple[int, int]) -> bool:
+    """Whether a strip's tables (``shard_plan``) fit its (halo'd) source and
+    output: every tap inside the source, so the loads need no bounds."""
+    return (gplan.rows.shape == (4, out_hw[0] + 2) and gplan.cols.shape == (4, out_hw[1])
+            and gplan.rows.min() >= 0 and gplan.rows.max() < in_hw[0] and gplan.cols.max() < in_hw[1])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -226,9 +238,7 @@ def _prepare(image, out_size, con, rcon, apply_rcas, compute_dtype, prologue, ou
             raise ValueError(f"K2 takes upscales only (1x-4x area), got {in_hw} -> {out_hw}")
         return plan(in_hw, out_hw, con), out_hw, sharp, out_dtype or compute_dtype
     # A strip's tables (shard_plan) must fit the strip: no bounds logic on the loads.
-    if (row_plan.rows.shape != (4, out_hw[0] + 2) or row_plan.cols.shape != (4, out_hw[1])
-            or row_plan.rows.min() < 0 or row_plan.rows.max() >= in_hw[0]
-            or row_plan.cols.max() >= in_hw[1]):
+    if not plan_fits(row_plan, in_hw, out_hw):
         raise ValueError(f"row_plan does not fit a {in_hw} source and a {out_hw} output")
     return row_plan, out_hw, sharp, out_dtype or compute_dtype
 
@@ -305,9 +315,8 @@ def easu_gather(
     if image.device.type != "cuda":
         raise ValueError(f"easu_gather takes a CPU or CUDA tensor, got {image.device}")
     strip = isinstance(image, halo.StripSource)
-    if image.dtype not in fused.SOURCE_DTYPES or (strip and image.dtype == torch.float16):
-        raise TypeError(f"gather kernel takes float32/bfloat16/float16/uint8 images (a strip no float16), "
-                        f"got {image.dtype}")
+    if image.dtype not in fused.SOURCE_DTYPES:
+        raise TypeError(f"gather kernel takes float32/bfloat16/float16/uint8 images, got {image.dtype}")
     gplan, (hout, wout), sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas,
                                                   compute_dtype, prologue, out_dtype, row_plan)
     if not footprint(gplan).fits:

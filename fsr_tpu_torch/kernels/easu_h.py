@@ -23,8 +23,17 @@ one launch, bit for bit:
   decoded), rounded to float16, never sharpened, plane 3 of the output.
 
 The output is float16.  The SRTM prologue, the K5 epilogue and integer
-outputs are passes of the torch path around K6 (``api._upscale``), as the
-JAX package runs them as jitted passes of their own.
+outputs are passes of the torch path around K6 (``dispatch._upscale_h``),
+as the JAX package runs them as jitted passes of their own.
+
+A row strip of a row-sharded frame (``parallel.spatial``) passes its
+halo'd source, ``out_size`` (hl, Wout) and its ``row_plan``
+(``easu_gather.shard_plan``: K2's row tables from the GLOBAL mapping for
+its output rows -1 .. hl, clipped to the frame), as K2 takes a strip; the
+source may be a ``halo.StripSource``, which K6's strip-source form
+(``csrc/easu_h_strip.cu``) reads in place from its parts.  Its plain
+version is the torch path's strip: ``ops.easu(rows=)`` over rows -1 .. hl,
+then ``ops.rcas.rcas_strip``, so each strip's rows are the whole frame's.
 
 K6 reads K2's host tables (``easu_gather.plan``) and stages each block's
 source footprint by K2's rule (``easu_gather.footprint``) for its own tile,
@@ -39,13 +48,14 @@ CPU tensor it runs ``easu_h_reference``, which calls the same ops.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
-from fsr_tpu_torch.kernels import easu_gather, fused
+from fsr_tpu_torch.kernels import easu_gather, fused, halo
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import pad
 from fsr_tpu_torch.ops import easu as easu_ops
@@ -60,14 +70,15 @@ __all__ = ["supported", "easu_h", "easu_h_reference", "TILE"]
 TILE = (30, 30)
 
 
-def supported(in_shape, out_size, con: EasuConstants) -> bool:
+def supported(in_shape, out_size, con: EasuConstants, row_plan: Optional[easu_gather.GatherPlan] = None) -> bool:
     """True when K6 takes this configuration: K2's rule
     (``easu_gather.supported``) without its storage types: RGB or RGBA and
-    an upscale on both axes whose per-block footprint fits."""
-    return easu_gather.supported(in_shape, out_size, con, torch.float32)
+    an upscale on both axes whose per-block footprint fits; for a row strip
+    (``row_plan``), the footprint of the strip's plan."""
+    return easu_gather.supported(in_shape, out_size, con, torch.float32, row_plan=row_plan)
 
 
-def _check(image, out_size, con, rcon, apply_rcas) -> Tuple[int, int]:
+def _check(image, out_size, con, rcon, apply_rcas, row_plan) -> Tuple[int, int]:
     if apply_rcas and rcon is None:
         raise ValueError("apply_rcas=True requires rcon")
     if image.dim() < 3 or image.shape[-3] not in (3, 4):
@@ -75,75 +86,98 @@ def _check(image, out_size, con, rcon, apply_rcas) -> Tuple[int, int]:
     if image.dtype not in fused.SOURCE_DTYPES:
         raise TypeError(f"K6 takes float16/float32/bfloat16/uint8 images, got {image.dtype}")
     out_hw = (int(out_size[0]), int(out_size[1]))
-    if not supported(tuple(image.shape), out_hw, con):
-        raise ValueError(f"K6 takes upscales only (1x-4x area), got {tuple(image.shape[-2:])} -> {out_hw}")
+    if not supported(tuple(image.shape), out_hw, con, row_plan):
+        what = "upscales only (1x-4x area)" if row_plan is None else "a strip whose plan and footprint fit"
+        raise ValueError(f"K6 takes {what}, got {tuple(image.shape[-2:])} -> {out_hw}")
     return out_hw
 
 
 def easu_h_reference(
-    image: torch.Tensor,
+    image,
     out_size: Tuple[int, int],
     con: EasuConstants,
     rcon: Optional[RcasConstants] = None,
     apply_rcas: bool = True,
     denoise: bool = False,
+    *,
+    row_plan: Optional[easu_gather.GatherPlan] = None,
 ) -> torch.Tensor:
     """Plain version of K6, on any device: the torch path's float16 upscale
     with no prologue or epilogue (``api._upscale``'s torch branch): alpha
     ``ops.easu.bilinear`` of the alpha plane (a byte decoded), the colour
     ``ops.easu`` in float16 "mixed" then ``ops.rcas`` in float16, alpha
-    stored as float16 and stacked as plane 3."""
-    out_hw = _check(image, out_size, con, rcon, apply_rcas)
+    stored as float16 and stacked as plane 3.  A row strip (``row_plan``;
+    a ``halo.StripSource`` first read by ``halo.halo_rows_reference``): the
+    same ops over the plan's rows -1 .. hl, RCAS by ``ops.rcas.rcas_strip``."""
+    if isinstance(image, halo.StripSource):
+        image = halo.halo_rows_reference(image)
+    out_hw = _check(image, out_size, con, rcon, apply_rcas, row_plan)
     f16 = torch.float16
+    rows = None if row_plan is None else (row_plan.rows[1], row_plan.py)
     rgb, alpha = image, None
     if image.shape[-3] == 4:
         rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
         if a_src.dtype == torch.uint8:
             a_src = epilogue_mod.decode(a_src)
-        alpha = easu_ops.bilinear(a_src, out_hw, con)
+        alpha = easu_ops.bilinear(a_src, out_hw, con, rows=None if rows is None else (rows[0][1:-1], rows[1][1:-1]))
     if rgb.dtype == torch.uint8:
         rgb = epilogue_mod.decode(rgb)
-    out = easu_ops.easu(rgb, out_hw, con, compute_dtype=f16)
-    if apply_rcas:
-        out = rcas_ops.rcas(out, rcon, denoise=denoise, compute_dtype=f16)
+    if rows is None:
+        out = easu_ops.easu(rgb, out_hw, con, compute_dtype=f16)
+        if apply_rcas:
+            out = rcas_ops.rcas(out, rcon, denoise=denoise, compute_dtype=f16)
+    else:
+        out = easu_ops.easu(rgb, (out_hw[0] + 2, out_hw[1]), con, compute_dtype=f16, rows=rows)
+        out = rcas_ops.rcas_strip(out, rcon, denoise, f16) if apply_rcas else out[..., 1:-1, :]
     if alpha is not None:
         out = torch.cat([out, alpha.to(f16)], dim=-3)
     return out
 
 
 def easu_h(
-    image: torch.Tensor,
+    image,
     out_size: Tuple[int, int],
     con: EasuConstants,
     rcon: Optional[RcasConstants] = None,
     apply_rcas: bool = True,
     denoise: bool = False,
+    *,
+    row_plan: Optional[easu_gather.GatherPlan] = None,
 ) -> torch.Tensor:
     """The float16 upscale of a contiguous (..., C, Hin, Win) image, C = 3
     or 4, float16, float32, bfloat16 or uint8, to (..., C, Hout, Wout)
-    float16: EASU "mixed", then FsrRcasH when ``apply_rcas``.  CUDA tensors
+    float16: EASU "mixed", then FsrRcasH when ``apply_rcas``.  A row strip
+    passes its halo'd source and ``row_plan`` (module note); its source may
+    be a ``halo.StripSource``, read in place from its parts (K6's
+    strip-source form, the parts checked by ``halo.check``).  CUDA tensors
     launch ``csrc/easu_h.cu``; CPU tensors run ``easu_h_reference``."""
     if image.device.type == "cpu":
-        return easu_h_reference(image, out_size, con, rcon, apply_rcas, denoise)
+        return easu_h_reference(image, out_size, con, rcon, apply_rcas, denoise, row_plan=row_plan)
     if image.device.type != "cuda":
         raise ValueError(f"easu_h takes a CPU or CUDA tensor, got {image.device}")
-    hout, wout = _check(image, out_size, con, rcon, apply_rcas)
-    if not image.is_contiguous():
+    hout, wout = _check(image, out_size, con, rcon, apply_rcas, row_plan)
+    strip = isinstance(image, halo.StripSource)
+    if not strip and not image.is_contiguous():
         raise ValueError("easu_h takes a contiguous image")
+    parts = halo.check(image) if strip else None
     *lead, nc, hin, win = image.shape
     out = torch.empty((*lead, nc, hout, wout), dtype=torch.float16, device=image.device)
     if out.numel() == 0:
         return out
-    gplan = easu_gather.plan((hin, win), (hout, wout), con)
+    gplan = easu_gather.plan((hin, win), (hout, wout), con) if row_plan is None else row_plan
     rows, cols, py, px = capture.keep(easu_gather._device_tables(gplan, image.device))
     sharp = float(rcon.sharpness_f16) if rcon is not None else 1.0
     from fsr_tpu_torch.kernels import _build
 
     lib = _build.library()
+    if strip:
+        entry, first = lib.fsr_easu_h_strip, ctypes.addressof(parts)
+    else:
+        entry, first = lib.fsr_easu_h, image.data_ptr()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.fsr_easu_h(
-            image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype], math.prod(lead), nc, hin, win,
+        err = entry(
+            first, out.data_ptr(), pad.DTYPE_CODES[image.dtype], math.prod(lead), nc, hin, win,
             hout, wout, rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(), sharp,
             int(apply_rcas), int(denoise), stream,
         )

@@ -23,7 +23,7 @@ trace).
 The math is float32 throughout; bfloat16 is storage only (a float32 source
 under bfloat16 storage rounds at its load, as K4's convert did).  A float16
 image (``SOURCE_DTYPES``) widens exactly at its load, or rounds there to
-bfloat16 storage; row strips take no float16 source.  For CPU
+bfloat16 storage, on whole frames and row strips alike.  For CPU
 tensors both run their plain versions (``upscale_fused_reference``: K4's
 and K1's plain versions; ``upscale_padded_reference``).
 
@@ -90,7 +90,7 @@ __all__ = [
     "SOURCE_DTYPES",
 ]
 
-# The image types K1 and K2 take on a whole frame (a row strip: no float16).
+# The image types K1 and K2 take, on a whole frame and on a row strip.
 SOURCE_DTYPES = pad.FLOAT_DTYPES + (torch.float16, torch.uint8)
 
 _QX_SUPPORTED = (1, 2, 4)
@@ -433,9 +433,8 @@ def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologu
     strip = isinstance(src, halo.StripSource)
     if src.device.type != "cuda":
         raise ValueError(f"K1 takes a CPU or CUDA tensor, got {src.device}")
-    if src.dtype not in SOURCE_DTYPES or (strip and src.dtype == torch.float16):
-        raise TypeError(f"fused kernel takes float32/bfloat16/float16/uint8 sources (a strip no float16), "
-                        f"got {src.dtype}")
+    if src.dtype not in SOURCE_DTYPES:
+        raise TypeError(f"fused kernel takes float32/bfloat16/float16/uint8 sources, got {src.dtype}")
     if src.dim() < 3 or src.shape[-3] not in (3, 4) or not (strip or src.is_contiguous()):
         raise ValueError(f"fused kernel needs a contiguous (..., 3 or 4, H, W) tensor, got {tuple(src.shape)}")
     parts = halo.check(src) if strip else None

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import RcasConstants
 
-__all__ = ["rcas", "shift_clamped"]
+__all__ = ["rcas", "rcas_strip", "shift_clamped"]
 
 
 def shift_clamped(img: torch.Tensor, dy: int, dx: int, border: str = "clamp") -> torch.Tensor:
@@ -63,3 +63,14 @@ def rcas(
     if img.shape[-3] == 4:
         out = torch.cat([out, img[..., 3:4, :, :].to(dt)], dim=-3)
     return out
+
+
+def rcas_strip(easu_out: torch.Tensor, con: RcasConstants, denoise: bool, compute_dtype) -> torch.Tensor:
+    """RCAS over a row strip's rows given its EASU rows -1 .. hl (the torch
+    path of a row-sharded call).  The row plans repeat the frame's edge row
+    outside it, so the global top and bottom rows see e in place of their
+    missing neighbour, as ``rcas`` clamps them."""
+    e = easu_out[..., 1:-1, :]
+    sharp = con.sharpness_f16 if compute_dtype == torch.float16 else con.sharpness
+    return easu_math.rcas_resolve(easu_out[..., :-2, :], shift_clamped(e, 0, -1), e, shift_clamped(e, 0, 1),
+                                  easu_out[..., 2:, :], float(sharp), denoise=denoise)

@@ -33,14 +33,13 @@ kernels:
 Each strip runs ``api._upscale``, the body of ``upscale``, with its
 ``Strip``: the path is picked as ``upscale`` picks it, from ``impl``, the
 dtypes and the strip's device.  Every strip's epilogue dithers at global
-rows and takes the strip's rows of the grain.  The torch path (CPU strips
-under "auto", ``impl="torch"``, float16) runs the torch ops on each strip
+rows and takes the strip's rows of the grain.  float16 math runs K6's
+strip form on the strip's row plan (``kernels/easu_h.py``), and a float16
+image under float32 or bfloat16 math K1's or K2's, as above.  The torch
+path (CPU strips under "auto", ``impl="torch"``, and under "auto" a strip
+whose kernel form does not take its plan) runs the torch ops on each strip
 with the same global row plans (``ops.easu(rows=)``), as the JAX package
-runs it on XLA.  float16 strips take the torch ops on CUDA devices too:
-K6, the float16 kernel of a whole frame (``kernels/easu_h.py``), has no
-strip form yet, nor do K1 and K2 a float16 strip source, so the choice is
-made from the dtypes before any launch and ``impl="kernel"`` with float16
-raises.
+runs it on XLA.
 
 A call is three parts: the host layout of its configuration (``_layout``,
 cached: strips, ``Strip``s, halo, row plans, local constants), each
@@ -315,9 +314,6 @@ def _prepare(image, out_size, mesh: Mesh, axis: str, batch_axis, grain, opts: di
     first = image.shards[0] if isinstance(image, Sharded) else image
     api._check_args(first, opts["compute_dtype"], opts["out_dtype"], opts["epilogue"], opts["prologue"],
                     opts["impl"])
-    if opts["impl"] == "kernel" and torch.float16 in (first.dtype, opts["compute_dtype"]):
-        raise ValueError("float16 runs the torch path on row strips (K6 has no strip form, K1 and K2 no "
-                         "float16 strip source); use impl='auto' or 'torch'")
     if grain is not None and tuple(grain.shape) != (3, hout, wout):
         raise ValueError(f"grain must be (3, {hout}, {wout}), got {tuple(grain.shape)}")
     # dp x sp: frame group i (of the leading dimension) on the i-th row of
@@ -383,9 +379,9 @@ def upscale_spatial_sharded(
     ``impl`` (on CUDA devices bit for bit).
     RGBA, byte I/O, the prologue, the epilogue and ``impl`` follow
     ``api.upscale``'s contract, strip by strip on each strip's device:
-    "auto" runs the kernels on CUDA strips and the torch ops on CPU strips,
-    "kernel" the kernels (their plain versions on CPU strips), "torch" the
-    torch ops, as float16 always does here (K6 takes whole frames only).
+    "auto" runs the kernels on CUDA strips (K6's strip form for float16
+    math) and the torch ops on CPU strips, "kernel" the kernels (their
+    plain versions on CPU strips), "torch" the torch ops.
     uint8 strips stay bytes through the
     halo exchange; ``grain`` is the output-space (3, Hout, Wout) texture,
     row-sharded with the output; ``dither_page`` tiles the whole frame,

@@ -181,13 +181,15 @@ def _centre(a, b, c, n):
     return np.where(a != c, b + 1, np.where(b == 0, 0, n + 1))
 
 
-def k6_mirror(image: torch.Tensor, out_hw, con, rcon, apply_rcas: bool, denoise: bool) -> np.ndarray:
+def k6_mirror(image: torch.Tensor, out_hw, con, rcon, apply_rcas: bool, denoise: bool, gplan=None) -> np.ndarray:
     """K6's colour planes of one (C, H, W) frame, block by block as the
-    kernel computes them; float16 (3, Hout, Wout)."""
+    kernel computes them; float16 (3, Hout, Wout).  A row strip: ``image``
+    its halo'd rows, ``out_hw`` its (hl, Wout) and ``gplan`` its row tables
+    (``easu_gather.shard_plan``), as K6's strip form runs it."""
     hin, win = image.shape[-2:]
     hout, wout = out_hw
     th, tw = teasu_h.TILE
-    gplan = tgather.plan((hin, win), out_hw, con)
+    gplan = tgather.plan((hin, win), out_hw, con) if gplan is None else gplan
     rows, cols, py, px = gplan.rows, gplan.cols, gplan.py, gplan.px  # row tables at output row Y: [Y + 1]
     src = _to_half(image[:3])
     sharp = F32(rcon.sharpness_f16 if rcon is not None else 1.0).astype(F16)
@@ -240,6 +242,40 @@ def test_mirror_of_k6_equals_easu_h_reference(case):
     frames = t.reshape(-1, *t.shape[-3:])
     got = np.stack([k6_mirror(x, out_hw, con, rcon, rc, dn) for x in frames])
     np.testing.assert_array_equal(got.view(np.int16), want.reshape(-1, *want.shape[-3:])[:, :3].numpy().view(np.int16))
+
+
+# Row strips whose seams cut K6's 30-row tiles of the whole frame (and
+# leave partial tiles in the strips): 2x at 48 rows, 1.5x at 24 and 48.
+STRIP_CASES = [("2x, 2 strips", (48, 80), (96, 160), 2, (True, False)),
+               ("2x, 4 strips, denoise", (48, 80), (96, 160), 4, (True, True)),
+               ("1.5x, 2 strips", (64, 96), (96, 144), 2, (True, False)),
+               ("1.5x, 4 strips, RCAS off", (64, 96), (96, 144), 4, (False, False))]
+
+
+@pytest.mark.parametrize("case", STRIP_CASES, ids=lambda c: c[0])
+def test_mirror_of_k6_strips_equals_the_whole_frame(case):
+    """K6's strip form, mirrored block by block on each strip's halo'd rows
+    and row tables, gives the whole frame's bits (the plain version's),
+    and each strip's plain version's: a seam's rows come from the halo and
+    count as interior (``centre``), the frame's edge rows from the tables'
+    clamp."""
+    from fsr_tpu_torch.kernels import halo
+    from fsr_tpu_torch.parallel import spatial
+
+    _, in_hw, out_hw, n, (rc, dn) = case
+    x = _torch(_source(11, (2, 3, *in_hw), "float16"), "float16")
+    layout = spatial._layout(in_hw, out_hw, n, None, (0, 0))
+    rcon = RcasConstants(0.25)
+    srcs = spatial._sources(list(x.split(in_hw[0] // n, dim=-2)), layout.halo)
+    got, plain = [], []
+    for s, st in zip(srcs, layout.strips):
+        rows = halo.halo_rows_reference(s)
+        got.append(np.stack([k6_mirror(f, layout.out_hw, layout.con, rcon, rc, dn, st.rows) for f in rows]))
+        plain.append(teasu_h.easu_h_reference(s, layout.out_hw, layout.con, rcon, rc, dn, row_plan=st.rows).numpy())
+    got, plain = np.concatenate(got, axis=-2), np.concatenate(plain, axis=-2)
+    want = teasu_h.easu_h_reference(x, out_hw, layout.con, rcon, rc, dn).numpy()
+    np.testing.assert_array_equal(got.view(np.int16), want.view(np.int16))
+    np.testing.assert_array_equal(plain.view(np.int16), want.view(np.int16))
 
 
 def _all_halves():

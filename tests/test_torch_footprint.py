@@ -143,6 +143,34 @@ def test_build_dirs_of_other_trees_and_flags():
     assert _build.library.cache_info().currsize == 0  # nothing built on the CPU
 
 
+def test_knockout_builds_leave_out_only_what_exists_and_no_declared_entry():
+    """The knockout libraries leave out the strip forms' and K6's sources
+    (``fused_stage_ablation.KNOCKOUT_SKIP``): each named source exists, the
+    build directory differs from the full build's, and every entry point
+    that ``_build._declare`` declares unconditionally comes from a source
+    that stays (the ones it guards with ``hasattr`` may go)."""
+    import inspect
+    import re
+
+    from tools_torch.ablation import fused_stage_ablation
+
+    skip = fused_stage_ablation.KNOCKOUT_SKIP
+    names = {p.name for p in _build._sources()}
+    assert set(skip) <= names
+    kept = {p.name for p in _build._sources(skip=skip)}
+    assert kept == names - set(skip) and any(n.endswith(".cuh") for n in kept)
+    flags = _build.NVCC_FLAGS + ("-DFSR_ABL_K1_POLY",)
+    assert _build.build_dir(flags=flags, skip=skip) != _build.build_dir(flags=flags)
+    assert _build.build_dir(skip=()) == _build.build_dir()
+    declared = inspect.getsource(_build._declare).split("# Sources from before", 1)[0]
+    entries = set(re.findall(r"lib\.(fsr_\w+)\.argtypes", declared))
+    assert {"fsr_upscale_fused", "fsr_easu_gather", "fsr_opmix_replay"} <= entries
+    csrc = _build._CSRC
+    for entry in entries:
+        where = [n for n in names if n.endswith(".cu") and f"int {entry}(" in (csrc / n).read_text()]
+        assert where and not set(where) & set(skip), (entry, where)
+
+
 SASS_LISTING = """\
 \t\tFunction : _ZN12_GLOBAL__N_120staged_gather_kernelIfffLb1ELb0ELb0EEEvPKT_PT1_NS_12GatherParamsE
         /*0000*/                   LDS.128 R4, [R2] ;
@@ -229,6 +257,35 @@ def test_half_lanes_count_k6s_paired_half_instructions():
     table = opmix_floor.sass_lines(counts, opmix_floor.HALF_SASS_OPS)
     assert table[0].split()[2:7] == ["HADD2", "HMUL2", "HMNMX2", "HFMA2", "HSETP2"]
     assert table[1].split()[-1] == "7"
+
+
+def test_chip_smoke_lists_k6s_sass_in_a_process_of_its_own(tmp_path, monkeypatch):
+    """Phase 17's SASS of K6's whole-frame and strip-source forms, listed by
+    the process ``_start_k6_sass`` starts (here a stand-in ``cuobjdump``
+    on PATH printing a listing of both), read by ``_k6_sass``; a CALL
+    fails it."""
+    import importlib.util
+    import os
+    import stat
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    strip = K6_LISTING.replace("13easu_h_kernelI6__half", "19easu_h_kernel_stripI6__half")
+    call = strip.replace("0x5410, R3 ;\n", "0x5410, R3 ;\n        /*0070*/                   CALL.REL.NOINC R2 ;\n")
+    for listing, fails in ((K6_LISTING + strip, False), (K6_LISTING + call, True)):
+        tool = tmp_path / "cuobjdump"
+        tool.write_text("#!/bin/sh\ncat <<'EOF'\n" + listing + "EOF\n")
+        tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+        monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+        proc = chip_smoke._start_k6_sass()
+        if fails:
+            with pytest.raises(AssertionError, match="K6 f16, strip calls a subroutine"):
+                chip_smoke._k6_sass(proc)
+        else:
+            chip_smoke._k6_sass(proc)
+        assert proc.returncode == 0
 
 
 def test_kernel_ab_reads_ptxas_and_swaps_the_library(tmp_path):

@@ -307,8 +307,18 @@ def test_row_sharded_raises():
     whole = grad(lambda v: fsr_tpu_torch.upscale(v, out_size=(128, 192), impl="torch"))
     torch.testing.assert_close(got, whole, atol=1e-6 * whole.abs().max().item(), rtol=0)
     y = torch.from_numpy(_rand(7, (3, 64, 96)))
-    with pytest.raises(ValueError, match="float16 runs the torch path"):
-        spatial.upscale_spatial_sharded(y.detach().half(), (128, 192), _mesh(4), impl="kernel")
+    # float16 strips run the kernels' strip forms (their plain versions here):
+    # a float16 image under float32 math K1's, bit-equal to the unsharded
+    # call and within float32 rounding of the torch path; float16 math K6's,
+    # bit-equal to the torch path.
+    got = spatial.upscale_spatial_sharded(y.half(), (128, 192), _mesh(4), impl="kernel").gather()
+    torch.testing.assert_close(got, fsr_tpu_torch.upscale(y.half(), out_size=(128, 192), impl="kernel"), atol=0,
+                               rtol=0)
+    torch.testing.assert_close(got, spatial.upscale_spatial_sharded(y.half(), (128, 192), _mesh(4),
+                                                                    impl="torch").gather(), atol=1e-6, rtol=0)
+    got = spatial.upscale_spatial_sharded(y.half(), (128, 192), _mesh(4), impl="kernel", compute_dtype=F16)
+    torch.testing.assert_close(got.gather(), spatial.upscale_spatial_sharded(
+        y.half(), (128, 192), _mesh(4), impl="torch", compute_dtype=F16).gather(), atol=0, rtol=0)
     with pytest.raises(ValueError, match="10-bit"):
         spatial.upscale_spatial_sharded(y.detach(), (128, 192), _mesh(4), out_dtype=U8,
                                         epilogue=Epilogue(dither_bits=10))

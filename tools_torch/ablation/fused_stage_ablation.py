@@ -12,7 +12,8 @@ attributes device time to stages, it does not validate.  "norcas" builds
 nothing: it is the production kernel with ``apply_rcas=False``.
 
 Every variant is built in parallel (``_build.load`` with the macro, as
-``kernel_ab.py --define`` builds), and each library must report exactly its
+``kernel_ab.py --define`` builds, without the sources of ``KNOCKOUT_SKIP``:
+no knockout reading launches a strip form or K6), and each library must report exactly its
 own macro in ``fsr_ablation_mask()`` (a misspelt ``-D`` would build the
 production kernel); the production library must report none.  Then, on
 the JAX tool's frames (1080p -> 4K, float32 source under bfloat16 storage,
@@ -71,14 +72,20 @@ def check_mask(lib, macro) -> None:
         raise RuntimeError(f"library reports the knockouts {sorted(got)}, expected {sorted(want)}")
 
 
+# A knockout library's sources left out: the strip-source forms and K6,
+# which no knockout reading launches (the whole-frame K1 and K2 are timed).
+KNOCKOUT_SKIP = ("easu_gather_strip.cu", "easu_h.cu", "easu_h_strip.cu", "fused_strip.cu")
+
+
 def build(macros) -> tuple:
     """({macro: library}, {macro: build seconds}): this checkout's kernels
-    built once per macro, all in parallel, each checked by its mask."""
+    (but ``KNOCKOUT_SKIP``) built once per macro, all in parallel, each
+    checked by its mask."""
     here = kernel_ab.ROOT / "fsr_tpu_torch" / "csrc"
 
     def one(macro):
         t0 = time.perf_counter()
-        lib = _build.load(here, _build.NVCC_FLAGS + (f"-D{macro}",))
+        lib = _build.load(here, _build.NVCC_FLAGS + (f"-D{macro}",), KNOCKOUT_SKIP)
         return lib, time.perf_counter() - t0
 
     macros = list(macros)
@@ -92,7 +99,9 @@ def build(macros) -> tuple:
 
 def sass_path(macro):
     here = kernel_ab.ROOT / "fsr_tpu_torch" / "csrc"
-    return _build.library_path(here, _build.NVCC_FLAGS + ((f"-D{macro}",) if macro else ()))
+    if macro is None:
+        return _build.library_path(here)
+    return _build.library_path(here, _build.NVCC_FLAGS + (f"-D{macro}",), KNOCKOUT_SKIP)
 
 
 def sweep(modes, call, sass_kernel, nframes, cname) -> bool:

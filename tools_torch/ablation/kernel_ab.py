@@ -2,6 +2,7 @@
 
     python3 tools_torch/ablation/kernel_ab.py [--parent DIR] [--source NAME=DIR ...]
                                               [--define NAME=VALUE ...] [--sections k4,k2,k1,k3,k6]
+                                              [--build-times]
 
 Builds four kinds of kernel library, in parallel: this checkout's, the
 parent's from DIR (default ``_parent``: a ``git archive`` of the parent
@@ -15,6 +16,10 @@ package's wrappers drive every library's K1, K2, K3, K4 and K6, whose C
 interfaces are the same in the parent (a parent from before the K1
 redesign, whose K1 took a K4-padded source, cannot be driven; one from
 before K6 is left out of K6's section).  ``--sections`` runs a subset.
+``--build-times`` builds the libraries one after another instead, each
+alone on the machine's cores, and prints each build's seconds and its
+sources' (``_build.source_seconds``); a library already built is not
+timed.
 
 K6, the float16 upscale (batch 4 -> 4K, float16 sources): Performance,
 Quality, RGBA, RCAS off and denoise, every library's output held
@@ -22,7 +27,14 @@ bit-equal to the others' and to ``easu_h_reference`` (the torch path's
 float16 ops on the card), then each library's K6 timed in turn, with its
 bound (74.75 float32 and 541 float16 operations per pixel, the halves at
 the half2 rate; RGBA 8 float32 more) and each library's time over the
-parent's.
+parent's.  Then float16 row strips (the Performance and Quality frames in
+four strips, as ``parallel.spatial`` cuts them): each library's K6 on the
+halo'd strips (K2's per-strip row tables), the libraries with K6's
+strip-source form also on the strips read in place, in turn with the
+unsharded K6, every output bit-equal to this tree's unsharded K6; and this
+tree's K1 (Performance) and K2 (Quality, bfloat16 storage) strip forms on
+the float16 frames in turn with the same strips of the frames widened to
+float32, each bit-equal to its unsharded call.
 
 K1, at the Performance shapes (batch 4, 1080p -> 4K): Performance float32
 and bfloat16, the HDR tail (a) (SRTM prologue, grain, 10-bit dither), the
@@ -69,6 +81,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import time
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -102,17 +115,19 @@ K6_F32_OPS, K6_HALF_OPS = 73.75 + 1, 413 + 128
 HALF2_OPS_PER_S = 134e12
 # ptxas entries printed: every K4; K2 with RCAS and no denoise; K1 float32
 # with no denoise (<S, T, O, QUAD, DENOISE, RGBA>), each K1 and K2 also in
-# its strip-source form; K3 with the clamp border and no denoise.
+# its strip-source form; K3 with the clamp border and no denoise; K6 on a
+# float16 source, also in its strip-source form.
 PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernel(_strip)?I.*Lb1ELb0EL"
                            r"|fused_kernel(_strip)?IfffLb[01]ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE"
-                           r"|easu_h_kernelI6__half")
+                           r"|easu_h_kernel(_strip)?I6__half")
 SECTIONS = ("k4", "k2", "k1", "k3", "k6")
 
 # The strip-source forms' SASS, beside the whole-frame kernels' (a parent
 # from before them has none).
 STRIP_SASS = (("K1 f32 quad, strip", "fused_kernel_stripIfffLb1ELb0ELb0E"),
               ("K1 f32 generic, strip", "fused_kernel_stripIfffLb0ELb0ELb0E"),
-              ("K2 f32, strip", "staged_gather_kernel_stripIfffLb1ELb0ELb0E"))
+              ("K2 f32, strip", "staged_gather_kernel_stripIfffLb1ELb0ELb0E"),
+              ("K6 f16, strip", "easu_h_kernel_stripI6__halfLb1ELb0ELb0E"))
 
 
 @contextlib.contextmanager
@@ -386,6 +401,78 @@ def k6_section(libs, dev, gen, cname) -> bool:
         print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f} ({bound / v:.1%} of its bound)" for k, v in t.items())
               + f"; bound {bound / NFRAMES:.4f} ({'operations' if by_ops >= by_bytes else 'bytes'}); "
               + ", ".join(f"{k} / parent {v / t['parent']:.3f}" for k, v in t.items() if k != "parent" and "parent" in t))
+    return f16_strips(libs, dev, gen, cname) and ok
+
+
+def _four(x, halo):
+    """Frames x in four row strips as ``parallel.spatial`` cuts them: (strip
+    sources read in place from views of the frames, the halo'd strips)."""
+    from fsr_tpu_torch.parallel import spatial
+
+    h = x.shape[-2] // 4
+    own = [x[..., k * h:(k + 1) * h, :] for k in range(4)]
+    return spatial._sources(own, halo), spatial._exchange_halo(own, halo)
+
+
+def f16_strips(libs, dev, gen, cname) -> bool:
+    """The float16 row strips of the module note, each reading in turn (5
+    rounds).  Returns False when a strip differs from its unsharded call."""
+    from fsr_tpu_torch.parallel import spatial
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
+
+    rcon = RcasConstants(0.25)
+    here = libs["this tree"]
+    ok = True
+
+    def check(what, fns, want):
+        nonlocal ok
+        for k, fn in fns.items():
+            same = torch.equal(torch.cat(fn(), dim=-2), want)
+            ok = ok and same
+            print(f"  {what}, {k}: " + ("bit-equal to this tree's unsharded call" if same else "DIFFERS"))
+        t = cuda_times_in_turn(fns, 5, queue=QUEUE)
+        print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items()))
+
+    print(f"float16 row strips, 4 strips, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued "
+          f"per sample, on {cname}:")
+    for what, x, con, _, _ in k6_cases(dev, gen)[:2]:
+        layout = spatial._layout(tuple(x.shape[-2:]), OUT4K, 4, None, (0, 0))
+        sources, strips = _four(x, layout.halo)
+
+        def k6(of):
+            return lambda: [easu_h.easu_h(s, layout.out_hw, layout.con, rcon, row_plan=st.rows)
+                            for s, st in zip(of, layout.strips)]
+
+        fns = {}
+        for name, lib in libs.items():
+            if hasattr(lib, "fsr_easu_h"):
+                fns[f"{name} K6 unsharded"] = on(lib, lambda x=x, con=con: [easu_h.easu_h(x, OUT4K, con, rcon)])
+                fns[f"{name} K6 x4 halo'd strips"] = on(lib, k6(strips))
+            if hasattr(lib, "fsr_easu_h_strip"):
+                fns[f"{name} K6 x4 strips read in place"] = on(lib, k6(sources))
+        check(what, fns, on(here, lambda: easu_h.easu_h(x, OUT4K, con, rcon))())
+    # K1 and K2 strip forms, float16 against float32 frames (this tree).
+    bf16 = torch.bfloat16
+    for what, in_hw, dt in (("Performance, K1", PERF_IN, torch.float32), ("Quality, K2 bf16", QUALITY_IN, bf16)):
+        layout = spatial._layout(in_hw, OUT4K, 4, None, (0, 0))
+        x16 = torch.rand((NFRAMES, 3, *in_hw), generator=gen, device=dev).half()
+        fns = {}
+        for src, x in (("float16 source", x16), ("float32 source", x16.float())):
+            sources, _ = _four(x, layout.halo)
+
+            def strips(sources=sources):
+                if layout.strips[0].local_con is not None:
+                    return [fused.upscale_fused(s, layout.out_hw, st.local_con, rcon, row_offset=st.row0,
+                                                global_rows=OUT4K[0]) for s, st in zip(sources, layout.strips)]
+                return [easu_gather.easu_gather(s, layout.out_hw, layout.con, rcon, True, False, dt, row_plan=st.rows,
+                                                row_offset=st.row0) for s, st in zip(sources, layout.strips)]
+
+            fns[f"this tree x4 strips read in place, {src}"] = on(here, strips)
+        k1 = layout.strips[0].local_con is not None
+        whole = (lambda: fused.upscale_fused(x16, OUT4K, layout.con, rcon)) if k1 else \
+            (lambda: easu_gather.easu_gather(x16, OUT4K, layout.con, rcon, True, False, dt))
+        fns["this tree unsharded, float16 source"] = on(here, lambda: [whole()])
+        check(what, fns, on(here, whole)())
     return ok
 
 
@@ -401,6 +488,9 @@ def main() -> int:
     parser.add_argument("--define", action="append", default=[],
                         help="a -D variant of this tree's kernels to time beside them (repeatable; "
                              "NAME=VALUE,NAME=VALUE for several macros in one variant)")
+    parser.add_argument("--build-times", action="store_true",
+                        help="build the libraries one after another and print each build's seconds (the default "
+                             "builds them all at once)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; the readings are device times", file=sys.stderr)
@@ -426,8 +516,20 @@ def main() -> int:
         return 1
     for d in args.define:
         builds[d] = (here, _build.NVCC_FLAGS + tuple(f"-D{x}" for x in d.split(",")))
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        libs = dict(zip(builds, pool.map(lambda b: _build.load(*b), builds.values())))
+    if args.build_times:
+        # One library at a time, each nvcc of a build on the machine's cores
+        # alone: the build's wall time and its slowest sources.
+        libs = {}
+        for name, (csrc, flags) in builds.items():
+            fresh = not _build.library_path(csrc, flags).exists()
+            t0 = time.perf_counter()
+            libs[name] = _build.load(csrc, flags)
+            print(f"build, {name}: " + (f"{time.perf_counter() - t0:.1f} s; nvcc seconds per source: "
+                                        f"{_build.source_seconds(_build.build_dir(csrc, flags))}" if fresh
+                                        else "already built, not timed"))
+    else:
+        with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+            libs = dict(zip(builds, pool.map(lambda b: _build.load(*b), builds.values())))
     cname = card()
     print(f"card: {cname}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     for name, (csrc, flags) in builds.items():
@@ -455,12 +557,13 @@ def main() -> int:
         counts, lanes = opmix_floor.sass_tables(path, opmix_floor.SASS_KERNELS + STRIP_SASS)
         for line in opmix_floor.sass_lines({k: v for k, v in counts.items() if k.startswith(("K1", "K2", "K3"))}):
             print("  " + line)
-        if "K6 f16" in counts:
-            for line in opmix_floor.sass_lines({"K6 f16": counts["K6 f16"]}, opmix_floor.HALF_SASS_OPS):
+        k6s = {k: v for k, v in counts.items() if k.startswith("K6")}
+        if k6s:
+            for line in opmix_floor.sass_lines(k6s, opmix_floor.HALF_SASS_OPS):
                 print("  " + line)
-            k6 = lanes["K6 f16"]
-            print(f"  K6 f16 half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {k6['two lanes']} on two lanes, "
-                  f"{k6['one lane']} on one")
+            for k in k6s:
+                print(f"  {k} half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {lanes[k]['two lanes']} on two "
+                      f"lanes, {lanes[k]['one lane']} on one")
     print(cname)
     for good, what in ((ok, "K4 disagrees with its plain version"), (k1_ok, "K1's quad and generic paths differ"),
                        (k3_ok, "a K3 differs from this tree's"), (k6_ok, "a K6 is not bit-equal to its plain version")):
