@@ -91,7 +91,20 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      build so that cuobjdump overlaps phases 3-16; one call under
      autograd (one K6 forward, none backward, the gradient bit-equal to
      impl="torch"'s); K6 (10 queued), its plain version (the torch path)
-     and K2 bf16 timed in turn; K6's ptxas lines; then float16 images under
+     and K2 bf16 timed in turn; K6's ptxas lines; then K6 with the frame
+     tail (_k6_tail: the SRTM prologue, the K5 epilogue and the uint8 /
+     UNORM10 stores in the launch): at 90x160 each tail of _f16_tails x
+     every source type x RGB/RGBA, two RCAS modes, odd output widths and a
+     DRS viewport, one K6 launch each, against easu_h_reference (the
+     torch chain on the card: float16 as above, codes at most CODE_SHARE
+     one code off, the share printed); the frame as a 0-d int32 tensor on
+     the card over three frames and a captured replay, bit-equal to a host
+     int; at batch 4 (a16) the HDR tail, (b16) the display path, (c16) the
+     byte video path, (d16) RGBA display and (u16) gamma2 + 10-bit TEPD
+     into uint16, each one K6 launch and no other device operation in a
+     traced call, against the torch chain, timed in turn (the call, K6
+     with the tail alone, the bare K6 on the same frames, the torch chain);
+     then float16 images under
      float32 and bfloat16 math at batch 4 (Performance, Quality, RGBA):
      one K1 or K2 launch and no K6 each, bit-equal to the call on the image
      widened to float32 and within phase 4's limits of the plain versions,
@@ -179,7 +192,14 @@ Phases (each raises on a mismatch, so any failure exits non-zero):
      each, bit-equal to the unsharded call, a traced call holding its 4
      strip-source launches and nothing else, timed in turn with the strips'
      kernels, the unsharded kernel and the torch ops' strips (K6) or the
-     strips of the widened frames (K1, K2); (vi) captured, replays
+     strips of the widened frames (K1, K2); each frame tail of phase 17 x
+     source type x RGB/RGBA on 4 strips (n launches of the strip tail form,
+     bit-equal to the unsharded call, held to easu_h_reference); (vi-b16)
+     the display path through UpscalePipeline(mesh=) on 4 strips, 4 strip
+     tail launches and nothing else in a traced call (the strips' rows and
+     grain rows read in place), bit-equal to the unsharded call, timed in
+     turn with the bare strips, the unsharded call and the torch chain's
+     strips; (vi) captured, replays
      bit-equal to the eager call, a traced replay only K6's strip form and
      the frame's fill; across the cards where there are several;
  19. the probes (fsr_tpu_torch/kernels/probes.py, through tools_torch/
@@ -1059,10 +1079,12 @@ def _f16_strips(dev, card: str, gen, cards: int) -> list:
     launch, bit-equal to ``impl="torch"``; ``impl="kernel"`` raises.  Then
     at small sizes, on ``[dev] * n``, every seam phase (2x, 4x, 1.5x, 1.3x,
     ~1.7x, a DRS offset; 2, 3, 4 and 8 strips) in float16 math, each source
-    type x RGB/RGBA x RCAS off/on/denoise on 4 strips, and the prologue, an
-    epilogue and a byte output around K6: n launches of K6's strip form,
-    bit-equal to the unsharded K6 call (the bare calls also to the torch
-    ops on the same strips); a float16 image under float32 and bfloat16
+    type x RGB/RGBA x RCAS off/on/denoise on 4 strips, the prologue, an
+    epilogue and a byte output, and each frame tail of phase 17 x source
+    type x RGB/RGBA in K6: n launches of K6's strip form (its tail form
+    with an option), bit-equal to the unsharded K6 call (the bare calls
+    also to the torch ops on the same strips, the frame tails held to
+    ``easu_h_reference``); a float16 image under float32 and bfloat16
     math: n launches of K1's or K2's strip form, bit-equal to the unsharded
     call.  At full width, batch 4, on 4 strips: (vi) Performance and (vii)
     Quality in float16 math (K6), (viii) Performance and (ix) Quality
@@ -1074,7 +1096,8 @@ def _f16_strips(dev, card: str, gen, cards: int) -> list:
     strips of the frames widened to float32 (K1, K2).  (vi) captured
     (``CapturedSpatial``): (warm-up + 1) x 4 K6 launches at construction,
     none at a replay, replays on fresh inputs bit-equal to the eager call,
-    a traced replay only K6's strip form and the frame's fill.  Across the
+    a traced replay only K6's strip form and the frame's fill; (vi-b16),
+    ``_display_strips``.  Across the
     cards where there are several, (vi) and (viii) from a tensor and a
     ``Sharded`` input, and (vi) captured.  Returns the kernels line's
     entries."""
@@ -1134,25 +1157,40 @@ def _f16_strips(dev, card: str, gen, cards: int) -> list:
                                                                   dither_texture=True), out_dtype=u8))]
     cases += [(f"K6 {g}, float16 RGBA, {name}", "float16", 4, in_hw, out_hw, 4, dict(kw, compute_dtype=f16), "K6")
               for g, in_hw, out_hw, _, _ in geoms[:3:2] for name, kw in opts]
+    # Each frame tail of phase 17 (_f16_tails) x source type x RGB/RGBA on 4
+    # strips at 2x: n launches of the strip tail form, bit-equal to the
+    # unsharded call and held to easu_h_reference on the card.
+    cases += [(f"K6 2x, {kind} {('RGB', 'RGBA')[nc - 3]}, {tail}", kind, nc, (96, 160), (192, 320), 4,
+               dict(compute_dtype=f16, tail=tail), "K6")
+              for tail in _f16_tails(None, None) for kind in ("float16", "float32", "bfloat16", "uint8")
+              for nc in (3, 4)]
     cases += [(f"{kid} {g}, float16 {('RGB', 'RGBA')[nc - 3]} under {str(dt)[6:]} math", "float16", nc, in_hw,
                out_hw, n, dict(kw, compute_dtype=dt), kid)
               for (g, in_hw, out_hw, ns, kw), kid in zip(geoms, ("K1", "K1", "K2", "K2", "K2", "K2"))
               for n in ns[-2:] for nc in (3, 4) for dt in (f32, bf16)]
     for what, kind, nc, in_hw, out_hw, n, kw, kid in cases:
         x = source(kind, nc, in_hw)
-        kw = dict(kw, grain=torch.rand((3, *out_hw), generator=gen, device=dev) - 0.5,
+        tail = kw.get("tail")
+        kw = dict({k: v for k, v in kw.items() if k != "tail"},
+                  grain=torch.rand((3, *out_hw), generator=gen, device=dev) - 0.5,
                   dither_page=torch.rand((24, 40), generator=gen, device=dev))
+        if tail is not None:
+            kw.update(_f16_tails(kw["grain"], kw["dither_page"])[tail])
         got, _ = _drive(lambda: spatial.upscale_spatial_sharded(x, out_hw, mesh(n), **kw), {kid: n})
         _on_mesh(got, what)
         got = got.gather()
         if not same16(got, ft.upscale(x, out_size=out_hw, impl="kernel", **kw)):
             raise AssertionError(f"{what}, sp={n}: differs from the unsharded kernel call")
+        if tail is not None:
+            con = EasuConstants.create(in_hw[::-1], None, out_hw[::-1])
+            _compare_tail(got, easu_h.easu_h_reference(x, out_hw, con, RcasConstants(0.25), **{
+                k: v for k, v in kw.items() if k != "compute_dtype"}), f"{what}, sp={n}: vs easu_h_reference")
         if kid == "K6" and "epilogue" not in kw and "prologue" not in kw:
             if not same16(got, spatial.upscale_spatial_sharded(x, out_hw, mesh(n), impl="torch", **kw).gather()):
                 raise AssertionError(f"{what}, sp={n}: differs from the torch ops on the same strips")
     print(f"  float16 strips at small sizes: {len(cases)} cases, each n launches of K6's strip form (float16 math) or "
           "of K1's / K2's (a float16 image under float32 / bfloat16 math) and bit-equal to the unsharded kernel call; "
-          "the bare K6 cases also to the torch ops' strips")
+          "the bare K6 cases also to the torch ops' strips, the frame tails held to easu_h_reference")
 
     # Full width, batch 4, 4 strips.
     out4k = (2 * MAIN_SHAPE[2], 2 * MAIN_SHAPE[3])
@@ -1242,6 +1280,8 @@ def _f16_strips(dev, card: str, gen, cards: int) -> list:
             * x.shape[1] * (2 if kid == "K6" else torch.empty((), dtype=dt).element_size()))
         del sources, wide
 
+    entries.append(_display_strips(dev, card, gen, mesh))
+
     # (vi) captured: one graph of four K6 strips.
     name = runs[0][0]
     cap, built = _drive(lambda: spatial.CapturedSpatial(p16, out4k, mesh(4), compute_dtype=f16),
@@ -1314,6 +1354,71 @@ def _f16_strips(dev, card: str, gen, cards: int) -> list:
                                          f"{name[name.index(' ') + 1:]}", src, rep, r["launches"], r["err"],
                                          r["t"][f"{kid} x4 strips"], plain, r["nbytes"], EASU_RCAS_OPS * npix))
     return entries
+
+
+
+def _display_strips(dev, card: str, gen, mesh) -> dict:
+    """Phase 18's (vi-b16): the display path (uint8 1440p frames, grain
+    0.25, 8-bit TEPD, uint8 out, float16 math) through
+    ``UpscalePipeline(mesh=)`` on 4 strips of ``mesh(4)``: 4 launches of
+    K6's strip tail form, each strip read in place and its grain rows read
+    in place, no other device operation in a traced call; its gather
+    bit-equal to the unsharded call, held to the plain versions' strips (the
+    torch chain); in turn the sharded call, the bare sharded call, the
+    unsharded call and the plain strips.  Returns its kernels line entry."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.parallel import spatial
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+
+    f16, u8 = torch.float16, torch.uint8
+    nf = QUALITY_SHAPE[0]
+    out4k = (2 * MAIN_SHAPE[2], 2 * MAIN_SHAPE[3])
+    q8 = (torch.rand(QUALITY_SHAPE, generator=gen, device=dev) * 255).to(u8)
+    grain = torch.rand((3, *out4k), generator=gen, device=dev) - 0.5
+    opts = dict(grain_amount=0.25, dither_bits=8, out_dtype=u8, compute_dtype=f16)
+    pipe, whole = ft.UpscalePipeline(out4k, mesh=mesh(4), **opts), ft.UpscalePipeline(out4k, **opts)
+    name = "(vi-b16) display, u8 1440p -> u8, sp=4"
+
+    def call():
+        return pipe(q8, grain=grain, frame=3)
+
+    out, n = _drive(call, {"K6": 4})
+    _on_mesh(out, name)
+    got = out.gather()
+    if not _same(got, whole(q8, grain=grain, frame=3)):
+        raise AssertionError(f"{name}: differs from the unsharded call")
+
+    def plain():
+        with _plain_kernels():
+            return call()
+
+    err = _compare_tail(got, plain().gather(), f"{name}: launches {n}; vs the plain versions' strips")
+    ops = device_trace(call, 1, short=lambda tr: sum(
+        c for k, c in tr["launches"].items() if K6_TAIL_NAMES[1] in k) < 4)["launches"]
+    k6 = sum(c for k, c in ops.items() if K6_TAIL_NAMES[1] in k)
+    other = {k[:60]: c for k, c in ops.items() if K6_TAIL_NAMES[1] not in k}
+    print(f"    a traced call: {k6:g} launches of {K6_TAIL_NAMES[1]}, other device operations {other or 'none'}")
+    if round(k6) != 4 or other:
+        raise AssertionError(f"{name}: a traced call must hold its 4 strip tail launches and nothing else")
+    fns = {"sharded call": call,
+           "bare sharded call": lambda: spatial.upscale_spatial_sharded(q8, out4k, mesh(4), compute_dtype=f16),
+           "unsharded call": lambda: whole(q8, grain=grain, frame=3), "plain strips": plain}
+    samples = {k: [] for k in fns}
+    for _ in range(3):  # in turn
+        for k, fn in fns.items():
+            samples[k].append(cuda_time_ms(fn, warmup=1, iters=3) if k == "plain strips" else cuda_time_ms(fn, **KQ))
+    t = {k: statistics.median(v) for k, v in samples.items()}
+    busy = device_trace(call, 5, short=lambda tr: sum(
+        c for k, c in tr["launches"].items() if K6_TAIL_NAMES[1] in k) < 4)["busy_ms"] / 5
+    print("    in turn (10 queued; plain strips: one call): " + ", ".join(f"{k} {v / nf:.4f}" for k, v in t.items())
+          + f" ms/frame; traced busy {busy / nf:.4f} ms/frame ({card})")
+    npix = nf * out4k[0] * out4k[1]
+    f32_ops, half_ops = _tail_ops(pipe._options(True)[0], 0.0, False)
+    return _kernel_entry(f"easu_h (K6) with the frame tail, row-sharded, strips and grain rows read in place: {name}; "
+                         "plain: the torch chain's strips", "fsr_tpu_torch/csrc/easu_h.cu",
+                         "fsr_tpu/api.py:280-309 + fsr_tpu/parallel/spatial.py:304-307 (jax.jit float16 chain in "
+                         "shard_map; no pallas_call)", n["K6"], err, t["sharded call"], t["plain strips"],
+                         _nbytes(q8, got, grain), f32_ops * npix, half_ops=half_ops * npix)
 
 
 FRAMES_ON_CARD = (0, 7, 2**31 - 1, -1)
@@ -2399,6 +2504,213 @@ def _k6(dev, card: str, frames, qframes, rgba_frames, listing: subprocess.Popen)
                                       ("RGBA performance", "RGBA performance f16", "RGBA performance", ALPHA_OPS))
     ]
 
+
+# K6's tail forms as a device trace names them (the strip tail form's name
+# holds STRIP_NAMES["K6"]).
+K6_TAIL_NAMES = ("easu_h_kernel_tail", "easu_h_kernel_strip_tail")
+
+
+def _f16_tails(grain, page, frame=5) -> dict:
+    """The float16 frame tails of phases 17 and 18 as ``upscale`` keyword
+    arguments: (a16) the HDR tail, (b16) the display path (on RGBA (d16)),
+    (c16) bytes out, (u16) gamma2 and 10-bit TEPD into UNORM10, and the SRTM
+    prologue with a dither page into float16."""
+    from fsr_tpu_torch.kernels.epilogue import Epilogue
+
+    u8, u16 = torch.uint8, torch.uint16
+    return {
+        "HDR tail": dict(prologue="srtm", epilogue=Epilogue(transform="srtm_inv", grain_amount=0.25), grain=grain),
+        "display": dict(epilogue=Epilogue(grain_amount=0.25, dither_bits=8), grain=grain, frame=frame, out_dtype=u8),
+        "bytes": dict(out_dtype=u8),
+        "gamma2 + TEPD10": dict(epilogue=Epilogue(transform="gamma2", dither_bits=10), frame=frame, out_dtype=u16),
+        "SRTM, grain + page dither8": dict(prologue="srtm", grain=grain, dither_page=page,
+                                           epilogue=Epilogue(grain_amount=0.25, dither_bits=8, dither_texture=True)),
+    }
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal (float16 by its bit patterns)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def _compare_tail(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """K6 with a frame tail against its plain version (the torch chain on
+    the card): float16 by ``_compare_f16``; codes identical or at most
+    CODE_SHARE of them one code off (``_compare_steps``, which prints the
+    share); RGBA's alpha bit-equal."""
+    if got.shape[-3] == 4 and not _same(got[..., 3, :, :], want[..., 3, :, :]):
+        raise AssertionError(f"{what}: alpha not bit-equal to the plain version")
+    if got.dtype == torch.float16:
+        return _compare_f16(got, want, what)
+    return _compare_steps(got, want, None, what)
+
+
+def _tail_ops(kw: dict, texels_per_pixel: float, rgba: bool):
+    """(float32, float16) operations per output pixel of K6 with the tail
+    of upscale keyword arguments ``kw``: K6's function (EASU_H_OPS +
+    RCAS_H_OPS), alpha's bilinear, the SRTM prologue per source texel, and
+    the epilogue as K1's (a) row counts it (LFGA_OPS, TEPD_OPS; SRTM^-1 as
+    SRTM_OPS_PER_TEXEL, gamma2 3)."""
+    f32 = EASU_H_OPS[0] + RCAS_H_OPS[0] + (ALPHA_OPS if rgba else 0)
+    epi = kw.get("epilogue")
+    if kw.get("prologue") == "srtm":
+        f32 += SRTM_OPS_PER_TEXEL * texels_per_pixel
+    if epi is not None:
+        f32 += {"srtm_inv": SRTM_OPS_PER_TEXEL, "gamma2": 3}.get(epi.transform, 0)
+        f32 += (LFGA_OPS if epi.needs_grain else 0) + (TEPD_OPS if epi.dither_bits else 0)
+    return f32, EASU_H_OPS[1] + RCAS_H_OPS[1]
+
+
+def _k6_tail(dev, card: str, frames, qframes) -> list:
+    """Phase 17's K6 with the frame tail (ROADMAP item 23): at 90x160 each
+    tail of ``_f16_tails`` x every source type x RGB/RGBA, two RCAS modes
+    and odd output widths with partial tiles, one K6 launch each and
+    bit-equal to ``easu_h_reference`` (codes at most CODE_SHARE one code
+    off, printed); the frame as a 0-d int32 tensor on the card over three
+    frames and a captured replay (``capture.CapturedFrame``), each bit-equal
+    to the eager call with a host int; then at batch 4 the configurations
+    (a16) HDR tail, (b16) display, (c16) byte video, (d16) RGBA display and
+    (u16) gamma2 + 10-bit TEPD through ``UpscalePipeline`` / ``upscale``:
+    one K6 launch and no other device operation in a traced call, against
+    the plain version (the torch chain on the card), and in turn the call,
+    K6 with the tail alone, the bare K6 on the same frames and the plain
+    version.  Returns the kernels line's entries."""
+    import fsr_tpu_torch as ft
+    from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+    from fsr_tpu_torch.kernels import easu_h
+    from fsr_tpu_torch.utils import capture
+    from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
+
+    f16, u8, u16 = torch.float16, torch.uint8, torch.uint16
+    rcon = RcasConstants(0.25)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    small = torch.rand((2, 4, 90, 160), generator=gen, device=dev)
+
+    def source(kind, nc):
+        x = small[:, :nc].contiguous()
+        return (x * 255).to(u8) if kind == "uint8" else x.to(getattr(torch, kind))
+
+    def operands(out_hw):
+        return (torch.rand((3, *out_hw), generator=gen, device=dev) - 0.5,
+                torch.rand((24, 40), generator=gen, device=dev))
+
+    names = list(_f16_tails(None, None))
+    sweep = [(tail, kind, nc, dict(preset="performance")) for tail in names
+             for kind in ("float16", "float32", "bfloat16", "uint8") for nc in (3, 4)]
+    sweep += [("display", "uint8", 4, dict(preset="performance", apply_rcas=False)),
+              ("HDR tail", "float16", 3, dict(preset="performance", denoise=True)),
+              ("display", "uint8", 4, dict(out_size=(179, 321))),
+              ("gamma2 + TEPD10", "float16", 3, dict(out_size=(157, 293), denoise=True)),
+              ("HDR tail", "bfloat16", 4, dict(out_size=(97, 161), apply_rcas=False)),
+              ("SRTM, grain + page dither8", "float32", 4, dict(scale=1.5, input_viewport=(80, 144),
+                                                                 input_offset=(4, 8)))]
+    worst = {}
+    for tail, kind, nc, geom in sweep:
+        x = source(kind, nc)
+        (hin, win) = x.shape[-2:]
+        vh, vw = geom.get("input_viewport", (hin, win))
+        oy, ox = geom.get("input_offset", (0, 0))
+        out_hw = geom.get("out_size") or ((2 * vh, 2 * vw) if "preset" in geom else (round(1.5 * vh), round(1.5 * vw)))
+        kw = _f16_tails(*operands(out_hw))[tail]
+        out, n = _drive(lambda: ft.upscale(x, compute_dtype=f16, **geom, **kw), ("K6",))
+        con = EasuConstants.create((vw, vh), (win, hin), out_hw[::-1], (ox, oy))
+        want = easu_h.easu_h_reference(x, out_hw, con, rcon, geom.get("apply_rcas", True), geom.get("denoise", False),
+                                       **kw)
+        what = f"K6 + {tail}, {kind} {('RGB', 'RGBA')[nc - 3]}, {hin}x{win} -> {out_hw[0]}x{out_hw[1]}"
+        err = _compare_tail(out, want, f"{what}: launches {n['K6']}; vs easu_h_reference")
+        worst[tail] = max(worst.get(tail, 0.0), err)
+    print(f"  K6 with the frame tail at small sizes: {len(sweep)} cases, one K6 launch each, against its plain version")
+
+    # The frame index on the card, eager and captured.
+    x = source("uint8", 4)
+    grain, page = operands((180, 320))
+    kw = {k: v for k, v in _f16_tails(grain, page)["display"].items() if k != "frame"}
+
+    def call(a, frame):
+        return ft.upscale(a, preset="performance", compute_dtype=f16, frame=frame, **kw)
+
+    ftensor = torch.zeros((), dtype=torch.int32, device=dev)
+    cap, built = _drive(lambda: capture.CapturedFrame(call, x, ftensor), {"K6": capture.WARMUP + 1})
+    for f in (0, 7, 2**31 - 1):
+        want = call(x, f)
+        got, n = _drive(lambda: call(x, torch.tensor(f, dtype=torch.int32, device=dev)), ("K6",))
+        rep, nr = _drive(lambda: cap(x, torch.tensor(f, dtype=torch.int32, device=dev)), ())
+        if not (_same(got, want) and _same(rep, want)):
+            raise AssertionError(f"K6 + display, frame {f}: a frame tensor or the replay differs from the host int")
+    print(f"  K6 + display, u8 RGBA: the frame as a 0-d int32 tensor on the card (frames 0, 7, 2**31 - 1), one launch "
+          f"each, and replayed (capture.CapturedFrame: {built['K6']} launches at capture, none at a replay): bit-equal "
+          "to the eager call with a host int")
+    del cap, small, x
+
+    # Full width, batch 4: the configurations of the float16 frame tail.
+    nf = frames.shape[0]
+    (ph, pw), (qh, qw) = frames.shape[-2:], qframes.shape[-2:]
+    out4k = (2 * ph, 2 * pw)
+    pcon = EasuConstants.create((pw, ph), None, out4k[::-1])
+    qcon = EasuConstants.create((qw, qh), None, out4k[::-1])
+    p16, p8, q8 = frames.half(), (frames * 255).to(u8), (qframes.float() * 255).to(u8)
+    r8 = (torch.rand((nf, 4, qh, qw), generator=gen, device=dev) * 255).to(u8)
+    grain4k = torch.rand((3, *out4k), generator=gen, device=dev) - 0.5
+    tails = _f16_tails(grain4k, None, 3)
+    hdr = ft.UpscalePipeline(out4k, hdr_srtm=True, hdr_out=True, grain_amount=0.25, compute_dtype=f16)
+    disp = ft.UpscalePipeline(out4k, grain_amount=0.25, dither_bits=8, out_dtype=u8, compute_dtype=f16)
+    u10 = ft.UpscalePipeline(out4k, gamma2_out=True, dither_bits=10, out_dtype=u16, compute_dtype=f16)
+    configs = [
+        # name, frames, call, constants, the tail K6 takes
+        ("(a16) HDR tail, f16 1080p", p16, lambda: hdr(p16, grain=grain4k, frame=3), pcon, "HDR tail"),
+        ("(b16) display, u8 1440p -> u8", q8, lambda: disp(q8, grain=grain4k, frame=3), qcon, "display"),
+        ("(c16) byte video, u8 1080p -> u8", p8, lambda: ft.upscale(p8, scale=2.0, out_dtype=u8, compute_dtype=f16),
+         pcon, "bytes"),
+        ("(d16) RGBA display, u8 1440p -> u8", r8, lambda: disp(r8, grain=grain4k, frame=3), qcon, "display"),
+        ("(u16) gamma2 + TEPD10, f16 1080p -> u16", p16, lambda: u10(p16, frame=3), pcon, "gamma2 + TEPD10"),
+    ]
+    print(f"  K6 with the frame tail at batch {nf} -> 4K on {card}:")
+    entries = []
+    for name, x, call, con, tail in configs:
+        out, n = _drive(call, ("K6",))
+        alone = lambda x=x, con=con, tail=tail: easu_h.easu_h(x, out4k, con, rcon, **tails[tail])
+        if not _same(alone(), out):
+            raise AssertionError(f"{name}: K6 called alone differs from the call")
+
+        def plain(call=call):
+            with _plain_kernels():
+                return call()
+
+        err = _compare_tail(out, plain(), f"{name}: launches {n}; vs its plain version (the torch chain)")
+        ops = device_trace(call, 1)["launches"]
+        k6 = sum(c for k, c in ops.items() if K6_TAIL_NAMES[0] in k)
+        other = {k[:60]: c for k, c in ops.items() if K6_TAIL_NAMES[0] not in k}
+        print(f"    a traced call: {k6:g} launch(es) of {K6_TAIL_NAMES[0]}, other device operations {other or 'none'}")
+        if round(k6) != 1 or other:
+            raise AssertionError(f"{name}: a traced call must hold one K6 launch and nothing else")
+        bare = lambda x=x: ft.upscale(x, out_size=out4k, compute_dtype=f16)
+        fns = {"call": call, "K6 with the tail": alone, "bare K6": bare, "plain": plain}
+        samples = {k: [] for k in fns}
+        for _ in range(3):  # in turn
+            for k, fn in fns.items():
+                samples[k].append(cuda_time_ms(fn, warmup=1, iters=3) if k == "plain" else cuda_time_ms(fn, **KQ))
+        t = {k: statistics.median(v) for k, v in samples.items()}
+        # Busy ms per call over 5 traced calls, retaken when CUPTI missed a K6 launch.
+        busy = {k: device_trace(fns[k], 5, short=lambda tr: sum(
+            c for kn, c in tr["launches"].items() if KERNEL_NAMES["K6"] in kn) < 1)["busy_ms"] / 5
+            for k in ("call", "bare K6")}
+        print("    in turn (call, K6 alone, bare K6: 10 queued; plain: one call): "
+              + ", ".join(f"{k} {v / nf:.4f}" for k, v in t.items())
+              + " ms/frame; traced busy " + ", ".join(f"{k} {v / nf:.4f}" for k, v in busy.items()) + " ms/frame")
+        f32_ops, half_ops = _tail_ops(tails[tail], x.shape[-2] * x.shape[-1] / (out4k[0] * out4k[1]), x.shape[1] == 4)
+        npix = nf * out4k[0] * out4k[1]
+        grain_bytes = _nbytes(grain4k) if tails[tail].get("grain") is not None else 0
+        entries.append(_kernel_entry(
+            f"easu_h (K6) with the frame tail: {name}; plain: the torch chain", "fsr_tpu_torch/csrc/easu_h.cu",
+            "fsr_tpu/api.py:280-309 (jax.jit float16 chain: decode, SRTM, easu + rcas, the epilogue "
+            "fsr_tpu/api.py:56-86, the store; no pallas_call)", n["K6"], err, t["K6 with the tail"], t["plain"],
+            _nbytes(x, out) + grain_bytes, f32_ops * npix, half_ops=half_ops * npix))
+        del out
+    return entries
 
 def _f16_sources(card: str, frames, qframes, rgba_frames) -> list:
     """Phase 17's float16 images under float32 or bfloat16 math, at batch 4:
@@ -4128,8 +4440,8 @@ def main() -> int:
     for k, v in k3_f16["t"].items():
         print(f"    {k:>26}: {v / nframes:.4f} ms/frame ({v:.3f} ms/call)")
     del y_bf16
-    k6_kernels = _k6(dev, card, frames, qframes, rgba_frames, k6_listing) + _f16_sources(card, frames, qframes,
-                                                                                          rgba_frames)
+    k6_kernels = (_k6(dev, card, frames, qframes, rgba_frames, k6_listing) + _k6_tail(dev, card, frames, qframes)
+                  + _f16_sources(card, frames, qframes, rgba_frames))
 
     t32, q32 = timings[torch.float32], qtimings[torch.float32]
     ta, tb, tc, ts = (path_runs[p[0]] for p in paths)

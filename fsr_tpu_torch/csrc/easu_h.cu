@@ -18,9 +18,27 @@
 //   - RGBA: alpha as ops.easu.bilinear computes it on the source's alpha
 //     plane (float32 after the source-type difference), stored as half,
 //     never sharpened.
-// The output is float16.  The SRTM prologue, the K5 epilogue and byte
-// outputs stay torch passes around this kernel (api._upscale), as JAX runs
-// them as passes of their own.
+// The output is float16.
+//
+// The frame tail (the tail forms, easu_h_kernel_tail and its strip-source
+// form easu_h_kernel_strip_tail, compiled in easu_h_tail.cu and
+// easu_h_tail_strip.cu): the rest of the torch path's float16 chain around
+// that function, in the same launch, as K1 and K2 run it around theirs:
+//   - the SRTM prologue on each texel as it is staged, before its rounding
+//     to half (fsr_half.cuh:srtm_to_half): on a float16 or bfloat16 source
+//     in that type, each operation rounded to it as a torch elementwise op
+//     on that dtype rounds; on a float32 source or a decoded byte in
+//     float32; alpha never; the luma and the responses after it;
+//   - at the store, each pixel's halves widened to float32, the K5
+//     epilogue (fsr_pixel.cuh:epilogue, the strip's global rows for the
+//     dither), rounded back to half as the torch path rounds it, then
+//     stored as the output type: float16 as it is, uint8 or 10-bit UNORM
+//     codes of that half (fsr_pixel.cuh:st); alpha from its float32
+//     bilinear by the same storage rule.
+// The output type is a template parameter O (__half, uint8_t, uint16_t),
+// the prologue flag and the epilogue's fields uniform runtime values.  The
+// bare kernels (easu_h_kernel, easu_h_kernel_strip) take no tail: their
+// code is the same with or without the tail forms beside them.
 //
 // Row strips (parallel/spatial.py): a strip of a row-sharded frame runs on
 // K2's per-strip row tables (kernels/easu_gather.py:shard_plan), built from
@@ -96,6 +114,21 @@ constexpr int FP_W = RW + 3;      // its columns at most
 constexpr int NT = 256;           // threads per block
 constexpr int MIN_BLOCKS = 4;     // blocks per SM: 64 registers a thread, no spills
 
+// The frame tail's parameters (the tail forms only): the SRTM prologue's
+// flag and the K5 epilogue's parameters, as K1 and K2 take them, with the
+// grain's plane stride (a row strip reads its rows of the whole frame's
+// grain in place: its planes lie the frame's plane apart).
+struct TailParams {
+  EpilogueParams e;
+  int64_t gplane;
+  int srtm;
+};
+// The bare kernels' tail: none.
+struct NoTail {};
+
+template <typename Tail>
+constexpr bool has_tail = std::is_same<Tail, TailParams>::value;
+
 struct HParams {
   const int* rows;   // rows[k * rstride + Y]: source row of tap dy = k - 1 of output row Y = -1..hout
   const int* cols;   // [4][wout]: clip(fx + dx, 0, win - 1) for dx = -1..2
@@ -138,9 +171,10 @@ __device__ __forceinline__ int centre(int a, int b, int c, int n) { return a != 
 // Load the block's footprint of one frame's source and its table slice
 // (K2's rule, easu_gather.cu:stage), then the responses of every centre;
 // a barrier after each.  strip: empty for a whole source, else its strip
-// source (the loads' addresses).
-template <typename S, bool RGBA, typename... Strip>
-__device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ src, const HParams& p,
+// source (the loads' addresses).  TAIL: a tail form's staging, which runs
+// the SRTM prologue on each texel when srtm is set.
+template <typename S, bool RGBA, bool TAIL, typename... Strip>
+__device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ src, const HParams& p, int srtm,
                                       const Strip&... strip) {
   const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
@@ -163,7 +197,12 @@ __device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ sr
       for (int k = rb * fw + threadIdx.x; k < re * fw; k += NT) {
         const int r = (int)(__fadd_rn((float)k, 0.5f) * inv_fw);
         const S* at = part + (int64_t)row(r) * p.win + c0 + (k - r * fw);
-        const __half cr = h16::to_half_nc(at), cg = h16::to_half_nc(at + pl), cb = h16::to_half_nc(at + 2 * pl);
+        __half cr, cg, cb;
+        if constexpr (TAIL) {
+          h16::srtm_to_half<true>(at, pl, srtm, cr, cg, cb);
+        } else {
+          cr = h16::to_half_nc(at), cg = h16::to_half_nc(at + pl), cb = h16::to_half_nc(at + 2 * pl);
+        }
         st.rgb[k] = make_uint2(__half_as_ushort(cr) | (unsigned)__half_as_ushort(cg) << 16, __half_as_ushort(cb));
         st.lum[k] = __half2float(h16::luma(cr, cg, cb));
         if constexpr (RGBA) st.alpha[k] = ldg(at + 3 * pl);  // widened exactly, a byte decoded
@@ -174,7 +213,12 @@ __device__ __forceinline__ void stage(StageH<RGBA>& st, const S* __restrict__ sr
     for (int k = threadIdx.x; k < fh * fw; k += NT) {
       const int r = (int)(__fadd_rn((float)k, 0.5f) * inv_fw);
       const S* at = base + (int64_t)r * p.win + (k - r * fw);
-      const __half cr = h16::to_half(at), cg = h16::to_half(at + plane), cb = h16::to_half(at + 2 * plane);
+      __half cr, cg, cb;
+      if constexpr (TAIL) {
+        h16::srtm_to_half<false>(at, plane, srtm, cr, cg, cb);
+      } else {
+        cr = h16::to_half(at), cg = h16::to_half(at + plane), cb = h16::to_half(at + 2 * plane);
+      }
       st.rgb[k] = make_uint2(__half_as_ushort(cr) | (unsigned)__half_as_ushort(cg) << 16, __half_as_ushort(cb));
       st.lum[k] = __half2float(h16::luma(cr, cg, cb));
       if constexpr (RGBA) st.alpha[k] = ld(at + 3 * plane);  // widened exactly, a byte decoded
@@ -241,18 +285,68 @@ __device__ __forceinline__ void easu_staged(const StageH<RGBA>& st, int ly, int 
   h16::easu_pair(tap, sa, sb, st.px[la], st.px[lb], py, out);
 }
 
+// The frame tail's store of a pixel pair's colour (columns X and X + 1 at
+// offset at of each plane, the grain's at t.gplane; the second when
+// `both`): each lane widened, the epilogue, rounded back to half, stored as
+// O; a 4-byte-aligned pair (`paired`: an even row length) in one store per
+// plane.
+template <typename O>
+__device__ __forceinline__ void store_tail(O* o, int64_t oplane, int64_t at, int Y, int X, bool both, bool paired,
+                                           const TailParams& t, unsigned frame, const h2 v[3]) {
+  float a[3], b[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a[c] = __low2float(v[c]);
+    b[c] = __high2float(v[c]);
+  }
+  epilogue(t.e, frame, t.gplane, at, Y, X, a);
+  if (both) epilogue(t.e, frame, t.gplane, at + 1, Y, X + 1, b);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    O* q = o + c * oplane + at;
+    const float ha = as_storage<__half>(a[c]), hb = as_storage<__half>(b[c]);
+    if (paired) {
+      if constexpr (std::is_same<O, __half>::value) {
+        *reinterpret_cast<h2*>(q) = __floats2half2_rn(ha, hb);
+      } else if constexpr (std::is_same<O, uint8_t>::value) {
+        *reinterpret_cast<uint16_t*>(q) = (uint16_t)((unsigned)unorm(ha, 255.0f) | (unsigned)unorm(hb, 255.0f) << 8);
+      } else {
+        *reinterpret_cast<uint32_t*>(q) = (unsigned)unorm(ha, 1023.0f) | (unsigned)unorm(hb, 1023.0f) << 16;
+      }
+    } else {
+      fsr::st(q, ha);
+      if (both) fsr::st(q + 1, hb);
+    }
+  }
+}
+
+// The TEPD hash's frame index of a tail form (0 for the bare kernels).
+template <typename Tail>
+__device__ __forceinline__ unsigned tail_frame(const Tail& tail) {
+  if constexpr (has_tail<Tail>) {
+    return epilogue_frame(tail.e);
+  } else {
+    return 0u;
+  }
+}
+
 // One block's tile: the kernels' body, for a whole source (src) or a strip
-// source (strip).  It takes the parameters by value, as the kernels do: a
-// reference to the kernel's parameter moved a few instructions of the
-// whole-frame form's SASS.
-template <typename S, bool RCAS, bool DENOISE, bool RGBA, typename... Strip>
-__device__ __forceinline__ void easu_h_tile(const S* __restrict__ src, __half* __restrict__ dst, HParams p,
+// source (strip), into an output of type O, with the frame tail (tail: a
+// TailParams) or without (a NoTail).  It takes the parameters by value, as
+// the kernels do: a reference to the kernel's parameter moved a few
+// instructions of the whole-frame form's SASS.
+template <typename S, bool RCAS, bool DENOISE, bool RGBA, typename O, typename Tail, typename... Strip>
+__device__ __forceinline__ void easu_h_tile(const S* __restrict__ src, O* __restrict__ dst, HParams p, Tail tail,
                                             const Strip&... strip) {
   constexpr int C = RGBA ? 4 : 3;
+  constexpr bool TAIL = has_tail<Tail>;
   __shared__ StageH<RGBA> st;
   const int64_t n = blockIdx.z;
-  stage<S>(st, src + n * C * (int64_t)p.hin * p.win, p, strip...);
-  __half* o = dst + n * C * (int64_t)p.hout * p.wout;
+  int srtm = 0;
+  if constexpr (TAIL) srtm = tail.srtm;
+  stage<S, RGBA, TAIL>(st, src + n * C * (int64_t)p.hin * p.win, p, srtm, strip...);
+  O* o = dst + n * C * (int64_t)p.hout * p.wout;
+  const unsigned frame = tail_frame(tail);
   const int64_t oplane = (int64_t)p.hout * p.wout;
   const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
@@ -263,7 +357,9 @@ __device__ __forceinline__ void easu_h_tile(const S* __restrict__ src, __half* _
     const int Y = y0 + ly, X = x0 + 2 * m;
     const int64_t at = (int64_t)Y * p.wout + X;
     const bool both = X + 1 < p.wout;
-    if (both && (p.wout & 1) == 0) {  // an even row length: the pair is 4-byte aligned
+    if constexpr (TAIL) {
+      store_tail(o, oplane, at, Y, X, both, both && (p.wout & 1) == 0, tail, frame, v);
+    } else if (both && (p.wout & 1) == 0) {  // an even row length: the pair is 4-byte aligned
 #pragma unroll
       for (int c = 0; c < 3; ++c) *reinterpret_cast<h2*>(o + c * oplane + at) = v[c];
     } else {
@@ -281,8 +377,8 @@ __device__ __forceinline__ void easu_h_tile(const S* __restrict__ src, __half* _
         if (j == 1 && !both) break;
         const int lx = 2 * m + 1 + j;
         const int4 cv = st.col[lx];
-        o[3 * oplane + at + j] = __float2half_rn(h16::bilinear_alpha<S>(
-            a[rv.y + cv.y], a[rv.y + cv.z], a[rv.z + cv.y], a[rv.z + cv.z], st.px[lx], st.py[ly + 1]));
+        fsr::st(o + 3 * oplane + at + j, h16::bilinear_alpha<S>(a[rv.y + cv.y], a[rv.y + cv.z], a[rv.z + cv.y],
+                                                                 a[rv.z + cv.z], st.px[lx], st.py[ly + 1]));
       }
     }
   };
@@ -337,7 +433,7 @@ __device__ __forceinline__ void easu_h_tile(const S* __restrict__ src, __half* _
 template <typename S, bool RCAS, bool DENOISE, bool RGBA>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     easu_h_kernel(const S* __restrict__ src, __half* __restrict__ dst, HParams p) {
-  easu_h_tile<S, RCAS, DENOISE, RGBA>(src, dst, p);
+  easu_h_tile<S, RCAS, DENOISE, RGBA>(src, dst, p, NoTail{});
 }
 
 // The strip-source form (fsr_pixel.cuh:StripSrc): the same tile, each texel
@@ -345,10 +441,24 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 template <typename S, bool RCAS, bool DENOISE, bool RGBA>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     easu_h_kernel_strip(StripSrc<S> strip, __half* __restrict__ dst, HParams p) {
-  easu_h_tile<S, RCAS, DENOISE, RGBA>(static_cast<const S*>(nullptr), dst, p, strip);
+  easu_h_tile<S, RCAS, DENOISE, RGBA>(static_cast<const S*>(nullptr), dst, p, NoTail{}, strip);
 }
 
-#ifndef FSR_STRIP_TU
+// The tail forms: the same tiles with the frame tail, into an output of
+// type O.
+template <typename S, bool RCAS, bool DENOISE, bool RGBA, typename O>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    easu_h_kernel_tail(const S* __restrict__ src, O* __restrict__ dst, HParams p, TailParams t) {
+  easu_h_tile<S, RCAS, DENOISE, RGBA>(src, dst, p, t);
+}
+
+template <typename S, bool RCAS, bool DENOISE, bool RGBA, typename O>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+    easu_h_kernel_strip_tail(StripSrc<S> strip, O* __restrict__ dst, HParams p, TailParams t) {
+  easu_h_tile<S, RCAS, DENOISE, RGBA>(static_cast<const S*>(nullptr), dst, p, t, strip);
+}
+
+#if !defined(FSR_STRIP_TU) && !defined(FSR_TAIL_TU)
 // The reciprocal check: rcp (the kernel's) of every half bit pattern, two
 // patterns a thread as one pair.
 __global__ void rcp_check_kernel(unsigned int* __restrict__ out) {
@@ -358,49 +468,79 @@ __global__ void rcp_check_kernel(unsigned int* __restrict__ out) {
 #endif
 
 // STRIP: launch the strip-source form on sp, else the whole-frame form on
-// src.  Each form is compiled in its own translation unit (easu_h_strip.cu).
-template <bool STRIP, typename S, bool RGBA>
+// src; a Tail of TailParams: the tail forms into an output of type O.  Each
+// form is compiled in its own translation unit (easu_h_strip.cu,
+// easu_h_tail.cu, easu_h_tail_strip.cu).
+template <bool STRIP, typename S, bool RGBA, typename O, typename Tail>
 int launch_planes(const void* src, const StripParts* sp, void* dst, int nb, const HParams& p, bool rcas,
-                  bool denoise, cudaStream_t stream) {
+                  bool denoise, const Tail& tail, cudaStream_t stream) {
   constexpr int C = RGBA ? 4 : 3;
   const int64_t in_frame = C * (int64_t)p.hin * p.win;
   const int64_t out_frame = C * (int64_t)p.hout * p.wout;
   return launch_frames<TH, TW>(nb, p.hout, p.wout, [&](dim3 grid, int n0) {
-    __half* d = static_cast<__half*>(dst) + n0 * out_frame;
-    if constexpr (STRIP) {
-      const StripSrc<S> s = strip_src<S>(*sp, n0);
-      if (!rcas)
-        easu_h_kernel_strip<S, false, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-      else if (denoise)
-        easu_h_kernel_strip<S, true, true, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-      else
-        easu_h_kernel_strip<S, true, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-    } else {
-      const S* s = static_cast<const S*>(src) + n0 * in_frame;
-      if (!rcas)
-        easu_h_kernel<S, false, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-      else if (denoise)
-        easu_h_kernel<S, true, true, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-      else
-        easu_h_kernel<S, true, false, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
-    }
+    O* d = static_cast<O*>(dst) + n0 * out_frame;
+    // One of the three RCAS modes (off, on, denoise) as template flags.
+    auto go = [&](auto rc, auto dn) {
+      constexpr bool R = decltype(rc)::value, D = decltype(dn)::value;
+      if constexpr (STRIP) {
+        const StripSrc<S> s = strip_src<S>(*sp, n0);
+        if constexpr (has_tail<Tail>)
+          easu_h_kernel_strip_tail<S, R, D, RGBA, O><<<grid, NT, 0, stream>>>(s, d, p, tail);
+        else
+          easu_h_kernel_strip<S, R, D, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+      } else {
+        const S* s = static_cast<const S*>(src) + n0 * in_frame;
+        if constexpr (has_tail<Tail>)
+          easu_h_kernel_tail<S, R, D, RGBA, O><<<grid, NT, 0, stream>>>(s, d, p, tail);
+        else
+          easu_h_kernel<S, R, D, RGBA><<<grid, NT, 0, stream>>>(s, d, p);
+      }
+    };
+    if (!rcas)
+      go(std::false_type{}, std::false_type{});
+    else if (denoise)
+      go(std::true_type{}, std::true_type{});
+    else
+      go(std::true_type{}, std::false_type{});
   });
 }
 
-template <bool STRIP, typename S>
+template <bool STRIP, typename S, typename O, typename Tail>
 int launch(const void* src, const StripParts* sp, void* dst, int nb, int channels, const HParams& p, bool rcas,
-           bool denoise, cudaStream_t stream) {
-  return channels == 4 ? launch_planes<STRIP, S, true>(src, sp, dst, nb, p, rcas, denoise, stream)
-                       : launch_planes<STRIP, S, false>(src, sp, dst, nb, p, rcas, denoise, stream);
+           bool denoise, const Tail& tail, cudaStream_t stream) {
+  return channels == 4 ? launch_planes<STRIP, S, true, O>(src, sp, dst, nb, p, rcas, denoise, tail, stream)
+                       : launch_planes<STRIP, S, false, O>(src, sp, dst, nb, p, rcas, denoise, tail, stream);
+}
+
+// The dispatch on the source type (and, for the tail forms, the output
+// type: out_dtype, fsr_pixel.cuh DType F16, U8 or U16).
+template <bool STRIP, typename O, typename Tail>
+int launch_types(const void* src, const StripParts* sp, void* dst, int src_dtype, int nb, int channels,
+                 const HParams& p, bool rcas, bool denoise, const Tail& tail, cudaStream_t s) {
+  switch (src_dtype) {
+    case F16:
+      return launch<STRIP, __half, O>(src, sp, dst, nb, channels, p, rcas, denoise, tail, s);
+    case F32:
+      return launch<STRIP, float, O>(src, sp, dst, nb, channels, p, rcas, denoise, tail, s);
+    case BF16:
+      return launch<STRIP, __nv_bfloat16, O>(src, sp, dst, nb, channels, p, rcas, denoise, tail, s);
+    case U8:
+      return launch<STRIP, uint8_t, O>(src, sp, dst, nb, channels, p, rcas, denoise, tail, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The C entry points' body: the parameters, the checks and the dispatch on
 // the source type, for the whole-frame form (STRIP false: src) or the
-// strip-source form (sp).
-template <bool STRIP>
-int easu_h(const void* src, const StripParts* sp, void* dst, int src_dtype, int nb, int channels, int hin, int win,
-           int hout, int wout, const void* rows, const void* cols, const void* py, const void* px, float sharp,
-           int apply_rcas, int denoise, void* stream) {
+// strip-source form (sp); TAIL: the tail forms, with the prologue (srtm),
+// the epilogue (epi, its grain's plane stride gplane) and the output type
+// (out_dtype).
+template <bool STRIP, bool TAIL>
+int easu_h(const void* src, const StripParts* sp, void* dst, int src_dtype, int out_dtype, int nb, int channels,
+           int hin, int win, int hout, int wout, const void* rows, const void* cols, const void* py, const void* px,
+           float sharp, int apply_rcas, int denoise, int srtm, int64_t gplane, const EpilogueParams* epi,
+           void* stream) {
   if (STRIP && !strip_ok(sp, hin)) return (int)cudaErrorInvalidValue;
   HParams p;
   // The row tables start at output row -1: their bases move one entry on,
@@ -420,23 +560,56 @@ int easu_h(const void* src, const StripParts* sp, void* dst, int src_dtype, int 
   const bool r = apply_rcas != 0;
   const bool dn = denoise != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (src_dtype) {
-    case F16:
-      return launch<STRIP, __half>(src, sp, dst, nb, channels, p, r, dn, s);
-    case F32:
-      return launch<STRIP, float>(src, sp, dst, nb, channels, p, r, dn, s);
-    case BF16:
-      return launch<STRIP, __nv_bfloat16>(src, sp, dst, nb, channels, p, r, dn, s);
-    case U8:
-      return launch<STRIP, uint8_t>(src, sp, dst, nb, channels, p, r, dn, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (TAIL) {
+    if (epi == nullptr) return (int)cudaErrorInvalidValue;
+    const TailParams t{*epi, gplane, srtm};
+    switch (out_dtype) {
+      case F16:
+        return launch_types<STRIP, __half>(src, sp, dst, src_dtype, nb, channels, p, r, dn, t, s);
+      case U8:
+        return launch_types<STRIP, uint8_t>(src, sp, dst, src_dtype, nb, channels, p, r, dn, t, s);
+      case U16:
+        return launch_types<STRIP, uint16_t>(src, sp, dst, src_dtype, nb, channels, p, r, dn, t, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return launch_types<STRIP, __half>(src, sp, dst, src_dtype, nb, channels, p, r, dn, NoTail{}, s);
   }
 }
 
 }  // namespace
 
-#ifndef FSR_STRIP_TU
+#if defined(FSR_TAIL_TU) && !defined(FSR_STRIP_TU)
+// K6 with the frame tail, whole frames: fsr_easu_h's arguments, then
+// out_dtype (fsr_pixel.cuh DType: F16, U8 or U16; the output's, plane 3
+// included), srtm (1: the SRTM prologue on each loaded texel) and epi (the
+// K5 epilogue, a host struct with device pointers, kernels/epilogue.py:
+// c_params; all zeros for none) with its grain's plane stride gplane in
+// elements (the grain's rows contiguous, hout of them in each plane).
+// easu_h_tail.cu compiles it.
+extern "C" int fsr_easu_h_tail(const void* src, void* dst, int src_dtype, int out_dtype, int nb, int channels,
+                               int hin, int win, int hout, int wout, const void* rows, const void* cols,
+                               const void* py, const void* px, float sharp, int apply_rcas, int denoise, int srtm,
+                               long long gplane, const EpilogueParams* epi, void* stream) {
+  return easu_h<false, true>(src, nullptr, dst, src_dtype, out_dtype, nb, channels, hin, win, hout, wout, rows, cols,
+                             py, px, sharp, apply_rcas, denoise, srtm, gplane, epi, stream);
+}
+#elif defined(FSR_TAIL_TU)
+// K6 with the frame tail on a row strip read in place (sp, as
+// fsr_easu_h_strip takes it); the epilogue's row0 is the strip's first
+// global output row, its grain the strip's rows of the frame's grain
+// (gplane: the frame's plane stride).  The other arguments are
+// fsr_easu_h_tail's.  easu_h_tail_strip.cu compiles it.
+extern "C" int fsr_easu_h_tail_strip(const StripParts* sp, void* dst, int src_dtype, int out_dtype, int nb,
+                                     int channels, int hin, int win, int hout, int wout, const void* rows,
+                                     const void* cols, const void* py, const void* px, float sharp, int apply_rcas,
+                                     int denoise, int srtm, long long gplane, const EpilogueParams* epi,
+                                     void* stream) {
+  return easu_h<true, true>(nullptr, sp, dst, src_dtype, out_dtype, nb, channels, hin, win, hout, wout, rows, cols,
+                            py, px, sharp, apply_rcas, denoise, srtm, gplane, epi, stream);
+}
+#elif !defined(FSR_STRIP_TU)
 // src_dtype: the source's dtype code (fsr_pixel.cuh DType: float16,
 // float32, bfloat16 or uint8); the output is float16.  channels: 3, or 4
 // with alpha in plane 3 of the source and the output.  rows/cols (int32
@@ -446,8 +619,8 @@ int easu_h(const void* src, const StripParts* sp, void* dst, int src_dtype, int 
 extern "C" int fsr_easu_h(const void* src, void* dst, int src_dtype, int nb, int channels, int hin, int win,
                           int hout, int wout, const void* rows, const void* cols, const void* py, const void* px,
                           float sharp, int apply_rcas, int denoise, void* stream) {
-  return easu_h<false>(src, nullptr, dst, src_dtype, nb, channels, hin, win, hout, wout, rows, cols, py, px, sharp,
-                       apply_rcas, denoise, stream);
+  return easu_h<false, false>(src, nullptr, dst, src_dtype, F16, nb, channels, hin, win, hout, wout, rows, cols, py,
+                              px, sharp, apply_rcas, denoise, 0, 0, nullptr, stream);
 }
 
 // Test entry: writes rcp (fsr_half.cuh, the kernel's reciprocal) of every
@@ -465,7 +638,7 @@ extern "C" int fsr_easu_h_rcp_check(void* out, void* stream) {
 extern "C" int fsr_easu_h_strip(const StripParts* sp, void* dst, int src_dtype, int nb, int channels, int hin,
                                 int win, int hout, int wout, const void* rows, const void* cols, const void* py,
                                 const void* px, float sharp, int apply_rcas, int denoise, void* stream) {
-  return easu_h<true>(nullptr, sp, dst, src_dtype, nb, channels, hin, win, hout, wout, rows, cols, py, px, sharp,
-                      apply_rcas, denoise, stream);
+  return easu_h<true, false>(nullptr, sp, dst, src_dtype, F16, nb, channels, hin, win, hout, wout, rows, cols, py,
+                             px, sharp, apply_rcas, denoise, 0, 0, nullptr, stream);
 }
 #endif

@@ -107,6 +107,36 @@ __device__ __forceinline__ h to_half_nc(const S* p) {
   return to_half(&v);
 }
 
+// A texel of the frame tail's forms (easu_h.cu): its three channels (plane
+// stride `plane`) as to_half rounds them, after the SRTM prologue when srtm
+// is set: ops.extras.srtm, c * (1 / (max3(c) + 1)), on the source as the
+// torch path holds it, so a float16 or bfloat16 source computes in its own
+// type, each operation's float32 result rounded to it (a torch elementwise
+// operation on that dtype computes in float32 and rounds once), and a
+// float32 source or a decoded byte in float32 (as fsr_pixel.cuh:
+// srtm_texel, with torch.maximum's NaN rule).  NC: loads through the
+// read-only data cache.
+template <bool NC, typename S>
+__device__ __forceinline__ void srtm_to_half(const S* at, int64_t plane, int srtm, h& r, h& g, h& b) {
+  float c[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if constexpr (NC)
+      c[k] = ldg(at + k * plane);
+    else
+      c[k] = ld(at + k * plane);
+  }
+  if (srtm) {
+    const float d = as_storage<S>(__fadd_rn(tmaxf(tmaxf(c[0], c[1]), c[2]), 1.0f));
+    const float rc = as_storage<S>(__frcp_rn(d));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[k] = as_storage<S>(__fmul_rn(c[k], rc));
+  }
+  r = __float2half_rn(c[0]);
+  g = __float2half_rn(c[1]);
+  b = __float2half_rn(c[2]);
+}
+
 // A difference of two source elements (given widened) in the source's own
 // type, as ops.easu.bilinear's `tr - tl` runs on the alpha plane: rounded to
 // half or bfloat16; float32 and decoded bytes stay float32.

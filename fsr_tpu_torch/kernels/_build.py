@@ -134,6 +134,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "fsr_easu_h_strip"):
         lib.fsr_easu_h_strip.argtypes = list(lib.fsr_easu_h.argtypes)
         lib.fsr_easu_h_strip.restype = i
+    # K6 with the frame tail, whole frames and strips (sources before it
+    # have neither).
+    tail = [vp, vp, i, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, i, ll, vp, vp]
+    for name in ("fsr_easu_h_tail", "fsr_easu_h_tail_strip"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = tail
+            getattr(lib, name).restype = i
     # K6's reciprocal over every half pattern (a test entry; sources before
     # the paired K6 have none).
     if hasattr(lib, "fsr_easu_h_rcp_check"):

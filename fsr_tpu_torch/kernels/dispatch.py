@@ -8,14 +8,14 @@ take the byte source, a float16 source, the SRTM prologue, the K5 epilogue
 and the integer outputs, and RGB or RGBA, in one launch.  float16 math
 (``compute_dtype``) goes to K6 (``kernels/easu_h.py``) at any upscale: EASU
 "mixed" and FsrRcasH in one launch, RGB or RGBA, from a float16, float32,
-bfloat16 or uint8 source, storing float16.  The prologue, the epilogue and
-integer outputs run as the torch path's passes around K6
-(``_upscale_h``), as the JAX package runs them around its XLA float16
-path.  A row strip of a row-sharded frame (``parallel.spatial.Strip``)
-runs the strip form of the same kernels: K1's on shard-local constants at
-an exact-phase ratio, else K2's on the strip's row tables, K6's on those
-tables for float16 math.  This module owns the choice and the call, so
-``api.upscale`` stays device-agnostic.  A configuration no kernel takes (a
+bfloat16 or uint8 source, with the prologue, the epilogue and the uint8 or
+uint16 outputs inside the same launch (its tail forms), as the JAX package
+runs that chain inside one jitted XLA program.  A row strip of a
+row-sharded frame (``parallel.spatial.Strip``) runs the strip form of the
+same kernels: K1's on shard-local constants at an exact-phase ratio, else
+K2's on the strip's row tables, K6's on those tables for float16 math.
+This module owns the choice and the call, so ``api.upscale`` stays
+device-agnostic.  A configuration no kernel takes (a
 downscale, another dtype, a strip whose footprint does not fit) raises:
 the kernel path never falls back to plain torch on its own; ``supported``
 lets ``api.upscale(impl="auto")`` choose the torch path before any launch.
@@ -29,9 +29,6 @@ import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import easu_gather, easu_h, fused, halo
-from fsr_tpu_torch.kernels import epilogue as epilogue_mod
-from fsr_tpu_torch.ops import easu as easu_ops
-from fsr_tpu_torch.ops import extras
 
 __all__ = ["supported", "upscale_fused"]
 
@@ -43,7 +40,7 @@ def supported(image, out_size, con: EasuConstants, compute_dtype, out_dtype=None
     shape = tuple(image.shape)
     rows = None if strip is None else strip.rows
     if compute_dtype == torch.float16:
-        return easu_h.supported(shape, out_size, con, row_plan=rows)
+        return easu_h.supported(shape, out_size, con, row_plan=rows, out_dtype=out_dtype)
     if strip is not None and strip.local_con is not None:
         return fused.supported(shape, out_size, strip.local_con, compute_dtype, out_dtype)
     return (strip is None and fused.supported(shape, out_size, con, compute_dtype, out_dtype)) or \
@@ -90,7 +87,7 @@ def upscale_fused(
             return fused.upscale_fused(image, out_size, con, *args, **kw)
         return easu_gather.easu_gather(image, out_size, con, *args, **kw)
     if compute_dtype == torch.float16:
-        what = "the float16 kernel path (K6) takes RGB and RGBA upscales (1x to 4x area)"
+        what = "the float16 kernel path (K6) takes RGB and RGBA upscales (1x to 4x area) to float16/uint8/uint16"
     else:
         what = ("the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
                 "with float32/bfloat16/float16/uint8 sources and uint8/uint16 or storage-type outputs")
@@ -104,35 +101,11 @@ def upscale_fused(
 
 def _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, *, epilogue, frame, grain, prologue, out_dtype,
                dither_page, strip=None):
-    """float16 math: one K6 launch, which decodes a byte source and
-    resolves RGBA's alpha itself, when no option runs around it; else the
-    torch path's passes (``api._upscale``) around K6, in their order:
-    alpha's bilinear pass, the prologue, K6 on the colour, the epilogue,
-    the store, alpha stacked.  A row strip runs K6's strip form on its row
-    tables, and the passes on its halo'd rows (``halo.halo_rows_reference``
-    of a ``StripSource``), the dither at its global rows."""
-    rows = None if strip is None else strip.rows
-    if prologue == "none" and epilogue is None and out_dtype in (None, torch.float16):
-        src = image if isinstance(image, halo.StripSource) else image.contiguous()
-        return easu_h.easu_h(src, out_size, con, rcon, apply_rcas, denoise, row_plan=rows)
-    if isinstance(image, halo.StripSource):
-        image = halo.halo_rows_reference(image)
-    rgb, alpha = image, None
-    if image.shape[-3] == 4:
-        rgb, a_src = image[..., :3, :, :], image[..., 3:4, :, :]
-        if a_src.dtype == torch.uint8:
-            a_src = epilogue_mod.decode(a_src)
-        alpha = easu_ops.bilinear(a_src, out_size, con, rows=None if rows is None else (rows.rows[1][1:-1],
-                                                                                        rows.py[1:-1]))
-    if prologue == "srtm":
-        rgb = extras.srtm(epilogue_mod.decode(rgb) if rgb.dtype == torch.uint8 else rgb)
-    out = easu_h.easu_h(rgb.contiguous(), out_size, con, rcon, apply_rcas, denoise, row_plan=rows)
-    if epilogue is not None:
-        row0 = 0 if strip is None else strip.row0
-        args = epilogue_mod.bind(epilogue, tuple(out.shape[-2:]), frame, grain, dither_page, out.device, row0)
-        out = epilogue_mod.apply(out.to(torch.float32), args).to(out.dtype)
-    if out_dtype is not None:
-        out = epilogue_mod.store(out, out_dtype)
-    if alpha is not None:
-        out = torch.cat([out, epilogue_mod.store(alpha, out.dtype)], dim=-3)
-    return out
+    """float16 math: one K6 launch, with the prologue, the epilogue, the
+    store as ``out_dtype`` and RGBA's alpha inside; a row strip (a tensor
+    or a ``halo.StripSource``, read in place) one launch of K6's strip form
+    on its row tables, the dither at its global rows."""
+    src = image if isinstance(image, halo.StripSource) else image.contiguous()
+    return easu_h.easu_h(src, out_size, con, rcon, apply_rcas, denoise, row_plan=None if strip is None else strip.rows,
+                         prologue=prologue, epilogue=epilogue, frame=frame, grain=grain, dither_page=dither_page,
+                         out_dtype=out_dtype, row_offset=0 if strip is None else strip.row0)

@@ -144,9 +144,10 @@ class EpilogueArgs:
 
     frame: the TEPD hash's frame index (0 when unused), a host int or a 0-d
     int32 tensor on the output's device (``extras.frame_index``); grain: float32
-    (3, Hout, Wout) contiguous, or None; page: float32 (th, tw) contiguous
-    dither positions, or None for the hash; row0: the global output row of
-    the result's row 0 (a row strip's offset), for the dither positions.
+    (3, Hout, Wout) contiguous (``bind(grain_rows=True)``: its rows), or None;
+    page: float32 (th, tw) contiguous dither positions, or None for the hash;
+    row0: the global output row of the result's row 0 (a row strip's
+    offset), for the dither positions.
     """
 
     epi: Epilogue
@@ -157,10 +158,13 @@ class EpilogueArgs:
 
 
 def bind(epi: Optional[Epilogue], out_hw, frame=None, grain=None, dither_page=None,
-         device=None, row0: int = 0) -> Optional[EpilogueArgs]:
+         device=None, row0: int = 0, grain_rows: bool = False) -> Optional[EpilogueArgs]:
     """Validate an epilogue's operands for an (Hout, Wout) output on
     ``device`` whose row 0 is global output row ``row0``; None when there is
-    nothing to apply."""
+    nothing to apply.  grain_rows: a float32 grain whose rows are contiguous
+    (a row strip's rows of the whole frame's grain, a view) is kept as it
+    stands, for a kernel that reads it at its plane stride (K6's tail
+    forms); any other grain is made contiguous."""
     if epi is None:
         return None
     if not isinstance(epi, Epilogue):
@@ -172,7 +176,9 @@ def bind(epi: Optional[Epilogue], out_hw, frame=None, grain=None, dither_page=No
     if epi.needs_grain:
         if grain is None:
             raise ValueError("epilogue.grain_amount != 0 requires grain")
-        g = torch.as_tensor(grain, device=device).to(torch.float32).contiguous()
+        g = torch.as_tensor(grain, device=device).to(torch.float32)
+        if not (grain_rows and g.dim() == 3 and g.stride(-1) == 1 and g.stride(-2) == wout):
+            g = g.contiguous()
         if tuple(g.shape) != (3, hout, wout):
             raise ValueError(f"grain must be (3, {hout}, {wout}), got {tuple(g.shape)}")
     if epi.needs_dither_tex:

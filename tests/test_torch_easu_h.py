@@ -155,8 +155,8 @@ class _Calls:
                        frame=3))])
 def test_f16_kernel_call_reaches_k6_once(shape, kw, monkeypatch):
     """A float16 ``impl="kernel"`` call: one K6 call, no K1 or K2; with an
-    integer output, the prologue or the epilogue, those stay torch passes
-    around it (RGBA's alpha then too), bit-equal to the torch path."""
+    integer output, the prologue or the epilogue, those run inside that call
+    (RGBA's alpha too), bit-equal to the torch path."""
     x = torch.from_numpy(_img(12, shape))
     want = fsr_tpu_torch.upscale(x, compute_dtype=F16, impl="torch", **kw)
     calls = _Calls(monkeypatch)

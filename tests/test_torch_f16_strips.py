@@ -182,9 +182,9 @@ def test_k6_strips_from_every_source_type(kind, nc):
 
 def test_k6_strip_with_options_and_drs_equals_the_torch_path():
     """With the prologue, an epilogue (grain at the strip's rows, the dither
-    at its global rows) and a byte output, K6's strip form runs inside the
-    torch passes (``dispatch._upscale_h``), equal to the torch path's
-    strips; a DRS viewport's strips likewise."""
+    at its global rows) and a byte output, K6's strip form runs them inside
+    its call, equal to the torch path's strips; a DRS viewport's strips
+    likewise."""
     from fsr_tpu_torch.kernels.epilogue import Epilogue
 
     in_hw, out_hw = GEOMS["1.5x"]

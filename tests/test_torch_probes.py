@@ -329,9 +329,9 @@ def test_port_and_tools_leave_jax_out():
         "      len([m for m in sys.modules if m.startswith('examples_torch.')]), bad)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
-    # tools_torch.ablation and its nine tools (kernel_ab, headline_probe,
-    # fused_stage_ablation, gather_ablation, u8_writeback_ab and train_ab
-    # among them), tools_torch.quality_study and tools_torch.preset_bench;
-    # examples_torch's train_through_fsr, video_upscale,
-    # dataset_preprocessing, frame_graph and sample_app.
-    assert res.stdout.split(None, 2) == ["12", "5", "[]\n"]
+    # tools_torch.ablation and its ten tools (kernel_ab, headline_probe,
+    # fused_stage_ablation, gather_ablation, u8_writeback_ab, train_ab and
+    # f16_tail_ab among them), tools_torch.quality_study and
+    # tools_torch.preset_bench; examples_torch's train_through_fsr,
+    # video_upscale, dataset_preprocessing, frame_graph and sample_app.
+    assert res.stdout.split(None, 2) == ["13", "5", "[]\n"]

@@ -1,7 +1,7 @@
 """K1, K2, K3, K4 and K6 against a parent commit's on the H100, timed in turn.
 
     python3 tools_torch/ablation/kernel_ab.py [--parent DIR] [--source NAME=DIR ...]
-                                              [--define NAME=VALUE ...] [--sections k4,k2,k1,k3,k6]
+                                              [--define NAME=VALUE ...] [--sections k4,k2,k1,k3,k6,k6tail]
                                               [--build-times]
 
 Builds four kinds of kernel library, in parallel: this checkout's, the
@@ -34,7 +34,14 @@ strip-source form also on the strips read in place, in turn with the
 unsharded K6, every output bit-equal to this tree's unsharded K6; and this
 tree's K1 (Performance) and K2 (Quality, bfloat16 storage) strip forms on
 the float16 frames in turn with the same strips of the frames widened to
-float32, each bit-equal to its unsharded call.
+float32, each bit-equal to its unsharded call.  Then K6 with the frame tail
+(``k6tail``, the libraries that have its tail forms): the float16
+configurations (a16) HDR tail, (b16) display, (c16) bytes, (d16) RGBA
+display and (u16) gamma2 + 10-bit TEPD, each held to ``easu_h_reference``
+(at most 1e-4 of the values one step off) and timed in turn with each
+library's bare K6 on the same frames; the tail forms' ptxas lines (a
+float16 source with RCAS) and their instantiations with a stack frame or
+spills are printed after each library's.
 
 K1, at the Performance shapes (batch 4, 1080p -> 4K): Performance float32
 and bfloat16, the HDR tail (a) (SRTM prologue, grain, 10-bit dither), the
@@ -120,7 +127,10 @@ HALF2_OPS_PER_S = 134e12
 PTXAS_KERNELS = re.compile(r"edge_pad_kernel|gather_kernel(_strip)?I.*Lb1ELb0EL"
                            r"|fused_kernel(_strip)?IfffLb[01]ELb0ELb[01]EE|rcas_kernelI.*Lb0ELb0EE"
                            r"|easu_h_kernel(_strip)?I6__half")
-SECTIONS = ("k4", "k2", "k1", "k3", "k6")
+# K6's tail forms on a float16 source with RCAS and no denoise, every output
+# type, in both forms (printed apart: a parent from before them has none).
+TAIL_PTXAS = re.compile(r"easu_h_kernel(_strip)?_tailI6__halfLb1ELb0ELb[01]E")
+SECTIONS = ("k4", "k2", "k1", "k3", "k6", "k6tail")
 
 # The strip-source forms' SASS, beside the whole-frame kernels' (a parent
 # from before them has none).
@@ -148,8 +158,8 @@ def on(lib, fn):
     return run
 
 
-def ptxas_lines(build_dir: pathlib.Path) -> list:
-    """(entry, stack line, usage line) of PTXAS_KERNELS in a build's log."""
+def ptxas_lines(build_dir: pathlib.Path, kernels=PTXAS_KERNELS) -> list:
+    """(entry, stack line, usage line) of ``kernels`` in a build's log."""
     out, entry, stack = [], None, ""
     for line in (build_dir / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -158,7 +168,7 @@ def ptxas_lines(build_dir: pathlib.Path) -> list:
         elif entry and "stack frame" in line:
             stack = line.strip()
         elif entry and "Used" in line:
-            if PTXAS_KERNELS.search(entry):
+            if kernels.search(entry):
                 out.append(f"{entry}: {stack}; {line.split(':', 1)[1].strip()}")
             entry = None
     return out
@@ -404,6 +414,64 @@ def k6_section(libs, dev, gen, cname) -> bool:
     return f16_strips(libs, dev, gen, cname) and ok
 
 
+def k6_tail_section(libs, dev, gen, cname) -> bool:
+    """K6 with the frame tail (the libraries that have it) on the float16
+    configurations at batch 4 -> 4K: (a16) the HDR tail, (b16) the display
+    path, (c16) bytes, (d16) RGBA display, (u16) gamma2 + 10-bit TEPD into
+    UNORM10; each held to ``easu_h_reference`` (float16 values and codes
+    at most 1e-4 of them one step off), then timed in turn with every
+    library's bare K6 on the same frames.  Returns False when one
+    disagrees."""
+    from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
+
+    f16, u8, u16 = torch.float16, torch.uint8, torch.uint16
+    rcon = RcasConstants(0.25)
+    pcon = EasuConstants.create(PERF_IN[::-1], None, OUT4K[::-1])
+    qcon = EasuConstants.create(QUALITY_IN[::-1], None, OUT4K[::-1])
+    p = torch.rand((NFRAMES, 3, *PERF_IN), generator=gen, device=dev)
+    p16, p8 = p.to(f16), (p * 255).to(u8)
+    q8 = (torch.rand((NFRAMES, 3, *QUALITY_IN), generator=gen, device=dev) * 255).to(u8)
+    r8 = (torch.rand((NFRAMES, 4, *QUALITY_IN), generator=gen, device=dev) * 255).to(u8)
+    grain = torch.rand((3, *OUT4K), generator=gen, device=dev) - 0.5
+    display = dict(epilogue=Epilogue(grain_amount=0.25, dither_bits=8), grain=grain, frame=3, out_dtype=u8)
+    cases = [("(a16) HDR tail, f16 1080p", p16, pcon,
+              dict(prologue="srtm", epilogue=Epilogue(transform="srtm_inv", grain_amount=0.25), grain=grain)),
+             ("(b16) display, u8 1440p", q8, qcon, display), ("(c16) bytes, u8 1080p", p8, pcon, dict(out_dtype=u8)),
+             ("(d16) RGBA display, u8 1440p", r8, qcon, display),
+             ("(u16) gamma2 + TEPD10, f16 1080p", p16, pcon,
+              dict(epilogue=Epilogue(transform="gamma2", dither_bits=10), frame=3, out_dtype=u16))]
+    tails = {k: v for k, v in libs.items() if hasattr(v, "fsr_easu_h_tail")}
+    bare = {k: v for k, v in libs.items() if hasattr(v, "fsr_easu_h")}
+    ok = True
+    print(f"K6 with the frame tail, ms per 4K frame (batch {NFRAMES}), in turn with the bare K6 on the same frames, "
+          f"5 rounds, {QUEUE} calls queued per sample, on {cname}:")
+    for what, x, con, kw in cases:
+        want = easu_h.easu_h_reference(x, OUT4K, con, rcon, **kw)
+
+        def call(x=x, con=con, kw=kw):
+            return easu_h.easu_h(x, OUT4K, con, rcon, **kw)
+
+        for name, lib in tails.items():
+            got = on(lib, call)()
+            if got.dtype == f16:
+                d = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+            else:
+                d = (got.int() - want.int()).abs()
+            off, step = int((d > 0).sum()), int(d.max())
+            print(f"  {what}, {name} vs easu_h_reference: {off} of {d.numel()} values differ "
+                  f"(share {off / d.numel():.2e}), largest {step} step(s)")
+            ok = ok and off <= 1e-4 * d.numel() and step <= 1
+        del want
+        fns = {f"{name} with the tail": on(lib, call) for name, lib in tails.items()}
+        fns.update({f"{name} bare": on(lib, lambda x=x, con=con: easu_h.easu_h(x, OUT4K, con, rcon))
+                    for name, lib in bare.items()})
+        t = cuda_times_in_turn(fns, 5, queue=QUEUE)
+        print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items()) + "; "
+              + ", ".join(f"{k} / its bare {v / t[k.replace('with the tail', 'bare')]:.3f}" for k, v in t.items()
+                          if "with the tail" in k))
+    return ok
+
+
 def _four(x, halo):
     """Frames x in four row strips as ``parallel.spatial`` cuts them: (strip
     sources read in place from views of the frames, the halo'd strips)."""
@@ -536,10 +604,19 @@ def main() -> int:
         print(f"ptxas, {name} ({_build.build_dir(csrc, flags).name}):")
         for line in ptxas_lines(_build.build_dir(csrc, flags)):
             print("  " + line)
+        tails = ptxas_lines(_build.build_dir(csrc, flags), re.compile(r"easu_h_kernel(_strip)?_tailI"))
+        if tails:
+            spilled = [t for t in tails if not t.split(": ", 1)[1].startswith("0 bytes stack frame, 0 bytes spill")]
+            print(f"ptxas, {name}, K6's tail forms: {len(tails)} instantiations, {len(spilled)} with a stack frame or "
+                  "spills; on a float16 source with RCAS:")
+            for line in (t for t in tails if TAIL_PTXAS.search(t.split(":", 1)[0])):
+                print("  " + line)
+            for line in spilled:
+                print("  spilled: " + line)
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ok = k1_ok = k3_ok = k6_ok = True
+    ok = k1_ok = k3_ok = k6_ok = tail_ok = True
     if "k4" in sections:
         ok = k4_section(libs, dev, gen, cname)
     if "k2" in sections:
@@ -550,6 +627,8 @@ def main() -> int:
         k3_ok = k3_section(libs, dev, gen, cname)
     if "k6" in sections:
         k6_ok = k6_section(libs, dev, gen, cname)
+    if "k6tail" in sections:
+        tail_ok = k6_tail_section(libs, dev, gen, cname)
 
     for name, (csrc, flags) in builds.items():
         print(f"SASS (static), {name}:")
@@ -566,10 +645,11 @@ def main() -> int:
                       f"lanes, {lanes[k]['one lane']} on one")
     print(cname)
     for good, what in ((ok, "K4 disagrees with its plain version"), (k1_ok, "K1's quad and generic paths differ"),
-                       (k3_ok, "a K3 differs from this tree's"), (k6_ok, "a K6 is not bit-equal to its plain version")):
+                       (k3_ok, "a K3 differs from this tree's"), (k6_ok, "a K6 is not bit-equal to its plain version"),
+                       (tail_ok, "K6 with the frame tail disagrees with its plain version")):
         if not good:
             print(f"kernel_ab: {what}", file=sys.stderr)
-    return 0 if ok and k1_ok and k3_ok and k6_ok else 1
+    return 0 if ok and k1_ok and k3_ok and k6_ok and tail_ok else 1
 
 
 def k4_section(libs, dev, gen, cname) -> bool:
