@@ -567,28 +567,29 @@ def _back_to_back_ms(fn, n: int = 10) -> float:
     return start.elapsed_time(end) / n
 
 
-def _wrappers() -> dict:
-    """The kernel wrappers, each with its launch count."""
-    from fsr_tpu_torch.kernels import easu_gather, easu_h, fused, pad, probes
-    from fsr_tpu_torch.kernels import rcas as rcas_k
+# The kernels whose launches the checks count, as their ``fsr.launch``
+# spans name them (``fsr_tpu_torch/utils/profiling.py``).
+KERNELS = ("K4", "K1", "K2", "K3", "K6", "P1", "P2", "P3", "P4")
 
-    return {"K4": pad.edge_pad, "K1": fused.upscale_padded, "K2": easu_gather.easu_gather,
-            "K3": rcas_k.rcas_fused, "K6": easu_h.easu_h, "P1": probes.opmix_replay,
-            "P2": probes.opmix_replay_shared, "P3": probes.fma_rate, "P4": probes.fp16_probe}
+
+def _launches(rec, kernels=KERNELS) -> dict:
+    """{kernel: its launches} among the spans ``rec`` recorded."""
+    n = rec.launches()
+    return {k: n[k] for k in kernels}
 
 
 def _drive(fn, need):
-    """Run fn with every count at 0; fail unless each kernel in `need`
+    """Run fn with its spans recorded; fail unless each kernel in `need`
     launched exactly once (a dict: exactly need[k] times) and no other
     kernel launched.  Returns fn's result and the counts."""
-    wrappers = _wrappers()
+    from fsr_tpu_torch.utils import profiling
+
     want = need if isinstance(need, dict) else {k: 1 for k in need}
-    for w in wrappers.values():
-        w.launches = 0
-    out = fn()
+    with profiling.recording() as rec:
+        out = fn()
     torch.cuda.synchronize()
-    got = {k: w.launches for k, w in wrappers.items()}
-    if got != {k: want.get(k, 0) for k in wrappers}:
+    got = _launches(rec)
+    if got != {k: want.get(k, 0) for k in KERNELS}:
         raise AssertionError(f"launch counts {got}: the path must launch exactly {want}")
     return out, got
 
@@ -2786,18 +2787,23 @@ def _autodiff(dev, card: str, trace: bool) -> None:
     busy time, idle share and its largest kernels."""
     import fsr_tpu_torch as ft
     from examples_torch import train_through_fsr as trainer
+    from fsr_tpu_torch.utils import profiling
     from fsr_tpu_torch.utils.profiling import device_trace
 
     f32, bf16 = torch.float32, torch.bfloat16
-    wrappers = {k: w for k, w in _wrappers().items() if k in ("K1", "K2", "K3", "K4")}
+    wrappers = ("K1", "K2", "K3", "K4")
+    counting = contextlib.ExitStack()
+    rec = None
 
-    def reset():
-        for w in wrappers.values():
-            w.launches = 0
+    def reset():  # the launches from here on, recorded until counts()
+        nonlocal rec
+        counting.close()
+        rec = counting.enter_context(profiling.recording())
 
     def counts():
         torch.cuda.synchronize()
-        return {k: w.launches for k, w in wrappers.items()}
+        counting.close()
+        return _launches(rec, wrappers)
 
     def grad(fn, x0, square, impl):
         x = x0.clone().requires_grad_()
@@ -3663,6 +3669,7 @@ def main() -> int:
     from fsr_tpu_torch.kernels import _build, easu_gather, fused, pad
     from fsr_tpu_torch.kernels import rcas as rcas_k
     from fsr_tpu_torch.reference import scalar as ref
+    from fsr_tpu_torch.utils import profiling
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, cuda_times_in_turn, device_trace
 
     dev = torch.device("cuda:0")
@@ -3724,7 +3731,8 @@ def main() -> int:
     # the source shift every value; 3 and 4 planes.
     k4_cases += [((2, 3 + r % 2, 5, 32 + r - r % 5 - r % 3), (1, 2, r % 5, r % 3)) for r in range(16)]
     checks = 0
-    pad.edge_pad.launches = 0  # K4's launches in the kernels line: this phase's
+    counting = contextlib.ExitStack()  # K4's launches in the kernels line: this phase's
+    rec = counting.enter_context(profiling.recording())
     for shape, pads in [(MAIN_SHAPE, main_plan.pads)] + k4_cases:
         x32 = rand(shape)
         srcs = {f32: x32, bf16: x32.to(bf16), u8: (x32 * 255).to(u8)}
@@ -3744,7 +3752,8 @@ def main() -> int:
             k4_err = max(k4_err, (got.float() - want.float()).abs().max().item())
             checks += 1
         print(f"  {tuple(shape)} pads {pads}: bit-equal")
-    k4_launches = pad.edge_pad.launches
+    counting.close()
+    k4_launches = _launches(rec, ("K4",))["K4"]
     print(f"  {checks} pads ({len(k4_cases) + 1} shapes x {', '.join(f'{a}->{b}' for a, b in pairs)}) bit-equal "
           f"to the plain version; the same-type pads also to F.pad; {k4_launches} K4 launches")
 

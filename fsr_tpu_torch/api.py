@@ -34,6 +34,7 @@ from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.ops import easu as easu_ops
 from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops import rcas as rcas_ops
+from fsr_tpu_torch.utils import profiling
 
 __all__ = ["upscale", "sharpen", "UpscalePipeline"]
 
@@ -158,29 +159,31 @@ def upscale(
     Returns the upscaled image in out_dtype (default compute_dtype), in the
     input's layout.
     """
-    if layout == "HWC":
-        image = image.movedim(-1, -3)
-    elif layout != "CHW":
-        raise ValueError(f"unknown layout {layout!r}")
-    _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl)
-    if grain_planar is not None:
-        raise ValueError("grain_planar is the TPU kernel's grain layout; pass grain=(3, Hout, Wout)")
+    with profiling.trace_annotation("fsr.api"):
+        if layout == "HWC":
+            image = image.movedim(-1, -3)
+        elif layout != "CHW":
+            raise ValueError(f"unknown layout {layout!r}")
+        _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl)
+        if grain_planar is not None:
+            raise ValueError("grain_planar is the TPU kernel's grain layout; pass grain=(3, Hout, Wout)")
 
-    hin, win = image.shape[-2:]
-    vp = input_viewport if input_viewport is not None else (hin, win)
-    out_hw = _resolve_out_size(vp, out_size, scale, preset)
-    con = EasuConstants.create(
-        input_viewport_in_pixels=(vp[1], vp[0]),
-        input_size_in_pixels=(win, hin),
-        output_size_in_pixels=(out_hw[1], out_hw[0]),
-        input_offset_in_pixels=(input_offset[1], input_offset[0]),
-    )
-    out = _upscale(image, out_hw, con, RcasConstants(sharpness_stops=float(sharpness)), apply_rcas=apply_rcas,
-                   denoise=denoise, compute_dtype=compute_dtype, impl=impl, epilogue=epilogue, frame=frame,
-                   grain=grain, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
-    if layout == "HWC":
-        out = out.movedim(-3, -1)
-    return out
+        hin, win = image.shape[-2:]
+        vp = input_viewport if input_viewport is not None else (hin, win)
+        out_hw = _resolve_out_size(vp, out_size, scale, preset)
+        con = EasuConstants.create(
+            input_viewport_in_pixels=(vp[1], vp[0]),
+            input_size_in_pixels=(win, hin),
+            output_size_in_pixels=(out_hw[1], out_hw[0]),
+            input_offset_in_pixels=(input_offset[1], input_offset[0]),
+        )
+        profiling.count("plans_built", 2)  # the EASU constants above, the RCAS constants below
+        out = _upscale(image, out_hw, con, RcasConstants(sharpness_stops=float(sharpness)), apply_rcas=apply_rcas,
+                       denoise=denoise, compute_dtype=compute_dtype, impl=impl, epilogue=epilogue, frame=frame,
+                       grain=grain, prologue=prologue, out_dtype=out_dtype, dither_page=dither_page)
+        if layout == "HWC":
+            out = out.movedim(-3, -1)
+        return out
 
 
 def _check_args(image, compute_dtype, out_dtype, epilogue, prologue, impl):

@@ -9,7 +9,8 @@ checkout builds everything the first time a kernel launches and reuses the
 library afterwards.  A failed build raises with the compiler's output.
 ``load`` builds another source directory or with more flags the same way
 (the measurement tools build a parent commit's kernels and variants beside
-these); ``library`` is the package's own.
+these); ``library`` is the package's own, loaded once per process under the
+set-up span ``fsr.library``.
 
 The ablation tools build variants with one ``-D`` macro of
 ``ABLATION_MACROS`` each: a stage of K1 or K2 knocked out, the output wrong
@@ -33,6 +34,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+from fsr_tpu_torch.utils import profiling
 
 __all__ = ["library", "load", "library_path", "build_dir", "cuda_tool", "ablation_mask", "source_seconds",
            "NVCC_FLAGS", "ABLATION_MACROS", "SECONDS_LINE"]
@@ -229,5 +232,8 @@ def ablation_mask(lib: ctypes.CDLL) -> frozenset:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from the package's sources on
-    first call."""
-    return load()
+    first call; recorded as the set-up span ``fsr.library`` with the count
+    ``built`` (1 where this call built it, ``utils/profiling.py``)."""
+    with profiling.trace_annotation("fsr.library", always=True) as span:
+        span.args = {"built": int(not library_path().exists())}
+        return load()

@@ -29,6 +29,7 @@ import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import easu_gather, easu_h, fused, halo
+from fsr_tpu_torch.utils import profiling
 
 __all__ = ["supported", "upscale_fused"]
 
@@ -37,6 +38,12 @@ def supported(image, out_size, con: EasuConstants, compute_dtype, out_dtype=None
     """True when the kernel path (K1 or K2; K6 for float16 math) takes this
     configuration; for a row strip (``strip``, ``image`` its halo'd rows)
     when the strip form of its kernel takes the strip's plan."""
+    with profiling.trace_annotation("fsr.dispatch"):
+        return _supported(image, out_size, con, compute_dtype, out_dtype, strip)
+
+
+def _supported(image, out_size, con, compute_dtype, out_dtype, strip) -> bool:
+    """``supported`` inside this module, in its callers' spans."""
     shape = tuple(image.shape)
     rows = None if strip is None else strip.rows
     if compute_dtype == torch.float16:
@@ -70,33 +77,34 @@ def upscale_fused(
     (a tensor or a ``halo.StripSource``) and ``out_size`` its output rows:
     the strip forms, the epilogue at the strip's global rows (``grain`` its
     rows).  A configuration no kernel takes raises, naming impl='torch'."""
-    shape = tuple(image.shape)
-    kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
-              out_dtype=out_dtype, dither_page=dither_page)
-    if supported(image, out_size, con, compute_dtype, out_dtype, strip):
+    with profiling.trace_annotation("fsr.dispatch"):
+        shape = tuple(image.shape)
+        kw = dict(epilogue=epilogue, frame=frame, grain=grain, prologue=prologue,
+                  out_dtype=out_dtype, dither_page=dither_page)
+        if _supported(image, out_size, con, compute_dtype, out_dtype, strip):
+            if compute_dtype == torch.float16:
+                return _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, strip=strip, **kw)
+            args = (rcon, apply_rcas, denoise, compute_dtype)
+            if strip is not None and strip.local_con is not None:
+                return fused.upscale_fused(image, out_size, strip.local_con, *args, row_offset=strip.row0,
+                                           global_rows=strip.global_rows, **kw)
+            if strip is not None:
+                return easu_gather.easu_gather(image, out_size, con, *args, row_plan=strip.rows, row_offset=strip.row0,
+                                               **kw)
+            if fused.supported(shape, out_size, con, compute_dtype, out_dtype):
+                return fused.upscale_fused(image, out_size, con, *args, **kw)
+            return easu_gather.easu_gather(image, out_size, con, *args, **kw)
         if compute_dtype == torch.float16:
-            return _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, strip=strip, **kw)
-        args = (rcon, apply_rcas, denoise, compute_dtype)
-        if strip is not None and strip.local_con is not None:
-            return fused.upscale_fused(image, out_size, strip.local_con, *args, row_offset=strip.row0,
-                                       global_rows=strip.global_rows, **kw)
+            what = "the float16 kernel path (K6) takes RGB and RGBA upscales (1x to 4x area) to float16/uint8/uint16"
+        else:
+            what = ("the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
+                    "with float32/bfloat16/float16/uint8 sources and uint8/uint16 or storage-type outputs")
         if strip is not None:
-            return easu_gather.easu_gather(image, out_size, con, *args, row_plan=strip.rows, row_offset=strip.row0,
-                                           **kw)
-        if fused.supported(shape, out_size, con, compute_dtype, out_dtype):
-            return fused.upscale_fused(image, out_size, con, *args, **kw)
-        return easu_gather.easu_gather(image, out_size, con, *args, **kw)
-    if compute_dtype == torch.float16:
-        what = "the float16 kernel path (K6) takes RGB and RGBA upscales (1x to 4x area) to float16/uint8/uint16"
-    else:
-        what = ("the kernel path takes RGB and RGBA upscales (1x to 4x area) in float32/bfloat16 storage "
-                "with float32/bfloat16/float16/uint8 sources and uint8/uint16 or storage-type outputs")
-    if strip is not None:
-        what += f", a row strip where its blocks can stage the strip's footprint (strip at row {strip.row0})"
-    raise NotImplementedError(
-        f"{what}; got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
-        "Pass impl='torch' for the plain-torch path."
-    )
+            what += f", a row strip where its blocks can stage the strip's footprint (strip at row {strip.row0})"
+        raise NotImplementedError(
+            f"{what}; got in={shape} out={tuple(out_size)} dtype={compute_dtype} out_dtype={out_dtype}. "
+            "Pass impl='torch' for the plain-torch path."
+        )
 
 
 def _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, *, epilogue, frame, grain, prologue, out_dtype,
@@ -105,7 +113,9 @@ def _upscale_h(image, out_size, con, rcon, apply_rcas, denoise, *, epilogue, fra
     store as ``out_dtype`` and RGBA's alpha inside; a row strip (a tensor
     or a ``halo.StripSource``, read in place) one launch of K6's strip form
     on its row tables, the dither at its global rows."""
-    src = image if isinstance(image, halo.StripSource) else image.contiguous()
-    return easu_h.easu_h(src, out_size, con, rcon, apply_rcas, denoise, row_plan=None if strip is None else strip.rows,
-                         prologue=prologue, epilogue=epilogue, frame=frame, grain=grain, dither_page=dither_page,
-                         out_dtype=out_dtype, row_offset=0 if strip is None else strip.row0)
+    with profiling.trace_annotation("fsr.dispatch"):
+        src = image if isinstance(image, halo.StripSource) else image.contiguous()
+        return easu_h.easu_h(src, out_size, con, rcon, apply_rcas, denoise,
+                             row_plan=None if strip is None else strip.rows, prologue=prologue, epilogue=epilogue,
+                             frame=frame, grain=grain, dither_page=dither_page, out_dtype=out_dtype,
+                             row_offset=0 if strip is None else strip.row0)

@@ -11,9 +11,10 @@ same for rows, for output rows -1 .. Hout (the RCAS ring's; a row outside
 the frame repeats its edge row).  The clip is the CLAMP sampler that ``ops.easu`` applies, so
 the kernel reads the unpadded source (no K4 pass in front of it), and the
 device never recomputes a coordinate.  ``easu_gather`` launches
-``csrc/easu_gather.cu`` for a CUDA tensor and counts the launch in
-``easu_gather.launches`` (under CUDA graph capture at capture: a replay
-counts nothing); for a CPU tensor it runs ``easu_gather_reference``.
+``csrc/easu_gather.cu`` for a CUDA tensor and records the launch as an
+``fsr.launch`` span labelled ``kernel="K2"`` (``utils/profiling.py``;
+under CUDA graph capture at capture: a replay records none); for a CPU
+tensor it runs ``easu_gather_reference``.
 
 Each block of the kernel stages its source footprint in shared memory: the
 rectangle of texels its TILE output pixels and their RCAS ring read, which
@@ -62,7 +63,7 @@ from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import fused, halo, pad
 from fsr_tpu_torch.ops.easu import easu_coords
-from fsr_tpu_torch.utils import capture
+from fsr_tpu_torch.utils import capture, profiling
 
 __all__ = ["supported", "GatherPlan", "plan", "plan_fits", "shard_rows", "shard_plan", "Footprint", "footprint",
            "easu_gather", "easu_gather_reference", "TILE", "FOOTPRINT_MAX"]
@@ -130,6 +131,7 @@ _D = np.arange(-1, 3, dtype=np.int64)[:, None]  # tap offsets around 'f'
 def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) -> GatherPlan:
     """The tables for an (Hin, Win) -> out_size upscale under ``con``; cached
     per configuration, so both size arguments must be int tuples."""
+    profiling.count("plans_built")
     hin, win = in_hw
     fx, fy, px, py = easu_coords(con, out_size)
     idx = np.clip(np.arange(-1, out_size[0] + 1), 0, out_size[0] - 1)
@@ -165,6 +167,7 @@ def shard_plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConst
     the rows of ``shard_rows`` (taps -1..2 around each; the halo rows, which
     the caller edge-replicates at the frame's top and bottom, are the
     CLAMP) and the whole frame's columns; cached per strip."""
+    profiling.count("plans_built")
     base, py = shard_rows(in_hw, out_size, con, n, k, halo)
     full = plan(in_hw, out_size, con)
     rows = (base.astype(np.int64)[None, :] + _D).astype(np.int32)
@@ -199,6 +202,7 @@ def footprint(gplan: GatherPlan) -> Footprint:
     tap, columns likewise; ring rows clamped to the tables' -1..Hout, ring
     columns to the image.  The tables are non-decreasing, so the rule bounds
     every tap; ``fits`` checks that it does and that the rectangle fits."""
+    profiling.count("plans_built")
     hout, wout = gplan.rows.shape[1] - 2, gplan.cols.shape[1]
     rows = _ring(hout, TILE[0], -1, hout) + 1  # row tables start at output row -1
     cols = _ring(wout, TILE[1], 0, wout - 1)
@@ -216,6 +220,7 @@ def footprint(gplan: GatherPlan) -> Footprint:
 def _device_tables(gplan: GatherPlan, device: torch.device):
     """The plan's tables on ``device`` (copied once per plan and device; a
     captured graph holds them, ``capture.keep``)."""
+    profiling.count("plans_built")
     return tuple(torch.as_tensor(a, device=device) for a in (gplan.rows, gplan.cols, gplan.py, gplan.px))
 
 
@@ -341,18 +346,15 @@ def easu_gather(
         entry, first = lib.fsr_easu_gather, image.data_ptr()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = entry(
-            first, out.data_ptr(), pad.DTYPE_CODES[image.dtype],
-            pad.DTYPE_CODES[compute_dtype], pad.DTYPE_CODES[out_dt],
-            math.prod(lead), nc, hin, win, hout, wout,
-            rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
-            sharp, int(apply_rcas), int(denoise), int(prologue == "srtm"),
-            ctypes.addressof(cepi), stream,
-        )
+        with profiling.trace_annotation("fsr.launch", "kernel", "K2"):
+            err = entry(
+                first, out.data_ptr(), pad.DTYPE_CODES[image.dtype],
+                pad.DTYPE_CODES[compute_dtype], pad.DTYPE_CODES[out_dt],
+                math.prod(lead), nc, hin, win, hout, wout,
+                rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
+                sharp, int(apply_rcas), int(denoise), int(prologue == "srtm"),
+                ctypes.addressof(cepi), stream,
+            )
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: cudaError {err}")
-    easu_gather.launches += 1
     return out
-
-
-easu_gather.launches = 0

@@ -49,9 +49,10 @@ source footprint by K2's rule (``easu_gather.footprint``) for its own tile,
 Each block computes the quadrant responses of the direction estimate once
 per texel and runs its pixels two a thread in half2; the arithmetic, and so
 every bit, is the plain version's.
-``easu_h`` launches ``csrc/easu_h.cu`` for a CUDA tensor and counts the
-launch in ``easu_h.launches`` (under CUDA graph capture at capture); for a
-CPU tensor it runs ``easu_h_reference``, which calls the same ops.
+``easu_h`` launches ``csrc/easu_h.cu`` for a CUDA tensor and records the
+launch as an ``fsr.launch`` span labelled ``kernel="K6"``
+(``utils/profiling.py``; under CUDA graph capture at capture); for a CPU
+tensor it runs ``easu_h_reference``, which calls the same ops.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ from fsr_tpu_torch.kernels import pad
 from fsr_tpu_torch.ops import easu as easu_ops
 from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops import rcas as rcas_ops
-from fsr_tpu_torch.utils import capture
+from fsr_tpu_torch.utils import capture, profiling
 
 __all__ = ["supported", "easu_h", "easu_h_reference", "TILE"]
 
@@ -234,15 +235,13 @@ def easu_h(
             cepi = epilogue_mod.c_params(args)
             entry = lib.fsr_easu_h_tail_strip if strip else lib.fsr_easu_h_tail
             gplane = args.grain.stride(0) if args is not None and args.grain is not None else 0
-            err = entry(first, out.data_ptr(), src_code, pad.DTYPE_CODES[out_dt], math.prod(lead), nc, *tables,
-                        int(prologue == "srtm"), gplane, ctypes.addressof(cepi), stream)
+            with profiling.trace_annotation("fsr.launch", "kernel", "K6"):
+                err = entry(first, out.data_ptr(), src_code, pad.DTYPE_CODES[out_dt], math.prod(lead), nc, *tables,
+                            int(prologue == "srtm"), gplane, ctypes.addressof(cepi), stream)
         else:
             entry = lib.fsr_easu_h_strip if strip else lib.fsr_easu_h
-            err = entry(first, out.data_ptr(), src_code, math.prod(lead), nc, *tables, stream)
+            with profiling.trace_annotation("fsr.launch", "kernel", "K6"):
+                err = entry(first, out.data_ptr(), src_code, math.prod(lead), nc, *tables, stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: cudaError {err}")
-    easu_h.launches += 1
     return out
-
-
-easu_h.launches = 0

@@ -16,10 +16,10 @@ thread per 2x2 quad of outputs that share one 'f' texel; every other phase
 structure runs its generic staged path (``path="generic"`` forces it).
 ``upscale_padded`` runs the same kernel on a source that K4 already padded
 (the clamp never fires there; the measurement tools use it).  Every K1
-launch, from either entry point, is counted in ``upscale_padded.launches``
-when the wrapper launches it: under CUDA graph capture (``utils/capture.py``)
-that is at capture, and a replay counts nothing (read its launches from a
-trace).
+launch, from either entry point, records an ``fsr.launch`` span labelled
+``kernel="K1"`` (``utils/profiling.py``) when the wrapper launches it:
+under CUDA graph capture (``utils/capture.py``) that is at capture, and a
+replay records none (read its launches from a trace).
 The math is float32 throughout; bfloat16 is storage only (a float32 source
 under bfloat16 storage rounds at its load, as K4's convert did).  A float16
 image (``SOURCE_DTYPES``) widens exactly at its load, or rounds there to
@@ -71,6 +71,7 @@ from fsr_tpu_torch.kernels import halo, pad
 from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops.easu import easu_coords
 from fsr_tpu_torch.ops.rcas import shift_clamped
+from fsr_tpu_torch.utils import profiling
 
 __all__ = [
     "supported",
@@ -108,6 +109,7 @@ def _phase_structure(con: EasuConstants, out_size: Tuple[int, int]):
     JAX package's trace-time check runs once per compiled shape, so
     ``out_size`` must be a hashable (hout, wout) tuple.
     """
+    profiling.count("plans_built")
     hout, wout = out_size
     fx, fy, px, py = easu_coords(con, out_size)
 
@@ -192,6 +194,7 @@ def plan(in_hw: Tuple[int, int], out_size: Tuple[int, int], con: EasuConstants) 
     if st is None:
         raise ValueError("unsupported scale for the fused kernel (use impl='torch')")
     qy, qx, ry, rx, py, px = st
+    profiling.count("plans_built")
     hin, win = in_hw
     hpl, wpl = out_size[0] // qy, out_size[1] // qx
     pt = max(0, 2 - min(ry))
@@ -383,6 +386,7 @@ def source_plan(fplan: FusedPlan) -> FusedPlan:
     """The plan with its 'f' offsets in the unpadded source (the padded
     offsets less the leading pads; they may be negative) and no pads: what
     K1 takes on the image itself, every texel index clamped to it."""
+    profiling.count("plans_built")
     pt, _, pl, _ = fplan.pads
     return dataclasses.replace(fplan, ry=tuple(r - pt for r in fplan.ry), rx=tuple(r - pl for r in fplan.rx),
                                pads=(0, 0, 0, 0))
@@ -464,14 +468,14 @@ def _launch(src, fplan, dtype, out_size, sharpness, apply_rcas, denoise, prologu
         entry, first = lib.fsr_upscale_fused, src.data_ptr()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = entry(
-            first, out.data_ptr(), codes[src.dtype], codes[dtype], codes[out_dtype], nb, nc, hin, win,
-            hout, wout, fplan.qy, fplan.qx, ry, rx, py, px, float(sharpness), int(apply_rcas), int(denoise),
-            int(prologue == "srtm"), ylo, yhi, int(path == "quad"), ctypes.addressof(cepi), stream,
-        )
+        with profiling.trace_annotation("fsr.launch", "kernel", "K1"):
+            err = entry(
+                first, out.data_ptr(), codes[src.dtype], codes[dtype], codes[out_dtype], nb, nc, hin, win,
+                hout, wout, fplan.qy, fplan.qx, ry, rx, py, px, float(sharpness), int(apply_rcas), int(denoise),
+                int(prologue == "srtm"), ylo, yhi, int(path == "quad"), ctypes.addressof(cepi), stream,
+            )
     if err != 0:
         raise RuntimeError(f"fused kernel launch failed: cudaError {err}")
-    upscale_padded.launches += 1
     return out
 
 
@@ -495,9 +499,9 @@ def upscale_padded(
     is rows ``row_offset`` .. of a ``global_rows``-row frame (default: the
     whole frame).  CUDA tensors launch ``csrc/fused.cu`` (``path``: "auto",
     the quad path where ``quad_ok``, or "generic"); CPU tensors run
-    ``upscale_padded_reference``.
-    ``upscale_padded.launches`` counts every K1 launch the wrapper makes
-    (a captured graph's at capture, none at its replays)."""
+    ``upscale_padded_reference``.  Each K1 launch records an
+    ``fsr.launch`` span (a captured graph's at capture, none at its
+    replays)."""
     if padded.device.type == "cpu":
         return upscale_padded_reference(padded, fplan, out_size, sharpness, apply_rcas, denoise,
                                         prologue=prologue, epi=epi, out_dtype=out_dtype,
@@ -513,8 +517,6 @@ def upscale_padded(
     return _launch(padded, fplan, dtype, (hout, wout), sharpness, apply_rcas, denoise, prologue, epi, out_dtype,
                    row_offset, global_rows, path)
 
-
-upscale_padded.launches = 0
 
 
 def _covers(q, r, lo, hi, n) -> bool:

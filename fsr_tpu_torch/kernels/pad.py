@@ -6,8 +6,9 @@ one (it clamps each staged texel's index, which is this pad folded into
 its loads); ``fused.upscale_padded`` and the measurement tools still run K1
 on a copy this makes.
 
-``edge_pad`` launches ``csrc/edge_pad.cu`` for a CUDA tensor and counts the
-launch in ``edge_pad.launches``; for a CPU tensor it runs the plain version
+``edge_pad`` launches ``csrc/edge_pad.cu`` for a CUDA tensor and records
+the launch as an ``fsr.launch`` span labelled ``kernel="K4"``
+(``utils/profiling.py``); for a CPU tensor it runs the plain version
 ``edge_pad_reference``.  The kernel's source note says what bounds it.  A
 uint8 image pads as bytes (uint8 to uint8), as the JAX package pads a byte
 source for its fused kernel (fused.py:583-592); K1 decodes at its loads.
@@ -20,6 +21,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from fsr_tpu_torch.utils import profiling
 
 __all__ = ["edge_pad", "edge_pad_reference"]
 
@@ -71,14 +74,11 @@ def edge_pad(image: torch.Tensor, pads: Tuple[int, int, int, int], out_dtype) ->
     lib = _build.library()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.fsr_edge_pad(
-            image.data_ptr(), out.data_ptr(), DTYPE_CODES[image.dtype], DTYPE_CODES[out_dtype],
-            image.numel() // (h * w), h, w, pt, pb, pl, pr, stream,
-        )
+        with profiling.trace_annotation("fsr.launch", "kernel", "K4"):
+            err = lib.fsr_edge_pad(
+                image.data_ptr(), out.data_ptr(), DTYPE_CODES[image.dtype], DTYPE_CODES[out_dtype],
+                image.numel() // (h * w), h, w, pt, pb, pl, pr, stream,
+            )
     if err != 0:
         raise RuntimeError(f"edge_pad kernel launch failed: cudaError {err}")
-    edge_pad.launches += 1
     return out
-
-
-edge_pad.launches = 0

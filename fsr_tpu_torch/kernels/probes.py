@@ -14,8 +14,9 @@ what its TPU tool measures:
 - ``fp16_probe`` (P4, ``tools/ablation/fp16_probe.py``): float16 load,
   FMA chain and store.
 
-Each wrapper launches its kernel for a CUDA tensor (and counts the launch
-in ``.launches``) or raises; a CPU tensor runs the plain version:
+Each wrapper launches its kernel for a CUDA tensor (and records the launch
+as an ``fsr.launch`` span labelled ``kernel`` "P1" to "P4",
+``utils/profiling.py``) or raises; a CPU tensor runs the plain version:
 ``fused.upscale_padded_reference`` for P1 and P2 (every block computes the
 one tile K1 computes for the tiny frame), the recurrence in torch for P3,
 the three modes in torch for P4 (float16 arithmetic as the float32 result
@@ -32,6 +33,7 @@ import torch
 
 from fsr_tpu_torch.kernels import fused
 from fsr_tpu_torch.kernels import pad
+from fsr_tpu_torch.utils import profiling
 
 __all__ = [
     "TILE",
@@ -126,9 +128,11 @@ def _replay(operand, fplan, sharp, rcas, grid, shared, what):
     with torch.cuda.device(operand.device):
         if shared:
             win = (ctypes.c_int * 4)(*window(fplan))
-            err = lib.fsr_opmix_replay_shared(*head, win, *grid, _stream(operand))
+            with profiling.trace_annotation("fsr.launch", "kernel", "P2"):
+                err = lib.fsr_opmix_replay_shared(*head, win, *grid, _stream(operand))
         else:
-            err = lib.fsr_opmix_replay(*head, int(rcas), *grid, _stream(operand))
+            with profiling.trace_annotation("fsr.launch", "kernel", "P1"):
+                err = lib.fsr_opmix_replay(*head, int(rcas), *grid, _stream(operand))
     _check_err(err, what)
     return out
 
@@ -140,10 +144,7 @@ def opmix_replay(operand: torch.Tensor, fplan: fused.FusedPlan, sharp: float, rc
     (3, Hp, Wp) float32 source of a one-tile frame, ``fplan`` its K1 plan)
     held in shared memory.  Returns the (3, 16, 32) float32 tile, EASU+RCAS
     (``rcas=False``: EASU only), as block (0, 0, 0) stores it."""
-    out = _replay(operand, fplan, sharp, rcas, grid, False, "opmix_replay")
-    if operand.device.type == "cuda":
-        opmix_replay.launches += 1
-    return out
+    return _replay(operand, fplan, sharp, rcas, grid, False, "opmix_replay")
 
 
 def opmix_replay_shared(operand: torch.Tensor, fplan: fused.FusedPlan, sharp: float,
@@ -151,14 +152,7 @@ def opmix_replay_shared(operand: torch.Tensor, fplan: fused.FusedPlan, sharp: fl
     """P2: as ``opmix_replay`` with RCAS, with the luma and the texel
     responses computed once per texel of the block's source window
     (``window``) in shared memory: the fewest operations of K1's math."""
-    out = _replay(operand, fplan, sharp, True, grid, True, "opmix_replay_shared")
-    if operand.device.type == "cuda":
-        opmix_replay_shared.launches += 1
-    return out
-
-
-opmix_replay.launches = 0
-opmix_replay_shared.launches = 0
+    return _replay(operand, fplan, sharp, True, grid, True, "opmix_replay_shared")
 
 
 def fma_rate_reference(x: torch.Tensor, dtype=torch.float32, chains: int = 4) -> torch.Tensor:
@@ -216,15 +210,12 @@ def fma_rate(x: torch.Tensor, dtype=torch.float32, chains: int = 4, reps: int = 
     if n >= 2 ** 31:
         raise ValueError("fma_rate takes fewer than 2**31 elements")
     scales = (ctypes.c_float * 8)(*FMA_SCALES)
-    with torch.cuda.device(x.device):
-        err = _library().fsr_fma_rate(xs.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[dtype], n, chains,
-                                      reps, FMA_MULTIPLIER, scales, _stream(x))
+    lib = _library()
+    with torch.cuda.device(x.device), profiling.trace_annotation("fsr.launch", "kernel", "P3"):
+        err = lib.fsr_fma_rate(xs.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[dtype], n, chains, reps,
+                               FMA_MULTIPLIER, scales, _stream(x))
     _check_err(err, "fma_rate")
-    fma_rate.launches += 1
     return out
-
-
-fma_rate.launches = 0
 
 FP16_MODES = ("f16 load -> f32 x 2", "f16 FMA chain -> f32", "f32 x 0.5 -> f16 store")
 
@@ -257,11 +248,8 @@ def fp16_probe(x: torch.Tensor, mode: int) -> torch.Tensor:
     if not cuda:
         return fp16_probe_reference(x, mode)
     out = torch.empty(x.shape, dtype=torch.float16 if mode == 2 else torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().fsr_fp16_probe(x.data_ptr(), out.data_ptr(), x.numel(), mode, _stream(x))
+    lib = _library()
+    with torch.cuda.device(x.device), profiling.trace_annotation("fsr.launch", "kernel", "P4"):
+        err = lib.fsr_fp16_probe(x.data_ptr(), out.data_ptr(), x.numel(), mode, _stream(x))
     _check_err(err, "fp16_probe")
-    fp16_probe.launches += 1
     return out
-
-
-fp16_probe.launches = 0

@@ -15,9 +15,10 @@ A uint8 image sharpens byte in, byte out, whatever ``compute_dtype`` says
 (``fsr_tpu/kernels/rcas_pallas.py:64-73``): decoded v * float32(1/255) at
 load, float32 math, UNORM8 codes at the store.
 
-``rcas_fused`` launches ``csrc/rcas.cu`` for a CUDA tensor and counts the
-launch in ``rcas_fused.launches`` (under CUDA graph capture at capture: a
-replay counts nothing); for a CPU tensor it runs ``rcas_fused_reference``.
+``rcas_fused`` launches ``csrc/rcas.cu`` for a CUDA tensor and records the
+launch as an ``fsr.launch`` span labelled ``kernel="K3"``
+(``utils/profiling.py``; under CUDA graph capture at capture: a replay
+records none); for a CPU tensor it runs ``rcas_fused_reference``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from fsr_tpu_torch.core.constants import RcasConstants
 from fsr_tpu_torch.kernels import epilogue as epilogue_mod
 from fsr_tpu_torch.kernels import pad
 from fsr_tpu_torch.ops.rcas import shift_clamped
+from fsr_tpu_torch.utils import profiling
 
 __all__ = ["rcas_fused", "rcas_fused_reference"]
 
@@ -102,15 +104,12 @@ def rcas_fused(
     lib = _build.library()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.fsr_rcas(
-            image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype], pad.DTYPE_CODES[dt],
-            image.numel() // (3 * h * w), h, w, float(rcon.sharpness), int(border == "zero"),
-            int(denoise), stream,
-        )
+        with profiling.trace_annotation("fsr.launch", "kernel", "K3"):
+            err = lib.fsr_rcas(
+                image.data_ptr(), out.data_ptr(), pad.DTYPE_CODES[image.dtype], pad.DTYPE_CODES[dt],
+                image.numel() // (3 * h * w), h, w, float(rcon.sharpness), int(border == "zero"),
+                int(denoise), stream,
+            )
     if err != 0:
         raise RuntimeError(f"RCAS kernel launch failed: cudaError {err}")
-    rcas_fused.launches += 1
     return out
-
-
-rcas_fused.launches = 0

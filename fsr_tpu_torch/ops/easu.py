@@ -19,7 +19,7 @@ import torch
 
 from fsr_tpu_torch.core import easu_math
 from fsr_tpu_torch.core.constants import EasuConstants
-from fsr_tpu_torch.utils import capture
+from fsr_tpu_torch.utils import capture, profiling
 
 __all__ = ["easu", "easu_coords", "bilinear"]
 
@@ -64,6 +64,7 @@ def _tables(con: EasuConstants, out_size: Tuple[int, int], in_hw: Tuple[int, int
     (1, Wout) and (Hout, 1) fractions, built on the host and copied once per
     configuration and device, so that a call copies nothing to the device
     (a captured graph holds them, ``capture.keep``).  Read only."""
+    profiling.count("plans_built")
     col, row, px, py = easu_coords(con, out_size)
     return (_tap_rows(col, in_hw[1], device), _tap_rows(row, in_hw[0], device),
             torch.as_tensor(px, device=device)[None, :], torch.as_tensor(py, device=device)[:, None])

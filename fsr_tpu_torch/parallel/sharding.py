@@ -43,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from fsr_tpu_torch.utils import profiling
 from fsr_tpu_torch.utils.capture import CapturedFrame
 
 __all__ = ["Mesh", "Sharded", "make_mesh", "axis_devices", "shard_batch", "shard_frame", "map_shards",
@@ -397,9 +398,11 @@ class _PerDevice:
 
     def run_on(self, device: torch.device) -> Dict[int, torch.Tensor]:
         """Replay ``device``'s graph (call its program on the CPU): shard j's
-        output for each shard j it hosts."""
+        output for each shard j it hosts; the span ``fsr.replay``, labelled
+        with the card."""
         js, run = self._runs[device]
-        return dict(zip(js, run()))
+        with profiling.trace_annotation("fsr.replay", "card", device.index):
+            return dict(zip(js, run()))
 
     def run(self) -> List[torch.Tensor]:
         outs: List[Optional[torch.Tensor]] = [None] * len(self.shard_inputs)

@@ -74,7 +74,7 @@ from fsr_tpu_torch.kernels import halo as halo_k
 from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.parallel import sharding
 from fsr_tpu_torch.parallel.sharding import Mesh, Sharded, _as_sharded, shard_frame
-from fsr_tpu_torch.utils import capture
+from fsr_tpu_torch.utils import capture, profiling
 
 __all__ = ["upscale_spatial_sharded", "spatial_shardable", "Strip", "CapturedSpatial"]
 
@@ -259,6 +259,7 @@ class _Layout:
 def _layout(in_hw, out_hw, n: int, input_viewport, input_offset) -> _Layout:
     """The strips of an (H, W) -> out_hw frame over ``n`` devices, cached
     per configuration (the row plans behind them are ``shard_plan``'s)."""
+    profiling.count("plans_built")
     (hin, win), (hout, wout) = in_hw, out_hw
     con = _constants((hin, win), (hout, wout), input_viewport, input_offset)
     if not spatial_shardable((hin, win), (hout, wout), n, con):
@@ -295,6 +296,7 @@ def _body(sharpness: float, opts: dict):
     from fsr_tpu_torch import api
 
     rcon = RcasConstants(sharpness)
+    profiling.count("plans_built")
 
     def body(layout: _Layout, k: int, s, frame, grain, page):
         return api._upscale(s, layout.out_hw, layout.con, rcon, grain=grain, frame=frame, dither_page=page,
@@ -547,14 +549,17 @@ class CapturedSpatial:
             return body(layout, k, src, shared[0], ins[1] if self.takes_grain else None,
                         shared[1] if paged else None)
 
-        self.programs = sharding._PerDevice(strip, shard_inputs, shared, around)
-        settle()
+        with profiling.trace_annotation("fsr.capture", "cards", len(order), always=True):
+            self.programs = sharding._PerDevice(strip, shard_inputs, shared, around)
+            settle()
 
     def writable(self) -> Sharded:
         """``inputs``, each buffer writable on its device's current stream
         once the replays of the call before that read it are done (``done``
-        waits enqueued there, no host sync)."""
-        self._issue(self._write_steps, None)
+        waits enqueued there, no host sync).  Its span opens the call that
+        the next ``__call__`` continues."""
+        with profiling.trace_annotation("fsr.spatial", leads=True):
+            self._issue(self._write_steps, None)
         return self.inputs
 
     def put(self, image: Union[torch.Tensor, Sharded], grain=None) -> Sharded:
@@ -571,15 +576,16 @@ class CapturedSpatial:
         return self.inputs
 
     def __call__(self, image: Union[torch.Tensor, Sharded], frame=0, grain=None) -> Sharded:
-        self._stage(image, frame, grain)
-        outs = [None] * len(self.buffers)
+        with profiling.trace_annotation("fsr.spatial"):
+            self._stage(image, frame, grain)
+            outs = [None] * len(self.buffers)
 
-        def replay(dev):
-            for j, out in self.programs.run_on(dev).items():
-                outs[j] = out
+            def replay(dev):
+                for j, out in self.programs.run_on(dev).items():
+                    outs[j] = out
 
-        self._issue(self._replay_steps, replay)
-        return _result(self.mesh, self.spec, outs, self.shape, self.out_size)
+            self._issue(self._replay_steps, replay)
+            return _result(self.mesh, self.spec, outs, self.shape, self.out_size)
 
     def _issue(self, steps, run) -> None:
         """Issue ``_schedule``'s steps from the host: events waited for and
@@ -630,12 +636,13 @@ class CapturedSpatial:
         page = None if self._page_of is None else self._page_of(src, frame)
 
         def stage(dev):  # each copy runs on its destination's current stream
-            ins = self.programs.device_inputs[dev]
-            if grain is not None:
-                self._put_grain(grain, self._strips_on[dev])
-            if page is not None:
-                ins[1].copy_(page)
-            if dev in self._frame_devices:
-                sharding._put_frame(frame, src, {dev: ins[0]})
+            with profiling.trace_annotation("fsr.spatial", "card", dev.index):
+                ins = self.programs.device_inputs[dev]
+                if grain is not None:
+                    self._put_grain(grain, self._strips_on[dev])
+                if page is not None:
+                    ins[1].copy_(page)
+                if dev in self._frame_devices:
+                    sharding._put_frame(frame, src, {dev: ins[0]})
 
         self._issue(self._stage_steps, stage)

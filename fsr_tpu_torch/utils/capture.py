@@ -22,8 +22,9 @@ path).  A capture that fails raises, naming the last operation dispatched;
 nothing falls back to the eager function.
 
 What a graph does not see: the function's Python runs at capture only, so
-the kernels' launch counters (``launches``) count the warm-up and the
-capture, never a replay (a replay's launches are read from a trace), and a
+the kernels' ``fsr.launch`` spans (``utils/profiling.py``) are recorded at
+the warm-up and the capture, never at a replay (a replay's launches are
+read from a trace), and a
 value the function reads on the host (a Python int frame, say) is frozen at
 capture: per-frame values enter as input tensors (a frame index as a 0-d
 int32 tensor, ``ops.extras.frame_index``).  Tensors that the function reads

@@ -1,20 +1,55 @@
-"""Device timing (counterpart of ``fsr_tpu/utils/profiling.py``).
+"""Device timing (counterpart of ``fsr_tpu/utils/profiling.py``) and the
+port's spans and counters.
 
 The JAX package parses TPU profiler traces; on a CUDA device the timer is a
 pair of CUDA events around each call, and ``device_trace`` reads kernel
 times and the device's idle share from a ``torch.profiler`` trace (the
-counterpart of ``op_times``).  ``trace_annotation`` names a span in that
-trace (the UserMarker / SetPerfMarker analog).
+counterpart of ``op_times``).
+
+``trace_annotation`` is the one span primitive (the UserMarker /
+SetPerfMarker analog), on the port's hot paths too.  Off, the normal
+state, a span costs one check of ``torch.autograd.profiler``'s enabled
+flag and returns a shared no-op: nothing allocated, no clock read.  It is
+on while a ``torch.profiler`` records (not in its warm-up steps) and
+inside ``recording()``.  A span then enters a profiler range ``name``
+where a profiler records (an ``at::RecordFunction``, as
+``record_function`` enters), so it lands in the profiler's trace on the
+clock of the kernels it launched, and appends a ``Span`` to a bounded
+buffer: its name, start and end (host seconds), its parent, the call it
+belongs to (every span under one root span, and a ``leads`` root with the
+root after it) and its counts (``count``) and labels.  The set-up spans
+(``always=True``: the kernels' library, a capture) are recorded whether on
+or off; they happen once.  ``records()`` and ``recording()`` give the
+spans as ``Records``, whose readers sum self times (a span's duration
+less its children's) and counts per call.
+
+The port's spans (``SPANS``): ``fsr.api`` (``api.upscale``),
+``fsr.dispatch`` (each entry into ``kernels/dispatch.py``), ``fsr.launch``
+(each ctypes call that queues a kernel; label ``kernel``: K1-K4, K6,
+P1-P4), ``fsr.spatial`` (``CapturedSpatial.writable``, its call and each
+card's staging; label ``card``), ``fsr.replay`` (a card's graph launch;
+label ``card``), ``fsr.library`` (loading the kernels' library, building
+it first where it is stale; count ``built``) and ``fsr.capture`` (a
+``CapturedSpatial``'s warm-up and capture; count ``cards``).  The count
+``plans_built`` is every host plan, table or constants object built
+rather than taken from a cache, on the span that builds it.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import statistics
+import threading
+import time
 from typing import Callable, Iterable, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time", "trace_annotation"]
+__all__ = ["cuda_time_ms", "cuda_times_in_turn", "device_trace", "busy_time", "trace_annotation", "count",
+           "recording", "records", "Records", "Span", "SPANS", "BUFFER"]
 
 # A torch.profiler cycle can come back with no device activity, or without
 # some of a replayed CUDA graph's kernels (each seen once on an H100, in a
@@ -87,7 +122,7 @@ def device_trace(fn: Callable[[], object], calls: int = 5, short: Callable[[dict
     Returns ``{"kernels": {name: ms per call}, "launches": {name: device
     operations per call}, "ops_per_call", "busy_ms", "busy_ms_by_device",
     "window_ms", "idle_share", "attempts"}`` (the launches of a replayed CUDA graph
-    included, which no launch counter sees).  The same calls run
+    included, which no ``fsr.launch`` span sees).  The same calls run
     once first as the profiler's warm-up step, so its buffer set-up falls
     outside the recorded step.  The window runs from the host entering the
     first call to the end of the last device operation; busy is the union of
@@ -162,8 +197,174 @@ def _reading(events, dev, calls: int, cuda) -> dict:
     }
 
 
-def trace_annotation(name: str):
-    """Named scope for traces (the UserMarker / SetPerfMarker analog): a
-    ``torch.profiler.record_function`` span, on the host and, where a CUDA
-    trace is taken, beside the device operations it launched."""
-    return torch.profiler.record_function(name)
+# --- spans and counters ------------------------------------------------------
+
+# The port's spans, each named "fsr." and so none a benchmark harness's own.
+SPANS = ("fsr.api", "fsr.dispatch", "fsr.launch", "fsr.spatial", "fsr.replay", "fsr.library", "fsr.capture")
+# Spans the buffer holds, the newest; a traced stretch of 1,500 frame calls
+# records ~9,000.
+BUFFER = 1 << 16
+
+
+class _Off:
+    """The span while nothing records, shared by every call.  Its enter and
+    exit are C callables, so a ``with`` runs no Python frame: entering
+    returns ``tuple()``, the empty tuple; leaving returns ``"".format(...)``,
+    the empty string, false, so an exception passes through."""
+
+    __slots__ = ()
+    __enter__ = staticmethod(tuple)
+    __exit__ = staticmethod("".format)
+
+
+_OFF = _Off()
+# The profiler range a recorded span enters: the same at::RecordFunction as
+# ``record_function``'s without its operator dispatch (under a profiler ~0.8
+# us an enter and exit on the CPU against ~7 us; 7 us each of a frame call's
+# spans added ~15% to its traced host time on the H100's host).
+_range = torch._C._profiler._RecordFunctionFast
+_buffer: collections.deque = collections.deque(maxlen=BUFFER)
+_sinks: list = []  # the Records of the open recording() contexts
+_forced = 0  # how many recording() contexts are open
+_span_ids = itertools.count()
+_call_ids = itertools.count()
+
+
+class _Thread(threading.local):
+    """Per thread: the open recorded spans, innermost last, and the call a
+    finished ``leads`` root span hands to the next root span."""
+
+    def __init__(self):
+        self.stack: list = []
+        self.lead = None
+
+
+_per_thread = _Thread()
+
+
+class Span:
+    """A recorded span: ``name``; ``start``/``end``, host seconds
+    (``time.perf_counter``); ``id``; ``parent``, its parent's id (None for
+    a root); ``call``, shared by the spans of one call; ``args``, its
+    counts and labels (None without any)."""
+
+    __slots__ = ("name", "args", "start", "end", "id", "parent", "call", "_leads", "_rf")
+
+    def __init__(self, name: str, key, value, leads: bool):
+        self.name = name
+        self.args = None if key is None else {key: value}
+        self._leads = leads
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+    def __enter__(self) -> "Span":
+        stack = _per_thread.stack
+        if stack:
+            self.parent, self.call = stack[-1].id, stack[-1].call
+        else:
+            self.parent = None
+            self.call = _per_thread.lead if _per_thread.lead is not None else next(_call_ids)
+        self.id = next(_span_ids)
+        self._rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = _range(self.name)
+            self._rf.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end = time.perf_counter()
+        _per_thread.stack.pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        if self.parent is None:
+            _per_thread.lead = self.call if self._leads else None
+        _buffer.append(self)
+        for sink in _sinks:
+            sink.append(self)
+
+
+def trace_annotation(name: str, key=None, value=None, always: bool = False, leads: bool = False):
+    """The span ``name`` around a ``with`` block, labelled ``key``=``value``
+    when given.  Off (no profiler recording, no ``recording()``), the shared
+    no-op, unless ``always`` (a set-up span, recorded whenever it runs).
+    ``leads``: a root span that opens a call the next root span continues
+    (``CapturedSpatial.writable`` before the call that reads what was
+    written).  (Positional defaults: keyword-only ones cost a dictionary
+    lookup each on every call.)"""
+    if _forced or _autograd_profiler._is_profiler_enabled or always:
+        return Span(name, key, value, leads)
+    return _OFF
+
+
+def count(key: str, n=1) -> None:
+    """Add ``n`` to the count ``key`` of the innermost recorded span open
+    on this thread; nothing while spans are off."""
+    if _forced or _autograd_profiler._is_profiler_enabled:
+        stack = _per_thread.stack
+        if stack:
+            span = stack[-1]
+            if span.args is None:
+                span.args = {}
+            span.args[key] = span.args.get(key, 0) + n
+
+
+class Records(list):
+    """Recorded spans, oldest first, with the readers per call."""
+
+    def named(self, name: str) -> list:
+        return [s for s in self if s.name == name]
+
+    def self_times(self, name: str) -> dict:
+        """{call: the summed self time, in seconds, of its spans ``name``}:
+        each span's duration less its children's (the spans of a thread
+        follow one another, so their durations sum to what they cover)."""
+        covered: dict = {}
+        for s in self:
+            if s.parent is not None:
+                covered[s.parent] = covered.get(s.parent, 0.0) + s.seconds
+        out: dict = {}
+        for s in self:
+            if s.name == name:
+                out[s.call] = out.get(s.call, 0.0) + s.seconds - covered.get(s.id, 0.0)
+        return out
+
+    def counts(self, key: str) -> dict:
+        """{call: the sum of the count ``key`` over its spans} for the calls
+        whose spans carry it."""
+        out: dict = {}
+        for s in self:
+            if s.args and key in s.args:
+                out[s.call] = out.get(s.call, 0) + s.args[key]
+        return out
+
+    def launches(self) -> collections.Counter:
+        """The kernels queued, by name (``fsr.launch``'s ``kernel``)."""
+        return collections.Counter(s.args["kernel"] for s in self if s.name == "fsr.launch")
+
+
+def records() -> Records:
+    """The buffer's spans: the set-up spans and those recorded since,
+    at most the newest ``BUFFER``."""
+    return Records(_buffer)
+
+
+@contextlib.contextmanager
+def recording():
+    """Spans on inside the block, with no profiler needed (tests, chip
+    checks, operators); yields the ``Records`` of the spans that finish in
+    it, filled as they finish.  A profiler's trace is taken only where one
+    records."""
+    global _forced
+    rec = Records()
+    _sinks.append(rec)
+    _forced += 1
+    try:
+        yield rec
+    finally:
+        _forced -= 1
+        _sinks.remove(rec)

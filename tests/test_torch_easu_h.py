@@ -25,6 +25,7 @@ from fsr_tpu_torch.kernels import easu_gather as tgather
 from fsr_tpu_torch.kernels import easu_h as teasu_h
 from fsr_tpu_torch.kernels import fused as tfused
 from fsr_tpu_torch.ops import easu as teasu
+from fsr_tpu_torch.utils import profiling
 
 BUDGET = 1.0 / 255.0
 F16 = torch.float16
@@ -224,15 +225,16 @@ def test_f16_kernel_grad_equals_torch_path(src, nc):
 def test_easu_h_wrapper_refuses():
     con = _con((27, 48), (54, 96))
     x = torch.from_numpy(_img(16, (3, 27, 48)))
-    with pytest.raises(TypeError, match="float16/float32/bfloat16/uint8"):
-        teasu_h.easu_h(x.double(), (54, 96), con, RcasConstants(0.25))
-    with pytest.raises(ValueError, match="3 or 4"):
-        teasu_h.easu_h(x[:2], (54, 96), con, RcasConstants(0.25))
-    with pytest.raises(ValueError, match="requires rcon"):
-        teasu_h.easu_h(x, (54, 96), con, None, True)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        teasu_h.easu_h(x.to("meta"), (54, 96), con, RcasConstants(0.25))
-    assert teasu_h.easu_h.launches == 0  # CPU tensors run the plain version
+    with profiling.recording() as rec:
+        with pytest.raises(TypeError, match="float16/float32/bfloat16/uint8"):
+            teasu_h.easu_h(x.double(), (54, 96), con, RcasConstants(0.25))
+        with pytest.raises(ValueError, match="3 or 4"):
+            teasu_h.easu_h(x[:2], (54, 96), con, RcasConstants(0.25))
+        with pytest.raises(ValueError, match="requires rcon"):
+            teasu_h.easu_h(x, (54, 96), con, None, True)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            teasu_h.easu_h(x.to("meta"), (54, 96), con, RcasConstants(0.25))
+    assert not rec.launches()  # CPU tensors run the plain version
 
 
 def test_easu_h_module_leaves_jax_out():

@@ -38,6 +38,7 @@ from fsr_tpu_torch.kernels import halo as thalo
 from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.ops import extras as tx
 from fsr_tpu_torch.parallel import sharding, spatial
+from fsr_tpu_torch.utils import profiling
 
 F16, U8, U16 = torch.float16, torch.uint8, torch.uint16
 CPU = torch.device("cpu")
@@ -357,22 +358,23 @@ def test_every_code_survives_its_half_rounding(bits):
 
 
 def test_supported_outputs_and_refusals():
-    in_hw, out_hw = PERF
-    con = _con(in_hw, out_hw)
-    shape = (3, *in_hw)
-    for od in (None, F16, U8, U16):
-        assert teasu_h.supported(shape, out_hw, con, out_dtype=od)
-        assert tdispatch.supported(torch.empty(shape), out_hw, con, F16, od)
-    for od in (torch.float32, torch.bfloat16):
-        assert not teasu_h.supported(shape, out_hw, con, out_dtype=od)
-        assert not tdispatch.supported(torch.empty(shape), out_hw, con, F16, od)
-    x = torch.from_numpy(_img(60, shape))
-    with pytest.raises(ValueError, match="float16, uint8 or uint16"):
-        teasu_h.easu_h(x, out_hw, con, RcasConstants(0.25), out_dtype=torch.float32)
-    with pytest.raises(ValueError, match="unknown prologue"):
-        teasu_h.easu_h(x, out_hw, con, RcasConstants(0.25), prologue="pq")
-    with pytest.raises(ValueError, match="requires grain"):
-        teasu_h.easu_h(x, out_hw, con, RcasConstants(0.25), epilogue=Epilogue(grain_amount=0.3))
-    with pytest.raises(NotImplementedError, match="impl='torch'"):
-        tdispatch.upscale_fused(x, out_hw, con, RcasConstants(0.25), True, False, F16, out_dtype=torch.float32)
-    assert teasu_h.easu_h.launches == 0  # CPU tensors run the plain version
+    with profiling.recording() as rec:
+        in_hw, out_hw = PERF
+        con = _con(in_hw, out_hw)
+        shape = (3, *in_hw)
+        for od in (None, F16, U8, U16):
+            assert teasu_h.supported(shape, out_hw, con, out_dtype=od)
+            assert tdispatch.supported(torch.empty(shape), out_hw, con, F16, od)
+        for od in (torch.float32, torch.bfloat16):
+            assert not teasu_h.supported(shape, out_hw, con, out_dtype=od)
+            assert not tdispatch.supported(torch.empty(shape), out_hw, con, F16, od)
+        x = torch.from_numpy(_img(60, shape))
+        with pytest.raises(ValueError, match="float16, uint8 or uint16"):
+            teasu_h.easu_h(x, out_hw, con, RcasConstants(0.25), out_dtype=torch.float32)
+        with pytest.raises(ValueError, match="unknown prologue"):
+            teasu_h.easu_h(x, out_hw, con, RcasConstants(0.25), prologue="pq")
+        with pytest.raises(ValueError, match="requires grain"):
+            teasu_h.easu_h(x, out_hw, con, RcasConstants(0.25), epilogue=Epilogue(grain_amount=0.3))
+        with pytest.raises(NotImplementedError, match="impl='torch'"):
+            tdispatch.upscale_fused(x, out_hw, con, RcasConstants(0.25), True, False, F16, out_dtype=torch.float32)
+    assert not rec.launches()  # CPU tensors run the plain version

@@ -125,7 +125,8 @@ def test_auto_on_a_card_takes_the_kernel_where_supported(monkeypatch, dtype):
 def test_auto_on_a_card_routes_each_strip_by_its_kernel_form(monkeypatch, compute):
     """Row strips under "auto" on a card: each strip reaches its kernel's
     strip form where it takes the strip's plan; where it does not
-    (``dispatch.supported`` False), the torch path, and "kernel" raises."""
+    (``dispatch._supported`` False, the check behind ``dispatch.supported``
+    and the kernel path's own), the torch path, and "kernel" raises."""
     monkeypatch.setattr(api, "_on_card", lambda image: True)
     calls = []
     real = dispatch.upscale_fused
@@ -137,7 +138,7 @@ def test_auto_on_a_card_routes_each_strip_by_its_kernel_form(monkeypatch, comput
     assert [s.row0 for s in calls] == [0, 18, 36, 54]
     _bits_equal(got, fsr_tpu_torch.upscale(x, out_size=out_hw, compute_dtype=dt, impl="kernel"))
     calls.clear()
-    monkeypatch.setattr(dispatch, "supported", lambda *a, **k: False)
+    monkeypatch.setattr(dispatch, "_supported", lambda *a, **k: False)
     got = spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), compute_dtype=dt).gather()
     assert calls == []
     _bits_equal(got, spatial.upscale_spatial_sharded(x, out_hw, _mesh(4), compute_dtype=dt, impl="torch").gather())

@@ -53,6 +53,7 @@ from fsr_tpu.parallel import spatial as jspatial
 
 from fsr_tpu_torch.kernels import halo
 from fsr_tpu_torch.parallel import Sharded, sharding, spatial
+from fsr_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
 DTYPES = {"u8": torch.uint8, "bf16": torch.bfloat16, "f32": torch.float32}
@@ -89,28 +90,26 @@ def test_plain_halo_rows_equal_the_exchange(n, dtype, channels, layout):
     """Own-row buffers holding each strip's rows: the plain strip read of
     each strip (its neighbours' whole buffers, or only their edge rows, as
     the eager call sends them between cards) equals that strip's
-    ``_exchange_halo`` ``torch.cat``, and no launch is counted."""
-    from fsr_tpu_torch.kernels import easu_gather, fused
-
+    ``_exchange_halo`` ``torch.cat``, and no ``fsr.launch`` is recorded."""
     groups = 2 if layout == "dp x sp" else 1
     for halo_n, width in ((spatial._HALO, 11), (spatial._GHALO, 16)):
         h = halo_n + 1
         x = _frames(n + channels, DTYPES[dtype], (2 * groups, channels, n * h, width))
         strips = _strips(x, n, groups)
-        fused.upscale_padded.launches = easu_gather.easu_gather.launches = 0
-        for g in range(groups):
-            group = strips[g * n:(g + 1) * n]
-            want = spatial._exchange_halo(group, halo_n)
-            bufs = [s.clone() for s in group]
-            for k in range(n):
-                for edges in (False, True):
-                    up = bufs[k - 1][..., -halo_n:, :].clone() if edges and k else (bufs[k - 1] if k else None)
-                    down = (bufs[k + 1][..., :halo_n, :].clone() if edges and k + 1 < n
-                            else (bufs[k + 1] if k + 1 < n else None))
-                    got = halo.halo_rows_reference(halo.StripSource(up, bufs[k], down, halo_n))
-                    assert got.shape == halo.StripSource(up, bufs[k], down, halo_n).shape
-                    assert torch.equal(got, want[k]), f"{n} strips, halo {halo_n}, group {g}: strip {k}, edges {edges}"
-        assert fused.upscale_padded.launches == easu_gather.easu_gather.launches == 0
+        with profiling.recording() as rec:
+            for g in range(groups):
+                group = strips[g * n:(g + 1) * n]
+                want = spatial._exchange_halo(group, halo_n)
+                bufs = [s.clone() for s in group]
+                for k in range(n):
+                    for edges in (False, True):
+                        up = bufs[k - 1][..., -halo_n:, :].clone() if edges and k else (bufs[k - 1] if k else None)
+                        down = (bufs[k + 1][..., :halo_n, :].clone() if edges and k + 1 < n
+                                else (bufs[k + 1] if k + 1 < n else None))
+                        got = halo.halo_rows_reference(halo.StripSource(up, bufs[k], down, halo_n))
+                        assert got.shape == halo.StripSource(up, bufs[k], down, halo_n).shape
+                        assert torch.equal(got, want[k]), f"{n} strips, halo {halo_n}, group {g}: strip {k}, edges {edges}"
+        assert not rec.launches()
 
 
 # --- the wrappers' checks of a strip source -----------------------------------------

@@ -48,6 +48,7 @@ from fsr_tpu_torch.kernels.epilogue import Epilogue
 from fsr_tpu_torch.ops import easu as teasu
 from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.parallel import sharding, spatial
+from fsr_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
 TORCH_TOL = 2e-6
@@ -326,12 +327,10 @@ def test_row_sharded_raises():
 
 def test_kernel_counts_stay_zero_on_cpu():
     """CPU strips run the plain versions: no launch is counted."""
-    from fsr_tpu_torch.kernels import pad as tpad
-
-    counts = (tpad.edge_pad.launches, tfused.upscale_padded.launches, tgather.easu_gather.launches)
-    for in_hw, out_hw in (((64, 96), (128, 192)), ((64, 96), (96, 144))):
-        spatial.upscale_spatial_sharded(torch.from_numpy(_rand(8, (3, *in_hw))), out_hw, _mesh(4), impl="kernel")
-    assert (tpad.edge_pad.launches, tfused.upscale_padded.launches, tgather.easu_gather.launches) == counts
+    with profiling.recording() as rec:
+        for in_hw, out_hw in (((64, 96), (128, 192)), ((64, 96), (96, 144))):
+            spatial.upscale_spatial_sharded(torch.from_numpy(_rand(8, (3, *in_hw))), out_hw, _mesh(4), impl="kernel")
+    assert not rec.launches() and len(rec.named("fsr.dispatch")) >= 8
 
 
 DEFAULT_IMPL = [("2x", (64, 96), (128, 192), "float", {}), ("1.5x", (96, 144), (144, 216), "float", {}),

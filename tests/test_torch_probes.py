@@ -37,6 +37,7 @@ from fsr_tpu.ops import easu as jeasu
 from fsr_tpu.ops import rcas as jrcas
 
 from fsr_tpu_torch.kernels import probes
+from fsr_tpu_torch.utils import profiling
 from tools_torch.ablation import fp16_probe, fused_roofline, opmix_floor
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -95,10 +96,11 @@ def test_replay_tool_path_and_window():
     # P2's window: the taps of the tile and its clamped ring reach rows
     # 1..12 and columns 1..20 of the padded operand.
     assert probes.window(fplan) == (1, 1, 12, 20)
-    for shared, rcas in ((False, True), (False, False), (True, True)):
-        want = probes.opmix_replay(padded, fplan, opmix_floor.SHARP, rcas)
-        torch.testing.assert_close(opmix_floor.replay(img, shared, rcas), want, rtol=0, atol=0)
-    assert probes.opmix_replay.launches == probes.opmix_replay_shared.launches == 0
+    with profiling.recording() as rec:
+        for shared, rcas in ((False, True), (False, False), (True, True)):
+            want = probes.opmix_replay(padded, fplan, opmix_floor.SHARP, rcas)
+            torch.testing.assert_close(opmix_floor.replay(img, shared, rcas), want, rtol=0, atol=0)
+    assert not rec.launches()
 
 
 def _jax_fma_body(x, chains, dtype):
@@ -158,7 +160,8 @@ def _numpy_fp16(x, mode):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_fp16_probe_plain_version_matches_numpy(mode):
     x = fp16_probe.probe_input("cpu")
-    got = probes.fp16_probe(x, mode)
+    with profiling.recording() as rec:
+        got = probes.fp16_probe(x, mode)
     want = torch.from_numpy(_numpy_fp16(x.numpy(), mode))
     assert got.dtype == (torch.float16 if mode == 2 else torch.float32)
     a = fp16_probe.agreement(mode, got, want)
@@ -167,7 +170,7 @@ def test_fp16_probe_plain_version_matches_numpy(mode):
         # numpy rounds acc * x and the sum apart, so it parts from the
         # FMA-like plain version at some values, by at most one step each.
         assert 0 < a["off"] and a["max_abs"] <= 2.0 ** -9
-    assert probes.fp16_probe.launches == 0
+    assert not rec.launches()
 
 
 def test_op_counts_pinned_beside_jax():
@@ -329,9 +332,9 @@ def test_port_and_tools_leave_jax_out():
         "      len([m for m in sys.modules if m.startswith('examples_torch.')]), bad)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
-    # tools_torch.ablation and its ten tools (kernel_ab, headline_probe,
-    # fused_stage_ablation, gather_ablation, u8_writeback_ab, train_ab and
-    # f16_tail_ab among them), tools_torch.quality_study and
+    # tools_torch.ablation and its eleven tools (kernel_ab, headline_probe,
+    # fused_stage_ablation, gather_ablation, u8_writeback_ab, train_ab,
+    # f16_tail_ab and span_trace among them), tools_torch.quality_study and
     # tools_torch.preset_bench; examples_torch's train_through_fsr,
     # video_upscale, dataset_preprocessing, frame_graph and sample_app.
-    assert res.stdout.split(None, 2) == ["13", "5", "[]\n"]
+    assert res.stdout.split(None, 2) == ["14", "5", "[]\n"]

@@ -18,7 +18,9 @@ math, to 4K (``UpscalePipeline`` or ``upscale`` as a user calls them):
 and beside each, the bare call on the same frames (``upscale(compute_dtype=
 float16)``, no option: one K6 launch; on the strips the bare sharded
 call).  For each call: the aten operations it dispatches (a
-``TorchDispatchMode`` around one call), K6's launches (``easu_h.launches``),
+``TorchDispatchMode`` around one call), K6's launches (its ``fsr.launch``
+spans under ``utils.profiling.recording``: a tree from before them has
+none, and ``--measure`` there fails),
 a trace of 5 calls (``utils.profiling.device_trace``: device operations
 per call by kernel name, busy ms per call, idle share), and the CUDA-event ms per call
 with 10 calls queued and with one, every call taken in turn (``--rounds``
@@ -106,7 +108,7 @@ def measure(rounds: int) -> dict:
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from fsr_tpu_torch.kernels import easu_h
+    from fsr_tpu_torch.utils import profiling
     from fsr_tpu_torch.utils.profiling import cuda_time_ms, device_trace
 
     class Count(TorchDispatchMode):
@@ -122,11 +124,11 @@ def measure(rounds: int) -> dict:
         for key, fn in ((name, call), (name + " | bare K6", bare)):
             out = fn()
             torch.cuda.synchronize()
-            Count.n, easu_h.easu_h.launches = 0, 0
-            with Count():
+            Count.n = 0
+            with Count(), profiling.recording() as rec:
                 out = fn()
             torch.cuda.synchronize()
-            aten, k6 = Count.n, easu_h.easu_h.launches
+            aten, k6 = Count.n, rec.launches()["K6"]
             # Retaken when CUPTI missed one of the call's K6 launches.
             tr = device_trace(fn, TRACED, short=lambda tr, k6=k6: sum(
                 c for k, c in tr["launches"].items() if "easu_h_kernel" in k) < k6)

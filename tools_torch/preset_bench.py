@@ -7,7 +7,7 @@ Counterpart of ``tools/preset_bench.py``: the JAX tool's three sources
 to (2160, 3840) in bfloat16 storage through
 ``fsr_tpu_torch.upscale(..., impl="kernel")``: ultra quality 1.3x from
 2954 x 1662, quality 1.5x from 2560 x 1440, balanced 1.7x from 2259 x 1271.
-Each call must launch exactly one K2 and no K1 (the launch counters).
+Each call must launch exactly one K2 and no K1 (its ``fsr.launch`` spans).
 Prints, per preset, the device ms per call (``profiling.cuda_time_ms``, 10
 calls queued per sample), output megapixels per second, and
 ``maxdev_f32``: the largest difference of the float32 kernel path from the
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 import fsr_tpu_torch
-from fsr_tpu_torch.kernels import easu_gather, fused
+from fsr_tpu_torch.utils import profiling
 
 # (w, h) of each preset's source, as the JAX tool's.
 PRESETS = {"ultra_quality_1.3x": (2954, 1662), "quality_1.5x": (2560, 1440), "balanced_1.7x": (2259, 1271)}
@@ -49,9 +49,9 @@ def bench(dev) -> list:
         def call(img=img):
             return fsr_tpu_torch.upscale(img, out_size=OUT_HW, compute_dtype=torch.bfloat16, impl="kernel")
 
-        easu_gather.easu_gather.launches = fused.upscale_padded.launches = 0
-        call()
-        n = (easu_gather.easu_gather.launches, fused.upscale_padded.launches)
+        with profiling.recording() as rec:
+            call()
+        n = (rec.launches()["K2"], rec.launches()["K1"])
         if n != (1, 0):
             raise RuntimeError(f"{name}: {n[0]} K2 and {n[1]} K1 launches per call, expected one K2 and no K1")
         img32 = img.float()
