@@ -226,27 +226,15 @@ __device__ __forceinline__ void srtm_window(float (&t)[3][4][4]) {
 
 // EASU resolve (easu_resolve(fast=True) with per-texel quad responses) from
 // the tap window t[c][r][q]: rows fy-1..fy+2 and columns fx-1..fx+2 around
-// 'f' = t[c][1][1] (the four corners are not read), and its lumas
-// L[r][q] = luma2 of each texel, at subpixel position (ppx, ppy) inside the
-// f..k quad.
-__device__ __forceinline__ void easu_resolve_luma(const float (&t)[3][4][4], const float (&L)[4][4],
-                                                  float ppx, float ppy, float out[3]) {
-  // Quadrant responses at the quad's texels f (1,1), g (1,2), j (2,1), k (2,2).
-  float gxs, gys, gls, gxt, gyt, glt, gxu, gyu, glu, gxv, gyv, glv;
-#if defined(FSR_ABL_K2_NOG)
-  // Knockout (gather_ablation.py "nog"): each texel's luma reused as its
-  // response, as the JAX tool's FSR_GATHER_ABL=nog does.
-  gxs = gys = gls = L[1][1];
-  gxt = gyt = glt = L[1][2];
-  gxu = gyu = glu = L[2][1];
-  gxv = gyv = glv = L[2][2];
-#else
-  texel_response(L[0][1], L[1][0], L[1][1], L[1][2], L[2][1], gxs, gys, gls);
-  texel_response(L[0][2], L[1][1], L[1][2], L[1][3], L[2][2], gxt, gyt, glt);
-  texel_response(L[1][1], L[2][0], L[2][1], L[2][2], L[3][1], gxu, gyu, glu);
-  texel_response(L[1][2], L[2][1], L[2][2], L[2][3], L[3][2], gxv, gyv, glv);
-#endif
-
+// 'f' = t[c][1][1] (the four corners are not read), and the responses
+// (texel_response's gx, gy, gl) of the quadrant centres f (1,1) as s, g
+// (1,2) as t, j (2,1) as u and k (2,2) as v, at subpixel position (ppx,
+// ppy) inside the f..k quad.  K1 computes the responses per pixel
+// (easu_resolve_luma), K2 once per texel of its block (easu_gather.cu).
+__device__ __forceinline__ void easu_resolve_quads(const float (&t)[3][4][4], float gxs, float gys, float gls,
+                                                   float gxt, float gyt, float glt, float gxu, float gyu, float glu,
+                                                   float gxv, float gyv, float glv, float ppx, float ppy,
+                                                   float out[3]) {
   const float ws = (1.0f - ppx) * (1.0f - ppy);
   const float wt = ppx * (1.0f - ppy);
   const float wu = (1.0f - ppx) * ppy;
@@ -343,6 +331,18 @@ __device__ __forceinline__ void easu_resolve_luma(const float (&t)[3][4][4], con
     v = (v > mx) ? mx : v;
     out[c] = v;
   }
+}
+
+// EASU resolve from the tap window t and its lumas L[r][q] (luma2 of each
+// texel): the four quadrant responses, then easu_resolve_quads.
+__device__ __forceinline__ void easu_resolve_luma(const float (&t)[3][4][4], const float (&L)[4][4],
+                                                  float ppx, float ppy, float out[3]) {
+  float gxs, gys, gls, gxt, gyt, glt, gxu, gyu, glu, gxv, gyv, glv;
+  texel_response(L[0][1], L[1][0], L[1][1], L[1][2], L[2][1], gxs, gys, gls);
+  texel_response(L[0][2], L[1][1], L[1][2], L[1][3], L[2][2], gxt, gyt, glt);
+  texel_response(L[1][1], L[2][0], L[2][1], L[2][2], L[3][1], gxu, gyu, glu);
+  texel_response(L[1][2], L[2][1], L[2][2], L[2][3], L[3][2], gxv, gyv, glv);
+  easu_resolve_quads(t, gxs, gys, gls, gxt, gyt, glt, gxu, gyu, glu, gxv, gyv, glv, ppx, ppy, out);
 }
 
 // EASU resolve from the tap window alone: its lumas first.
@@ -538,15 +538,15 @@ __device__ __forceinline__ void store_tile(Pixel pixel, Store store, int h, int 
 }
 
 // One block's tile with RCAS: ring(Y, X, v) fills the float32 planes of the
-// tile and its one-pixel ring in shared memory, for (Y, X) from one before
-// the tile to one past it (possibly outside the frame: the caller applies
-// its border rule); after a barrier each pixel of the tile runs the RCAS
-// cross on them, then store(Y, X, v), once.
+// tile and its one-pixel ring in shared memory (sm), for (Y, X) from one
+// before the tile to one past it (possibly outside the frame: the caller
+// applies its border rule); after a barrier each pixel of the tile runs the
+// RCAS cross on them, then store(Y, X, v), once.
 template <bool DENOISE, int TH = TILE_H, typename Ring, typename Store>
-__device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, float sharp) {
+__device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, float sharp,
+                                          float (&sm)[3][TH + 2][RING_W]) {
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y * TH;
-  __shared__ float sm[3][TH + 2][RING_W];
   for (int k = threadIdx.x; k < (TH + 2) * RING_W; k += NTHREADS) {
     const int ly = k / RING_W;
     const int lx = k % RING_W;
@@ -574,6 +574,13 @@ __device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, 
     rcas_pixel<DENOISE>(b, d, e, f, hh, sharp, v);
     store(Y, X, v);
   }
+}
+
+// The same with the ring's planes in a static shared array of its own.
+template <bool DENOISE, int TH = TILE_H, typename Ring, typename Store>
+__device__ __forceinline__ void rcas_tile(Ring ring, Store store, int h, int w, float sharp) {
+  __shared__ float sm[3][TH + 2][RING_W];
+  rcas_tile<DENOISE, TH>(ring, store, h, w, sharp, sm);
 }
 
 // The strip-source form of K1 and K2 (kernels/halo.py:StripSource): a row

@@ -103,8 +103,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, i, i, i, i, i, i, i, i, i, i, i, ip, ip, fp, fp, f, i, i, i, i, i, i, vp, vp,
     ]
     lib.fsr_upscale_fused.restype = i
+    # K2's last argument, a block's dynamic shared memory, is new with its
+    # shared texel responses: a library from before them (a parent commit's,
+    # kernel_ab.py) takes one argument fewer and leaves the last one unread.
     lib.fsr_easu_gather.argtypes = [
-        vp, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, i, vp, vp,
+        vp, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp, f, i, i, i, vp, vp, i,
     ]
     lib.fsr_easu_gather.restype = i
     lib.fsr_rcas.argtypes = [vp, vp, i, i, i, i, i, f, i, i, vp]

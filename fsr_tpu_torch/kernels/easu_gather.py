@@ -21,7 +21,12 @@ rectangle of texels its TILE output pixels and their RCAS ring read, which
 the tables' monotonicity bounds by the first ring pixel's first tap and the
 last one's last tap.  ``footprint`` computes it as the device does, and
 ``easu_gather`` checks before the launch that every block's fits
-``FOOTPRINT_MAX`` and holds every tap of its pixels.
+``FOOTPRINT_MAX`` and holds every tap of its pixels.  Beside it the block
+keeps the texel response of every quadrant centre its pixels use, once, on
+a grid from its first ring pixel's first centre to its last one's last
+centre; the launch's dynamic shared memory is the plan's largest block's
+(``Footprint.stage``).  The launch's span counts the responses it
+evaluates (``texel_responses``) and its output pixels (``pixels``).
 
 Options, as K1 takes them (``kernels/fused.py``): a float16 image, a
 uint8 image (decoded at each load, never rounded to the storage
@@ -66,7 +71,7 @@ from fsr_tpu_torch.ops.easu import easu_coords
 from fsr_tpu_torch.utils import capture, profiling
 
 __all__ = ["supported", "GatherPlan", "plan", "plan_fits", "shard_rows", "shard_plan", "Footprint", "footprint",
-           "easu_gather", "easu_gather_reference", "TILE", "FOOTPRINT_MAX"]
+           "stage_bytes", "easu_gather", "easu_gather_reference", "TILE", "FOOTPRINT_MAX"]
 
 # csrc/easu_gather.cu: one block per TILE = (TH, TILE_W) output pixels, and
 # the largest source footprint a block stages, (TH + 5, TILE_W + 5): its
@@ -179,13 +184,44 @@ class Footprint:
     """The source rectangle each block of K2 stages, per axis: for block row
     i, source rows r0[i] .. r0[i] + h[i] - 1; for block column j, columns
     c0[j] .. c0[j] + w[j] - 1.  ``fits``: every block's is at most
-    FOOTPRINT_MAX and holds every tap row and column of its tile and ring."""
+    FOOTPRINT_MAX and holds every tap row and column of its tile and ring.
+    Its response grid: gh[i] rows and gw[j] columns of quadrant centres.
+    ``responses``: the texel responses a frame's blocks evaluate, the sum
+    of gh[i] gw[j]; ``stage``: the largest block's dynamic shared memory,
+    RGB and RGBA (``stage_bytes``)."""
 
     r0: np.ndarray
     h: np.ndarray
     c0: np.ndarray
     w: np.ndarray
     fits: bool
+    gh: np.ndarray
+    gw: np.ndarray
+    responses: int
+    stage: Tuple[int, int]
+
+
+def stage_bytes(h, w, gh, gw, rgba: bool):
+    """csrc/easu_gather.cu:stage_bytes: a block's dynamic shared memory for
+    an h x w footprint and a gh x gw response grid: its texels (r, g, b) as
+    float4, with RGBA its alpha plane rounded up to a float4, then its
+    responses as float4."""
+    return 16 * (h * w + ((h * w + 3) // 4 if rgba else 0) + gh * gw)
+
+
+def _centre(a, b, c, n):
+    """csrc/easu_gather.cu:centre: a quadrant centre's index on one axis
+    from its tap offsets a, b, c into a footprint of n texels."""
+    return np.where(a != c, b + 1, np.where(b == 0, 0, n + 1))
+
+
+def _grid(table, first, last, lo, n):
+    """Per block, the response grid's extent on one axis: from the first
+    ring pixel's 'f' centre to the last one's 'k' centre (table: the axis'
+    four tap tables; first/last: each block's first and last ring
+    coordinate; lo, n: its footprint's first texel and size)."""
+    f = _centre(0, table[1][first] - lo, table[2][first] - lo, n)
+    return _centre(table[1][last] - lo, table[2][last] - lo, n - 1, n) - f + 1
 
 
 def _ring(n: int, size: int, lo: int, hi: int) -> np.ndarray:
@@ -213,7 +249,13 @@ def footprint(gplan: GatherPlan) -> Footprint:
         (r1 - r0 + 1 <= FOOTPRINT_MAX[0]).all() and (c1 - c0 + 1 <= FOOTPRINT_MAX[1]).all()
         and (taps_r.min(axis=(0, 2)) >= r0).all() and (taps_r.max(axis=(0, 2)) <= r1).all()
         and (taps_c.min(axis=(0, 2)) >= c0).all() and (taps_c.max(axis=(0, 2)) <= c1).all())
-    return Footprint(r0=r0, h=r1 - r0 + 1, c0=c0, w=c1 - c0 + 1, fits=fits)
+    h, w = r1 - r0 + 1, c1 - c0 + 1
+    gh = _grid(gplan.rows, rows[:, 0], rows[:, -1], r0, h)
+    gw = _grid(gplan.cols, cols[:, 0], cols[:, -1], c0, w)
+    stage = tuple(int(stage_bytes(h[:, None], w[None, :], gh[:, None], gw[None, :], rgba).max())
+                  for rgba in (False, True))
+    return Footprint(r0=r0, h=h, c0=c0, w=w, fits=fits, gh=gh, gw=gw,
+                     responses=int(gh.sum()) * int(gw.sum()), stage=stage)
 
 
 @functools.lru_cache(maxsize=64)
@@ -324,7 +366,8 @@ def easu_gather(
         raise TypeError(f"gather kernel takes float32/bfloat16/float16/uint8 images, got {image.dtype}")
     gplan, (hout, wout), sharp, out_dt = _prepare(image, out_size, con, rcon, apply_rcas,
                                                   compute_dtype, prologue, out_dtype, row_plan)
-    if not footprint(gplan).fits:
+    fp = footprint(gplan)
+    if not fp.fits:
         raise ValueError(f"K2's blocks cannot stage the source footprint of this plan ({tuple(image.shape[-2:])} -> "
                          f"{(hout, wout)}): the constants' scale is a downscale, or its tables decrease")
     epi = epilogue_mod.bind(epilogue, (hout, wout), frame, grain, dither_page, image.device, row_offset)
@@ -332,6 +375,7 @@ def easu_gather(
     if not strip:
         image = image.contiguous()
     *lead, nc, hin, win = image.shape
+    nb = math.prod(lead)
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dt, device=image.device)
     if out.numel() == 0:
         return out
@@ -347,13 +391,15 @@ def easu_gather(
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         with profiling.trace_annotation("fsr.launch", "kernel", "K2"):
+            profiling.count("texel_responses", nb * fp.responses)
+            profiling.count("pixels", nb * hout * wout)
             err = entry(
                 first, out.data_ptr(), pad.DTYPE_CODES[image.dtype],
                 pad.DTYPE_CODES[compute_dtype], pad.DTYPE_CODES[out_dt],
-                math.prod(lead), nc, hin, win, hout, wout,
+                nb, nc, hin, win, hout, wout,
                 rows.data_ptr(), cols.data_ptr(), py.data_ptr(), px.data_ptr(),
                 sharp, int(apply_rcas), int(denoise), int(prologue == "srtm"),
-                ctypes.addressof(cepi), stream,
+                ctypes.addressof(cepi), stream, fp.stage[nc == 4],
             )
     if err != 0:
         raise RuntimeError(f"gather kernel launch failed: cudaError {err}")

@@ -185,6 +185,9 @@ def _rows_call(call, t0):
 SETUP = [_span("fsr.library", 0, 2.5e6, 100, built=1), _span("fsr.capture", 3e6, 8e6, 101, cards=4)]
 FRAME = SETUP[:1] + [s for c, slow in enumerate((0, 4, 1)) for s in _frame_call(c, 20 * c, slow)]
 ROWS = SETUP + [s for c in range(3) for s in _rows_call(10 + c, 20 * c)]
+# Three Quality calls, each one K2 launch counting its responses and pixels.
+QUALITY = SETUP[:1] + [_span("fsr.launch", 20 * c, 20 * c + 2, c, None, (c, "l"), kernel="K2",
+                             texel_responses=r, pixels=1000) for c, r in enumerate((760, 770, 750))]
 
 # metric, the records it reads, its value (from the spans above)
 METRICS = [
@@ -196,6 +199,7 @@ METRICS = [
     ("span_self_ms.replay.rows4", ROWS, 4e-3),
     ("setup_span_s.library", FRAME, 2.5),
     ("setup_span_s.capture", ROWS, 5.0),
+    ("texel_responses_per_pixel.quality", QUALITY, 0.76),
 ]
 
 

@@ -14,8 +14,9 @@ in turn with production and prints ms per 4K frame, the difference and
 the timed kernel's static SASS counts beside production's.
 
 The JAX tool's modes stub out the TPU kernel's column-gather machinery.
-Only "nog" (the per-texel response, reused from luma) has a counterpart;
-the others are listed in ``NO_COUNTERPART`` with the reason and not timed.
+Only "nog" (the texel responses: K2's response pass with each centre's
+luma in their place) has a counterpart; the others are listed in
+``NO_COUNTERPART`` with the reason and not timed.
 K2's own stages take their place: the tap weights, and staging alone.
 "stageonly" runs with RCAS off, so that it times the staging, the tables
 and the store and nothing else; "norcas" is production with
@@ -43,7 +44,8 @@ from tools_torch.ablation import fused_stage_ablation, kernel_ab
 # applied), as fused_stage_ablation.MODES.
 MODES = [
     ("", "full kernel (baseline)", None, True),
-    ("nog", "the four texel responses (luma reused, the JAX tool's nog)", "FSR_ABL_K2_NOG", True),
+    ("nog", "the staged response pass (each centre's luma as its response, the JAX tool's nog)",
+     "FSR_ABL_K2_NOG", True),
     ("weights", "the tap distances and weights (stubbed; accumulation kept)", "FSR_ABL_K2_WEIGHTS", True),
     ("stageonly", "EASU and RCAS: the staged 'f' texel stored (staging, tables, store left)",
      "FSR_ABL_K2_STAGEONLY", False),

@@ -58,13 +58,16 @@ denoise setting (bit-equal expected).  Before those, as before, at the main path
 shapes (batch 4 -> 4K):
 K4 on the Performance source (float32, bfloat16, uint8 for the byte path
 (c), RGBA float32 and uint8 for (d)) beside ``F.pad(mode="replicate")``,
-and K2 on the Quality paths (float32, bfloat16, the display path (b):
-uint8 in, grain, 8-bit dither, uint8 out, bfloat16 storage; RGBA bfloat16
-(e)), each library's kernel in turn (5 rounds, CUDA-event medians of
-``QUEUE`` calls queued back to back: device time per call).  Every
-library's output is held against this tree's: K4 bit-equal (and to
-``edge_pad_reference``); K2 by its largest difference and the values that
-differ.  Prints ms per 4K frame, each kernel's bound (bytes over 3.35 TB/s,
+and K2 on the Quality paths (float32; the benchmark's: uint8 in and out,
+float32 storage; bfloat16; the display path (b): uint8 in, grain, 8-bit
+dither, uint8 out, bfloat16 storage; RGBA bfloat16 (e)) and at 1.3x, 1.7x
+and native 1x (float32), each library's kernel in turn (5 rounds,
+CUDA-event medians of ``QUEUE`` calls queued back to back: device time per
+call), then on four row strips of the Quality frames (halo'd, and read in
+place).  Every library's output is held against this tree's: K4 bit-equal
+(and to ``edge_pad_reference``); K2 bit-equal, or its largest difference
+and the values that differ, the strips against this tree's unsharded
+call.  Prints ms per 4K frame, each kernel's bound (bytes over 3.35 TB/s,
 or K2's counted operations over 67 TFLOP/s, chip_smoke's rule), the ptxas
 lines of K4, of K1, K2 and K3 with RCAS and no denoise and of K6 on
 float16 sources, and the static SASS counts of K1, K2 and K3
@@ -72,7 +75,8 @@ float16 sources, and the static SASS counts of K1, K2 and K3
 MUFU and CALL, and its half instructions by lanes,
 ``opmix_floor.sass_tables``) for each library, with the card's name
 and power limit.  Exits non-zero without a card or parent sources, when a
-K4 disagrees with its plain version, when this tree's (or a variant's) K1
+K4 disagrees with its plain version, when a K2 other than the parent's
+differs from this tree's, when this tree's (or a variant's) K1
 quad and generic paths differ from this tree's quad path, when a K3
 differs from this tree's, or when a K6 is not bit-equal to its plain
 version.
@@ -96,6 +100,7 @@ if __name__ == "__main__":
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
+from fsr_tpu_torch.core.presets import render_resolution
 from fsr_tpu_torch.kernels import _build, easu_gather, easu_h, fused, pad
 from fsr_tpu_torch.kernels import rcas as rcas_k
 from fsr_tpu_torch.kernels.epilogue import Epilogue
@@ -196,10 +201,12 @@ def k4_cases(dev, gen):
 
 def k2_cases(dev, gen):
     """(name, call taking no arguments, source, ops per output pixel): the
-    K2 calls of the Quality paths."""
+    K2 calls of the Quality paths, the benchmark's (uint8 in and out,
+    float32 storage, no epilogue), and the other ratios K2 serves at 4K
+    (1.3x, 1.7x, native 1x; float32)."""
     con = EasuConstants.create(QUALITY_IN[::-1], None, OUT4K[::-1])
     rcon = RcasConstants(0.25)
-    bf16, u8 = torch.bfloat16, torch.uint8
+    f32, bf16, u8 = torch.float32, torch.bfloat16, torch.uint8
     x = torch.rand((NFRAMES, 3, *QUALITY_IN), generator=gen, device=dev)
     xb = x.to(bf16)
     x8 = (x * 255).to(u8)
@@ -207,14 +214,40 @@ def k2_cases(dev, gen):
     grain = torch.rand((3, *OUT4K), generator=gen, device=dev) - 0.5
     epi = Epilogue(grain_amount=0.25, dither_bits=8)
 
-    def k2(img, dt, **kw):
+    def k2(img, dt, con=con, **kw):
         return lambda: easu_gather.easu_gather(img, OUT4K, con, rcon, True, False, dt, **kw)
 
-    return [("Quality f32", k2(x, torch.float32), x, EASU_RCAS_OPS),
-            ("Quality bf16", k2(xb, bf16), xb, EASU_RCAS_OPS),
-            ("(b) display u8", k2(x8, bf16, epilogue=epi, frame=7, grain=grain, out_dtype=u8), x8,
-             EASU_RCAS_OPS + EPI_OPS),
-            ("(e) RGBA bf16", k2(x4, bf16), x4, EASU_RCAS_OPS + ALPHA_OPS)]
+    cases = [("Quality f32", k2(x, f32), x, EASU_RCAS_OPS),
+             ("Quality u8 (the benchmark's)", k2(x8, f32, out_dtype=u8), x8, EASU_RCAS_OPS),
+             ("Quality bf16", k2(xb, bf16), xb, EASU_RCAS_OPS),
+             ("(b) display u8", k2(x8, bf16, epilogue=epi, frame=7, grain=grain, out_dtype=u8), x8,
+              EASU_RCAS_OPS + EPI_OPS),
+             ("(e) RGBA bf16", k2(x4, bf16), x4, EASU_RCAS_OPS + ALPHA_OPS)]
+    for name, ratio in (("1.3x f32", 1.3), ("1.7x f32", 1.7), ("native 1x f32", 1.0)):
+        in_hw = render_resolution(OUT4K, ratio)
+        xr = torch.rand((NFRAMES, 3, *in_hw), generator=gen, device=dev)
+        cases.append((name, k2(xr, f32, EasuConstants.create(in_hw[::-1], None, OUT4K[::-1])), xr, EASU_RCAS_OPS))
+    return cases
+
+
+def k2_strips(dev, gen):
+    """(name, {form: call giving the strips' outputs}, the unsharded call):
+    the Quality f32 frames in four row strips, as ``parallel.spatial`` cuts
+    them, on the halo'd strips and read in place."""
+    from fsr_tpu_torch.parallel import spatial
+
+    layout = spatial._layout(QUALITY_IN, OUT4K, 4, None, (0, 0))
+    rcon = RcasConstants(0.25)
+    x = torch.rand((NFRAMES, 3, *QUALITY_IN), generator=gen, device=dev)
+    sources, strips = _four(x, layout.halo)
+
+    def run(of):
+        return lambda: [easu_gather.easu_gather(s, layout.out_hw, layout.con, rcon, True, False, torch.float32,
+                                                row_plan=st.rows, row_offset=st.row0)
+                        for s, st in zip(of, layout.strips)]
+
+    return ("Quality f32, 4 strips", {"halo'd strips": run(strips), "read in place": run(sources)},
+            lambda: easu_gather.easu_gather(x, OUT4K, layout.con, rcon, True, False, torch.float32))
 
 
 def k1_cases(dev, gen):
@@ -616,11 +649,11 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ok = k1_ok = k3_ok = k6_ok = tail_ok = True
+    ok = k2_ok = k1_ok = k3_ok = k6_ok = tail_ok = True
     if "k4" in sections:
         ok = k4_section(libs, dev, gen, cname)
     if "k2" in sections:
-        k2_section(libs, dev, gen, cname)
+        k2_ok = k2_section(libs, dev, gen, cname)
     if "k1" in sections:
         k1_ok = k1_section(libs, dev, gen, cname)
     if "k3" in sections:
@@ -644,12 +677,13 @@ def main() -> int:
                 print(f"  {k} half arithmetic ({'/'.join(opmix_floor.HALF_ARITH)}): {lanes[k]['two lanes']} on two "
                       f"lanes, {lanes[k]['one lane']} on one")
     print(cname)
-    for good, what in ((ok, "K4 disagrees with its plain version"), (k1_ok, "K1's quad and generic paths differ"),
+    for good, what in ((ok, "K4 disagrees with its plain version"), (k2_ok, "a K2 differs from this tree's"),
+                       (k1_ok, "K1's quad and generic paths differ"),
                        (k3_ok, "a K3 differs from this tree's"), (k6_ok, "a K6 is not bit-equal to its plain version"),
                        (tail_ok, "K6 with the frame tail disagrees with its plain version")):
         if not good:
             print(f"kernel_ab: {what}", file=sys.stderr)
-    return 0 if ok and k1_ok and k3_ok and k6_ok and tail_ok else 1
+    return 0 if ok and k2_ok and k1_ok and k3_ok and k6_ok and tail_ok else 1
 
 
 def k4_section(libs, dev, gen, cname) -> bool:
@@ -679,11 +713,14 @@ def k4_section(libs, dev, gen, cname) -> bool:
     return ok
 
 
-def k2_section(libs, dev, gen, cname) -> None:
-    """K2 on the Quality paths, each library's in turn, every output held
-    against this tree's."""
+def k2_section(libs, dev, gen, cname) -> bool:
+    """K2 on the Quality paths and the other ratios, each library's in turn,
+    every output held against this tree's, then four row strips of the
+    Quality frames against this tree's unsharded call.  Returns False when
+    a library other than the parent differs from this tree."""
     from fsr_tpu_torch.utils.profiling import cuda_times_in_turn
 
+    ok = True
     print(f"K2, ms per 4K frame (batch {NFRAMES}), in turn, 5 rounds, {QUEUE} calls queued per sample, on {cname}:")
     npix = NFRAMES * OUT4K[0] * OUT4K[1]
     for what, call, x, ops in k2_cases(dev, gen):
@@ -692,7 +729,9 @@ def k2_section(libs, dev, gen, cname) -> None:
             got = on(lib, call)()
             d = (got.float() - ref.float()).abs()
             off = int((d > 0).sum())
-            print(f"  {what}, {name} vs this tree: max-abs {d.max().item():.3e}, {off} of {d.numel()} values differ")
+            print(f"  {what}, {name} vs this tree: " + ("bit-equal" if torch.equal(got, ref) else
+                  f"max-abs {d.max().item():.3e}, {off} of {d.numel()} values differ"))
+            ok = ok and (name == "parent" or torch.equal(got, ref))
         t = cuda_times_in_turn({name: on(lib, call) for name, lib in libs.items()}, 5, queue=QUEUE)
         nbytes = x.numel() * x.element_size() + ref.numel() * ref.element_size()
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops * npix / F32_OPS_PER_S * 1e3
@@ -700,6 +739,21 @@ def k2_section(libs, dev, gen, cname) -> None:
         print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items())
               + f"; bound {bound}; this tree / parent {t['this tree'] / t['parent']:.3f}")
         del ref
+    what, forms, whole = k2_strips(dev, gen)
+    want = on(libs["this tree"], whole)()
+    fns = {}
+    for name, lib in libs.items():
+        for form, call in forms.items():
+            if form == "read in place" and not hasattr(lib, "fsr_easu_gather_strip"):
+                continue
+            fns[f"{name} {form}"] = on(lib, call)
+            same = torch.equal(torch.cat(fns[f"{name} {form}"](), dim=-2), want)
+            print(f"  {what}, {name} {form}: " + ("bit-equal to this tree's unsharded call" if same else "DIFFERS"))
+            ok = ok and (name == "parent" or same)
+    fns["this tree unsharded"] = on(libs["this tree"], whole)
+    t = cuda_times_in_turn(fns, 5, queue=QUEUE)
+    print(f"  {what}: " + ", ".join(f"{k} {v / NFRAMES:.4f}" for k, v in t.items()))
+    return ok
 
 
 if __name__ == "__main__":
