@@ -3,7 +3,10 @@
 Run them with ``python -m pytest fsrbench/tests -q`` from the repository's
 root.  ``card`` marks a test that needs a CUDA card: it skips inside the
 test, never at import.  ``tiny_tree`` is a copy of the benchmark whose
-configurations are cut to a few dozen rows, for runs on the CPU.
+configurations are cut to a few dozen rows, for runs on the CPU.  The tests
+read their cells from ``BENCHMARK.json`` (``cells``) and size each tiny
+configuration from its own sizes (``tiny_sizes``), so a cell added as files
+and manifest entries is covered with no test edited.
 """
 
 import json
@@ -14,8 +17,8 @@ import pytest
 
 BENCH = pathlib.Path(__file__).resolve().parent
 ROOT = BENCH.parent
-# Sizes of the tiny copies: (in, out) per configuration, frames per call.
-TINY = {"fsr1-perf2x-4k-u8": ((32, 48), (64, 96)), "fsr1-quality1.5x-4k-u8": ((32, 48), (48, 72))}
+# The tiny copies' source size (rows, columns) and most frames per call.
+TINY_IN = (32, 48)
 TINY_BATCH = 4
 
 
@@ -30,14 +33,33 @@ def need_card(n: int = 1):
         pytest.skip(f"needs {n} CUDA card(s)")
 
 
-def make_tiny(dst: pathlib.Path) -> pathlib.Path:
-    """A copy of ``BENCHMARK.json`` and ``fsrbench/`` under ``dst`` with the
-    configurations cut to ``TINY`` and at most ``TINY_BATCH`` frames a call."""
-    shutil.copytree(BENCH, dst / "fsrbench", ignore=shutil.ignore_patterns("__pycache__", "_cache", "tests"))
-    shutil.copy(ROOT / "BENCHMARK.json", dst / "BENCHMARK.json")
+def cells() -> list:
+    """(name, chips, traffic mix) of each cell of ``BENCHMARK.json``, in its
+    order."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    return [(w["name"], w["chips"], json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text()))
+            for w in bench["workloads"]]
+
+
+def tiny_sizes(cfg: dict) -> tuple:
+    """(in, out) sizes of a configuration's tiny copy: a ``TINY_IN`` source
+    and the output at the configuration's own ratio on each axis, rounded to
+    whole pixels."""
+    (hin, win), (hout, wout) = cfg["in_size"], cfg["out_size"]
+    h, w = TINY_IN
+    return (h, w), (round(h * hout / hin), round(w * wout / win))
+
+
+def make_tiny(dst: pathlib.Path, src: pathlib.Path = ROOT) -> pathlib.Path:
+    """A copy of ``BENCHMARK.json`` and ``fsrbench/`` of the tree ``src``
+    under ``dst``, with each configuration cut to its ``tiny_sizes`` and at
+    most ``TINY_BATCH`` frames a call."""
+    shutil.copytree(src / "fsrbench", dst / "fsrbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "_cache", "tests"))
+    shutil.copy(src / "BENCHMARK.json", dst / "BENCHMARK.json")
     for f in (dst / "fsrbench" / "configs").glob("*.json"):
         cfg = json.loads(f.read_text())
-        cfg["in_size"], cfg["out_size"] = TINY[cfg["name"]]
+        cfg["in_size"], cfg["out_size"] = tiny_sizes(cfg)
         f.write_text(json.dumps(cfg))
     for f in (dst / "fsrbench" / "traffic").glob("*.json"):
         t = json.loads(f.read_text())

@@ -9,9 +9,12 @@ at its own load, and prints one JSON line per seed with the readings of
   (the lower reading of each compared number);
 - ``control``: the reference computed in bfloat16 put in the program's
   place, on the same sources (the upper reading);
-- ``program_float16`` (cells through ``upscale``): the program's own
-  lower-precision path on the same sources, ``compute_dtype=float16``
-  (K6, the sample's FsrEasuH + FsrRcasH), a second witness.
+- ``program_float16`` or ``program_float32`` (cells through ``upscale``):
+  the program's own path at the other precision on the same sources, a
+  second witness: ``compute_dtype=float16`` (K6, the sample's FsrEasuH +
+  FsrRcasH) for a configuration that computes in float32 or bfloat16,
+  ``compute_dtype=float32`` (K1 or K2, FsrEasuF + FsrRcasF) for one that
+  computes in float16.
 
 The program's bfloat16 storage is no control here: a byte source and a byte
 output never pass through the storage type.
@@ -42,9 +45,10 @@ def readings(cell_name: str, seed: int, seconds: float, root: pathlib.Path, devi
     out = {"seed": seed, "calls": calls.n, "program": check.readings(pairs, cfg, devs[0]),
            "control": check.readings(pairs, cfg, devs[0], candidate=check.control(cfg))}
     if traffic["entry"] == "upscale":
-        kw = dict(entry.kw, compute_dtype=torch.float16)
-        half = [(entry.api.upscale(ins["src"][None], **kw)[0], ins) for _, ins in pairs]
-        out["program_float16"] = check.readings(half, cfg, devs[0])
+        other = "float32" if cfg["compute_dtype"] == "float16" else "float16"
+        kw = dict(entry.kw, compute_dtype=drive.DTYPES[other])
+        witness = [(entry.api.upscale(ins["src"][None], **kw)[0], ins) for _, ins in pairs]
+        out[f"program_{other}"] = check.readings(witness, cfg, devs[0])
     return out
 
 

@@ -7,7 +7,10 @@ the larger of the function's bytes (the source read once, the output
 written once) over the HBM rate and its operations (the configuration's
 ``floor.ops_per_output_pixel``, counted from the algorithm, not from any
 kernel's recompute) over the rate of the precision the configuration
-states.  It reads the same work whatever kernel implements it.
+states (``floor.precision``).  A function of mixed precision gives its
+count per precision instead, ``{"float32": 74.75, "float16": 541}``, each
+count at its own rate.  It reads the same work whatever kernel implements
+it.
 """
 
 from __future__ import annotations
@@ -34,5 +37,9 @@ def floor_s_per_frame(cfg: dict) -> tuple:
     hout, wout = cfg["out_size"]
     floor = cfg["floor"]
     by_bytes = frame_bytes(cfg) / PEAKS["hbm_bytes_per_s"]
-    by_ops = floor["ops_per_output_pixel"] * hout * wout / PEAKS["ops_per_s"][floor["precision"]]
+    ops = floor["ops_per_output_pixel"]
+    if isinstance(ops, dict):
+        by_ops = sum(n / PEAKS["ops_per_s"][p] for p, n in ops.items()) * hout * wout
+    else:
+        by_ops = ops * hout * wout / PEAKS["ops_per_s"][floor["precision"]]
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")

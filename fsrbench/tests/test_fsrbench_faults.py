@@ -1,6 +1,11 @@
 """A run whose timed path is broken underneath comes out not correct, once
 for each fault a cell can have; the same run unbroken comes out correct.
-The runs skip the look for a card and run at a tiny size on the CPU."""
+The runs skip the look for a card and run at a tiny size on the CPU.  The
+cells are the manifest's, and the faults each can have follow from its
+traffic's entry: an ``upscale`` cell's output stale, altered or wrong at one
+edge, and half its batch left out where it has more than one frame; a
+``pipeline_rows`` cell's replay stale, the exchange between cards left out,
+a strip altered."""
 
 import pytest
 import torch
@@ -8,10 +13,11 @@ import torch
 import fsr_tpu_torch
 from fsr_tpu_torch.kernels import halo
 from fsr_tpu_torch.parallel import sharding, spatial
-from fsrbench.conftest import run_cell
+from fsrbench.conftest import cells, run_cell
 
-UPSCALE_CELLS = ["perf2x-u8.video-b16", "quality1.5x-u8.video-b16", "perf2x-u8.frame-b1"]
-ROWS = "perf2x-u8.rows4-b16"
+UPSCALE_CELLS = [name for name, _, traffic in cells() if traffic["entry"] == "upscale"]
+BATCHED_CELLS = [name for name, _, traffic in cells() if traffic["entry"] == "upscale" and traffic["batch"] > 1]
+ROWS_CELLS = [name for name, _, traffic in cells() if traffic["entry"] == "pipeline_rows"]
 EDGE_ROWS = 4
 
 
@@ -94,8 +100,8 @@ def _altered_strip(monkeypatch):
 
 
 FAULTS = [(cell, f) for cell in UPSCALE_CELLS for f in (_stale_upscale, _altered_answer)]
-FAULTS += [(c, _half_batch) for c in UPSCALE_CELLS if c != "perf2x-u8.frame-b1"]  # batch 1 has no half
-FAULTS += [(ROWS, f) for f in (_stale_replay, _no_exchange, _altered_strip)]
+FAULTS += [(c, _half_batch) for c in BATCHED_CELLS]  # batch 1 has no half
+FAULTS += [(c, f) for c in ROWS_CELLS for f in (_stale_replay, _no_exchange, _altered_strip)]
 
 
 @pytest.mark.parametrize("cell, fault", FAULTS, ids=[f"{c}-{f.__name__.strip('_')}" for c, f in FAULTS])
@@ -115,7 +121,7 @@ def test_a_fault_at_one_edge_is_caught_by_the_largest_code_difference(cell, tiny
     assert compared["max_code_off"]["value"] > compared["max_code_off"]["limit"]
 
 
-@pytest.mark.parametrize("cell", UPSCALE_CELLS + [ROWS])
+@pytest.mark.parametrize("cell", UPSCALE_CELLS + ROWS_CELLS)
 def test_sound_run_is_correct(cell, tiny_tree, capsys):
     rc, line = run_cell(tiny_tree, cell, capsys=capsys)
     assert rc == 0 and line["correct"] is True

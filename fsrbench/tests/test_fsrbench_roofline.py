@@ -29,6 +29,23 @@ def test_floor_by_hand(name, src_bytes):
     assert by_ops > by_bytes and bound == "operations"
     assert floor == pytest.approx(by_ops, rel=1e-12)
     assert floor == pytest.approx(6.0506e-5, rel=1e-4)
+    # The float every reading of these configurations has divided by since
+    # the benchmark began, to the bit.
+    assert floor == 6.050579104477612e-05
+
+
+def test_mixed_floor_by_hand():
+    """K6's function, 74.75 float32 and 541 float16 operations a pixel (the
+    halves at twice the rate), 1080p to 4K in bytes: bound by operations."""
+    cfg = dict(_cfg("fsr1-perf2x-4k-u8"), compute_dtype="float16",
+               floor={"ops_per_output_pixel": {"float32": 74.75, "float16": 541}})
+    out_px = 2160 * 3840
+    by_ops = (74.75 / 67e12 + 541 / 134e12) * out_px
+    by_bytes = (1080 * 1920 * 3 + out_px * 3) / 3.35e12
+    floor, bound = roofline.floor_s_per_frame(cfg)
+    assert by_ops > by_bytes and bound == "operations"
+    assert floor == pytest.approx(by_ops, rel=1e-12)
+    assert floor == pytest.approx(4.27e-5, rel=1e-3)
 
 
 def _reading(ops, frames, start=0.0, end=1.0):
