@@ -52,15 +52,20 @@ every bit, is the plain version's.
 ``easu_h`` launches ``csrc/easu_h.cu`` for a CUDA tensor and records the
 launch as an ``fsr.launch`` span labelled ``kernel="K6"``
 (``utils/profiling.py``; under CUDA graph capture at capture); for a CPU
-tensor it runs ``easu_h_reference``, which calls the same ops.
+tensor it runs ``easu_h_reference``, which calls the same ops.  A recorded
+launch counts what its blocks evaluate (``counts``): the texel responses
+(``texel_responses``), the output pixels (``pixels``) and the ring pixels
+whose EASU it computes (``easu_pixels``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from fsr_tpu_torch.core.constants import EasuConstants, RcasConstants
@@ -72,7 +77,7 @@ from fsr_tpu_torch.ops import extras
 from fsr_tpu_torch.ops import rcas as rcas_ops
 from fsr_tpu_torch.utils import capture, profiling
 
-__all__ = ["supported", "easu_h", "easu_h_reference", "TILE"]
+__all__ = ["supported", "counts", "easu_h", "easu_h_reference", "TILE"]
 
 # csrc/easu_h.cu: one block per TILE = (TH, TW) output pixels; its ring of
 # (TH + 2) x (TW + 2) is two pixels a thread.  An upscale's footprint of a
@@ -91,6 +96,38 @@ def supported(in_shape, out_size, con: EasuConstants, row_plan: Optional[easu_ga
     ``OUT_DTYPES`` (None: float16)."""
     return out_dtype in OUT_DTYPES and easu_gather.supported(in_shape, out_size, con, torch.float32,
                                                              row_plan=row_plan)
+
+
+@functools.lru_cache(maxsize=64)
+def counts(gplan: easu_gather.GatherPlan, apply_rcas: bool) -> Tuple[int, int, int]:
+    """What K6's blocks evaluate for one frame (or strip) on ``gplan``, as
+    ``csrc/easu_h.cu`` sizes it: (texel responses, output pixels, ring
+    pixels whose EASU it computes).  A block of ``TILE`` stages the
+    footprint of its ring by K2's rule (first ring row's and column's
+    dy, dx = -1 tap to the last one's +2 tap, the ring clamped to the
+    tables), and evaluates a response for each of its (fh + 2) x (fw + 2)
+    centres, a texel of margin around.  With RCAS it evaluates EASU on its
+    whole (TH + 2) x (TW + 2) ring; without, on the pairs of its tile inside
+    the output (both lanes of a pair whose second pixel lies outside)."""
+    hout, wout = gplan.rows.shape[1] - 2, gplan.cols.shape[1]
+    th, tw = TILE
+    ring_r = easu_gather._ring(hout, th, -1, hout) + 1  # the row tables start at output row -1
+    ring_c = easu_gather._ring(wout, tw, 0, wout - 1)
+    fh = gplan.rows[3][ring_r[:, -1]] - gplan.rows[0][ring_r[:, 0]] + 1
+    fw = gplan.cols[3][ring_c[:, -1]] - gplan.cols[0][ring_c[:, 0]] + 1
+    responses = int((fh + 2).sum()) * int((fw + 2).sum())
+    if apply_rcas:
+        easu_px = len(ring_r) * len(ring_c) * (th + 2) * (tw + 2)
+    else:
+        widths = np.minimum(tw, wout - np.arange(0, wout, tw))
+        easu_px = hout * int((2 * ((widths + 1) // 2)).sum())
+    return responses, hout * wout, easu_px
+
+
+def _count(gplan: easu_gather.GatherPlan, nb: int, apply_rcas: bool) -> None:
+    """A recorded launch's counts: ``counts`` of its ``nb`` frames."""
+    for key, n in zip(("texel_responses", "pixels", "easu_pixels"), counts(gplan, apply_rcas)):
+        profiling.count(key, nb * n)
 
 
 def _check(image, out_size, con, rcon, apply_rcas, row_plan, prologue, out_dtype) -> Tuple[int, int]:
@@ -216,6 +253,7 @@ def easu_h(
     tail = prologue == "srtm" or args is not None or out_dt != torch.float16
     parts = halo.check(image) if strip else None
     *lead, nc, hin, win = image.shape
+    nb = math.prod(lead)
     out = torch.empty((*lead, nc, hout, wout), dtype=out_dt, device=image.device)
     if out.numel() == 0:
         return out
@@ -235,13 +273,17 @@ def easu_h(
             cepi = epilogue_mod.c_params(args)
             entry = lib.fsr_easu_h_tail_strip if strip else lib.fsr_easu_h_tail
             gplane = args.grain.stride(0) if args is not None and args.grain is not None else 0
-            with profiling.trace_annotation("fsr.launch", "kernel", "K6"):
-                err = entry(first, out.data_ptr(), src_code, pad.DTYPE_CODES[out_dt], math.prod(lead), nc, *tables,
+            with profiling.trace_annotation("fsr.launch", "kernel", "K6") as span:
+                if span:  # recorded (off, the shared no-op enters as an empty tuple)
+                    _count(gplan, nb, apply_rcas)
+                err = entry(first, out.data_ptr(), src_code, pad.DTYPE_CODES[out_dt], nb, nc, *tables,
                             int(prologue == "srtm"), gplane, ctypes.addressof(cepi), stream)
         else:
             entry = lib.fsr_easu_h_strip if strip else lib.fsr_easu_h
-            with profiling.trace_annotation("fsr.launch", "kernel", "K6"):
-                err = entry(first, out.data_ptr(), src_code, math.prod(lead), nc, *tables, stream)
+            with profiling.trace_annotation("fsr.launch", "kernel", "K6") as span:
+                if span:
+                    _count(gplan, nb, apply_rcas)
+                err = entry(first, out.data_ptr(), src_code, nb, nc, *tables, stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: cudaError {err}")
     return out
